@@ -1,0 +1,23 @@
+"""GraphFlow on PyTorch and CUDA: the port of ``graphflow_tpu`` to Hopper.
+
+The JAX package ``graphflow_tpu`` is the reference; this package computes
+the same functions with plain PyTorch on the host side and hand-written
+CUDA kernels where the JAX package runs a Pallas TPU kernel.  Each module
+sits at the same path as its JAX counterpart (``core/``, ``ops/``,
+``models/``, ``optim/``, ``utils/``, ``runtime/``).
+
+The package imports ``torch`` and NumPy and never ``jax``.  Kernels are
+built with ``nvcc`` at their first CUDA launch (``runtime/cuda_build.py``),
+never at import.
+
+This slice covers the serving path of SMP_omega: host preparation,
+batching, the level-0 embedding, the fused second-order level
+(``ops/risi_level.py`` and its kernel ``ops/csrc/risi18_level.cu``), the
+head, and the text checkpoint.  Training is the next slice (ROADMAP.md).
+"""
+
+from graphflow_tpu_torch.core.graph import DenseGraph
+
+__version__ = "0.1.0"
+
+__all__ = ["DenseGraph", "__version__"]

@@ -1,0 +1,1 @@
+"""Tensor ops: plain PyTorch functions and the hand-written CUDA level."""
