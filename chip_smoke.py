@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each reported on its own lines:
   1. device   the card (torch's name, nvidia-smi's name and power limit);
-  2. build    nvcc builds the level kernel from ops/csrc/ (seconds, ptxas);
-  3. kernel   the kernel against its plain PyTorch version on the card at
-              three level shapes, float32, inputs from a NumPy seed; then
-              both versions' median milliseconds at the production shape;
+  2. build    nvcc builds the level forward (K1) and backward (K2)
+              libraries from ops/csrc/, in parallel (seconds, ptxas);
+  3. kernel   K1 against its plain PyTorch version on the card at three
+              level shapes, float32, inputs from a NumPy seed; then both
+              versions' median milliseconds at the production shape;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
-              one Predict and one Feature; the kernel's launch count must
-              equal nLevels x forward calls, and every output must match
-              the same model run through the plain level on the card.
+              one Predict and one Feature; K1's launch count must equal
+              nLevels x forward calls, and every output must match the
+              same model run through the plain level on the card;
+  5. backward K2 against the plain backward (autograd of the plain level)
+              at the three shapes: dstate, dK and db; then the median
+              milliseconds of each of K2's two kernels, of both together
+              and of the plain backward at the production shape;
+  6. train    the same model trains: 3 BatchLearn steps on a batch of 4
+              random graphs and one Learn(nIterations=2) on a molecule;
+              the loss and every gradient at the first step must match
+              the plain level's, every loss must be finite, and K1 and K2
+              must launch once per level per forward and per backward.
+              Then the seconds per step (prep uncached and cached) and one
+              step's split into host batching, forward, backward and Adam.
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises, so the
 script exits non-zero and prints no result.  Without a CUDA device, or
@@ -40,6 +53,8 @@ LEVEL_SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8)]
 MODEL = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
              nChanels=32, nFeatures=4, nDepth=5)
 N_REQUESTS, GRAPHS_PER_REQUEST, ER_P = 3, 4, 0.15
+TRAIN_STEPS, TRAIN_LR = 3, 1e-4
+KERNEL_LIBS = ("risi18_level", "risi18_level_bwd")
 
 
 def log(msg: str) -> None:
@@ -117,14 +132,23 @@ def import_port():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from graphflow_tpu_torch.runtime.cuda_build import build_library
 
-    res = build_library("risi18_level")
-    log(f"phase 2 build: {res.path.relative_to(ROOT)} "
-        f"{'built' if res.rebuilt else 'up to date'} in {res.seconds:.2f} s")
-    for line in res.log.splitlines():
-        if any(k in line for k in ("registers", "spill", "error", "warning")):
-            log(f"  ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
+        results = list(pool.map(build_library, KERNEL_LIBS))
+    for res in results:
+        log(f"phase 2 build: {res.path.relative_to(ROOT)} "
+            f"{'built' if res.rebuilt else 'up to date'} in "
+            f"{res.seconds:.2f} s")
+        for line in res.log.splitlines():
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "warning")):
+                log(f"  ptxas: {line.strip()}")
+    log(f"phase 2 build: {len(results)} libraries in "
+        f"{time.perf_counter() - t0:.2f} s wall")
 
 
 def level_inputs(N, P, C, Cout, seed):
@@ -228,6 +252,164 @@ def phase_slice():
     return launches, max_err
 
 
+def phase_backward():
+    import torch
+    from graphflow_tpu_torch.ops.risi_level import (
+        _backward_main_kernel, _backward_reduce_kernel, risi18_level,
+        risi18_level_backward, risi18_level_backward_reference,
+        risi18_level_reference)
+
+    def inputs(N, P, C, Cout, seed):
+        g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
+        return (level_inputs(N, P, C, Cout, seed),
+                torch.as_tensor(g, dtype=torch.float32, device="cuda"))
+
+    errs = {"dstate": 0.0, "dK": 0.0, "db": 0.0}
+    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES):
+        args, g = inputs(N, P, C, Cout, seed=SEED + i)
+        out = risi18_level(*args)
+        got = risi18_level_backward(*args, out, g)
+        torch.cuda.synchronize()
+        ref = risi18_level_backward_reference(*args, g)
+        line = []
+        for name, x, r in zip(errs, got, ref):
+            err = check_close(f"backward {name} N={N} P={P} C={C} "
+                              f"Cout={Cout}", x, r)
+            errs[name] = max(errs[name], err)
+            line.append(f"{name} {err:.3e} (max|plain|="
+                        f"{float(r.abs().max()):.3f})")
+        log(f"phase 5 backward: N={N} P={P} C={C} Cout={Cout} max_abs_err "
+            + ", ".join(line) + f"; bound {RTOL:g}*max(1,max|plain|) ok")
+
+    N, P, C, Cout = LEVEL_SHAPES[0]
+    args, g = inputs(N, P, C, Cout, seed=SEED)
+    state, nbr, pos, radj, K, b = args
+    out = risi18_level(*args)
+    leaves = [t.detach().requires_grad_() for t in (state, K, b)]
+    plain_out = risi18_level_reference(leaves[0], nbr, pos, radj, leaves[1],
+                                       leaves[2])
+    _, partial = _backward_main_kernel(state, nbr, pos, radj, K, g, out,
+                                       0.01)
+    ms = {
+        "plain": time_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, g, retain_graph=True)),
+        "k2": time_ms(lambda: risi18_level_backward(*args, out, g)),
+        "main": time_ms(lambda: _backward_main_kernel(
+            state, nbr, pos, radj, K, g, out, 0.01)),
+        "reduce": time_ms(lambda: _backward_reduce_kernel(partial, C, Cout)),
+        "plain_reduce": time_ms(lambda: partial.sum(0)),
+    }
+    log(f"phase 5 backward: N,P,C,Cout={LEVEL_SHAPES[0]} median K2 (both "
+        f"kernels, dstate zero fill included) {ms['k2']:.4f} ms, plain "
+        f"backward {ms['plain']:.4f} ms; kernel 1 {ms['main']:.4f} ms, "
+        f"kernel 2 {ms['reduce']:.4f} ms ({partial.shape[0]} partial rows; "
+        f"plain sum {ms['plain_reduce']:.4f} ms) (CUDA events, 20 reps)")
+    return errs, ms
+
+
+def phase_train():
+    import torch
+    from graphflow_tpu_torch.models import SMP_omega
+    from graphflow_tpu_torch.models.smp2d import smp2d_forward
+    from graphflow_tpu_torch.ops.losses import squared_loss
+    from graphflow_tpu_torch.ops.risi_level import (
+        risi18_level, risi18_level_backward, risi18_level_reference)
+    from graphflow_tpu_torch.utils.datasets import random_graph, toy_molecule
+
+    model = SMP_omega(**MODEL, seed=SEED, device="cuda")
+    nL = MODEL["nLevels"]
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+
+    def er_batch():
+        return [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
+                for i in range(GRAPHS_PER_REQUEST)]
+
+    # The first step's loss and gradients, kernel against plain level, on
+    # graphs of their own so that the counted run prepares its batch anew.
+    batch = model._stack(er_batch(), targets)
+    params = model.param_dict()
+
+    def loss_and_grads(level_fn):
+        pred, _ = smp2d_forward(model.params, batch, model.cfg,
+                                level_fn=level_fn)
+        loss = squared_loss(pred, batch["target"])
+        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+    k_loss, k_grads = loss_and_grads(risi18_level)
+    p_loss, p_grads = loss_and_grads(risi18_level_reference)
+    grad_err = check_close("train loss", k_loss, p_loss)
+    for path, x, r in zip(params, k_grads, p_grads):
+        grad_err = max(grad_err, check_close(f"gradient {path}", x, r))
+
+    # The counted run.
+    graphs, mol = er_batch(), toy_molecule("C2H4")
+    risi18_level.launches = 0
+    risi18_level_backward.launches = 0
+    risi18_level_backward.reduce_launches = 0
+    steps, seconds = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        steps.append(model.BatchLearn(graphs, targets, TRAIN_LR))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    learn = model.Learn(mol, float(mol.nVertices), TRAIN_LR, nIterations=2)
+    torch.cuda.synchronize()
+    learn_s = time.perf_counter() - t0
+    launches = (risi18_level.launches, risi18_level_backward.launches,
+                risi18_level_backward.reduce_launches)
+
+    # BatchLearn: one forward with its backward, then the loss-only forward
+    # of loss_after.  Learn(nIterations=2): three forwards with backwards.
+    fwd, bwd = 2 * TRAIN_STEPS + 3, TRAIN_STEPS + 3
+    expected = (nL * fwd, nL * bwd, nL * bwd)
+    if launches != expected:
+        raise AssertionError(f"launches (K1, K2 kernel 1, K2 kernel 2) = "
+                             f"{launches}, expected {expected}: {nL} levels "
+                             f"x {fwd} forwards and {bwd} backwards")
+    losses = [x for step in steps for x in step] + list(learn)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss in {losses}")
+    grad_err = max(grad_err, check_close("first step loss", steps[0][0],
+                                         p_loss))
+
+    # One more step, split on the host clock (each part ends in a sync).
+    split = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        split[name] = time.perf_counter() - t0
+        return res
+
+    batch = timed("batching", lambda: model._stack(graphs, targets))
+    loss = timed("forward", lambda: model._loss(model.params, batch))
+    grads = timed("backward", lambda: dict(zip(params, torch.autograd.grad(
+        loss, list(params.values())))))
+    timed("adam", lambda: model.opt.update(params, model.opt_state, grads,
+                                           TRAIN_LR, nBatch=len(graphs)))
+
+    log(f"phase 6 train: first-step loss {float(k_loss):.6f} vs plain level "
+        f"{float(p_loss):.6f}; {len(params)} gradients; max abs err "
+        f"{grad_err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
+    log(f"phase 6 train: BatchLearn (loss_before, loss_after) "
+        + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+        + f"; Learn(C2H4, nIterations=2) ({learn[0]:.6f}, {learn[1]:.6f}); "
+        "all finite")
+    log(f"phase 6 train: launches K1={launches[0]} K2 kernel 1="
+        f"{launches[1]} kernel 2={launches[2]} (= {nL} levels x {fwd} "
+        f"forwards, {bwd} backwards)")
+    log(f"phase 6 train: seconds per BatchLearn step (host clock, synced): "
+        f"prep uncached {seconds[0]:.4f}, prep cached "
+        + ", ".join(f"{x:.4f}" for x in seconds[1:])
+        + f"; Learn {learn_s:.4f}")
+    log("phase 6 train: one step split (s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    return launches, grad_err
+
+
 def main() -> None:
     name = phase_device()
     import_port()
@@ -235,17 +417,39 @@ def main() -> None:
 
     phase_build()
     level_err, kernel_ms, plain_ms = phase_kernel()
-    launches, slice_err = phase_slice()
+    serve_launches, slice_err = phase_slice()
+    bwd_errs, bwd_ms = phase_backward()
+    train_launches, train_err = phase_train()
     torch.cuda.synchronize()
+    bwd_source = "graphflow_tpu_torch/ops/csrc/risi18_level_bwd.cu"
+    bwd_replaces = "graphflow_tpu/ops/risi_fused_pallas.py:767"
     print(json.dumps({"kernels": [{
         "name": "risi18_level",
         "route": "cuda",
         "source": "graphflow_tpu_torch/ops/csrc/risi18_level.cu",
         "replaces": "graphflow_tpu/ops/risi_fused_pallas.py:526",
-        "launches": launches,
+        "launches": serve_launches + train_launches[0],
         "max_abs_err": max(level_err, slice_err),
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "risi18_level_bwd_kernel",
+        "route": "cuda",
+        "source": bwd_source,
+        "replaces": bwd_replaces,
+        "launches": train_launches[1],
+        "max_abs_err": max(bwd_errs["dstate"], train_err),
+        "ms": bwd_ms["main"],
+        "plain_ms": bwd_ms["plain"],
+    }, {
+        "name": "risi18_level_bwd_reduce_kernel",
+        "route": "cuda",
+        "source": bwd_source,
+        "replaces": bwd_replaces,
+        "launches": train_launches[2],
+        "max_abs_err": max(bwd_errs["dK"], bwd_errs["db"]),
+        "ms": bwd_ms["reduce"],
+        "plain_ms": bwd_ms["plain_reduce"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

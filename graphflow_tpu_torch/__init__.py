@@ -10,10 +10,12 @@ The package imports ``torch`` and NumPy and never ``jax``.  Kernels are
 built with ``nvcc`` at their first CUDA launch (``runtime/cuda_build.py``),
 never at import.
 
-This slice covers the serving path of SMP_omega: host preparation,
-batching, the level-0 embedding, the fused second-order level
-(``ops/risi_level.py`` and its kernel ``ops/csrc/risi18_level.cu``), the
-head, and the text checkpoint.  Training is the next slice (ROADMAP.md).
+The port covers SMP_omega's serving and training paths: host
+preparation, batching, the level-0 embedding, the fused second-order level
+(``ops/risi_level.py``, with its forward kernel ``ops/csrc/risi18_level.cu``
+and backward kernel ``ops/csrc/risi18_level_bwd.cu``), the head, the
+squared loss, Adam with the reference's schedule, ``BatchLearn`` and the
+text checkpoint.  The rest of the JAX package is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

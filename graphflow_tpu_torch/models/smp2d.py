@@ -13,11 +13,11 @@ Where JAX vmaps the level over the batch, the port flattens B graphs of V
 padded vertices into B*V vertex rows and offsets ``nbr`` by b*V, so one
 call of :func:`risi18_level` (one kernel launch on CUDA) covers the batch.
 
-This slice is inference with contraction 18 in float32 (float64 on the
-CPU for parity tests).  Other contractions, ``case_mask``,
+The port covers inference and training (the squared loss of the
+regression head, Adam, ``BatchLearn``) with contraction 18 in float32
+(float64 on the CPU for parity tests).  Other contractions, ``case_mask``,
 ``channel_schedule``, ``nClasses``, bfloat16 and the physics variants'
-raw features are ROADMAP queue 1, item 3 (slice 3); ``training=True``
-and the optimizer are item 2 (slice 2).
+raw features are ROADMAP queue 1, item 3 (slice 3).
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from torch import nn
 
 from graphflow_tpu_torch.core import prep
 from graphflow_tpu_torch.core.graph import DenseGraph
-from graphflow_tpu_torch.models.base import GraphModel, _TRAINING
+from graphflow_tpu_torch.models.base import GraphModel
 from graphflow_tpu_torch.ops.activations import leaky_relu
+from graphflow_tpu_torch.ops.losses import squared_loss
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.optim.utils import uniform_init
 
@@ -118,14 +119,15 @@ def _gather_neighbor_tensors_take(state_pad, nbr, pos):
     return torch.gather(Ar, 3, col)
 
 
-def smp2d_states(params, g, cfg: SMP2DConfig, training: bool = False,
-                 case_mask=None, level_fn=risi18_level):
+def smp2d_states(params, g, cfg: SMP2DConfig, case_mask=None,
+                 level_fn=risi18_level):
     """Per-level vertex states [B, V, P, P, C], levels 0..nLevels, of a
     stacked batch ``g``.  ``level_fn`` is the level step: the wrapper
     :func:`risi18_level` by default, or its plain version for comparison.
+    Inference and training share this loop (the JAX package's
+    ``training`` flag only picks TPU kernels): the wrapper's autograd, K2
+    on CUDA, gives the gradients.
     """
-    if training:
-        raise NotImplementedError(_TRAINING)
     if case_mask is not None:
         raise NotImplementedError(f"case_mask is {_REST_OF_SMP2D}")
     B, V = g["vmask"].shape
@@ -161,11 +163,9 @@ def _graph_feature(state, vmask):
     return (vertex * vmask[..., None]).sum(dim=-2)                 # [B, C]
 
 
-def smp2d_forward(params, g, cfg: SMP2DConfig, training: bool = False,
-                  level_fn=risi18_level):
+def smp2d_forward(params, g, cfg: SMP2DConfig, level_fn=risi18_level):
     """Forward over a stacked batch -> (prediction [B], graph_feat [B, C])."""
-    states = smp2d_states(params, g, cfg, training=training,
-                          level_fn=level_fn)
+    states = smp2d_states(params, g, cfg, level_fn=level_fn)
     graph_feat = _graph_feature(states[-1], g["vmask"])
     return graph_feat @ params["W"], graph_feat
 
@@ -192,6 +192,7 @@ class SMP2D(GraphModel):
                     for l, lv in enumerate(p["levels"]) for k in ("K", "b")}}
         for path in self.param_order:
             self.register_parameter(path, nn.Parameter(fresh[path]))
+        self._finish_init()
 
     @property
     def params(self):
@@ -211,6 +212,15 @@ class SMP2D(GraphModel):
 
     def _forward(self, params, batch):
         return smp2d_forward(params, batch, self.cfg)
+
+    def _loss(self, params, batch):
+        """Squared loss of the batch, summed over graphs
+        (``graphflow_tpu/models/smp2d.py:398-402``)."""
+        if self.cfg.nClasses:
+            raise NotImplementedError(
+                f"classification heads (nClasses) are {_REST_OF_SMP2D}")
+        pred, _ = smp2d_forward(params, batch, self.cfg)
+        return squared_loss(pred, batch["target"])
 
 
 def SMP_omega(max_nVertices, max_receptive_field, nLevels, nChanels,

@@ -1,1 +1,2 @@
-"""Tensor ops: plain PyTorch functions and the hand-written CUDA level."""
+"""Tensor ops: plain PyTorch functions and the hand-written CUDA level,
+forward and backward."""

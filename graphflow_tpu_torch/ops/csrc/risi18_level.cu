@@ -20,8 +20,9 @@
 // memory (the state of a whole level, 8 MB at N=256, sits in the 50 MB L2).
 // While streaming it accumulates in shared memory the shared reductions of
 // graphflow_tpu/ops/fused.py:54-67 and :87-93: T_ab, T_bc, D_bc (= W16),
-// D_ac (W17 transposed), M6 and M10, plus the row and scalar sums.  The
-// thread that owns (row b, channel f) owns every accumulator entry it
+// D_ac (W17 transposed), M6 and M10, plus the row and scalar sums (device
+// code in risi18_common.cuh, shared with the backward risi18_level_bwd.cu).
+// The thread that owns (row b, channel f) owns every accumulator entry it
 // updates, so the slot loop needs no barrier.  Then each thread assembles
 // the 18 case values of its output rows (x, y) for the chunk's channels,
 // forming the adjacency-weighted cases M9/M12/M13/M16/M17 on the fly, and
@@ -40,11 +41,14 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "risi18_common.cuh"
+
 namespace {
 
+using risi18::kCases;
+using risi18::kMaxSmemBytes;
+
 constexpr int kThreads = 256;
-constexpr int kCases = 18;
-constexpr size_t kMaxSmemBytes = 232448;      // per block on sm_90
 constexpr size_t kTargetSmemBytes = 113 * 1024;  // two blocks per SM
 
 // Offsets (in 4-byte words) of the block's shared-memory arrays.
@@ -107,126 +111,32 @@ risi18_level_kernel(const float* __restrict__ state,
 
   float* Ap = smem + L.ap;
   float* R = smem + L.r;
-  float* Tab = smem + L.tab;
-  float* Tbc = smem + L.tbc;
-  float* Dbc = smem + L.dbc;
-  float* Dac = smem + L.dac;
-  float* M6 = smem + L.m6;
-  float* M10 = smem + L.m10;
-  float* Ta = smem + L.ta;
-  float* Tb = smem + L.tb;
-  float* Tdbc = smem + L.tdbc;
-  float* Tdac = smem + L.tdac;
-  float* Tfull = smem + L.tfull;
-  float* S14 = smem + L.s14;
-  float* S15 = smem + L.s15;
-  float* T18 = smem + L.t18;
+  const risi18::ChunkMaps m{
+      smem + L.tab, smem + L.tbc, smem + L.dbc, smem + L.dac, smem + L.m6,
+      smem + L.m10, smem + L.ta, smem + L.tb, smem + L.tdbc, smem + L.tdac,
+      smem + L.tfull, smem + L.s14, smem + L.s15, smem + L.t18};
+  const float *Tab = m.tab, *Tbc = m.tbc, *Dbc = m.dbc, *Dac = m.dac;
+  const float *M6 = m.m6, *M10 = m.m10, *Ta = m.ta, *Tb = m.tb;
+  const float *Tdbc = m.tdbc, *Tdac = m.tdac, *Tfull = m.tfull;
+  const float *S14 = m.s14, *S15 = m.s15, *T18 = m.t18;
   float* Ks = smem + L.ks;
   float* Zs = smem + L.zs;
   int* snbr = reinterpret_cast<int*>(smem + L.inbr);
   int* spos = reinterpret_cast<int*>(smem + L.ipos);
 
-  // Per-vertex structure: guarded adjacency, neighbour ids and positions
-  // (-1 marks an absent slot or position; nothing out of range is read).
-  for (int i = tid; i < PP; i += nth) {
-    const float a = radj[v * PP + i];
-    Ap[(i / P) * ALD + (i % P)] = a > 0.f ? a : 0.f;
-    const int p = pos[v * PP + i];
-    spos[i] = (p >= 0 && p < P) ? p : -1;
-  }
-  for (int i = tid; i < P; i += nth) {
-    const int n = nbr[v * P + i];
-    snbr[i] = (n >= 0 && n < N) ? n : -1;
-  }
   for (int i = tid; i < Cout * ZLD; i += nth) Zs[i] = 0.f;
-  __syncthreads();
-  for (int d = tid; d < P; d += nth) {
-    float s = 0.f;
-    for (int e = 0; e < P; ++e) s += Ap[d * ALD + e];
-    R[d] = s;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.f, tr = 0.f;
-    for (int d = 0; d < P; ++d) { s += R[d]; tr += Ap[d * ALD + d]; }
-    smem[L.scal] = s;
-    smem[L.scal + 1] = tr;
-  }
-  __syncthreads();
+  risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal,
+                      snbr, spos);
   const float S = smem[L.scal], trA = smem[L.scal + 1];
 
   for (int c0 = 0; c0 < C; c0 += Cc) {
     const int nc = min(Cc, C - c0);
-    for (int i = tid; i < nc * LD; i += nth) { Tbc[i] = 0.f; M10[i] = 0.f; }
     for (int i = tid; i < kCases * nc * Cout; i += nth) {
       const int o = i % Cout, kf = i / Cout, f = kf % nc, k = kf / nc;
       Ks[(k * Cc + f) * Cout + o] = K[(size_t)(k * C + c0 + f) * Cout + o];
     }
-    __syncthreads();
-
-    // 1. Stream the aligned slots.  Item (b, f): row b of every slot a,
-    //    channel c0 + f.  Neighbouring threads read neighbouring channels.
-    for (int item = tid; item < P * nc; item += nth) {
-      const int f = item % nc, b = item / nc;
-      float* tbc_row = Tbc + f * LD + b * P;
-      float* m10_row = M10 + f * LD + b * P;
-      float tb = 0.f, tdac = 0.f;
-      for (int a = 0; a < P; ++a) {
-        const int n = snbr[a];
-        const int p1 = spos[a * P + b];
-        const float ra = R[a];
-        float tab = 0.f, m6 = 0.f, dbc = 0.f, dac = 0.f;
-        if (n >= 0 && p1 >= 0) {
-          const float* row = state + (((size_t)n * P + p1) * P) * C + c0 + f;
-          for (int c = 0; c < P; ++c) {
-            const int p2 = spos[a * P + c];
-            const float x = p2 >= 0 ? __ldg(row + (size_t)p2 * C) : 0.f;
-            tbc_row[c] += x;            // T_bc[b,c]  = sum_a T[a,b,c]
-            m10_row[c] += ra * x;       // M10[b,c]   = sum_a R[a] T[a,b,c]
-            tab += x;                   // T_ab[a,b]  = sum_c T[a,b,c]
-            m6 += x * R[c];             // M6[a,b]    = sum_c T[a,b,c] R[c]
-            if (c == b) dbc = x;        // D_bc[a,b]  = T[a,b,b]
-            if (c == a) dac = x;        // D_ac[a,b]  = T[a,b,a]
-          }
-        }
-        const int ab = f * LD + a * P + b;
-        Tab[ab] = tab;
-        M6[ab] = m6;
-        Dbc[ab] = dbc;
-        Dac[ab] = dac;
-        tb += tab;                      // T_b[b]  = sum_{a,c} T[a,b,c]
-        tdac += dac;                    // sum_a T[a,b,a]
-      }
-      Tb[f * P + b] = tb;
-      Tdac[f * P + b] = tdac;
-    }
-    __syncthreads();
-
-    // 2. Row sums across slots.
-    for (int item = tid; item < P * nc; item += nth) {
-      const int f = item % nc, x = item / nc;
-      float ta = 0.f, td = 0.f;
-      for (int b = 0; b < P; ++b) {
-        ta += Tab[f * LD + x * P + b];  // T_a[x] = sum_b T_ab[x,b]
-        td += Dbc[f * LD + x * P + b];  // sum_b T[x,b,b]
-      }
-      Ta[f * P + x] = ta;
-      Tdbc[f * P + x] = td;
-    }
-    __syncthreads();
-
-    // 3. Per-channel scalars.
-    for (int f = tid; f < nc; f += nth) {
-      float tf = 0.f, s14 = 0.f, s15 = 0.f, t18 = 0.f;
-      for (int x = 0; x < P; ++x) {
-        tf += Ta[f * P + x];
-        s14 += Tab[f * LD + x * P + x];  // sum_{a,c} T[a,a,c]
-        s15 += Tdbc[f * P + x];          // sum_{a,b} T[a,b,b]
-        t18 += Dbc[f * LD + x * P + x];  // sum_a T[a,a,a]
-      }
-      Tfull[f] = tf; S14[f] = s14; S15[f] = s15; T18[f] = t18;
-    }
-    __syncthreads();
+    // 1-3. The shared reductions of this chunk (risi18_common.cuh).
+    risi18::chunk_reductions(state, snbr, spos, R, P, C, c0, nc, LD, m);
 
     // 4. Assemble the 18 cases of each output row (x, y) and multiply them
     //    into this chunk's rows of K.

@@ -8,8 +8,12 @@ One level maps a state [N, P, P, C] to [N, P*P, Cout]:
     Z   = LeakyReLU(reshape(Y) @ K + b)   (SMP_omega.h:653-669)
 
 ``risi18_level_reference`` is the plain PyTorch version.  ``risi18_level``
-is the wrapper: on CPU tensors it runs the plain version; on CUDA tensors
-it launches the hand-written kernel ``csrc/risi18_level.cu`` or raises.
+is the wrapper: on CPU tensors it runs the plain version, which torch
+autograd differentiates; on CUDA tensors it runs ``_Risi18LevelFn``, whose
+forward launches the hand-written kernel ``csrc/risi18_level.cu`` (K1) and
+whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
+``risi18_level_backward`` is the backward's wrapper and
+``risi18_level_backward_reference`` its plain version.
 
 Index conventions: ``nbr`` values lie in [0, N], where N marks an absent
 neighbour; ``pos`` values lie in [0, P], where P marks an absent position.
@@ -41,6 +45,18 @@ def risi18_level_reference(state, nbr, pos, radj, K, b, negslope=0.01):
     return leaky_relu(Z, negslope)
 
 
+def risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
+                                    negslope=0.01):
+    """Plain backward: ``torch.autograd.grad`` of
+    :func:`risi18_level_reference` with respect to (state, K, b) for the
+    cotangent g [N, P*P, Cout] -> (dstate, dK, db)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (state, K, b)]
+        out = risi18_level_reference(leaves[0], nbr, pos, radj, leaves[1],
+                                     leaves[2], negslope)
+        return torch.autograd.grad(out, leaves, g)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     from graphflow_tpu_torch.runtime.cuda_build import load_library
@@ -55,6 +71,25 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_lib() -> ctypes.CDLL:
+    from graphflow_tpu_torch.runtime.cuda_build import load_library
+
+    lib = load_library("risi18_level_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.risi18_level_backward_blocks.argtypes = [i32]
+    lib.risi18_level_backward_blocks.restype = i32
+    lib.risi18_level_backward_f32.argtypes = (
+        [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr])
+    lib.risi18_level_backward_f32.restype = i32
+    lib.risi18_level_backward_reduce_f32.argtypes = (
+        [ptr] * 3 + [i32] * 3 + [ptr])
+    lib.risi18_level_backward_reduce_f32.restype = i32
+    lib.risi18_level_bwd_error_string.argtypes = [i32]
+    lib.risi18_level_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check(name, t, dtype, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, state on {device}")
@@ -66,24 +101,8 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
-    """Fused level: state [N,P,P,C], nbr [N,P], pos [N,P,P], radj [N,P,P],
-    K [18C, Cout], b [Cout] -> [N, P*P, Cout], rows (p1 p2).
-
-    CPU tensors run :func:`risi18_level_reference`.  CUDA tensors launch
-    the kernel, which takes float32 state/radj/K/b, int32 nbr/pos, all
-    contiguous, and raises on anything else.  The kernel has no backward
-    yet: on CUDA, inputs that require grad raise.
-    """
-    if state.device.type == "cpu":
-        return risi18_level_reference(state, nbr, pos, radj, K, b, negslope)
-    if state.device.type != "cuda":
-        raise ValueError(f"no level kernel for device {state.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (state, radj, K, b)):
-        raise NotImplementedError(
-            "the level backward (kernel K2) is ROADMAP slice 2; run "
-            "inference under torch.no_grad()")
+def _check_level(state, nbr, pos, radj, K):
+    """Checks the inputs both kernels share; returns (N, P, C, Cout)."""
     N, P, _, C = state.shape
     Cout = K.shape[1]
     dev = state.device
@@ -93,23 +112,144 @@ def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
     _check("pos", pos, i32, (N, P, P), dev)
     _check("radj", radj, f32, (N, P, P), dev)
     _check("K", K, f32, (18 * C, Cout), dev)
-    _check("b", b, f32, (Cout,), dev)
+    return N, P, C, Cout
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+_SMEM_HINT = (" (a block keeps [P*P, Cout] maps in shared memory, at most "
+              "227 KB)")
+
+
+def _raise_on(err, what, lib_error_string, where, hint=_SMEM_HINT):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed at {where}: "
+                           f"{lib_error_string(err).decode()}{hint}")
+
+
+def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
+    """K1: one launch of ``risi18_level_forward_f32``."""
+    N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
+    dev = state.device
+    _check("b", b, torch.float32, (Cout,), dev)
     lib = _kernel_lib()
-    out = torch.empty((N, P * P, Cout), dtype=f32, device=dev)
+    out = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.risi18_level_forward_f32(
             state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
             K.data_ptr(), b.data_ptr(), out.data_ptr(), N, P, C, Cout,
-            float(negslope), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"risi18_level kernel launch failed at N={N} P={P} C={C} "
-            f"Cout={Cout}: {lib.risi18_level_error_string(err).decode()} "
-            f"(a block keeps Z [P*P, Cout] in shared memory, at most "
-            f"227 KB)")
+            float(negslope), _stream(dev))
+    _raise_on(err, "risi18_level", lib.risi18_level_error_string,
+              f"N={N} P={P} C={C} Cout={Cout}")
     risi18_level.launches += 1
     return out
+
+
+def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
+    """K2, kernel 1: dstate (atomics into zeros) and per-block partial rows
+    of [dK | db]; returns (dstate, partial)."""
+    N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
+    dev = state.device
+    _check("g", g, torch.float32, (N, P * P, Cout), dev)
+    _check("out", out, torch.float32, (N, P * P, Cout), dev)
+    lib = _backward_lib()
+    nblocks = lib.risi18_level_backward_blocks(N)
+    dstate = torch.zeros_like(state)
+    partial = torch.empty((nblocks, 18 * C * Cout + Cout),
+                          dtype=torch.float32, device=dev)
+    if N == 0:
+        return dstate, partial
+    with torch.cuda.device(dev):
+        err = lib.risi18_level_backward_f32(
+            state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
+            K.data_ptr(), g.data_ptr(), out.data_ptr(), dstate.data_ptr(),
+            partial.data_ptr(), N, P, C, Cout, float(negslope), nblocks,
+            _stream(dev))
+    _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
+              f"N={N} P={P} C={C} Cout={Cout}")
+    risi18_level_backward.launches += 1
+    return dstate, partial
+
+
+def _backward_reduce_kernel(partial, C, Cout):
+    """K2, kernel 2: the partial rows summed into (dK [18C, Cout], db)."""
+    dev = partial.device
+    _check("partial", partial, torch.float32,
+           (partial.shape[0], 18 * C * Cout + Cout), dev)
+    lib = _backward_lib()
+    dK = torch.empty((18 * C, Cout), dtype=torch.float32, device=dev)
+    db = torch.empty((Cout,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.risi18_level_backward_reduce_f32(
+            partial.data_ptr(), dK.data_ptr(), db.data_ptr(),
+            partial.shape[0], C, Cout, _stream(dev))
+    _raise_on(err, "risi18_level_backward reduce",
+              lib.risi18_level_bwd_error_string,
+              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}", hint="")
+    risi18_level_backward.reduce_launches += 1
+    return dK, db
+
+
+def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
+                          negslope=0.01):
+    """Gradients of the level for the cotangent g [N, P*P, Cout] ->
+    (dstate [N,P,P,C], dK [18C, Cout], db [Cout]); nbr, pos and radj get
+    none.  ``out`` is the level's output for these inputs.
+
+    CPU tensors run :func:`risi18_level_backward_reference`, which
+    recomputes the output.  CUDA tensors launch K2's two kernels
+    (``csrc/risi18_level_bwd.cu``) on float32 inputs, or raise.
+    """
+    if state.device.type == "cpu":
+        return risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
+                                               negslope)
+    if state.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {state.device}")
+    dstate, partial = _backward_main_kernel(state, nbr, pos, radj, K, g, out,
+                                            negslope)
+    dK, db = _backward_reduce_kernel(partial, state.shape[3], K.shape[1])
+    return dstate, dK, db
+
+
+risi18_level_backward.launches = 0          # kernel 1 (dstate, partials)
+risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db)
+
+
+class _Risi18LevelFn(torch.autograd.Function):
+    """The level on CUDA: K1 forward, K2 backward."""
+
+    @staticmethod
+    def forward(ctx, state, nbr, pos, radj, K, b, negslope):
+        out = _forward_kernel(state, nbr, pos, radj, K, b, negslope)
+        ctx.save_for_backward(state, nbr, pos, radj, K, b, out)
+        ctx.negslope = negslope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        state, nbr, pos, radj, K, b, out = ctx.saved_tensors
+        dstate, dK, db = risi18_level_backward(
+            state, nbr, pos, radj, K, b, out, g.contiguous(), ctx.negslope)
+        return dstate, None, None, None, dK, db, None
+
+
+def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
+    """Fused level: state [N,P,P,C], nbr [N,P], pos [N,P,P], radj [N,P,P],
+    K [18C, Cout], b [Cout] -> [N, P*P, Cout], rows (p1 p2).
+
+    CPU tensors run :func:`risi18_level_reference`, differentiated by torch
+    autograd.  CUDA tensors run ``_Risi18LevelFn``: the forward launches K1
+    and, when a gradient is taken, the backward launches K2, with or
+    without grad enabled.  The kernels take float32 state/radj/K/b, int32
+    nbr/pos, all contiguous, and raise on anything else.
+    """
+    if state.device.type == "cpu":
+        return risi18_level_reference(state, nbr, pos, radj, K, b, negslope)
+    if state.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {state.device}")
+    return _Risi18LevelFn.apply(state, nbr, pos, radj, K, b, float(negslope))
 
 
 risi18_level.launches = 0

@@ -1,4 +1,5 @@
-"""The CUDA level kernel against its plain PyTorch version, on the card.
+"""The CUDA level kernels, forward (K1) and backward (K2), against their
+plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips without a CUDA device.  On a machine with
 an NVIDIA GPU (sm_90a) and nvcc, run
@@ -16,7 +17,8 @@ import pytest
 import torch
 
 from graphflow_tpu_torch.ops.risi_level import (
-    risi18_level, risi18_level_reference)
+    risi18_level, risi18_level_backward, risi18_level_backward_reference,
+    risi18_level_reference)
 from graphflow_tpu_torch.utils.datasets import random_level_case
 
 pytestmark = pytest.mark.cuda
@@ -95,8 +97,6 @@ def test_level_kernel_rejects_wrong_inputs(cuda):
         risi18_level(state, nbr, pos.transpose(1, 2), radj, K, b)
     with pytest.raises(ValueError):
         risi18_level(state, nbr, pos, radj, K[:-1], b)
-    with pytest.raises(NotImplementedError):
-        risi18_level(state, nbr, pos, radj, K.requires_grad_(), b)
 
 
 def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
@@ -105,3 +105,86 @@ def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
     args = _inputs(2, 64, 4, 32, seed=8, device=cuda)
     with pytest.raises(RuntimeError, match="shared memory"):
         risi18_level(*args)
+
+
+# -- K2, the level backward -------------------------------------------------
+
+def _cotangent(N, P, Cout, seed, device):
+    g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
+    return torch.as_tensor(g, dtype=torch.float32, device=device)
+
+
+def _check_backward(args, g):
+    counts = (risi18_level_backward.launches,
+              risi18_level_backward.reduce_launches)
+    out = risi18_level(*args)
+    got = risi18_level_backward(*args, out, g)
+    assert (risi18_level_backward.launches,
+            risi18_level_backward.reduce_launches) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    ref = risi18_level_backward_reference(*args, g)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape
+        _assert_close(x, r)
+    return got
+
+
+@pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (64, 10, 20, 20),
+                                        (32, 4, 8, 8), (5, 8, 8, 16),
+                                        (12, 12, 40, 16)])
+def test_backward_kernel_matches_plain(cuda, N, P, C, Cout):
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2)
+    _check_backward(args, _cotangent(N, P, Cout, seed=N, device=cuda))
+
+
+def test_backward_kernel_negative_adjacency(cuda):
+    state, nbr, pos, radj, K, b = _inputs(16, 8, 8, 8, seed=3, device=cuda)
+    radj = -radj.abs() - 0.1
+    _check_backward((state, nbr, pos, radj, K, b),
+                    _cotangent(16, 8, 8, seed=3, device=cuda))
+
+
+def test_backward_kernel_all_absent_vertex(cuda):
+    """A vertex whose slots are all absent and that no receptive field
+    holds gets an exactly zero gradient; dK and db stay right."""
+    d = random_level_case(8, 4, 8, 8, seed=5, empty_vertex=2)
+    d["nbr"][d["nbr"] == 2] = 8
+    f = {k: torch.as_tensor(d[k], dtype=torch.float32, device=cuda)
+         for k in ("state", "radj", "K", "b")}
+    i = {k: torch.as_tensor(d[k], dtype=torch.int32, device=cuda)
+         for k in ("nbr", "pos")}
+    args = (f["state"], i["nbr"], i["pos"], f["radj"], f["K"], f["b"])
+    dstate, _, _ = _check_backward(args, _cotangent(8, 4, 8, seed=5,
+                                                    device=cuda))
+    assert not dstate[2].any()
+
+
+def test_level_autograd_on_cuda_runs_k1_and_k2(cuda):
+    state, nbr, pos, radj, K, b = _inputs(32, 8, 8, 8, seed=6, device=cuda,
+                                          empty_vertex=4)
+    g = _cotangent(32, 8, 8, seed=6, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (state, K, b)]
+    counts = (risi18_level.launches, risi18_level_backward.launches)
+    out = risi18_level(leaves[0], nbr, pos, radj, leaves[1], leaves[2])
+    got = torch.autograd.grad(out, leaves, g)
+    assert (risi18_level.launches, risi18_level_backward.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    ref = risi18_level_backward_reference(state, nbr, pos, radj, K, b, g)
+    for x, r in zip(got, ref):
+        _assert_close(x, r)
+
+
+def test_backward_kernel_rejects_wrong_inputs(cuda):
+    args = _inputs(4, 4, 8, 8, seed=7, device=cuda)
+    g = _cotangent(4, 4, 8, seed=7, device=cuda)
+    out = risi18_level(*args)
+    with pytest.raises(TypeError):
+        risi18_level_backward(*args, out, g.double())
+    with pytest.raises(ValueError):
+        risi18_level_backward(*args, out, g[:, :-1].contiguous())
+    with pytest.raises(ValueError):
+        risi18_level_backward(*args, out.transpose(1, 2), g)
+    state, nbr, pos, radj, K, b = args
+    with pytest.raises(TypeError):
+        risi18_level_backward(state, nbr.long(), pos, radj, K, b, out, g)

@@ -174,13 +174,17 @@ def test_outside_the_slice_raises(kw):
         SMP2DConfig(**CFG, **kw)
 
 
-def test_training_raises():
+def test_classification_training_raises():
+    """Training covers the regression head; the classification heads
+    (nClasses, LogLoss) stay outside the port, at config time and, were a
+    config to carry nClasses, at the loss."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        SMP2DConfig(**CFG, nClasses=3)
     m = SMP_omega(**CFG)
     graphs, targets = datasets.toy_molecules()
+    m.cfg.nClasses = 3
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.BatchLearn(graphs, targets, 0.01)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smp2d_states(m.params, m._stack(graphs), m.cfg, training=True)
 
 
 def test_prep_cache_is_weak_and_per_graph():
