@@ -10,12 +10,15 @@ The package imports ``torch`` and NumPy and never ``jax``.  Kernels are
 built with ``nvcc`` at their first CUDA launch (``runtime/cuda_build.py``),
 never at import.
 
-The port covers SMP_omega's serving and training paths: host
-preparation, batching, the level-0 embedding, the fused second-order level
-(``ops/risi_level.py``, with its forward kernel ``ops/csrc/risi18_level.cu``
-and backward kernel ``ops/csrc/risi18_level_bwd.cu``), the head, the
-squared loss, Adam with the reference's schedule, ``BatchLearn`` and the
-text checkpoint.  The rest of the JAX package is queued in ROADMAP.md.
+The port covers SMP_omega's serving and training paths in float32 and
+bfloat16: host preparation, batching, the level-0 embedding, the
+second-order level (float32: the fused level ``ops/risi_level.py``, with
+its forward kernel ``ops/csrc/risi18_level.cu`` and backward kernel
+``ops/csrc/risi18_level_bwd.cu``; bfloat16: the take-gather and the bank
+``ops/risi_bank.py``, with ``ops/csrc/risi18_bank.cu`` and
+``ops/csrc/risi18_bank_bwd.cu``), the head, the squared loss, Adam with
+the reference's schedule, ``BatchLearn`` and the text checkpoint.  The
+rest of the JAX package is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

@@ -21,13 +21,18 @@ STACK_FIELDS = ("wl_feat", "vmask", "sizes", "nbr", "pos", "radj", "smask",
 
 
 def stack_graphs(graphs: Sequence[PreparedGraph], targets=None,
-                 device=None) -> GraphBatch:
-    """Stack prepared graphs into a dict of [B, ...] tensors on ``device``
-    (dtypes kept: float arrays as prepared, index arrays int32, sp int64)."""
-    batch: GraphBatch = {
-        f: torch.from_numpy(np.stack([getattr(g, f) for g in graphs])
-                            ).to(device)
-        for f in STACK_FIELDS}
+                 device=None, dtype=None) -> GraphBatch:
+    """Stack prepared graphs into a dict of [B, ...] tensors on ``device``.
+    Index arrays stay int32 (sp int64); float arrays keep their prepared
+    dtype, or are cast to ``dtype`` on the device (how a bfloat16 model,
+    prepared in float32, gets its batch).  Targets are float32."""
+    batch: GraphBatch = {}
+    for f in STACK_FIELDS:
+        x = torch.from_numpy(np.stack([getattr(g, f) for g in graphs])
+                             ).to(device)
+        if dtype is not None and x.is_floating_point():
+            x = x.to(dtype)
+        batch[f] = x
     batch["nVertices"] = torch.tensor([g.nVertices for g in graphs],
                                       dtype=torch.int32, device=device)
     if targets is not None:

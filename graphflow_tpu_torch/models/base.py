@@ -28,6 +28,7 @@ from graphflow_tpu_torch import optim as optim_lib
 from graphflow_tpu_torch.core import batching, prep
 from graphflow_tpu_torch.core.graph import DenseGraph
 from graphflow_tpu_torch.utils import checkpoint as ckpt
+from graphflow_tpu_torch.utils.convert import to_numpy
 
 
 class GraphModel(nn.Module):
@@ -75,6 +76,10 @@ class GraphModel(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.parameters()).dtype
+
     def prepare(self, graph: DenseGraph) -> prep.PreparedGraph:
         """Host preparation, memoised per DenseGraph instance."""
         pg = self._prep_cache.get(graph)
@@ -85,7 +90,8 @@ class GraphModel(nn.Module):
 
     def _stack(self, graphs: Sequence[DenseGraph], targets=None):
         return batching.stack_graphs([self.prepare(g) for g in graphs],
-                                     targets, device=self.device)
+                                     targets, device=self.device,
+                                     dtype=self.dtype)
 
     @torch.no_grad()
     def _run(self, graphs: Sequence[DenseGraph]):
@@ -100,14 +106,17 @@ class GraphModel(nn.Module):
 
     def Threaded_Predict(self, graphs: Sequence[DenseGraph]) -> np.ndarray:
         """Batched prediction (``Threaded_Predict``, SMP_omega.h:938-1030):
-        one forward over the stacked batch."""
+        one forward over the stacked batch.  A bfloat16 model returns its
+        values as float32 (NumPy has no bfloat16; the JAX package returns
+        an ``ml_dtypes`` bfloat16 array of the same values)."""
         pred, _ = self._run(graphs)
-        return pred.cpu().numpy()
+        return to_numpy(pred)
 
     def Feature(self, graph: DenseGraph) -> np.ndarray:
-        """Graph-level embedding (reference ``Feature``, SMP_2D.h:748)."""
+        """Graph-level embedding (reference ``Feature``, SMP_2D.h:748), as
+        float32 for a bfloat16 model (see ``Threaded_Predict``)."""
         _, feat = self._run([graph])
-        return feat[0].cpu().numpy()
+        return to_numpy(feat[0])
 
     def _loss_and_grads(self, batch):
         """(batch loss as a float, {path: gradient})."""

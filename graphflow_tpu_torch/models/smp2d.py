@@ -11,13 +11,21 @@ Math per level (reference ``SMP_omega.h:607-692``):
 
 Where JAX vmaps the level over the batch, the port flattens B graphs of V
 padded vertices into B*V vertex rows and offsets ``nbr`` by b*V, so one
-call of :func:`risi18_level` (one kernel launch on CUDA) covers the batch.
+call of the level (one kernel launch on CUDA) covers the batch.
+
+The level has one route per dtype.  float32 (and float64, on the CPU for
+parity tests) runs :func:`risi18_level`, the fused level (K1, K2 on
+CUDA).  bfloat16 runs :func:`risi18_bank_level`: the take-gather
+materialises T, then :func:`risi18_bank` (K4, K5 on CUDA), the bias and
+LeakyReLU in bfloat16, as the JAX package's bank route does
+(``graphflow_tpu/models/smp2d.py:297-308``).  On the TPU the JAX package
+sends bfloat16 at P a multiple of 16 through its fused level instead; that
+split follows the TPU's 16-row bfloat16 tile and is not ported.
 
 The port covers inference and training (the squared loss of the
-regression head, Adam, ``BatchLearn``) with contraction 18 in float32
-(float64 on the CPU for parity tests).  Other contractions, ``case_mask``,
-``channel_schedule``, ``nClasses``, bfloat16 and the physics variants'
-raw features are ROADMAP queue 1, item 3 (slice 3).
+regression head, Adam, ``BatchLearn``) with contraction 18.  Other
+contractions, ``case_mask``, ``channel_schedule``, ``nClasses`` and the
+physics variants' raw features are ROADMAP queue 1, item 3b.
 """
 
 from __future__ import annotations
@@ -34,10 +42,13 @@ from graphflow_tpu_torch.core.graph import DenseGraph
 from graphflow_tpu_torch.models.base import GraphModel
 from graphflow_tpu_torch.ops.activations import leaky_relu
 from graphflow_tpu_torch.ops.losses import squared_loss
+from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
+                                               risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.optim.utils import uniform_init
+from graphflow_tpu_torch.utils.convert import to_numpy
 
-_REST_OF_SMP2D = "ROADMAP queue 1, item 3 (slice 3: the rest of smp2d)"
+_REST_OF_SMP2D = "ROADMAP queue 1, item 3b (the rest of smp2d)"
 
 
 @dataclasses.dataclass
@@ -64,9 +75,10 @@ class SMP2DConfig:
         if self.nClasses:
             raise NotImplementedError(
                 f"classification heads (nClasses) are {_REST_OF_SMP2D}")
-        if self.dtype not in ("float32", "float64"):
+        if self.dtype not in ("float32", "float64", "bfloat16"):
             raise NotImplementedError(
-                f"dtype {self.dtype} is {_REST_OF_SMP2D}")
+                f"dtype {self.dtype} is not ported; the port takes "
+                f"float32, float64 and bfloat16")
 
     @property
     def feat_dim(self) -> int:
@@ -81,11 +93,26 @@ class SMP2DConfig:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def host_dtype(self) -> np.dtype:
+        """The dtype of the host arrays of ``prepare_graph``.  NumPy has no
+        bfloat16, so a bfloat16 model prepares in float32 and
+        ``stack_graphs`` casts on the device.  That is exact for the fields
+        SMP_omega reads (0/1 masks and adjacency, WL histograms of small
+        integers); a Coulomb or distance value may differ from the JAX
+        package's by one bfloat16 step, rounded twice (float64 -> float32
+        -> bfloat16) where the JAX package rounds once."""
+        return np.dtype("float32" if self.dtype == "bfloat16"
+                        else self.dtype)
+
 
 def init_smp2d_params(generator: torch.Generator, cfg: SMP2DConfig,
                       device=None):
     """Fresh parameters as the JAX tree, drawn in the reference's
-    registration order (``SMP_omega.h:289-295``): H, per level (K, b), W."""
+    registration order (``SMP_omega.h:289-295``): H, per level (K, b), W.
+    Each draw is float64 from ``generator``, rounded to the model's dtype
+    (bfloat16 included); weights shared with the JAX package come through
+    ``utils/convert.py`` instead."""
     C, dt = cfg.nChanels, cfg.torch_dtype
 
     def draw(shape):
@@ -107,27 +134,58 @@ def _gather_neighbor_tensors_take(state_pad, nbr, pos):
     pos[v,i,p2]].  Neighbour id and row position fold into one row index
     over the [(N+1)(P+1), (P+1)C] view; the appended zero vertex row makes
     the sentinel N read zeros, where ``jnp.take`` would clamp and torch
-    would raise (CPU) or read out of range (CUDA).
+    would raise (CPU) or read out of range (CUDA).  The rows are taken with
+    ``index_select``, whose adjoint is ``index_add_``, a scatter-add like
+    ``jnp.take``'s; the adjoint of indexing ``src[rows]`` sorts the indices
+    first, and took twice as long per bfloat16 step on an H100.
     """
     N, Q, _, C = state_pad.shape
     P = nbr.shape[1]
     src = torch.cat([state_pad.reshape(N * Q, Q * C),
                      state_pad.new_zeros((Q, Q * C))], dim=0)
     rows = nbr.long()[:, :, None] * Q + pos.long()                # [N, P, P]
-    Ar = src[rows.reshape(-1)].reshape(N, P, P, Q, C)
+    Ar = src.index_select(0, rows.reshape(-1)).reshape(N, P, P, Q, C)
     col = pos.long()[:, :, None, :, None].expand(N, P, P, P, C)
     return torch.gather(Ar, 3, col)
 
 
+def _bank_level(bank, state, nbr, pos, radj, K, b, negslope=0.01):
+    """The bank route of one level (``graphflow_tpu/models/smp2d.py:
+    297-308``): pad the state, take-gather T [N,P,P,P,C], the bank with the
+    float32 adjacency, then the bias and LeakyReLU in the state's dtype.
+    -> [N, P*P, Cout]."""
+    N, P, _, _ = state.shape
+    state_pad = torch.nn.functional.pad(state, (0, 0, 0, 1, 0, 1))
+    T = _gather_neighbor_tensors_take(state_pad, nbr, pos)
+    Z = bank(T, radj.float(), K).reshape(N, P * P, K.shape[1]) + b
+    return leaky_relu(Z, negslope)
+
+
+def risi18_bank_level(state, nbr, pos, radj, K, b, negslope=0.01):
+    """The level through :func:`risi18_bank` (K4 and K5 on CUDA); the
+    bfloat16 route.  Arguments as :func:`risi18_level`."""
+    return _bank_level(risi18_bank, state, nbr, pos, radj, K, b, negslope)
+
+
+def risi18_bank_level_reference(state, nbr, pos, radj, K, b, negslope=0.01):
+    """:func:`risi18_bank_level` through the plain bank, on any device."""
+    return _bank_level(risi18_bank_reference, state, nbr, pos, radj, K, b,
+                       negslope)
+
+
 def smp2d_states(params, g, cfg: SMP2DConfig, case_mask=None,
-                 level_fn=risi18_level):
+                 level_fn=None):
     """Per-level vertex states [B, V, P, P, C], levels 0..nLevels, of a
-    stacked batch ``g``.  ``level_fn`` is the level step: the wrapper
-    :func:`risi18_level` by default, or its plain version for comparison.
+    stacked batch ``g``.  ``level_fn`` is the level step; by default
+    :func:`risi18_bank_level` for bfloat16 and :func:`risi18_level`
+    otherwise, and a plain version may be given for comparison.
     Inference and training share this loop (the JAX package's
-    ``training`` flag only picks TPU kernels): the wrapper's autograd, K2
-    on CUDA, gives the gradients.
+    ``training`` flag only picks TPU kernels): the wrapper's autograd (K2
+    or K5 on CUDA) gives the gradients.
     """
+    if level_fn is None:
+        level_fn = (risi18_bank_level if cfg.dtype == "bfloat16"
+                    else risi18_level)
     if case_mask is not None:
         raise NotImplementedError(f"case_mask is {_REST_OF_SMP2D}")
     B, V = g["vmask"].shape
@@ -163,7 +221,7 @@ def _graph_feature(state, vmask):
     return (vertex * vmask[..., None]).sum(dim=-2)                 # [B, C]
 
 
-def smp2d_forward(params, g, cfg: SMP2DConfig, level_fn=risi18_level):
+def smp2d_forward(params, g, cfg: SMP2DConfig, level_fn=None):
     """Forward over a stacked batch -> (prediction [B], graph_feat [B, C])."""
     states = smp2d_states(params, g, cfg, level_fn=level_fn)
     graph_feat = _graph_feature(states[-1], g["vmask"])
@@ -208,7 +266,7 @@ class SMP2D(GraphModel):
             self.cfg.max_receptive_field, self.cfg.nDepth,
             has_WL_ordering=self.cfg.has_WL_ordering,
             use_coulomb=self.cfg.use_coulomb,
-            dtype=np.dtype(self.cfg.dtype))
+            dtype=self.cfg.host_dtype)
 
     def _forward(self, params, batch):
         return smp2d_forward(params, batch, self.cfg)
@@ -244,7 +302,7 @@ def smp2d_inspect(model: SMP2D, graph: DenseGraph) -> dict:
     n = graph.nVertices
     vertex = leaky_relu(states[-1].sum(dim=(-3, -2)))
     return {
-        "states": [s[0, :n].cpu().numpy() for s in states],
-        "vertex_features": vertex[0, :n].cpu().numpy(),
-        "graph_feature": _graph_feature(states[-1], g["vmask"])[0].cpu().numpy(),
+        "states": [to_numpy(s[0, :n]) for s in states],
+        "vertex_features": to_numpy(vertex[0, :n]),
+        "graph_feature": to_numpy(_graph_feature(states[-1], g["vmask"])[0]),
     }

@@ -8,7 +8,7 @@ slab, an outer product with R, or one small product with Ap, over shared
 reductions of T: O(N^3 C) work.
 
 The 4/10/50-case banks and the per-case dropout mask are ROADMAP
-queue 1, item 3 (slice 3).
+queue 1, item 3b.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Each loss returns the scalar to be minimised, and torch autograd seeds the
 reverse sweep.  ``log_loss`` belongs to the classification heads, ROADMAP
-queue 1, item 3 (slice 3).
+queue 1, item 3b.
 """
 
 from __future__ import annotations

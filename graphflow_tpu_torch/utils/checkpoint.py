@@ -4,7 +4,9 @@
 The reference saves every registered parameter as whitespace-separated
 plain text in registration order (``SMP_omega.h:1033-1055``).  The values
 are written as the JAX package writes them, so a file saved by either
-package loads into the other unchanged.
+package loads into the other unchanged, bfloat16 included: a value is
+written as the Python float it holds, and read back as float64 and then
+rounded to the parameter's dtype, as the JAX package's NumPy cast does.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from graphflow_tpu_torch.utils.convert import to_numpy
+
 
 def save_text(filename: str, params: Dict[str, torch.Tensor],
               order: Sequence[str]) -> None:
@@ -21,7 +25,7 @@ def save_text(filename: str, params: Dict[str, torch.Tensor],
     row-major, each value followed by one space."""
     with open(filename, "w") as f:
         for path in order:
-            for v in params[path].detach().cpu().numpy().reshape(-1):
+            for v in to_numpy(params[path]).reshape(-1):
                 f.write(f"{float(v)} ")
 
 

@@ -15,10 +15,27 @@ import numpy as np
 import torch
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a NumPy array on the host.  NumPy has no bfloat16, so a
+    bfloat16 tensor comes back as float32, which holds it exactly."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    """A NumPy array as a tensor.  JAX's bfloat16 arrays (an ``ml_dtypes``
+    dtype, which torch does not take) cross as float32, which is exact, and
+    come out as bfloat16."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 def params_from_jax(tree: Any, dtype=None, device=None
                     ) -> Dict[str, torch.Tensor]:
     """Flatten a tree of NumPy-convertible arrays into {path: tensor}, dicts
-    in insertion order and lists by index."""
+    in insertion order and lists by index; bfloat16 stays bfloat16 unless
+    ``dtype`` says otherwise."""
     flat: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -27,7 +44,7 @@ def params_from_jax(tree: Any, dtype=None, device=None
         elif isinstance(node, (list, tuple)):
             items = enumerate(node)
         else:
-            flat[prefix] = torch.as_tensor(np.array(node)).to(
+            flat[prefix] = _from_numpy(np.array(node)).to(
                 dtype=dtype, device=device)
             return
         for k, child in items:
@@ -39,7 +56,8 @@ def params_from_jax(tree: Any, dtype=None, device=None
 
 def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`params_from_jax`: {path: tensor} -> a tree of
-    NumPy arrays, a numeric path component indexing a list."""
+    NumPy arrays (bfloat16 as float32), a numeric path component indexing a
+    list."""
     tree: Dict[str, Any] = {}
     for path, t in params.items():
         keys = path.split("/")
@@ -51,7 +69,7 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                 node = node[int(k)]
             else:
                 node = node.setdefault(k, [] if nxt.isdigit() else {})
-        value = t.detach().cpu().numpy()
+        value = to_numpy(t)
         if isinstance(node, list):
             node.append(value)
         else:

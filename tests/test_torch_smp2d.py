@@ -168,7 +168,7 @@ def test_feature_permutation_invariance():
 @pytest.mark.parametrize("kw", [dict(contraction=4),
                                 dict(channel_schedule=(6, 6, 6)),
                                 dict(nClasses=3),
-                                dict(dtype="bfloat16")])
+                                dict(contraction=10)])
 def test_outside_the_slice_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SMP2DConfig(**CFG, **kw)
@@ -198,12 +198,13 @@ def test_prep_cache_is_weak_and_per_graph():
 
 def test_import_loads_no_jax():
     code = ("import sys, graphflow_tpu_torch, graphflow_tpu_torch.models, "
+            "graphflow_tpu_torch.ops.risi_bank, "
             "graphflow_tpu_torch.utils.convert, "
             "graphflow_tpu_torch.utils.checkpoint, "
             "graphflow_tpu_torch.runtime.cuda_build\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'graphflow_tpu' "
-            "or m.startswith('graphflow_tpu.')]\n"
+            "or m.startswith('graphflow_tpu.') or m == 'ml_dtypes']\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     root = Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
