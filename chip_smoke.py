@@ -41,7 +41,22 @@ Phases, each reported on its own lines:
               run through the plain bank on the card, every loss must be
               finite, and K4 and K5 must launch once per level per forward
               and per backward.  Then the seconds per request and per step
-              and the peak device memory of a step.
+              and the peak device memory of a step;
+  9. aligned  K7, the aligned neighbour tensor, against its plain version
+              (the take-gather) on the card at four shapes in float32: the
+              match must be exact.  Then both versions' median milliseconds
+              at the production shape, with T's size;
+ 10. variants SMP_2D_ver6 and ver7 at the same width serve 3 requests of 4
+              random graphs twice (prep uncached, then cached), one
+              Predict and one Feature through K7 (its
+              launch count must equal nLevels x forward calls, every output
+              must match the same model through the take-gather), then take
+              3 BatchLearn steps and one Learn(nIterations=2) with Momentum
+              on the take-gather (finite losses, K7's count unchanged);
+              SMP_2D_ver7_classification serves one request ([4, 3] scores)
+              and takes 3 BatchLearn steps on integer labels.  Then the
+              seconds per request and per step, and one ver7 serving level
+              split into K7, the 50-case bank and the rest.
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises, so the
 script exits non-zero and prints no result.  Without a CUDA device, or
@@ -50,6 +65,7 @@ without the package beside this file, it fails.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -73,8 +89,12 @@ MODEL = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
              nChanels=32, nFeatures=4, nDepth=5)
 N_REQUESTS, GRAPHS_PER_REQUEST, ER_P = 3, 4, 0.15
 TRAIN_STEPS, TRAIN_LR = 3, 1e-4
+# Momentum has no per-element normalisation: at this width the gradients
+# reach 1e3-1e5, and the Adam rate above sends the loss to inf in three
+# steps (probed on the CPU at V=32, P=8-12, C=16).
+MOMENTUM_LR = 1e-10
 KERNEL_LIBS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
-               "risi18_bank_bwd")
+               "risi18_bank_bwd", "risi_aligned_t2")
 
 
 def log(msg: str) -> None:
@@ -434,7 +454,8 @@ def bank_inputs(N, P, C, Cout, seed, dtype):
     """Level inputs gathered into slots T by the take-gather (absent slots
     are zero), adjacency A, K and a cotangent g; T, K and g in ``dtype``."""
     import torch
-    from graphflow_tpu_torch.models.smp2d import _gather_neighbor_tensors_take
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        _gather_neighbor_tensors_take)
 
     state, nbr, pos, radj, K, _ = level_inputs(N, P, C, Cout, seed)
     T = _gather_neighbor_tensors_take(
@@ -638,6 +659,191 @@ def phase_bf16():
             serve_err, grad_err)
 
 
+def phase_aligned():
+    import torch
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2, risi18_aligned_t2_reference)
+
+    max_err = 0.0
+    for i, (N, P, C, Cout) in enumerate(BANK_SHAPES):
+        state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED + i)
+        got = risi18_aligned_t2(state, nbr, pos)
+        torch.cuda.synchronize()
+        ref = risi18_aligned_t2_reference(state, nbr, pos)
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            raise AssertionError(f"aligned N={N} P={P} C={C}: {got.dtype} "
+                                 f"{tuple(got.shape)}, plain {ref.dtype} "
+                                 f"{tuple(ref.shape)}")
+        err = float((got - ref).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"aligned N={N} P={P} C={C}: max abs err "
+                                 f"{err:.3e}, the copy must be exact")
+        log(f"phase 9 aligned: N={N} P={P} C={C} max_abs_err={err:.1f} "
+            f"(exact; {int((ref != 0).sum())} of {ref.numel()} elements "
+            f"present) ok")
+    N, P, C, Cout = LEVEL_SHAPES[0]
+    state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED)
+    ms = {"plain": time_ms(lambda: risi18_aligned_t2_reference(state, nbr,
+                                                               pos)),
+          "k7": time_ms(lambda: risi18_aligned_t2(state, nbr, pos))}
+    mb = N * P ** 3 * C * 4 / 1e6
+    log(f"phase 9 aligned: N,P,C={(N, P, C)} float32, T {mb:.1f} MB; median "
+        f"K7 {ms['k7']:.4f} ms ({mb / ms['k7']:.1f} GB/s written), plain "
+        f"take-gather {ms['plain']:.4f} ms (CUDA events, 20 reps)")
+    return max_err, ms
+
+
+def phase_variants():
+    import torch
+    from graphflow_tpu_torch.models import (SMP_2D_ver6, SMP_2D_ver7,
+                                            SMP_2D_ver7_classification)
+    from graphflow_tpu_torch.models.smp2d import (contraction_level,
+                                                  smp2d_forward)
+    from graphflow_tpu_torch.ops.activations import leaky_relu
+    from graphflow_tpu_torch.ops.contractions import (
+        risi_contraction_50_matmul)
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2, risi18_aligned_t2_reference)
+    from graphflow_tpu_torch.utils.datasets import random_graph, toy_molecule
+
+    nL = MODEL["nLevels"]
+    requests = [[random_graph(MODEL["max_nVertices"], ER_P,
+                              seed=400 + GRAPHS_PER_REQUEST * r + i)
+                 for i in range(GRAPHS_PER_REQUEST)]
+                for r in range(N_REQUESTS)]
+    train_graphs = [random_graph(MODEL["max_nVertices"], ER_P, seed=500 + i)
+                    for i in range(GRAPHS_PER_REQUEST)]
+    mol = toy_molecule("C2H4")
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    labels = [float(x % 3) for x in range(GRAPHS_PER_REQUEST)]
+
+    def plain(model, graphs):
+        level_fn = functools.partial(contraction_level, model.cfg.contraction,
+                                     risi18_aligned_t2_reference)
+        with torch.no_grad():
+            return smp2d_forward(model.params, model._stack(graphs),
+                                 model.cfg, level_fn=level_fn)
+
+    def train(model, graphs, tgts, learn):
+        steps, seconds = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            steps.append(model.BatchLearn(graphs, tgts, MOMENTUM_LR))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        if learn:
+            steps.append(model.Learn(mol, float(mol.nVertices), MOMENTUM_LR,
+                                     nIterations=2))
+        losses = [x for step in steps for x in step]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"non-finite loss in {losses}")
+        return steps, seconds
+
+    launches, max_err = 0, 0.0
+    for ctor in (SMP_2D_ver6, SMP_2D_ver7):
+        name = ctor.__name__
+        model = ctor(**MODEL, seed=SEED, device="cuda")
+        # Serving, counted: each request twice (prep uncached, then cached).
+        risi18_aligned_t2.launches = 0
+        preds, seconds = [], {"uncached": [], "cached": []}
+        for kind in seconds:
+            for graphs in requests:
+                t0 = time.perf_counter()
+                preds.append(model.Threaded_Predict(graphs))
+                seconds[kind].append(time.perf_counter() - t0)
+        pred_mol = model.Predict(mol)
+        feat_mol = model.Feature(mol)
+        served = risi18_aligned_t2.launches
+        forwards = 2 * N_REQUESTS + 2
+        if served != nL * forwards:
+            raise AssertionError(f"{name}: {served} K7 launches, expected "
+                                 f"{nL} levels x {forwards} forwards")
+        err = 0.0
+        for r, graphs in enumerate(requests * 2):
+            if preds[r].shape != (GRAPHS_PER_REQUEST,):
+                raise AssertionError(f"{name} request {r}: shape "
+                                     f"{preds[r].shape}")
+            err = max(err, check_close(f"{name} request {r}", preds[r],
+                                       plain(model, graphs)[0]))
+        ref_pred, ref_feat = plain(model, [mol])
+        err = max(err, check_close(f"{name} Predict", [pred_mol], ref_pred),
+                  check_close(f"{name} Feature", feat_mol, ref_feat[0]))
+        # Training, counted: the take-gather, so K7 must not launch.
+        steps, step_s = train(model, train_graphs, targets, learn=True)
+        if risi18_aligned_t2.launches != served:
+            raise AssertionError(f"{name}: training launched K7 "
+                                 f"{risi18_aligned_t2.launches - served} "
+                                 f"times")
+        launches += served
+        max_err = max(max_err, err)
+        ver7 = model
+        shown = np.concatenate(preds[:N_REQUESTS]).astype(float).round(5)
+        shown = shown.tolist()
+        log(f"phase 10 variants: {name} {N_REQUESTS} requests x "
+            f"{GRAPHS_PER_REQUEST} graphs, seconds per request (host clock, "
+            f"prep uncached) "
+            + ", ".join(f"{x:.4f}" for x in seconds["uncached"])
+            + "; prep cached "
+            + ", ".join(f"{x:.4f}" for x in seconds["cached"])
+            + f"; predictions {shown} "
+            f"Predict(C2H4)={pred_mol:.6f}; K7 launches={served} (= {nL} "
+            f"levels x {forwards} forwards); max abs err vs take-gather "
+            f"{err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
+        log(f"phase 10 variants: {name} Momentum lr {MOMENTUM_LR:g} "
+            f"BatchLearn (loss_before, loss_after) "
+            + ", ".join(f"({a:.6g}, {b:.6g})" for a, b in steps[:-1])
+            + f"; Learn(C2H4, nIterations=2) ({steps[-1][0]:.6g}, "
+            f"{steps[-1][1]:.6g}); all finite; K7 launches in training 0; "
+            f"seconds per step (host clock, synced) prep uncached "
+            f"{step_s[0]:.4f}, prep cached "
+            + ", ".join(f"{x:.4f}" for x in step_s[1:]))
+
+    # The classification head: one request, then training on labels.
+    model = SMP_2D_ver7_classification(**MODEL, nClasses=3, seed=SEED,
+                                       device="cuda")
+    risi18_aligned_t2.launches = 0
+    scores = model.Threaded_Predict(requests[0])
+    served = risi18_aligned_t2.launches
+    if scores.shape != (GRAPHS_PER_REQUEST, 3) or served != nL:
+        raise AssertionError(f"classification: scores {scores.shape}, "
+                             f"{served} K7 launches (expected {nL})")
+    err = check_close("classification scores", scores,
+                      plain(model, requests[0])[0])
+    steps, step_s = train(model, train_graphs, labels, learn=False)
+    if risi18_aligned_t2.launches != served:
+        raise AssertionError("classification training launched K7")
+    launches += served
+    max_err = max(max_err, err)
+    log(f"phase 10 variants: SMP_2D_ver7_classification scores "
+        f"{scores.astype(float).round(5).tolist()} (K7 launches={served}, "
+        f"max abs err "
+        f"{err:.3e}); log-loss BatchLearn on labels {labels} "
+        + ", ".join(f"({a:.6g}, {b:.6g})" for a, b in steps)
+        + "; all finite; seconds per step "
+        + ", ".join(f"{x:.4f}" for x in step_s))
+
+    # One ver7 serving level at the batch's shape, split by CUDA events.
+    N, P, C, _ = LEVEL_SHAPES[0]
+    state, nbr, pos, radj, _, _ = level_inputs(N, P, C, C, seed=SEED)
+    K, b = (ver7.params["levels"][1][k].detach() for k in ("K", "b"))
+    smask = torch.ones((N, P, P, 1), device="cuda")
+    T = risi18_aligned_t2(state, nbr, pos)
+    Z = risi_contraction_50_matmul(T, radj, K)
+    level = functools.partial(contraction_level, 50, risi18_aligned_t2)
+    ms = {"k7": time_ms(lambda: risi18_aligned_t2(state, nbr, pos)),
+          "bank": time_ms(lambda: risi_contraction_50_matmul(T, radj, K)),
+          "rest": time_ms(lambda: leaky_relu(Z.reshape(N, P * P, C) + b)
+                          .reshape(N, P, P, C) * smask),
+          "level": time_ms(lambda: level(state, nbr, pos, radj, K, b))}
+    log(f"phase 10 variants: one ver7 serving level at N,P,C={(N, P, C)}: "
+        f"K7 {ms['k7']:.4f} ms, 50-case bank {ms['bank']:.4f} ms, bias + "
+        f"LeakyReLU + smask {ms['rest']:.4f} ms; whole level "
+        f"{ms['level']:.4f} ms (CUDA events, 20 reps)")
+    return launches, max_err
+
+
 def main() -> None:
     name = phase_device()
     import_port()
@@ -650,6 +856,8 @@ def main() -> None:
     train_launches, train_err = phase_train()
     bank_errs, bank_ms = phase_bank()
     k4_launches, k5_launches, bf16_serve_err, bf16_grad_err = phase_bf16()
+    aligned_err, aligned_ms = phase_aligned()
+    k7_launches, variants_err = phase_variants()
     torch.cuda.synchronize()
     bwd_source = "graphflow_tpu_torch/ops/csrc/risi18_level_bwd.cu"
     bwd_replaces = "graphflow_tpu/ops/risi_fused_pallas.py:767"
@@ -709,6 +917,15 @@ def main() -> None:
         "max_abs_err": bank_errs["dK"],
         "ms": bank_ms["reduce"],
         "plain_ms": bank_ms["plain_reduce"],
+    }, {
+        "name": "risi18_aligned_t2_kernel",
+        "route": "cuda",
+        "source": "graphflow_tpu_torch/ops/csrc/risi_aligned_t2.cu",
+        "replaces": "graphflow_tpu/ops/risi_fused_pallas.py:1059",
+        "launches": k7_launches,
+        "max_abs_err": aligned_err,
+        "ms": aligned_ms["k7"],
+        "plain_ms": aligned_ms["plain"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

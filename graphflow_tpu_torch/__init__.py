@@ -17,8 +17,13 @@ its forward kernel ``ops/csrc/risi18_level.cu`` and backward kernel
 ``ops/csrc/risi18_level_bwd.cu``; bfloat16: the take-gather and the bank
 ``ops/risi_bank.py``, with ``ops/csrc/risi18_bank.cu`` and
 ``ops/csrc/risi18_bank_bwd.cu``), the head, the squared loss, Adam with
-the reference's schedule, ``BatchLearn`` and the text checkpoint.  The
-rest of the JAX package is queued in ROADMAP.md.
+the reference's schedule, ``BatchLearn`` and the text checkpoint.  It
+also covers the SMP_2D contraction variants in float32 (SMP_gamma,
+SMP_2D_ver6/7/8 and the classification heads): the 4/10/50-case banks
+(``ops/contractions.py``), the aligned neighbour tensor
+``ops/risi_aligned.py`` with its kernel ``ops/csrc/risi_aligned_t2.cu``
+for ver6/ver7 serving, the log loss and Momentum.  The rest of the JAX
+package is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

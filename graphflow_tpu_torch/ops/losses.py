@@ -1,8 +1,9 @@
 """Losses (counterpart of ``graphflow_tpu/ops/losses.py``).
 
 Each loss returns the scalar to be minimised, and torch autograd seeds the
-reverse sweep.  ``log_loss`` belongs to the classification heads, ROADMAP
-queue 1, item 3b.
+reverse sweep.  That folds the reference's sign conventions into the
+returned value: its ``LogLoss`` ``getLoss`` returns +log p and seeds the
+gradient with -1, the JAX package and the port return -log p.
 """
 
 from __future__ import annotations
@@ -14,3 +15,12 @@ def squared_loss(predict: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """``SquaredLoss.h:41-66``: 0.5 * ||predict - target||^2."""
     d = predict - target
     return 0.5 * torch.sum(d * d)
+
+
+def log_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``LogLoss.h:38-76`` over a batch: sum_b -log softmax(scores_b)[label_b]
+    for scores [B, nClasses] and labels [B].  Labels may arrive as the
+    batch's float targets; they are cast to int64, truncating as the JAX
+    package's ``astype(int32)`` does."""
+    logp = torch.log_softmax(scores, dim=-1)
+    return -logp.gather(-1, labels.long()[:, None]).sum()

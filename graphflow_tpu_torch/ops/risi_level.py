@@ -35,11 +35,11 @@ from graphflow_tpu_torch.ops.contractions import risi_contraction_18
 def risi18_level_reference(state, nbr, pos, radj, K, b, negslope=0.01):
     """Plain version (``_reference_level``, risi_fused_pallas.py:1043-1056):
     gather and align, the 18-case bank, the product with K, b, LeakyReLU."""
-    from graphflow_tpu_torch.models.smp2d import _gather_neighbor_tensors_take
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
 
     N, P, _, C = state.shape
-    state_pad = torch.nn.functional.pad(state, (0, 0, 0, 1, 0, 1))
-    T = _gather_neighbor_tensors_take(state_pad, nbr, pos)
+    T = risi18_aligned_t2_reference(state, nbr, pos)
     Y = risi_contraction_18(T, radj)
     Z = Y.reshape(N, P * P, 18 * C) @ K + b
     return leaky_relu(Z, negslope)

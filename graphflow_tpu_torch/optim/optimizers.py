@@ -1,15 +1,16 @@
-"""Adam with the reference's semantics (counterpart of
-``graphflow_tpu/optim/optimizers.py:adam``).
+"""Adam and Momentum with the reference's semantics (counterpart of
+``graphflow_tpu/optim/optimizers.py:adam`` and ``:momentum``).
 
 An optimizer is a triple (init, update, set_element_schedule) over a dict
 {path: tensor} of parameters in registration order.  ``update`` changes
 the parameters in place under ``torch.no_grad()`` and returns a new state
-``{"m": {path: tensor}, "v": {path: tensor}, "t": int}``; the old state's
-tensors are never written, so a caller may keep it to restore.
+(Adam: ``{"m": {path: tensor}, "v": {path: tensor}, "t": int}``; Momentum:
+``{path: velocity}``); the old state's tensors are never written, so a
+caller may keep it to restore.
 
 The reference's ``Learn(lr, nBatch)`` overloads divide the gradients by
-nBatch before the moment updates; ``update(..., nBatch=k)`` does the same
-and then applies the reference's per-element bias correction (see
+nBatch before the update; ``update(..., nBatch=k)`` does the same, and
+Adam then applies the reference's per-element bias correction (see
 :func:`adam`).  ``torch.optim.Adam`` has no such schedule.  The other
 optimizers of the JAX package are ROADMAP queue 1, item 10.
 """
@@ -27,8 +28,9 @@ class Optimizer(NamedTuple):
     init: Callable[[Params], Any]
     update: Callable[..., Any]  # (params, state, grads, lr, nBatch=None)
     # Install the per-element beta_t schedule of the nBatch overload from
-    # (params, param_order); GraphModel._finish_init calls it.
-    set_element_schedule: Callable[..., None]
+    # (params, param_order); GraphModel._finish_init calls it.  None for an
+    # optimizer without one.
+    set_element_schedule: Optional[Callable[..., None]]
 
 
 def _scale(grads: Params, nBatch: Optional[int]) -> Params:
@@ -98,7 +100,25 @@ def adam(beta1: float = 0.9, beta2: float = 0.999,
     return Optimizer(init, update, set_element_schedule)
 
 
-_REGISTRY = {"adam": adam}
+def momentum(gamma: float = 0.9) -> Optimizer:
+    """``Momentum.h:46-68``: v = gamma * v + lr * g, then p -= v, with g
+    divided by nBatch first when it is given."""
+
+    def init(params: Params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    @torch.no_grad()
+    def update(params: Params, state, grads: Params, lr, nBatch=None):
+        grads = _scale(grads, nBatch)
+        v = {k: gamma * state[k] + lr * g for k, g in grads.items()}
+        for k, p in params.items():
+            p.sub_(v[k])
+        return params, v
+
+    return Optimizer(init, update, None)
+
+
+_REGISTRY = {"adam": adam, "momentum": momentum}
 
 
 def make_optimizer(name: str, **kwargs) -> Optimizer:

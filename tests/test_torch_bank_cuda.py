@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from graphflow_tpu_torch.models.smp2d import _gather_neighbor_tensors_take
+from graphflow_tpu_torch.ops.risi_aligned import (
+    _gather_neighbor_tensors_take)
 from graphflow_tpu_torch.ops.risi_bank import (
     risi18_bank, risi18_bank_backward, risi18_bank_backward_reference,
     risi18_bank_reference)

@@ -16,7 +16,7 @@ from graphflow_tpu.ops.fused import risi18_matmul_fused as jax_fused
 from graphflow_tpu.ops.risi_fused_pallas import (
     _reference_level, build_xsel, pack_state_cm, risi18_level_fused_raw,
     risi18_level_fused_v3_raw)
-from graphflow_tpu_torch.models.smp2d import _gather_neighbor_tensors_take
+from graphflow_tpu_torch.ops.risi_aligned import _gather_neighbor_tensors_take
 from graphflow_tpu_torch.ops.activations import leaky_relu
 from graphflow_tpu_torch.ops.contractions import risi_contraction_18
 from graphflow_tpu_torch.ops.fused import risi18_matmul_fused

@@ -165,26 +165,29 @@ def test_feature_permutation_invariance():
         np.testing.assert_allclose(fp, f0, rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("kw", [dict(contraction=4),
-                                dict(channel_schedule=(6, 6, 6)),
-                                dict(nClasses=3),
-                                dict(contraction=10)])
+@pytest.mark.parametrize("kw", [dict(channel_schedule=(6, 6, 6)),
+                                dict(contraction=4, dtype="bfloat16"),
+                                dict(contraction=10, dtype="bfloat16"),
+                                dict(contraction=50, dtype="bfloat16")])
 def test_outside_the_slice_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SMP2DConfig(**CFG, **kw)
 
 
 def test_classification_training_raises():
-    """Training covers the regression head; the classification heads
-    (nClasses, LogLoss) stay outside the port, at config time and, were a
-    config to carry nClasses, at the loss."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMP2DConfig(**CFG, nClasses=3)
-    m = SMP_omega(**CFG)
-    graphs, targets = datasets.toy_molecules()
-    m.cfg.nClasses = 3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.BatchLearn(graphs, targets, 0.01)
+    """A classification head (nClasses, log loss) trains one step on the
+    CPU; its Predict raises, as the JAX package's does, since an
+    [nClasses] row of scores is no float."""
+    m = SMP2D(SMP2DConfig(**CFG, nClasses=3, dtype="float64"), seed=1)
+    graphs, _ = datasets.toy_molecules()
+    labels = [0.0, 2.0, 1.0, 2.0]
+    before = {k: p.detach().clone() for k, p in m.param_dict().items()}
+    loss0, loss1 = m.BatchLearn(graphs, labels, 1e-4)
+    assert np.isfinite([loss0, loss1]).all() and loss1 < loss0
+    assert all((p != before[k]).any() for k, p in m.param_dict().items())
+    assert m.Threaded_Predict(graphs).shape == (4, 3)
+    with pytest.raises(ValueError):
+        m.Predict(graphs[0])
 
 
 def test_prep_cache_is_weak_and_per_graph():
@@ -199,6 +202,7 @@ def test_prep_cache_is_weak_and_per_graph():
 def test_import_loads_no_jax():
     code = ("import sys, graphflow_tpu_torch, graphflow_tpu_torch.models, "
             "graphflow_tpu_torch.ops.risi_bank, "
+            "graphflow_tpu_torch.ops.risi_aligned, "
             "graphflow_tpu_torch.utils.convert, "
             "graphflow_tpu_torch.utils.checkpoint, "
             "graphflow_tpu_torch.runtime.cuda_build\n"

@@ -205,7 +205,7 @@ def test_adam_without_schedule_uses_no_correction():
     _close(p["w"], expect)
 
 
-@pytest.mark.parametrize("name", ["sgd", "Momentum", "adamax", "adadelta",
+@pytest.mark.parametrize("name", ["sgd", "rmsprop", "adamax", "adadelta",
                                   "lbfgs"])
 def test_other_optimizers_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
