@@ -6,19 +6,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases, each reported on its own lines:
   1. device   the card (torch's name, nvidia-smi's name and power limit);
-  2. build    nvcc builds the level forward (K1) and backward (K2) and
-              the bank forward (K4) and backward (K5) libraries from
-              ops/csrc/, in parallel (seconds, ptxas);
+  2. build    nvcc builds the six kernel libraries from ops/csrc/ (the
+              level forward K1 and backward K2, the bank forward K4 and
+              backward K5, the aligned tensor K7, the bank's ablation
+              variants K6), in parallel (seconds, ptxas);
   3. kernel   K1 against its plain PyTorch version on the card at three
-              level shapes, float32, inputs from a NumPy seed; then both
-              versions' median milliseconds at the production shape;
+              level shapes and at the four C != Cout shapes of a halving
+              channel schedule, float32, inputs from a NumPy seed; then
+              both versions' median milliseconds at the production shape
+              and K1's at the scheduled ones;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
               nLevels x forward calls, and every output must match the
               same model run through the plain level on the card;
   5. backward K2 against the plain backward (autograd of the plain level)
-              at the three shapes: dstate, dK and db; then the median
+              at the same seven shapes: dstate, dK and db; then the median
               milliseconds of each of K2's two kernels, of both together
               and of the plain backward at the production shape;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
@@ -29,7 +32,7 @@ Phases, each reported on its own lines:
               Then the seconds per step (prep uncached and cached) and one
               step's split into host batching, forward, backward and Adam;
   7. bank     K4 and K5 against the plain bank and its backward on the
-              card at four shapes, in float32 and bfloat16, on slots made
+              card at eight shapes, in float32 and bfloat16, on slots made
               by the take-gather: Z, dT and dK; then the median
               milliseconds of K4, the plain bank, K5 (both kernels and each
               alone) and the plain backward at the production shape, bf16;
@@ -43,7 +46,7 @@ Phases, each reported on its own lines:
               and per backward.  Then the seconds per request and per step
               and the peak device memory of a step;
   9. aligned  K7, the aligned neighbour tensor, against its plain version
-              (the take-gather) on the card at four shapes in float32: the
+              (the take-gather) on the card at eight shapes in float32: the
               match must be exact.  Then both versions' median milliseconds
               at the production shape, with T's size;
  10. variants SMP_2D_ver6 and ver7 at the same width serve 3 requests of 4
@@ -56,7 +59,31 @@ Phases, each reported on its own lines:
               SMP_2D_ver7_classification serves one request ([4, 3] scores)
               and takes 3 BatchLearn steps on integer labels.  Then the
               seconds per request and per step, and one ver7 serving level
-              split into K7, the 50-case bank and the rest.
+              split into K7, the 50-case bank and the rest;
+ 11. ablate   K6, the five ablation variants of the bank kernel, against
+              their plain versions on the card at the bank's shapes in
+              float32 and bfloat16, `full` against K4 bit for bit; then
+              the tool (graphflow_tpu_torch.tools.ablate_bank) prints the
+              five times and the attribution at the production shape in
+              both dtypes, with K4 timed in the same rounds;
+ 12. physics  SMP_omega_physics at full width (V=64, P=16, channels 32, 16,
+              8, Coulomb adjacency with negative entries, raw features)
+              serves 3 requests of 4 random graphs twice (prep uncached,
+              then cached), one Predict and one Feature through K1 at
+              C != Cout, then takes 3 BatchLearn steps and one
+              Learn(nIterations=2) through K2; outputs, the first step's
+              loss and every gradient must match the same model through
+              the plain level, and K1 and K2 must launch once per level per
+              forward and backward.  SMP_gamma_physics serves and takes a
+              step (against the same model on the CPU); SMP_beta with an
+              uncapped field (V = P = 16) serves and takes a step through
+              K1 and K2; one smp2d_level_features call with a drawn
+              case_mask runs the kernels on the scaled K, against the plain
+              masked level.
+Each kernel's bound is the larger of its bytes (every input read once,
+every output written once) over 3.35 TB/s and its operations over the
+card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
+bfloat16), counted from the shapes of this run's inputs.
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.  Any failure raises, so the
 script exits non-zero and prints no result.  Without a CUDA device, or
@@ -85,6 +112,10 @@ RTOL = 1e-4
 RTOL16 = 1e-2
 LEVEL_SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8)]
 BANK_SHAPES = LEVEL_SHAPES + [(12, 12, 40, 16)]
+# The levels of a halving channel schedule (the physics towers): C != Cout,
+# down to one channel.
+SCHEDULE_SHAPES = [(256, 16, 32, 16), (256, 16, 16, 8), (64, 10, 2, 1),
+                   (32, 4, 1, 1)]
 MODEL = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
              nChanels=32, nFeatures=4, nDepth=5)
 N_REQUESTS, GRAPHS_PER_REQUEST, ER_P = 3, 4, 0.15
@@ -94,7 +125,14 @@ TRAIN_STEPS, TRAIN_LR = 3, 1e-4
 # steps (probed on the CPU at V=32, P=8-12, C=16).
 MOMENTUM_LR = 1e-10
 KERNEL_LIBS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
-               "risi18_bank_bwd", "risi_aligned_t2")
+               "risi18_bank_bwd", "risi_aligned_t2", "risi18_bank_ablate")
+PHYSICS = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
+               nChanels=32, nFeatures=4, use_coulomb=True)
+BETA = dict(max_nVertices=16, nLevels=2, nChanels=32, nFeatures=4, nDepth=5)
+# Published peaks of one H100 SXM: device memory bytes/s, and dense FLOP/s
+# for float32 outside the tensor cores and bfloat16 inside them.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def log(msg: str) -> None:
@@ -120,8 +158,14 @@ def check_close(what: str, got, ref, rtol: float = RTOL) -> float:
     return err
 
 
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the current stream, CUDA events."""
+    """Median milliseconds of fn() on the current stream, CUDA events.  A
+    spin kernel of about half a millisecond runs ahead of the first event,
+    so that the host queues fn's launches while the card is busy and the
+    events bracket the device's work, not the wrapper's host time."""
     import torch
 
     for _ in range(warmup):
@@ -130,12 +174,60 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(n_bytes: float, ops: float, dtype: str = "float32"):
+    """(the least milliseconds the card could take, "bytes" or
+    "operations"): the larger of bytes over the memory rate and operations
+    over the peak rate of ``dtype``."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = ops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def bank_ops(N, P, C, Cout, elements=None, cases=18, group_d=True):
+    """Floating-point operations of the 18-case bank times K, from the
+    shapes: the product (2 * cases * C * Cout per output row), the five
+    adjacency-weighted maps (2 * P per row, channel and map) and the shared
+    reductions (about six per element of T; ``elements`` counts the present
+    ones where the slots are gathered, else all N * P^3 are read)."""
+    rows = N * P * P
+    if elements is None:
+        elements = rows * P
+    return (rows * cases * C * Cout * 2 + (rows * C * 5 * P * 2 if group_d
+                                           else 0) + 6 * elements * C)
+
+
+def bank_backward_ops(N, P, C, Cout, elements=None):
+    """The adjoint: dK and the reductions' cotangents are each a product of
+    the bank's size, G.Ap costs 2 * P * Cout per row, and dT is assembled
+    from six maps per element."""
+    rows = N * P * P
+    if elements is None:
+        elements = rows * P
+    return (2 * rows * 18 * C * Cout * 2 + rows * P * Cout * 2
+            + 12 * elements * C)
+
+
+def present_elements(nbr, pos) -> int:
+    """Elements of the gathered T [N,P,P,P] that are present: slot a of
+    vertex v has a neighbour, and positions b and c are set."""
+    N, P = nbr.shape
+    has_nbr = (nbr >= 0) & (nbr < N)
+    set_pos = ((pos >= 0) & (pos < P)).sum(-1)
+    return int((has_nbr * set_pos * set_pos).sum())
 
 
 def phase_device():
@@ -210,7 +302,7 @@ def phase_kernel():
         risi18_level, risi18_level_reference)
 
     max_err = 0.0
-    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES):
+    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
         args = level_inputs(N, P, C, Cout, seed=SEED + i)
         got = risi18_level(*args)
         torch.cuda.synchronize()
@@ -223,9 +315,19 @@ def phase_kernel():
     args = level_inputs(*LEVEL_SHAPES[0], seed=SEED)
     plain_ms = time_ms(lambda: risi18_level_reference(*args))
     kernel_ms = time_ms(lambda: risi18_level(*args))
+    N, P, C, Cout = LEVEL_SHAPES[0]
+    out = risi18_level(*args)
+    bound = bound_ms(nbytes(*args, out), bank_ops(
+        N, P, C, Cout, present_elements(args[1], args[2])))
     log(f"phase 3 kernel: N,P,C,Cout={LEVEL_SHAPES[0]} median kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, 20 reps)")
-    return max_err, kernel_ms, plain_ms
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, 20 reps);"
+        f" bound {bound[0]:.4f} ms by {bound[1]}")
+    for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
+        sargs = level_inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i)
+        log(f"phase 3 kernel: N,P,C,Cout={shape} median kernel "
+            f"{time_ms(lambda: risi18_level(*sargs)):.4f} ms, plain "
+            f"{time_ms(lambda: risi18_level_reference(*sargs)):.4f} ms")
+    return max_err, kernel_ms, plain_ms, bound
 
 
 def phase_slice():
@@ -305,7 +407,7 @@ def phase_backward():
                 torch.as_tensor(g, dtype=torch.float32, device="cuda"))
 
     errs = {"dstate": 0.0, "dK": 0.0, "db": 0.0}
-    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES):
+    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
         args, g = inputs(N, P, C, Cout, seed=SEED + i)
         out = risi18_level(*args)
         got = risi18_level_backward(*args, out, g)
@@ -344,6 +446,22 @@ def phase_backward():
         f"backward {ms['plain']:.4f} ms; kernel 1 {ms['main']:.4f} ms, "
         f"kernel 2 {ms['reduce']:.4f} ms ({partial.shape[0]} partial rows; "
         f"plain sum {ms['plain_reduce']:.4f} ms) (CUDA events, 20 reps)")
+    dstate, dK, db = risi18_level_backward(*args, out, g)
+    ms["bound"] = bound_ms(
+        nbytes(*args[:5], g, out, dstate, partial),
+        bank_backward_ops(N, P, C, Cout, present_elements(nbr, pos)))
+    ms["reduce_bound"] = bound_ms(nbytes(partial, dK, db), partial.numel())
+    log(f"phase 5 backward: bounds: kernel 1 {ms['bound'][0]:.4f} ms by "
+        f"{ms['bound'][1]}, kernel 2 {ms['reduce_bound'][0]:.4f} ms by "
+        f"{ms['reduce_bound'][1]}")
+    for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
+        sargs, sg = inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i)
+        sout = risi18_level(*sargs)
+        main_ms = time_ms(lambda: _backward_main_kernel(*sargs[:5], sg, sout,
+                                                        0.01))
+        both_ms = time_ms(lambda: risi18_level_backward(*sargs, sout, sg))
+        log(f"phase 5 backward: N,P,C,Cout={shape} median K2 kernel 1 "
+            f"{main_ms:.4f} ms, both kernels {both_ms:.4f} ms")
     return errs, ms
 
 
@@ -474,7 +592,7 @@ def phase_bank():
 
     errs = {"Z": 0.0, "dT": 0.0, "dK": 0.0}
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
-        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES):
+        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES):
             T, A, K, g = bank_inputs(N, P, C, Cout, SEED + i, dtype)
             got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
             torch.cuda.synchronize()
@@ -516,6 +634,18 @@ def phase_bank():
         f"{ms['reduce']:.4f} ms ({partial.shape[0]} partial rows; plain sum "
         f"{ms['plain_reduce']:.4f} ms), plain backward {ms['plain_bwd']:.4f}"
         f" ms (CUDA events, 20 reps)")
+    Z = risi18_bank(T, A, K)
+    dT, dK = risi18_bank_backward(T, A, K, g)
+    ms["bound"] = bound_ms(nbytes(T, A, K, Z), bank_ops(N, P, C, Cout),
+                           "bfloat16")
+    ms["bwd_bound"] = bound_ms(nbytes(T, A, K, g, dT, partial),
+                               bank_backward_ops(N, P, C, Cout), "bfloat16")
+    ms["reduce_bound"] = bound_ms(nbytes(partial) + dK.numel() * 4,
+                                  partial.numel())
+    log("phase 7 bank: bounds (bfloat16): "
+        + ", ".join(f"{k} {ms[v][0]:.4f} ms by {ms[v][1]}" for k, v in (
+            ("K4", "bound"), ("K5 kernel 1", "bwd_bound"),
+            ("K5 kernel 2", "reduce_bound"))))
     return errs, ms
 
 
@@ -665,7 +795,7 @@ def phase_aligned():
         risi18_aligned_t2, risi18_aligned_t2_reference)
 
     max_err = 0.0
-    for i, (N, P, C, Cout) in enumerate(BANK_SHAPES):
+    for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES):
         state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED + i)
         got = risi18_aligned_t2(state, nbr, pos)
         torch.cuda.synchronize()
@@ -691,6 +821,8 @@ def phase_aligned():
     log(f"phase 9 aligned: N,P,C={(N, P, C)} float32, T {mb:.1f} MB; median "
         f"K7 {ms['k7']:.4f} ms ({mb / ms['k7']:.1f} GB/s written), plain "
         f"take-gather {ms['plain']:.4f} ms (CUDA events, 20 reps)")
+    ms["bound"] = bound_ms(nbytes(state, nbr, pos) + N * P ** 3 * C * 4, 0)
+    log(f"phase 9 aligned: bound {ms['bound'][0]:.4f} ms by {ms['bound'][1]}")
     return max_err, ms
 
 
@@ -844,13 +976,315 @@ def phase_variants():
     return launches, max_err
 
 
+def phase_ablate():
+    import torch
+    from graphflow_tpu_torch.ops.risi_bank import risi18_bank
+    from graphflow_tpu_torch.ops.risi_bank_ablate import (
+        MODES, risi18_bank_variant, risi18_bank_variant_reference)
+    from graphflow_tpu_torch.tools import ablate_bank
+
+    errs = dict.fromkeys(MODES, 0.0)
+    for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
+        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES):
+            T, A, K, _ = bank_inputs(N, P, C, Cout, SEED + i, dtype)
+            bank = risi18_bank(T, A, K)
+            line = []
+            for mode in MODES:
+                what = (f"ablate {mode} N={N} P={P} C={C} Cout={Cout} "
+                        f"{dtype}")
+                got = risi18_bank_variant(T, A, K, mode)
+                torch.cuda.synchronize()
+                ref = risi18_bank_variant_reference(T, A, K, mode)
+                if got.dtype != ref.dtype:
+                    raise AssertionError(f"{what}: dtype {got.dtype}, plain "
+                                         f"{ref.dtype}")
+                err = check_close(what, got, ref, rtol)
+                if mode == "full" and not torch.equal(got, bank):
+                    raise AssertionError(f"{what}: differs from risi18_bank")
+                if mode == "dma" and not torch.equal(got, ref):
+                    raise AssertionError(f"{what}: the copy must be exact")
+                errs[mode] = max(errs[mode], err)
+                line.append(f"{mode} {err:.3e}")
+            log(f"phase 11 ablate: {str(dtype)[6:]} N={N} P={P} C={C} "
+                f"Cout={Cout} max_abs_err " + ", ".join(line)
+                + f"; bound {rtol:g}*max(1,max|plain|); full == K4 exactly ok")
+
+    # The tool, counted: five variants and K4 in turns, in both dtypes.
+    B, P, C, Cout = BANK_SHAPES[0]
+    risi18_bank_variant.launches = dict.fromkeys(MODES, 0)
+    tables = {}
+    for dtype in ablate_bank.DTYPES:
+        tables[str(dtype)[6:]] = ablate_bank.report(
+            B, P, C, dtype, out=lambda line: log(f"phase 11 ablate: {line}"))
+    launches = dict(risi18_bank_variant.launches)
+    expected = len(ablate_bank.DTYPES) * (ablate_bank.REPS
+                                          + ablate_bank.WARMUP)
+    if any(n != expected for n in launches.values()):
+        raise AssertionError(f"K6 launches by mode {launches}, expected "
+                             f"{expected} for each")
+
+    # Per variant, bfloat16: the plain version's time, the bound, and for
+    # dma the one PyTorch call that computes the same function (a copy).
+    T, A, K = ablate_bank.make_inputs(B, P, C, torch.bfloat16)
+    Z = risi18_bank_variant(T, A, K, "full")
+    ops = {"full": bank_ops(B, P, C, Cout), "novpu": bank_ops(B, P, C, Cout),
+           "nogroupd": bank_ops(B, P, C, Cout, cases=11, group_d=False),
+           "reduce": bank_ops(B, P, C, Cout, cases=2, group_d=False),
+           "dma": 0}
+    # What each function must move: dma returns the first Cout columns of
+    # T as [B, P*P, P*C], so it needs Z read and Z written and no more; its
+    # kernel streams all of T by design, and that stream's floor is logged
+    # beside the bound, under its own name.
+    moved = {mode: nbytes(T, A, K, Z) for mode in MODES}
+    moved["dma"] = 2 * nbytes(Z)
+    stream_floor = bound_ms(nbytes(T, Z), 0, "bfloat16")
+    extra = {}
+    for mode in MODES:
+        extra[mode] = {
+            "plain_ms": time_ms(lambda: risi18_bank_variant_reference(
+                T, A, K, mode), reps=10),
+            "bound": bound_ms(moved[mode], ops[mode], "bfloat16"),
+            "library_ms": None}
+    extra["dma"]["library_ms"] = time_ms(
+        lambda: T.reshape(B, P * P, P * C)[:, :, :Cout].contiguous())
+    # The same inputs in float32 hold twice the bytes of T, K and Z.
+    full_f32 = bound_ms(2 * nbytes(T, K, Z) + nbytes(A), ops["full"])
+    log("phase 11 ablate: bfloat16 plain versions (ms) "
+        + ", ".join(f"{m} {extra[m]['plain_ms']:.4f}" for m in MODES)
+        + "; bounds (ms) "
+        + ", ".join(f"{m} {extra[m]['bound'][0]:.4f} by "
+                    f"{extra[m]['bound'][1]}" for m in MODES)
+        + f"; full in float32 {full_f32[0]:.4f} by {full_f32[1]}; floor of "
+        f"streaming all of T once, which dma's kernel does and its function "
+        f"does not need, {stream_floor[0]:.4f} ms; one strided copy for dma "
+        f"{extra['dma']['library_ms']:.4f} ms; launches by mode {launches}")
+    return errs, tables, launches, extra
+
+
+def physics_graph(n: int, seed: int):
+    """An Erdos-Renyi graph with raw normal features and a symmetric
+    Coulomb matrix whose entries, the diagonal included, take both signs."""
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    g = random_graph(n, ER_P, nFeatures=PHYSICS["nFeatures"], seed=seed)
+    rng = np.random.default_rng(seed)
+    g.feature = rng.normal(size=(n, PHYSICS["nFeatures"]))
+    c = rng.normal(size=(n, n))
+    g.coulomb = (c + c.T) / 2
+    return g
+
+
+def phase_physics():
+    import torch
+    from graphflow_tpu_torch.models import (SMP_beta, SMP_gamma_physics,
+                                            SMP_omega_physics)
+    from graphflow_tpu_torch.models.smp2d import (case_mask_level_reference,
+                                                  smp2d_forward,
+                                                  smp2d_level_features)
+    from graphflow_tpu_torch.ops.contractions import dropout_case_mask
+    from graphflow_tpu_torch.ops.losses import squared_loss
+    from graphflow_tpu_torch.ops.risi_level import (
+        risi18_level, risi18_level_backward, risi18_level_reference)
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    V, nL = PHYSICS["max_nVertices"], PHYSICS["nLevels"]
+    model = SMP_omega_physics(**PHYSICS, seed=SEED, device="cuda")
+    schedule = model.cfg.channel_schedule
+    requests = [[physics_graph(V, 600 + GRAPHS_PER_REQUEST * r + i)
+                 for i in range(GRAPHS_PER_REQUEST)]
+                for r in range(N_REQUESTS)]
+    small = physics_graph(6, 650)
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+
+    def counts():
+        return (risi18_level.launches, risi18_level_backward.launches,
+                risi18_level_backward.reduce_launches)
+
+    def reset():
+        risi18_level.launches = 0
+        risi18_level_backward.launches = 0
+        risi18_level_backward.reduce_launches = 0
+
+    def plain(graphs):
+        with torch.no_grad():
+            return model._forward(model.params, model._stack(graphs),
+                                  level_fn=risi18_level_reference)
+
+    # Serving, counted: each request twice (prep uncached, then cached).
+    reset()
+    preds, seconds = [], {"uncached": [], "cached": []}
+    for kind in seconds:
+        for graphs in requests:
+            t0 = time.perf_counter()
+            preds.append(model.Threaded_Predict(graphs))
+            seconds[kind].append(time.perf_counter() - t0)
+    pred_small = model.Predict(small)
+    feat_small = model.Feature(small)
+    served = counts()
+    forwards = 2 * N_REQUESTS + 2
+    if served != (nL * forwards, 0, 0):
+        raise AssertionError(f"physics serving launches {served}, expected "
+                             f"K1 {nL} levels x {forwards} forwards, no K2")
+    serve_err = 0.0
+    for r, graphs in enumerate(requests * 2):
+        if preds[r].shape != (GRAPHS_PER_REQUEST,):
+            raise AssertionError(f"physics request {r}: {preds[r].shape}")
+        serve_err = max(serve_err, check_close(f"physics request {r}",
+                                               preds[r], plain(graphs)[0]))
+    ref_pred, ref_feat = plain([small])
+    serve_err = max(serve_err,
+                    check_close("physics Predict", [pred_small], ref_pred),
+                    check_close("physics Feature", feat_small, ref_feat[0]))
+    if feat_small.shape != (sum(schedule),):
+        raise AssertionError(f"physics Feature shape {feat_small.shape}")
+    radj = model._stack(requests[0])["radj"]
+    if not bool((radj < 0).any()):
+        raise AssertionError("the Coulomb adjacency has no negative entry")
+
+    # The first step's loss and gradients, K1/K2 against the plain level.
+    def batch_of(seed0):
+        return [physics_graph(V, seed0 + i)
+                for i in range(GRAPHS_PER_REQUEST)]
+
+    batch = model._stack(batch_of(700), targets)
+    params = model.param_dict()
+
+    def loss_and_grads(level_fn):
+        loss = model._loss(model.params, batch, level_fn=level_fn)
+        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+    k_loss, k_grads = loss_and_grads(None)
+    p_loss, p_grads = loss_and_grads(risi18_level_reference)
+    grad_err = check_close("physics train loss", k_loss, p_loss)
+    for path, x, r in zip(params, k_grads, p_grads):
+        grad_err = max(grad_err, check_close(f"physics gradient {path}", x,
+                                             r))
+
+    # Training, counted.
+    graphs = batch_of(700)
+    reset()
+    steps, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        steps.append(model.BatchLearn(graphs, targets, TRAIN_LR))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    learn = model.Learn(small, 1.0, TRAIN_LR, nIterations=2)
+    trained = counts()
+    fwd, bwd = 2 * TRAIN_STEPS + 3, TRAIN_STEPS + 3
+    if trained != (nL * fwd, nL * bwd, nL * bwd):
+        raise AssertionError(f"physics training launches (K1, K2 kernel 1, "
+                             f"K2 kernel 2) = {trained}, expected {nL} levels"
+                             f" x {fwd} forwards and {bwd} backwards")
+    losses = [x for step in steps for x in step] + list(learn)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"physics: non-finite loss in {losses}")
+    grad_err = max(grad_err, check_close("physics first step loss",
+                                         steps[0][0], p_loss))
+    log(f"phase 12 physics: SMP_omega_physics V={V} P={model.cfg.P} channels "
+        f"{schedule} Coulomb ({int((radj < 0).sum())} negative entries in a "
+        f"request): seconds per request (host clock, prep uncached) "
+        + ", ".join(f"{x:.4f}" for x in seconds["uncached"]) + "; prep cached "
+        + ", ".join(f"{x:.4f}" for x in seconds["cached"])
+        + f"; predictions {np.concatenate(preds[:N_REQUESTS]).round(6).tolist()}"
+        f" Predict={pred_small:.6f}; K1 launches={served[0]} (= {nL} levels x"
+        f" {forwards} forwards); max abs err vs plain level {serve_err:.3e} "
+        f"(bound {RTOL:g}*max(1,max|plain|)) ok")
+    log(f"phase 12 physics: first-step loss {float(k_loss):.6f} vs plain "
+        f"level {float(p_loss):.6f}; {len(params)} gradients; max abs err "
+        f"{grad_err:.3e} ok; BatchLearn (loss_before, loss_after) "
+        + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+        + f"; Learn(nIterations=2) ({learn[0]:.6f}, {learn[1]:.6f}); all "
+        f"finite; launches K1={trained[0]} K2 kernel 1={trained[1]} kernel 2="
+        f"{trained[2]} (= {nL} levels x {fwd} forwards, {bwd} backwards); "
+        f"seconds per step (host clock, synced) prep uncached "
+        f"{step_s[0]:.4f}, prep cached "
+        + ", ".join(f"{x:.4f}" for x in step_s[1:]))
+    k1 = served[0] + trained[0]
+    k2 = [trained[1], trained[2]]
+    max_err = max(serve_err, grad_err)
+
+    # The masked tower: the kernels on the scaled K against the plain level
+    # that masks the bank's cases.
+    mask = dropout_case_mask(torch.Generator().manual_seed(SEED), 9, True,
+                             device="cuda")
+    stacked = model._stack(requests[0])
+    tower = model.params["tower"]
+    reset()
+    with torch.no_grad():
+        got = smp2d_level_features(tower, stacked, model.cfg, case_mask=mask)
+        ref = smp2d_level_features(
+            tower, stacked, model.cfg, level_fn=functools.partial(
+                case_mask_level_reference, 18, mask))
+    if counts() != (nL, 0, 0):
+        raise AssertionError(f"masked tower launches {counts()}, expected "
+                             f"K1 {nL}")
+    mask_err = max(check_close(f"masked level feature {l}", x, r)
+                   for l, (x, r) in enumerate(zip(got, ref)))
+    k1 += nL
+    log(f"phase 12 physics: smp2d_level_features with case_mask "
+        f"{mask.int().tolist()} (widths {[x.shape[1] for x in got]}): K1 "
+        f"launches={nL}; max abs err vs the masked plain level "
+        f"{mask_err:.3e} ok")
+    max_err = max(max_err, mask_err)
+
+    # SMP_gamma_physics (4 cases, no kernel on its path): one request and
+    # one step, against the same model on the CPU.
+    gamma = SMP_gamma_physics(**PHYSICS, seed=SEED, device="cuda")
+    gamma_cpu = SMP_gamma_physics(**PHYSICS, seed=SEED, device="cpu")
+    g_pred = gamma.Threaded_Predict(requests[0])
+    g_err = check_close("gamma physics request", g_pred,
+                        gamma_cpu.Threaded_Predict(requests[0]))
+    g_step = gamma.BatchLearn(graphs, targets, TRAIN_LR)
+    g_err = max(g_err, check_close("gamma physics first loss", g_step[0],
+                                   gamma_cpu.getLoss(graphs, targets)))
+    if not np.isfinite(g_step).all():
+        raise AssertionError(f"gamma physics: non-finite loss {g_step}")
+    log(f"phase 12 physics: SMP_gamma_physics predictions "
+        f"{g_pred.round(6).tolist()}, BatchLearn ({g_step[0]:.6f}, "
+        f"{g_step[1]:.6f}); max abs err vs the CPU {g_err:.3e} ok")
+
+    # SMP_beta: no cap, so P = V = 16; through K1 and K2.
+    beta = SMP_beta(**BETA, seed=SEED, device="cuda")
+    b_graphs = [random_graph(BETA["max_nVertices"], 0.25, seed=800 + i)
+                for i in range(GRAPHS_PER_REQUEST)]
+    reset()
+    b_pred = beta.Threaded_Predict(b_graphs)
+    b_step = beta.BatchLearn(b_graphs, targets, TRAIN_LR)
+    b_counts = counts()
+    if b_counts != (3 * nL, nL, nL):
+        raise AssertionError(f"SMP_beta launches {b_counts}, expected K1 "
+                             f"{3 * nL}, K2 {nL}")
+    beta2 = SMP_beta(**BETA, seed=SEED, device="cuda")
+    with torch.no_grad():
+        ref, _ = smp2d_forward(beta2.params, beta2._stack(b_graphs),
+                               beta2.cfg, level_fn=risi18_level_reference)
+        stacked = beta2._stack(b_graphs, targets)
+        ref_loss = squared_loss(smp2d_forward(
+            beta2.params, stacked, beta2.cfg,
+            level_fn=risi18_level_reference)[0], stacked["target"])
+    b_err = max(check_close("SMP_beta request", b_pred, ref),
+                check_close("SMP_beta first loss", b_step[0], ref_loss))
+    if not np.isfinite(b_step).all():
+        raise AssertionError(f"SMP_beta: non-finite loss {b_step}")
+    k1 += b_counts[0]
+    k2 = [k2[0] + b_counts[1], k2[1] + b_counts[2]]
+    log(f"phase 12 physics: SMP_beta V=P={beta.cfg.P} C=32 predictions "
+        f"{b_pred.round(6).tolist()}, BatchLearn ({b_step[0]:.6f}, "
+        f"{b_step[1]:.6f}); launches K1={b_counts[0]} K2={b_counts[1]}; max "
+        f"abs err vs plain level {b_err:.3e} ok")
+    return k1, k2, max(max_err, g_err, b_err)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     name = phase_device()
     import_port()
     import torch
 
     phase_build()
-    level_err, kernel_ms, plain_ms = phase_kernel()
+    level_err, kernel_ms, plain_ms, level_bound = phase_kernel()
     serve_launches, slice_err = phase_slice()
     bwd_errs, bwd_ms = phase_backward()
     train_launches, train_err = phase_train()
@@ -858,75 +1292,61 @@ def main() -> None:
     k4_launches, k5_launches, bf16_serve_err, bf16_grad_err = phase_bf16()
     aligned_err, aligned_ms = phase_aligned()
     k7_launches, variants_err = phase_variants()
+    ablate_errs, ablate_tables, ablate_launches, ablate_extra = phase_ablate()
+    physics_k1, physics_k2, physics_err = phase_physics()
     torch.cuda.synchronize()
-    bwd_source = "graphflow_tpu_torch/ops/csrc/risi18_level_bwd.cu"
-    bwd_replaces = "graphflow_tpu/ops/risi_fused_pallas.py:767"
-    bank_bwd_source = "graphflow_tpu_torch/ops/csrc/risi18_bank_bwd.cu"
-    bank_bwd_replaces = "graphflow_tpu/ops/risi_pallas.py:330"
-    print(json.dumps({"kernels": [{
-        "name": "risi18_level_kernel",
-        "route": "cuda",
-        "source": "graphflow_tpu_torch/ops/csrc/risi18_level.cu",
-        "replaces": "graphflow_tpu/ops/risi_fused_pallas.py:526",
-        "launches": serve_launches + train_launches[0],
-        "max_abs_err": max(level_err, slice_err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "risi18_level_bwd_kernel",
-        "route": "cuda",
-        "source": bwd_source,
-        "replaces": bwd_replaces,
-        "launches": train_launches[1],
-        "max_abs_err": max(bwd_errs["dstate"], train_err),
-        "ms": bwd_ms["main"],
-        "plain_ms": bwd_ms["plain"],
-    }, {
-        "name": "sum_partial_rows (risi18_level_bwd)",
-        "route": "cuda",
-        "source": bwd_source,
-        "replaces": bwd_replaces,
-        "launches": train_launches[2],
-        "max_abs_err": max(bwd_errs["dK"], bwd_errs["db"]),
-        "ms": bwd_ms["reduce"],
-        "plain_ms": bwd_ms["plain_reduce"],
-    }, {
-        "name": "risi18_bank_kernel",
-        "route": "cuda",
-        "source": "graphflow_tpu_torch/ops/csrc/risi18_bank.cu",
-        "replaces": "graphflow_tpu/ops/risi_pallas.py:142",
-        "launches": k4_launches,
-        "max_abs_err": max(bank_errs["Z"], bf16_serve_err),
-        "ms": bank_ms["k4"],
-        "plain_ms": bank_ms["plain"],
-    }, {
-        "name": "risi18_bank_bwd_kernel",
-        "route": "cuda",
-        "source": bank_bwd_source,
-        "replaces": bank_bwd_replaces,
-        "launches": k5_launches[0],
-        "max_abs_err": max(bank_errs["dT"], bf16_grad_err),
-        "ms": bank_ms["main"],
-        "plain_ms": bank_ms["plain_bwd"],
-    }, {
-        "name": "sum_partial_rows (risi18_bank_bwd)",
-        "route": "cuda",
-        "source": bank_bwd_source,
-        "replaces": bank_bwd_replaces,
-        "launches": k5_launches[1],
-        "max_abs_err": bank_errs["dK"],
-        "ms": bank_ms["reduce"],
-        "plain_ms": bank_ms["plain_reduce"],
-    }, {
-        "name": "risi18_aligned_t2_kernel",
-        "route": "cuda",
-        "source": "graphflow_tpu_torch/ops/csrc/risi_aligned_t2.cu",
-        "replaces": "graphflow_tpu/ops/risi_fused_pallas.py:1059",
-        "launches": k7_launches,
-        "max_abs_err": aligned_err,
-        "ms": aligned_ms["k7"],
-        "plain_ms": aligned_ms["plain"],
-    }]}))
+    log(f"total: {time.perf_counter() - t_start:.1f} s, the kernels' build "
+        f"included")
+
+    csrc = "graphflow_tpu_torch/ops/csrc/"
+    fused, bank = ("graphflow_tpu/ops/risi_fused_pallas.py:",
+                   "graphflow_tpu/ops/risi_pallas.py:")
+
+    def kernel(name, source, replaces, launches, err, ms, plain, bound,
+               library_ms=None, **more):
+        return {"name": name, "route": "cuda", "source": csrc + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms, **more}
+
+    kernels = [
+        kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
+               serve_launches + train_launches[0] + physics_k1,
+               max(level_err, slice_err, physics_err), kernel_ms, plain_ms,
+               level_bound),
+        kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
+               fused + "767", train_launches[1] + physics_k2[0],
+               max(bwd_errs["dstate"], train_err, physics_err),
+               bwd_ms["main"], bwd_ms["plain"], bwd_ms["bound"]),
+        kernel("sum_partial_rows (risi18_level_bwd)", "risi18_level_bwd.cu",
+               fused + "767", train_launches[2] + physics_k2[1],
+               max(bwd_errs["dK"], bwd_errs["db"]), bwd_ms["reduce"],
+               bwd_ms["plain_reduce"], bwd_ms["reduce_bound"],
+               library_ms=bwd_ms["plain_reduce"]),
+        kernel("risi18_bank_kernel", "risi18_bank.cu", bank + "142",
+               k4_launches, max(bank_errs["Z"], bf16_serve_err),
+               bank_ms["k4"], bank_ms["plain"], bank_ms["bound"]),
+        kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
+               k5_launches[0], max(bank_errs["dT"], bf16_grad_err),
+               bank_ms["main"], bank_ms["plain_bwd"], bank_ms["bwd_bound"]),
+        kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
+               bank + "330", k5_launches[1], bank_errs["dK"],
+               bank_ms["reduce"], bank_ms["plain_reduce"],
+               bank_ms["reduce_bound"], library_ms=bank_ms["plain_reduce"]),
+        kernel("risi18_aligned_t2_kernel", "risi_aligned_t2.cu",
+               fused + "1059", k7_launches, aligned_err, aligned_ms["k7"],
+               aligned_ms["plain"], aligned_ms["bound"]),
+    ]
+    # K6: one kernel per variant; times in bfloat16 as K4's, float32 beside.
+    for mode, extra in ablate_extra.items():
+        kernels.append(kernel(
+            f"risi18_bank_ablate_kernel[{mode}]", "risi18_bank_ablate.cu",
+            "tools/ablate_bank.py:28", ablate_launches[mode],
+            ablate_errs[mode], ablate_tables["bfloat16"][0][mode],
+            extra["plain_ms"], extra["bound"], extra["library_ms"],
+            ms_float32=ablate_tables["float32"][0][mode]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -31,6 +31,20 @@ from graphflow_tpu_torch.utils import checkpoint as ckpt
 from graphflow_tpu_torch.utils.convert import to_numpy
 
 
+def resolve_device(device=None) -> torch.device:
+    """Where a model's parameters live: the device the caller names, else
+    the CUDA device.  A model runs on the CPU only when asked to
+    (``device="cpu"``); with no CUDA device and none named this raises
+    rather than land there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: models run on the GPU unless the caller "
+            "passes device=\"cpu\"")
+    return torch.device("cuda")
+
+
 class GraphModel(nn.Module):
     """Base class for graph-level models.
 

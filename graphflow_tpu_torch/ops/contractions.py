@@ -15,8 +15,7 @@ materialising the bank: K acts on the channel axis only, so each case's
 block of K is applied to that case's shared reduction.
 
 Every function takes leading batch dimensions.  They compute in T's dtype
-(float32 on the card, float64 for the parity tests).  The per-case dropout
-mask is ROADMAP queue 1, item 3c.
+(float32 on the card, float64 for the parity tests).
 """
 
 from __future__ import annotations
@@ -24,6 +23,8 @@ from __future__ import annotations
 import torch
 
 ein = torch.einsum
+
+nContractions_18 = 18
 
 
 def risi_contraction_4(T: torch.Tensor) -> torch.Tensor:
@@ -292,3 +293,28 @@ def risi_contraction_18(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         AoT * t18[..., None, None, :],                   # 18 (d,e) a==b==c
     ]
     return torch.cat(ys, dim=-1)
+
+
+def risi_contraction_18_dropout(T: torch.Tensor, A: torch.Tensor,
+                                case_mask: torch.Tensor) -> torch.Tensor:
+    """``RisiContraction_18_dropout.h``: case-level dropout.  ``case_mask``
+    is an [18] multiplier, one per case: at train time a 0/1 mask keeping
+    ``nKept`` cases (:func:`dropout_case_mask`), at eval the constant
+    nKept/18."""
+    y = risi_contraction_18(T, A)
+    return y * torch.repeat_interleave(case_mask.to(y.dtype), T.shape[-1])
+
+
+def dropout_case_mask(generator: torch.Generator, nKept: int, train: bool,
+                      n_cases: int = nContractions_18,
+                      device=None) -> torch.Tensor:
+    """The per-case mask of :func:`risi_contraction_18_dropout`, float32:
+    ``nKept`` ones at places drawn from ``generator`` when ``train``, else
+    nKept / n_cases everywhere.  (torch's draw is not JAX's: both keep
+    ``nKept`` cases, at other places for the same seed.)"""
+    if not train:
+        return torch.full((n_cases,), nKept / n_cases, device=device)
+    idx = torch.randperm(n_cases, generator=generator)[:nKept]
+    mask = torch.zeros(n_cases)
+    mask[idx] = 1.0
+    return mask.to(device)

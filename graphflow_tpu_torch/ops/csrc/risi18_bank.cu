@@ -14,8 +14,9 @@
 // vertex's slots straight from T in global memory (BankSlots), accumulates
 // the shared reductions in shared memory, and multiplies the 18 cases into
 // the chunk's rows of K (staged in shared memory as float32), keeping Z in
-// shared memory across chunks.  All of that device code is K1's
-// (risi18_common.cuh).  Every sum is in float32; a bfloat16 value is
+// shared memory across chunks.  All of that device code is K1's, and the
+// block's body is risi18::bank_block (risi18_common.cuh), which the ablation
+// variants (risi18_bank_ablate.cu) instantiate with a stage left out.  Every sum is in float32; a bfloat16 value is
 // converted once, on load, and Z is rounded to T's type once, when written.
 // (Loading bfloat16 channel pairs as __nv_bfloat162 halves the threads that
 // stream the slots, and measured slower on an H100.)  The TPU kernel's
@@ -48,34 +49,7 @@ __global__ void __launch_bounds__(kThreads)
 risi18_bank_kernel(const E* __restrict__ T, const float* __restrict__ A,
                    const E* __restrict__ K, E* __restrict__ Z,
                    ForwardLayout L) {
-  extern __shared__ float smem[];
-  const int P = L.P, C = L.C, Cout = L.Cout, Cc = L.Cc;
-  const int LD = L.LD, ALD = L.ALD, ZLD = L.ZLD, PP = P * P;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const size_t v = blockIdx.x;
-
-  float* Ap = smem + L.ap;
-  float* R = smem + L.r;
-  const risi18::ChunkMaps m = risi18::chunk_maps(smem, L.maps, P, Cc, LD);
-  float* Ks = smem + L.ks;
-  float* Zs = smem + L.zs;
-
-  for (int i = tid; i < Cout * ZLD; i += nth) Zs[i] = 0.f;
-  risi18::load_adjacency(A, v, P, ALD, Ap, R, smem + L.scal);
-  const float S = smem[L.scal], trA = smem[L.scal + 1];
-  const risi18::BankSlots<E> slots{T + v * PP * P * C, P, C};
-
-  for (int c0 = 0; c0 < C; c0 += Cc) {
-    const int nc = min(Cc, C - c0);
-    risi18::stage_K(K, Ks, C, c0, nc, Cc, Cout, Cout);
-    risi18::chunk_reductions(slots, R, P, c0, nc, LD, m);
-    risi18::accumulate_products(m, Ap, ALD, R, S, trA, Ks, Zs, ZLD, P, Cc,
-                                nc, Cout, LD);
-  }
-
-  E* zv = Z + v * PP * Cout;
-  for (int i = tid; i < PP * Cout; i += nth)
-    risi18::store_value(zv + i, Zs[(i % Cout) * ZLD + i / Cout]);
+  risi18::bank_block<E>(T, A, K, Z, L);
 }
 
 template <typename E>
@@ -116,6 +90,11 @@ int risi18_bank_forward_bf16(const void* T, const void* A, const void* K,
                              void* Z, int N, int P, int C, int Cout,
                              void* stream) {
   return launch<__nv_bfloat16>(T, A, K, Z, N, P, C, Cout, stream);
+}
+
+// The least shared memory one block needs at a channel chunk of one.
+long long risi18_bank_min_smem_bytes(int P, int Cout) {
+  return risi18::min_forward_smem_bytes(P, Cout, false);
 }
 
 const char* risi18_bank_error_string(int err) {

@@ -181,6 +181,11 @@ int risi18_bank_backward_reduce(const void* partial, void* dK, int nblocks,
                                          (cudaStream_t)stream);
 }
 
+// The least shared memory one block needs at a channel chunk of one.
+long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
+  return risi18::min_backward_smem_bytes(P, Cout, false);
+}
+
 const char* risi18_bank_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

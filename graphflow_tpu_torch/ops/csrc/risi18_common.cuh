@@ -1,7 +1,9 @@
 // Device code shared by the level kernels (risi18_level.cu, K1, and
 // risi18_level_bwd.cu, K2) and the bank kernels (risi18_bank.cu, K4, and
-// risi18_bank_bwd.cu, K5): the per-vertex structure, the shared reductions
-// of one vertex's slots, the 18-case products with K, and their adjoints.
+// risi18_bank_bwd.cu, K5), and by the bank's ablation variants
+// (risi18_bank_ablate.cu, K6): the per-vertex structure, the shared
+// reductions of one vertex's slots, the 18-case products with K, and their
+// adjoints.
 //
 // Per vertex v, with Ap = max(A[v], 0) (the adj>0 guard), R[d] =
 // sum_e Ap[d,e], S = sum Ap and trA = tr Ap, the slots T[a,b,c,f] are
@@ -37,6 +39,37 @@ constexpr int kThreads = 256;
 constexpr size_t kMaxSmemBytes = 232448;         // per block on sm_90
 constexpr size_t kTargetSmemBytes = 113 * 1024;  // two blocks per SM
 constexpr int kMaxPartials = 264;                // two blocks per SM, 132 SMs
+
+// How much of the bank chunk_reductions, accumulate_products and bank_block
+// compute.  Every kernel of the package computes kFull; the other parts exist
+// for the ablation variants (risi18_bank_ablate.cu), which time this same
+// device code with one stage left out:
+//   kNoGroupD     without the adjacency-weighted cases 6, 9, 10, 12, 13, 16,
+//                 17 (K's blocks 5, 8, 9, 11, 12, 15, 16): no M6 and M10 in
+//                 the slot stream, no M9/M12/M13/M16/M17, 11 products instead
+//                 of 18;
+//   kNoSelect     every diagonal extraction replaced by the full sum, which
+//                 is wrong as a contraction by design: D_bc = D_ac = T_ab,
+//                 T_bc[b,c] = T_b[b], M10[b,c] = sum_{a,c'} R[a] T[a,b,c'],
+//                 s14 = t18 = tfull (so tdbc = ta, tdac = tb, s15 = tfull).
+//                 The stream does the same loads and shared-memory updates
+//                 as kFull, without the (c == b), (c == a) picks;
+//   kTwoProducts  the stream and the reductions (without M6 and M10), then
+//                 two products instead of eighteen:
+//                 Z = (T_ab + T_bc + W17) K[0:C] + (D_bc + D_ac) K[C:2C],
+//                 W17[x,y] = T[y,x,y] = D_ac[y,x].
+enum BankPart { kFull = 0, kNoGroupD = 1, kNoSelect = 2, kTwoProducts = 3 };
+
+// Whether `part` computes the adjacency-weighted full-map cases (group D).
+__host__ __device__ constexpr bool has_group_d(BankPart part) {
+  return part == kFull || part == kNoSelect;
+}
+
+// Whether 0-based case k is one of those cases.
+__host__ __device__ constexpr bool is_group_d(int k) {
+  return k == 5 || k == 8 || k == 9 || k == 11 || k == 12 || k == 15 ||
+         k == 16;
+}
 
 struct ChunkMaps {
   float *tab, *tbc, *dbc, *dac, *m6, *m10;    // [Cc][LD]
@@ -117,6 +150,16 @@ inline BackwardLayout make_backward_layout(int P, int C, int Cout, int Cc,
 
 template <typename Layout>
 size_t smem_bytes(const Layout& L) { return sizeof(float) * (size_t)L.words; }
+
+// The least shared memory a forward or a backward block needs: its layout at
+// a channel chunk of one.  The wrappers ask this before a launch, to refuse a
+// receptive field that cannot fit with its sizes named.
+inline long long min_forward_smem_bytes(int P, int Cout, bool gather) {
+  return (long long)smem_bytes(make_forward_layout(P, 1, Cout, 1, gather));
+}
+inline long long min_backward_smem_bytes(int P, int Cout, bool gather) {
+  return (long long)smem_bytes(make_backward_layout(P, 1, Cout, 1, gather));
+}
 
 // Largest channel chunk (at most 32) whose block fits the two-blocks-per-SM
 // target; 0 if not even one channel fits the hardware limit.  `make(Cc)`
@@ -241,7 +284,7 @@ struct BankSlots {
 // The reductions of one channel chunk into m.  Starts by zeroing the two
 // slot-accumulated maps and ends with a barrier; the caller must not touch
 // m's buffers while it runs.
-template <typename Slots>
+template <typename Slots, BankPart kPart = kFull>
 __device__ inline void chunk_reductions(const Slots& slots, const float* R,
                                         int P, int c0, int nc, int LD,
                                         const ChunkMaps& m) {
@@ -264,17 +307,30 @@ __device__ inline void chunk_reductions(const Slots& slots, const float* R,
       if (slots.row(a, b, c0 + f, row)) {
         for (int c = 0; c < P; ++c) {
           const float x = slots.load(row, a, c);
-          tbc_row[c] += x;            // T_bc[b,c]  = sum_a T[a,b,c]
-          m10_row[c] += ra * x;       // M10[b,c]   = sum_a R[a] T[a,b,c]
+          if constexpr (kPart != kNoSelect)
+            tbc_row[c] += x;          // T_bc[b,c]  = sum_a T[a,b,c]
+          if constexpr (kPart == kFull)
+            m10_row[c] += ra * x;     // M10[b,c]   = sum_a R[a] T[a,b,c]
           tab += x;                   // T_ab[a,b]  = sum_c T[a,b,c]
-          m6 += x * R[c];             // M6[a,b]    = sum_c T[a,b,c] R[c]
-          if (c == b) dbc = x;        // D_bc[a,b]  = T[a,b,b]
-          if (c == a) dac = x;        // D_ac[a,b]  = T[a,b,a]
+          if constexpr (has_group_d(kPart))
+            m6 += x * R[c];           // M6[a,b]    = sum_c T[a,b,c] R[c]
+          if constexpr (kPart != kNoSelect) {
+            if (c == b) dbc = x;      // D_bc[a,b]  = T[a,b,b]
+            if (c == a) dac = x;      // D_ac[a,b]  = T[a,b,a]
+          }
+        }
+        if constexpr (kPart == kNoSelect) {
+          for (int c = 0; c < P; ++c) {
+            tbc_row[c] += tab;
+            m10_row[c] += ra * tab;
+          }
+          dbc = tab;
+          dac = tab;
         }
       }
       const int ab = f * LD + a * P + b;
       m.tab[ab] = tab;
-      m.m6[ab] = m6;
+      if constexpr (has_group_d(kPart)) m.m6[ab] = m6;
       m.dbc[ab] = dbc;
       m.dac[ab] = dac;
       tb += tab;                      // T_b[b]  = sum_{a,c} T[a,b,c]
@@ -307,6 +363,7 @@ __device__ inline void chunk_reductions(const Slots& slots, const float* R,
       s15 += m.tdbc[f * P + x];          // sum_{a,b} T[a,b,b]
       t18 += m.dbc[f * LD + x * P + x];  // sum_a T[a,a,a]
     }
+    if constexpr (kPart == kNoSelect) { s14 = tf; t18 = tf; }
     m.tfull[f] = tf; m.s14[f] = s14; m.s15[f] = s15; m.t18[f] = t18;
   }
   __syncthreads();
@@ -330,6 +387,7 @@ __device__ inline void stage_K(const E* __restrict__ K, float* Ks, int C,
 // forming the adjacency-weighted cases M9/M12/M13/M16/M17 on the fly, and
 // adds their product with the chunk's rows of K (Ks, ldk = Cout) into
 // Zs [Cout][ZLD].  Ends with a barrier.
+template <BankPart kPart = kFull>
 __device__ inline void accumulate_products(const ChunkMaps& m,
                                            const float* Ap, int ALD,
                                            const float* R, float S, float trA,
@@ -337,6 +395,22 @@ __device__ inline void accumulate_products(const ChunkMaps& m,
                                            int ZLD, int P, int Cc, int nc,
                                            int Cout, int LD) {
   const int PP = P * P;
+  if constexpr (kPart == kTwoProducts) {
+    for (int r = threadIdx.x; r < PP; r += blockDim.x) {
+      const int rt = (r % P) * P + r / P;        // (x, y) -> (y, x)
+      for (int f = 0; f < nc; ++f) {
+        const int at = f * LD;
+        const float y0 = m.tab[at + r] + m.tbc[at + r] + m.dac[at + rt];
+        const float y1 = m.dbc[at + r] + m.dac[at + r];
+        const float* k0 = Ks + f * Cout;
+        const float* k1 = Ks + (Cc + f) * Cout;
+        for (int o = 0; o < Cout; ++o)
+          Zs[o * ZLD + r] += y0 * k0[o] + y1 * k1[o];
+      }
+    }
+    __syncthreads();
+    return;
+  }
   for (int r = threadIdx.x; r < PP; r += blockDim.x) {
     const int x = r / P, y = r % P;
     const float Ry = R[y], Axy = Ap[x * ALD + y];
@@ -347,13 +421,15 @@ __device__ inline void accumulate_products(const ChunkMaps& m,
       const float* dbc = m.dbc + f * LD;
       const float* dac = m.dac + f * LD;
       float m9 = 0.f, m12 = 0.f, m13 = 0.f, m16 = 0.f, m17 = 0.f;
-      for (int e = 0; e < P; ++e) {
-        const float a = Ay[e];          // Ap[y, e]
-        m9 += tab[x * P + e] * a;       // sum_e T_ab[x,e] Ap[y,e]
-        m12 += tab[e * P + x] * a;      // sum_e T_ab[e,x] Ap[y,e]
-        m13 += tbc[x * P + e] * a;      // sum_e T_bc[x,e] Ap[y,e]
-        m16 += dbc[x * P + e] * a;      // sum_e T[x,e,e] Ap[y,e]
-        m17 += dac[e * P + x] * a;      // sum_e T[e,x,e] Ap[y,e]
+      if constexpr (has_group_d(kPart)) {
+        for (int e = 0; e < P; ++e) {
+          const float a = Ay[e];        // Ap[y, e]
+          m9 += tab[x * P + e] * a;     // sum_e T_ab[x,e] Ap[y,e]
+          m12 += tab[e * P + x] * a;    // sum_e T_ab[e,x] Ap[y,e]
+          m13 += tbc[x * P + e] * a;    // sum_e T_bc[x,e] Ap[y,e]
+          m16 += dbc[x * P + e] * a;    // sum_e T[x,e,e] Ap[y,e]
+          m17 += dac[e * P + x] * a;    // sum_e T[e,x,e] Ap[y,e]
+        }
       }
       float yk[kCases];
       yk[0] = tab[r] * S;                   // 1  (a,b)
@@ -361,11 +437,11 @@ __device__ inline void accumulate_products(const ChunkMaps& m,
       yk[2] = tbc[r] * S;                   // 3  (b,c)
       yk[3] = m.tb[f * P + x] * Ry;         // 4  (b,d)
       yk[4] = Axy * m.tfull[f];             // 5  (d,e)
-      yk[5] = m.m6[f * LD + r];             // 6  (a,b) c==d
+      yk[5] = has_group_d(kPart) ? m.m6[f * LD + r] : 0.f;  // 6 (a,b) c==d
       yk[6] = tab[r] * trA;                 // 7  (a,b) d==e
       yk[7] = m.tdbc[f * P + x] * Ry;       // 8  (a,d) b==c
       yk[8] = m9;                           // 9  (a,d) b==e
-      yk[9] = m.m10[f * LD + r];            // 10 (b,c) a==d
+      yk[9] = has_group_d(kPart) ? m.m10[f * LD + r] : 0.f;  // 10 (b,c) a==d
       yk[10] = m.tdac[f * P + x] * Ry;      // 11 (b,d) a==c
       yk[11] = m12;                         // 12 (b,d) a==e
       yk[12] = m13;                         // 13 (b,d) c==e
@@ -378,12 +454,55 @@ __device__ inline void accumulate_products(const ChunkMaps& m,
       for (int o = 0; o < Cout; ++o) {
         float acc = 0.f;
 #pragma unroll
-        for (int k = 0; k < kCases; ++k) acc += yk[k] * kf[k * Cc * Cout + o];
+        for (int k = 0; k < kCases; ++k) {
+          if (!has_group_d(kPart) && is_group_d(k)) continue;
+          acc += yk[k] * kf[k * Cc * Cout + o];
+        }
         Zs[o * ZLD + r] += acc;
       }
     }
   }
   __syncthreads();
+}
+
+// One vertex's bank over materialised slots, the whole block of the bank
+// kernel (risi18_bank.cu): Z[v] = the 18 cases of T[v] against max(A[v], 0),
+// times K, walked in channel chunks of L.Cc with Z kept in shared memory and
+// rounded to E once, when written.
+template <typename E, BankPart kPart = kFull>
+__device__ __forceinline__ void bank_block(const E* __restrict__ T,
+                                           const float* __restrict__ A,
+                                           const E* __restrict__ K,
+                                           E* __restrict__ Z,
+                                           const ForwardLayout& L) {
+  extern __shared__ float smem[];
+  const int P = L.P, C = L.C, Cout = L.Cout, Cc = L.Cc;
+  const int LD = L.LD, ALD = L.ALD, ZLD = L.ZLD, PP = P * P;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t v = blockIdx.x;
+
+  float* Ap = smem + L.ap;
+  float* R = smem + L.r;
+  const ChunkMaps m = chunk_maps(smem, L.maps, P, Cc, LD);
+  float* Ks = smem + L.ks;
+  float* Zs = smem + L.zs;
+
+  for (int i = tid; i < Cout * ZLD; i += nth) Zs[i] = 0.f;
+  load_adjacency(A, v, P, ALD, Ap, R, smem + L.scal);
+  const float S = smem[L.scal], trA = smem[L.scal + 1];
+  const BankSlots<E> slots{T + v * PP * P * C, P, C};
+
+  for (int c0 = 0; c0 < C; c0 += Cc) {
+    const int nc = min(Cc, C - c0);
+    stage_K(K, Ks, C, c0, nc, Cc, Cout, Cout);
+    chunk_reductions<BankSlots<E>, kPart>(slots, R, P, c0, nc, LD, m);
+    accumulate_products<kPart>(m, Ap, ALD, R, S, trA, Ks, Zs, ZLD, P, Cc, nc,
+                               Cout, LD);
+  }
+
+  E* zv = Z + v * PP * Cout;
+  for (int i = tid; i < PP * Cout; i += nth)
+    store_value(zv + i, Zs[(i % Cout) * ZLD + i / Cout]);
 }
 
 // -- backward: the adjoint of accumulate_products ---------------------------

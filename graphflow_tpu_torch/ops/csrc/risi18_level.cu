@@ -129,6 +129,11 @@ int risi18_level_forward_f32(const void* state, const void* nbr,
   return cudaGetLastError();
 }
 
+// The least shared memory one block needs at a channel chunk of one.
+long long risi18_level_min_smem_bytes(int P, int Cout) {
+  return risi18::min_forward_smem_bytes(P, Cout, true);
+}
+
 const char* risi18_level_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

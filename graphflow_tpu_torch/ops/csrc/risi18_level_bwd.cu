@@ -201,6 +201,11 @@ int risi18_level_backward_reduce_f32(const void* partial, void* dK, void* db,
       (cudaStream_t)stream);
 }
 
+// The least shared memory one block needs at a channel chunk of one.
+long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
+  return risi18::min_backward_smem_bytes(P, Cout, true);
+}
+
 const char* risi18_level_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

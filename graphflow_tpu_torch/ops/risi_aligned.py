@@ -99,7 +99,7 @@ def _kernel(state, nbr, pos):
                                       pos.data_ptr(), T.data_ptr(), N, P, C,
                                       _stream(dev))
     _raise_on(err, "risi_aligned_t2", lib.risi_aligned_t2_error_string,
-              f"N={N} P={P} C={C}", hint="")
+              f"N={N} P={P} C={C}")
     risi18_aligned_t2.launches += 1
     return T
 

@@ -31,7 +31,9 @@ import functools
 import torch
 
 from graphflow_tpu_torch.ops.fused import risi18_matmul_fused
-from graphflow_tpu_torch.ops.risi_level import _check, _raise_on, _stream
+from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _check,
+                                                _raise_on, _stream,
+                                                check_smem)
 
 # Storage dtype -> the dtype the bank computes in.
 _COMPUTE = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
@@ -79,6 +81,7 @@ def _forward_lib() -> ctypes.CDLL:
     for fn in (lib.risi18_bank_forward_f32, lib.risi18_bank_forward_bf16):
         fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         fn.restype = i32
+    _bind_min_smem(lib.risi18_bank_min_smem_bytes)
     lib.risi18_bank_error_string.argtypes = [i32]
     lib.risi18_bank_error_string.restype = ctypes.c_char_p
     return lib
@@ -97,6 +100,7 @@ def _backward_lib() -> ctypes.CDLL:
         fn.restype = i32
     lib.risi18_bank_backward_reduce.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
     lib.risi18_bank_backward_reduce.restype = i32
+    _bind_min_smem(lib.risi18_bank_backward_min_smem_bytes)
     lib.risi18_bank_bwd_error_string.argtypes = [i32]
     lib.risi18_bank_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -127,6 +131,7 @@ def _forward_kernel(T, A, K):
     """K4: one launch of ``risi18_bank_forward_{f32,bf16}``."""
     N, P, C, Cout = _check_bank(T, A, K)
     lib = _forward_lib()
+    check_smem("risi18_bank", lib.risi18_bank_min_smem_bytes, P, Cout)
     Z = torch.empty((N, P, P, Cout), dtype=T.dtype, device=T.device)
     with torch.cuda.device(T.device):
         err = getattr(lib, f"risi18_bank_forward_{_SUFFIX[T.dtype]}")(
@@ -144,6 +149,8 @@ def _backward_main_kernel(T, A, K, g):
     N, P, C, Cout = _check_bank(T, A, K)
     _check("g", g, T.dtype, (N, P, P, Cout), T.device)
     lib = _backward_lib()
+    check_smem("risi18_bank_backward",
+               lib.risi18_bank_backward_min_smem_bytes, P, Cout)
     nblocks = lib.risi18_bank_backward_blocks(N)
     dT = torch.empty_like(T)
     partial = torch.empty((nblocks, 18 * C * Cout), dtype=torch.float32,
@@ -174,7 +181,7 @@ def _backward_reduce_kernel(partial, C, Cout):
             _stream(dev))
     _raise_on(err, "risi18_bank_backward reduce",
               lib.risi18_bank_bwd_error_string,
-              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}", hint="")
+              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}")
     risi18_bank_backward.reduce_launches += 1
     return dK
 

@@ -57,6 +57,13 @@ def risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
         return torch.autograd.grad(out, leaves, g)
 
 
+def _bind_min_smem(fn):
+    """A library's ``*_min_smem_bytes(P, Cout)``: the least shared memory
+    one block of its kernel needs, by the kernel's own layout."""
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     from graphflow_tpu_torch.runtime.cuda_build import load_library
@@ -66,6 +73,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib.risi18_level_forward_f32.argtypes = (
         [ptr] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr])
     lib.risi18_level_forward_f32.restype = ctypes.c_int
+    _bind_min_smem(lib.risi18_level_min_smem_bytes)
     lib.risi18_level_error_string.argtypes = [ctypes.c_int]
     lib.risi18_level_error_string.restype = ctypes.c_char_p
     return lib
@@ -85,6 +93,7 @@ def _backward_lib() -> ctypes.CDLL:
     lib.risi18_level_backward_reduce_f32.argtypes = (
         [ptr] * 3 + [i32] * 3 + [ptr])
     lib.risi18_level_backward_reduce_f32.restype = i32
+    _bind_min_smem(lib.risi18_level_backward_min_smem_bytes)
     lib.risi18_level_bwd_error_string.argtypes = [i32]
     lib.risi18_level_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,14 +128,32 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-_SMEM_HINT = (" (a block keeps [P*P, Cout] maps in shared memory, at most "
-              "227 KB)")
+# Shared memory one block may take on sm_90 (227 KB), as kMaxSmemBytes of
+# ``csrc/risi18_common.cuh``.
+SMEM_LIMIT_BYTES = 232448
 
 
-def _raise_on(err, what, lib_error_string, where, hint=_SMEM_HINT):
+def check_smem(what, min_smem_bytes, P, Cout):
+    """Raises when a block of kernel ``what`` cannot fit its shared memory:
+    the kernels keep a vertex's whole [P*P, Cout] output (or cotangent) in
+    one block, so a large receptive field is refused, never rerouted.
+    ``min_smem_bytes(P, Cout)`` is the library's own count of the bytes a
+    block needs at a channel chunk of one (``make_forward_layout`` and
+    ``make_backward_layout`` of ``csrc/risi18_common.cuh``)."""
+    need = min_smem_bytes(P, Cout)
+    if need > SMEM_LIMIT_BYTES:
+        raise RuntimeError(
+            f"{what}: a receptive field of P={P} at Cout={Cout} needs "
+            f"{need} bytes ({need / 1024:.0f} KB) of shared memory in one "
+            f"block, and an H100 block has {SMEM_LIMIT_BYTES} bytes "
+            f"(227 KB); the kernels do not tile a vertex's [P*P, Cout] "
+            f"maps yet")
+
+
+def _raise_on(err, what, lib_error_string, where):
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed at {where}: "
-                           f"{lib_error_string(err).decode()}{hint}")
+                           f"{lib_error_string(err).decode()}")
 
 
 def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
@@ -135,6 +162,7 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     dev = state.device
     _check("b", b, torch.float32, (Cout,), dev)
     lib = _kernel_lib()
+    check_smem("risi18_level", lib.risi18_level_min_smem_bytes, P, Cout)
     out = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.risi18_level_forward_f32(
@@ -155,6 +183,8 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
     _check("g", g, torch.float32, (N, P * P, Cout), dev)
     _check("out", out, torch.float32, (N, P * P, Cout), dev)
     lib = _backward_lib()
+    check_smem("risi18_level_backward",
+               lib.risi18_level_backward_min_smem_bytes, P, Cout)
     nblocks = lib.risi18_level_backward_blocks(N)
     dstate = torch.zeros_like(state)
     partial = torch.empty((nblocks, 18 * C * Cout + Cout),
@@ -187,7 +217,7 @@ def _backward_reduce_kernel(partial, C, Cout):
             partial.shape[0], C, Cout, _stream(dev))
     _raise_on(err, "risi18_level_backward reduce",
               lib.risi18_level_bwd_error_string,
-              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}", hint="")
+              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}")
     risi18_level_backward.reduce_launches += 1
     return dK, db
 

@@ -28,8 +28,10 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 # (N, P, C): chip_smoke.py's four shapes, then C % 4 != 0 (one float per
-# access in place of 16 bytes).
-SHAPES = [(256, 16, 32), (64, 10, 20), (32, 4, 8), (12, 12, 40), (6, 5, 3)]
+# access in place of 16 bytes), then the levels of a halving channel
+# schedule, down to one channel.
+SHAPES = [(256, 16, 32), (64, 10, 20), (32, 4, 8), (12, 12, 40), (6, 5, 3),
+          (256, 16, 16), (64, 10, 2), (32, 4, 1)]
 
 
 @pytest.fixture

@@ -32,8 +32,10 @@ torch.set_num_threads(1)
 # order differs.  float32: the bound of tests/test_fused.py:79; bfloat16:
 # one rounding of the output to bfloat16 (2^-8 relative) on either side.
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The last four are the levels of a halving channel schedule.
 SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8),
-          (12, 12, 40, 16), (6, 5, 5, 3)]
+          (12, 12, 40, 16), (6, 5, 5, 3), (256, 16, 32, 16),
+          (256, 16, 16, 8), (64, 10, 2, 1), (32, 4, 1, 1)]
 
 
 @pytest.fixture
@@ -143,8 +145,13 @@ def test_bank_kernel_rejects_shapes_beyond_shared_memory(cuda):
     fit, and the launch is refused with an error, not run."""
     T, A, K, _ = _inputs(2, 64, 2, 32, seed=8, device=cuda,
                          dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="shared memory"):
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 642992 "
+                                           "bytes .* shared memory"):
         risi18_bank(T, A, K)
+    g = torch.ones((2, 64, 64, 32), device=cuda)
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs .* "
+                                           "shared memory"):
+        risi18_bank_backward(T, A, K, g)
 
 
 def test_level_kernel_refuses_bfloat16(cuda):

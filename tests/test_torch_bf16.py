@@ -71,7 +71,8 @@ def _pair(P):
     weights."""
     jm = JaxSMP2D(JaxSMP2DConfig(**CFG, max_receptive_field=P,
                                  dtype="bfloat16"), seed=3)
-    tm = SMP2D(SMP2DConfig(**CFG, max_receptive_field=P, dtype="bfloat16"))
+    tm = SMP2D(SMP2DConfig(**CFG, max_receptive_field=P, dtype="bfloat16"),
+               device="cpu")
     tm.load_params(params_from_jax(_tree(jm.params)))
     return jm, tm
 
@@ -167,7 +168,7 @@ def test_bfloat16_training_converges():
     graphs, targets = datasets.toy_molecules()
     m = SMP2D(SMP2DConfig(max_nVertices=10, max_receptive_field=4,
                           nLevels=2, nChanels=8, nFeatures=4, nDepth=3,
-                          dtype="bfloat16"), seed=7)
+                          dtype="bfloat16"), seed=7, device="cpu")
     l0 = m.getLoss(graphs, targets)
     for _ in range(80):
         _, l1 = m.BatchLearn(graphs, targets, 0.005)
@@ -190,11 +191,12 @@ def test_levels_route_by_dtype(monkeypatch):
     monkeypatch.setattr(smp2d_module, "risi18_level",
                         counting("level", smp2d_module.risi18_level))
     graphs, targets = datasets.toy_molecules()
-    m16 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4, dtype="bfloat16"))
+    m16 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4, dtype="bfloat16"),
+                device="cpu")
     m16.Threaded_Predict(graphs)
     m16.BatchLearn(graphs, targets, LR)       # forward, backward, forward
     assert calls == {"bank": 3 * CFG["nLevels"], "level": 0}
-    m32 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4))
+    m32 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4), device="cpu")
     m32.Threaded_Predict(graphs)
     assert calls == {"bank": 3 * CFG["nLevels"], "level": CFG["nLevels"]}
 
@@ -237,7 +239,7 @@ def test_text_checkpoint_round_trip(tmp_path):
     fn, fn2 = str(tmp_path / "bf16.dat"), str(tmp_path / "bf16_again.dat")
     tm.save_model(fn)
     fresh = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4,
-                              dtype="bfloat16"), seed=99)
+                              dtype="bfloat16"), seed=99, device="cpu")
     fresh.load_model(fn)
     for a, b in zip(fresh.parameters(), tm.parameters()):
         assert a.dtype == BF16 and torch.equal(a, b)
@@ -250,7 +252,7 @@ def test_jax_bfloat16_checkpoint_loads_bit_for_bit(tmp_path, pair):
     fn, fn2 = str(tmp_path / "jax.dat"), str(tmp_path / "port.dat")
     jm.save_model(fn)
     tm = SMP2D(SMP2DConfig(**CFG, max_receptive_field=jm.cfg.P,
-                           dtype="bfloat16"), seed=99)
+                           dtype="bfloat16"), seed=99, device="cpu")
     tm.load_model(fn)
     ref = params_from_jax(_tree(jm.params))
     for path, p in tm.param_dict().items():

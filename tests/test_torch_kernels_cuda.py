@@ -55,10 +55,14 @@ def _assert_close(got, ref):
     assert float((got - ref).abs().max()) <= RTOL * scale
 
 
-# (12, 12, 40, 16) walks the channels in chunks of 16, 16 and 8.
-@pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (64, 10, 20, 20),
-                                        (32, 4, 8, 8), (5, 8, 8, 16),
-                                        (12, 12, 40, 16)])
+# (12, 12, 40, 16) walks the channels in chunks of 16, 16 and 8; the last
+# four are the levels of a halving channel schedule, down to one channel.
+SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8), (5, 8, 8, 16),
+          (12, 12, 40, 16), (256, 16, 32, 16), (256, 16, 16, 8),
+          (64, 10, 2, 1), (32, 4, 1, 1)]
+
+
+@pytest.mark.parametrize("N,P,C,Cout", SHAPES)
 def test_level_kernel_matches_plain(cuda, N, P, C, Cout):
     args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
                    empty_vertex=N // 2)
@@ -103,8 +107,24 @@ def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
     """Z [P*P, Cout] lives in shared memory: at P=64, Cout=32 it does not
     fit, and the launch is refused with an error, not run."""
     args = _inputs(2, 64, 4, 32, seed=8, device=cuda)
-    with pytest.raises(RuntimeError, match="shared memory"):
+    before = risi18_level.launches
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 659632 "
+                                           "bytes .* shared memory"):
         risi18_level(*args)
+    assert risi18_level.launches == before
+
+
+def test_backward_kernel_rejects_shapes_beyond_shared_memory(cuda):
+    """G and G.Ap [P*P, Cout + 1] live in shared memory: at P=32, Cout=32
+    the forward fits and the backward does not."""
+    args = _inputs(2, 32, 4, 32, seed=8, device=cuda)
+    out = risi18_level(*args)
+    _assert_close(out, risi18_level_reference(*args))
+    before = risi18_level_backward.launches
+    with pytest.raises(RuntimeError, match="P=32 at Cout=32 needs 310780 "
+                                           "bytes .* shared memory"):
+        risi18_level_backward(*args, out, torch.ones_like(out))
+    assert risi18_level_backward.launches == before
 
 
 # -- K2, the level backward -------------------------------------------------
@@ -129,9 +149,7 @@ def _check_backward(args, g):
     return got
 
 
-@pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (64, 10, 20, 20),
-                                        (32, 4, 8, 8), (5, 8, 8, 16),
-                                        (12, 12, 40, 16)])
+@pytest.mark.parametrize("N,P,C,Cout", SHAPES)
 def test_backward_kernel_matches_plain(cuda, N, P, C, Cout):
     args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
                    empty_vertex=N // 2)

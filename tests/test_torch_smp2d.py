@@ -16,6 +16,7 @@ from graphflow_tpu.models import SMP2D as JaxSMP2D
 from graphflow_tpu.models import SMP2DConfig as JaxSMP2DConfig
 from graphflow_tpu.models.smp2d import smp2d_inspect as jax_inspect
 from graphflow_tpu.utils import datasets as jdatasets
+from graphflow_tpu_torch import models
 from graphflow_tpu_torch.models import SMP2D, SMP2DConfig, SMP_omega
 from graphflow_tpu_torch.models.smp2d import smp2d_inspect, smp2d_states
 from graphflow_tpu_torch.optim.utils import uniform_init
@@ -44,7 +45,7 @@ def _jax_tree(model):
 def pair():
     """A JAX SMP_omega and the port's, float64, sharing the JAX weights."""
     jm = JaxSMP2D(JaxSMP2DConfig(**CFG, dtype="float64"), seed=3)
-    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"))
+    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"), device="cpu")
     tm.load_params(params_from_jax(_jax_tree(jm)))
     return jm, tm
 
@@ -82,7 +83,7 @@ def test_jax_text_checkpoint_loads_into_port(tmp_path, pair):
     jm, _ = pair
     fn = str(tmp_path / "omega.dat")
     jm.save_model(fn)
-    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"), seed=99)
+    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"), seed=99, device="cpu")
     jg, tg = _graph_pairs()
     assert abs(tm.Predict(tg[0]) - jm.Predict(jg[0])) > 1e-6  # other init
     tm.load_model(fn)
@@ -106,7 +107,7 @@ def test_convert_round_trip(pair):
 
 
 def test_registration_order_and_layouts():
-    m = SMP_omega(**CFG)
+    m = SMP_omega(**CFG, device="cpu")
     order = ["H", "levels/0/K", "levels/0/b", "levels/1/K", "levels/1/b", "W"]
     assert [n for n, _ in m.named_parameters()] == order
     assert m.param_order == order and list(m.state_dict()) == order
@@ -123,15 +124,15 @@ def test_uniform_init_scale_and_seed():
     assert float(w.abs().max()) > 0.5 * 0.9 / 18
     again = uniform_init((18, 4), torch.Generator().manual_seed(5))
     assert torch.equal(w, again)
-    a = SMP_omega(**CFG, seed=1)
-    b = SMP_omega(**CFG, seed=1)
+    a = SMP_omega(**CFG, seed=1, device="cpu")
+    b = SMP_omega(**CFG, seed=1, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
                                                  b.parameters()))
 
 
 def test_float32_model_runs_and_tracks_float64():
-    m32 = SMP_omega(**CFG, seed=4)
-    m64 = SMP2D(SMP2DConfig(**CFG, dtype="float64"))
+    m32 = SMP_omega(**CFG, seed=4, device="cpu")
+    m64 = SMP2D(SMP2DConfig(**CFG, dtype="float64"), device="cpu")
     m64.load_params({k: v.double() for k, v in m32.param_dict().items()})
     graphs, _ = datasets.toy_molecules()
     p32 = m32.Threaded_Predict(graphs)
@@ -156,7 +157,7 @@ def test_padded_vertices_are_masked(pair):
 
 def test_feature_permutation_invariance():
     m = SMP2D(SMP2DConfig(**{**CFG, "max_nVertices": 8}, dtype="float64"),
-              seed=2)
+              seed=2, device="cpu")
     g = datasets.random_graph(8, 0.4, seed=7)
     f0 = m.Feature(g)
     rng = np.random.default_rng(11)
@@ -165,20 +166,66 @@ def test_feature_permutation_invariance():
         np.testing.assert_allclose(fp, f0, rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("kw", [dict(channel_schedule=(6, 6, 6)),
+@pytest.mark.parametrize("kw", [dict(first_order_physics=True),
                                 dict(contraction=4, dtype="bfloat16"),
                                 dict(contraction=10, dtype="bfloat16"),
                                 dict(contraction=50, dtype="bfloat16")])
 def test_outside_the_slice_raises(kw):
+    """What is still to port says so: the first-order physics tower and
+    bfloat16 with the 4-, 10- and 50-case banks."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SMP2DConfig(**CFG, **kw)
+        if kw.get("first_order_physics"):
+            models.SMP_theta_physics(8, 4, 2, 6, 4, device="cpu")
+        else:
+            SMP2DConfig(**CFG, **kw)
+
+
+_REGRESSION = ["SMP_omega", "SMP_gamma", "SMP_2D_ver6", "SMP_2D_ver7",
+               "SMP_2D_ver8", "SMP_2D_ver8_thread", "SMP_omega_gpu",
+               "SMP_omega_gpu_multistreams"]
+_UNCAPPED = ["SMP_beta", "SMP_beta_gpu", "SMP_beta_gpu_multistreams"]
+_PHYSICS = ["SMP_omega_physics", "SMP_gamma_physics"]
+
+
+def _build(name, **kw):
+    if name in _REGRESSION:
+        return getattr(models, name)(**CFG, **kw)
+    if name in _UNCAPPED:
+        return getattr(models, name)(8, 2, 6, 4, 3, **kw)
+    if name in _PHYSICS:
+        return getattr(models, name)(8, 4, 2, 6, 4, **kw)
+    if name == "SMP_beta_physics":
+        return models.SMP_beta_physics(8, 2, 6, 4, **kw)
+    if name == "SMP_2D_ver7_classification":
+        return models.SMP_2D_ver7_classification(**CFG, nClasses=3, **kw)
+    return SMP2D(SMP2DConfig(**CFG), **kw)
+
+
+@pytest.mark.parametrize("name", _REGRESSION + _UNCAPPED + _PHYSICS + [
+    "SMP_beta_physics", "SMP_2D_ver7_classification", "SMP2D"])
+def test_entry_point_never_lands_on_the_cpu_unasked(name, monkeypatch):
+    """A model built without ``device`` goes to the CUDA device, and raises
+    where there is none; only ``device="cpu"`` builds it on the CPU."""
+    asked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _build(name)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(
+        torch.Tensor, "to", lambda self, *a, **kw: asked.append(
+            kw.get("device")) or self)
+    _build(name)
+    assert asked and all(d == torch.device("cuda") for d in asked)
+    monkeypatch.undo()
+    assert _build(name, device="cpu").device == torch.device("cpu")
 
 
 def test_classification_training_raises():
     """A classification head (nClasses, log loss) trains one step on the
     CPU; its Predict raises, as the JAX package's does, since an
     [nClasses] row of scores is no float."""
-    m = SMP2D(SMP2DConfig(**CFG, nClasses=3, dtype="float64"), seed=1)
+    m = SMP2D(SMP2DConfig(**CFG, nClasses=3, dtype="float64"), seed=1,
+              device="cpu")
     graphs, _ = datasets.toy_molecules()
     labels = [0.0, 2.0, 1.0, 2.0]
     before = {k: p.detach().clone() for k, p in m.param_dict().items()}
@@ -191,7 +238,7 @@ def test_classification_training_raises():
 
 
 def test_prep_cache_is_weak_and_per_graph():
-    m = SMP_omega(**CFG)
+    m = SMP_omega(**CFG, device="cpu")
     g = datasets.toy_molecule("CH4")
     assert m.prepare(g) is m.prepare(g)
     assert len(m._prep_cache) == 1
@@ -203,6 +250,9 @@ def test_import_loads_no_jax():
     code = ("import sys, graphflow_tpu_torch, graphflow_tpu_torch.models, "
             "graphflow_tpu_torch.ops.risi_bank, "
             "graphflow_tpu_torch.ops.risi_aligned, "
+            "graphflow_tpu_torch.ops.risi_bank_ablate, "
+            "graphflow_tpu_torch.models.physics, "
+            "graphflow_tpu_torch.tools.ablate_bank, "
             "graphflow_tpu_torch.utils.convert, "
             "graphflow_tpu_torch.utils.checkpoint, "
             "graphflow_tpu_torch.runtime.cuda_build\n"

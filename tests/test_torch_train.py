@@ -271,7 +271,7 @@ def test_backtracking_matches_jax(lr, min_lr):
 def _pair():
     """A JAX SMP_omega and the port's, float64, sharing the JAX weights."""
     jm = JaxSMP2D(JaxSMP2DConfig(**CFG, dtype="float64"), seed=3)
-    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"))
+    tm = SMP2D(SMP2DConfig(**CFG, dtype="float64"), device="cpu")
     tm.load_params(params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                           jm.params)))
     return jm, tm
@@ -341,7 +341,8 @@ def test_trained_checkpoint_round_trip_and_state_reset(tmp_path):
     assert tm.opt_state["t"] == 1
     fn = str(tmp_path / "trained.dat")
     tm.save_model(fn)
-    fresh = SMP2D(SMP2DConfig(**CFG, dtype="float64"), seed=99)
+    fresh = SMP2D(SMP2DConfig(**CFG, dtype="float64"), seed=99,
+                  device="cpu")
     fresh.BatchLearn(tg, tt, 0.01)
     fresh.load_model(fn)
     assert fresh.opt_state["t"] == 0

@@ -63,7 +63,7 @@ def _pair(name, seed=3):
     kw = dict(CFG, contraction=k, nClasses=ncls, optimizer=opt,
               dtype="float64")
     jm = jsmp2d.SMP2D(jsmp2d.SMP2DConfig(**kw), seed=seed)
-    tm = models.SMP2D(models.SMP2DConfig(**kw))
+    tm = models.SMP2D(models.SMP2DConfig(**kw), device="cpu")
     tm.load_params(_flat(jm.params))
     return jm, tm
 
@@ -154,7 +154,7 @@ def test_constructors_pick_contraction_head_and_optimizer():
     C = CFG["nChanels"]
     for name, (k, ncls, opt) in VARIANTS.items():
         kw = dict(CFG, nClasses=ncls) if ncls else CFG
-        m = getattr(models, name)(**kw)
+        m = getattr(models, name)(**kw, device="cpu")
         jcfg = getattr(jsmp2d, name)(**kw).cfg
         assert (m.cfg.contraction, m.cfg.nClasses, m.cfg.optimizer) == (
             jcfg.contraction, jcfg.nClasses, jcfg.optimizer) == (k, ncls, opt)
@@ -162,8 +162,9 @@ def test_constructors_pick_contraction_head_and_optimizer():
         assert m.param_dict()["W"].shape == ((ncls, C) if ncls else (C,))
         assert isinstance(m.opt_state, dict)
         assert ("t" in m.opt_state) == (opt == "adam")
-    thread = models.SMP_2D_ver8_thread(**CFG, nThreads=4, seed=2)
-    ver8 = models.SMP_2D_ver8(**CFG, seed=2)
+    thread = models.SMP_2D_ver8_thread(**CFG, nThreads=4, seed=2,
+                                       device="cpu")
+    ver8 = models.SMP_2D_ver8(**CFG, seed=2, device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(thread.parameters(),
                                                  ver8.parameters()))
 
@@ -214,7 +215,7 @@ def test_classification_checkpoint_round_trip(tmp_path):
     jm.save_model(fn)
     tm = models.SMP2D(models.SMP2DConfig(
         **CFG, contraction=50, nClasses=3, optimizer="momentum",
-        dtype="float64"), seed=9)
+        dtype="float64"), seed=9, device="cpu")
     tm.BatchLearn(tg, targets, LR)
     assert any(v.any() for v in tm.opt_state.values())
     # The Momentum state is a parameter-shaped tree, as the JAX package's.
