@@ -11,19 +11,23 @@ Phases, each reported on its own lines:
               backward K5, the aligned tensor K7, the bank's ablation
               variants K6), in parallel (seconds, ptxas);
   3. kernel   K1 against its plain PyTorch version on the card at three
-              level shapes and at the four C != Cout shapes of a halving
-              channel schedule, float32, inputs from a NumPy seed; then
-              both versions' median milliseconds at the production shape
-              and K1's at the scheduled ones;
+              level shapes (P = 16, 10, 4) and at the four C != Cout shapes
+              of a halving channel schedule, in float32 and in bfloat16
+              (there also against the float32 kernel on the rounded inputs),
+              inputs from a NumPy seed; then both versions' median
+              milliseconds at the production shape and at two scheduled
+              ones, per dtype;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
               nLevels x forward calls, and every output must match the
               same model run through the plain level on the card;
   5. backward K2 against the plain backward (autograd of the plain level)
-              at the same seven shapes: dstate, dK and db; then the median
-              milliseconds of each of K2's two kernels, of both together
-              and of the plain backward at the production shape;
+              at the same seven shapes in float32 and bfloat16 (there also
+              against the float32 kernels on the rounded inputs): dstate, dK
+              and db; then the median milliseconds of each of K2's two
+              kernels, of both together and of the plain backward at the
+              production shape, per dtype;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
@@ -36,19 +40,24 @@ Phases, each reported on its own lines:
               by the take-gather: Z, dT and dK; then the median
               milliseconds of K4, the plain bank, K5 (both kernels and each
               alone) and the plain backward at the production shape, bf16;
-  8. bf16     the same model in bfloat16, whose levels run the take-gather
-              and the bank: 3 requests of 4 random graphs served twice
+  8. bf16     the same model in bfloat16, whose levels run the fused level
+              as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
               BatchLearn steps and one Learn(nIterations=2); outputs, the
               first step's loss and every gradient must match the model
-              run through the plain bank on the card, every loss must be
-              finite, and K4 and K5 must launch once per level per forward
-              and per backward.  Then the seconds per request and per step
+              run through the plain level on the card, every loss must be
+              finite, K1 and K2 must launch once per level per forward
+              and per backward, and K4 and K5 not at all.  Between serving
+              and training, one request and one forward with gradients go
+              through level_fn=risi18_bank_level (the bank over a
+              materialised T): K4 and K5 must launch there and match the
+              plain bank route.  Then the seconds per request and per step
               and the peak device memory of a step;
   9. aligned  K7, the aligned neighbour tensor, against its plain version
-              (the take-gather) on the card at eight shapes in float32: the
-              match must be exact.  Then both versions' median milliseconds
-              at the production shape, with T's size;
+              (the take-gather) on the card at eight shapes in float32 and
+              bfloat16, channel counts that allow 16-byte accesses and ones
+              that do not: the match must be exact.  Then both versions'
+              median milliseconds at the production shape, with T's size;
  10. variants SMP_2D_ver6 and ver7 at the same width serve 3 requests of 4
               random graphs twice (prep uncached, then cached), one
               Predict and one Feature through K7 (its
@@ -56,7 +65,9 @@ Phases, each reported on its own lines:
               must match the same model through the take-gather), then take
               3 BatchLearn steps and one Learn(nIterations=2) with Momentum
               on the take-gather (finite losses, K7's count unchanged);
-              SMP_2D_ver7_classification serves one request ([4, 3] scores)
+              the same two models in bfloat16 serve the same requests
+              through K7 and take 2 BatchLearn steps (bfloat16 parameters,
+              a step's peak memory); SMP_2D_ver7_classification serves one request ([4, 3] scores)
               and takes 3 BatchLearn steps on integer labels.  Then the
               seconds per request and per step, and one ver7 serving level
               split into K7, the 50-case bank and the rest;
@@ -103,6 +114,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+# The full-width model, the batch and the spin-timed timer, shared with the
+# tools under graphflow_tpu_torch/tools/.
+from graphflow_tpu_torch.tools.measure import (  # noqa: E402
+    ADAM_LR as TRAIN_LR, ER_P, FULL_WIDTH as MODEL,
+    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, time_ms)
+
 SEED = 0
 # Kernel vs plain: the bound of tests/test_fused_kernel.py:49-50 (summation
 # order on the card differs from the plain version's).
@@ -116,14 +134,7 @@ BANK_SHAPES = LEVEL_SHAPES + [(12, 12, 40, 16)]
 # down to one channel.
 SCHEDULE_SHAPES = [(256, 16, 32, 16), (256, 16, 16, 8), (64, 10, 2, 1),
                    (32, 4, 1, 1)]
-MODEL = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
-             nChanels=32, nFeatures=4, nDepth=5)
-N_REQUESTS, GRAPHS_PER_REQUEST, ER_P = 3, 4, 0.15
-TRAIN_STEPS, TRAIN_LR = 3, 1e-4
-# Momentum has no per-element normalisation: at this width the gradients
-# reach 1e3-1e5, and the Adam rate above sends the loss to inf in three
-# steps (probed on the CPU at V=32, P=8-12, C=16).
-MOMENTUM_LR = 1e-10
+N_REQUESTS, TRAIN_STEPS = 3, 3
 KERNEL_LIBS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
                "risi18_bank_bwd", "risi_aligned_t2", "risi18_bank_ablate")
 PHYSICS = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
@@ -156,31 +167,6 @@ def check_close(what: str, got, ref, rtol: float = RTOL) -> float:
     if err > bound:
         raise AssertionError(f"{what}: max abs err {err:.3e} > {bound:.3e}")
     return err
-
-
-SPIN_CYCLES = 1_000_000
-
-
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of fn() on the current stream, CUDA events.  A
-    spin kernel of about half a millisecond runs ahead of the first event,
-    so that the host queues fn's launches while the card is busy and the
-    events bracket the device's work, not the wrapper's host time."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def nbytes(*tensors) -> int:
@@ -251,7 +237,6 @@ def phase_device():
 
 
 def import_port():
-    sys.path.insert(0, str(ROOT))
     import graphflow_tpu_torch
 
     pkg = Path(graphflow_tpu_torch.__file__).resolve().parent
@@ -283,7 +268,10 @@ def phase_build():
         f"{time.perf_counter() - t0:.2f} s wall")
 
 
-def level_inputs(N, P, C, Cout, seed):
+def level_inputs(N, P, C, Cout, seed, dtype=None):
+    """One level's inputs on the card from a NumPy seed: state, K and b in
+    ``dtype`` (float32 when None; bfloat16 rounds the float32 values), radj
+    float32, nbr and pos int32."""
     import torch
     from graphflow_tpu_torch.utils.datasets import random_level_case
 
@@ -292,8 +280,18 @@ def level_inputs(N, P, C, Cout, seed):
            for k in ("state", "radj", "K", "b")}
     i32 = {k: torch.as_tensor(d[k], dtype=torch.int32, device="cuda")
            for k in ("nbr", "pos")}
-    return (f32["state"], i32["nbr"], i32["pos"], f32["radj"], f32["K"],
-            f32["b"])
+    dtype = dtype or torch.float32
+    return (f32["state"].to(dtype), i32["nbr"], i32["pos"], f32["radj"],
+            f32["K"].to(dtype), f32["b"].to(dtype))
+
+
+def as_float32(args):
+    """The same level inputs with every floating tensor in float32."""
+    return tuple(t.float() if t.is_floating_point() else t for t in args)
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype)[6:]
 
 
 def phase_kernel():
@@ -301,33 +299,52 @@ def phase_kernel():
     from graphflow_tpu_torch.ops.risi_level import (
         risi18_level, risi18_level_reference)
 
-    max_err = 0.0
-    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
-        args = level_inputs(N, P, C, Cout, seed=SEED + i)
-        got = risi18_level(*args)
-        torch.cuda.synchronize()
-        ref = risi18_level_reference(*args)
-        err = check_close(f"level N={N} P={P} C={C} Cout={Cout}", got, ref)
-        max_err = max(max_err, err)
-        log(f"phase 3 kernel: N={N} P={P} C={C} Cout={Cout} "
-            f"max_abs_err={err:.3e} (max|plain|={float(ref.abs().max()):.3f},"
-            f" bound {RTOL:g}*max(1,max|plain|)) ok")
-    args = level_inputs(*LEVEL_SHAPES[0], seed=SEED)
-    plain_ms = time_ms(lambda: risi18_level_reference(*args))
-    kernel_ms = time_ms(lambda: risi18_level(*args))
-    N, P, C, Cout = LEVEL_SHAPES[0]
-    out = risi18_level(*args)
-    bound = bound_ms(nbytes(*args, out), bank_ops(
-        N, P, C, Cout, present_elements(args[1], args[2])))
-    log(f"phase 3 kernel: N,P,C,Cout={LEVEL_SHAPES[0]} median kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms (CUDA events, 20 reps);"
-        f" bound {bound[0]:.4f} ms by {bound[1]}")
-    for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
-        sargs = level_inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i)
-        log(f"phase 3 kernel: N,P,C,Cout={shape} median kernel "
-            f"{time_ms(lambda: risi18_level(*sargs)):.4f} ms, plain "
-            f"{time_ms(lambda: risi18_level_reference(*sargs)):.4f} ms")
-    return max_err, kernel_ms, plain_ms, bound
+    errs, ms = {}, {}
+    for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
+        name = dtype_name(dtype)
+        errs[name] = 0.0
+        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
+            args = level_inputs(N, P, C, Cout, seed=SEED + i, dtype=dtype)
+            got = risi18_level(*args)
+            torch.cuda.synchronize()
+            ref = risi18_level_reference(*args)
+            if got.dtype != dtype or ref.dtype != dtype:
+                raise AssertionError(f"level {name}: kernel {got.dtype}, "
+                                     f"plain {ref.dtype}")
+            what = f"level {name} N={N} P={P} C={C} Cout={Cout}"
+            err = check_close(what, got, ref, rtol)
+            errs[name] = max(errs[name], err)
+            second = ""
+            if dtype == torch.bfloat16:
+                # A second yardstick: the float32 kernel on the rounded
+                # inputs, which differs by the one rounding of the output.
+                err32 = check_close(what + " vs the float32 kernel", got,
+                                    risi18_level(*as_float32(args)), rtol)
+                second = (f"; vs the float32 kernel on the rounded inputs "
+                          f"{err32:.3e}")
+            log(f"phase 3 kernel: {name} N={N} P={P} C={C} Cout={Cout} "
+                f"max_abs_err={err:.3e} (max|plain|="
+                f"{float(ref.abs().max()):.3f}, bound "
+                f"{rtol:g}*max(1,max|plain|)){second} ok")
+        N, P, C, Cout = LEVEL_SHAPES[0]
+        args = level_inputs(N, P, C, Cout, seed=SEED, dtype=dtype)
+        out = risi18_level(*args)
+        ms[name] = {
+            "plain": time_ms(lambda: risi18_level_reference(*args)),
+            "kernel": time_ms(lambda: risi18_level(*args)),
+            "bound": bound_ms(nbytes(*args, out), bank_ops(
+                N, P, C, Cout, present_elements(args[1], args[2])), name)}
+        log(f"phase 3 kernel: {name} N,P,C,Cout={LEVEL_SHAPES[0]} median "
+            f"kernel {ms[name]['kernel']:.4f} ms, plain "
+            f"{ms[name]['plain']:.4f} ms (CUDA events, 20 reps); bound "
+            f"{ms[name]['bound'][0]:.4f} ms by {ms[name]['bound'][1]}")
+        for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
+            sargs = level_inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i,
+                                 dtype=dtype)
+            log(f"phase 3 kernel: {name} N,P,C,Cout={shape} median kernel "
+                f"{time_ms(lambda: risi18_level(*sargs)):.4f} ms, plain "
+                f"{time_ms(lambda: risi18_level_reference(*sargs)):.4f} ms")
+    return errs, ms
 
 
 def phase_slice():
@@ -397,71 +414,114 @@ def phase_slice():
 def phase_backward():
     import torch
     from graphflow_tpu_torch.ops.risi_level import (
-        _backward_main_kernel, _backward_reduce_kernel, risi18_level,
-        risi18_level_backward, risi18_level_backward_reference,
-        risi18_level_reference)
+        _backward_finish_kernel_bf16, _backward_main_kernel,
+        _backward_reduce_kernel, risi18_level, risi18_level_backward,
+        risi18_level_backward_reference, risi18_level_reference)
 
-    def inputs(N, P, C, Cout, seed):
+    def inputs(N, P, C, Cout, seed, dtype):
         g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
-        return (level_inputs(N, P, C, Cout, seed),
-                torch.as_tensor(g, dtype=torch.float32, device="cuda"))
+        return (level_inputs(N, P, C, Cout, seed, dtype),
+                torch.as_tensor(g, dtype=torch.float32,
+                                device="cuda").to(dtype))
 
-    errs = {"dstate": 0.0, "dK": 0.0, "db": 0.0}
-    for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
-        args, g = inputs(N, P, C, Cout, seed=SEED + i)
+    errs, ms = {}, {}
+    for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
+        name = dtype_name(dtype)
+        errs[name] = {"dstate": 0.0, "dK": 0.0, "db": 0.0}
+        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
+            args, g = inputs(N, P, C, Cout, SEED + i, dtype)
+            out = risi18_level(*args)
+            got = risi18_level_backward(*args, out, g)
+            torch.cuda.synchronize()
+            ref = risi18_level_backward_reference(*args, g)
+            second = None
+            if dtype == torch.bfloat16:
+                # A second yardstick: the float32 kernels on the rounded
+                # inputs and the float32 view of the bfloat16 output.
+                second = risi18_level_backward(*as_float32(args),
+                                               out.float(), g.float())
+            line = []
+            for j, (key, x, r) in enumerate(zip(errs[name], got, ref)):
+                if x.dtype != dtype or r.dtype != dtype:
+                    raise AssertionError(f"backward {key} {name}: kernel "
+                                         f"{x.dtype}, plain {r.dtype}")
+                what = (f"backward {key} {name} N={N} P={P} C={C} "
+                        f"Cout={Cout}")
+                err = check_close(what, x, r, rtol)
+                errs[name][key] = max(errs[name][key], err)
+                text = f"{key} {err:.3e} (max|plain|={float(r.abs().max()):.3f}"
+                if second is not None:
+                    err32 = check_close(what + " vs the float32 kernels", x,
+                                        second[j], rtol)
+                    text += f"; vs float32 kernels {err32:.3e}"
+                line.append(text + ")")
+            log(f"phase 5 backward: {name} N={N} P={P} C={C} Cout={Cout} "
+                f"max_abs_err " + ", ".join(line)
+                + f"; bound {rtol:g}*max(1,max|plain|) ok")
+
+        N, P, C, Cout = LEVEL_SHAPES[0]
+        args, g = inputs(N, P, C, Cout, SEED, dtype)
+        state, nbr, pos, radj, K, b = args
         out = risi18_level(*args)
-        got = risi18_level_backward(*args, out, g)
-        torch.cuda.synchronize()
-        ref = risi18_level_backward_reference(*args, g)
-        line = []
-        for name, x, r in zip(errs, got, ref):
-            err = check_close(f"backward {name} N={N} P={P} C={C} "
-                              f"Cout={Cout}", x, r)
-            errs[name] = max(errs[name], err)
-            line.append(f"{name} {err:.3e} (max|plain|="
-                        f"{float(r.abs().max()):.3f})")
-        log(f"phase 5 backward: N={N} P={P} C={C} Cout={Cout} max_abs_err "
-            + ", ".join(line) + f"; bound {RTOL:g}*max(1,max|plain|) ok")
+        leaves = [t.detach().requires_grad_() for t in (state, K, b)]
+        plain_out = risi18_level_reference(leaves[0], nbr, pos, radj,
+                                           leaves[1], leaves[2])
+        dstate32, partial = _backward_main_kernel(state, nbr, pos, radj, K, g,
+                                                  out, 0.01)
+        if dtype == torch.bfloat16:
+            # Kernel 2 also rounds kernel 1's float32 dstate; its plain
+            # version is the column sum and three casts.
+            def kernel2():
+                return _backward_finish_kernel_bf16(partial, dstate32, C,
+                                                    Cout)
 
-    N, P, C, Cout = LEVEL_SHAPES[0]
-    args, g = inputs(N, P, C, Cout, seed=SEED)
-    state, nbr, pos, radj, K, b = args
-    out = risi18_level(*args)
-    leaves = [t.detach().requires_grad_() for t in (state, K, b)]
-    plain_out = risi18_level_reference(leaves[0], nbr, pos, radj, leaves[1],
-                                       leaves[2])
-    _, partial = _backward_main_kernel(state, nbr, pos, radj, K, g, out,
-                                       0.01)
-    ms = {
-        "plain": time_ms(lambda: torch.autograd.grad(
-            plain_out, leaves, g, retain_graph=True)),
-        "k2": time_ms(lambda: risi18_level_backward(*args, out, g)),
-        "main": time_ms(lambda: _backward_main_kernel(
-            state, nbr, pos, radj, K, g, out, 0.01)),
-        "reduce": time_ms(lambda: _backward_reduce_kernel(partial, C, Cout)),
-        "plain_reduce": time_ms(lambda: partial.sum(0)),
-    }
-    log(f"phase 5 backward: N,P,C,Cout={LEVEL_SHAPES[0]} median K2 (both "
-        f"kernels, dstate zero fill included) {ms['k2']:.4f} ms, plain "
-        f"backward {ms['plain']:.4f} ms; kernel 1 {ms['main']:.4f} ms, "
-        f"kernel 2 {ms['reduce']:.4f} ms ({partial.shape[0]} partial rows; "
-        f"plain sum {ms['plain_reduce']:.4f} ms) (CUDA events, 20 reps)")
-    dstate, dK, db = risi18_level_backward(*args, out, g)
-    ms["bound"] = bound_ms(
-        nbytes(*args[:5], g, out, dstate, partial),
-        bank_backward_ops(N, P, C, Cout, present_elements(nbr, pos)))
-    ms["reduce_bound"] = bound_ms(nbytes(partial, dK, db), partial.numel())
-    log(f"phase 5 backward: bounds: kernel 1 {ms['bound'][0]:.4f} ms by "
-        f"{ms['bound'][1]}, kernel 2 {ms['reduce_bound'][0]:.4f} ms by "
-        f"{ms['reduce_bound'][1]}")
-    for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
-        sargs, sg = inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i)
-        sout = risi18_level(*sargs)
-        main_ms = time_ms(lambda: _backward_main_kernel(*sargs[:5], sg, sout,
-                                                        0.01))
-        both_ms = time_ms(lambda: risi18_level_backward(*sargs, sout, sg))
-        log(f"phase 5 backward: N,P,C,Cout={shape} median K2 kernel 1 "
-            f"{main_ms:.4f} ms, both kernels {both_ms:.4f} ms")
+            def plain2():
+                return (dstate32.to(dtype), partial.sum(0).to(dtype))
+        else:
+            def kernel2():
+                return _backward_reduce_kernel(partial, C, Cout)
+
+            def plain2():
+                return partial.sum(0)
+        m = ms[name] = {
+            "plain": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, g, retain_graph=True)),
+            "k2": time_ms(lambda: risi18_level_backward(*args, out, g)),
+            "main": time_ms(lambda: _backward_main_kernel(
+                state, nbr, pos, radj, K, g, out, 0.01)),
+            "reduce": time_ms(kernel2),
+            "plain_reduce": time_ms(plain2),
+        }
+        log(f"phase 5 backward: {name} N,P,C,Cout={LEVEL_SHAPES[0]} median "
+            f"K2 (both kernels, dstate zero fill included) {m['k2']:.4f} ms, "
+            f"plain backward {m['plain']:.4f} ms; kernel 1 {m['main']:.4f} "
+            f"ms, kernel 2 {m['reduce']:.4f} ms ({partial.shape[0]} partial "
+            f"rows; plain sum{' and casts' if second is not None else ''} "
+            f"{m['plain_reduce']:.4f} ms) (CUDA events, 20 reps)")
+        dstate, dK, db = risi18_level_backward(*args, out, g)
+        # The function's own bytes: kernel 1's float32 dstate buffer and
+        # its partial rows are scratch between the two kernels, not counted.
+        m["bound"] = bound_ms(
+            nbytes(*args[:5], g, out, dstate, dK, db),
+            bank_backward_ops(N, P, C, Cout, present_elements(nbr, pos)),
+            name)
+        moved = nbytes(partial, dK, db)
+        if dtype == torch.bfloat16:
+            moved += nbytes(dstate32, dstate)
+        m["reduce_bound"] = bound_ms(moved, partial.numel())
+        log(f"phase 5 backward: {name} bounds: kernel 1 {m['bound'][0]:.4f} "
+            f"ms by {m['bound'][1]}, kernel 2 {m['reduce_bound'][0]:.4f} ms "
+            f"by {m['reduce_bound'][1]}; scratch between them "
+            f"{nbytes(dstate32, partial) / 1e6:.1f} MB (float32 dstate and "
+            f"partial rows), in no bound of kernel 1")
+        for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
+            sargs, sg = inputs(*shape, SEED + len(LEVEL_SHAPES) + i, dtype)
+            sout = risi18_level(*sargs)
+            main_ms = time_ms(lambda: _backward_main_kernel(
+                *sargs[:5], sg, sout, 0.01))
+            both_ms = time_ms(lambda: risi18_level_backward(*sargs, sout, sg))
+            log(f"phase 5 backward: {name} N,P,C,Cout={shape} median K2 "
+                f"kernel 1 {main_ms:.4f} ms, both kernels {both_ms:.4f} ms")
     return errs, ms
 
 
@@ -638,7 +698,8 @@ def phase_bank():
     dT, dK = risi18_bank_backward(T, A, K, g)
     ms["bound"] = bound_ms(nbytes(T, A, K, Z), bank_ops(N, P, C, Cout),
                            "bfloat16")
-    ms["bwd_bound"] = bound_ms(nbytes(T, A, K, g, dT, partial),
+    # As for K2: the partial rows are scratch, dK is the function's output.
+    ms["bwd_bound"] = bound_ms(nbytes(T, A, K, g, dT, dK),
                                bank_backward_ops(N, P, C, Cout), "bfloat16")
     ms["reduce_bound"] = bound_ms(nbytes(partial) + dK.numel() * 4,
                                   partial.numel())
@@ -653,10 +714,13 @@ def phase_bf16():
     import torch
     from graphflow_tpu_torch.models import SMP2D, SMP2DConfig
     from graphflow_tpu_torch.models.smp2d import (
-        risi18_bank_level, risi18_bank_level_reference, smp2d_forward)
+        fused_level, risi18_bank_level, risi18_bank_level_reference,
+        smp2d_forward)
     from graphflow_tpu_torch.ops.losses import squared_loss
     from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
                                                    risi18_bank_backward)
+    from graphflow_tpu_torch.ops.risi_level import (
+        risi18_level, risi18_level_backward, risi18_level_reference)
     from graphflow_tpu_torch.utils.datasets import random_graph, toy_molecule
 
     model = SMP2D(SMP2DConfig(**MODEL, dtype="bfloat16"), seed=SEED,
@@ -668,12 +732,34 @@ def phase_bf16():
                 for r in range(N_REQUESTS)]
     mol = toy_molecule("C2H4")
 
-    def plain(graphs, targets=None):
-        return smp2d_forward(model.params, model._stack(graphs, targets),
-                             model.cfg, level_fn=risi18_bank_level_reference)
+    def counts():
+        return {"K1": risi18_level.launches,
+                "K2 kernel 1": risi18_level_backward.launches,
+                "K2 kernel 2": risi18_level_backward.reduce_launches,
+                "K4": risi18_bank.launches,
+                "K5 kernel 1": risi18_bank_backward.launches,
+                "K5 kernel 2": risi18_bank_backward.reduce_launches}
+
+    def reset():
+        risi18_level.launches = 0
+        risi18_level_backward.launches = 0
+        risi18_level_backward.reduce_launches = 0
+        risi18_bank.launches = 0
+        risi18_bank_backward.launches = 0
+        risi18_bank_backward.reduce_launches = 0
+
+    def expect(what, got, **want):
+        want = {**dict.fromkeys(got, 0), **want}
+        if got != want:
+            raise AssertionError(f"bf16 {what}: launches {got}, expected "
+                                 f"{want}")
+
+    def plain(graphs, level_fn=risi18_level_reference):
+        return smp2d_forward(model.params, model._stack(graphs), model.cfg,
+                             level_fn=level_fn)
 
     # Serving, counted: each request twice (prep uncached, then cached).
-    risi18_bank.launches = 0
+    reset()
     preds, seconds = [], {"uncached": [], "cached": []}
     for kind in seconds:
         for graphs in requests:
@@ -682,11 +768,9 @@ def phase_bf16():
             seconds[kind].append(time.perf_counter() - t0)
     pred_mol = model.Predict(mol)
     feat_mol = model.Feature(mol)
-    serve_launches = risi18_bank.launches
+    served = counts()
     forwards = 2 * N_REQUESTS + 2
-    if serve_launches != nL * forwards:
-        raise AssertionError(f"{serve_launches} K4 launches, expected {nL} "
-                             f"levels x {forwards} forwards")
+    expect("serving", served, K1=nL * forwards)
     serve_err = 0.0
     with torch.no_grad():
         for r, graphs in enumerate(requests * 2):
@@ -700,7 +784,7 @@ def phase_bf16():
                     check_close("bf16 Feature", feat_mol, ref_feat[0],
                                 RTOL16))
 
-    # The first step's loss and gradients, K4/K5 against the plain bank.
+    # The first step's loss and gradients, K1/K2 against the plain level.
     targets = np.random.default_rng(SEED).normal(
         size=GRAPHS_PER_REQUEST).tolist()
 
@@ -717,20 +801,41 @@ def phase_bf16():
         loss = squared_loss(pred, batch["target"])
         return loss.detach(), torch.autograd.grad(loss, list(params.values()))
 
-    k_loss, k_grads = loss_and_grads(risi18_bank_level)
-    p_loss, p_grads = loss_and_grads(risi18_bank_level_reference)
-    grad_err = check_close("bf16 train loss", k_loss, p_loss, RTOL16)
-    for path, x, r in zip(params, k_grads, p_grads):
-        if x.dtype != torch.bfloat16:
-            raise AssertionError(f"gradient {path} has dtype {x.dtype}")
-        grad_err = max(grad_err, check_close(f"bf16 gradient {path}", x, r,
-                                             RTOL16))
+    def grads_close(what, kernel_fn, plain_fn):
+        k_loss, k_grads = loss_and_grads(kernel_fn)
+        p_loss, p_grads = loss_and_grads(plain_fn)
+        err = check_close(f"bf16 {what} train loss", k_loss, p_loss, RTOL16)
+        for path, x, r in zip(params, k_grads, p_grads):
+            if x.dtype != torch.bfloat16:
+                raise AssertionError(f"gradient {path} has dtype {x.dtype}")
+            err = max(err, check_close(f"bf16 {what} gradient {path}", x, r,
+                                       RTOL16))
+        return k_loss, p_loss, err
+
+    k_loss, p_loss, grad_err = grads_close("fused", fused_level,
+                                           risi18_level_reference)
+
+    # The bank route over a materialised T, a level_fn= choice, on the same
+    # weights: one request and one forward with its gradients, K4/K5
+    # against the plain bank, and the request against the fused route's.
+    reset()
+    with torch.no_grad():
+        bank_pred = plain(requests[0], risi18_bank_level)[0]
+        bank_err = check_close(
+            "bf16 bank request", bank_pred,
+            plain(requests[0], risi18_bank_level_reference)[0], RTOL16)
+        route_err = check_close("bf16 bank route vs fused route", bank_pred,
+                                preds[0], 3 * RTOL16)
+    b_loss, bp_loss, err = grads_close("bank", risi18_bank_level,
+                                       risi18_bank_level_reference)
+    bank_err = max(bank_err, err)
+    banked = counts()
+    expect("bank route", banked, **{"K4": 2 * nL, "K5 kernel 1": nL,
+                                    "K5 kernel 2": nL})
 
     # Training, counted.
     graphs = er_batch()
-    risi18_bank.launches = 0
-    risi18_bank_backward.launches = 0
-    risi18_bank_backward.reduce_launches = 0
+    reset()
     steps, step_s = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -738,14 +843,10 @@ def phase_bf16():
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     learn = model.Learn(mol, float(mol.nVertices), TRAIN_LR, nIterations=2)
-    train_launches = (risi18_bank.launches, risi18_bank_backward.launches,
-                      risi18_bank_backward.reduce_launches)
+    trained = counts()
     fwd, bwd = 2 * TRAIN_STEPS + 3, TRAIN_STEPS + 3
-    expected = (nL * fwd, nL * bwd, nL * bwd)
-    if train_launches != expected:
-        raise AssertionError(f"launches (K4, K5 kernel 1, K5 kernel 2) = "
-                             f"{train_launches}, expected {expected}: {nL} "
-                             f"levels x {fwd} forwards and {bwd} backwards")
+    expect("training", trained, **{"K1": nL * fwd, "K2 kernel 1": nL * bwd,
+                                   "K2 kernel 2": nL * bwd})
     losses = [x for step in steps for x in step] + list(learn)
     if not np.isfinite(losses).all():
         raise AssertionError(f"non-finite loss in {losses}")
@@ -768,25 +869,35 @@ def phase_bf16():
         + "; prep cached " + ", ".join(f"{x:.4f}" for x in seconds["cached"]))
     shown = [round(float(x), 4) for x in np.concatenate(preds[:N_REQUESTS])]
     log(f"phase 8 bf16: predictions {shown} "
-        f"Predict(C2H4)={pred_mol:.4f}; K4 launches={serve_launches} (= {nL}"
-        f" levels x {forwards} forwards); max abs err vs plain bank "
+        f"Predict(C2H4)={pred_mol:.4f}; K1 launches={served['K1']} (= {nL}"
+        f" levels x {forwards} forwards), K4=K5=0; max abs err vs plain level "
         f"{serve_err:.3e} (bound {RTOL16:g}*max(1,max|plain|)) ok")
-    log(f"phase 8 bf16: first-step loss {float(k_loss):.4f} vs plain bank "
-        f"{float(p_loss):.4f}; {len(params)} gradients; max abs err "
+    log(f"phase 8 bf16: first-step loss {float(k_loss):.4f} vs plain level "
+        f"{float(p_loss):.4f}; {len(params)} bfloat16 gradients; max abs err "
         f"{grad_err:.3e} (bound {RTOL16:g}*max(1,max|plain|)) ok")
     log(f"phase 8 bf16: BatchLearn (loss_before, loss_after) "
         + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in steps)
         + f"; Learn(C2H4, nIterations=2) ({learn[0]:.4f}, {learn[1]:.4f}); "
-        f"all finite; launches K4={train_launches[0]} K5 kernel 1="
-        f"{train_launches[1]} kernel 2={train_launches[2]} (= {nL} levels x "
-        f"{fwd} forwards, {bwd} backwards)")
+        f"all finite; launches K1={trained['K1']} K2 kernel 1="
+        f"{trained['K2 kernel 1']} kernel 2={trained['K2 kernel 2']} (= {nL} "
+        f"levels x {fwd} forwards, {bwd} backwards), K4=K5=0")
     log(f"phase 8 bf16: seconds per BatchLearn step (host clock, synced): "
         f"prep uncached {step_s[0]:.4f}, prep cached "
         + ", ".join(f"{x:.4f}" for x in step_s[1:])
         + f"; peak device memory of a cached step {peak:.1f} MB above the "
         f"{base / 1e6:.1f} MB held")
-    return (serve_launches + train_launches[0], train_launches[1:],
-            serve_err, grad_err)
+    log(f"phase 8 bf16: level_fn=risi18_bank_level (T materialised): one "
+        f"request and one forward with gradients, loss {float(b_loss):.4f} vs "
+        f"plain bank {float(bp_loss):.4f}; launches K4={banked['K4']} K5 "
+        f"kernel 1={banked['K5 kernel 1']} kernel 2={banked['K5 kernel 2']}, "
+        f"K1=K2=0; max abs err vs plain bank {bank_err:.3e} (bound "
+        f"{RTOL16:g}*max(1,max|plain|)); request vs the fused route "
+        f"{route_err:.3e} (two roundings of one function) ok")
+    return {"k1": served["K1"] + trained["K1"],
+            "k2": (trained["K2 kernel 1"], trained["K2 kernel 2"]),
+            "k4": banked["K4"],
+            "k5": (banked["K5 kernel 1"], banked["K5 kernel 2"]),
+            "err": max(serve_err, grad_err), "bank_err": bank_err}
 
 
 def phase_aligned():
@@ -794,42 +905,54 @@ def phase_aligned():
     from graphflow_tpu_torch.ops.risi_aligned import (
         risi18_aligned_t2, risi18_aligned_t2_reference)
 
-    max_err = 0.0
-    for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES):
-        state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED + i)
-        got = risi18_aligned_t2(state, nbr, pos)
-        torch.cuda.synchronize()
-        ref = risi18_aligned_t2_reference(state, nbr, pos)
-        if got.dtype != ref.dtype or got.shape != ref.shape:
-            raise AssertionError(f"aligned N={N} P={P} C={C}: {got.dtype} "
-                                 f"{tuple(got.shape)}, plain {ref.dtype} "
-                                 f"{tuple(ref.shape)}")
-        err = float((got - ref).abs().max())
-        max_err = max(max_err, err)
-        if not torch.equal(got, ref):
-            raise AssertionError(f"aligned N={N} P={P} C={C}: max abs err "
-                                 f"{err:.3e}, the copy must be exact")
-        log(f"phase 9 aligned: N={N} P={P} C={C} max_abs_err={err:.1f} "
-            f"(exact; {int((ref != 0).sum())} of {ref.numel()} elements "
-            f"present) ok")
-    N, P, C, Cout = LEVEL_SHAPES[0]
-    state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED)
-    ms = {"plain": time_ms(lambda: risi18_aligned_t2_reference(state, nbr,
-                                                               pos)),
-          "k7": time_ms(lambda: risi18_aligned_t2(state, nbr, pos))}
-    mb = N * P ** 3 * C * 4 / 1e6
-    log(f"phase 9 aligned: N,P,C={(N, P, C)} float32, T {mb:.1f} MB; median "
-        f"K7 {ms['k7']:.4f} ms ({mb / ms['k7']:.1f} GB/s written), plain "
-        f"take-gather {ms['plain']:.4f} ms (CUDA events, 20 reps)")
-    ms["bound"] = bound_ms(nbytes(state, nbr, pos) + N * P ** 3 * C * 4, 0)
-    log(f"phase 9 aligned: bound {ms['bound'][0]:.4f} ms by {ms['bound'][1]}")
+    max_err, ms = 0.0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES):
+            state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED + i,
+                                               dtype=dtype)
+            got = risi18_aligned_t2(state, nbr, pos)
+            torch.cuda.synchronize()
+            ref = risi18_aligned_t2_reference(state, nbr, pos)
+            if got.dtype != dtype or got.dtype != ref.dtype \
+                    or got.shape != ref.shape:
+                raise AssertionError(f"aligned {name} N={N} P={P} C={C}: "
+                                     f"{got.dtype} {tuple(got.shape)}, plain "
+                                     f"{ref.dtype} {tuple(ref.shape)}")
+            err = float((got.float() - ref.float()).abs().max())
+            max_err = max(max_err, err)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"aligned {name} N={N} P={P} C={C}: max "
+                                     f"abs err {err:.3e}, the copy must be "
+                                     f"exact")
+            wide = C % (16 // state.element_size()) == 0
+            log(f"phase 9 aligned: {name} N={N} P={P} C={C} max_abs_err="
+                f"{err:.1f} (exact; {int((ref != 0).sum())} of {ref.numel()} "
+                f"elements present; {'16-byte' if wide else 'one-element'} "
+                f"accesses) ok")
+        N, P, C, Cout = LEVEL_SHAPES[0]
+        state, nbr, pos, *_ = level_inputs(N, P, C, Cout, seed=SEED,
+                                           dtype=dtype)
+        m = ms[name] = {
+            "plain": time_ms(lambda: risi18_aligned_t2_reference(state, nbr,
+                                                                 pos)),
+            "k7": time_ms(lambda: risi18_aligned_t2(state, nbr, pos))}
+        t_bytes = N * P ** 3 * C * state.element_size()
+        log(f"phase 9 aligned: N,P,C={(N, P, C)} {name}, T "
+            f"{t_bytes / 1e6:.1f} MB; median K7 {m['k7']:.4f} ms "
+            f"({t_bytes / 1e6 / m['k7']:.1f} GB/s written), plain "
+            f"take-gather {m['plain']:.4f} ms (CUDA events, 20 reps)")
+        m["bound"] = bound_ms(nbytes(state, nbr, pos) + t_bytes, 0)
+        log(f"phase 9 aligned: {name} bound {m['bound'][0]:.4f} ms by "
+            f"{m['bound'][1]}")
     return max_err, ms
 
 
 def phase_variants():
     import torch
-    from graphflow_tpu_torch.models import (SMP_2D_ver6, SMP_2D_ver7,
-                                            SMP_2D_ver7_classification)
+    from graphflow_tpu_torch.models import (SMP2D, SMP_2D_ver6, SMP_2D_ver7,
+                                            SMP_2D_ver7_classification,
+                                            SMP2DConfig)
     from graphflow_tpu_torch.models.smp2d import (contraction_level,
                                                   smp2d_forward)
     from graphflow_tpu_torch.ops.activations import leaky_relu
@@ -858,9 +981,9 @@ def phase_variants():
             return smp2d_forward(model.params, model._stack(graphs),
                                  model.cfg, level_fn=level_fn)
 
-    def train(model, graphs, tgts, learn):
+    def train(model, graphs, tgts, learn, n_steps=TRAIN_STEPS):
         steps, seconds = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(n_steps):
             t0 = time.perf_counter()
             steps.append(model.BatchLearn(graphs, tgts, MOMENTUM_LR))
             torch.cuda.synchronize()
@@ -873,10 +996,25 @@ def phase_variants():
             raise AssertionError(f"non-finite loss in {losses}")
         return steps, seconds
 
-    launches, max_err = 0, 0.0
-    for ctor in (SMP_2D_ver6, SMP_2D_ver7):
-        name = ctor.__name__
-        model = ctor(**MODEL, seed=SEED, device="cuda")
+    def bf16_variant(contraction):
+        return SMP2D(SMP2DConfig(**MODEL, contraction=contraction,
+                                 optimizer="momentum", dtype="bfloat16"),
+                     seed=SEED, device="cuda")
+
+    # float32: three steps and a Learn; bfloat16: two steps (prep uncached,
+    # then cached), every output against the take-gather route at the
+    # bfloat16 bound.
+    variants = (
+        ("SMP_2D_ver6", lambda: SMP_2D_ver6(**MODEL, seed=SEED,
+                                            device="cuda"), RTOL),
+        ("SMP_2D_ver7", lambda: SMP_2D_ver7(**MODEL, seed=SEED,
+                                            device="cuda"), RTOL),
+        ("SMP_2D_ver6 bfloat16", lambda: bf16_variant(10), RTOL16),
+        ("SMP_2D_ver7 bfloat16", lambda: bf16_variant(50), RTOL16))
+    launches, max_err, ver7 = {"float32": 0, "bfloat16": 0}, 0.0, None
+    for name, make, rtol in variants:
+        model = make()
+        bf16 = model.cfg.dtype == "bfloat16"
         # Serving, counted: each request twice (prep uncached, then cached).
         risi18_aligned_t2.launches = 0
         preds, seconds = [], {"uncached": [], "cached": []}
@@ -898,19 +1036,26 @@ def phase_variants():
                 raise AssertionError(f"{name} request {r}: shape "
                                      f"{preds[r].shape}")
             err = max(err, check_close(f"{name} request {r}", preds[r],
-                                       plain(model, graphs)[0]))
+                                       plain(model, graphs)[0], rtol))
         ref_pred, ref_feat = plain(model, [mol])
-        err = max(err, check_close(f"{name} Predict", [pred_mol], ref_pred),
-                  check_close(f"{name} Feature", feat_mol, ref_feat[0]))
+        err = max(err,
+                  check_close(f"{name} Predict", [pred_mol], ref_pred, rtol),
+                  check_close(f"{name} Feature", feat_mol, ref_feat[0], rtol))
         # Training, counted: the take-gather, so K7 must not launch.
-        steps, step_s = train(model, train_graphs, targets, learn=True)
+        steps, step_s = train(model, train_graphs, targets, learn=not bf16,
+                              n_steps=2 if bf16 else TRAIN_STEPS)
         if risi18_aligned_t2.launches != served:
             raise AssertionError(f"{name}: training launched K7 "
                                  f"{risi18_aligned_t2.launches - served} "
                                  f"times")
-        launches += served
+        if not all(p.dtype == model.cfg.torch_dtype
+                   for p in model.parameters()):
+            raise AssertionError(f"{name}: a parameter left "
+                                 f"{model.cfg.dtype}")
+        launches[model.cfg.dtype] += served
         max_err = max(max_err, err)
-        ver7 = model
+        if name == "SMP_2D_ver7":
+            ver7 = model
         shown = np.concatenate(preds[:N_REQUESTS]).astype(float).round(5)
         shown = shown.tolist()
         log(f"phase 10 variants: {name} {N_REQUESTS} requests x "
@@ -922,15 +1067,28 @@ def phase_variants():
             + f"; predictions {shown} "
             f"Predict(C2H4)={pred_mol:.6f}; K7 launches={served} (= {nL} "
             f"levels x {forwards} forwards); max abs err vs take-gather "
-            f"{err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
-        log(f"phase 10 variants: {name} Momentum lr {MOMENTUM_LR:g} "
-            f"BatchLearn (loss_before, loss_after) "
-            + ", ".join(f"({a:.6g}, {b:.6g})" for a, b in steps[:-1])
-            + f"; Learn(C2H4, nIterations=2) ({steps[-1][0]:.6g}, "
-            f"{steps[-1][1]:.6g}); all finite; K7 launches in training 0; "
-            f"seconds per step (host clock, synced) prep uncached "
-            f"{step_s[0]:.4f}, prep cached "
-            + ", ".join(f"{x:.4f}" for x in step_s[1:]))
+            f"{err:.3e} (bound {rtol:g}*max(1,max|plain|)) ok")
+        learned = steps[-1] if not bf16 else None
+        text = (f"phase 10 variants: {name} Momentum lr {MOMENTUM_LR:g} "
+                f"BatchLearn (loss_before, loss_after) "
+                + ", ".join(f"({a:.6g}, {b:.6g})"
+                            for a, b in steps[:len(step_s)]))
+        if learned:
+            text += (f"; Learn(C2H4, nIterations=2) ({learned[0]:.6g}, "
+                     f"{learned[1]:.6g})")
+        text += (f"; all finite; K7 launches in training 0; seconds per step "
+                 f"(host clock, synced) prep uncached {step_s[0]:.4f}, prep "
+                 f"cached " + ", ".join(f"{x:.4f}" for x in step_s[1:]))
+        if bf16:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            model.BatchLearn(train_graphs, targets, MOMENTUM_LR)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+            text += (f"; peak device memory of a cached step {peak:.1f} MB "
+                     f"above the {base / 1e6:.1f} MB held")
+        log(text)
+        del model
 
     # The classification head: one request, then training on labels.
     model = SMP_2D_ver7_classification(**MODEL, nClasses=3, seed=SEED,
@@ -946,7 +1104,7 @@ def phase_variants():
     steps, step_s = train(model, train_graphs, labels, learn=False)
     if risi18_aligned_t2.launches != served:
         raise AssertionError("classification training launched K7")
-    launches += served
+    launches["float32"] += served
     max_err = max(max_err, err)
     log(f"phase 10 variants: SMP_2D_ver7_classification scores "
         f"{scores.astype(float).round(5).tolist()} (K7 launches={served}, "
@@ -1284,12 +1442,12 @@ def main() -> None:
     import torch
 
     phase_build()
-    level_err, kernel_ms, plain_ms, level_bound = phase_kernel()
+    level_errs, level_ms = phase_kernel()
     serve_launches, slice_err = phase_slice()
     bwd_errs, bwd_ms = phase_backward()
     train_launches, train_err = phase_train()
     bank_errs, bank_ms = phase_bank()
-    k4_launches, k5_launches, bf16_serve_err, bf16_grad_err = phase_bf16()
+    bf16 = phase_bf16()
     aligned_err, aligned_ms = phase_aligned()
     k7_launches, variants_err = phase_variants()
     ablate_errs, ablate_tables, ablate_launches, ablate_extra = phase_ablate()
@@ -1310,34 +1468,65 @@ def main() -> None:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms, **more}
 
+    def in_bf16(ms, plain, bound):
+        """The bfloat16 numbers of a kernel whose main entry is float32."""
+        return {"ms_bfloat16": ms, "plain_ms_bfloat16": plain,
+                "bound_ms_bfloat16": bound[0],
+                "bound_by_bfloat16": bound[1]}
+
+    # K1, K2 and K7: ms, plain_ms and bound_ms in float32 with the bfloat16
+    # ones beside; launches and max_abs_err cover both dtypes.
+    f32, b16 = "float32", "bfloat16"
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
-               serve_launches + train_launches[0] + physics_k1,
-               max(level_err, slice_err, physics_err), kernel_ms, plain_ms,
-               level_bound),
+               serve_launches + train_launches[0] + physics_k1 + bf16["k1"],
+               max(*level_errs.values(), slice_err, physics_err, bf16["err"]),
+               level_ms[f32]["kernel"], level_ms[f32]["plain"],
+               level_ms[f32]["bound"],
+               **in_bf16(level_ms[b16]["kernel"], level_ms[b16]["plain"],
+                         level_ms[b16]["bound"])),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
-               fused + "767", train_launches[1] + physics_k2[0],
-               max(bwd_errs["dstate"], train_err, physics_err),
-               bwd_ms["main"], bwd_ms["plain"], bwd_ms["bound"]),
-        kernel("sum_partial_rows (risi18_level_bwd)", "risi18_level_bwd.cu",
-               fused + "767", train_launches[2] + physics_k2[1],
-               max(bwd_errs["dK"], bwd_errs["db"]), bwd_ms["reduce"],
-               bwd_ms["plain_reduce"], bwd_ms["reduce_bound"],
-               library_ms=bwd_ms["plain_reduce"]),
+               fused + "767",
+               train_launches[1] + physics_k2[0] + bf16["k2"][0],
+               max(bwd_errs[f32]["dstate"], bwd_errs[b16]["dstate"],
+                   train_err, physics_err, bf16["err"]),
+               bwd_ms[f32]["main"], bwd_ms[f32]["plain"],
+               bwd_ms[f32]["bound"],
+               **in_bf16(bwd_ms[b16]["main"], bwd_ms[b16]["plain"],
+                         bwd_ms[b16]["bound"])),
+        kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
+               "risi18_level_bwd.cu", fused + "767",
+               train_launches[2] + physics_k2[1] + bf16["k2"][1],
+               max(bwd_errs[d][k] for d in (f32, b16) for k in ("dK", "db")),
+               bwd_ms[f32]["reduce"], bwd_ms[f32]["plain_reduce"],
+               bwd_ms[f32]["reduce_bound"],
+               library_ms=bwd_ms[f32]["plain_reduce"],
+               **in_bf16(bwd_ms[b16]["reduce"], bwd_ms[b16]["plain_reduce"],
+                         bwd_ms[b16]["reduce_bound"])),
         kernel("risi18_bank_kernel", "risi18_bank.cu", bank + "142",
-               k4_launches, max(bank_errs["Z"], bf16_serve_err),
+               bf16["k4"], max(bank_errs["Z"], bf16["bank_err"]),
                bank_ms["k4"], bank_ms["plain"], bank_ms["bound"]),
         kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
-               k5_launches[0], max(bank_errs["dT"], bf16_grad_err),
+               bf16["k5"][0], max(bank_errs["dT"], bf16["bank_err"]),
                bank_ms["main"], bank_ms["plain_bwd"], bank_ms["bwd_bound"]),
         kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
-               bank + "330", k5_launches[1], bank_errs["dK"],
+               bank + "330", bf16["k5"][1], bank_errs["dK"],
                bank_ms["reduce"], bank_ms["plain_reduce"],
                bank_ms["reduce_bound"], library_ms=bank_ms["plain_reduce"]),
         kernel("risi18_aligned_t2_kernel", "risi_aligned_t2.cu",
-               fused + "1059", k7_launches, aligned_err, aligned_ms["k7"],
-               aligned_ms["plain"], aligned_ms["bound"]),
+               fused + "1059", sum(k7_launches.values()), aligned_err,
+               aligned_ms[f32]["k7"], aligned_ms[f32]["plain"],
+               aligned_ms[f32]["bound"],
+               launches_bfloat16=k7_launches[b16],
+               **in_bf16(aligned_ms[b16]["k7"], aligned_ms[b16]["plain"],
+                         aligned_ms[b16]["bound"])),
     ]
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel of the path was launched no time: "
+                             + str({k["name"]: k["launches"]
+                                    for k in kernels}))
+    if k7_launches[b16] <= 0 or bf16["k1"] <= 0 or min(bf16["k2"]) <= 0:
+        raise AssertionError("a bfloat16 path launched no kernel")
     # K6: one kernel per variant; times in bfloat16 as K4's, float32 beside.
     for mode, extra in ablate_extra.items():
         kernels.append(kernel(

@@ -9,9 +9,12 @@ the host in NumPy and emits static-shaped index arrays: the dense
 permutation matrices X[v][w] become gather indices ``pos`` with the
 sentinel P for "absent", which the level kernel reads as zeros.
 
-This is the NumPy path of the JAX package, array for array.  The native
-C++ backend (``graphflow_tpu/runtime/native.py``) is ROADMAP queue 1,
-item 4; the first-order ``fo_degree`` indices come with smp1d (item 7).
+This is the NumPy path of the JAX package, array for array, but for one
+case: a vertex is at distance 0 from itself even when the graph has a self
+loop (:func:`floyd_warshall`), as in the JAX package's native backend, the
+one its models use by default.  The native C++ backend
+(``graphflow_tpu/runtime/native.py``) is ROADMAP queue 1, item 2; the
+first-order ``fo_degree`` indices come with smp1d (item 5).
 """
 
 from __future__ import annotations
@@ -28,11 +31,21 @@ INF = 10**9  # reference GCN_1D.h:26 `const int INF = 1e9`
 
 def floyd_warshall(adj: np.ndarray) -> np.ndarray:
     """All-pairs hop counts (``SMP_omega.h:358-380``) by min-plus squaring;
-    unreachable pairs keep INF."""
+    unreachable pairs keep INF.
+
+    A vertex is 0 hops from itself whatever ``adj[v, v]`` is.  The JAX
+    package's two backends differ on a self loop: its NumPy path writes
+    ``sp[adj > 0] = 1`` after the zero diagonal
+    (``graphflow_tpu/core/prep.py:46-48``), so ``sp[v, v] = 1`` and the
+    vertex's own feature lands in the depth-1 WL histogram; its native
+    backend keeps ``sp[i, i] = 0`` (``graph_prep.cpp:66``).  The port
+    follows the native one: ``backend="auto"`` picks it, so it is what the
+    JAX models compute as users build them, and a shortest path from a
+    vertex to itself has no edge."""
     n = adj.shape[0]
     sp = np.full((n, n), INF, dtype=np.int64)
-    np.fill_diagonal(sp, 0)
     sp[adj > 0] = 1
+    np.fill_diagonal(sp, 0)
     sp = np.minimum(sp, sp.T)
     hops = 1
     while hops < n:

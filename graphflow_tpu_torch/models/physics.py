@@ -21,7 +21,7 @@ Reference ``SMP_omega_physics.h``, ``SMP_beta_physics.h``,
 Every tower halves its channels per level, C_l = max(C_{l-1} // 2, 1)
 (``SMP_omega_physics.h:142-144``), so its levels run the kernels at
 C != Cout, down to one channel.  Adam, the squared loss.  The first-order
-``SMP_theta_physics`` needs the first-order tower (ROADMAP queue 1 item 7).
+``SMP_theta_physics`` needs the first-order tower (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ class SMPPhysics(GraphModel):
         if order != 2:
             raise NotImplementedError(
                 "the first-order physics tower (SMP_theta_physics) needs "
-                "models/smp1d.py: ROADMAP queue 1, item 7")
+                "models/smp1d.py: ROADMAP queue 1, item 5")
         self.order = order
         schedule = halving_schedule(nChanels, nLevels)
         self.cfg = SMP2DConfig(
@@ -164,6 +164,6 @@ def SMP_gamma_physics(max_nVertices, max_receptive_field, nLevels, nChanels,
 def SMP_theta_physics(max_nVertices, max_receptive_field, nLevels, nChanels,
                       nFeatures, seed=0, device=None) -> SMPPhysics:
     """``SMP_theta_physics.h:31-56``: the first-order tower, not ported
-    yet: raises ``NotImplementedError`` (ROADMAP queue 1, item 7)."""
+    yet: raises ``NotImplementedError`` (ROADMAP queue 1, item 5)."""
     return SMPPhysics(1, max_nVertices, max_receptive_field, nLevels,
                       nChanels, nFeatures, seed=seed, device=device)

@@ -15,15 +15,15 @@ Where JAX vmaps the level over the batch, the port flattens B graphs of V
 padded vertices into B*V vertex rows and offsets ``nbr`` by b*V, so one
 call of the level (one kernel launch on CUDA) covers the batch.
 
-The level's route depends on the contraction k and the dtype:
-- k = 18, float32 (and float64, on the CPU for parity tests):
-  :func:`risi18_level`, the fused level (K1, K2 on CUDA).  bfloat16:
-  :func:`risi18_bank_level`, the take-gather then :func:`risi18_bank` (K4,
-  K5 on CUDA), bias and LeakyReLU in bfloat16, as the JAX package's bank
-  route does (``graphflow_tpu/models/smp2d.py:297-308``).  On the TPU the
-  JAX package sends bfloat16 at P a multiple of 16 through its fused level
-  instead; that split follows the TPU's 16-row bfloat16 tile and is not
-  ported.
+The level's route depends on the contraction k, the same in float32 and
+bfloat16 (float64 runs on the CPU, for parity tests):
+- k = 18: :func:`risi18_level`, the fused level (K1, K2 on CUDA), which
+  gathers its slots inside the kernel and stores no T.  The kernels take
+  the state, K and b in the model's dtype and the adjacency in float32 (the
+  model hands ``radj.float()``, exact for a 0/1 adjacency); they sum in
+  float32 and round once, as the JAX package's fused level does.  On the
+  TPU the JAX package sends bfloat16 there only at P a multiple of 16; that
+  split follows the TPU's 16-row bfloat16 tile and is not ported.
 - k = 10, 50 (ver6, ver7): the aligned neighbour tensor T, then the fused
   bank with K (``risi_contraction_{10,50}_matmul``), bias, LeakyReLU.  For
   inference T comes from :func:`risi18_aligned_t2` (K7 on CUDA); for
@@ -31,6 +31,13 @@ The level's route depends on the contraction k and the dtype:
   differentiates, as the JAX package does (``smp2d.py:287-299``).
 - k = 4 (gamma): the take-gather, ``risi_contraction_4`` (no adjacency),
   then the product with K, bias, LeakyReLU.
+
+:func:`risi18_bank_level` is the bank route of k = 18 over a materialised T
+(the take-gather, then :func:`risi18_bank`: K4, K5 on CUDA; bias and
+LeakyReLU in the state's dtype, ``graphflow_tpu/models/smp2d.py:297-308``).
+No model takes it by default; it is a ``level_fn=`` choice, and K4 and K5
+are the kernels of the bank wherever T exists already (the ablation tool,
+a partitioned level).
 
 A ``channel_schedule`` gives every level its own channel count (the
 physics towers halve it); the kernels take C and Cout apart, so a scheduled
@@ -40,7 +47,7 @@ row blocks, so a masked level runs the same routes with the scaled K.
 
 The port covers inference and training (the squared loss of the
 regression head, the log loss of the classification head, Adam or
-Momentum, ``BatchLearn``).  bfloat16 with k != 18 is ROADMAP queue 1.
+Momentum, ``BatchLearn``), in float32 and bfloat16 for every k.
 """
 
 from __future__ import annotations
@@ -72,7 +79,6 @@ from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.optim.utils import uniform_init
 from graphflow_tpu_torch.utils.convert import to_numpy
 
-_REST_OF_SMP2D = "ROADMAP queue 1, item 3c (the rest of smp2d)"
 _CONTRACTIONS = (4, 10, 18, 50)
 
 
@@ -108,10 +114,6 @@ class SMP2DConfig:
             raise NotImplementedError(
                 f"dtype {self.dtype} is not ported; the port takes "
                 f"float32, float64 and bfloat16")
-        if self.dtype == "bfloat16" and self.contraction != 18:
-            raise NotImplementedError(
-                f"bfloat16 with contraction {self.contraction} is "
-                f"{_REST_OF_SMP2D}")
 
     @property
     def feat_dim(self) -> int:
@@ -180,8 +182,9 @@ def _bank_level(bank, state, nbr, pos, radj, K, b, negslope=0.01):
 
 
 def risi18_bank_level(state, nbr, pos, radj, K, b, negslope=0.01):
-    """The level through :func:`risi18_bank` (K4 and K5 on CUDA); the
-    bfloat16 route.  Arguments as :func:`risi18_level`."""
+    """The level through :func:`risi18_bank` (K4 and K5 on CUDA) over a
+    materialised T; a ``level_fn=`` choice.  Arguments as
+    :func:`risi18_level`, with ``radj`` in any float dtype."""
     return _bank_level(risi18_bank, state, nbr, pos, radj, K, b, negslope)
 
 
@@ -230,14 +233,24 @@ def case_mask_level_reference(contraction, case_mask, state, nbr, pos, radj,
     return leaky_relu(Z, negslope)
 
 
+def fused_level(state, nbr, pos, radj, K, b, negslope=0.01):
+    """The fused level of a model: :func:`risi18_level` on the float32
+    view of a bfloat16 adjacency, which the kernels need
+    (``radj.astype(float32)``, ``risi_fused_pallas.py:1107``); a float32 or
+    float64 adjacency passes as it is."""
+    if radj.dtype == torch.bfloat16:
+        radj = radj.float()
+    return risi18_level(state, nbr, pos, radj, K, b, negslope)
+
+
 def default_level_fn(cfg: SMP2DConfig, training: bool):
-    """The level step of ``cfg`` (module docstring).  ``training`` picks
-    the gather of the 10- and 50-case banks: the take-gather, which autograd
-    differentiates, when True; :func:`risi18_aligned_t2` (K7 on CUDA) when
-    False, as ``graphflow_tpu/models/smp2d.py:287-296`` does."""
+    """The level step of ``cfg`` (module docstring), the same in every
+    dtype.  ``training`` picks the gather of the 10- and 50-case banks: the
+    take-gather, which autograd differentiates, when True;
+    :func:`risi18_aligned_t2` (K7 on CUDA) when False, as
+    ``graphflow_tpu/models/smp2d.py:287-296`` does."""
     if cfg.contraction == 18:
-        return (risi18_bank_level if cfg.dtype == "bfloat16"
-                else risi18_level)
+        return fused_level
     gather = (risi18_aligned_t2
               if cfg.contraction in (10, 50) and not training
               else risi18_aligned_t2_reference)

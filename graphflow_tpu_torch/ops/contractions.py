@@ -14,8 +14,21 @@ adjacency.  The ``_matmul`` forms return ``reshape(bank) @ K`` without
 materialising the bank: K acts on the channel axis only, so each case's
 block of K is applied to that case's shared reduction.
 
-Every function takes leading batch dimensions.  They compute in T's dtype
-(float32 on the card, float64 for the parity tests).
+Every function takes leading batch dimensions.  Dtypes follow the JAX
+package (``graphflow_tpu/ops/contractions.py:177-179, 349-351, 374``):
+- the banks (``risi_contraction_4/10/18/50``) return T's dtype.  In
+  bfloat16 every sum and every einsum accumulates in float32 and rounds its
+  result to bfloat16, which is what torch's bfloat16 reductions and matrix
+  products do, and what the JAX einsums do with
+  ``preferred_element_type=float32`` followed by a cast;
+- the ``_matmul`` forms take the shared reductions in T's dtype, then keep
+  K, the adjacency, the weighted index sums of T (cases 11, 12, 14, 15, 23,
+  24, 41, 42, 45) and the running sum Z in ``promote_types(T.dtype,
+  float32)`` and round Z to T's dtype once, at the end.  torch has no
+  bfloat16 product with a float32 result on every device, so those index
+  sums cast T up a few batch rows at a time (:func:`_weighted_index_sums`):
+  a float32 copy of all of T would double the level's largest tensor.
+float32 and float64 compute in their own type throughout.
 """
 
 from __future__ import annotations
@@ -148,6 +161,42 @@ def risi_contraction_50(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     return torch.cat(ys, dim=-1)
 
 
+def _acc_dtype(T):
+    """The dtype a ``_matmul`` form sums in: float32 for bfloat16, else
+    T's own (``jnp.promote_types(T.dtype, float32)``)."""
+    return torch.promote_types(T.dtype, torch.float32)
+
+
+def _reductions_in(acc, T, A):
+    """:func:`_shared_reductions` in T's dtype, then cast to ``acc``."""
+    return {k: v.to(acc) for k, v in _shared_reductions(T, A).items()}
+
+
+# Elements of T cast up at a time by :func:`_weighted_index_sums` (32 MiB
+# of float32).
+_CAST_ELEMENTS = 1 << 23
+_INDEX_SUMS = (("vabcf,vwc->vwabf", (11, 12, 41)),
+               ("vabcf,vwb->vwacf", (14, 15, 42)),
+               ("vabcf,vwa->vwbcf", (23, 24, 45)))
+
+
+def _weighted_index_sums(T, W3, acc):
+    """The sums of T over its index c, b or a, weighted by the three rows of
+    W3 [..., 3, N]: three tensors [..., 3, N, N, C] in ``acc``, the products
+    accumulated and kept in ``acc`` as ``preferred_element_type`` does in
+    the JAX package.  A T of another dtype is cast up a few batch rows at a
+    time (``_CAST_ELEMENTS``), each piece serving the three sums."""
+    lead, (N, C) = T.shape[:-4], T.shape[-2:]
+    Tv, Wv = T.reshape(-1, N, N, N, C), W3.reshape(-1, 3, N)
+    rows = max(1, Tv.shape[0] if T.dtype == acc
+               else _CAST_ELEMENTS // max(1, N * N * N * C))
+    parts = [[ein(sub, Tc.to(acc), Wc) for sub, _ in _INDEX_SUMS]
+             for Tc, Wc in zip(Tv.split(rows), Wv.split(rows))]
+    # One piece (always so in float32 and float64) is handed on uncopied.
+    return [(family[0] if len(family) == 1 else torch.cat(family))
+            .reshape(*lead, 3, N, N, C) for family in zip(*parts)]
+
+
 def _k_blocks(K, C):
     """K [nCases*C, Cout] -> {1-based case: its [C, Cout] block}."""
     return {i + 1: blk for i, blk in enumerate(K.split(C, dim=0))}
@@ -167,13 +216,16 @@ def risi_contraction_10_matmul(T: torch.Tensor, A: torch.Tensor,
     """``reshape(risi_contraction_10(T, A)) @ K`` without the [..., N, N,
     10C] bank (``contractions.py:343-374``).  T [..., N, N, N, C], A [...,
     N, N], K [10C, Cout] -> [..., N, N, Cout]."""
-    q = _shared_reductions(T, A)
-    Kb = _k_blocks(K, T.shape[-1])
+    acc = _acc_dtype(T)
+    q = _reductions_in(acc, T, A)
+    A = A.to(acc)
+    Kb = _k_blocks(K.to(acc), T.shape[-1])
     S = _scalar(q["S"])
     Z = (q["T_ab"] @ Kb[1] + q["T_ac"] @ Kb[2] + q["T_bc"] @ Kb[5]) * S
     Z = Z + _project_outer(q, Kb, ("T_a", "T_b", "T_c"), (3, 6, 8),
                            (4, 7, 9))
-    return Z + A[..., None] * (q["T_full"] @ Kb[10])[..., None, None, :]
+    Z = Z + A[..., None] * (q["T_full"] @ Kb[10])[..., None, None, :]
+    return Z.to(T.dtype)
 
 
 def risi_contraction_50_matmul(T: torch.Tensor, A: torch.Tensor,
@@ -186,7 +238,9 @@ def risi_contraction_50_matmul(T: torch.Tensor, A: torch.Tensor,
     Rc[y]; one-axis products with A (four orientations); A[x,y] times a
     projected vector."""
     C, Cout = T.shape[-1], K.shape[1]
-    q = _shared_reductions(T, A)
+    acc = _acc_dtype(T)
+    q = _reductions_in(acc, T, A)
+    A, K = A.to(acc), K.to(acc)
     Kb = _k_blocks(K, C)
 
     def scal(slab, *terms):
@@ -200,11 +254,8 @@ def risi_contraction_50_matmul(T: torch.Tensor, A: torch.Tensor,
          + scal(q["T_bc"], (S, Kb[5]), (trA, Kb[25])))
 
     # Weighted index sums of T: weights R, Rc, diag A, three per family.
-    W3 = torch.stack([q["R"], q["Rc"], q["diagA"]], dim=-2)   # [..., 3, N]
-    for sub, ks in (("...abcf,...wc->...wabf", (11, 12, 41)),
-                    ("...abcf,...wb->...wacf", (14, 15, 42)),
-                    ("...abcf,...wa->...wbcf", (23, 24, 45))):
-        E = ein(sub, T, W3)                                   # [..., 3,N,N,C]
+    W3 = torch.stack([q["R"], q["Rc"], q["diagA"]], dim=-2)  # [..., 3, N]
+    for E, (_, ks) in zip(_weighted_index_sums(T, W3, acc), _INDEX_SUMS):
         K3 = torch.stack([Kb[k] for k in ks])                 # [3, C, Cout]
         Z = Z + ein("...wxyf,wfo->...xyo", E, K3)
 
@@ -235,7 +286,8 @@ def risi_contraction_50_matmul(T: torch.Tensor, A: torch.Tensor,
     vecs = torch.cat([q["T_full"], q["s_aab"], q["s_aba"], q["s_abb"],
                       q["t_diag3"]], dim=-1)                  # [..., 5C]
     Kv = torch.cat([Kb[k] for k in (10, 38, 39, 40, 50)], dim=0)
-    return Z + A[..., None] * (vecs @ Kv)[..., None, None, :]
+    Z = Z + A[..., None] * (vecs @ Kv)[..., None, None, :]
+    return Z.to(T.dtype)
 
 
 def risi_contraction_18(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:

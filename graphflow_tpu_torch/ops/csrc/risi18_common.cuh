@@ -9,7 +9,7 @@
 // sum_e Ap[d,e], S = sum Ap and trA = tr Ap, the slots T[a,b,c,f] are
 //   gathered     (K1, K2): state[nbr[v,a], pos[v,a,b], pos[v,a,c], f], zero
 //                when the id is outside [0, N) or a position outside [0, P)
-//                (GatherSlots), or
+//                (GatherSlots, float or bfloat16), or
 //   materialised (K4, K5): T[v,a,b,c,f], read as stored; the take-gather
 //                that built T already wrote zeros where a slot is absent
 //                (BankSlots, float or bfloat16).
@@ -247,13 +247,15 @@ __device__ inline void load_vertex(const int* __restrict__ nbr,
 // row(a, b, ch, r): whether row b of slot a is present, and its base for
 // channel ch; load(r, a, c): T[a,b,c] at that channel, as float.
 
-// The aligned slots gathered from the previous level's state (K1, K2).
+// The aligned slots gathered from the previous level's state (K1, K2),
+// float or bfloat16.
+template <typename E>
 struct GatherSlots {
-  const float* __restrict__ state;   // [N,P,P,C]
+  const E* __restrict__ state;       // [N,P,P,C]
   const int* snbr;                   // [P] in shared memory, -1 when absent
   const int* spos;                   // [P,P] in shared memory, -1 when absent
   int P, C;
-  using Row = const float*;
+  using Row = const E*;
   __device__ bool row(int a, int b, int ch, Row& r) const {
     const int n = snbr[a], p1 = spos[a * P + b];
     if (n < 0 || p1 < 0) return false;
@@ -262,7 +264,7 @@ struct GatherSlots {
   }
   __device__ float load(Row r, int a, int c) const {
     const int p2 = spos[a * P + c];
-    return p2 >= 0 ? __ldg(r + (size_t)p2 * C) : 0.f;
+    return p2 >= 0 ? to_float(__ldg(r + (size_t)p2 * C)) : 0.f;
   }
 };
 

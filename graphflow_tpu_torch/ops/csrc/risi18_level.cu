@@ -31,13 +31,20 @@
 // accumulating Z in shared memory across chunks.  Bias and LeakyReLU are
 // applied in the final coalesced write.  All sums are in float32.
 //
+// Element types.  State, K, b and out are float32 or bfloat16 (one type; the
+// TPU kernels work in the state's dtype the same way); radj is float32.  A
+// bfloat16 value becomes a float when it is loaded, shared memory holds
+// floats in both, and the output is rounded once, after the bias and
+// LeakyReLU, as _kernel_v3 writes Z.astype(out_ref.dtype).
+//
 // What bounds it.  At the production level shape (N=256, P=16, C=32,
 // Cout=32) the assembly is ~2.4 GFLOP of float32 FMAs on the CUDA cores
 // (the bank's 18*C*Cout product per output row), against ~134 MB of
-// gathered reads served mostly by L2 and 8 MB written.  So the kernel is
-// bound by arithmetic and by the shared-memory loads feeding it; the
-// chunk size Cc is chosen so that two blocks fit on one SM.  Tensor cores
-// (wgmma), TMA and pipelined loads are later work.
+// gathered reads served mostly by L2 and 8 MB written (half of both in
+// bfloat16, though a 2-byte gathered load fills half of a 32-byte sector).
+// So the kernel is bound by arithmetic and by the shared-memory loads
+// feeding it; the chunk size Cc is chosen so that two blocks fit on one SM.
+// Tensor cores (wgmma), TMA and pipelined loads are later work.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -49,14 +56,18 @@ namespace {
 using risi18::ForwardLayout;
 using risi18::kThreads;
 
+// E is the type of state, K, bias and out: float or __nv_bfloat16.  radj is
+// float in both, and so is every sum; a bfloat16 value is converted once on
+// load, and the output is rounded once, after the bias and LeakyReLU.
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-risi18_level_kernel(const float* __restrict__ state,
+risi18_level_kernel(const E* __restrict__ state,
                     const int* __restrict__ nbr,
                     const int* __restrict__ pos,
                     const float* __restrict__ radj,
-                    const float* __restrict__ K,
-                    const float* __restrict__ bias,
-                    float* __restrict__ out,
+                    const E* __restrict__ K,
+                    const E* __restrict__ bias,
+                    E* __restrict__ out,
                     int N, ForwardLayout L, float negslope) {
   extern __shared__ float smem[];
   const int P = L.P, C = L.C, Cout = L.Cout, Cc = L.Cc;
@@ -76,7 +87,7 @@ risi18_level_kernel(const float* __restrict__ state,
   risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal,
                       snbr, spos);
   const float S = smem[L.scal], trA = smem[L.scal + 1];
-  const risi18::GatherSlots slots{state, snbr, spos, P, C};
+  const risi18::GatherSlots<E> slots{state, snbr, spos, P, C};
 
   for (int c0 = 0; c0 < C; c0 += Cc) {
     const int nc = min(Cc, C - c0);
@@ -89,26 +100,20 @@ risi18_level_kernel(const float* __restrict__ state,
   }
 
   // 5. Bias and LeakyReLU; neighbouring threads write neighbouring words.
-  float* outv = out + v * PP * Cout;
+  E* outv = out + v * PP * Cout;
   for (int i = tid; i < PP * Cout; i += nth) {
     const int r = i / Cout, o = i % Cout;
-    const float z = Zs[o * ZLD + r] + bias[o];
-    outv[i] = z > 0.f ? z : negslope * z;
+    const float z = Zs[o * ZLD + r] + risi18::to_float(bias[o]);
+    risi18::store_value(outv + i, z > 0.f ? z : negslope * z);
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the level on `stream`; returns a cudaError_t (0 on success).
-// state [N,P,P,C] f32, nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
-// K [18C,Cout] f32, b [Cout] f32 -> out [N,P*P,Cout] f32, all contiguous.
-int risi18_level_forward_f32(const void* state, const void* nbr,
-                             const void* pos, const void* radj,
-                             const void* K, const void* b, void* out,
-                             int N, int P, int C, int Cout, float negslope,
-                             void* stream) {
+// Launches the level for element type E; returns a cudaError_t.
+template <typename E>
+int launch_level(const void* state, const void* nbr, const void* pos,
+                 const void* radj, const void* K, const void* b, void* out,
+                 int N, int P, int C, int Cout, float negslope,
+                 void* stream) {
   if (N <= 0) return cudaSuccess;
   if (P <= 0 || C <= 0 || Cout <= 0) return cudaErrorInvalidValue;
   auto make = [&](int Cc) {
@@ -119,14 +124,39 @@ int risi18_level_forward_f32(const void* state, const void* nbr,
   const ForwardLayout L = make(Cc);
   const size_t bytes = risi18::smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
-      risi18_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      risi18_level_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  risi18_level_kernel<<<N, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const float*)state, (const int*)nbr, (const int*)pos,
-      (const float*)radj, (const float*)K, (const float*)b, (float*)out,
-      N, L, negslope);
+  risi18_level_kernel<E><<<N, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const E*)state, (const int*)nbr, (const int*)pos, (const float*)radj,
+      (const E*)K, (const E*)b, (E*)out, N, L, negslope);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the level on `stream`; returns a cudaError_t (0 on success).
+// state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
+// K [18C,Cout], b [Cout] -> out [N,P*P,Cout], all contiguous; state, K, b
+// and out in float32 (_f32) or bfloat16 (_bf16).
+int risi18_level_forward_f32(const void* state, const void* nbr,
+                             const void* pos, const void* radj,
+                             const void* K, const void* b, void* out,
+                             int N, int P, int C, int Cout, float negslope,
+                             void* stream) {
+  return launch_level<float>(state, nbr, pos, radj, K, b, out, N, P, C, Cout,
+                             negslope, stream);
+}
+
+int risi18_level_forward_bf16(const void* state, const void* nbr,
+                              const void* pos, const void* radj,
+                              const void* K, const void* b, void* out,
+                              int N, int P, int C, int Cout, float negslope,
+                              void* stream) {
+  return launch_level<__nv_bfloat16>(state, nbr, pos, radj, K, b, out, N, P,
+                                     C, Cout, negslope, stream);
 }
 
 // The least shared memory one block needs at a channel chunk of one.

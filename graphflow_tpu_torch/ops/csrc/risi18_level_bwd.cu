@@ -42,6 +42,16 @@
 // algebra's device code is in risi18_common.cuh, shared with the bank's
 // backward risi18_bank_bwd.cu.
 //
+// Element types.  State, K, g and out are float32 or bfloat16 (one type);
+// radj is float32.  Behind a bfloat16 forward (as _v3t_bwd runs the TPU
+// kernel), geff is formed in float32 from the bfloat16 g and out; the sign
+// of the rounded out is the sign of the float32 pre-activation, zero
+// counting as negative in both.  The scatter always adds float32 into a
+// float32 buffer: a bfloat16 atomic would round up to P times per element.
+// In bfloat16 kernel 2 is finish_bf16_kernel: it sums the partial rows into
+// dK and db and rounds them, and rounds the float32 buffer into dstate, each
+// value once, in one launch.
+//
 // What bounds it.  At the production shape (N=256, P=16, C=32, Cout=32)
 // the dK and the cotangent products are ~0.6 G FMAs each on the CUDA cores,
 // fed from shared memory; the scatter is N*P^3*C = 33.5 M float atomics to
@@ -60,14 +70,15 @@ using risi18::BackwardLayout;
 using risi18::kCases;
 using risi18::kThreads;
 
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-risi18_level_bwd_kernel(const float* __restrict__ state,
+risi18_level_bwd_kernel(const E* __restrict__ state,
                         const int* __restrict__ nbr,
                         const int* __restrict__ pos,
                         const float* __restrict__ radj,
-                        const float* __restrict__ K,
-                        const float* __restrict__ gout,
-                        const float* __restrict__ out,
+                        const E* __restrict__ K,
+                        const E* __restrict__ gout,
+                        const E* __restrict__ out,
                         float* __restrict__ dstate,
                         float* __restrict__ partial,
                         int N, BackwardLayout L, float negslope) {
@@ -86,7 +97,7 @@ risi18_level_bwd_kernel(const float* __restrict__ state,
   float* Ks = smem + L.ks;
   int* snbr = reinterpret_cast<int*>(smem + L.inbr);
   int* spos = reinterpret_cast<int*>(smem + L.ipos);
-  const risi18::GatherSlots slots{state, snbr, spos, P, C};
+  const risi18::GatherSlots<E> slots{state, snbr, spos, P, C};
 
   // This block's partial sums: dK rows (case*C + f) then db.
   const size_t W = (size_t)kCases * C * Cout + Cout;
@@ -96,11 +107,12 @@ risi18_level_bwd_kernel(const float* __restrict__ state,
     const bool first = v == blockIdx.x;
 
     // geff of this vertex, G[r, o] with r = x*P + y.
-    const float* gv = gout + v * PP * Cout;
-    const float* ov = out + v * PP * Cout;
+    const E* gv = gout + v * PP * Cout;
+    const E* ov = out + v * PP * Cout;
     for (int i = tid; i < PP * Cout; i += nth) {
-      const float gi = gv[i];
-      G[(i / Cout) * GLD + (i % Cout)] = ov[i] > 0.f ? gi : negslope * gi;
+      const float gi = risi18::to_float(gv[i]);
+      G[(i / Cout) * GLD + (i % Cout)] =
+          risi18::to_float(ov[i]) > 0.f ? gi : negslope * gi;
     }
     risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal,
                         snbr, spos);
@@ -149,25 +161,50 @@ risi18_level_bwd_kernel(const float* __restrict__ state,
   }
 }
 
-}  // namespace
+// Kernel 2 behind a bfloat16 forward.  The first sum_blocks blocks sum the
+// nparts partial rows of width W = nK + Cout by column into dK [nK] and db,
+// rounded once; the other blocks round the float32 buffer dstate32 [n] into
+// dstate, four values a step where n allows (both come from the allocator,
+// 16-byte aligned).
+__global__ void __launch_bounds__(kThreads)
+finish_bf16_kernel(const float* __restrict__ partial, int nparts, int W,
+                   int nK, __nv_bfloat16* __restrict__ dK,
+                   __nv_bfloat16* __restrict__ db,
+                   const float* __restrict__ dstate32,
+                   __nv_bfloat16* __restrict__ dstate, size_t n,
+                   int sum_blocks) {
+  if ((int)blockIdx.x < sum_blocks) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= W) return;
+    float s = 0.f;
+    for (int p = 0; p < nparts; ++p) s += partial[(size_t)p * W + i];
+    risi18::store_value(i < nK ? dK + i : db + (i - nK), s);
+    return;
+  }
+  const size_t at = (size_t)(blockIdx.x - sum_blocks) * blockDim.x
+                    + threadIdx.x;
+  const size_t step = (size_t)(gridDim.x - sum_blocks) * blockDim.x;
+  const size_t n4 = n / 4;
+  const float4* src = reinterpret_cast<const float4*>(dstate32);
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(dstate);
+  for (size_t i = at; i < n4; i += step) {
+    const float4 x = src[i];
+    dst[2 * i] = __floats2bfloat162_rn(x.x, x.y);
+    dst[2 * i + 1] = __floats2bfloat162_rn(x.z, x.w);
+  }
+  for (size_t i = 4 * n4 + at; i < n; i += step)
+    risi18::store_value(dstate + i, dstate32[i]);
+}
 
-extern "C" {
+constexpr int kMaxCastBlocks = 1056;   // eight blocks for each of 132 SMs
 
-// Number of partial rows (blocks of kernel 1) for N vertices.
-int risi18_level_backward_blocks(int N) { return risi18::partial_blocks(N); }
-
-// Kernel 1 on `stream`; returns a cudaError_t (0 on success).
-// state [N,P,P,C] f32, nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
-// K [18C,Cout] f32, g and out [N,P*P,Cout] f32 -> adds into dstate
-// [N,P,P,C] f32 (zeroed by the caller) and writes partial
-// [nblocks, 18C*Cout + Cout] f32, all contiguous;
-// nblocks = risi18_level_backward_blocks(N).
-int risi18_level_backward_f32(const void* state, const void* nbr,
-                              const void* pos, const void* radj,
-                              const void* K, const void* g, const void* out,
-                              void* dstate, void* partial, int N, int P,
-                              int C, int Cout, float negslope, int nblocks,
-                              void* stream) {
+// Kernel 1 for element type E; returns a cudaError_t.
+template <typename E>
+int launch_backward(const void* state, const void* nbr, const void* pos,
+                    const void* radj, const void* K, const void* g,
+                    const void* out, void* dstate, void* partial, int N,
+                    int P, int C, int Cout, float negslope, int nblocks,
+                    void* stream) {
   if (N <= 0) return cudaSuccess;
   if (P <= 0 || C <= 0 || Cout <= 0) return cudaErrorInvalidValue;
   if (nblocks != risi18::partial_blocks(N)) return cudaErrorInvalidValue;
@@ -179,14 +216,52 @@ int risi18_level_backward_f32(const void* state, const void* nbr,
   const BackwardLayout L = make(Cc);
   const size_t bytes = risi18::smem_bytes(L);
   cudaError_t err = cudaFuncSetAttribute(
-      risi18_level_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      risi18_level_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  risi18_level_bwd_kernel<<<nblocks, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const float*)state, (const int*)nbr, (const int*)pos,
-      (const float*)radj, (const float*)K, (const float*)g,
-      (const float*)out, (float*)dstate, (float*)partial, N, L, negslope);
+  risi18_level_bwd_kernel<E>
+      <<<nblocks, kThreads, bytes, (cudaStream_t)stream>>>(
+          (const E*)state, (const int*)nbr, (const int*)pos,
+          (const float*)radj, (const E*)K, (const E*)g, (const E*)out,
+          (float*)dstate, (float*)partial, N, L, negslope);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of partial rows (blocks of kernel 1) for N vertices.
+int risi18_level_backward_blocks(int N) { return risi18::partial_blocks(N); }
+
+// Kernel 1 on `stream`; returns a cudaError_t (0 on success).
+// state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
+// K [18C,Cout], g and out [N,P*P,Cout] -> adds into dstate [N,P,P,C] f32
+// (zeroed by the caller) and writes partial [nblocks, 18C*Cout + Cout] f32,
+// all contiguous; nblocks = risi18_level_backward_blocks(N).  State, K, g
+// and out are float32 (_f32) or bfloat16 (_bf16); dstate is float32 in both
+// (in bfloat16 it is the buffer that risi18_level_backward_finish_bf16
+// rounds).
+int risi18_level_backward_f32(const void* state, const void* nbr,
+                              const void* pos, const void* radj,
+                              const void* K, const void* g, const void* out,
+                              void* dstate, void* partial, int N, int P,
+                              int C, int Cout, float negslope, int nblocks,
+                              void* stream) {
+  return launch_backward<float>(state, nbr, pos, radj, K, g, out, dstate,
+                                partial, N, P, C, Cout, negslope, nblocks,
+                                stream);
+}
+
+int risi18_level_backward_bf16(const void* state, const void* nbr,
+                               const void* pos, const void* radj,
+                               const void* K, const void* g, const void* out,
+                               void* dstate, void* partial, int N, int P,
+                               int C, int Cout, float negslope, int nblocks,
+                               void* stream) {
+  return launch_backward<__nv_bfloat16>(state, nbr, pos, radj, K, g, out,
+                                        dstate, partial, N, P, C, Cout,
+                                        negslope, nblocks, stream);
 }
 
 // Kernel 2 on `stream`: partial [nblocks, 18C*Cout + Cout] -> dK [18C,Cout],
@@ -199,6 +274,28 @@ int risi18_level_backward_reduce_f32(const void* partial, void* dK, void* db,
   return risi18::launch_sum_partial_rows(
       (const float*)partial, nblocks, nK + Cout, nK, (float*)dK, (float*)db,
       (cudaStream_t)stream);
+}
+
+// Kernel 2 in bfloat16 on `stream`: the same sums rounded into dK and db
+// (bfloat16), and dstate32 [n] f32 rounded into dstate [n] bfloat16.
+int risi18_level_backward_finish_bf16(const void* partial, void* dK,
+                                      void* db, const void* dstate32,
+                                      void* dstate, long long n, int nblocks,
+                                      int C, int Cout, void* stream) {
+  if (C <= 0 || Cout <= 0 || nblocks < 0 || n < 0)
+    return cudaErrorInvalidValue;
+  const int nK = kCases * C * Cout, W = nK + Cout;
+  const int sum_blocks = (W + kThreads - 1) / kThreads;
+  const long long want = (n / 4 + kThreads - 1) / kThreads;
+  const int cast_blocks =
+      n == 0 ? 0 : (int)(want < 1 ? 1 : (want > kMaxCastBlocks
+                                             ? kMaxCastBlocks : want));
+  finish_bf16_kernel<<<sum_blocks + cast_blocks, kThreads, 0,
+                       (cudaStream_t)stream>>>(
+      (const float*)partial, nblocks, W, nK, (__nv_bfloat16*)dK,
+      (__nv_bfloat16*)db, (const float*)dstate32, (__nv_bfloat16*)dstate,
+      (size_t)n, sum_blocks);
+  return cudaGetLastError();
 }
 
 // The least shared memory one block needs at a channel chunk of one.

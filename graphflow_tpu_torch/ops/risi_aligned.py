@@ -13,10 +13,10 @@ input of the 10- and 50-case banks of SMP_2D_ver6 and ver7.
 ``risi18_aligned_t2_reference`` is the plain version, the take-gather.
 ``risi18_aligned_t2`` is the wrapper: on CPU tensors it runs the plain
 version; on CUDA tensors it launches the hand-written kernel
-``csrc/risi_aligned_t2.cu`` (K7) on float32, or raises.  Like the JAX
-function it has no backward: it raises when the state requires a
-gradient, and training builds T with the reference, which torch autograd
-differentiates (``graphflow_tpu/models/smp2d.py:287-299``).
+``csrc/risi_aligned_t2.cu`` (K7) on a float32 or bfloat16 state, or
+raises.  Like the JAX function it has no backward: it raises when the
+state requires a gradient, and training builds T with the reference, which
+torch autograd differentiates (``graphflow_tpu/models/smp2d.py:287-299``).
 
 Where the TPU function emits T2all [N, P*P, P*C] in float32 and views it as
 T through a transpose, the kernel writes [N, P, P, P, C] directly in the
@@ -30,7 +30,8 @@ import functools
 
 import torch
 
-from graphflow_tpu_torch.ops.risi_level import _check, _raise_on, _stream
+from graphflow_tpu_torch.ops.risi_level import (_check, _check_element_type,
+                                                _entry, _raise_on, _stream)
 
 
 def _gather_neighbor_tensors_take(state_pad, nbr, pos):
@@ -75,31 +76,33 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load_library("risi_aligned_t2")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.risi_aligned_t2_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-    lib.risi_aligned_t2_f32.restype = i32
+    for fn in (lib.risi_aligned_t2_f32, lib.risi_aligned_t2_bf16):
+        fn.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+        fn.restype = i32
     lib.risi_aligned_t2_error_string.argtypes = [i32]
     lib.risi_aligned_t2_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _kernel(state, nbr, pos):
-    """K7: one launch of ``risi_aligned_t2_f32``."""
+    """K7: one launch of ``risi_aligned_t2_{f32,bf16}``."""
     if state.dim() != 4 or state.shape[1] != state.shape[2]:
         raise ValueError(f"state has shape {tuple(state.shape)}, expected "
                          f"[N, P, P, C]")
     N, P, _, C = state.shape
-    dev = state.device
-    _check("state", state, torch.float32, (N, P, P, C), dev)
+    dev, dt = state.device, state.dtype
+    _check_element_type("state", state)
+    _check("state", state, dt, (N, P, P, C), dev)
     _check("nbr", nbr, torch.int32, (N, P), dev)
     _check("pos", pos, torch.int32, (N, P, P), dev)
     lib = _kernel_lib()
-    T = torch.empty((N, P, P, P, C), dtype=torch.float32, device=dev)
+    T = torch.empty((N, P, P, P, C), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        err = lib.risi_aligned_t2_f32(state.data_ptr(), nbr.data_ptr(),
-                                      pos.data_ptr(), T.data_ptr(), N, P, C,
-                                      _stream(dev))
+        err = _entry(lib, "risi_aligned_t2", dt)(
+            state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), T.data_ptr(),
+            N, P, C, _stream(dev))
     _raise_on(err, "risi_aligned_t2", lib.risi_aligned_t2_error_string,
-              f"N={N} P={P} C={C}")
+              f"N={N} P={P} C={C} {dt}")
     risi18_aligned_t2.launches += 1
     return T
 
@@ -111,8 +114,8 @@ def risi18_aligned_t2(state, nbr, pos):
     Raises when ``state`` requires a gradient under grad mode: there is no
     backward, and training takes :func:`risi18_aligned_t2_reference`.  CPU
     tensors run the plain version.  CUDA tensors launch K7, which takes a
-    float32 state and int32 nbr and pos, all contiguous, and raises on
-    anything else.
+    float32 or bfloat16 state and int32 nbr and pos, all contiguous, and
+    raises on anything else; T has the state's dtype.
     """
     if torch.is_grad_enabled() and state.requires_grad:
         raise RuntimeError(

@@ -6,8 +6,9 @@
 
 Where the level (``ops/risi_level.py``) gathers its slots inside the
 kernel, the bank reads them from T, which the take-gather has already
-materialised.  SMP_omega in bfloat16 runs its levels through the bank
-(``models/smp2d.py``), as the JAX package does on the TPU.
+materialised.  ``models/smp2d.py:risi18_bank_level`` is the level through
+the bank, a ``level_fn=`` choice; the JAX package takes this route where
+its fused level does not apply.
 
 ``risi18_bank_reference`` is the plain PyTorch version.  ``risi18_bank``
 is the wrapper: on CPU tensors it runs the plain version, which torch
@@ -32,7 +33,8 @@ import torch
 
 from graphflow_tpu_torch.ops.fused import risi18_matmul_fused
 from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _check,
-                                                _raise_on, _stream,
+                                                _check_element_type, _entry,
+                                                _raise_on, _stream, _where,
                                                 check_smem)
 
 # Storage dtype -> the dtype the bank computes in.
@@ -66,10 +68,6 @@ def risi18_bank_backward_reference(T, A, K, g):
         Z = risi18_matmul_fused(t, A.to(ct), k)
         dT, dK = torch.autograd.grad(Z, (t, k), g.to(ct))
     return dT.to(T.dtype), dK.to(K.dtype)
-
-
-# Kernel element type -> the suffix of its C entry points.
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,18 +111,12 @@ def _check_bank(T, A, K):
                          f"[N, P, P, P, C]")
     N, P, _, _, C = T.shape
     Cout = K.shape[1] if K.dim() == 2 else -1
-    if T.dtype not in _SUFFIX:
-        raise TypeError(f"T has dtype {T.dtype}, the kernels take "
-                        f"torch.float32 or torch.bfloat16")
+    _check_element_type("T", T)
     dev = T.device
     _check("T", T, T.dtype, (N, P, P, P, C), dev)
     _check("A", A, torch.float32, (N, P, P), dev)
     _check("K", K, T.dtype, (18 * C, Cout), dev)
     return N, P, C, Cout
-
-
-def _where(N, P, C, Cout, dtype):
-    return f"N={N} P={P} C={C} Cout={Cout} {dtype}"
 
 
 def _forward_kernel(T, A, K):
@@ -134,7 +126,7 @@ def _forward_kernel(T, A, K):
     check_smem("risi18_bank", lib.risi18_bank_min_smem_bytes, P, Cout)
     Z = torch.empty((N, P, P, Cout), dtype=T.dtype, device=T.device)
     with torch.cuda.device(T.device):
-        err = getattr(lib, f"risi18_bank_forward_{_SUFFIX[T.dtype]}")(
+        err = _entry(lib, "risi18_bank_forward", T.dtype)(
             T.data_ptr(), A.data_ptr(), K.data_ptr(), Z.data_ptr(), N, P, C,
             Cout, _stream(T.device))
     _raise_on(err, "risi18_bank", lib.risi18_bank_error_string,
@@ -158,7 +150,7 @@ def _backward_main_kernel(T, A, K, g):
     if N == 0:
         return dT, partial
     with torch.cuda.device(T.device):
-        err = getattr(lib, f"risi18_bank_backward_{_SUFFIX[T.dtype]}")(
+        err = _entry(lib, "risi18_bank_backward", T.dtype)(
             T.data_ptr(), A.data_ptr(), K.data_ptr(), g.data_ptr(),
             dT.data_ptr(), partial.data_ptr(), N, P, C, Cout, nblocks,
             _stream(T.device))

@@ -37,10 +37,10 @@ import functools
 
 import torch
 
-from graphflow_tpu_torch.ops.risi_bank import (_SUFFIX, _check_bank,
-                                               _compute_dtype, _where)
-from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _raise_on,
-                                                _stream, check_smem)
+from graphflow_tpu_torch.ops.risi_bank import _check_bank, _compute_dtype
+from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _entry,
+                                                _raise_on, _stream, _where,
+                                                check_smem)
 
 # Mode -> its number in the C interface.
 MODES = {"full": 0, "dma": 1, "reduce": 2, "nogroupd": 3, "novpu": 4}
@@ -186,7 +186,7 @@ def risi18_bank_variant(T, A, K, mode):
     sink = (torch.empty((N,), dtype=torch.float32, device=T.device)
             if mode == "dma" else None)
     with torch.cuda.device(T.device):
-        err = getattr(lib, f"risi18_bank_ablate_{_SUFFIX[T.dtype]}")(
+        err = _entry(lib, "risi18_bank_ablate", T.dtype)(
             T.data_ptr(), A.data_ptr(), K.data_ptr(), Z.data_ptr(),
             sink.data_ptr() if sink is not None else None, N, P, C, Cout,
             MODES[mode], _stream(T.device))

@@ -15,6 +15,15 @@ whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
 ``risi18_level_backward`` is the backward's wrapper and
 ``risi18_level_backward_reference`` its plain version.
 
+Dtypes: the kernels take state, K and b in float32 or bfloat16 (one type)
+and radj in float32, and sum in float32, as the Pallas kernels do
+(``risi_fused_pallas.py:538, 619-626``); the output has the state's dtype
+and is rounded once, after the bias and LeakyReLU.  The gradients come
+back in the dtype of their parameter: dstate is scattered in float32 and
+rounded once, dK and db are summed in float32 and rounded once
+(``_v3t_bwd``, ``:1013-1033``).  The plain versions also take float64, for
+parity tests.
+
 Index conventions: ``nbr`` values lie in [0, N], where N marks an absent
 neighbour; ``pos`` values lie in [0, P], where P marks an absent position.
 Both read zeros.  (Prepared graphs mark padding slots by ``pos = P`` with
@@ -32,24 +41,42 @@ from graphflow_tpu_torch.ops.activations import leaky_relu
 from graphflow_tpu_torch.ops.contractions import risi_contraction_18
 
 
+# Storage dtype -> the dtype the level computes in.
+_COMPUTE = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
+            torch.float64: torch.float64}
+
+
 def risi18_level_reference(state, nbr, pos, radj, K, b, negslope=0.01):
-    """Plain version (``_reference_level``, risi_fused_pallas.py:1043-1056):
-    gather and align, the 18-case bank, the product with K, b, LeakyReLU."""
+    """Plain version of the kernel's function: gather and align, the
+    18-case bank, the product with K, b, LeakyReLU, computed in float32
+    for a float32 or bfloat16 state (state, radj, K and b cast up; float64
+    stays float64) and rounded to the state's dtype once, at the end, which
+    is what ``_kernel_v3`` does (``risi_fused_pallas.py:619-626``).  The
+    JAX package's XLA composition (``_reference_level``, ``:1043-1056``)
+    is the same function in float32 and float64; in bfloat16 it rounds the
+    18C bank before the product with K, a different rounding."""
     from graphflow_tpu_torch.ops.risi_aligned import (
         risi18_aligned_t2_reference)
 
+    if state.dtype not in _COMPUTE:
+        raise TypeError(f"state has dtype {state.dtype}; the level takes "
+                        f"{sorted(str(d) for d in _COMPUTE)}")
+    ct = _COMPUTE[state.dtype]
     N, P, _, C = state.shape
-    T = risi18_aligned_t2_reference(state, nbr, pos)
-    Y = risi_contraction_18(T, radj)
-    Z = Y.reshape(N, P * P, 18 * C) @ K + b
-    return leaky_relu(Z, negslope)
+    # Cast up before the gather: autograd then scatters dstate in ``ct`` and
+    # rounds it once, as the kernels do, not once per added slot.
+    T = risi18_aligned_t2_reference(state.to(ct), nbr, pos)
+    Y = risi_contraction_18(T, radj.to(ct))
+    Z = Y.reshape(N, P * P, 18 * C) @ K.to(ct) + b.to(ct)
+    return leaky_relu(Z, negslope).to(state.dtype)
 
 
 def risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
                                     negslope=0.01):
     """Plain backward: ``torch.autograd.grad`` of
     :func:`risi18_level_reference` with respect to (state, K, b) for the
-    cotangent g [N, P*P, Cout] -> (dstate, dK, db)."""
+    cotangent g [N, P*P, Cout] -> (dstate, dK, db), each in the dtype of
+    its parameter (the casts inside the plain level round each once)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (state, K, b)]
         out = risi18_level_reference(leaves[0], nbr, pos, radj, leaves[1],
@@ -70,9 +97,9 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = load_library("risi18_level")
     ptr = ctypes.c_void_p
-    lib.risi18_level_forward_f32.argtypes = (
-        [ptr] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr])
-    lib.risi18_level_forward_f32.restype = ctypes.c_int
+    for fn in (lib.risi18_level_forward_f32, lib.risi18_level_forward_bf16):
+        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr]
+        fn.restype = ctypes.c_int
     _bind_min_smem(lib.risi18_level_min_smem_bytes)
     lib.risi18_level_error_string.argtypes = [ctypes.c_int]
     lib.risi18_level_error_string.restype = ctypes.c_char_p
@@ -87,12 +114,16 @@ def _backward_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.risi18_level_backward_blocks.argtypes = [i32]
     lib.risi18_level_backward_blocks.restype = i32
-    lib.risi18_level_backward_f32.argtypes = (
-        [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr])
-    lib.risi18_level_backward_f32.restype = i32
+    for fn in (lib.risi18_level_backward_f32,
+               lib.risi18_level_backward_bf16):
+        fn.argtypes = [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+        fn.restype = i32
     lib.risi18_level_backward_reduce_f32.argtypes = (
         [ptr] * 3 + [i32] * 3 + [ptr])
     lib.risi18_level_backward_reduce_f32.restype = i32
+    lib.risi18_level_backward_finish_bf16.argtypes = (
+        [ptr] * 5 + [ctypes.c_longlong] + [i32] * 3 + [ptr])
+    lib.risi18_level_backward_finish_bf16.restype = i32
     _bind_min_smem(lib.risi18_level_backward_min_smem_bytes)
     lib.risi18_level_bwd_error_string.argtypes = [i32]
     lib.risi18_level_bwd_error_string.restype = ctypes.c_char_p
@@ -110,18 +141,41 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
+# Kernel element type -> the suffix of its C entry points.
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_element_type(name, t):
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernels take "
+                        f"torch.float32 or torch.bfloat16")
+
+
+def _entry(lib, stem, dtype):
+    """The C entry point ``{stem}_f32`` or ``{stem}_bf16`` of ``lib``."""
+    return getattr(lib, f"{stem}_{_SUFFIX[dtype]}")
+
+
 def _check_level(state, nbr, pos, radj, K):
-    """Checks the inputs both kernels share; returns (N, P, C, Cout)."""
+    """Checks the inputs both kernels share: state and K in one of float32
+    and bfloat16, radj float32, nbr and pos int32; returns (N, P, C, Cout)."""
+    if state.dim() != 4 or state.shape[1] != state.shape[2]:
+        raise ValueError(f"state has shape {tuple(state.shape)}, expected "
+                         f"[N, P, P, C]")
     N, P, _, C = state.shape
-    Cout = K.shape[1]
+    Cout = K.shape[1] if K.dim() == 2 else -1
+    _check_element_type("state", state)
     dev = state.device
-    f32, i32 = torch.float32, torch.int32
-    _check("state", state, f32, (N, P, P, C), dev)
-    _check("nbr", nbr, i32, (N, P), dev)
-    _check("pos", pos, i32, (N, P, P), dev)
-    _check("radj", radj, f32, (N, P, P), dev)
-    _check("K", K, f32, (18 * C, Cout), dev)
+    _check("state", state, state.dtype, (N, P, P, C), dev)
+    _check("nbr", nbr, torch.int32, (N, P), dev)
+    _check("pos", pos, torch.int32, (N, P, P), dev)
+    _check("radj", radj, torch.float32, (N, P, P), dev)
+    _check("K", K, state.dtype, (18 * C, Cout), dev)
     return N, P, C, Cout
+
+
+def _where(N, P, C, Cout, dtype):
+    return f"N={N} P={P} C={C} Cout={Cout} {dtype}"
 
 
 def _stream(dev):
@@ -157,57 +211,63 @@ def _raise_on(err, what, lib_error_string, where):
 
 
 def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
-    """K1: one launch of ``risi18_level_forward_f32``."""
+    """K1: one launch of ``risi18_level_forward_{f32,bf16}``."""
     N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
-    dev = state.device
-    _check("b", b, torch.float32, (Cout,), dev)
+    dev, dt = state.device, state.dtype
+    _check("b", b, dt, (Cout,), dev)
     lib = _kernel_lib()
     check_smem("risi18_level", lib.risi18_level_min_smem_bytes, P, Cout)
-    out = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
+    out = torch.empty((N, P * P, Cout), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        err = lib.risi18_level_forward_f32(
+        err = _entry(lib, "risi18_level_forward", dt)(
             state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
             K.data_ptr(), b.data_ptr(), out.data_ptr(), N, P, C, Cout,
             float(negslope), _stream(dev))
     _raise_on(err, "risi18_level", lib.risi18_level_error_string,
-              f"N={N} P={P} C={C} Cout={Cout}")
+              _where(N, P, C, Cout, dt))
     risi18_level.launches += 1
     return out
 
 
 def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
-    """K2, kernel 1: dstate (atomics into zeros) and per-block partial rows
-    of [dK | db]; returns (dstate, partial)."""
+    """K2, kernel 1 (``risi18_level_backward_{f32,bf16}``): dstate (float32
+    atomics into float32 zeros, whatever the state's dtype) and per-block
+    partial rows of [dK | db]; returns (dstate in float32, partial)."""
     N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
-    dev = state.device
-    _check("g", g, torch.float32, (N, P * P, Cout), dev)
-    _check("out", out, torch.float32, (N, P * P, Cout), dev)
+    dev, dt = state.device, state.dtype
+    _check("g", g, dt, (N, P * P, Cout), dev)
+    _check("out", out, dt, (N, P * P, Cout), dev)
     lib = _backward_lib()
     check_smem("risi18_level_backward",
                lib.risi18_level_backward_min_smem_bytes, P, Cout)
     nblocks = lib.risi18_level_backward_blocks(N)
-    dstate = torch.zeros_like(state)
+    dstate = torch.zeros(state.shape, dtype=torch.float32, device=dev)
     partial = torch.empty((nblocks, 18 * C * Cout + Cout),
                           dtype=torch.float32, device=dev)
     if N == 0:
         return dstate, partial
     with torch.cuda.device(dev):
-        err = lib.risi18_level_backward_f32(
+        err = _entry(lib, "risi18_level_backward", dt)(
             state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
             K.data_ptr(), g.data_ptr(), out.data_ptr(), dstate.data_ptr(),
             partial.data_ptr(), N, P, C, Cout, float(negslope), nblocks,
             _stream(dev))
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
-              f"N={N} P={P} C={C} Cout={Cout}")
+              _where(N, P, C, Cout, dt))
     risi18_level_backward.launches += 1
     return dstate, partial
 
 
-def _backward_reduce_kernel(partial, C, Cout):
-    """K2, kernel 2: the partial rows summed into (dK [18C, Cout], db)."""
-    dev = partial.device
+def _check_partial(partial, C, Cout):
     _check("partial", partial, torch.float32,
-           (partial.shape[0], 18 * C * Cout + Cout), dev)
+           (partial.shape[0], 18 * C * Cout + Cout), partial.device)
+
+
+def _backward_reduce_kernel(partial, C, Cout):
+    """K2, kernel 2 in float32: the partial rows summed into (dK [18C,
+    Cout], db)."""
+    dev = partial.device
+    _check_partial(partial, C, Cout)
     lib = _backward_lib()
     dK = torch.empty((18 * C, Cout), dtype=torch.float32, device=dev)
     db = torch.empty((Cout,), dtype=torch.float32, device=dev)
@@ -222,6 +282,31 @@ def _backward_reduce_kernel(partial, C, Cout):
     return dK, db
 
 
+def _backward_finish_kernel_bf16(partial, dstate32, C, Cout):
+    """K2, kernel 2 in bfloat16 (``risi18_level_backward_finish_bf16``):
+    one launch sums the partial rows into dK and db and rounds kernel 1's
+    float32 ``dstate32`` into dstate, each value once -> (dstate, dK, db),
+    all bfloat16."""
+    dev, bf16 = partial.device, torch.bfloat16
+    _check_partial(partial, C, Cout)
+    _check("dstate32", dstate32, torch.float32, tuple(dstate32.shape), dev)
+    lib = _backward_lib()
+    dstate = torch.empty(dstate32.shape, dtype=bf16, device=dev)
+    dK = torch.empty((18 * C, Cout), dtype=bf16, device=dev)
+    db = torch.empty((Cout,), dtype=bf16, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.risi18_level_backward_finish_bf16(
+            partial.data_ptr(), dK.data_ptr(), db.data_ptr(),
+            dstate32.data_ptr(), dstate.data_ptr(), dstate32.numel(),
+            partial.shape[0], C, Cout, _stream(dev))
+    _raise_on(err, "risi18_level_backward finish",
+              lib.risi18_level_bwd_error_string,
+              f"{partial.shape[0]} partial rows, C={C} Cout={Cout}, "
+              f"{dstate32.numel()} state elements")
+    risi18_level_backward.reduce_launches += 1
+    return dstate, dK, db
+
+
 def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
                           negslope=0.01):
     """Gradients of the level for the cotangent g [N, P*P, Cout] ->
@@ -230,7 +315,10 @@ def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
 
     CPU tensors run :func:`risi18_level_backward_reference`, which
     recomputes the output.  CUDA tensors launch K2's two kernels
-    (``csrc/risi18_level_bwd.cu``) on float32 inputs, or raise.
+    (``csrc/risi18_level_bwd.cu``) on float32 or bfloat16 inputs, or
+    raise.  The gradients have the dtype of their parameter: in bfloat16
+    kernel 1 scatters into a float32 buffer, and kernel 2 rounds it, dK and
+    db once each.
     """
     if state.device.type == "cpu":
         return risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
@@ -239,12 +327,15 @@ def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
         raise ValueError(f"no level kernel for device {state.device}")
     dstate, partial = _backward_main_kernel(state, nbr, pos, radj, K, g, out,
                                             negslope)
-    dK, db = _backward_reduce_kernel(partial, state.shape[3], K.shape[1])
+    C, Cout = state.shape[3], K.shape[1]
+    if state.dtype == torch.bfloat16:
+        return _backward_finish_kernel_bf16(partial, dstate, C, Cout)
+    dK, db = _backward_reduce_kernel(partial, C, Cout)
     return dstate, dK, db
 
 
 risi18_level_backward.launches = 0          # kernel 1 (dstate, partials)
-risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db)
+risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db; bf16: dstate)
 
 
 class _Risi18LevelFn(torch.autograd.Function):
@@ -272,8 +363,9 @@ def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
     CPU tensors run :func:`risi18_level_reference`, differentiated by torch
     autograd.  CUDA tensors run ``_Risi18LevelFn``: the forward launches K1
     and, when a gradient is taken, the backward launches K2, with or
-    without grad enabled.  The kernels take float32 state/radj/K/b, int32
-    nbr/pos, all contiguous, and raise on anything else.
+    without grad enabled.  The kernels take state, K and b in float32 or
+    bfloat16 (one type), float32 radj, int32 nbr/pos, all contiguous, and
+    raise on anything else.
     """
     if state.device.type == "cpu":
         return risi18_level_reference(state, nbr, pos, radj, K, b, negslope)

@@ -12,7 +12,7 @@ The reference's ``Learn(lr, nBatch)`` overloads divide the gradients by
 nBatch before the update; ``update(..., nBatch=k)`` does the same, and
 Adam then applies the reference's per-element bias correction (see
 :func:`adam`).  ``torch.optim.Adam`` has no such schedule.  The other
-optimizers of the JAX package are ROADMAP queue 1, item 10.
+optimizers of the JAX package are ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -126,6 +126,6 @@ def make_optimizer(name: str, **kwargs) -> Optimizer:
     make = _REGISTRY.get(name.lower())
     if make is None:
         raise NotImplementedError(
-            f"optimizer {name!r} is ROADMAP queue 1, item 10; the port has "
+            f"optimizer {name!r} is ROADMAP queue 1, item 9; the port has "
             f"{sorted(_REGISTRY)}")
     return make(**kwargs)

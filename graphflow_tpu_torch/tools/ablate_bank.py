@@ -38,6 +38,7 @@ import torch
 
 from graphflow_tpu_torch.ops.risi_bank import risi18_bank
 from graphflow_tpu_torch.ops.risi_bank_ablate import risi18_bank_variant
+from graphflow_tpu_torch.tools.measure import time_in_turns
 
 MODE_ORDER = ("dma", "reduce", "nogroupd", "novpu", "full")
 DTYPES = (torch.float32, torch.bfloat16)
@@ -61,32 +62,6 @@ def make_inputs(B, P, C, dtype, device="cuda"):
 
 
 REPS, WARMUP = 50, 3
-# About half a millisecond of spinning on an H100.
-SPIN_CYCLES = 1_000_000
-
-
-def time_in_turns(fns, reps=REPS, warmup=WARMUP):
-    """{name: [milliseconds of one call of fns[name], one per round]}, CUDA
-    events on the current stream.  The functions are timed in turns, one
-    call each per round, so that a drift of the card's clocks falls on all
-    alike.  A spin kernel runs ahead of each first event: the host queues
-    the launch while the card is busy, and the events bracket the kernel,
-    not the wrapper's host time."""
-    for fn in fns.values():
-        for _ in range(warmup):
-            fn()
-    times = {name: [] for name in fns}
-    for _ in range(reps):
-        for name, fn in fns.items():
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SPIN_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end))
-    return times
 
 
 def time_variants(T, A, K, reps=REPS):
@@ -95,7 +70,7 @@ def time_variants(T, A, K, reps=REPS):
     fns = {mode: (lambda m=mode: risi18_bank_variant(T, A, K, m))
            for mode in MODE_ORDER}
     fns["bank"] = lambda: risi18_bank(T, A, K)
-    return time_in_turns(fns, reps)
+    return time_in_turns(fns, reps, WARMUP)
 
 
 def attribution(ms):

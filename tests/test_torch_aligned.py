@@ -3,8 +3,9 @@ package: the plain version against the Pallas function
 ``risi18_aligned_t2`` itself, run in interpret mode as tests/test_fused.py
 runs the Pallas kernels, exactly (every element is one copied value);
 against the JAX take-gather at float64; and against the definition, with
-out-of-range ids and positions.  On the CPU the wrapper runs the plain
-version and launches nothing; it refuses a state that needs a gradient."""
+out-of-range ids and positions; in bfloat16 against both, exactly.  On
+the CPU the wrapper runs the plain version and launches nothing; it refuses
+a state that needs a gradient."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +74,28 @@ def test_reference_equals_jax_take_gather_float64(V, P, C):
                                            (state, nbr, pos)))
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(got.numpy(), _definition(state, nbr, pos))
+
+
+@pytest.mark.parametrize("V,P,C", [(4, 16, 8), (6, 4, 8), (5, 6, 3)])
+def test_bfloat16_equals_pallas_function_and_take_gather_exactly(V, P, C):
+    """A bfloat16 state: T has the state's dtype and holds the values the
+    Pallas function selects (it hands them back as float32, its residual's
+    type) and the JAX take-gather's bfloat16 T, bit for bit."""
+    state, nbr, pos = _case(V, P, C)
+    jstate = jnp.asarray(state).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_aligned(jstate, jnp.asarray(nbr), jnp.asarray(pos))
+    take = jax_take(jnp.pad(jstate, ((0, 0), (0, 1), (0, 1), (0, 0))),
+                    jnp.asarray(nbr), jnp.asarray(pos))
+    tstate = torch.from_numpy(state).to(torch.bfloat16)
+    for fn in (risi18_aligned_t2, risi18_aligned_t2_reference):
+        got = fn(tstate, torch.from_numpy(nbr), torch.from_numpy(pos))
+        assert got.dtype == torch.bfloat16 and str(take.dtype) == "bfloat16"
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(ref, np.float32))
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      np.asarray(take, np.float32))
+        assert not got[1].any()
 
 
 def test_out_of_range_ids_and_positions_read_zero():

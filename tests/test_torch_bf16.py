@@ -2,14 +2,16 @@
 on the CPU, with the same weights: Threaded_Predict, Predict and Feature,
 the first step's loss and gradients, every parameter after BatchLearn
 steps, a backtracking BatchLearn and Learn, convergence, the routing of
-the levels, host data, Adam and backtracking in bfloat16, weights across
-packages and the text checkpoint.
+the levels, host data, Adam, Momentum and backtracking in bfloat16, weights
+across packages and the text checkpoint.
 
 On the CPU the JAX package takes its XLA route (smp2d.py:324-336):
 RisiContraction_18 in bfloat16, which rounds the 18C bank to bfloat16,
-then the product with K.  The port runs the plain bank, float32 inside and
-rounded once (``ops/risi_bank.py``).  The bound 3e-2 * max(1, max|ref|) is
-the bfloat16 bound of tests/test_fused_kernel.py:133-134 and covers both.
+then the product with K.  The port runs the plain fused level, float32
+inside and rounded once after the bias and LeakyReLU
+(``ops/risi_level.py``), as the Pallas kernel does.  The bound 3e-2 *
+max(1, max|ref|) is the bfloat16 bound of
+tests/test_fused_kernel.py:133-134 and covers both roundings.
 
 A fault of the reference shows at the bias gradients: the JAX package's
 bfloat16 model on the CPU reduces them in bfloat16 and lands 7-16 % of
@@ -177,12 +179,16 @@ def test_bfloat16_training_converges():
 
 
 def test_levels_route_by_dtype(monkeypatch):
-    """bfloat16 levels run the bank; float32 levels the fused level."""
+    """bfloat16 and float32 levels both run the fused level, on a float32
+    adjacency; the bank runs only where ``level_fn=`` asks for it."""
     calls = {"bank": 0, "level": 0}
+    radj_dtypes = set()
 
     def counting(name, fn):
         def wrapped(*args, **kwargs):
             calls[name] += 1
+            if name == "level":
+                radj_dtypes.add(args[3].dtype)
             return fn(*args, **kwargs)
         return wrapped
 
@@ -191,14 +197,24 @@ def test_levels_route_by_dtype(monkeypatch):
     monkeypatch.setattr(smp2d_module, "risi18_level",
                         counting("level", smp2d_module.risi18_level))
     graphs, targets = datasets.toy_molecules()
+    nL = CFG["nLevels"]
     m16 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4, dtype="bfloat16"),
                 device="cpu")
     m16.Threaded_Predict(graphs)
     m16.BatchLearn(graphs, targets, LR)       # forward, backward, forward
-    assert calls == {"bank": 3 * CFG["nLevels"], "level": 0}
+    assert calls == {"bank": 0, "level": 3 * nL}
+    assert radj_dtypes == {torch.float32}
     m32 = SMP2D(SMP2DConfig(**CFG, max_receptive_field=4), device="cpu")
     m32.Threaded_Predict(graphs)
-    assert calls == {"bank": 3 * CFG["nLevels"], "level": CFG["nLevels"]}
+    assert calls == {"bank": 0, "level": 4 * nL}
+    with torch.no_grad():
+        got, _ = smp2d_module.smp2d_forward(
+            m16.params, m16._stack(graphs), m16.cfg,
+            level_fn=smp2d_module.risi18_bank_level)
+    assert calls == {"bank": nL, "level": 4 * nL}
+    # Two roundings of one function: the bank route rounds Z, then adds the
+    # bias and applies LeakyReLU in bfloat16; the fused level rounds once.
+    _close(got, m16.Threaded_Predict(graphs))
 
 
 def test_host_data_matches_jax_bfloat16_batch(pair):
@@ -310,6 +326,28 @@ def test_adam_bfloat16_matches_jax():
                              (ts["v"][k], js["v"][k])):
                 assert got.dtype == BF16
                 _close(got, ref, RTOL_OPT)
+
+
+@pytest.mark.parametrize("nBatch", [None, 4])
+def test_momentum_bfloat16_matches_jax(nBatch):
+    """Three steps on bfloat16 parameters: the velocity stays in the
+    parameter's dtype in both packages, and the old state is never
+    written."""
+    rng = np.random.default_rng(7)
+    jp, tp = _bf16_pair({k: rng.normal(size=s) for k, s in SHAPES.items()})
+    jopt, topt = joptim.momentum(), optim.make_optimizer("Momentum")
+    js, ts = jopt.init(jp), topt.init(tp)
+    for _ in range(3):
+        jg, tg = _bf16_pair({k: rng.normal(size=s)
+                             for k, s in SHAPES.items()})
+        old, kept = ts, {k: v.clone() for k, v in ts.items()}
+        jp, js = jopt.update(jp, js, jg, 0.05, nBatch=nBatch)
+        tp, ts = topt.update(tp, ts, tg, 0.05, nBatch=nBatch)
+        for k in ORDER:
+            for got, ref in ((tp[k], jp[k]), (ts[k], js[k])):
+                assert got.dtype == BF16 and str(ref.dtype) == "bfloat16"
+                _close(got, ref, RTOL_OPT)
+        assert all(torch.equal(old[k], kept[k]) for k in ORDER)
 
 
 def test_backtracking_bfloat16_matches_jax():

@@ -8,8 +8,10 @@ an NVIDIA GPU (sm_90a) and nvcc, run
 
 (``--noconftest`` because the suite's conftest configures JAX, which the
 port does not need).  The cases are those of ``chip_smoke.py`` phase 3:
-float32 inputs from a NumPy seed with mixed-sign adjacency, absent
-neighbours and positions, and one vertex whose slots are all absent.
+inputs from a NumPy seed with mixed-sign adjacency, absent neighbours and
+positions, and one vertex whose slots are all absent, in float32 and in
+bfloat16 (state, K, b and the cotangent rounded to bfloat16; the adjacency
+stays float32).
 """
 
 import numpy as np
@@ -28,6 +30,11 @@ torch.set_num_threads(1)
 # Summation order on the card differs from the plain version's; the bound
 # is that of tests/test_fused_kernel.py:49-50.
 RTOL = 1e-4
+# bfloat16: kernel and plain version sum the same values in float32, in
+# another order, and round once; they differ by a bfloat16 step or two
+# (2^-8 relative each) where a sum lands near a rounding boundary.
+RTOL_BF16 = 1e-2
+DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.fixture
@@ -39,20 +46,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(N, P, C, Cout, seed, device, empty_vertex=None):
+def _inputs(N, P, C, Cout, seed, device, empty_vertex=None,
+            dtype=torch.float32):
     d = random_level_case(N, P, C, Cout, seed=seed, empty_vertex=empty_vertex)
     f = {k: torch.as_tensor(d[k], dtype=torch.float32, device=device)
          for k in ("state", "radj", "K", "b")}
     i = {k: torch.as_tensor(d[k], dtype=torch.int32, device=device)
          for k in ("nbr", "pos")}
-    return f["state"], i["nbr"], i["pos"], f["radj"], f["K"], f["b"]
+    return (f["state"].to(dtype), i["nbr"], i["pos"], f["radj"],
+            f["K"].to(dtype), f["b"].to(dtype))
 
 
 def _assert_close(got, ref):
     torch.cuda.synchronize()
+    assert got.dtype == ref.dtype
+    rtol = RTOL_BF16 if got.dtype == torch.bfloat16 else RTOL
+    got, ref = got.double(), ref.double()
     assert torch.isfinite(got).all()
     scale = max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= RTOL * scale
+    assert float((got - ref).abs().max()) <= rtol * scale
 
 
 # (12, 12, 40, 16) walks the channels in chunks of 16, 16 and 8; the last
@@ -62,33 +74,49 @@ SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8), (5, 8, 8, 16),
           (64, 10, 2, 1), (32, 4, 1, 1)]
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("N,P,C,Cout", SHAPES)
-def test_level_kernel_matches_plain(cuda, N, P, C, Cout):
+def test_level_kernel_matches_plain(cuda, N, P, C, Cout, dtype):
     args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
-                   empty_vertex=N // 2)
+                   empty_vertex=N // 2, dtype=dtype)
     before = risi18_level.launches
     got = risi18_level(*args)
     assert risi18_level.launches == before + 1
-    assert got.shape == (N, P * P, Cout)
+    assert got.shape == (N, P * P, Cout) and got.dtype == dtype
     _assert_close(got, risi18_level_reference(*args))
 
 
-def test_level_kernel_negative_adjacency(cuda):
+@pytest.mark.parametrize("N,P,C,Cout", [(64, 10, 20, 20), (32, 4, 8, 8),
+                                        (256, 16, 32, 16)])
+def test_level_kernel_bfloat16_tracks_the_float32_kernel(cuda, N, P, C, Cout):
+    """The float32 kernel on the rounded inputs, rounded once, is what the
+    bfloat16 kernel computes up to the order of its float32 sums."""
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2, dtype=torch.bfloat16)
+    up = [t.float() if t.is_floating_point() else t for t in args]
+    _assert_close(risi18_level(*args), risi18_level(*up).bfloat16())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_kernel_negative_adjacency(cuda, dtype):
     """All-negative adjacency zeroes every adjacency-weighted case."""
-    state, nbr, pos, radj, K, b = _inputs(16, 8, 8, 8, seed=3, device=cuda)
+    state, nbr, pos, radj, K, b = _inputs(16, 8, 8, 8, seed=3, device=cuda,
+                                          dtype=dtype)
     radj = -radj.abs() - 0.1
     got = risi18_level(state, nbr, pos, radj, K, b)
     _assert_close(got, risi18_level_reference(state, nbr, pos, radj, K, b))
 
 
-def test_level_kernel_all_absent_vertex_is_bias_only(cuda):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_kernel_all_absent_vertex_is_bias_only(cuda, dtype):
     state, nbr, pos, radj, K, b = _inputs(8, 4, 8, 8, seed=5, device=cuda,
-                                          empty_vertex=2)
+                                          empty_vertex=2, dtype=dtype)
     got = risi18_level(state, nbr, pos, radj, K, b)
     torch.cuda.synchronize()
-    bias = torch.where(b > 0, b, 0.01 * b)
-    np.testing.assert_array_equal(got[2].cpu().numpy(),
-                                  bias.expand(16, 8).cpu().numpy())
+    # LeakyReLU in float32, rounded once to the output's dtype.
+    bias = torch.where(b.float() > 0, b.float(), 0.01 * b.float()).to(dtype)
+    np.testing.assert_array_equal(got[2].float().cpu().numpy(),
+                                  bias.expand(16, 8).float().cpu().numpy())
 
 
 def test_level_kernel_rejects_wrong_inputs(cuda):
@@ -101,6 +129,34 @@ def test_level_kernel_rejects_wrong_inputs(cuda):
         risi18_level(state, nbr, pos.transpose(1, 2), radj, K, b)
     with pytest.raises(ValueError):
         risi18_level(state, nbr, pos, radj, K[:-1], b)
+
+
+def test_level_kernel_takes_float32_and_bfloat16_only(cuda):
+    """One type for state, K and b; the adjacency in float32; anything else
+    raises and nothing launches."""
+    state, nbr, pos, radj, K, b = _inputs(4, 4, 8, 8, seed=7, device=cuda)
+    s16, K16, b16 = state.bfloat16(), K.bfloat16(), b.bfloat16()
+    before = risi18_level.launches
+    for bad in ((state.half(), nbr, pos, radj, K.half(), b.half()),
+                (s16, nbr, pos, radj, K, b16),          # mixed state and K
+                (state, nbr, pos, radj, K16, b),
+                (s16, nbr, pos, radj, K16, b),          # mixed K and b
+                (s16, nbr, pos, radj.bfloat16(), K16, b16),
+                (s16, nbr, pos, radj.double(), K16, b16)):
+        with pytest.raises(TypeError):
+            risi18_level(*bad)
+    with pytest.raises(ValueError):                     # not contiguous
+        risi18_level(s16.transpose(1, 2), nbr, pos, radj, K16, b16)
+    assert risi18_level.launches == before
+    # A contiguous bfloat16 view that starts at an odd element (2-byte
+    # aligned only) is read element by element and still agrees.
+    flat = torch.empty(s16.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    view = flat[1:].view(s16.shape)
+    view.copy_(s16)
+    assert view.is_contiguous() and view.data_ptr() % 4 != 0
+    got = risi18_level(view, nbr, pos, radj, K16, b16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, risi18_level(s16, nbr, pos, radj, K16, b16))
 
 
 def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
@@ -129,9 +185,9 @@ def test_backward_kernel_rejects_shapes_beyond_shared_memory(cuda):
 
 # -- K2, the level backward -------------------------------------------------
 
-def _cotangent(N, P, Cout, seed, device):
+def _cotangent(N, P, Cout, seed, device, dtype=torch.float32):
     g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
-    return torch.as_tensor(g, dtype=torch.float32, device=device)
+    return torch.as_tensor(g, dtype=torch.float32, device=device).to(dtype)
 
 
 def _check_backward(args, g):
@@ -143,24 +199,46 @@ def _check_backward(args, g):
             risi18_level_backward.reduce_launches) == (counts[0] + 1,
                                                        counts[1] + 1)
     ref = risi18_level_backward_reference(*args, g)
-    for x, r in zip(got, ref):
-        assert x.shape == r.shape
+    for x, r, param in zip(got, ref, (args[0], args[4], args[5])):
+        assert x.shape == r.shape and x.dtype == param.dtype
         _assert_close(x, r)
     return got
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("N,P,C,Cout", SHAPES)
-def test_backward_kernel_matches_plain(cuda, N, P, C, Cout):
+def test_backward_kernel_matches_plain(cuda, N, P, C, Cout, dtype):
     args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
-                   empty_vertex=N // 2)
-    _check_backward(args, _cotangent(N, P, Cout, seed=N, device=cuda))
+                   empty_vertex=N // 2, dtype=dtype)
+    _check_backward(args, _cotangent(N, P, Cout, seed=N, device=cuda,
+                                     dtype=dtype))
 
 
-def test_backward_kernel_negative_adjacency(cuda):
-    state, nbr, pos, radj, K, b = _inputs(16, 8, 8, 8, seed=3, device=cuda)
+@pytest.mark.parametrize("N,P,C,Cout", [(64, 10, 20, 20), (32, 4, 8, 8),
+                                        (256, 16, 32, 16)])
+def test_backward_kernel_bfloat16_tracks_the_float32_kernels(cuda, N, P, C,
+                                                             Cout):
+    """The float32 kernels on the rounded inputs and the float32 view of
+    the bfloat16 output: the same geff, the same float32 sums."""
+    bf16 = torch.bfloat16
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2, dtype=bf16)
+    g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=bf16)
+    out = risi18_level(*args)
+    got = risi18_level_backward(*args, out, g)
+    up = [t.float() if t.is_floating_point() else t for t in args]
+    ref = risi18_level_backward(*up, out.float(), g.float())
+    for x, r in zip(got, ref):
+        _assert_close(x, r.to(bf16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_backward_kernel_negative_adjacency(cuda, dtype):
+    state, nbr, pos, radj, K, b = _inputs(16, 8, 8, 8, seed=3, device=cuda,
+                                          dtype=dtype)
     radj = -radj.abs() - 0.1
     _check_backward((state, nbr, pos, radj, K, b),
-                    _cotangent(16, 8, 8, seed=3, device=cuda))
+                    _cotangent(16, 8, 8, seed=3, device=cuda, dtype=dtype))
 
 
 def test_backward_kernel_all_absent_vertex(cuda):
@@ -178,10 +256,11 @@ def test_backward_kernel_all_absent_vertex(cuda):
     assert not dstate[2].any()
 
 
-def test_level_autograd_on_cuda_runs_k1_and_k2(cuda):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_autograd_on_cuda_runs_k1_and_k2(cuda, dtype):
     state, nbr, pos, radj, K, b = _inputs(32, 8, 8, 8, seed=6, device=cuda,
-                                          empty_vertex=4)
-    g = _cotangent(32, 8, 8, seed=6, device=cuda)
+                                          empty_vertex=4, dtype=dtype)
+    g = _cotangent(32, 8, 8, seed=6, device=cuda, dtype=dtype)
     leaves = [t.clone().requires_grad_() for t in (state, K, b)]
     counts = (risi18_level.launches, risi18_level_backward.launches)
     out = risi18_level(leaves[0], nbr, pos, radj, leaves[1], leaves[2])
@@ -189,8 +268,26 @@ def test_level_autograd_on_cuda_runs_k1_and_k2(cuda):
     assert (risi18_level.launches, risi18_level_backward.launches) == (
         counts[0] + 1, counts[1] + 1)
     ref = risi18_level_backward_reference(state, nbr, pos, radj, K, b, g)
-    for x, r in zip(got, ref):
+    for x, r, leaf in zip(got, ref, leaves):
+        assert x.dtype == leaf.dtype
         _assert_close(x, r)
+
+
+def test_backward_kernel_takes_float32_and_bfloat16_only(cuda):
+    args = _inputs(4, 4, 8, 8, seed=7, device=cuda, dtype=torch.bfloat16)
+    g = _cotangent(4, 4, 8, seed=7, device=cuda, dtype=torch.bfloat16)
+    out = risi18_level(*args)
+    before = risi18_level_backward.launches
+    with pytest.raises(TypeError):                      # float32 cotangent
+        risi18_level_backward(*args, out, g.float())
+    with pytest.raises(TypeError):                      # float32 output
+        risi18_level_backward(*args, out.float(), g)
+    with pytest.raises(TypeError):
+        risi18_level_backward(*(t.half() if t.dtype == torch.bfloat16 else t
+                                for t in args), out.half(), g.half())
+    with pytest.raises(ValueError):
+        risi18_level_backward(*args, out.transpose(1, 2), g)
+    assert risi18_level_backward.launches == before
 
 
 def test_backward_kernel_rejects_wrong_inputs(cuda):

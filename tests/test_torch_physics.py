@@ -235,6 +235,6 @@ def test_constructors_and_reexports():
 
 
 def test_theta_physics_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         models.SMP_theta_physics(V, 4, 2, 8, NFEAT, device="cpu")
     assert jphysics.SMP_theta_physics(V, 4, 2, 8, NFEAT).order == 1

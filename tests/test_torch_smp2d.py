@@ -171,13 +171,20 @@ def test_feature_permutation_invariance():
                                 dict(contraction=10, dtype="bfloat16"),
                                 dict(contraction=50, dtype="bfloat16")])
 def test_outside_the_slice_raises(kw):
-    """What is still to port says so: the first-order physics tower and
-    bfloat16 with the 4-, 10- and 50-case banks."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if kw.get("first_order_physics"):
+    """What is still to port says so: the first-order physics tower.
+    bfloat16 with the 4-, 10- and 50-case banks was outside and is ported:
+    the configuration builds, and the model serves in bfloat16."""
+    if kw.get("first_order_physics"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             models.SMP_theta_physics(8, 4, 2, 6, 4, device="cpu")
-        else:
-            SMP2DConfig(**CFG, **kw)
+        return
+    cfg = SMP2DConfig(**CFG, **kw)
+    m = SMP2D(cfg, seed=1, device="cpu")
+    k, C = kw["contraction"], CFG["nChanels"]
+    assert m.param_dict()["levels/1/K"].shape == (k * C, C)
+    assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+    tg, _ = datasets.toy_molecules()
+    assert np.isfinite(m.Threaded_Predict(tg)).all()
 
 
 _REGRESSION = ["SMP_omega", "SMP_gamma", "SMP_2D_ver6", "SMP_2D_ver7",
@@ -253,6 +260,8 @@ def test_import_loads_no_jax():
             "graphflow_tpu_torch.ops.risi_bank_ablate, "
             "graphflow_tpu_torch.models.physics, "
             "graphflow_tpu_torch.tools.ablate_bank, "
+            "graphflow_tpu_torch.tools.profile_step, "
+            "graphflow_tpu_torch.tools.kernel_digest, "
             "graphflow_tpu_torch.utils.convert, "
             "graphflow_tpu_torch.utils.checkpoint, "
             "graphflow_tpu_torch.runtime.cuda_build\n"
