@@ -119,7 +119,7 @@ sys.path.insert(0, str(ROOT))
 # tools under graphflow_tpu_torch/tools/.
 from graphflow_tpu_torch.tools.measure import (  # noqa: E402
     ADAM_LR as TRAIN_LR, ER_P, FULL_WIDTH as MODEL,
-    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, time_ms)
+    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, same_signs, time_ms)
 
 SEED = 0
 # Kernel vs plain: the bound of tests/test_fused_kernel.py:49-50 (summation
@@ -134,6 +134,11 @@ BANK_SHAPES = LEVEL_SHAPES + [(12, 12, 40, 16)]
 # down to one channel.
 SCHEDULE_SHAPES = [(256, 16, 32, 16), (256, 16, 16, 8), (64, 10, 2, 1),
                    (32, 4, 1, 1)]
+# More vertices than a backward kernel has blocks or vertex groups (132 for
+# the level, 264 for the bank), so that every block walks several vertices
+# and carries its sums of dK and db from one to the next; checked for error,
+# not timed.
+MANY_VERTEX_SHAPES = [(600, 16, 32, 32), (600, 4, 8, 4)]
 N_REQUESTS, TRAIN_STEPS = 3, 3
 KERNEL_LIBS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
                "risi18_bank_bwd", "risi_aligned_t2", "risi18_bank_ablate")
@@ -205,6 +210,34 @@ def bank_backward_ops(N, P, C, Cout, elements=None):
         elements = rows * P
     return (2 * rows * 18 * C * Cout * 2 + rows * P * Cout * 2
             + 12 * elements * C)
+
+
+def level_ops(N, P, C, Cout, elements):
+    """Floating-point operations of the fused level, as the function factors
+    (ops/risi_level.py:risi18_level_factored_reference): nine [P*P, C] maps
+    times a slab of K each, the adjacency applied once to W (2 * P per row
+    and output), the vector and scalar cases (four slabs per row x and four
+    per vertex), their broadcast with the bias and LeakyReLU (six per
+    output), and the shared reductions (about six per present element of
+    the gathered slots, ``elements``, and channel)."""
+    rows = N * P * P
+    return (rows * 9 * C * Cout * 2 + rows * P * Cout * 2
+            + (N * P + N) * 4 * C * Cout * 2 + rows * Cout * 6
+            + 6 * elements * C)
+
+
+def level_backward_ops(N, P, C, Cout, elements):
+    """The level's adjoint as it factors
+    (risi18_level_backward_factored_reference): dK's ten map slabs against
+    G or G.Ap and the maps' cotangents from K's ten slabs (a product of
+    P*P x C x Cout each), G.Ap (2 * P per row and output), G.R, GA, db and
+    LeakyReLU' (eight per output), the vector and scalar cases both ways,
+    the forward's reductions again (six per present element and channel)
+    and dT's assembly from six maps (twelve)."""
+    rows = N * P * P
+    return (2 * rows * 10 * C * Cout * 2 + rows * P * Cout * 2
+            + rows * Cout * 8 + 2 * (N * P + N) * 4 * C * Cout * 2
+            + (6 + 12) * elements * C)
 
 
 def present_elements(nbr, pos) -> int:
@@ -303,7 +336,8 @@ def phase_kernel():
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
         name = dtype_name(dtype)
         errs[name] = 0.0
-        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
+        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES
+                                            + MANY_VERTEX_SHAPES):
             args = level_inputs(N, P, C, Cout, seed=SEED + i, dtype=dtype)
             got = risi18_level(*args)
             torch.cuda.synchronize()
@@ -332,7 +366,7 @@ def phase_kernel():
         ms[name] = {
             "plain": time_ms(lambda: risi18_level_reference(*args)),
             "kernel": time_ms(lambda: risi18_level(*args)),
-            "bound": bound_ms(nbytes(*args, out), bank_ops(
+            "bound": bound_ms(nbytes(*args, out), level_ops(
                 N, P, C, Cout, present_elements(args[1], args[2])), name)}
         log(f"phase 3 kernel: {name} N,P,C,Cout={LEVEL_SHAPES[0]} median "
             f"kernel {ms[name]['kernel']:.4f} ms, plain "
@@ -428,9 +462,11 @@ def phase_backward():
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
         name = dtype_name(dtype)
         errs[name] = {"dstate": 0.0, "dK": 0.0, "db": 0.0}
-        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES):
+        for i, (N, P, C, Cout) in enumerate(LEVEL_SHAPES + SCHEDULE_SHAPES
+                                            + MANY_VERTEX_SHAPES):
             args, g = inputs(N, P, C, Cout, SEED + i, dtype)
-            out = risi18_level(*args)
+            out = same_signs(risi18_level(*args),
+                             risi18_level_reference(*args))
             got = risi18_level_backward(*args, out, g)
             torch.cuda.synchronize()
             ref = risi18_level_backward_reference(*args, g)
@@ -503,7 +539,7 @@ def phase_backward():
         # its partial rows are scratch between the two kernels, not counted.
         m["bound"] = bound_ms(
             nbytes(*args[:5], g, out, dstate, dK, db),
-            bank_backward_ops(N, P, C, Cout, present_elements(nbr, pos)),
+            level_backward_ops(N, P, C, Cout, present_elements(nbr, pos)),
             name)
         moved = nbytes(partial, dK, db)
         if dtype == torch.bfloat16:
@@ -652,7 +688,8 @@ def phase_bank():
 
     errs = {"Z": 0.0, "dT": 0.0, "dK": 0.0}
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
-        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES):
+        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES
+                                            + MANY_VERTEX_SHAPES):
             T, A, K, g = bank_inputs(N, P, C, Cout, SEED + i, dtype)
             got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
             torch.cuda.synchronize()

@@ -1,15 +1,19 @@
-// Device code shared by the level kernels (risi18_level.cu, K1, and
-// risi18_level_bwd.cu, K2) and the bank kernels (risi18_bank.cu, K4, and
-// risi18_bank_bwd.cu, K5), and by the bank's ablation variants
+// Device code of the bank kernels (risi18_bank.cu, K4, and
+// risi18_bank_bwd.cu, K5) and of the bank's ablation variants
 // (risi18_bank_ablate.cu, K6): the per-vertex structure, the shared
 // reductions of one vertex's slots, the 18-case products with K, and their
-// adjoints.
+// adjoints.  The level kernels (risi18_level.cu, K1, and
+// risi18_level_bwd.cu, K2) compute the same reductions and products in
+// another design (risi18_level_common.cuh); of this file they use the
+// vertex's structure (load_vertex), the element types and kernel 2
+// (sum_partial_rows).
 //
 // Per vertex v, with Ap = max(A[v], 0) (the adj>0 guard), R[d] =
 // sum_e Ap[d,e], S = sum Ap and trA = tr Ap, the slots T[a,b,c,f] are
 //   gathered     (K1, K2): state[nbr[v,a], pos[v,a,b], pos[v,a,c], f], zero
 //                when the id is outside [0, N) or a position outside [0, P)
-//                (GatherSlots, float or bfloat16), or
+//                (load_vertex marks both -1; risi18_level_common.cuh
+//                copies the rest), or
 //   materialised (K4, K5): T[v,a,b,c,f], read as stored; the take-gather
 //                that built T already wrote zeros where a slot is absent
 //                (BankSlots, float or bfloat16).
@@ -243,30 +247,9 @@ __device__ inline void load_vertex(const int* __restrict__ nbr,
   load_adjacency(radj, v, P, ALD, Ap, R, scal);
 }
 
-// -- slot loaders -----------------------------------------------------------
+// -- the slot loader --------------------------------------------------------
 // row(a, b, ch, r): whether row b of slot a is present, and its base for
 // channel ch; load(r, a, c): T[a,b,c] at that channel, as float.
-
-// The aligned slots gathered from the previous level's state (K1, K2),
-// float or bfloat16.
-template <typename E>
-struct GatherSlots {
-  const E* __restrict__ state;       // [N,P,P,C]
-  const int* snbr;                   // [P] in shared memory, -1 when absent
-  const int* spos;                   // [P,P] in shared memory, -1 when absent
-  int P, C;
-  using Row = const E*;
-  __device__ bool row(int a, int b, int ch, Row& r) const {
-    const int n = snbr[a], p1 = spos[a * P + b];
-    if (n < 0 || p1 < 0) return false;
-    r = state + (((size_t)n * P + p1) * P) * C + ch;
-    return true;
-  }
-  __device__ float load(Row r, int a, int c) const {
-    const int p2 = spos[a * P + c];
-    return p2 >= 0 ? to_float(__ldg(r + (size_t)p2 * C)) : 0.f;
-  }
-};
 
 // One vertex's materialised slots T [P,P,P,C] (K4, K5).
 template <typename E>

@@ -8,7 +8,7 @@
 // with state [N,P,P,C], nbr [N,P], pos [N,P,P] and T [N,P,P,P,C], state and
 // T in float32 or bfloat16 (one type), all contiguous.  A slot whose id lies
 // outside [0, N), or a row or column whose position lies outside [0, P),
-// reads zeros: the rules of GatherSlots (risi18_common.cuh), so that this
+// reads zeros: the rules of load_vertex (risi18_common.cuh), so that this
 // kernel and K1 agree on what is absent.
 //
 // Design.  One block per row group (v, i): it loads nbr[v,i] and

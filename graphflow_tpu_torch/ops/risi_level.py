@@ -14,6 +14,11 @@ forward launches the hand-written kernel ``csrc/risi18_level.cu`` (K1) and
 whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
 ``risi18_level_backward`` is the backward's wrapper and
 ``risi18_level_backward_reference`` its plain version.
+``risi18_level_factored_reference`` and
+``risi18_level_backward_factored_reference`` are the same two functions in
+the algebra the kernels use (nine map products and the adjacency applied
+once; dK and the cotangents as products with G, G.Ap, G.R and GA), for the
+CPU tests.
 
 Dtypes: the kernels take state, K and b in float32 or bfloat16 (one type)
 and radj in float32, and sum in float32, as the Pallas kernels do
@@ -82,6 +87,150 @@ def risi18_level_backward_reference(state, nbr, pos, radj, K, b, g,
         out = risi18_level_reference(leaves[0], nbr, pos, radj, leaves[1],
                                      leaves[2], negslope)
         return torch.autograd.grad(out, leaves, g)
+
+
+def _level_reductions(T, radj):
+    """The shared reductions of the gathered slots T [N,P,P,P,C] (a, b, c,
+    channel) that both kernels form per vertex, and the adjacency's: the
+    dictionary's maps are [N,P,P,C], its vectors [N,P,C], its scalars
+    [N,C]; ``Ap`` is the guarded adjacency, ``R`` its row sums, ``S`` and
+    ``trA`` its sum and trace."""
+    Ap = radj.clamp(min=0)
+    R = Ap.sum(-1)
+    tab = T.sum(3)                                       # T_ab[a,b]
+    dbc = T.diagonal(dim1=2, dim2=3).movedim(-1, 2)      # T[a,b,b]
+    dac = T.diagonal(dim1=1, dim2=3).movedim(-1, 1)      # T[a,b,a]
+    return dict(
+        Ap=Ap, R=R, S=R.sum(-1), trA=Ap.diagonal(dim1=1, dim2=2).sum(-1),
+        tab=tab, tabT=tab.transpose(1, 2), tbc=T.sum(1), dbc=dbc,
+        dacT=dac.transpose(1, 2),
+        m6=torch.einsum("nabcf,nc->nabf", T, R),
+        m10=torch.einsum("nabcf,na->nbcf", T, R),
+        ta=tab.sum(2), tb=tab.sum(1), tdbc=dbc.sum(2), tdac=dac.sum(1),
+        tfull=tab.sum((1, 2)),
+        s14=tab.diagonal(dim1=1, dim2=2).sum(-1),
+        s15=dbc.sum((1, 2)),
+        t18=dbc.diagonal(dim1=1, dim2=2).sum(-1))
+
+
+def risi18_level_factored_reference(state, nbr, pos, radj, K, b,
+                                    negslope=0.01):
+    """The level as K1 (``csrc/risi18_level.cu``) factors it, in plain
+    PyTorch: the 18 cases never stand side by side.  With K_k the k-th
+    [C, Cout] slab of K (k = 1..18), per vertex
+
+        Z[x,y] = T_ab[x,y] (S K1 + trA K7) + T_bc[x,y] S K3
+                 + M6[x,y] K6 + M10[x,y] K10
+                 + sum_e Ap[y,e] W[x,e] + R[y] U[x] + Ap[x,y] s,
+        W[x,e] = T_ab[x,e] K9 + T_ab[e,x] K12 + T_bc[x,e] K13
+                 + D_bc[x,e] K16 + D_ac[e,x] K17,
+        U[x]   = T_a[x] K2 + T_b[x] K4 + Tdbc[x] K8 + Tdac[x] K11,
+        s      = Tfull K5 + s14 K14 + s15 K15 + t18 K18:
+
+    nine products of a [P*P, C] map instead of eighteen, and the adjacency
+    applied once, to W.  The same function as
+    :func:`risi18_level_reference`, in another order of sums."""
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
+
+    ct = _COMPUTE[state.dtype]
+    N, P, _, C = state.shape
+    T = risi18_aligned_t2_reference(state.to(ct), nbr, pos)
+    m = _level_reductions(T, radj.to(ct))
+    Kc = K.to(ct).reshape(18, C, -1)
+    S, trA = m["S"][:, None, None, None], m["trA"][:, None, None, None]
+    Z = ((m["tab"] * S) @ Kc[0] + (m["tab"] * trA) @ Kc[6]
+         + (m["tbc"] * S) @ Kc[2] + m["m6"] @ Kc[5] + m["m10"] @ Kc[9])
+    W = (m["tab"] @ Kc[8] + m["tabT"] @ Kc[11] + m["tbc"] @ Kc[12]
+         + m["dbc"] @ Kc[15] + m["dacT"] @ Kc[16])
+    U = (m["ta"] @ Kc[1] + m["tb"] @ Kc[3] + m["tdbc"] @ Kc[7]
+         + m["tdac"] @ Kc[10])
+    s = (m["tfull"] @ Kc[4] + m["s14"] @ Kc[13] + m["s15"] @ Kc[14]
+         + m["t18"] @ Kc[17])
+    Z = (Z + torch.einsum("nye,nxeo->nxyo", m["Ap"], W)
+         + m["R"][:, None, :, None] * U[:, :, None, :]
+         + m["Ap"][..., None] * s[:, None, None, :])
+    Z = Z.reshape(N, P * P, -1) + b.to(ct)
+    return leaky_relu(Z, negslope).to(state.dtype)
+
+
+def risi18_level_backward_factored_reference(state, nbr, pos, radj, K, b, g,
+                                             negslope=0.01):
+    """The level's gradients as K2 (``csrc/risi18_level_bwd.cu``) forms
+    them, in plain PyTorch, without differentiating the 18 cases: with G
+    the cotangent times LeakyReLU', GAp[x,e] = sum_y G[x,y] Ap[y,e], GR[x] =
+    sum_y G[x,y] R[y] and GA = sum_{x,y} Ap[x,y] G[x,y], dK's cases are
+    products of the forward's reductions with G, GAp, GR or GA; the
+    reductions' cotangents are products of those with K's slabs; and
+
+        dT[a,b,c] = dTab[a,b] + dTbc[b,c] + dM6[a,b] R[c] + R[a] dM10[b,c]
+                    + d(b,c) dDbc[a,b] + d(a,c) dDac[a,b]
+
+    goes back through the gather.  -> (dstate, dK, db), each in the dtype
+    of its parameter."""
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
+
+    ct = _COMPUTE[state.dtype]
+    N, P, _, C = state.shape
+    Cout = K.shape[1]
+    out = risi18_level_reference(state, nbr, pos, radj, K, b, negslope)
+    G = torch.where(out.to(ct) > 0, g.to(ct), negslope * g.to(ct))
+    G = G.reshape(N, P, P, Cout)
+    with torch.enable_grad():
+        leaf = state.detach().to(ct).requires_grad_()
+        T = risi18_aligned_t2_reference(leaf, nbr, pos)
+    m = _level_reductions(T.detach(), radj.to(ct))
+    Ap, R = m["Ap"], m["R"]
+    S, trA = m["S"][:, None, None, None], m["trA"][:, None, None, None]
+    GAp = torch.einsum("nxyo,nye->nxeo", G, Ap)
+    GR = torch.einsum("nxyo,ny->nxo", G, R)
+    GA = torch.einsum("nxy,nxyo->no", Ap, G)
+
+    def maps(a, x):       # sum over vertices and rows: [C, Cout]
+        return torch.einsum("nxyf,nxyo->fo", a, x)
+
+    def vecs(a, x):
+        return torch.einsum("nxf,nxo->fo", a, x)
+
+    def scal(a):
+        return torch.einsum("nf,no->fo", a, GA)
+
+    dK = torch.stack([
+        maps(m["tab"] * S, G), vecs(m["ta"], GR), maps(m["tbc"] * S, G),
+        vecs(m["tb"], GR), scal(m["tfull"]), maps(m["m6"], G),
+        maps(m["tab"] * trA, G), vecs(m["tdbc"], GR), maps(m["tab"], GAp),
+        maps(m["m10"], G), vecs(m["tdac"], GR), maps(m["tabT"], GAp),
+        maps(m["tbc"], GAp), scal(m["s14"]), scal(m["s15"]),
+        maps(m["dbc"], GAp), maps(m["dacT"], GAp), scal(m["t18"]),
+    ]).reshape(18 * C, Cout)
+    db = G.sum((0, 1, 2))
+
+    Kc = K.to(ct).reshape(18, C, Cout)
+
+    def back(x, k):       # x [..., Cout] against slab k: [..., C]
+        return x @ Kc[k].T
+
+    eye = torch.eye(P, dtype=ct, device=state.device)[None, :, :, None]
+    d_ta, d_tb = back(GR, 1), back(GR, 3)
+    d_tdbc, d_tdac = back(GR, 7), back(GR, 10)
+    d_tfull, d_s14 = back(GA, 4), back(GA, 13)
+    d_s15, d_t18 = back(GA, 14), back(GA, 17)
+    d_tab = (S * back(G, 0) + trA * back(G, 6) + back(GAp, 8)
+             + back(GAp, 11).transpose(1, 2) + d_ta[:, :, None]
+             + d_tfull[:, None, None] + eye * d_s14[:, None, None])
+    d_tbc = S * back(G, 2) + back(GAp, 12) + d_tb[:, :, None]
+    d_m6, d_m10 = back(G, 5), back(G, 9)
+    d_dbc = (back(GAp, 15) + d_tdbc[:, :, None] + d_s15[:, None, None]
+             + eye * d_t18[:, None, None])
+    d_dac = back(GAp, 16).transpose(1, 2) + d_tdac[:, None, :]
+    dT = (d_tab[:, :, :, None] + d_tbc[:, None]
+          + d_m6[:, :, :, None] * R[:, None, None, :, None]
+          + R[:, :, None, None, None] * d_m10[:, None]
+          + eye[:, None] * d_dbc[:, :, :, None]
+          + eye[:, :, None] * d_dac[:, :, :, None])
+    (dstate,) = torch.autograd.grad(T, leaf, dT)
+    return dstate.to(state.dtype), dK.to(K.dtype), db.to(b.dtype)
 
 
 def _bind_min_smem(fn):
@@ -189,10 +338,13 @@ SMEM_LIMIT_BYTES = 232448
 
 def check_smem(what, min_smem_bytes, P, Cout):
     """Raises when a block of kernel ``what`` cannot fit its shared memory:
-    the kernels keep a vertex's whole [P*P, Cout] output (or cotangent) in
-    one block, so a large receptive field is refused, never rerouted.
-    ``min_smem_bytes(P, Cout)`` is the library's own count of the bytes a
-    block needs at a channel chunk of one (``make_forward_layout`` and
+    the kernels keep a vertex's [P*P]-row maps, and its output (or
+    cotangent) for at least four output channels, in one block, so a large
+    receptive field is refused, never rerouted.  ``min_smem_bytes(P,
+    Cout)`` is the library's own count of the bytes its smallest block
+    needs (the level: ``make_forward_plan`` and ``make_backward_plan`` of
+    ``csrc/risi18_level.cu`` and ``csrc/risi18_level_bwd.cu`` at a chunk of
+    one float32 channel; the bank: ``make_forward_layout`` and
     ``make_backward_layout`` of ``csrc/risi18_common.cuh``)."""
     need = min_smem_bytes(P, Cout)
     if need > SMEM_LIMIT_BYTES:
@@ -200,8 +352,7 @@ def check_smem(what, min_smem_bytes, P, Cout):
             f"{what}: a receptive field of P={P} at Cout={Cout} needs "
             f"{need} bytes ({need / 1024:.0f} KB) of shared memory in one "
             f"block, and an H100 block has {SMEM_LIMIT_BYTES} bytes "
-            f"(227 KB); the kernels do not tile a vertex's [P*P, Cout] "
-            f"maps yet")
+            f"(227 KB); the kernels do not tile a vertex's [P*P] rows")
 
 
 def _raise_on(err, what, lib_error_string, where):
@@ -231,8 +382,9 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
 
 def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
     """K2, kernel 1 (``risi18_level_backward_{f32,bf16}``): dstate (float32
-    atomics into float32 zeros, whatever the state's dtype) and per-block
-    partial rows of [dK | db]; returns (dstate in float32, partial)."""
+    atomics into float32 zeros, whatever the state's dtype) and one partial
+    row of [dK | db] per vertex group; returns (dstate in float32,
+    partial)."""
     N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
     dev, dt = state.device, state.dtype
     _check("g", g, dt, (N, P * P, Cout), dev)

@@ -48,10 +48,12 @@ def find_nvcc() -> str:
         "CUDA kernels build only where the CUDA toolkit is installed")
 
 
-def build_library(name: str) -> BuildResult:
-    """Compile ``ops/csrc/<name>.cu`` unless the library is up to date."""
+def build_library(name: str, flags=(), suffix: str = "") -> BuildResult:
+    """Compile ``ops/csrc/<name>.cu`` unless the library is up to date.
+    ``flags`` are further nvcc flags (a ``-D`` that compiles a variant in);
+    such a variant is kept apart as ``lib<name><suffix>.so``."""
     src = CSRC_DIR / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
+    lib = BUILD_DIR / f"lib{name}{suffix}.so"
     newest = max(p.stat().st_mtime for p in CSRC_DIR.iterdir()
                  if p.suffix in (".cu", ".cuh"))
     if lib.is_file() and lib.stat().st_mtime >= newest:
@@ -61,7 +63,7 @@ def build_library(name: str) -> BuildResult:
     # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp, str(src)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)

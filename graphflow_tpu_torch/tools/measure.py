@@ -1,6 +1,7 @@
 """What the measuring scripts share (``chip_smoke.py`` and the tools beside
-this file): the spin-timed CUDA-event timer and the full-width model they
-drive."""
+this file) and the CUDA tests: the spin-timed CUDA-event timer, the
+full-width model they drive, and the level output that a backward check
+gives both sides."""
 
 from __future__ import annotations
 
@@ -51,3 +52,12 @@ def time_in_turns(fns, reps, warmup=3):
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of fn(), timed as :func:`time_in_turns` does."""
     return statistics.median(time_in_turns({"fn": fn}, reps, warmup)["fn"])
+
+
+def same_signs(out, plain_out):
+    """The kernel's level output, with the plain version's value wherever
+    the two differ in sign.  LeakyReLU' reads the sign of ``out``, so an
+    output within rounding of zero (|plain| ~ 1e-7: 3 of 4.9 M at N=600)
+    whose sign depends on the order of the sums would set the backward's
+    cotangent 100 times apart on the two sides; both get one ``out``."""
+    return torch.where((out > 0) == (plain_out > 0), out, plain_out)

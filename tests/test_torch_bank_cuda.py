@@ -32,10 +32,13 @@ torch.set_num_threads(1)
 # order differs.  float32: the bound of tests/test_fused.py:79; bfloat16:
 # one rounding of the output to bfloat16 (2^-8 relative) on either side.
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-# The last four are the levels of a halving channel schedule.
+# Four of them are the levels of a halving channel schedule.  The last two
+# have more vertices than the backward has blocks (264), so that every block
+# walks several vertices and adds into its partial row of dK.
 SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8),
           (12, 12, 40, 16), (6, 5, 5, 3), (256, 16, 32, 16),
-          (256, 16, 16, 8), (64, 10, 2, 1), (32, 4, 1, 1)]
+          (256, 16, 16, 8), (64, 10, 2, 1), (32, 4, 1, 1),
+          (600, 16, 32, 32), (600, 4, 8, 4)]
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ import torch
 from graphflow_tpu_torch.ops.risi_level import (
     risi18_level, risi18_level_backward, risi18_level_backward_reference,
     risi18_level_reference)
+from graphflow_tpu_torch.tools.measure import same_signs
 from graphflow_tpu_torch.utils.datasets import random_level_case
 
 pytestmark = pytest.mark.cuda
@@ -67,11 +68,16 @@ def _assert_close(got, ref):
     assert float((got - ref).abs().max()) <= rtol * scale
 
 
-# (12, 12, 40, 16) walks the channels in chunks of 16, 16 and 8; the last
-# four are the levels of a halving channel schedule, down to one channel.
+# (12, 12, 40, 16) walks the channels in several chunks; the next four are the
+# levels of a halving channel schedule, down to one channel.  The next two
+# have more vertices than the backward has vertex groups (132), so that every
+# block walks several vertices and carries its sums of dK and db along.  The
+# last two have fields of 17 to 32 rows: a warp takes two rows of a staged
+# slot, the chunk has four channels and the output goes in panels.
 SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8), (5, 8, 8, 16),
           (12, 12, 40, 16), (256, 16, 32, 16), (256, 16, 16, 8),
-          (64, 10, 2, 1), (32, 4, 1, 1)]
+          (64, 10, 2, 1), (32, 4, 1, 1), (600, 16, 32, 32), (600, 4, 8, 4),
+          (6, 24, 8, 32), (4, 20, 12, 16)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
@@ -84,6 +90,20 @@ def test_level_kernel_matches_plain(cuda, N, P, C, Cout, dtype):
     assert risi18_level.launches == before + 1
     assert got.shape == (N, P * P, Cout) and got.dtype == dtype
     _assert_close(got, risi18_level_reference(*args))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,C,Cout", [(3, 33, 4, 32), (2, 34, 8, 4),
+                                        (2, 35, 5, 3)])
+def test_level_kernel_streams_fields_of_more_than_32_rows(cuda, N, P, C,
+                                                          Cout, dtype):
+    """Beyond 32 rows a thread's cells of a staged slot no longer fit its
+    registers, and the forward sums them in shared memory
+    (``stream_reductions_wide``), in chunks of four channels; P=35 is the
+    last field whose maps fit one block."""
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2, dtype=dtype)
+    _assert_close(risi18_level(*args), risi18_level_reference(*args))
 
 
 @pytest.mark.parametrize("N,P,C,Cout", [(64, 10, 20, 20), (32, 4, 8, 8),
@@ -160,27 +180,33 @@ def test_level_kernel_takes_float32_and_bfloat16_only(cuda):
 
 
 def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """Z [P*P, Cout] lives in shared memory: at P=64, Cout=32 it does not
-    fit, and the launch is refused with an error, not run."""
+    """The maps and Z [P*P, Cout] live in shared memory: at P=64, Cout=32
+    they do not fit, and the launch is refused with an error, not run."""
     args = _inputs(2, 64, 4, 32, seed=8, device=cuda)
     before = risi18_level.launches
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 659632 "
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 761296 "
                                            "bytes .* shared memory"):
         risi18_level(*args)
     assert risi18_level.launches == before
 
 
 def test_backward_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """G and G.Ap [P*P, Cout + 1] live in shared memory: at P=32, Cout=32
-    the forward fits and the backward does not."""
+    """G and G.Ap [P*P, a panel of Cout] live in shared memory beside the
+    maps: P=32 at Cout=32 is the last field that fits both kernels (in
+    panels of four output channels); at P=33 the backward is refused with
+    its bytes, and the forward still runs."""
     args = _inputs(2, 32, 4, 32, seed=8, device=cuda)
     out = risi18_level(*args)
     _assert_close(out, risi18_level_reference(*args))
-    before = risi18_level_backward.launches
-    with pytest.raises(RuntimeError, match="P=32 at Cout=32 needs 310780 "
+    _check_backward(args, _cotangent(2, 32, 32, seed=8, device=cuda))
+    args = _inputs(2, 33, 4, 32, seed=8, device=cuda)
+    out = torch.ones((2, 33 * 33, 32), device=cuda)
+    before = (risi18_level.launches, risi18_level_backward.launches)
+    with pytest.raises(RuntimeError, match="P=33 at Cout=32 needs 246592 "
                                            "bytes .* shared memory"):
         risi18_level_backward(*args, out, torch.ones_like(out))
-    assert risi18_level_backward.launches == before
+    assert (risi18_level.launches, risi18_level_backward.launches) == before
+    _assert_close(risi18_level(*args), risi18_level_reference(*args))
 
 
 # -- K2, the level backward -------------------------------------------------
@@ -193,7 +219,8 @@ def _cotangent(N, P, Cout, seed, device, dtype=torch.float32):
 def _check_backward(args, g):
     counts = (risi18_level_backward.launches,
               risi18_level_backward.reduce_launches)
-    out = risi18_level(*args)
+    # LeakyReLU' reads the sign of ``out``: both sides get one.
+    out = same_signs(risi18_level(*args), risi18_level_reference(*args))
     got = risi18_level_backward(*args, out, g)
     assert (risi18_level_backward.launches,
             risi18_level_backward.reduce_launches) == (counts[0] + 1,
