@@ -36,10 +36,11 @@ Phases, each reported on its own lines:
               Then the seconds per step (prep uncached and cached) and one
               step's split into host batching, forward, backward and Adam;
   7. bank     K4 and K5 against the plain bank and its backward on the
-              card at eight shapes, in float32 and bfloat16, on slots made
+              card at ten shapes, in float32 and bfloat16, on slots made
               by the take-gather: Z, dT and dK; then the median
               milliseconds of K4, the plain bank, K5 (both kernels and each
-              alone) and the plain backward at the production shape, bf16;
+              alone) and the plain backward at the production shape, per
+              dtype, with the bounds of the factored functions;
   8. bf16     the same model in bfloat16, whose levels run the fused level
               as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
@@ -52,7 +53,12 @@ Phases, each reported on its own lines:
               through level_fn=risi18_bank_level (the bank over a
               materialised T): K4 and K5 must launch there and match the
               plain bank route.  Then the seconds per request and per step
-              and the peak device memory of a step;
+              and the peak device memory of a step.  Last, the same model
+              with its levels on the bank route, in float32 and bfloat16,
+              serves one request and takes 3 BatchLearn steps: K4 and K5
+              launch once per level per forward and backward, K1 and K2
+              not at all, and the request and the first step's loss match
+              the plain bank route;
   9. aligned  K7, the aligned neighbour tensor, against its plain version
               (the take-gather) on the card at eight shapes in float32 and
               bfloat16, channel counts that allow 16-byte accesses and ones
@@ -72,7 +78,7 @@ Phases, each reported on its own lines:
               seconds per request and per step, and one ver7 serving level
               split into K7, the 50-case bank and the rest;
  11. ablate   K6, the five ablation variants of the bank kernel, against
-              their plain versions on the card at the bank's shapes in
+              their plain versions on the card at phase 7's ten shapes in
               float32 and bfloat16, `full` against K4 bit for bit; then
               the tool (graphflow_tpu_torch.tools.ablate_bank) prints the
               five times and the attribution at the production shape in
@@ -119,7 +125,8 @@ sys.path.insert(0, str(ROOT))
 # tools under graphflow_tpu_torch/tools/.
 from graphflow_tpu_torch.tools.measure import (  # noqa: E402
     ADAM_LR as TRAIN_LR, ER_P, FULL_WIDTH as MODEL,
-    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, same_signs, time_ms)
+    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, bank_route_model, same_signs,
+    time_ms)
 
 SEED = 0
 # Kernel vs plain: the bound of tests/test_fused_kernel.py:49-50 (summation
@@ -188,30 +195,6 @@ def bound_ms(n_bytes: float, ops: float, dtype: str = "float32"):
                                    else "operations")
 
 
-def bank_ops(N, P, C, Cout, elements=None, cases=18, group_d=True):
-    """Floating-point operations of the 18-case bank times K, from the
-    shapes: the product (2 * cases * C * Cout per output row), the five
-    adjacency-weighted maps (2 * P per row, channel and map) and the shared
-    reductions (about six per element of T; ``elements`` counts the present
-    ones where the slots are gathered, else all N * P^3 are read)."""
-    rows = N * P * P
-    if elements is None:
-        elements = rows * P
-    return (rows * cases * C * Cout * 2 + (rows * C * 5 * P * 2 if group_d
-                                           else 0) + 6 * elements * C)
-
-
-def bank_backward_ops(N, P, C, Cout, elements=None):
-    """The adjoint: dK and the reductions' cotangents are each a product of
-    the bank's size, G.Ap costs 2 * P * Cout per row, and dT is assembled
-    from six maps per element."""
-    rows = N * P * P
-    if elements is None:
-        elements = rows * P
-    return (2 * rows * 18 * C * Cout * 2 + rows * P * Cout * 2
-            + 12 * elements * C)
-
-
 def level_ops(N, P, C, Cout, elements):
     """Floating-point operations of the fused level, as the function factors
     (ops/risi_level.py:risi18_level_factored_reference): nine [P*P, C] maps
@@ -238,6 +221,45 @@ def level_backward_ops(N, P, C, Cout, elements):
     return (2 * rows * 10 * C * Cout * 2 + rows * P * Cout * 2
             + rows * Cout * 8 + 2 * (N * P + N) * 4 * C * Cout * 2
             + (6 + 12) * elements * C)
+
+
+def bank_factored_ops(N, P, C, Cout):
+    """Floating-point operations of the bank as K4 factors it
+    (ops/risi_bank.py:risi18_bank_factored_reference): ``level_ops`` with
+    every element of T present (N * P^3) and no bias or LeakyReLU, so the
+    broadcast of U and s costs four per output."""
+    rows = N * P * P
+    return (rows * 9 * C * Cout * 2 + rows * P * Cout * 2
+            + (N * P + N) * 4 * C * Cout * 2 + rows * Cout * 4
+            + 6 * rows * P * C)
+
+
+def bank_backward_factored_ops(N, P, C, Cout):
+    """The bank's adjoint as K5 factors it
+    (risi18_bank_backward_factored_reference): ``level_backward_ops`` with
+    every element of T present and G the cotangent itself, so G.R and GA
+    cost four per output (no db, no LeakyReLU')."""
+    rows = N * P * P
+    return (2 * rows * 10 * C * Cout * 2 + rows * P * Cout * 2
+            + rows * Cout * 4 + 2 * (N * P + N) * 4 * C * Cout * 2
+            + (6 + 12) * rows * P * C)
+
+
+def bank_variant_ops(mode, N, P, C, Cout):
+    """Operations of K6's variant ``mode`` as K4's block computes it:
+    ``full`` and ``novpu`` are the factored bank (bank_factored_ops);
+    ``nogroupd`` keeps two map slabs, the vector and scalar cases, and two
+    sums per element of T (T_ab, T_bc); ``reduce`` two products, the same
+    two sums and three additions per map entry; ``dma`` none."""
+    rows, elements = N * P * P, N * P ** 3
+    return {"full": bank_factored_ops(N, P, C, Cout),
+            "novpu": bank_factored_ops(N, P, C, Cout),
+            "nogroupd": (rows * 2 * C * Cout * 2
+                         + (N * P + N) * 4 * C * Cout * 2 + rows * Cout * 4
+                         + 2 * elements * C),
+            "reduce": rows * 2 * C * Cout * 2 + 3 * rows * C
+                      + 2 * elements * C,
+            "dma": 0}[mode]
 
 
 def present_elements(nbr, pos) -> int:
@@ -710,40 +732,46 @@ def phase_bank():
                 + f"; bound {rtol:g}*max(1,max|plain|) ok")
 
     N, P, C, Cout = BANK_SHAPES[0]
-    T, A, K, g = bank_inputs(N, P, C, Cout, SEED, torch.bfloat16)
-    leaves = [x.detach().requires_grad_() for x in (T, K)]
-    plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
-    _, partial = _backward_main_kernel(T, A, K, g)
-    ms = {
-        "k4": time_ms(lambda: risi18_bank(T, A, K)),
-        "plain": time_ms(lambda: risi18_bank_reference(T, A, K)),
-        "k5": time_ms(lambda: risi18_bank_backward(T, A, K, g)),
-        "main": time_ms(lambda: _backward_main_kernel(T, A, K, g)),
-        "reduce": time_ms(lambda: _backward_reduce_kernel(partial, C, Cout)),
-        "plain_reduce": time_ms(lambda: partial.sum(0)),
-        "plain_bwd": time_ms(lambda: torch.autograd.grad(
-            plain_out, leaves, g, retain_graph=True)),
-    }
-    log(f"phase 7 bank: N,P,C,Cout={BANK_SHAPES[0]} bfloat16, T "
-        f"{T.numel() * T.element_size() / 1e6:.1f} MB; median K4 "
-        f"{ms['k4']:.4f} ms, plain bank {ms['plain']:.4f} ms; K5 (both "
-        f"kernels) {ms['k5']:.4f} ms, kernel 1 {ms['main']:.4f} ms, kernel 2 "
-        f"{ms['reduce']:.4f} ms ({partial.shape[0]} partial rows; plain sum "
-        f"{ms['plain_reduce']:.4f} ms), plain backward {ms['plain_bwd']:.4f}"
-        f" ms (CUDA events, 20 reps)")
-    Z = risi18_bank(T, A, K)
-    dT, dK = risi18_bank_backward(T, A, K, g)
-    ms["bound"] = bound_ms(nbytes(T, A, K, Z), bank_ops(N, P, C, Cout),
-                           "bfloat16")
-    # As for K2: the partial rows are scratch, dK is the function's output.
-    ms["bwd_bound"] = bound_ms(nbytes(T, A, K, g, dT, dK),
-                               bank_backward_ops(N, P, C, Cout), "bfloat16")
-    ms["reduce_bound"] = bound_ms(nbytes(partial) + dK.numel() * 4,
-                                  partial.numel())
-    log("phase 7 bank: bounds (bfloat16): "
-        + ", ".join(f"{k} {ms[v][0]:.4f} ms by {ms[v][1]}" for k, v in (
-            ("K4", "bound"), ("K5 kernel 1", "bwd_bound"),
-            ("K5 kernel 2", "reduce_bound"))))
+    ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = dtype_name(dtype)
+        T, A, K, g = bank_inputs(N, P, C, Cout, SEED, dtype)
+        leaves = [x.detach().requires_grad_() for x in (T, K)]
+        plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
+        _, partial = _backward_main_kernel(T, A, K, g)
+        m = ms[name] = {
+            "k4": time_ms(lambda: risi18_bank(T, A, K)),
+            "plain": time_ms(lambda: risi18_bank_reference(T, A, K)),
+            "k5": time_ms(lambda: risi18_bank_backward(T, A, K, g)),
+            "main": time_ms(lambda: _backward_main_kernel(T, A, K, g)),
+            "reduce": time_ms(lambda: _backward_reduce_kernel(partial, C,
+                                                              Cout)),
+            "plain_reduce": time_ms(lambda: partial.sum(0)),
+            "plain_bwd": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, g, retain_graph=True)),
+        }
+        log(f"phase 7 bank: N,P,C,Cout={BANK_SHAPES[0]} {name}, T "
+            f"{T.numel() * T.element_size() / 1e6:.1f} MB; median K4 "
+            f"{m['k4']:.4f} ms, plain bank {m['plain']:.4f} ms; K5 (both "
+            f"kernels) {m['k5']:.4f} ms, kernel 1 {m['main']:.4f} ms, kernel "
+            f"2 {m['reduce']:.4f} ms ({partial.shape[0]} partial rows; plain "
+            f"sum {m['plain_reduce']:.4f} ms), plain backward "
+            f"{m['plain_bwd']:.4f} ms (CUDA events, 20 reps)")
+        Z = risi18_bank(T, A, K)
+        dT, dK = risi18_bank_backward(T, A, K, g)
+        # The factored functions' operations (bank_factored_ops); as for K2,
+        # the partial rows are scratch and dK is the function's output.
+        m["bound"] = bound_ms(nbytes(T, A, K, Z),
+                              bank_factored_ops(N, P, C, Cout), name)
+        m["bwd_bound"] = bound_ms(nbytes(T, A, K, g, dT, dK),
+                                  bank_backward_factored_ops(N, P, C, Cout),
+                                  name)
+        m["reduce_bound"] = bound_ms(nbytes(partial) + dK.numel() * 4,
+                                     partial.numel())
+        log(f"phase 7 bank: bounds ({name}): "
+            + ", ".join(f"{k} {m[v][0]:.4f} ms by {m[v][1]}" for k, v in (
+                ("K4", "bound"), ("K5 kernel 1", "bwd_bound"),
+                ("K5 kernel 2", "reduce_bound"))))
     return errs, ms
 
 
@@ -870,6 +898,51 @@ def phase_bf16():
     expect("bank route", banked, **{"K4": 2 * nL, "K5 kernel 1": nL,
                                     "K5 kernel 2": nL})
 
+    # The bank route as a model of its own, in both dtypes, on the same
+    # weights: one request and TRAIN_STEPS BatchLearn steps through
+    # level_fn=risi18_bank_level, K4 and K5 counted, K1 and K2 not at all;
+    # the request and the first step's loss against the plain bank route.
+    route = {}
+    for dname, rtol in (("float32", RTOL), ("bfloat16", RTOL16)):
+        bank_model = bank_route_model(seed=SEED, device="cuda", **MODEL,
+                                      dtype=dname)
+        graphs = er_batch()
+        bbatch = bank_model._stack(graphs, targets)
+        with torch.no_grad():
+            ref_pred = smp2d_forward(
+                bank_model.params, bank_model._stack(requests[0]),
+                bank_model.cfg, level_fn=risi18_bank_level_reference)[0]
+            ref_loss = squared_loss(smp2d_forward(
+                bank_model.params, bbatch, bank_model.cfg,
+                level_fn=risi18_bank_level_reference,
+                training=True)[0], bbatch["target"])
+        reset()
+        t0 = time.perf_counter()
+        route_pred = bank_model.Threaded_Predict(requests[0])
+        req_s = time.perf_counter() - t0
+        r_steps, r_step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            r_steps.append(bank_model.BatchLearn(graphs, targets, TRAIN_LR))
+            torch.cuda.synchronize()
+            r_step_s.append(time.perf_counter() - t0)
+        got = counts()
+        expect(f"bank route {dname}", got,
+               **{"K4": nL * (1 + 2 * TRAIN_STEPS),
+                  "K5 kernel 1": nL * TRAIN_STEPS,
+                  "K5 kernel 2": nL * TRAIN_STEPS})
+        r_losses = [x for step in r_steps for x in step]
+        if not np.isfinite(r_losses).all():
+            raise AssertionError(f"bank route {dname}: non-finite loss in "
+                                 f"{r_losses}")
+        r_err = max(check_close(f"bank route {dname} request", route_pred,
+                                ref_pred, rtol),
+                    check_close(f"bank route {dname} first-step loss",
+                                r_steps[0][0], ref_loss, rtol))
+        route[dname] = dict(counts=got, err=r_err, steps=r_steps,
+                            req_s=req_s, step_s=r_step_s)
+        del bank_model
+
     # Training, counted.
     graphs = er_batch()
     reset()
@@ -930,11 +1003,27 @@ def phase_bf16():
         f"K1=K2=0; max abs err vs plain bank {bank_err:.3e} (bound "
         f"{RTOL16:g}*max(1,max|plain|)); request vs the fused route "
         f"{route_err:.3e} (two roundings of one function) ok")
+    for dname, r in route.items():
+        log(f"phase 8 bf16: bank route model, {dname}: one request "
+            f"{r['req_s']:.4f} s (host clock, prep uncached), "
+            f"{TRAIN_STEPS} BatchLearn (loss_before, loss_after) "
+            + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in r["steps"])
+            + " (s per step " + ", ".join(f"{x:.4f}" for x in r["step_s"])
+            + f"); launches K4={r['counts']['K4']} K5 kernel 1="
+            f"{r['counts']['K5 kernel 1']} kernel 2="
+            f"{r['counts']['K5 kernel 2']} (= {nL} levels x "
+            f"{1 + 2 * TRAIN_STEPS} forwards, {TRAIN_STEPS} backwards), "
+            f"K1=K2=0; request and first-step loss vs the plain bank route "
+            f"{r['err']:.3e} ok")
     return {"k1": served["K1"] + trained["K1"],
             "k2": (trained["K2 kernel 1"], trained["K2 kernel 2"]),
-            "k4": banked["K4"],
-            "k5": (banked["K5 kernel 1"], banked["K5 kernel 2"]),
-            "err": max(serve_err, grad_err), "bank_err": bank_err}
+            "k4": banked["K4"] + sum(r["counts"]["K4"]
+                                     for r in route.values()),
+            "k5": tuple(banked[k] + sum(r["counts"][k]
+                                        for r in route.values())
+                        for k in ("K5 kernel 1", "K5 kernel 2")),
+            "err": max(serve_err, grad_err),
+            "bank_err": max(bank_err, *(r["err"] for r in route.values()))}
 
 
 def phase_aligned():
@@ -1180,7 +1269,8 @@ def phase_ablate():
 
     errs = dict.fromkeys(MODES, 0.0)
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
-        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES):
+        for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES
+                                            + MANY_VERTEX_SHAPES):
             T, A, K, _ = bank_inputs(N, P, C, Cout, SEED + i, dtype)
             bank = risi18_bank(T, A, K)
             line = []
@@ -1222,10 +1312,7 @@ def phase_ablate():
     # dma the one PyTorch call that computes the same function (a copy).
     T, A, K = ablate_bank.make_inputs(B, P, C, torch.bfloat16)
     Z = risi18_bank_variant(T, A, K, "full")
-    ops = {"full": bank_ops(B, P, C, Cout), "novpu": bank_ops(B, P, C, Cout),
-           "nogroupd": bank_ops(B, P, C, Cout, cases=11, group_d=False),
-           "reduce": bank_ops(B, P, C, Cout, cases=2, group_d=False),
-           "dma": 0}
+    ops = {mode: bank_variant_ops(mode, B, P, C, Cout) for mode in MODES}
     # What each function must move: dma returns the first Cout columns of
     # T as [B, P*P, P*C], so it needs Z read and Z written and no more; its
     # kernel streams all of T by design, and that stream's floor is logged
@@ -1233,6 +1320,7 @@ def phase_ablate():
     moved = {mode: nbytes(T, A, K, Z) for mode in MODES}
     moved["dma"] = 2 * nbytes(Z)
     stream_floor = bound_ms(nbytes(T, Z), 0, "bfloat16")
+    extra_floor = {"stream_floor_ms": stream_floor[0]}
     extra = {}
     for mode in MODES:
         extra[mode] = {
@@ -1242,8 +1330,10 @@ def phase_ablate():
             "library_ms": None}
     extra["dma"]["library_ms"] = time_ms(
         lambda: T.reshape(B, P * P, P * C)[:, :, :Cout].contiguous())
+    extra["dma"].update(extra_floor)
     # The same inputs in float32 hold twice the bytes of T, K and Z.
     full_f32 = bound_ms(2 * nbytes(T, K, Z) + nbytes(A), ops["full"])
+    extra["full"]["bound_float32"] = full_f32
     log("phase 11 ablate: bfloat16 plain versions (ms) "
         + ", ".join(f"{m} {extra[m]['plain_ms']:.4f}" for m in MODES)
         + "; bounds (ms) "
@@ -1511,8 +1601,8 @@ def main() -> None:
                 "bound_ms_bfloat16": bound[0],
                 "bound_by_bfloat16": bound[1]}
 
-    # K1, K2 and K7: ms, plain_ms and bound_ms in float32 with the bfloat16
-    # ones beside; launches and max_abs_err cover both dtypes.
+    # K1, K2, K4, K5 and K7: ms, plain_ms and bound_ms in float32 with the
+    # bfloat16 ones beside; launches and max_abs_err cover both dtypes.
     f32, b16 = "float32", "bfloat16"
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
@@ -1542,14 +1632,23 @@ def main() -> None:
                          bwd_ms[b16]["reduce_bound"])),
         kernel("risi18_bank_kernel", "risi18_bank.cu", bank + "142",
                bf16["k4"], max(bank_errs["Z"], bf16["bank_err"]),
-               bank_ms["k4"], bank_ms["plain"], bank_ms["bound"]),
+               bank_ms[f32]["k4"], bank_ms[f32]["plain"],
+               bank_ms[f32]["bound"],
+               **in_bf16(bank_ms[b16]["k4"], bank_ms[b16]["plain"],
+                         bank_ms[b16]["bound"])),
         kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
                bf16["k5"][0], max(bank_errs["dT"], bf16["bank_err"]),
-               bank_ms["main"], bank_ms["plain_bwd"], bank_ms["bwd_bound"]),
+               bank_ms[f32]["main"], bank_ms[f32]["plain_bwd"],
+               bank_ms[f32]["bwd_bound"],
+               **in_bf16(bank_ms[b16]["main"], bank_ms[b16]["plain_bwd"],
+                         bank_ms[b16]["bwd_bound"])),
         kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
                bank + "330", bf16["k5"][1], bank_errs["dK"],
-               bank_ms["reduce"], bank_ms["plain_reduce"],
-               bank_ms["reduce_bound"], library_ms=bank_ms["plain_reduce"]),
+               bank_ms[f32]["reduce"], bank_ms[f32]["plain_reduce"],
+               bank_ms[f32]["reduce_bound"],
+               library_ms=bank_ms[f32]["plain_reduce"],
+               **in_bf16(bank_ms[b16]["reduce"], bank_ms[b16]["plain_reduce"],
+                         bank_ms[b16]["reduce_bound"])),
         kernel("risi18_aligned_t2_kernel", "risi_aligned_t2.cu",
                fused + "1059", sum(k7_launches.values()), aligned_err,
                aligned_ms[f32]["k7"], aligned_ms[f32]["plain"],
@@ -1565,13 +1664,20 @@ def main() -> None:
     if k7_launches[b16] <= 0 or bf16["k1"] <= 0 or min(bf16["k2"]) <= 0:
         raise AssertionError("a bfloat16 path launched no kernel")
     # K6: one kernel per variant; times in bfloat16 as K4's, float32 beside.
+    # dma also names the floor of streaming all of T, which its kernel does
+    # by design; full the bound of its float32 inputs.
     for mode, extra in ablate_extra.items():
+        more = {"ms_float32": ablate_tables["float32"][0][mode]}
+        if "stream_floor_ms" in extra:
+            more["stream_floor_ms"] = extra["stream_floor_ms"]
+        if "bound_float32" in extra:
+            more["bound_ms_float32"], more["bound_by_float32"] = (
+                extra["bound_float32"])
         kernels.append(kernel(
             f"risi18_bank_ablate_kernel[{mode}]", "risi18_bank_ablate.cu",
             "tools/ablate_bank.py:28", ablate_launches[mode],
             ablate_errs[mode], ablate_tables["bfloat16"][0][mode],
-            extra["plain_ms"], extra["bound"], extra["library_ms"],
-            ms_float32=ablate_tables["float32"][0][mode]))
+            extra["plain_ms"], extra["bound"], extra["library_ms"], **more))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,47 +9,61 @@
 // or bfloat16, A is float32; Z has T's type.  No bias and no LeakyReLU: the
 // caller adds them, as the JAX package does around the Pallas call.
 //
-// Design.  This is the level forward risi18_level.cu (K1) without its
-// gather: one block per vertex walks the channels in chunks of Cc, reads the
-// vertex's slots straight from T in global memory (BankSlots), accumulates
-// the shared reductions in shared memory, and multiplies the 18 cases into
-// the chunk's rows of K (staged in shared memory as float32), keeping Z in
-// shared memory across chunks.  All of that device code is K1's, and the
-// block's body is risi18::bank_block (risi18_common.cuh), which the ablation
-// variants (risi18_bank_ablate.cu) instantiate with a stage left out.  Every sum is in float32; a bfloat16 value is
-// converted once, on load, and Z is rounded to T's type once, when written.
-// (Loading bfloat16 channel pairs as __nv_bfloat162 halves the threads that
-// stream the slots, and measured slower on an H100.)  The TPU kernel's
-// selector constants, masks and K regrouping do not carry over.  T is
-// already zero where a slot or position is absent, so nothing is guarded;
-// an empty vertex gives Z = 0.
+// Design.  This is the level forward's block (risi18_level.cu, K1; device
+// code in risi18_forward_block.cuh) with its slots streamed from T instead
+// of gathered from the state, and without the bias and the LeakyReLU: one
+// block of 512 threads per vertex (and output panel), one block an SM, that
+// walks the channels in chunks of up to 16 and per chunk
+//   1. streams the vertex's P slots, T[v,a,:,:,c0:c0+nc] (runs of nc
+//      elements at stride C), through a ring of cp.async buffers that each
+//      warp fills and reduces for its own rows, into the maps T_ab, T_bc,
+//      D_bc, D_ac, M6, M10, their row sums and the scalars
+//      (risi18_level_common.cuh, StoredSlots);
+//   2. multiplies the 9 map slabs into K on the tensor cores (three TF32
+//      passes of mma.sync.m16n8k8, the float32 product to 2^-19) where P*P
+//      is a multiple of 16, else in register tiles on the CUDA cores; W, U
+//      and s accumulate over the chunks, and the adjacency is applied once
+//      per vertex, in the epilogue.
+// Z is rounded to T's type once.  T is already zero where a slot or a
+// position is absent, so nothing is listed or zero-filled: every slot is
+// streamed, and an empty vertex gives Z = 0.  The ablation variants
+// (risi18_bank_ablate.cu) instantiate the same block with a part left out.
+// ops/risi_bank.py:risi18_bank_factored_reference is this algebra in plain
+// PyTorch.
 //
 // What bounds it.  At the production shape (N=256, P=16, C=32, Cout=32) the
-// products with K are ~2.4 GFLOP of float32 FMAs fed from shared memory, as
-// in K1; T is 134 MB in float32 (67 MB in bfloat16), read once from device
-// memory, which it does not fit in L2 as K1's gathered state does.  The slot
-// stream (phase 1 of the reductions) keeps only P*Cc threads of a block busy,
-// each waiting on device memory: that latency and the arithmetic bound it.
-// Cc is chosen so that two blocks fit on one SM.  Staging T's chunk in
-// shared memory (TMA), more busy threads and tensor cores are later work.
+// factored products are 0.6 G multiply-adds, three tensor-core passes each;
+// T is 134 MB in float32 (67 MB in bfloat16), read once from device memory,
+// which it does not fit in L2 as K1's gathered state does: the ring is fed
+// from HBM.  Its byte floor (0.040 ms in float32, 0.020 in bfloat16) lies
+// below the time K1's stream takes in instructions, and on an H100 the
+// block's own clock (tools/stage_clock.py) shows the stream from T taking
+// no more cycles than K1's gather from L2 (63 k against 69 k of a vertex's
+// ~130 k in float32; 59 k in bfloat16): its instructions set the pace, as
+// in K1, and K4 takes 0.14 ms in either type.  A deeper ring (4) and a
+// narrower chunk (8 channels) were measured and not taken.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "risi18_common.cuh"
+#include "risi18_forward_block.cuh"
 
 namespace {
 
-using risi18::ForwardLayout;
-using risi18::kThreads;
+using risi18::level::ForwardPlan;
+using risi18::level::kThreads;
+namespace lv = risi18::level;
 
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
+// E is the type of T, K and Z.  kMma: the plan's `mma`; kWide: its stream
+// is wide (fields of more than 32 rows).
+template <typename E, bool kMma, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_kernel(const E* __restrict__ T, const float* __restrict__ A,
-                   const E* __restrict__ K, E* __restrict__ Z,
-                   ForwardLayout L) {
-  risi18::bank_block<E>(T, A, K, Z, L);
+                   const E* __restrict__ K, E* __restrict__ Z, int N,
+                   ForwardPlan L) {
+  lv::forward_block<E, kMma, kWide, lv::kBank>(T, nullptr, nullptr, A, K,
+                                               nullptr, Z, N, L, 0.f);
 }
 
 template <typename E>
@@ -57,19 +71,19 @@ int launch(const void* T, const void* A, const void* K, void* Z, int N,
            int P, int C, int Cout, void* stream) {
   if (P <= 0 || C <= 0 || Cout <= 0 || N < 0) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  auto make = [&](int Cc) {
-    return risi18::make_forward_layout(P, C, Cout, Cc, false);
-  };
-  const int Cc = risi18::choose_chunk(C, make);
-  if (Cc == 0) return cudaErrorInvalidValue;
-  const ForwardLayout L = make(Cc);
-  const size_t bytes = risi18::smem_bytes(L);
+  const ForwardPlan L = lv::choose_forward_plan(
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
+  if (L.words == 0) return cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * (size_t)L.words;
+  auto kernel = L.sp.wide ? risi18_bank_kernel<E, false, true>
+                : L.mma   ? risi18_bank_kernel<E, true, false>
+                          : risi18_bank_kernel<E, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      risi18_bank_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  risi18_bank_kernel<E><<<N, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const E*)T, (const float*)A, (const E*)K, (E*)Z, L);
+  const dim3 grid(N, (Cout + L.Co - 1) / L.Co);
+  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const E*)T, (const float*)A, (const E*)K, (E*)Z, N, L);
   return cudaGetLastError();
 }
 
@@ -92,10 +106,18 @@ int risi18_bank_forward_bf16(const void* T, const void* A, const void* K,
   return launch<__nv_bfloat16>(T, A, K, Z, N, P, C, Cout, stream);
 }
 
-// The least shared memory one block needs at a channel chunk of one.
+// The least shared memory one block needs: the plan for one float32 channel
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
 long long risi18_bank_min_smem_bytes(int P, int Cout) {
-  return risi18::min_forward_smem_bytes(P, Cout, false);
+  return lv::min_forward_smem_bytes(P, Cout, false);
 }
+
+#ifdef RISI18_STAGE_CLOCK
+// The stage clock's 16 sums of cycles, zeroed after the copy.
+int risi18_bank_stage_cycles(long long* host) {
+  return risi18::level::read_stage_cycles(host);
+}
+#endif
 
 const char* risi18_bank_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -11,110 +11,68 @@
 // A gets no gradient: the graph structure is not differentiated.  T, K and
 // g are float32 or bfloat16, all of one type.
 //
-// The algebra is the level backward's (risi18_level_bwd.cu, K2; device code
-// in risi18_common.cuh) on the cotangent g itself: the bank has no bias and
-// no LeakyReLU, so there is no geff and no db.  Per vertex, with G = g[v] as
-// [P,P,Cout], GAp = G Ap, GR = G R and GA = sum Ap * G, dK per case is one
-// short dot product of a reduction of T with G, GAp or GR, or a scalar times
-// GA; and with the reductions' cotangents dTab, dTbc, dM6, dM10, dDbc, dDac,
+// The algebra is the level backward's (risi18_level_bwd.cu, K2) on the
+// cotangent g itself: the bank has no bias and no LeakyReLU, so there is no
+// geff and no db.  Per vertex, with G = g[v] as [P,P,Cout], GAp = G Ap,
+// GR = G R and GA = sum Ap * G, dK's cases are ten map slabs against G or
+// GAp, four vectors against GR and four scalars times GA; the reductions'
+// cotangents are G and GAp times K's ten slabs, GR and GA times its vector
+// and scalar slabs; and
 //   dT[a,b,c] = dTab[a,b] + dTbc[b,c] + dM6[a,b] R[c] + R[a] dM10[b,c]
 //             + d(b,c) dDbc[a,b] + d(a,c) dDac[a,b].
-// Unlike K2's dstate, each vertex owns its block of dT, so it is written
-// once, without atomics.
+// (ops/risi_bank.py:risi18_bank_backward_factored_reference is this algebra
+// in plain PyTorch.)
 //
-// Design.  Kernel 1 walks vertices (grid-stride, at most 264 blocks, two per
-// SM) and, per vertex, channel chunks of Cc, all in shared memory: G, GAp,
-// GR, GA once per vertex; per chunk, K's chunk rows, T's reductions (read
-// straight from T), the dK chunk (added into the block's own partial row in
-// global memory: no atomics, so dK is the same from run to run), the
-// reductions' cotangents, and the chunk's channels of dT.  Kernel 2 sums the
-// partial rows into dK.  All sums are in float32; bfloat16 is converted once
-// on load and rounded once on store.
+// Design.  Kernel 1 is K2's kernel 1 (device code in
+// risi18_backward_block.cuh) with its slots streamed from T through the
+// cp.async ring (StoredSlots) instead of gathered: one block of 512 threads
+// per (channel chunk, vertex group), one block an SM, 132 groups, the
+// chunks of a group started side by side; per vertex
+// the block loads G, forms GAp, GR and GA, streams its chunk of T[v] into
+// the maps, adds dK's ten map slabs against [G | GAp] into registers kept
+// across the group's vertices (dk_maps_mma), forms the maps' cotangents from
+// K's ten slabs (cotangent_maps_mma), both on the tensor cores in three
+// TF32 passes where P*P is a multiple of 16, else on the CUDA cores.  The
+// difference is dT: each vertex owns dT[v], so the block writes its chunk
+// of it once per element, four channels a store, with no atomics.  A block
+// holds every output channel (one panel), since a chunk's dT needs all of
+// their cotangents.  The partial rows of dK are summed in a fixed order, and
+// every dT element has one writer: dT and dK are the same from run to run.
+// Kernel 2 (sum_partial_rows) sums the groups' partial rows into dK.  All
+// sums are in float32; bfloat16 is converted once on load and rounded once
+// on store.
 //
 // What bounds it.  At the production shape (N=256, P=16, C=32, Cout=32) the
-// dK and the cotangent products are ~0.6 G FMAs each, fed from shared
-// memory; T is read once and dT written once (134 MB each in float32, 67 MB
-// in bfloat16).  T does not fit in L2, and phase 1 of the reductions keeps
-// only P*Cc threads busy, each waiting on device memory (see risi18_bank.cu).
-// Staging T in shared memory, tensor cores and TMA are later work.
+// dK and the cotangent products are 0.67 G multiply-adds each (10 slabs),
+// three tensor-core passes each; T is read once and dT written once (134 MB
+// each in float32, 67 MB in bfloat16), neither of which fits in L2: 0.080
+// ms of bytes in float32, 0.040 in bfloat16, below what K2's kernel 1
+// spends in instructions (about 0.40 ms on an H100), so those set the pace
+// once dT's stores stream past L2 (store4) and a group's chunk-blocks read
+// T's rows side by side; before either, dT's write took a third of a block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#include "risi18_common.cuh"
+#include "risi18_backward_block.cuh"
 
 namespace {
 
-using risi18::BackwardLayout;
 using risi18::kCases;
-using risi18::kThreads;
+using risi18::level::BackwardPlan;
+using risi18::level::kThreads;
+namespace lv = risi18::level;
 
-template <typename E>
-__global__ void __launch_bounds__(kThreads)
+// E is the type of T, K, g and dT.  kMma: the plan's `mma`.
+template <typename E, bool kMma>
+__global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_bwd_kernel(const E* __restrict__ T, const float* __restrict__ A,
                        const E* __restrict__ K, const E* __restrict__ gout,
                        E* __restrict__ dT, float* __restrict__ partial,
-                       int N, BackwardLayout L) {
-  extern __shared__ float smem[];
-  const int P = L.P, C = L.C, Cout = L.Cout, Cc = L.Cc;
-  const int LD = L.LD, ALD = L.ALD, GLD = L.GLD, PP = P * P;
-  const int tid = threadIdx.x, nth = blockDim.x;
-
-  float* Ap = smem + L.ap;
-  float* R = smem + L.r;
-  float* G = smem + L.g;
-  float* GAp = smem + L.gap;
-  float* GR = smem + L.gr;
-  float* GA = smem + L.ga;
-  const risi18::ChunkMaps m = risi18::chunk_maps(smem, L.maps, P, Cc, LD);
-  float* Ks = smem + L.ks;
-
-  // This block's partial sums of dK, rows case*C + f.
-  float* part = partial + blockIdx.x * (size_t)kCases * C * Cout;
-
-  for (size_t v = blockIdx.x; v < (size_t)N; v += gridDim.x) {
-    const bool first = v == blockIdx.x;
-    const E* gv = gout + v * PP * Cout;
-    for (int i = tid; i < PP * Cout; i += nth)
-      G[(i / Cout) * GLD + (i % Cout)] = risi18::to_float(gv[i]);
-    risi18::load_adjacency(A, v, P, ALD, Ap, R, smem + L.scal);
-    const float S = smem[L.scal], trA = smem[L.scal + 1];
-    risi18::adjacency_products(G, Ap, R, GAp, GR, GA, P, Cout, ALD, GLD,
-                               nullptr, first);
-    const size_t block = v * PP * P * C;
-    const risi18::BankSlots<E> slots{T + block, P, C};
-    E* dTv = dT + block;
-
-    for (int c0 = 0; c0 < C; c0 += Cc) {
-      const int nc = min(Cc, C - c0);
-      risi18::stage_K(K, Ks, C, c0, nc, Cc, Cout, GLD);
-      risi18::chunk_reductions(slots, R, P, c0, nc, LD, m);
-      risi18::dk_chunk(m, G, GAp, GR, GA, S, trA, part, first, P, C, c0, nc,
-                       Cout, LD, GLD);
-      risi18::reduction_cotangents(m, G, GAp, GR, GA, Ks, S, trA, P, Cc, nc,
-                                   Cout, LD, GLD);
-
-      // dT of this chunk, item (a, b, f): row b of slot a, channel c0 + f.
-      // Every entry is written once, so the items need no order.
-      for (int item = tid; item < PP * nc; item += nth) {
-        const int f = item % nc, ab0 = item / nc;
-        const int a = ab0 / P, b = ab0 % P, ab = f * LD + ab0;
-        const float dtab = m.tab[ab], dm6 = m.m6[ab];
-        const float ddbc = m.dbc[ab], ddac = m.dac[ab], ra = R[a];
-        const float* dtbc = m.tbc + f * LD + b * P;
-        const float* dm10 = m.m10 + f * LD + b * P;
-        E* row = dTv + ((size_t)ab0 * P) * C + c0 + f;
-        for (int c = 0; c < P; ++c) {
-          float val = dtab + dtbc[c] + dm6 * R[c] + ra * dm10[c];
-          if (c == b) val += ddbc;
-          if (c == a) val += ddac;
-          risi18::store_value(row + (size_t)c * C, val);
-        }
-      }
-      __syncthreads();
-    }
-  }
+                       int N, BackwardPlan L) {
+  lv::backward_block<E, kMma, false>(T, nullptr, nullptr, A, K, gout,
+                                     nullptr, dT, partial, N, L, 0.f);
 }
 
 template <typename E>
@@ -122,21 +80,22 @@ int launch(const void* T, const void* A, const void* K, const void* g,
            void* dT, void* partial, int N, int P, int C, int Cout,
            int nblocks, void* stream) {
   if (P <= 0 || C <= 0 || Cout <= 0 || N < 0) return cudaErrorInvalidValue;
-  if (nblocks != risi18::partial_blocks(N)) return cudaErrorInvalidValue;
+  if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  auto make = [&](int Cc) {
-    return risi18::make_backward_layout(P, C, Cout, Cc, false);
-  };
-  const int Cc = risi18::choose_chunk(C, make);
-  if (Cc == 0) return cudaErrorInvalidValue;
-  const BackwardLayout L = make(Cc);
-  const size_t bytes = risi18::smem_bytes(L);
+  BackwardPlan L = lv::choose_backward_plan(
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
+  if (L.words == 0) return cudaErrorInvalidValue;
+  L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(dT) == 16;
+  const size_t bytes = sizeof(float) * (size_t)L.words;
+  auto kernel = L.mma ? risi18_bank_bwd_kernel<E, true>
+                      : risi18_bank_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      risi18_bank_bwd_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  risi18_bank_bwd_kernel<E><<<nblocks, kThreads, bytes,
-                              (cudaStream_t)stream>>>(
+  // Chunks along x: the blocks of one vertex group start side by side
+  // (backward_block).
+  const dim3 grid((C + L.sp.Cc - 1) / L.sp.Cc, nblocks, 1);
+  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
       (const E*)T, (const float*)A, (const E*)K, (const E*)g, (E*)dT,
       (float*)partial, N, L);
   return cudaGetLastError();
@@ -146,8 +105,8 @@ int launch(const void* T, const void* A, const void* K, const void* g,
 
 extern "C" {
 
-// Number of partial rows (blocks of kernel 1) for N vertices.
-int risi18_bank_backward_blocks(int N) { return risi18::partial_blocks(N); }
+// Number of partial rows (vertex groups of kernel 1) for N vertices.
+int risi18_bank_backward_blocks(int N) { return lv::vertex_groups(N); }
 
 // Kernel 1 on `stream`; returns a cudaError_t (0 on success).
 // T [N,P,P,P,C], A [N,P,P] f32, K [18C,Cout], g [N,P*P,Cout] -> dT
@@ -181,10 +140,18 @@ int risi18_bank_backward_reduce(const void* partial, void* dK, int nblocks,
                                          (cudaStream_t)stream);
 }
 
-// The least shared memory one block needs at a channel chunk of one.
+// The least shared memory one block needs: the plan for one float32 channel
+// (a chunk of one, the shallowest ring, all of Cout in one panel).
 long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
-  return risi18::min_backward_smem_bytes(P, Cout, false);
+  return lv::min_backward_smem_bytes(P, Cout, false);
 }
+
+#ifdef RISI18_STAGE_CLOCK
+// The stage clock's 16 sums of cycles, zeroed after the copy.
+int risi18_bank_backward_stage_cycles(long long* host) {
+  return risi18::level::read_stage_cycles(host);
+}
+#endif
 
 const char* risi18_bank_bwd_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

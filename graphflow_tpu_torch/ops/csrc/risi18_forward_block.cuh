@@ -1,0 +1,501 @@
+// The block of the forward kernels: the fused level (risi18_level.cu, K1),
+// the bank over a materialised T (risi18_bank.cu, K4) and the bank's
+// ablation variants (risi18_bank_ablate.cu, K6).  One block of 512 threads
+// per vertex and panel of output channels, one block an SM; the design and
+// its algebra are described in risi18_level.cu.  K1 streams its slots
+// gathered from the state, K4 and K6 from T (risi18_level_common.cuh:
+// GatheredSlots, StoredSlots); K1 adds the bias and LeakyReLU in the
+// epilogue, K4 writes Z as it is.
+
+#pragma once
+
+#include <type_traits>
+
+#include "risi18_level_common.cuh"
+
+namespace risi18 {
+namespace level {
+
+// What a forward block computes.  kLevel is K1; kBank is K4 and K6's full.
+// The others are K6's variants of K4 (risi18_bank_ablate.cu), each K4's
+// block with one part left out:
+//   kNoGroupD     without the adjacency-weighted cases 6, 9, 10, 12, 13, 16,
+//                 17: no M6 and M10 in the stream, no W and no adjacency in
+//                 the epilogue; two map slabs (T_ab, T_bc) into Z;
+//   kNoSelect     every pick of a diagonal replaced by the full sum
+//                 (picks_as_sums), wrong as a contraction by design;
+//   kTwoProducts  the stream and the reductions without M6 and M10, then two
+//                 products: Z = (T_ab + T_bc + W17) K[0:C]
+//                 + (D_bc + D_ac) K[C:2C], W17[x,y] = D_ac[y,x] (= dacT).
+enum ForwardPart { kLevel = 0, kBank, kNoGroupD, kNoSelect, kTwoProducts };
+
+__host__ __device__ constexpr bool has_group_d(int part) {
+  return part == kLevel || part == kBank || part == kNoSelect;
+}
+
+// A forward block's shared memory, offsets in 4-byte words.
+struct ForwardPlan {
+  StreamPlan sp;
+  int Cout;
+  int Co;      // output channels of one block's panel
+  int ZLD;     // Co rounded up to 4: row stride of Zs, Ws and Us
+  int KLD;     // row stride of Ks: ZLD, or ZLD + 2 for the tensor cores
+  int ALD;     // P + 1
+  int mma;     // 1: the map products run on the tensor cores, a warp
+               // keeping 16 rows x all outputs of Z and of W in registers
+               // over the chunks (mma_products); Zs and Ws then lie over the
+               // ring and the maps, which are dead when the accumulators are
+               // written out.  0: register tiles of 8 rows x 4 outputs on
+               // the CUDA cores, added to Zs and Ws once per chunk.
+  int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, words;
+};
+
+// `gather`: the block gathers its slots (K1) and keeps the vertex's
+// neighbour ids, positions and listed slots; else they take no room.
+inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
+                                     int Co, int es, int aligned,
+                                     bool gather) {
+  ForwardPlan L;
+  L.sp = make_stream_plan(P, C, Cc, D, es, aligned);
+  L.Cout = Cout; L.Co = Co; L.ZLD = round_up(Co, 4); L.ALD = P + 1;
+  const int zw = P * P * L.ZLD, stream = stream_words(L.sp);
+  // The tensor cores take 16-channel chunks of 16-row tiles, a warp a tile,
+  // and up to four 8-wide tiles of outputs (which rules out a wide stream:
+  // its chunks have four channels).
+  L.mma = L.sp.ncp == 16 && (P * P) % 16 == 0 &&
+          P * P / 16 <= kThreads / 32 && L.ZLD % 8 == 0 && L.ZLD <= 32 &&
+          2 * zw <= stream;
+  // Rows of K two words further apart than a multiple of eight: the four
+  // rows that the lanes of a tensor-core tile read fall on different banks.
+  L.KLD = L.mma ? L.ZLD + 2 : L.ZLD;
+  int w = 0;
+  auto take = [&w](int n) { int at = w; w += round_up(n, 4); return at; };
+  L.ap = take(P * L.ALD);
+  L.r = take(P);
+  L.scal = take(2);
+  L.inbr = take(gather ? P : 0);
+  L.ipos = take(gather ? P * P : 0);
+  L.islots = take(gather ? P + 1 : 0);
+  L.stream = take(stream);
+  L.ks = take(kCases * L.sp.ncp * L.KLD);
+  L.zs = L.mma ? L.stream : take(zw);
+  L.ws = L.mma ? L.stream + zw : take(zw);
+  L.us = take(P * L.ZLD);
+  L.ss = take(L.ZLD);
+  L.words = w;
+  return L;
+}
+
+// The plan that fits one block with the widest panel, then the largest
+// chunk, then the deepest ring; one whose stream keeps a thread's cells in
+// registers before a wide one (a field of more than 32 rows has only wide
+// ones); words == 0 if none fits.
+inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
+                                       int aligned, bool gather) {
+  for (int wide = 0; wide <= 1; ++wide) {
+    for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
+      for (int Cc : {kMaxChunk, 8, 4}) {
+        Cc = Cc < C ? Cc : C;
+        for (int D = 3; D >= 2; --D) {
+          const ForwardPlan L = make_forward_plan(P, C, Cout, Cc, D, Co, es,
+                                                  aligned, gather);
+          if (L.sp.wide == wide &&
+              sizeof(float) * (size_t)L.words <= kMaxSmemBytes)
+            return L;
+        }
+      }
+      if (Co <= 4) break;
+    }
+  }
+  ForwardPlan none{};
+  return none;
+}
+
+// The least shared memory one block needs: the plan for one float32 channel
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
+inline long long min_forward_smem_bytes(int P, int Cout, bool gather) {
+  const int Co = Cout < 4 ? Cout : 4;
+  return (long long)sizeof(float) *
+         make_forward_plan(P, 1, Cout, 1, 2, Co, (int)sizeof(float), 16,
+                           gather).words;
+}
+
+// K's slabs of the direct product (into Z) and of the adjacency-weighted
+// one (into W), with the map each multiplies.  Slab 0 is staged as
+// S K1 + trA K7 and slab 2 as S K3.  kNoGroupD keeps the first two direct
+// slabs; kTwoProducts multiplies T_ab + T_bc + W17 (summed into T_ab's map)
+// by K's slab 0 and D_bc + D_ac (into D_bc's) by slab 1, both staged as
+// they are.
+__constant__ int kDirectSlab[4] = {0, 2, 5, 9};
+__constant__ int kDirectMap[4] = {kTab, kTbc, kM6, kM10};
+__constant__ int kWeightedSlab[5] = {8, 11, 12, 15, 16};
+__constant__ int kWeightedMap[5] = {kTab, kTabT, kTbc, kDbc, kDacT};
+__constant__ int kTwoSlab[2] = {0, 1};
+__constant__ int kTwoMap[2] = {kTab, kDbc};
+
+constexpr int kBatch = 9;   // rows of K a warp loads before it stores them
+
+// One product tile of a chunk on the CUDA cores: acc[i] (row rows[i],
+// outputs 4*og..) += the maps' channels times K's slabs (kPart's direct ones
+// into Z, the five weighted ones into W).
+template <int kPart>
+__device__ __forceinline__ void tile_product(float4 (&acc)[8],
+                                             const int (&rows)[8],
+                                             bool weighted, int og,
+                                             const StreamBuffers& s,
+                                             const float* Ks, int mapw,
+                                             int ncp, int KLD) {
+  const int nslab = weighted ? 5 : has_group_d(kPart) ? 4 : 2;
+  const int* slab = weighted ? kWeightedSlab
+                    : kPart == kTwoProducts ? kTwoSlab : kDirectSlab;
+  const int* which = weighted ? kWeightedMap
+                     : kPart == kTwoProducts ? kTwoMap : kDirectMap;
+  for (int j = 0; j < nslab; ++j) {
+    const float* map = s.map(which[j], mapw);
+    const float* ks = Ks + slab[j] * ncp * KLD + 4 * og;
+    for (int f4 = 0; f4 < ncp; f4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = load4(map + rows[i] * ncp + f4);
+#pragma unroll
+      for (int ff = 0; ff < 4; ++ff) {
+        const float4 k4 = load4(ks + (f4 + ff) * KLD);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) fma4(acc[i], get4(a[i], ff), k4);
+      }
+    }
+  }
+}
+
+// The products of `nslab` maps of a 16-channel chunk with their slabs of K
+// on the tensor cores: acc[nt] (rows row0 + g and row0 + g + 8, outputs
+// 8 nt + 2t, 2t + 1; g = lane / 4, t = lane % 4) += map[16 rows x 16] times
+// K's slab [16 x 8 nt..], for nt < nnt.  Every float is split in two TF32
+// values and every product takes three passes (mma_3xtf32): float32
+// products, as on the CUDA cores.  The order of the channels in a k-step is
+// free as long as both operands follow it: a lane reads the four channels
+// 4t..4t+3 of its two rows as one float4 each and feeds 4t, 4t + 1 to the
+// first step and 4t + 2, 4t + 3 to the second, and reads K's rows to match.
+__device__ __forceinline__ void mma_products(float (&acc)[4][4],
+                                             const int* slab,
+                                             const int* which, int nslab,
+                                             int row0, int nnt,
+                                             const StreamBuffers& s,
+                                             const float* Ks, int mapw,
+                                             int KLD, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int j = 0; j < nslab; ++j) {
+    const float* map = s.map(which[j], mapw) + (row0 + g) * 16 + 4 * t;
+    const float4 top = load4(map), bottom = load4(map + 8 * 16);
+    const float* kb = Ks + (slab[j] * 16 + 4 * t) * KLD + g;
+#pragma unroll
+    for (int st = 0; st < 2; ++st) {
+      unsigned ah[4], al[4];
+      split_tf32(st ? top.z : top.x, ah[0], al[0]);
+      split_tf32(st ? bottom.z : bottom.x, ah[1], al[1]);
+      split_tf32(st ? top.w : top.y, ah[2], al[2]);
+      split_tf32(st ? bottom.w : bottom.y, ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < nnt) {
+          unsigned bh[2], bl[2];
+          split_tf32(kb[(2 * st) * KLD + 8 * nt], bh[0], bl[0]);
+          split_tf32(kb[(2 * st + 1) * KLD + 8 * nt], bh[1], bl[1]);
+          mma_3xtf32(acc[nt], ah, al, bh, bl);
+        }
+      }
+    }
+  }
+}
+
+// One forward block: vertex blockIdx.x, output panel blockIdx.y.  E is the
+// type of the slots' source, K, bias and out: float or __nv_bfloat16.
+// kMma: the plan's `mma`; kWide: the plan's stream is wide; kPart: what
+// the block computes (ForwardPart).  K1 (kLevel) reads `in` as the state
+// [N,P,P,C] with nbr, pos, and adds bias; the others read `in` as T
+// [N,P,P,P,C] and take neither nbr, pos nor bias.  radj is the float32
+// adjacency [N,P,P]; out is [N,P*P,Cout].
+template <typename E, bool kMma, bool kWide, int kPart>
+__device__ __forceinline__ void forward_block(
+    const E* __restrict__ in, const int* __restrict__ nbr,
+    const int* __restrict__ pos, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
+    int N, const ForwardPlan& L, float negslope) {
+  constexpr bool kGather = kPart == kLevel;
+  constexpr bool kGroupD = has_group_d(kPart);
+  constexpr bool kSelect = kPart != kNoSelect;
+  // The vector and scalar cases (U and s) and the adjacency-weighted W.
+  constexpr bool kVectors = kPart != kTwoProducts;
+  constexpr bool kWeighted = kGroupD;
+  extern __shared__ __align__(16) float smem[];
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp;
+  const int ZLD = L.ZLD, KLD = L.KLD, ALD = L.ALD, PP = P * P;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32, nwarps = nth / 32;
+  const size_t v = blockIdx.x;
+  const int o0 = blockIdx.y * L.Co, no = min(L.Co, Cout - o0);
+
+  float* Ap = smem + L.ap;
+  float* R = smem + L.r;
+  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
+  int* spos = reinterpret_cast<int*>(smem + L.ipos);
+  int* slots = reinterpret_cast<int*>(smem + L.islots);
+  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  float* Ks = smem + L.ks;
+  float* Zs = smem + L.zs;
+  float* Ws = smem + L.ws;
+  float* Us = smem + L.us;
+  float* Ss = smem + L.ss;
+
+  STAGE_CLOCK_START();
+  // Zero the ring and the maps (their padding is read), K's staging and
+  // the accumulators; everything from L.stream on.
+  zero_words(smem + L.stream, L.words - L.stream);
+  if constexpr (kGather) {
+    load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
+                spos);
+  } else {
+    load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+  }
+  const float S = smem[L.scal], trA = smem[L.scal + 1];
+  if constexpr (kGather) list_slots(snbr, spos, P, slots);
+  const auto src = [&] {
+    if constexpr (kGather)
+      return GatheredSlots<E>{in, snbr, spos, slots};
+    else
+      return StoredSlots<E>{in + v * PP * P * C};
+  }();
+  STAGE(0);   // set-up
+
+  // Product tiles on the CUDA cores, item (matrix, row group, output
+  // group): 8 rows rg, rg + nrg, ... x 4 outputs of Z or of W.
+  const int nrg = (PP + 7) / 8, nog = ZLD / 4, tiles = nrg * nog;
+  // On the tensor cores: warp w keeps rows 16w..16w+15 of Z and of W.
+  float accz[4][4], accw[4][4];
+  const bool has_tile = warp < PP / 16;
+  if constexpr (kMma) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accz[nt][i] = accw[nt][i] = 0.f;
+  }
+  // The direct products' slabs and maps.
+  const int* dslab = kPart == kTwoProducts ? kTwoSlab : kDirectSlab;
+  const int* dmap = kPart == kTwoProducts ? kTwoMap : kDirectMap;
+  const int ndirect = kGroupD ? 4 : 2;
+
+  for (int c0 = 0; c0 < C; c0 += sp.Cc) {
+    const int nc = min(sp.Cc, C - c0);
+    // The first slots' copies fly while K's rows of the chunk are staged:
+    // Ks[(k*ncp + f)*KLD + o], zero beyond nc and no, a warp a row, the
+    // loads of kBatch rows in flight together.  (The previous chunk's
+    // products ended with a barrier, and the stream's barriers order these
+    // writes before this chunk's products.)
+    stream_prologue(src, sp, s, c0, nc);
+    STAGE(1);   // the first copies' start
+    for (int o = lane; o < ZLD; o += 32) {
+      for (int kf0 = warp; kf0 < kCases * ncp; kf0 += kBatch * nwarps) {
+        float val[kBatch], val6[kBatch];
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int kf = kf0 + i * nwarps, f = kf % ncp, k = kf / ncp;
+          const bool staged = k < kCases && f < nc && o < no;
+          const size_t col = (size_t)o0 + o;
+          val[i] = staged ? to_float(K[(size_t)(k * C + c0 + f) * Cout + col])
+                          : 0.f;
+          val6[i] = staged && k == 0 && kPart != kTwoProducts
+                        ? to_float(K[(size_t)(6 * C + c0 + f) * Cout + col])
+                        : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const int kf = kf0 + i * nwarps, k = kf / ncp;
+          if (k >= kCases) break;
+          if constexpr (kPart == kTwoProducts)
+            Ks[kf * KLD + o] = val[i];
+          else
+            Ks[kf * KLD + o] = k == 0 ? S * val[i] + trA * val6[i]
+                               : k == 2 ? S * val[i] : val[i];
+        }
+      }
+    }
+    STAGE(2);   // K's staging
+    if constexpr (kWide) {
+      static_assert(kGroupD && kSelect, "a wide stream forms every part");
+      stream_reductions_wide(src, R, sp, s, c0, nc);
+    } else
+      stream_reductions<kGroupD, kSelect>(src, R, sp, s, c0, nc);
+    STAGE(3);   // the stream
+
+    if constexpr (kVectors) {
+      // U and s of the vector and scalar cases; each entry has one owner.
+      for (int i = tid; i < P * ZLD; i += nth) {
+        const int o = i % ZLD, x = i / ZLD;
+        float u = 0.f;
+#pragma unroll 4
+        for (int f = 0; f < nc; ++f) {
+          u += s.ta[x * ncp + f] * Ks[(1 * ncp + f) * KLD + o]
+               + s.tb[x * ncp + f] * Ks[(3 * ncp + f) * KLD + o]
+               + s.tdbc[x * ncp + f] * Ks[(7 * ncp + f) * KLD + o]
+               + s.tdac[x * ncp + f] * Ks[(10 * ncp + f) * KLD + o];
+        }
+        Us[i] += u;
+      }
+      for (int o = tid; o < ZLD; o += nth) {
+        float u = 0.f;
+#pragma unroll 4
+        for (int f = 0; f < nc; ++f) {
+          u += s.tfull[f] * Ks[(4 * ncp + f) * KLD + o]
+               + s.s14[f] * Ks[(13 * ncp + f) * KLD + o]
+               + s.s15[f] * Ks[(14 * ncp + f) * KLD + o]
+               + s.t18[f] * Ks[(17 * ncp + f) * KLD + o];
+        }
+        Ss[o] += u;
+      }
+    } else {
+      // The two products' maps: T_ab + T_bc + W17 over T_ab's map, D_bc +
+      // D_ac over D_bc's; each entry has one owner.
+      float* tab = s.map(kTab, sp.mapw);
+      float* dbc = s.map(kDbc, sp.mapw);
+      const float* tbc = s.map(kTbc, sp.mapw);
+      const float* dacT = s.map(kDacT, sp.mapw);
+      for (int i = tid; i < PP * ncp; i += nth) {
+        const int f = i % ncp, r = i / ncp, x = r / P, y = r % P;
+        tab[i] += tbc[i] + dacT[i];
+        dbc[i] += dacT[(y * P + x) * ncp + f];
+      }
+      __syncthreads();
+    }
+
+    STAGE(4);   // U and s
+    // The map products, accumulated over the chunks in registers on the
+    // tensor cores, else in shared memory.
+    if constexpr (kMma) {
+      if (has_tile) {
+        mma_products(accz, dslab, dmap, ndirect, 16 * warp, ZLD / 8, s, Ks,
+                     sp.mapw, KLD, lane);
+        if constexpr (kWeighted)
+          mma_products(accw, kWeightedSlab, kWeightedMap, 5, 16 * warp,
+                       ZLD / 8, s, Ks, sp.mapw, KLD, lane);
+      }
+    } else {
+      for (int item = tid; item < (kWeighted ? 2 : 1) * tiles; item += nth) {
+        const bool w = item >= tiles;
+        const int t = w ? item - tiles : item, g = t % nog, r0 = t / nog;
+        float* acc_at = (w ? Ws : Zs) + 4 * g;
+        float4 acc[8];
+        int rows[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          rows[i] = min(r0 + i * nrg, PP - 1);
+          acc[i] = load4(acc_at + rows[i] * ZLD);
+        }
+        tile_product<kPart>(acc, rows, w, g, s, Ks, sp.mapw, ncp, KLD);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (r0 + i * nrg < PP)
+            *reinterpret_cast<float4*>(acc_at + rows[i] * ZLD) = acc[i];
+      }
+    }
+    __syncthreads();
+    STAGE(5);   // the products
+  }
+  if constexpr (kMma) {
+    // The last barrier freed the ring and the maps: Zs and Ws lie there.
+    if (has_tile) {
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        if (nt < ZLD / 8) {
+          const int at = (16 * warp + g) * ZLD + 8 * nt + 2 * t;
+          *reinterpret_cast<float2*>(Zs + at) =
+              make_float2(accz[nt][0], accz[nt][1]);
+          *reinterpret_cast<float2*>(Zs + at + 8 * ZLD) =
+              make_float2(accz[nt][2], accz[nt][3]);
+          if constexpr (kWeighted) {
+            *reinterpret_cast<float2*>(Ws + at) =
+                make_float2(accw[nt][0], accw[nt][1]);
+            *reinterpret_cast<float2*>(Ws + at + 8 * ZLD) =
+                make_float2(accw[nt][2], accw[nt][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Epilogue, item (row, four outputs): the adjacency-weighted part, the
+  // vector and scalar cases, (for the level) bias and LeakyReLU, one
+  // rounding.
+  E* outv = out + v * PP * Cout;
+  for (int item = tid; item < PP * nog; item += nth) {
+    const int g = item % nog, r = item / nog, x = r / P, y = r % P;
+    float4 z = load4(Zs + r * ZLD + 4 * g);
+    if constexpr (kWeighted) {
+      const float* w = Ws + x * P * ZLD + 4 * g;
+      const float* ay = Ap + y * ALD;
+#pragma unroll 4
+      for (int e = 0; e < P; ++e) fma4(z, ay[e], load4(w + e * ZLD));
+    }
+    if constexpr (kVectors) {
+      fma4(z, R[y], load4(Us + x * ZLD + 4 * g));
+      fma4(z, Ap[x * ALD + y], load4(Ss + 4 * g));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int o = 4 * g + i;
+      if (o < no) {
+        float t = get4(z, i);
+        if constexpr (kGather) {
+          t += to_float(bias[o0 + o]);
+          t = t > 0.f ? t : negslope * t;
+        }
+        store_value(outv + (size_t)r * Cout + o0 + o, t);
+      }
+    }
+  }
+  STAGE(6);   // the epilogue
+}
+
+// The ablation variant dma for vertex blockIdx.x, on K4's plan: the stream
+// of T[v] with its loads alone (stream_loads), chunk after chunk, summed
+// into sink[v] so that the loads cannot be dropped; then Z[v] = T[v] viewed
+// as [P*P, P*C], its first Cout columns (Cout <= P*C).
+template <typename E>
+__device__ __forceinline__ void dma_block(const E* __restrict__ T,
+                                          E* __restrict__ Z,
+                                          float* __restrict__ sink,
+                                          const ForwardPlan& L) {
+  extern __shared__ __align__(16) float smem[];
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, PP = P * P;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t v = blockIdx.x;
+  const E* Tv = T + v * PP * P * C;
+  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  const StoredSlots<E> src{Tv};
+  float* total = smem + L.scal;
+  if (tid == 0) *total = 0.f;
+  __syncthreads();
+  float acc = 0.f;
+  for (int c0 = 0; c0 < C; c0 += sp.Cc) {
+    const int nc = min(sp.Cc, C - c0);
+    stream_prologue(src, sp, s, c0, nc);
+    acc += stream_loads(src, sp, s, c0, nc);
+    __syncthreads();   // every warp is done with the ring
+  }
+  for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (tid % 32 == 0) atomicAdd(total, acc);
+  __syncthreads();
+  if (tid == 0) sink[v] = *total;
+
+  E* zv = Z + v * PP * Cout;
+  const int PC = P * C;
+  for (int i = tid; i < PP * Cout; i += nth)
+    zv[i] = Tv[(size_t)(i / Cout) * PC + i % Cout];
+}
+
+}  // namespace level
+}  // namespace risi18

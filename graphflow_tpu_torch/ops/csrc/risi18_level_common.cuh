@@ -1,24 +1,31 @@
-// Device code of the two level kernels (risi18_level.cu, K1, and
-// risi18_level_bwd.cu, K2 kernel 1): the asynchronous slot stream with the
-// shared reductions of one channel chunk, and the small helpers both use.
-// The vertex's structure (load_vertex) and the element types come from
-// risi18_common.cuh, which the bank kernels K4, K5 and K6 go on using whole.
+// Device code of the stream that every block of the package runs: the
+// forward block (risi18_forward_block.cuh: K1, K4, K6) and the backward
+// block (risi18_backward_block.cuh: K2 kernel 1, K5 kernel 1).  The
+// asynchronous slot stream with the shared reductions of one channel chunk,
+// the tensor cores' three-pass product, and the small helpers they use.  The
+// vertex's structure (load_vertex, load_adjacency) and the element types
+// come from risi18_common.cuh.
 //
 // The stream.  Slot a of a vertex, for the chunk's channels [c0, c0 + nc),
-// is state[nbr[a], pos[a,b], pos[a,c], c0:c0+nc] for every (b, c): P*P runs
-// of nc contiguous elements.  Every thread of the block copies runs with
+// is P*P runs of nc contiguous elements, one per (b, c): gathered
+// (GatheredSlots, K1 and K2) from state[nbr[a], pos[a,b], pos[a,c],
+// c0:c0+nc], or materialised (StoredSlots, K4, K5, K6) as T[v,a,b,c,
+// c0:c0+nc].  Every thread of the block copies runs with
 // cp.async (16 bytes a copy where the chunk and C allow it, else 8 or 4; a
 // run that is absent is zero-filled by a copy of source size 0) into a ring
 // of D slot buffers in shared memory, so that D - 1 slots are in flight
 // while one is reduced.  A warp copies the rows it reduces, so a warp waits
 // for its own copies and meets no other warp at a slot: the warps drift
-// apart and hide one another's latencies.  A bfloat16 state whose rows are
+// apart and hide one another's latencies.  A bfloat16 source whose rows are
 // no multiple of 4 bytes, or that starts at an odd element, is loaded
 // element by element into the same ring.  A buffer holds [b][c][ncp]
 // elements.  A chunk is as
 // wide as shared memory allows, up to 16 channels: a run of 16 float32
 // channels is two 32-byte sectors of one line, and the cost of a slot
 // (barrier, address arithmetic, reduction) is paid once for twice the data.
+// A gathered stream reads the state from L2 (8 MB at N=256); a
+// materialised one reads T from device memory (134 MB at N=256 in float32),
+// which L2 does not hold.
 //
 // The reductions of a staged slot need no atomics and no shared
 // read-modify-write.  A warp takes one row b; its lane (h, q) owns four
@@ -104,6 +111,12 @@ struct StreamPlan {
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
+}
+
+// The bytes a pointer is aligned to, up to 16.
+inline int alignment_of(const void* p) {
+  const size_t a = (size_t)p;
+  return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : 2;
 }
 
 // Whether the cells of a staged slot that a thread owns fit the registers
@@ -349,21 +362,11 @@ __device__ inline CopyItems copy_items(const StreamPlan& sp, int c0, int nc) {
   return ci;
 }
 
-// One copy of slot a (neighbour n, positions row `pos_a`): `step` bytes of
-// the run (b, c) to buf + dst, or zeros when absent.
+// One copy of `step` bytes from `from` to buf + dst, or zeros when absent.
 template <typename E>
-__device__ __forceinline__ void copy_run(const E* __restrict__ state,
-                                         const int* pos_a,
-                                         const StreamPlan& sp, char* buf,
-                                         int n, int b, int c, int dst,
-                                         int src) {
-  const int p1 = pos_a[b], p2 = pos_a[c];
-  const bool present = (n | p1 | p2) >= 0;
-  const char* from = reinterpret_cast<const char*>(state);
-  // The element's index fits an int (the state has under 2^31 elements a
-  // channel); one widening multiply makes the byte offset.
-  if (present)
-    from += (size_t)((n * sp.P + p1) * sp.P + p2) * (sp.C * sizeof(E)) + src;
+__device__ __forceinline__ void copy_unit(const StreamPlan& sp, char* buf,
+                                          int dst, const char* from,
+                                          bool present) {
   if (sp.unit) {
     cp_async(buf + dst, from, sp.unit, present);
   } else {
@@ -373,40 +376,99 @@ __device__ __forceinline__ void copy_run(const E* __restrict__ state,
   }
 }
 
-// Starts the copy of slot a's chunk into the ring buffer `buf`.
+// -- where the slots come from ----------------------------------------------
+// A source of slots gives the number of slots a stream walks (count), the a
+// of the i-th (slot) and starts the copies of slot a's chunk into a ring
+// buffer (issue).
+
+// Gathered from the state (K1, K2): slot a is state[nbr[a], pos[a,b],
+// pos[a,c], :] for every (b, c), zero where the neighbour or a position is
+// absent; only the listed slots (list_slots) are streamed.
 template <typename E>
-__device__ __forceinline__ void issue_slot(const E* __restrict__ state,
-                                           const int* snbr, const int* spos,
+struct GatheredSlots {
+  using Elem = E;
+  const E* __restrict__ state;
+  const int* snbr;
+  const int* spos;
+  const int* slots;
+
+  __device__ int count(int P) const { return slots[P]; }
+  __device__ int slot(int i) const { return slots[i]; }
+
+  // One copy of the run (b, c) of slot a (neighbour n, positions `pos_a`).
+  __device__ __forceinline__ void copy_run(const int* pos_a,
                                            const StreamPlan& sp, char* buf,
-                                           int a, const CopyItems& ci) {
-  const int n = snbr[a];
-  const int* pos_a = spos + a * sp.P;
-#pragma unroll
-  for (int j = 0; j < kMaxA; ++j)
-    if (ci.b[j] >= 0)
-      copy_run(state, pos_a, sp, buf, n, ci.b[j], ci.c[j], ci.dst[j],
-               ci.src[j]);
-  for (int k = kMaxA; k < ci.items; ++k) {
-    int b, c, dst, src;
-    if (copy_item<E>(sp, ci, k, b, c, dst, src))
-      copy_run(state, pos_a, sp, buf, n, b, c, dst, src);
+                                           int n, int b, int c, int dst,
+                                           int src) const {
+    const int p1 = pos_a[b], p2 = pos_a[c];
+    const bool present = (n | p1 | p2) >= 0;
+    const char* from = reinterpret_cast<const char*>(state);
+    // The element's index fits an int (the state has under 2^31 elements a
+    // channel); one widening multiply makes the byte offset.
+    if (present)
+      from += (size_t)((n * sp.P + p1) * sp.P + p2) * (sp.C * sizeof(E))
+              + src;
+    copy_unit<E>(sp, buf, dst, from, present);
   }
-}
+
+  __device__ __forceinline__ void issue(const StreamPlan& sp, char* buf,
+                                        int a, const CopyItems& ci) const {
+    const int n = snbr[a];
+    const int* pos_a = spos + a * sp.P;
+#pragma unroll
+    for (int j = 0; j < kMaxA; ++j)
+      if (ci.b[j] >= 0)
+        copy_run(pos_a, sp, buf, n, ci.b[j], ci.c[j], ci.dst[j], ci.src[j]);
+    for (int k = kMaxA; k < ci.items; ++k) {
+      int b, c, dst, src;
+      if (copy_item<E>(sp, ci, k, b, c, dst, src))
+        copy_run(pos_a, sp, buf, n, b, c, dst, src);
+    }
+  }
+};
+
+// Materialised (K4, K5, K6): slot a is T[v,a,:,:,:] of the vertex's slots
+// T[v] [P,P,P,C], runs of nc elements at stride C (one contiguous P*C run a
+// row b where the chunk is all of C).  The take-gather that built T wrote
+// zeros where a slot is absent, so every slot is streamed as it is stored.
+template <typename E>
+struct StoredSlots {
+  using Elem = E;
+  const E* __restrict__ T;   // T[v]
+
+  __device__ int count(int P) const { return P; }
+  __device__ int slot(int i) const { return i; }
+
+  __device__ __forceinline__ void issue(const StreamPlan& sp, char* buf,
+                                        int a, const CopyItems& ci) const {
+    // Slot a holds P*P runs of C elements; its byte offset fits an int.
+    const char* slot = reinterpret_cast<const char*>(T)
+                       + (size_t)(a * sp.P * sp.P) * (sp.C * sizeof(E));
+    const int run = sp.C * (int)sizeof(E);
+#pragma unroll
+    for (int j = 0; j < kMaxA; ++j)
+      if (ci.b[j] >= 0)
+        copy_unit<E>(sp, buf, ci.dst[j],
+                     slot + (ci.b[j] * sp.P + ci.c[j]) * run + ci.src[j],
+                     true);
+    for (int k = kMaxA; k < ci.items; ++k) {
+      int b, c, dst, src;
+      if (copy_item<E>(sp, ci, k, b, c, dst, src))
+        copy_unit<E>(sp, buf, dst, slot + (b * sp.P + c) * run + src, true);
+    }
+  }
+};
 
 // Starts the copies of the first D - 1 slots of a chunk.  The caller may
 // do other work before stream_reductions, which waits for them.
-template <typename E>
-__device__ inline void stream_prologue(const E* __restrict__ state,
-                                       const int* snbr, const int* spos,
-                                       const int* slots,
-                                       const StreamPlan& sp,
+template <typename Src>
+__device__ inline void stream_prologue(const Src& src, const StreamPlan& sp,
                                        const StreamBuffers& s, int c0,
                                        int nc) {
-  const CopyItems ci = copy_items<E>(sp, c0, nc);
-  const int n = slots[sp.P];
+  const CopyItems ci = copy_items<typename Src::Elem>(sp, c0, nc);
+  const int n = src.count(sp.P);
   for (int i = 0; i < sp.D - 1; ++i) {
-    if (i < n)
-      issue_slot(state, snbr, spos, sp, s.ring + i * sp.slotb, slots[i], ci);
+    if (i < n) src.issue(sp, s.ring + i * sp.slotb, src.slot(i), ci);
     cp_async_commit();
   }
 }
@@ -437,8 +499,45 @@ __device__ __forceinline__ float reduce_over_columns(const float4& t,
   return z;
 }
 
+// The ablation variant novpu (risi18_bank_ablate.cu) replaces every pick of
+// a diagonal by the full sum: D_bc = T_ab, D_ac = T_ab (so dacT = tabT),
+// T_bc[b,c] = T_b[b] and M10[b,c] = sum_a R[a] T_ab[a,b] for every c, from
+// the stream's T_ab.  The caller's barrier stands between the maps' writers
+// and this.  Ends with a barrier.
+__device__ inline void picks_as_sums(const StreamPlan& sp,
+                                     const StreamBuffers& s, const float* R) {
+  const int P = sp.P, ncp = sp.ncp;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const float* tab = s.map(kTab, sp.mapw);
+  const float* tabT = s.map(kTabT, sp.mapw);
+  float* tbc = s.map(kTbc, sp.mapw);
+  float* dbc = s.map(kDbc, sp.mapw);
+  float* dacT = s.map(kDacT, sp.mapw);
+  float* m10 = s.map(kM10, sp.mapw);
+  for (int i = tid; i < P * P * ncp; i += nth) {
+    dbc[i] = tab[i];
+    dacT[i] = tabT[i];
+  }
+  for (int item = tid; item < P * ncp; item += nth) {
+    const int f = item % ncp, b = item / ncp;
+    float tb = 0.f, rb = 0.f;
+    for (int a = 0; a < P; ++a) {
+      const float x = tab[(a * P + b) * ncp + f];
+      tb += x;
+      rb += R[a] * x;
+    }
+    for (int c = 0; c < P; ++c) {
+      tbc[(b * P + c) * ncp + f] = tb;
+      m10[(b * P + c) * ncp + f] = rb;
+    }
+  }
+  __syncthreads();
+}
+
 // The vectors and scalars of a chunk from its complete maps; the caller's
-// barrier stands between the maps' writers and this.  Ends with a barrier.
+// barrier stands between the maps' writers and this.  Without kSelect
+// (novpu) s14 and t18 are the full sum too.  Ends with a barrier.
+template <bool kSelect = true>
 __device__ inline void stream_row_sums(const StreamPlan& sp,
                                        const StreamBuffers& s) {
   const int P = sp.P, ncp = sp.ncp;
@@ -469,15 +568,17 @@ __device__ inline void stream_row_sums(const StreamPlan& sp,
       s15 += s.tdbc[x * ncp + f];          // sum_{a,b} T[a,b,b]
       t18 += dbc[(x * P + x) * ncp + f];   // sum_a T[a,a,a]
     }
+    if constexpr (!kSelect) s14 = t18 = tf;
     s.tfull[f] = tf; s.s14[f] = s14; s.s15[f] = s15; s.t18[f] = t18;
   }
   __syncthreads();
 }
 
-// Streams the listed slots of one vertex for the chunk [c0, c0 + nc), after
-// stream_prologue, and leaves the chunk's maps, vectors and scalars in `s`.
-// The caller has loaded snbr, spos and R (load_vertex), listed the slots
-// (list_slots), and no thread still reads s's maps.  Ends with a barrier.
+// Streams the slots of one vertex that `src` yields for the chunk [c0,
+// c0 + nc), after stream_prologue, and leaves the chunk's maps, vectors and
+// scalars in `s`.  The caller has loaded R (and, for a gathered source, the
+// structure and the listed slots), and no thread still reads s's maps.
+// Ends with a barrier.
 //
 // A warp takes one row b of a staged slot (a second one, 16 further, where
 // P > 16): its lane h * quads + q owns four channels q of the columns h,
@@ -485,14 +586,16 @@ __device__ inline void stream_row_sums(const StreamPlan& sp,
 // passes: T_bc and M10 add up in registers over the slots (pass A); T_ab
 // and M6 are the cell's sum over the warp's columns (pass B), and the lane
 // that holds column b or column a stores D_bc or D_ac as it is.
-template <typename E>
-__device__ inline void stream_reductions(const E* __restrict__ state,
-                                         const int* snbr, const int* spos,
-                                         const int* slots, const float* R,
+// The ablation variants leave parts out: without kGroupD no M6 and no M10
+// (the shuffles of pass B still run, on zeros for M6), without kSelect no
+// picks (picks_as_sums then writes the full sums in their place).
+template <bool kGroupD = true, bool kSelect = true, typename Src>
+__device__ inline void stream_reductions(const Src& src, const float* R,
                                          const StreamPlan& sp,
                                          const StreamBuffers& s, int c0,
                                          int nc) {
-  const int P = sp.P, ncp = sp.ncp, D = sp.D, n = slots[P];
+  using E = typename Src::Elem;
+  const int P = sp.P, ncp = sp.ncp, D = sp.D, n = src.count(P);
   const int tid = threadIdx.x, nth = blockDim.x, nwarps = nth / 32;
   const int quads = ncp / 4, H = 32 / quads;
   const int lane = tid & 31, q = lane & (quads - 1), h = lane / quads;
@@ -547,10 +650,9 @@ __device__ inline void stream_reductions(const E* __restrict__ state,
     cp_async_wait(D - 2);
     __syncwarp();
     if (i + D - 1 < n)
-      issue_slot(state, snbr, spos, sp, s.ring + ahead * sp.slotb,
-                 slots[i + D - 1], ci);
+      src.issue(sp, s.ring + ahead * sp.slotb, src.slot(i + D - 1), ci);
     cp_async_commit();
-    const int a = slots[i];
+    const int a = src.slot(i);
     const char* buf = s.ring + stage * sp.slotb;
     stage = stage + 1 == D ? 0 : stage + 1;
     ahead = ahead + 1 == D ? 0 : ahead + 1;
@@ -565,16 +667,18 @@ __device__ inline void stream_reductions(const E* __restrict__ state,
         const float4 x = load4(reinterpret_cast<const E*>(buf + cell[k]));
         // Pass A: T_bc[b,c] += T[a,b,c], M10[b,c] += R[a] T[a,b,c].
         fma4(acc_tbc[k], 1.f, x);
-        fma4(acc_m10[k], ra, x);
+        if constexpr (kGroupD) fma4(acc_m10[k], ra, x);
         // Pass B: this cell's part of T_ab[a,b] and M6[a,b]; the picks
         // D_bc[a,b] = T[a,b,b] and D_ac[a,b] = T[a,b,a].
         t[k] = x;
-        fma4(w[k], cell_r[k], x);
-        const int b = cell_b[k], c = cell_c[k];
-        if (c == b)
-          *reinterpret_cast<float4*>(dbc + (a * P + b) * ncp + 4 * q) = x;
-        if (c == a)
-          *reinterpret_cast<float4*>(dacT + (b * P + a) * ncp + 4 * q) = x;
+        if constexpr (kGroupD) fma4(w[k], cell_r[k], x);
+        if constexpr (kSelect) {
+          const int b = cell_b[k], c = cell_c[k];
+          if (c == b)
+            *reinterpret_cast<float4*>(dbc + (a * P + b) * ncp + 4 * q) = x;
+          if (c == a)
+            *reinterpret_cast<float4*>(dacT + (b * P + a) * ncp + 4 * q) = x;
+        }
       }
     }
     for (int rd = 0; rd < rounds; ++rd) {
@@ -589,7 +693,8 @@ __device__ inline void stream_reductions(const E* __restrict__ state,
       if (h < 8) {
         const int ch = 4 * q + (which & 3);
         const int ab = (a * P + b) * ncp + ch, ba = (b * P + a) * ncp + ch;
-        if (which < 4) { tab[ab] = z; tabT[ba] = z; } else m6[ab] = z;
+        if (which < 4) { tab[ab] = z; tabT[ba] = z; }
+        else if (kGroupD) m6[ab] = z;
       }
     }
   }
@@ -598,12 +703,14 @@ __device__ inline void stream_reductions(const E* __restrict__ state,
     if (cell[k] >= 0) {
       const int at = (cell_b[k] * P + cell_c[k]) * ncp + 4 * q;
       *reinterpret_cast<float4*>(tbc + at) = acc_tbc[k];
-      *reinterpret_cast<float4*>(m10 + at) = acc_m10[k];
+      if constexpr (kGroupD)
+        *reinterpret_cast<float4*>(m10 + at) = acc_m10[k];
     }
   }
   __syncthreads();
 
-  stream_row_sums(sp, s);
+  if constexpr (!kSelect) picks_as_sums(sp, s, R);
+  stream_row_sums<kSelect>(sp, s);
 }
 
 // stream_reductions for a plan that is `wide`: a warp takes the rows b =
@@ -612,13 +719,15 @@ __device__ inline void stream_reductions(const E* __restrict__ state,
 // T_bc and M10 in shared memory, where every cell has one owner, instead of
 // in registers.  A slower loop for fields that few graphs have; the forward
 // has a kernel of its own for it, so that no other kernel's registers
-// depend on it.
-template <typename E>
-__device__ inline void stream_reductions_wide(
-    const E* __restrict__ state, const int* snbr, const int* spos,
-    const int* slots, const float* R, const StreamPlan& sp,
-    const StreamBuffers& s, int c0, int nc) {
-  const int P = sp.P, ncp = sp.ncp, D = sp.D, n = slots[P];
+// depend on it.  Every part of the bank is formed (the ablation variants
+// that leave one out do not take wide plans).
+template <typename Src>
+__device__ inline void stream_reductions_wide(const Src& src, const float* R,
+                                              const StreamPlan& sp,
+                                              const StreamBuffers& s, int c0,
+                                              int nc) {
+  using E = typename Src::Elem;
+  const int P = sp.P, ncp = sp.ncp, D = sp.D, n = src.count(P);
   const int tid = threadIdx.x, nth = blockDim.x, nwarps = nth / 32;
   const int quads = ncp / 4, H = 32 / quads;
   const int lane = tid & 31, q = lane & (quads - 1), h = lane / quads;
@@ -640,10 +749,9 @@ __device__ inline void stream_reductions_wide(
     cp_async_wait(D - 2);
     __syncwarp();
     if (i + D - 1 < n)
-      issue_slot(state, snbr, spos, sp, s.ring + ahead * sp.slotb,
-                 slots[i + D - 1], ci);
+      src.issue(sp, s.ring + ahead * sp.slotb, src.slot(i + D - 1), ci);
     cp_async_commit();
-    const int a = slots[i];
+    const int a = src.slot(i);
     const char* buf = s.ring + stage * sp.slotb;
     stage = stage + 1 == D ? 0 : stage + 1;
     ahead = ahead + 1 == D ? 0 : ahead + 1;
@@ -676,6 +784,40 @@ __device__ inline void stream_reductions_wide(
   }
   __syncthreads();
   stream_row_sums(sp, s);
+}
+
+// The stream with its loads alone (the ablation variant dma,
+// risi18_bank_ablate.cu): the slots `src` yields for the chunk [c0, c0 +
+// nc), after stream_prologue, each thread reading the cells of every staged
+// slot that stream_reductions_wide gives it and adding them up.  Returns
+// this thread's sum; no barrier.
+template <typename Src>
+__device__ inline float stream_loads(const Src& src, const StreamPlan& sp,
+                                     const StreamBuffers& s, int c0,
+                                     int nc) {
+  using E = typename Src::Elem;
+  const int P = sp.P, ncp = sp.ncp, D = sp.D, n = src.count(P);
+  const int tid = threadIdx.x, nwarps = blockDim.x / 32;
+  const int quads = ncp / 4, H = 32 / quads;
+  const int q = (tid & 31) & (quads - 1), h = (tid & 31) / quads;
+  const CopyItems ci = copy_items<E>(sp, c0, nc);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int stage = 0, ahead = (D - 1) % D;
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait(D - 2);
+    __syncwarp();
+    if (i + D - 1 < n)
+      src.issue(sp, s.ring + ahead * sp.slotb, src.slot(i + D - 1), ci);
+    cp_async_commit();
+    const char* buf = s.ring + stage * sp.slotb;
+    stage = stage + 1 == D ? 0 : stage + 1;
+    ahead = ahead + 1 == D ? 0 : ahead + 1;
+    for (int b = tid / 32; b < P; b += nwarps)
+      for (int c = h; c < P; c += H)
+        fma4(acc, 1.f, load4(reinterpret_cast<const E*>(
+                           buf + b * sp.rowb + (c * ncp + 4 * q) * (int)sizeof(E))));
+  }
+  return acc.x + acc.y + acc.z + acc.w;
 }
 
 }  // namespace level

@@ -17,6 +17,11 @@ forward launches the hand-written kernel ``csrc/risi18_bank.cu`` (K4) and
 whose backward launches ``csrc/risi18_bank_bwd.cu`` (K5), or raises.
 ``risi18_bank_backward`` is the backward's wrapper and
 ``risi18_bank_backward_reference`` its plain version.
+``risi18_bank_factored_reference`` and
+``risi18_bank_backward_factored_reference`` are the same two functions in
+the algebra the kernels use (nine map products and the adjacency applied
+once; dK and the cotangents as products with G, G.Ap, G.R and GA); the
+level's factored versions (``ops/risi_level.py``) call them.
 
 Dtypes: the kernels take T and K in float32 or bfloat16 (one type), A in
 float32, and compute in float32, as the Pallas kernels do
@@ -67,6 +72,147 @@ def risi18_bank_backward_reference(T, A, K, g):
         t, k = (x.detach().to(ct).requires_grad_() for x in (T, K))
         Z = risi18_matmul_fused(t, A.to(ct), k)
         dT, dK = torch.autograd.grad(Z, (t, k), g.to(ct))
+    return dT.to(T.dtype), dK.to(K.dtype)
+
+
+def _bank_reductions(T, A):
+    """The shared reductions of slots T [N,P,P,P,C] (a, b, c, channel) that
+    the kernels form per vertex and chunk (``csrc/risi18_level_common.cuh``),
+    and the adjacency's: the maps are [N,P,P,C], the vectors [N,P,C], the
+    scalars [N,C]; ``Ap`` is the guarded adjacency, ``R`` its row sums,
+    ``S`` and ``trA`` its sum and trace."""
+    Ap = A.clamp(min=0)
+    R = Ap.sum(-1)
+    tab = T.sum(3)                                       # T_ab[a,b]
+    dbc = T.diagonal(dim1=2, dim2=3).movedim(-1, 2)      # T[a,b,b]
+    dac = T.diagonal(dim1=1, dim2=3).movedim(-1, 1)      # T[a,b,a]
+    return dict(
+        Ap=Ap, R=R, S=R.sum(-1), trA=Ap.diagonal(dim1=1, dim2=2).sum(-1),
+        tab=tab, tabT=tab.transpose(1, 2), tbc=T.sum(1), dbc=dbc,
+        dacT=dac.transpose(1, 2),
+        m6=torch.einsum("nabcf,nc->nabf", T, R),
+        m10=torch.einsum("nabcf,na->nbcf", T, R),
+        ta=tab.sum(2), tb=tab.sum(1), tdbc=dbc.sum(2), tdac=dac.sum(1),
+        tfull=tab.sum((1, 2)),
+        s14=tab.diagonal(dim1=1, dim2=2).sum(-1),
+        s15=dbc.sum((1, 2)),
+        t18=dbc.diagonal(dim1=1, dim2=2).sum(-1))
+
+
+def _bank_factored(T, A, K):
+    """Z [N,P,P,Cout] of the bank in the factored algebra, in T's dtype
+    with no cast (:func:`risi18_bank_factored_reference`)."""
+    C = T.shape[-1]
+    m = _bank_reductions(T, A)
+    Kc = K.reshape(18, C, -1)
+    S, trA = m["S"][:, None, None, None], m["trA"][:, None, None, None]
+    Z = ((m["tab"] * S) @ Kc[0] + (m["tab"] * trA) @ Kc[6]
+         + (m["tbc"] * S) @ Kc[2] + m["m6"] @ Kc[5] + m["m10"] @ Kc[9])
+    W = (m["tab"] @ Kc[8] + m["tabT"] @ Kc[11] + m["tbc"] @ Kc[12]
+         + m["dbc"] @ Kc[15] + m["dacT"] @ Kc[16])
+    U = (m["ta"] @ Kc[1] + m["tb"] @ Kc[3] + m["tdbc"] @ Kc[7]
+         + m["tdac"] @ Kc[10])
+    s = (m["tfull"] @ Kc[4] + m["s14"] @ Kc[13] + m["s15"] @ Kc[14]
+         + m["t18"] @ Kc[17])
+    return (Z + torch.einsum("nye,nxeo->nxyo", m["Ap"], W)
+            + m["R"][:, None, :, None] * U[:, :, None, :]
+            + m["Ap"][..., None] * s[:, None, None, :])
+
+
+def risi18_bank_factored_reference(T, A, K):
+    """The bank as K4 (``csrc/risi18_bank.cu``) factors it, in plain
+    PyTorch: the 18 cases never stand side by side.  With K_k the k-th
+    [C, Cout] slab of K (k = 1..18), per vertex
+
+        Z[x,y] = T_ab[x,y] (S K1 + trA K7) + T_bc[x,y] S K3
+                 + M6[x,y] K6 + M10[x,y] K10
+                 + sum_e Ap[y,e] W[x,e] + R[y] U[x] + Ap[x,y] s,
+        W[x,e] = T_ab[x,e] K9 + T_ab[e,x] K12 + T_bc[x,e] K13
+                 + D_bc[x,e] K16 + D_ac[e,x] K17,
+        U[x]   = T_a[x] K2 + T_b[x] K4 + Tdbc[x] K8 + Tdac[x] K11,
+        s      = Tfull K5 + s14 K14 + s15 K15 + t18 K18:
+
+    nine products of a [P*P, C] map instead of eighteen, and the adjacency
+    applied once, to W.  Computed as :func:`risi18_bank_reference` computes
+    (float32 for float32 or bfloat16 inputs, float64 for float64) and cast
+    to T's dtype once: the same function in another order of sums."""
+    ct = _compute_dtype(T)
+    return _bank_factored(T.to(ct), A.to(ct), K.to(ct)).to(T.dtype)
+
+
+def _bank_backward_factored(T, A, K, G):
+    """(dT, dK) of the bank for the cotangent G [N,P,P,Cout], in the
+    factored algebra, in T's dtype with no cast
+    (:func:`risi18_bank_backward_factored_reference`)."""
+    N, P, _, _, C = T.shape
+    Cout = K.shape[1]
+    m = _bank_reductions(T, A)
+    Ap, R = m["Ap"], m["R"]
+    S, trA = m["S"][:, None, None, None], m["trA"][:, None, None, None]
+    GAp = torch.einsum("nxyo,nye->nxeo", G, Ap)
+    GR = torch.einsum("nxyo,ny->nxo", G, R)
+    GA = torch.einsum("nxy,nxyo->no", Ap, G)
+
+    def maps(a, x):       # sum over vertices and rows: [C, Cout]
+        return torch.einsum("nxyf,nxyo->fo", a, x)
+
+    def vecs(a, x):
+        return torch.einsum("nxf,nxo->fo", a, x)
+
+    def scal(a):
+        return torch.einsum("nf,no->fo", a, GA)
+
+    dK = torch.stack([
+        maps(m["tab"] * S, G), vecs(m["ta"], GR), maps(m["tbc"] * S, G),
+        vecs(m["tb"], GR), scal(m["tfull"]), maps(m["m6"], G),
+        maps(m["tab"] * trA, G), vecs(m["tdbc"], GR), maps(m["tab"], GAp),
+        maps(m["m10"], G), vecs(m["tdac"], GR), maps(m["tabT"], GAp),
+        maps(m["tbc"], GAp), scal(m["s14"]), scal(m["s15"]),
+        maps(m["dbc"], GAp), maps(m["dacT"], GAp), scal(m["t18"]),
+    ]).reshape(18 * C, Cout)
+
+    Kc = K.reshape(18, C, Cout)
+
+    def back(x, k):       # x [..., Cout] against slab k: [..., C]
+        return x @ Kc[k].T
+
+    eye = torch.eye(P, dtype=T.dtype, device=T.device)[None, :, :, None]
+    d_ta, d_tb = back(GR, 1), back(GR, 3)
+    d_tdbc, d_tdac = back(GR, 7), back(GR, 10)
+    d_tfull, d_s14 = back(GA, 4), back(GA, 13)
+    d_s15, d_t18 = back(GA, 14), back(GA, 17)
+    d_tab = (S * back(G, 0) + trA * back(G, 6) + back(GAp, 8)
+             + back(GAp, 11).transpose(1, 2) + d_ta[:, :, None]
+             + d_tfull[:, None, None] + eye * d_s14[:, None, None])
+    d_tbc = S * back(G, 2) + back(GAp, 12) + d_tb[:, :, None]
+    d_m6, d_m10 = back(G, 5), back(G, 9)
+    d_dbc = (back(GAp, 15) + d_tdbc[:, :, None] + d_s15[:, None, None]
+             + eye * d_t18[:, None, None])
+    d_dac = back(GAp, 16).transpose(1, 2) + d_tdac[:, None, :]
+    dT = (d_tab[:, :, :, None] + d_tbc[:, None]
+          + d_m6[:, :, :, None] * R[:, None, None, :, None]
+          + R[:, :, None, None, None] * d_m10[:, None]
+          + eye[:, None] * d_dbc[:, :, :, None]
+          + eye[:, :, None] * d_dac[:, :, :, None])
+    return dT, dK
+
+
+def risi18_bank_backward_factored_reference(T, A, K, g):
+    """The bank's gradients as K5 (``csrc/risi18_bank_bwd.cu``) forms them,
+    in plain PyTorch, without differentiating the 18 cases: with G the
+    cotangent g [N,P,P,Cout], GAp[x,e] = sum_y G[x,y] Ap[y,e], GR[x] =
+    sum_y G[x,y] R[y] and GA = sum_{x,y} Ap[x,y] G[x,y], dK's cases are
+    products of the forward's reductions with G, GAp, GR or GA (ten map
+    slabs, four vectors, four scalars); the reductions' cotangents are
+    products of those with K's slabs; and
+
+        dT[a,b,c] = dTab[a,b] + dTbc[b,c] + dM6[a,b] R[c] + R[a] dM10[b,c]
+                    + d(b,c) dDbc[a,b] + d(a,c) dDac[a,b].
+
+    -> (dT in T's dtype, dK in K's dtype), each computed as
+    :func:`risi18_bank_backward_reference` computes and rounded once."""
+    ct = _compute_dtype(T)
+    dT, dK = _bank_backward_factored(T.to(ct), A.to(ct), K.to(ct), g.to(ct))
     return dT.to(T.dtype), dK.to(K.dtype)
 
 

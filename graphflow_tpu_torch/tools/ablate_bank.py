@@ -2,19 +2,27 @@
 ``tools/ablate_bank.py``).
 
 Times the stripped-down variants of ``ops/risi_bank_ablate.py`` to
-attribute the cost of one call of the bank kernel (``ops/risi_bank.py``)
-to its stages:
+attribute the cost of one call of the bank kernel (``ops/risi_bank.py``,
+K4: the cp.async ring over T, the stream's reductions, nine map slabs on
+the tensor cores, the adjacency applied once) to its stages:
 
-  full      the bank kernel's own body (the reference point)
-  dma       every element of T through the slot loader, and the output
-            write, with no arithmetic: the floor of the slot stream
-  reduce    the stream and the shared reductions, two products with K
-  nogroupd  everything except the adjacency-weighted cases
-  novpu     full with every diagonal extraction replaced by the full sum
+  full      the bank kernel's own block (the reference point)
+  dma       every element of T through K4's ring and loaded once, and the
+            output written, with no arithmetic: the floor of the stream
+  reduce    the stream and its reductions without M6 and M10, two products
+            with K, no vector or scalar cases
+  nogroupd  everything except the adjacency-weighted cases: no M6 and M10,
+            no W, two map slabs
+  novpu     full with every pick of a diagonal replaced by the full sum
             (wrong results; prices the selection)
 
-and from them: stream = dma; reductions = reduce - dma; remaining products
-= nogroupd - reduce; group D = full - nogroupd; selection = full - novpu.
+and from them: stream = dma (copies and loads); reductions = reduce - dma
+(T_ab and T_bc with their shuffles, the picks, the row sums, two
+products); products = nogroupd - reduce (the vector and scalar cases U and
+s, the products' difference); group D = full - nogroupd (M6 and M10 in the
+stream, their two slabs, W's five slabs and the adjacency in the
+epilogue); selection = full - novpu (the picks, less the pass that writes
+the full sums in their place).
 Each time is the median of 50 CUDA-event timings of single launches (each
 queued behind a spin kernel, so that no host time falls between the events),
 the variants taken in turns, printed with its quartiles; a last line, ``bank``,

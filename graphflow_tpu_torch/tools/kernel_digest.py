@@ -4,16 +4,21 @@ one checkout's kernels against another's on the same card.
 For each dtype and level shape it runs the fused level forward
 (``risi18_level``, K1), its backward (``risi18_level_backward``, K2: dstate,
 dK, db), the aligned neighbour tensor (``risi18_aligned_t2``, K7) and, over
-that T, the bank (``risi18_bank``, K4) and its backward
-(``risi18_bank_backward``, K5: dT, dK) on inputs drawn from a NumPy seed
+that T, the bank (``risi18_bank``, K4), its backward
+(``risi18_bank_backward``, K5: dT, dK) and the bank's five ablation
+variants (``risi18_bank_variant``, K6) on inputs drawn from a NumPy seed
 and prints a SHA-256 of every output's bytes.  With ``--save FILE`` the
 outputs are kept; with ``--against FILE`` each output is compared with the
-kept one: ``equal`` bit for bit, or the largest absolute difference (K2's
-dstate is summed by float32 atomics in an order that changes from run to
-run, so it agrees to rounding only).  With ``--times`` it prints instead
-the spin-timed median ms of K1 and of K2 kernel 1 at every level shape
-that ``chip_smoke.py`` checks, so that two checkouts' kernels can be timed
-in one call at the shapes the smoke does not time.
+kept one: ``equal`` bit for bit, or the largest absolute difference with
+the kernels' gate beside it, 1e-4 (float32) or 1e-2 (bfloat16) times
+max(1, max|kept|), and ``within gate`` or ``BEYOND gate`` (K2's dstate is
+summed by float32 atomics in an order that changes from run to run, so it
+agrees to rounding only; a redesigned kernel sums in another order).
+With ``--times`` it prints instead the spin-timed median ms of K1, of K2
+kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
+level) at every level shape that ``chip_smoke.py`` checks, so that two
+checkouts' kernels can be timed in one call at the shapes (and, for the
+bank, in the dtypes) the smoke does not time.
 
 Usage:
     python graphflow_tpu_torch/tools/kernel_digest.py [--root DIR]
@@ -25,7 +30,8 @@ Usage:
 older checkout, with ``--dtypes float32`` where that one has no bfloat16
 mode; for that it imports nothing of the package but the kernels' wrappers
 and the seeded inputs (and, for ``--times``, the timer of
-``tools/measure.py`` and K2's kernel-1 wrapper).  Needs a CUDA device.
+``tools/measure.py``, the take-gather and K2's and K5's kernel-1
+wrappers).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ def main(argv=None):
     from graphflow_tpu_torch.ops.risi_aligned import risi18_aligned_t2
     from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
                                                    risi18_bank_backward)
+    from graphflow_tpu_torch.ops.risi_bank_ablate import (
+        MODES, risi18_bank_variant)
     from graphflow_tpu_torch.ops.risi_level import (risi18_level,
                                                     risi18_level_backward)
     from graphflow_tpu_torch.utils.datasets import random_level_case
@@ -89,6 +97,9 @@ def main(argv=None):
                      f["K"].to(dtype), f["b"].to(dtype))
             out = risi18_level(*level)
             if args.times:
+                from graphflow_tpu_torch.ops import risi_bank
+                from graphflow_tpu_torch.ops.risi_aligned import (
+                    risi18_aligned_t2_reference)
                 from graphflow_tpu_torch.ops.risi_level import (
                     _backward_main_kernel)
                 from graphflow_tpu_torch.tools.measure import time_ms
@@ -96,28 +107,46 @@ def main(argv=None):
                 k1 = time_ms(lambda: risi18_level(*level))
                 k2 = time_ms(lambda: _backward_main_kernel(
                     *level[:5], g, out, 0.01))
+                T = risi18_aligned_t2_reference(level[0], nbr,
+                                                pos).contiguous()
+                gb = g.view(N, P, P, Cout)
+                k4 = time_ms(lambda: risi18_bank(T, level[3], level[4]))
+                k5 = time_ms(lambda: risi_bank._backward_main_kernel(
+                    T, level[3], level[4], gb))
                 print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms, K2 kernel "
-                      f"1 {k2:.4f} ms")
+                      f"1 {k2:.4f} ms, K4 {k4:.4f} ms, K5 kernel 1 "
+                      f"{k5:.4f} ms")
                 continue
             dstate, dK, db = risi18_level_backward(*level, out, g)
             T = risi18_aligned_t2(level[0], nbr, pos)
             Z = risi18_bank(T, level[3], level[4])
             dT, dK_bank = risi18_bank_backward(T, level[3], level[4],
                                                g.view(N, P, P, Cout))
+            variants = [(f"K6 {mode}", risi18_bank_variant(
+                T, level[3], level[4], mode)) for mode in MODES
+                if mode != "dma" or Cout <= P * C]
             torch.cuda.synchronize()
             for key, t in (("K1 out", out), ("K2 dstate", dstate),
                            ("K2 dK", dK), ("K2 db", db), ("K7 T", T),
-                           ("K4 Z", Z), ("K5 dT", dT), ("K5 dK", dK_bank)):
+                           ("K4 Z", Z), ("K5 dT", dT), ("K5 dK", dK_bank),
+                           *variants):
                 tag = f"{name} {(N, P, C, Cout)} {key}"
                 line = f"{tag}: sha256 {digest(t)}"
-                if kept is not None:
+                if kept is not None and tag not in kept:
+                    line += " (not kept)"
+                elif kept is not None:
                     old = kept[tag].to(t.device)
                     if torch.equal(old, t):
                         line += " equal"
                     else:
-                        diff = (old.double() - t.double()).abs().max()
-                        line += (f" max abs diff {float(diff):.3e} (max|kept|"
-                                 f" {float(old.double().abs().max()):.3e})")
+                        diff = float((old.double() - t.double()).abs().max())
+                        scale = float(old.double().abs().max())
+                        gate = (1e-4 if name == "float32" else 1e-2) * max(
+                            1.0, scale)
+                        line += (f" max abs diff {diff:.3e} (max|kept| "
+                                 f"{scale:.3e}, gate {gate:.3e}: "
+                                 f"{'within' if diff <= gate else 'BEYOND'}"
+                                 f" gate)")
                 print(line)
                 if args.save:
                     outputs[tag] = t.cpu()

@@ -1,7 +1,7 @@
 """What the measuring scripts share (``chip_smoke.py`` and the tools beside
 this file) and the CUDA tests: the spin-timed CUDA-event timer, the
-full-width model they drive, and the level output that a backward check
-gives both sides."""
+full-width model they drive (and the same model through the bank route),
+and the level output that a backward check gives both sides."""
 
 from __future__ import annotations
 
@@ -61,3 +61,27 @@ def same_signs(out, plain_out):
     whose sign depends on the order of the sums would set the backward's
     cotangent 100 times apart on the two sides; both get one ``out``."""
     return torch.where((out > 0) == (plain_out > 0), out, plain_out)
+
+
+def bank_route_model(seed=0, device="cuda", **config):
+    """An SMP2D model of ``SMP2DConfig(**config)`` whose levels serve and
+    train through ``level_fn=risi18_bank_level`` (the take-gather into a
+    materialised T, then the bank: K4 forward, K5 backward on the card)
+    instead of its default fused level; the same parameters as
+    ``SMP2D(SMP2DConfig(**config), seed, device)``."""
+    from graphflow_tpu_torch.models import SMP2D, SMP2DConfig
+    from graphflow_tpu_torch.models.smp2d import (risi18_bank_level,
+                                                  smp2d_forward)
+    from graphflow_tpu_torch.ops.losses import squared_loss
+
+    class BankRoute(SMP2D):
+        def _forward(self, params, batch):
+            return smp2d_forward(params, batch, self.cfg,
+                                 level_fn=risi18_bank_level)
+
+        def _loss(self, params, batch):
+            out, _ = smp2d_forward(params, batch, self.cfg,
+                                   level_fn=risi18_bank_level, training=True)
+            return squared_loss(out, batch["target"])
+
+    return BankRoute(SMP2DConfig(**config), seed=seed, device=device)

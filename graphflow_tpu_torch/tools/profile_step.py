@@ -15,8 +15,9 @@ built), then prints
 
 Usage: python -m graphflow_tpu_torch.tools.profile_step [NAME ...]
 Names: omega_f32, omega_bf16, omega_bf16_bank (the bank route over a
-materialised T, ``level_fn=risi18_bank_level``: requests only), ver6_f32,
-ver6_bf16, ver7_f32, ver7_bf16 (default: all).  Needs a CUDA device.
+materialised T, ``level_fn=risi18_bank_level``: K4 serving, K4 and K5
+training; ``tools/measure.py:bank_route_model``), ver6_f32, ver6_bf16,
+ver7_f32, ver7_bf16 (default: all).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -31,18 +32,18 @@ import torch
 
 from graphflow_tpu_torch.tools.measure import (ADAM_LR, ER_P,
                                                FULL_WIDTH as MODEL, GRAPHS,
-                                               MOMENTUM_LR)
+                                               MOMENTUM_LR, bank_route_model)
 
 ROUNDS, TOP = 5, 8
-# (contraction, dtype, optimizer, learning rate, level_fn name or None).
+# (contraction, dtype, optimizer, learning rate, through the bank route).
 CONFIGS = {
-    "omega_f32": (18, "float32", "adam", ADAM_LR, None),
-    "omega_bf16": (18, "bfloat16", "adam", ADAM_LR, None),
-    "omega_bf16_bank": (18, "bfloat16", "adam", ADAM_LR, "risi18_bank_level"),
-    "ver6_f32": (10, "float32", "momentum", MOMENTUM_LR, None),
-    "ver6_bf16": (10, "bfloat16", "momentum", MOMENTUM_LR, None),
-    "ver7_f32": (50, "float32", "momentum", MOMENTUM_LR, None),
-    "ver7_bf16": (50, "bfloat16", "momentum", MOMENTUM_LR, None),
+    "omega_f32": (18, "float32", "adam", ADAM_LR, False),
+    "omega_bf16": (18, "bfloat16", "adam", ADAM_LR, False),
+    "omega_bf16_bank": (18, "bfloat16", "adam", ADAM_LR, True),
+    "ver6_f32": (10, "float32", "momentum", MOMENTUM_LR, False),
+    "ver6_bf16": (10, "bfloat16", "momentum", MOMENTUM_LR, False),
+    "ver7_f32": (50, "float32", "momentum", MOMENTUM_LR, False),
+    "ver7_bf16": (50, "bfloat16", "momentum", MOMENTUM_LR, False),
 }
 
 
@@ -87,37 +88,24 @@ def profile(fn, rounds=ROUNDS):
 
 def report(name, out=print):
     from graphflow_tpu_torch.models import SMP2D, SMP2DConfig
-    from graphflow_tpu_torch.models import smp2d as smp2d_module
     from graphflow_tpu_torch.utils.datasets import random_graph
 
-    contraction, dtype, optimizer, lr, level_fn = CONFIGS[name]
-    model = SMP2D(SMP2DConfig(**MODEL, contraction=contraction, dtype=dtype,
-                              optimizer=optimizer), seed=0, device="cuda")
+    contraction, dtype, optimizer, lr, bank_route = CONFIGS[name]
+    config = dict(MODEL, contraction=contraction, dtype=dtype,
+                  optimizer=optimizer)
+    model = (bank_route_model(seed=0, device="cuda", **config) if bank_route
+             else SMP2D(SMP2DConfig(**config), seed=0, device="cuda"))
     graphs = [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
               for i in range(GRAPHS)]
     targets = np.random.default_rng(0).normal(size=GRAPHS).tolist()
 
-    if level_fn is None:
-        def request():
-            return model.Threaded_Predict(graphs)
+    def request():
+        return model.Threaded_Predict(graphs)
 
-        def step():
-            return model.BatchLearn(graphs, targets, lr)
-    else:
-        fn = getattr(smp2d_module, level_fn)
-
-        def request():
-            with torch.no_grad():
-                pred, _ = smp2d_module.smp2d_forward(
-                    model.params, model._stack(graphs), model.cfg,
-                    level_fn=fn)
-            return pred.float().cpu()
-
-        step = None
+    def step():
+        return model.BatchLearn(graphs, targets, lr)
 
     for what, call in (("step", step), ("request", request)):
-        if call is None:
-            continue
         for _ in range(3):
             call()
         torch.cuda.synchronize()

@@ -1,14 +1,18 @@
-"""Where one block of the two level kernels spends its cycles.
+"""Where one block of the level and bank kernels spends its cycles.
 
-Builds ``csrc/risi18_level.cu`` (K1) and ``csrc/risi18_level_bwd.cu`` (K2
+Builds ``csrc/risi18_level.cu`` (K1), ``csrc/risi18_level_bwd.cu`` (K2
+kernel 1), ``csrc/risi18_bank.cu`` (K4) and ``csrc/risi18_bank_bwd.cu`` (K5
 kernel 1) with ``-DRISI18_STAGE_CLOCK`` into ``build/kernels/*_clock.so``,
-launches each on seeded inputs at one level shape, and prints the cycles
-that block (0, 0, 0) spent between the kernels' ``STAGE`` marks (its first
-thread reads ``clock64()`` behind a barrier at each mark), per dtype, with
-each stage's share.  The marks add a barrier each, so the sums run a few
-per cent above an unmarked launch; the shares are what the tool is for.
-K1's block is one vertex; K2's is the vertices of one vertex group for one
-channel chunk (two at N=256).
+launches each on seeded inputs at one level shape (the bank on the
+take-gather's T of the same level), and prints the cycles that block
+(0, 0, 0) spent between the kernels' ``STAGE`` marks (its first thread
+reads ``clock64()`` behind a barrier at each mark), per dtype, with each
+stage's share.  The marks add a barrier each, so the sums run a few per
+cent above an unmarked launch; the shares are what the tool is for.  A
+forward block (K1, K4) is one vertex; a backward block (K2, K5) is the
+vertices of one vertex group for one channel chunk (two at N=256).  K4 and
+K5 run K1's and K2's blocks on slots streamed from T, so their stages are
+K1's and K2's, named for what the bank does there.
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -31,6 +35,11 @@ FORWARD_STAGES = ("set-up", "first copies", "K staging", "stream",
 BACKWARD_STAGES = ("set-up, K staging", "geff", "structure",
                    "first copies, GAp, GR", "stream", "dK", "cotangents",
                    "scatter", "partial row")
+BANK_STAGES = ("set-up (adjacency)", "first copies", "K staging",
+               "stream from T", "U and s", "products", "epilogue")
+BANK_BACKWARD_STAGES = ("set-up, K staging", "G = g", "adjacency",
+                        "first copies, GAp, GR", "stream from T", "dK",
+                        "cotangents", "dT written", "partial row")
 ROUNDS = 3
 
 
@@ -61,7 +70,11 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
+
     fwd, bwd = build("risi18_level"), build("risi18_level_bwd")
+    bank, bank_bwd = build("risi18_bank"), build("risi18_bank_bwd")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     d = random_level_case(N, P, C, Cout, seed=0)
     f32 = {k: torch.as_tensor(d[k], dtype=torch.float32, device="cuda")
@@ -105,6 +118,35 @@ def main(argv=None):
                                    f"({err})")
             report(f"K2 kernel 1 {shape}", BACKWARD_STAGES,
                    bwd.risi18_level_backward_stage_cycles)
+        T = risi18_aligned_t2_reference(state, nbr, pos).contiguous()
+        Z = torch.empty((N, P, P, Cout), dtype=dtype, device="cuda")
+        dT = torch.empty_like(T)
+        bank_partial = torch.empty((groups, 18 * C * Cout),
+                                   dtype=torch.float32, device="cuda")
+        bank_forward = getattr(bank, f"risi18_bank_forward_{suffix}")
+        bank_forward.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        bank_backward = getattr(bank_bwd, f"risi18_bank_backward_{suffix}")
+        bank_backward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        for _ in range(ROUNDS):
+            err = bank_forward(T.data_ptr(), f32["radj"].data_ptr(),
+                               K.data_ptr(), Z.data_ptr(), N, P, C, Cout,
+                               stream)
+            torch.cuda.synchronize()
+            if err != 0:
+                raise RuntimeError(f"risi18_bank launch failed ({err})")
+            report(f"K4 {shape}", BANK_STAGES,
+                   bank.risi18_bank_stage_cycles)
+        for _ in range(ROUNDS):
+            err = bank_backward(T.data_ptr(), f32["radj"].data_ptr(),
+                                K.data_ptr(), g.data_ptr(), dT.data_ptr(),
+                                bank_partial.data_ptr(), N, P, C, Cout,
+                                groups, stream)
+            torch.cuda.synchronize()
+            if err != 0:
+                raise RuntimeError(f"risi18_bank_backward launch failed "
+                                   f"({err})")
+            report(f"K5 kernel 1 {shape}", BANK_BACKWARD_STAGES,
+                   bank_bwd.risi18_bank_backward_stage_cycles)
 
 
 if __name__ == "__main__":

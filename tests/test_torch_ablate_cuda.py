@@ -29,9 +29,15 @@ torch.set_num_threads(1)
 # As the bank kernel's (tests/test_torch_bank_cuda.py): float32 sums in
 # another order; bfloat16 rounds the output once on either side.
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# The bank's shapes (tests/test_torch_bank_cuda.py): chip_smoke.py's, more
+# vertices than the backward has vertex groups, and the product paths of
+# K4's block: tensor cores (P*P a multiple of 16, Cout of 8) and CUDA cores,
+# one, two and twenty channels.
 SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8),
-          (12, 12, 40, 16), (6, 5, 5, 3), (256, 16, 32, 16), (64, 10, 2, 1),
-          (32, 4, 1, 1)]
+          (12, 12, 40, 16), (6, 5, 5, 3), (256, 16, 32, 16), (256, 16, 16, 8),
+          (64, 10, 2, 1), (32, 4, 1, 1), (600, 16, 32, 32), (600, 4, 8, 4),
+          (24, 12, 20, 24), (24, 7, 8, 8), (16, 16, 1, 8), (16, 16, 2, 20),
+          (8, 4, 20, 3)]
 
 
 @pytest.fixture
@@ -107,10 +113,30 @@ def test_variant_rejects_wrong_inputs(cuda):
     with pytest.raises(ValueError):
         risi18_bank_variant(T.transpose(1, 2), A, K, "full")
     big = torch.zeros((1, 64, 64, 64, 1), device=cuda)
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 642992 "
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 744384 "
                                            "bytes .* shared memory"):
         risi18_bank_variant(big, torch.zeros((1, 64, 64), device=cuda),
                             torch.zeros((18, 32), device=cuda), "full")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_variants_on_a_field_of_more_than_32_rows(cuda, mode):
+    """Beyond 32 rows K4's block streams in shared memory (the wide stream):
+    ``full`` is K4 there too and ``dma`` streams as well; the other
+    variants are not built for it and refuse the launch."""
+    T, A, K = _inputs(2, 33, 4, 8, seed=5, device=cuda, dtype=torch.float32)
+    if mode in ("full", "dma"):
+        got = risi18_bank_variant(T, A, K, mode)
+        ref = risi18_bank_variant_reference(T, A, K, mode)
+        if mode == "dma":
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref)
+        else:
+            _assert_close(got, ref)
+            assert torch.equal(got, risi18_bank(T, A, K))
+    else:
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            risi18_bank_variant(T, A, K, mode)
 
 
 def test_tool_reports_five_times_and_the_attribution(cuda):

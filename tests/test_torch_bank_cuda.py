@@ -39,6 +39,13 @@ SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8),
           (12, 12, 40, 16), (6, 5, 5, 3), (256, 16, 32, 16),
           (256, 16, 16, 8), (64, 10, 2, 1), (32, 4, 1, 1),
           (600, 16, 32, 32), (600, 4, 8, 4)]
+# The product paths of K4's and K5's blocks: the tensor cores where P*P is a
+# multiple of 16 and Cout of 8 (P = 12, 16), the CUDA cores where P*P is no
+# multiple of 16 (P = 7, 10, 4 with C = 20) or Cout no multiple of 8 (20);
+# one, two and twenty channels (a chunk of 16 and one of 4).
+PATH_SHAPES = [(24, 12, 20, 24), (24, 16, 16, 16), (24, 7, 8, 8),
+               (16, 16, 1, 8), (16, 16, 2, 20), (8, 4, 20, 3),
+               (12, 10, 20, 8)]
 
 
 @pytest.fixture
@@ -79,7 +86,7 @@ def dtype(request):
     return request.param
 
 
-@pytest.mark.parametrize("N,P,C,Cout", SHAPES)
+@pytest.mark.parametrize("N,P,C,Cout", SHAPES + PATH_SHAPES)
 def test_bank_kernel_matches_plain(cuda, dtype, N, P, C, Cout):
     T, A, K, _ = _inputs(N, P, C, Cout, seed=N + P, device=cuda, dtype=dtype)
     before = risi18_bank.launches
@@ -89,7 +96,7 @@ def test_bank_kernel_matches_plain(cuda, dtype, N, P, C, Cout):
     assert not got[N // 2].any()          # an empty vertex gives Z = 0
 
 
-@pytest.mark.parametrize("N,P,C,Cout", SHAPES)
+@pytest.mark.parametrize("N,P,C,Cout", SHAPES + PATH_SHAPES)
 def test_bank_backward_kernel_matches_plain(cuda, dtype, N, P, C, Cout):
     T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda, dtype=dtype)
     counts = (risi18_bank_backward.launches,
@@ -100,6 +107,31 @@ def test_bank_backward_kernel_matches_plain(cuda, dtype, N, P, C, Cout):
                                                       counts[1] + 1)
     for x, r in zip(got, risi18_bank_backward_reference(T, A, K, g)):
         _assert_close(x, r)
+
+
+@pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (600, 4, 8, 4),
+                                        (24, 7, 8, 8), (12, 10, 20, 8)])
+def test_bank_kernels_repeat_bit_for_bit(cuda, dtype, N, P, C, Cout):
+    """Z, dT and dK come out the same from run to run: every dT element has
+    one writer and dK's partial rows are summed in a fixed order."""
+    T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                         dtype=dtype)
+    first = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+    second = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_bank_forward_streams_fields_of_more_than_32_rows(cuda, dtype):
+    """Beyond 32 rows K4 streams in shared memory (the wide stream, as K1
+    does); the backward, like K2's, stops at 32 rows and refuses with its
+    bytes."""
+    T, A, K, g = _inputs(2, 33, 4, 8, seed=4, device=cuda, dtype=dtype)
+    _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
+    with pytest.raises(RuntimeError, match="P=33 at Cout=8 needs 279168 "
+                                           "bytes .* shared memory"):
+        risi18_bank_backward(T, A, K, g)
 
 
 def test_bank_autograd_on_cuda_runs_k4_and_k5(cuda, dtype):
@@ -144,11 +176,11 @@ def test_bank_kernels_reject_wrong_inputs(cuda):
 
 
 def test_bank_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """Z [P*P, Cout] lives in shared memory: at P=64, Cout=32 it does not
-    fit, and the launch is refused with an error, not run."""
+    """The maps and Z [P*P, Cout] live in shared memory: at P=64, Cout=32
+    they do not fit, and the launch is refused with an error, not run."""
     T, A, K, _ = _inputs(2, 64, 2, 32, seed=8, device=cuda,
                          dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 642992 "
+    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 744384 "
                                            "bytes .* shared memory"):
         risi18_bank(T, A, K)
     g = torch.ones((2, 64, 64, 32), device=cuda)

@@ -72,12 +72,17 @@ def _assert_close(got, ref):
 # levels of a halving channel schedule, down to one channel.  The next two
 # have more vertices than the backward has vertex groups (132), so that every
 # block walks several vertices and carries its sums of dK and db along.  The
-# last two have fields of 17 to 32 rows: a warp takes two rows of a staged
-# slot, the chunk has four channels and the output goes in panels.
+# next two have fields of 17 to 32 rows: a warp takes two rows of a staged
+# slot, the chunk has four channels and the output goes in panels.  The last
+# four are the product paths that the bank's kernels share with these
+# (tests/test_torch_bank_cuda.py): the tensor cores at P = 12, the CUDA
+# cores where P*P is no multiple of 16 (P = 7) or Cout no multiple of 8,
+# two and twenty channels.
 SHAPES = [(256, 16, 32, 32), (64, 10, 20, 20), (32, 4, 8, 8), (5, 8, 8, 16),
           (12, 12, 40, 16), (256, 16, 32, 16), (256, 16, 16, 8),
           (64, 10, 2, 1), (32, 4, 1, 1), (600, 16, 32, 32), (600, 4, 8, 4),
-          (6, 24, 8, 32), (4, 20, 12, 16)]
+          (6, 24, 8, 32), (4, 20, 12, 16), (24, 12, 20, 24), (24, 7, 8, 8),
+          (16, 16, 2, 20), (8, 4, 20, 3)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
@@ -281,6 +286,25 @@ def test_backward_kernel_all_absent_vertex(cuda):
     dstate, _, _ = _check_backward(args, _cotangent(8, 4, 8, seed=5,
                                                     device=cuda))
     assert not dstate[2].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (600, 4, 8, 4),
+                                        (24, 7, 8, 8)])
+def test_level_kernels_repeat_bit_for_bit(cuda, N, P, C, Cout, dtype):
+    """K1's output and K2's dK and db come out the same from run to run
+    (the partial rows are summed in a fixed order); dstate is summed by
+    atomics and agrees to rounding only."""
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2, dtype=dtype)
+    g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
+    out = risi18_level(*args)
+    first = risi18_level_backward(*args, out, g)
+    second = risi18_level_backward(*args, out, g)
+    torch.cuda.synchronize()
+    assert torch.equal(out, risi18_level(*args))
+    for x, y in zip(first[1:], second[1:]):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
