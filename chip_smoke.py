@@ -15,8 +15,9 @@ Phases, each reported on its own lines:
               of a halving channel schedule, in float32 and in bfloat16
               (there also against the float32 kernel on the rounded inputs),
               inputs from a NumPy seed; then both versions' median
-              milliseconds at the production shape and at two scheduled
-              ones, per dtype;
+              milliseconds at the production shape and at K3's two shapes
+              (64,10,20,20), (32,4,8,8), each with its bound, and at two
+              scheduled ones, per dtype;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
@@ -97,6 +98,31 @@ Phases, each reported on its own lines:
               K1 and K2; one smp2d_level_features call with a drawn
               case_mask runs the kernels on the scaled K, against the plain
               masked level.
+ 13. native   the native graph preparation (runtime/csrc/graph_prep.cpp,
+              built with g++ at its first use in phase 4): its build
+              seconds; every field of the SMP_omega graphs (V=64, P=16, two
+              levels, nDepth=5) and of the physics graphs (Coulomb, no WL)
+              equal bit for bit to the NumPy path's; host ms per graph for
+              each backend; an uncached and a cached 4-graph request and
+              step of SMP_omega and SMP_omega_physics with each backend,
+              in turns.  After phase 15: every graph phases 4-15 prepared
+              went through the native library but the sparse route's
+              fo_degree prep, which takes the NumPy path as in the JAX
+              package;
+ 14. bucketed SMP_omega (V <= 64, P=16, C=32) on graphs of 6-64 vertices
+              bucketed by size (8, 16, 32, 64): one step per bucket goes
+              through K1 and K2 (P = 16 > V = 8 in the smallest) and its
+              loss matches the plain level; the bucket-padded predictions
+              match the V=64 ones; fit_bucketed trains 4 epochs, K1 and K2
+              launching once per level per step, and the loss falls;
+ 15. first order  SMP_theta (V=64, P=16, C=32), SMP_1D and
+              Unrestricted_SMP_1D (P = V = 64), SMP_1D_ver3_classification
+              and SMP_theta_physics (channels 32, 16, 8) at full width
+              serve 3 requests of 4 graphs and take 3 BatchLearn steps:
+              outputs and the first loss match the same model on the CPU,
+              the loss falls, and the cached request and step walls are
+              printed; SMP_theta with sparse_max_degree (the fo_idx
+              ELLPACK sum) matches its dense route.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -109,6 +135,7 @@ without the package beside this file, it fails.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
@@ -349,6 +376,31 @@ def dtype_name(dtype) -> str:
     return str(dtype)[6:]
 
 
+def level_counts():
+    from graphflow_tpu_torch.ops.risi_level import (risi18_level,
+                                                    risi18_level_backward)
+    return (risi18_level.launches, risi18_level_backward.launches,
+            risi18_level_backward.reduce_launches)
+
+
+def reset_level_counts():
+    from graphflow_tpu_torch.ops.risi_level import (risi18_level,
+                                                    risi18_level_backward)
+    risi18_level.launches = 0
+    risi18_level_backward.launches = 0
+    risi18_level_backward.reduce_launches = 0
+
+
+def synced_s(fn):
+    """(fn(), seconds on the host clock, ended by a synchronise)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_kernel():
     import torch
     from graphflow_tpu_torch.ops.risi_level import (
@@ -394,6 +446,22 @@ def phase_kernel():
             f"kernel {ms[name]['kernel']:.4f} ms, plain "
             f"{ms[name]['plain']:.4f} ms (CUDA events, 20 reps); bound "
             f"{ms[name]['bound'][0]:.4f} ms by {ms[name]['bound'][1]}")
+        # K3's shapes (P not a multiple of 16 on the TPU: the same kernel
+        # here), with their bounds.
+        ms[name]["k3"] = {}
+        for i, shape in enumerate(LEVEL_SHAPES[1:], start=1):
+            kargs = level_inputs(*shape, seed=SEED + i, dtype=dtype)
+            kout = risi18_level(*kargs)
+            k3 = {"kernel": time_ms(lambda: risi18_level(*kargs)),
+                  "plain": time_ms(lambda: risi18_level_reference(*kargs)),
+                  "bound": bound_ms(nbytes(*kargs, kout), level_ops(
+                      *shape, present_elements(kargs[1], kargs[2])), name)}
+            ms[name]["k3"][str(shape)] = k3
+            log(f"phase 3 kernel: {name} N,P,C,Cout={shape} (K3) median "
+                f"kernel {k3['kernel']:.4f} ms, plain {k3['plain']:.4f} ms; "
+                f"bound {k3['bound'][0]:.4f} ms by {k3['bound'][1]} "
+                f"({100 * k3['bound'][0] / k3['kernel']:.1f} % of the "
+                f"kernel's time)")
         for i, shape in enumerate(SCHEDULE_SHAPES[:2]):
             sargs = level_inputs(*shape, seed=SEED + len(LEVEL_SHAPES) + i,
                                  dtype=dtype)
@@ -1368,8 +1436,7 @@ def phase_physics():
                                                   smp2d_level_features)
     from graphflow_tpu_torch.ops.contractions import dropout_case_mask
     from graphflow_tpu_torch.ops.losses import squared_loss
-    from graphflow_tpu_torch.ops.risi_level import (
-        risi18_level, risi18_level_backward, risi18_level_reference)
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
     from graphflow_tpu_torch.utils.datasets import random_graph
 
     V, nL = PHYSICS["max_nVertices"], PHYSICS["nLevels"]
@@ -1382,14 +1449,7 @@ def phase_physics():
     targets = np.random.default_rng(SEED).normal(
         size=GRAPHS_PER_REQUEST).tolist()
 
-    def counts():
-        return (risi18_level.launches, risi18_level_backward.launches,
-                risi18_level_backward.reduce_launches)
-
-    def reset():
-        risi18_level.launches = 0
-        risi18_level_backward.launches = 0
-        risi18_level_backward.reduce_launches = 0
+    counts, reset = level_counts, reset_level_counts
 
     def plain(graphs):
         with torch.no_grad():
@@ -1562,14 +1622,369 @@ def phase_physics():
     return k1, k2, max(max_err, g_err, b_err)
 
 
+FIRST_ORDER = dict(max_nVertices=64, nLevels=2, nChanels=32, nFeatures=4,
+                   nDepth=5)
+BUCKETS = (8, 16, 32, 64)
+# Graphs of 6..64 vertices, three to each bucket: in the smallest the
+# receptive field (P = 16) is larger than the bucket (V = 8).
+BUCKET_SIZES = (6, 7, 8, 10, 13, 16, 20, 26, 32, 40, 52, 64)
+BUCKET_EPOCHS = 4
+
+
+@contextlib.contextmanager
+def numpy_prep():
+    """Within the block, every ``prepare_graph`` call of the package takes
+    the NumPy path (``backend="python"``), as a caller would ask for it."""
+    from graphflow_tpu_torch.core import prep
+
+    original = prep.prepare_graph
+    prep.prepare_graph = functools.partial(original, backend="python")
+    try:
+        yield
+    finally:
+        prep.prepare_graph = original
+
+
+def phase_native_prep():
+    """Phase 13: the native graph preparation against the NumPy path."""
+    import dataclasses
+
+    import torch
+    from graphflow_tpu_torch.core import prep
+    from graphflow_tpu_torch.models import SMP_omega, SMP_omega_physics
+    from graphflow_tpu_torch.runtime import native
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    kept = prep.ROUTES.copy()
+    if not native.available():
+        raise AssertionError("the native graph preparation is unavailable")
+    built = native.build_result
+    log(f"phase 13 native prep: {built.path.relative_to(ROOT)} "
+        f"{'built with g++' if built.rebuilt else 'up to date'} in "
+        f"{built.seconds:.2f} s at its first use (phase 4)")
+
+    omega = dict(nLevels=MODEL["nLevels"],
+                 max_nVertices=MODEL["max_nVertices"],
+                 max_receptive_field=MODEL["max_receptive_field"],
+                 nDepth=MODEL["nDepth"])
+    physics = dict(nLevels=PHYSICS["nLevels"],
+                   max_nVertices=PHYSICS["max_nVertices"],
+                   max_receptive_field=PHYSICS["max_receptive_field"],
+                   nDepth=0, has_WL_ordering=False, use_wl_features=False,
+                   use_coulomb=True)
+    cases = {
+        "SMP_omega": ([random_graph(MODEL["max_nVertices"], ER_P, seed=900 + i)
+                       for i in range(8)], omega),
+        "physics": ([physics_graph(PHYSICS["max_nVertices"], 950 + i)
+                     for i in range(8)], physics),
+    }
+    per_graph = {}
+    for what, (graphs, kw) in cases.items():
+        for g in graphs:
+            a = prep.prepare_graph(g, **kw)
+            b = prep.prepare_graph(g, backend="python", **kw)
+            for f in dataclasses.fields(a):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                same = (x == y if not isinstance(x, np.ndarray) else
+                        x.dtype == y.dtype and np.array_equal(x, y))
+                if not same:
+                    raise AssertionError(f"native prep {what}: field "
+                                         f"{f.name} differs from NumPy's")
+        per_graph[what] = {}
+        for backend in ("auto", "python"):
+            t0 = time.perf_counter()
+            for g in graphs:
+                prep.prepare_graph(g, backend=backend, **kw)
+            per_graph[what][backend] = ((time.perf_counter() - t0)
+                                        / len(graphs) * 1e3)
+        log(f"phase 13 native prep: {what} graphs (V={kw['max_nVertices']}, "
+            f"P={kw['max_receptive_field']}, {kw['nLevels']} levels, "
+            f"nDepth={kw['nDepth']}"
+            f"{', Coulomb, no WL' if what == 'physics' else ''}): every "
+            f"field of {len(graphs)} graphs equal bit for bit; host ms per "
+            f"graph native {per_graph[what]['auto']:.3f}, NumPy "
+            f"{per_graph[what]['python']:.3f} "
+            f"({per_graph[what]['python'] / per_graph[what]['auto']:.1f}x)")
+
+    # One uncached request and step of 4 new graphs with each backend, in
+    # turns (native, NumPy, native, NumPy), and the cached ones beside.
+    walls = {"native": [], "numpy": []}
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    for what, make, graph in (
+            ("SMP_omega", lambda: SMP_omega(**MODEL, seed=SEED,
+                                            device="cuda"),
+             lambda s: random_graph(MODEL["max_nVertices"], ER_P, seed=s)),
+            ("SMP_omega_physics", lambda: SMP_omega_physics(
+                **PHYSICS, seed=SEED, device="cuda"),
+             lambda s: physics_graph(PHYSICS["max_nVertices"], s))):
+        model = make()
+        model.Threaded_Predict([graph(990)])          # warm
+        row = {}
+        for rnd, backend in enumerate(("native", "numpy") * 2):
+            graphs = [graph(1000 + 10 * rnd + i)
+                      for i in range(GRAPHS_PER_REQUEST)]
+            ctx = (numpy_prep() if backend == "numpy"
+                   else contextlib.nullcontext())
+            with ctx:
+                _, req = synced_s(lambda: model.Threaded_Predict(graphs))
+                step_graphs = [graph(2000 + 10 * rnd + i)
+                               for i in range(GRAPHS_PER_REQUEST)]
+                _, step = synced_s(lambda: model.BatchLearn(
+                    step_graphs, targets, TRAIN_LR))
+            _, req_c = synced_s(lambda: model.Threaded_Predict(graphs))
+            _, step_c = synced_s(lambda: model.BatchLearn(
+                step_graphs, targets, TRAIN_LR))
+            row.setdefault(backend, []).append((req, step, req_c, step_c))
+        walls[what] = row
+        text = []
+        for backend, rows in row.items():
+            r = np.median(np.array(rows), axis=0) * 1e3
+            text.append(f"{backend}: uncached request {r[0]:.2f}, step "
+                        f"{r[1]:.2f}; cached request {r[2]:.2f}, step "
+                        f"{r[3]:.2f}")
+        log(f"phase 13 native prep: {what}, {GRAPHS_PER_REQUEST} new graphs, "
+            f"ms (host clock, synced; median of 2 turns): " + "; ".join(text))
+        torch.cuda.synchronize()
+    # Phase 13's own preparations are not those of the paths it checks.
+    prep.ROUTES.clear()
+    prep.ROUTES.update(kept)
+    return per_graph
+
+
+def bucket_batches(model, graphs, targets):
+    """{bucket: (stacked batch on the card, graphs)} as fit_bucketed
+    prepares them."""
+    from graphflow_tpu_torch.core import batching
+
+    out = {}
+    for b, (gs, ts) in batching.bucket_by_size(graphs, targets,
+                                               BUCKETS).items():
+        pgs = [model._prepare(g, pad_nVertices=b) for g in gs]
+        out[b] = (batching.stack_graphs(pgs, ts, device=model.device,
+                                        dtype=model.dtype), gs)
+    return out
+
+
+def phase_bucketed():
+    """Phase 14: fit_bucketed on the card through K1 and K2."""
+    import torch
+    from graphflow_tpu_torch.models import SMP_omega, fit_bucketed
+    from graphflow_tpu_torch.models.smp2d import smp2d_forward
+    from graphflow_tpu_torch.ops.losses import squared_loss
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    nL = MODEL["nLevels"]
+    model = SMP_omega(**MODEL, seed=SEED, device="cuda")
+    graphs = [random_graph(n, max(ER_P, 2.5 / n), seed=1100 + n)
+              for n in BUCKET_SIZES]
+    targets = [0.1 * g.nVertices for g in graphs]
+    batches = bucket_batches(model, graphs, targets)
+    if sorted(batches) != list(BUCKETS):
+        raise AssertionError(f"buckets {sorted(batches)}, expected {BUCKETS}")
+
+    params = model.param_dict()
+
+    def plain_loss_and_grads(batch):
+        pred, _ = smp2d_forward(model.params, batch, model.cfg,
+                                level_fn=risi18_level_reference,
+                                training=True)
+        loss = squared_loss(pred, batch["target"])
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    # One step per bucket through K1 and K2, held leaf by leaf against the
+    # plain level on the same batch and weights; then each bucket's
+    # per-graph predictions against the plain level's.
+    per_bucket, err, before, by_bucket = {}, 0.0, 0.0, {}
+    for b, (batch, gs) in batches.items():
+        reset_level_counts()
+        loss, grads = model._loss_and_grads(batch)
+        counts = level_counts()
+        if counts != (nL, nL, nL):
+            raise AssertionError(f"bucket V={b}: launches (K1, K2 kernel 1, "
+                                 f"K2 kernel 2) {counts}, expected {nL} each")
+        p_loss, p_grads = plain_loss_and_grads(batch)
+        err = max(err, check_close(f"bucket V={b} loss", loss, p_loss))
+        for path in params:
+            err = max(err, check_close(f"bucket V={b} gradient {path}",
+                                       grads[path], p_grads[path]))
+        with torch.no_grad():
+            pred, _ = model._forward(model.params, batch)
+            plain, _ = smp2d_forward(model.params, batch, model.cfg,
+                                     level_fn=risi18_level_reference)
+        err = max(err, check_close(f"bucket V={b} predictions", pred, plain))
+        by_bucket.update({id(g): float(p) for g, p in zip(gs, pred)})
+        per_bucket[b] = counts
+        before += loss
+    # Predictions padded to V=64 against the bucket's padding.
+    padded = model.Threaded_Predict(graphs)
+    err = max(err, check_close("bucketed vs V=64 predictions",
+                               [by_bucket[id(g)] for g in graphs], padded))
+
+    reset_level_counts()
+    last, seconds = synced_s(lambda: fit_bucketed(
+        model, graphs, targets, TRAIN_LR, BUCKET_EPOCHS, boundaries=BUCKETS,
+        seed=SEED))
+    trained = level_counts()
+    steps = BUCKET_EPOCHS * len(BUCKETS)
+    if trained != (nL * steps,) * 3:
+        raise AssertionError(f"fit_bucketed launches {trained}, expected "
+                             f"{nL} levels x {steps} steps of each")
+    with torch.no_grad():
+        after = sum(float(squared_loss(model._forward(model.params, batch)[0],
+                                       batch["target"]))
+                    for batch, _ in batches.values())
+    if not (np.isfinite(last) and after < before):
+        raise AssertionError(f"fit_bucketed: loss {before} -> {after} "
+                             f"(last epoch {last})")
+    log(f"phase 14 bucketed: SMP_omega V<={max(BUCKETS)} P={model.cfg.P} C="
+        f"{MODEL['nChanels']}, {len(graphs)} graphs of "
+        f"{min(BUCKET_SIZES)}-{max(BUCKET_SIZES)} vertices in buckets "
+        f"{BUCKETS}: one step per bucket launches (K1, K2 kernel 1, K2 "
+        f"kernel 2) " + ", ".join(f"V={b}: {c}" for b, c in
+                                  per_bucket.items())
+        + f"; loss, {len(params)} gradients and predictions vs plain level "
+        f"in each bucket, predictions vs V=64 padding: max abs err "
+        f"{err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
+    log(f"phase 14 bucketed: fit_bucketed {BUCKET_EPOCHS} epochs, Adam lr "
+        f"{TRAIN_LR:g}: summed loss {before:.6f} -> {after:.6f} (last epoch "
+        f"{last:.6f}); launches K1={trained[0]} K2 kernel 1={trained[1]} "
+        f"kernel 2={trained[2]} (= {nL} levels x {steps} steps); "
+        f"{seconds:.3f} s (host clock, synced, prep included)")
+    return list(per_bucket.values()), trained, err
+
+
+def first_order_models():
+    """(name, constructor, graph maker, targets) of phase 15."""
+    from graphflow_tpu_torch import models
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    def er(s):
+        return random_graph(FIRST_ORDER["max_nVertices"], ER_P, seed=s)
+
+    regression = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    labels = [float(i % 3) for i in range(GRAPHS_PER_REQUEST)]
+    return [
+        ("SMP_theta", lambda dev: models.SMP_theta(
+            **MODEL, seed=SEED, device=dev), er, regression),
+        ("SMP_1D", lambda dev: models.SMP_1D(
+            **FIRST_ORDER, seed=SEED, device=dev), er, regression),
+        ("Unrestricted_SMP_1D", lambda dev: models.Unrestricted_SMP_1D(
+            **FIRST_ORDER, seed=SEED, device=dev), er, regression),
+        ("SMP_1D_ver3_classification",
+         lambda dev: models.SMP_1D_ver3_classification(
+             **FIRST_ORDER, nClasses=3, seed=SEED, device=dev), er, labels),
+        ("SMP_theta_physics", lambda dev: models.SMP_theta_physics(
+            PHYSICS["max_nVertices"], PHYSICS["max_receptive_field"],
+            PHYSICS["nLevels"], PHYSICS["nChanels"], PHYSICS["nFeatures"],
+            seed=SEED, device=dev),
+         lambda s: physics_graph(PHYSICS["max_nVertices"], s), regression),
+    ]
+
+
+def phase_first_order():
+    """Phase 15: the first-order family at full width on the card."""
+    import dataclasses
+
+    import torch
+    from graphflow_tpu_torch.core import prep
+    from graphflow_tpu_torch.models import SMP1D
+
+    err = 0.0
+    walls = {}
+    for k, (name, make, graph, targets) in enumerate(first_order_models()):
+        model, cpu = make("cuda"), make("cpu")
+        requests = [[graph(1300 + 100 * k + GRAPHS_PER_REQUEST * r + i)
+                     for i in range(GRAPHS_PER_REQUEST)]
+                    for r in range(N_REQUESTS)]
+        preds = [model.Threaded_Predict(gs) for gs in requests]
+        for r, (gs, p) in enumerate(zip(requests, preds)):
+            expected = ((GRAPHS_PER_REQUEST, 3) if model.cfg.nClasses
+                        else (GRAPHS_PER_REQUEST,))
+            if p.shape != expected:
+                raise AssertionError(f"{name} request {r}: shape {p.shape}")
+            err = max(err, check_close(f"{name} request {r} vs the CPU", p,
+                                       cpu.Threaded_Predict(gs)))
+        feat = model.Feature(requests[0][0])
+        err = max(err, check_close(f"{name} Feature vs the CPU", feat,
+                                   cpu.Feature(requests[0][0])))
+        req_s = [synced_s(lambda: model.Threaded_Predict(gs))[1]
+                 for gs in requests]
+
+        graphs = requests[0]
+        first = cpu.getLoss(graphs, targets)
+        if model.cfg.optimizer == "adam":
+            lr, how = TRAIN_LR, f"Adam lr {TRAIN_LR:g}"
+        else:
+            # Momentum takes lr * gradient: a step the first-order model
+            # says cuts the loss by 5 %, from the first gradient.
+            loss, grads = model._loss_and_grads(model._stack(graphs, targets))
+            norm2 = sum(float((g.double() ** 2).sum()) for g in grads.values())
+            lr = 0.05 * loss * len(graphs) / norm2
+            how = f"Momentum lr {lr:.3e} (0.05 loss nBatch / |g|^2)"
+        steps, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            out, secs = synced_s(lambda: model.BatchLearn(graphs, targets,
+                                                          lr))
+            steps.append(out)
+            step_s.append(secs)
+        err = max(err, check_close(f"{name} first loss vs the CPU",
+                                   steps[0][0], first))
+        losses = [x for st in steps for x in st]
+        if not (np.isfinite(losses).all() and steps[-1][1] < steps[0][0]):
+            raise AssertionError(f"{name}: the loss did not fall: {steps}")
+        walls[name] = (statistics.median(req_s), statistics.median(
+            step_s[1:]))
+        shown = np.concatenate(preds).astype(np.float64).round(4).tolist()
+        channels = [model.cfg.channels_at(l)
+                    for l in range(model.cfg.nLevels + 1)]
+        log(f"phase 15 first order: {name} ({model.cfg.filter}, "
+            f"P={model.cfg.P}, channels {channels}"
+            f"): predictions {shown[:8]}...; max abs err vs the same model on "
+            f"the CPU so far {err:.3e}; BatchLearn {how} (loss_before, "
+            f"loss_after) " + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in
+                                         steps)
+            + f"; cached request {walls[name][0] * 1e3:.2f} ms, cached step "
+            f"{walls[name][1] * 1e3:.2f} ms (host clock, synced, medians)")
+
+    # SMP_theta's sparse first-order sum against its dense one.
+    name, make, graph, targets = first_order_models()[0]
+    dense = make("cuda")
+    graphs = [graph(1300 + i) for i in range(GRAPHS_PER_REQUEST)]
+    degree = max(int((g.adj > 0).sum(axis=1).max()) + 1 for g in graphs)
+    sparse = SMP1D(dataclasses.replace(dense.cfg, sparse_max_degree=degree),
+                   seed=SEED, device="cuda")
+    before = prep.ROUTES["numpy_fo_degree"]
+    got = sparse.Threaded_Predict(graphs)
+    if prep.ROUTES["numpy_fo_degree"] - before != len(graphs):
+        raise AssertionError("the sparse route did not prepare fo_idx")
+    loss_s = sparse.getLoss(graphs, targets)
+    sparse_err = max(
+        check_close("SMP_theta sparse vs dense", got,
+                    dense.Threaded_Predict(graphs), 1e-5),
+        check_close("SMP_theta sparse vs dense loss", loss_s,
+                    dense.getLoss(graphs, targets), 1e-5))
+    torch.cuda.synchronize()
+    log(f"phase 15 first order: SMP_theta sparse_max_degree={degree} (the "
+        f"largest closed degree) against the dense route: max abs err "
+        f"{sparse_err:.3e} (bound 1e-05*max(1,max|dense|)) ok")
+    return walls, max(err, sparse_err)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
     import_port()
     import torch
 
+    from graphflow_tpu_torch.core import prep
+
     phase_build()
     level_errs, level_ms = phase_kernel()
+    prep.ROUTES.clear()         # phases 4-15 prepare every graph natively
     serve_launches, slice_err = phase_slice()
     bwd_errs, bwd_ms = phase_backward()
     train_launches, train_err = phase_train()
@@ -1579,6 +1994,22 @@ def main() -> None:
     k7_launches, variants_err = phase_variants()
     ablate_errs, ablate_tables, ablate_launches, ablate_extra = phase_ablate()
     physics_k1, physics_k2, physics_err = phase_physics()
+    phase_native_prep()
+    per_bucket, bucket_launches, bucket_err = phase_bucketed()
+    # Launches of phase 14 by kernel: one step per bucket, then fit_bucketed.
+    bucketed = [sum(c[k] for c in per_bucket) + bucket_launches[k]
+                for k in range(3)]
+    phase_first_order()
+    routes = dict(prep.ROUTES)
+    if set(routes) - {"native", "numpy_fo_degree"} or not routes.get(
+            "native"):
+        raise AssertionError(f"phases 4-15 prepared graphs by routes "
+                             f"{routes}: every one but the sparse route's "
+                             f"fo_degree prep must be native")
+    log(f"phase 13 native prep: phases 4-15 prepared {routes['native']} "
+        f"graphs natively and {routes.get('numpy_fo_degree', 0)} on the "
+        f"NumPy path with fo_degree (the sparse first-order route, NumPy in "
+        f"the JAX package too), none otherwise")
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")
@@ -1606,24 +2037,35 @@ def main() -> None:
     f32, b16 = "float32", "bfloat16"
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
-               serve_launches + train_launches[0] + physics_k1 + bf16["k1"],
-               max(*level_errs.values(), slice_err, physics_err, bf16["err"]),
+               serve_launches + train_launches[0] + physics_k1 + bf16["k1"]
+               + bucketed[0],
+               max(*level_errs.values(), slice_err, physics_err, bf16["err"],
+                   bucket_err),
                level_ms[f32]["kernel"], level_ms[f32]["plain"],
                level_ms[f32]["bound"],
                **in_bf16(level_ms[b16]["kernel"], level_ms[b16]["plain"],
-                         level_ms[b16]["bound"])),
+                         level_ms[b16]["bound"]),
+               k3_shapes={d: {shape: {"ms": t["kernel"],
+                                      "plain_ms": t["plain"],
+                                      "bound_ms": t["bound"][0],
+                                      "bound_by": t["bound"][1]}
+                              for shape, t in level_ms[d]["k3"].items()}
+                          for d in (f32, b16)},
+               launches_bucketed=bucketed[0]),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
-               train_launches[1] + physics_k2[0] + bf16["k2"][0],
+               train_launches[1] + physics_k2[0] + bf16["k2"][0]
+               + bucketed[1],
                max(bwd_errs[f32]["dstate"], bwd_errs[b16]["dstate"],
-                   train_err, physics_err, bf16["err"]),
+                   train_err, physics_err, bf16["err"], bucket_err),
                bwd_ms[f32]["main"], bwd_ms[f32]["plain"],
                bwd_ms[f32]["bound"],
                **in_bf16(bwd_ms[b16]["main"], bwd_ms[b16]["plain"],
                          bwd_ms[b16]["bound"])),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
-               train_launches[2] + physics_k2[1] + bf16["k2"][1],
+               train_launches[2] + physics_k2[1] + bf16["k2"][1]
+               + bucketed[2],
                max(bwd_errs[d][k] for d in (f32, b16) for k in ("dK", "db")),
                bwd_ms[f32]["reduce"], bwd_ms[f32]["plain_reduce"],
                bwd_ms[f32]["reduce_bound"],

@@ -8,7 +8,7 @@ sits at the same path as its JAX counterpart (``core/``, ``ops/``,
 
 The package imports ``torch`` and NumPy and never ``jax``.  Kernels are
 built with ``nvcc`` at their first CUDA launch (``runtime/cuda_build.py``),
-never at import.
+and the host library with g++ at its first use, never at import.
 
 The port covers SMP_omega's serving and training paths in float32 and
 bfloat16: host preparation, batching, the level-0 embedding, the
@@ -23,8 +23,13 @@ both dtypes (SMP_gamma, SMP_2D_ver6/7/8 and the classification heads):
 the 4/10/50-case banks (``ops/contractions.py``), the aligned neighbour
 tensor ``ops/risi_aligned.py`` with its kernel
 ``ops/csrc/risi_aligned_t2.cu``
-for ver6/ver7 serving, the log loss and Momentum.  The rest of the JAX
-package is queued in ROADMAP.md.
+for ver6/ver7 serving, the log loss and Momentum; the first-order SMP
+family (``models/smp1d.py``: SMP_theta, SMP_1D and its variants, torch ops
+with the ELLPACK sum of ``ops/sparse.py``) and the four physics towers;
+bucketed training (``models/base.py:fit_bucketed``); and host preparation
+through the native C++ library ``runtime/csrc/graph_prep.cpp``, built with
+g++ at first use (``runtime/native.py``), or its NumPy twin.  The rest of
+the JAX package is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

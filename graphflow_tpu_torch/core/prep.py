@@ -9,16 +9,23 @@ the host in NumPy and emits static-shaped index arrays: the dense
 permutation matrices X[v][w] become gather indices ``pos`` with the
 sentinel P for "absent", which the level kernel reads as zeros.
 
-This is the NumPy path of the JAX package, array for array, but for one
-case: a vertex is at distance 0 from itself even when the graph has a self
-loop (:func:`floyd_warshall`), as in the JAX package's native backend, the
-one its models use by default.  The native C++ backend
-(``graphflow_tpu/runtime/native.py``) is ROADMAP queue 1, item 2; the
-first-order ``fo_degree`` indices come with smp1d (item 5).
+Two backends compute the same arrays bit for bit.  ``backend="auto"``
+(every model's) takes the native C++ library (``runtime/native.py``, the
+port's copy of ``graph_prep.cpp``, built with g++ at first use) whenever
+it is available and no ``fo_degree`` is asked for, as the JAX package does
+(``graphflow_tpu/core/prep.py:243-253``); ``backend="python"`` is the
+NumPy path of the JAX package, array for array, but for one case: a vertex
+is at distance 0 from itself even when the graph has a self loop
+(:func:`floyd_warshall`), as in both packages' native backends.  The
+first-order sparse indices ``fo_idx`` (``fo_degree=``) are built in NumPy
+only, in both packages.  ``ROUTES`` counts the graphs each route
+prepared: ``native``, ``numpy`` (asked for), ``numpy_fo_degree`` and
+``numpy_fallback`` (``"auto"`` on a machine without g++).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import List, Optional
 
@@ -27,6 +34,7 @@ import numpy as np
 from graphflow_tpu_torch.core.graph import DenseGraph
 
 INF = 10**9  # reference GCN_1D.h:26 `const int INF = 1e9`
+ROUTES = collections.Counter()
 
 
 def floyd_warshall(adj: np.ndarray) -> np.ndarray:
@@ -150,6 +158,15 @@ class PreparedGraph:
       smask     [L+1, V, P, P]     (p1 < s) & (p2 < s)
       norm_adj, adj, sp, dist [V, V] and raw_feat [V, F]: zero-padded raw
                                    payloads (sp padded with INF)
+      ell_nbr, ell_w, ell_nbr_a, ell_w_a [V, D]  ELLPACK 1-hop structures
+                                   (``ops/sparse.py``; sentinel V), absent
+                                   unless a sparse prep builds them
+      fo_idx    [L, V, P, D]       first-order sparse aggregation: per
+                                   level, the flat (w*P + q) rows of the
+                                   previous level's [V, P, C] state that sum
+                                   into sum_v[p] ({(w, q) : sp(v, w) <= 1 and
+                                   phi_{l-1}(w)[q] == phi_l(v)[p]}), sentinel
+                                   V*P; only with ``fo_degree=``
     """
     wl_feat: np.ndarray
     vmask: np.ndarray
@@ -164,18 +181,40 @@ class PreparedGraph:
     sp: np.ndarray
     raw_feat: np.ndarray
     dist: np.ndarray
+    ell_nbr: Optional[np.ndarray] = None
+    ell_w: Optional[np.ndarray] = None
+    ell_nbr_a: Optional[np.ndarray] = None
+    ell_w_a: Optional[np.ndarray] = None
+    fo_idx: Optional[np.ndarray] = None
 
 
 def prepare_graph(graph: DenseGraph, nLevels: int, max_nVertices: int,
                   max_receptive_field: Optional[int], nDepth: int,
                   has_WL_ordering: bool = True, use_coulomb: bool = False,
-                  use_wl_features: bool = True,
-                  dtype=np.float32) -> PreparedGraph:
+                  use_wl_features: bool = True, dtype=np.float32,
+                  backend: str = "auto",
+                  fo_degree: Optional[int] = None) -> PreparedGraph:
     """The full host pipeline for one graph (``SMP_omega.h:584-604``).
 
     ``use_wl_features=False`` feeds raw features; ``use_coulomb=True`` swaps
     the 0/1 reduced adjacency for the Coulomb matrix (``:567-577``).
+    ``backend`` is ``"auto"`` (the native library when it is available and
+    ``fo_degree`` is None) or ``"python"`` (NumPy); ``fo_degree`` (at least
+    the largest closed degree) also builds ``fo_idx``.
     """
+    if backend not in ("auto", "python"):
+        raise ValueError(f"backend {backend!r}: 'auto' or 'python'")
+    if backend == "auto" and fo_degree is None:
+        from graphflow_tpu_torch.runtime import native
+        if native.available():
+            ROUTES["native"] += 1
+            return native.prepare_graph_native(
+                graph, nLevels, max_nVertices, max_receptive_field, nDepth,
+                has_WL_ordering=has_WL_ordering, use_coulomb=use_coulomb,
+                use_wl_features=use_wl_features, dtype=dtype)
+        ROUTES["numpy_fallback"] += 1
+    else:
+        ROUTES["numpy" if backend == "python" else "numpy_fo_degree"] += 1
     n = graph.nVertices
     V = max_nVertices
     if n > V:
@@ -192,9 +231,6 @@ def prepare_graph(graph: DenseGraph, nLevels: int, max_nVertices: int,
     feat_dim = F * (nDepth + 1) if use_wl_features else F
     wl_feat = np.zeros((V, feat_dim), dtype=dtype)
     wl_feat[:n] = (hist if use_wl_features else graph.feature).astype(dtype)
-
-    vmask = np.zeros((V,), dtype=dtype)
-    vmask[:n] = 1.0
 
     sizes = np.zeros((L + 1, V), dtype=np.int32)
     nbr = np.zeros((L, V, P), dtype=np.int32)
@@ -226,18 +262,63 @@ def prepare_graph(graph: DenseGraph, nLevels: int, max_nVertices: int,
                     else:
                         radj[l - 1, v, i, j] = graph.adj[v1, v2]
 
+    sp_pad = np.full((V, V), INF, dtype=np.int64)
+    sp_pad[:n, :n] = sp
+
+    return PreparedGraph(
+        wl_feat=wl_feat, sizes=sizes, nbr=nbr, pos=pos, radj=radj,
+        smask=smask, nVertices=n, sp=sp_pad,
+        fo_idx=(None if fo_degree is None
+                else first_order_indices(graph.adj, phi, V, P, fo_degree)),
+        **payload(graph, V, dtype))
+
+
+def payload(graph: DenseGraph, V: int, dtype) -> dict:
+    """The ``PreparedGraph`` fields that both backends fill alike, padded
+    to V vertices: ``vmask``, ``norm_adj``, ``adj``, ``raw_feat`` and
+    ``dist``."""
+    n, F = graph.nVertices, graph.nFeatures
+    vmask = np.zeros((V,), dtype=dtype)
+    vmask[:n] = 1.0
     na = np.zeros((V, V), dtype=dtype)
     na[:n, :n] = graph.norm_adj().astype(dtype)
     adj_pad = np.zeros((V, V), dtype=dtype)
     adj_pad[:n, :n] = (graph.adj[:n, :n] > 0).astype(dtype)
-    sp_pad = np.full((V, V), INF, dtype=np.int64)
-    sp_pad[:n, :n] = sp
     raw = np.zeros((V, F), dtype=dtype)
     raw[:n] = graph.feature.astype(dtype)
     dist_pad = np.zeros((V, V), dtype=dtype)
     dist_pad[:n, :n] = graph.distance.astype(dtype)
+    return dict(vmask=vmask, norm_adj=na, adj=adj_pad, raw_feat=raw,
+                dist=dist_pad)
 
-    return PreparedGraph(
-        wl_feat=wl_feat, vmask=vmask, sizes=sizes, nbr=nbr, pos=pos,
-        radj=radj, smask=smask, nVertices=n,
-        norm_adj=na, adj=adj_pad, sp=sp_pad, raw_feat=raw, dist=dist_pad)
+
+def first_order_indices(adj: np.ndarray, phi, V: int, P: int,
+                        fo_degree: int) -> np.ndarray:
+    """``PreparedGraph.fo_idx`` [L, V, P, fo_degree] from the receptive
+    fields ``phi`` (``graphflow_tpu/core/prep.py:317-341``): for each
+    (l, v, p) the flat (w * P + q) rows of the previous level's [V, P, C]
+    state that sum into sum_v[p], in the order of w, then the sentinel
+    V * P."""
+    n, L = adj.shape[0], len(phi) - 1
+    fo_idx = np.full((L, V, P, fo_degree), V * P, dtype=np.int32)
+    closed = (adj[:n, :n] > 0) | np.eye(n, dtype=bool)
+    for l in range(1, L + 1):
+        # POS[w, u] = position of vertex u inside phi_{l-1}(w), else -1.
+        POS = np.full((n, n), -1, dtype=np.int64)
+        for w in range(n):
+            POS[w, np.asarray(phi[l - 1][w], dtype=np.int64)] = (
+                np.arange(len(phi[l - 1][w])))
+        for v in range(n):
+            u_list = np.asarray(phi[l][v], dtype=np.int64)        # [s]
+            Wn = np.nonzero(closed[v])[0]                         # [deg]
+            Q = POS[np.ix_(Wn, u_list)]                           # [deg, s]
+            valid = Q >= 0
+            counts = valid.sum(axis=0)
+            if counts.max(initial=0) > fo_degree:
+                raise ValueError(
+                    f"fo_degree={fo_degree} < closed degree "
+                    f"{int(counts.max())} at level {l} vertex {v}")
+            ii, jj = np.nonzero(valid)
+            ranks = valid.cumsum(axis=0)[ii, jj] - 1
+            fo_idx[l - 1, v, jj, ranks] = Wn[ii] * P + Q[ii, jj]
+    return fo_idx

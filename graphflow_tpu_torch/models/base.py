@@ -13,6 +13,8 @@ per-graph loss the port sums the batched one: the gradients are the same.
 
 ``Threaded_BatchLearn`` is an alias of ``BatchLearn``: the reference's
 per-thread model replicas and summed gradients are one batched step here.
+:func:`fit_bucketed` is the bucketed training loop: each graph padded to
+its size bucket rather than to max_nVertices.
 """
 
 from __future__ import annotations
@@ -229,3 +231,40 @@ class GraphModel(nn.Module):
         values, self.opt_state = self._cached
         for k, p in self.param_dict().items():
             p.copy_(values[k])
+
+
+def fit_bucketed(model: GraphModel, graphs, targets, learning_rate: float,
+                 nEpochs: int, boundaries=(8, 16, 32, 64), seed: int = 0,
+                 verbose: bool = False) -> float:
+    """Bucketed training (``graphflow_tpu/models/base.py:192-227``): pad
+    each graph to its size bucket (``batching.bucket_by_size``) instead of
+    max_nVertices, then per epoch take one optimizer step per bucket, in
+    an order shuffled by ``np.random.default_rng(seed)`` over the buckets
+    in the order they were first met, as the JAX package does.
+
+    The model's forward takes V from the batch; its receptive-field cap P
+    stays fixed, so a bucket may hold fewer vertices than P.  A bucket's
+    preparation bypasses the per-graph memo (its padding is not the
+    model's).  Returns the last epoch's summed loss."""
+    buckets = batching.bucket_by_size(graphs, targets, boundaries)
+    prepared = {}
+    for b, (gs, ts) in buckets.items():
+        pgs = [model._prepare(g, pad_nVertices=b) for g in gs]
+        prepared[b] = (batching.stack_graphs(pgs, ts, device=model.device,
+                                             dtype=model.dtype), len(gs))
+
+    rng = np.random.default_rng(seed)
+    total = None
+    order = list(prepared.items())
+    for epoch in range(nEpochs):
+        rng.shuffle(order)
+        total = 0.0
+        for _, (batch, n) in order:
+            loss, grads = model._loss_and_grads(batch)
+            _, model.opt_state = model.opt.update(
+                model.param_dict(), model.opt_state, grads, learning_rate,
+                nBatch=n)
+            total += loss
+        if verbose and epoch % max(1, nEpochs // 8) == 0:
+            print(f"epoch {epoch}: loss {total:.4f}")
+    return total

@@ -369,9 +369,13 @@ class SMP2D(GraphModel):
                 "levels": [{"K": d[f"levels/{l}/K"], "b": d[f"levels/{l}/b"]}
                            for l in range(self.cfg.nLevels)]}
 
-    def _prepare(self, graph: DenseGraph) -> prep.PreparedGraph:
+    def _prepare(self, graph: DenseGraph,
+                 pad_nVertices: Optional[int] = None) -> prep.PreparedGraph:
+        """Host arrays of one graph, padded to ``pad_nVertices`` vertices
+        (a size bucket, ``models/base.py:fit_bucketed``) or to
+        max_nVertices."""
         return prep.prepare_graph(
-            graph, self.cfg.nLevels, self.cfg.max_nVertices,
+            graph, self.cfg.nLevels, pad_nVertices or self.cfg.max_nVertices,
             self.cfg.max_receptive_field, self.cfg.nDepth,
             has_WL_ordering=self.cfg.has_WL_ordering,
             use_coulomb=self.cfg.use_coulomb,

@@ -1,4 +1,6 @@
-"""Activations (counterpart of ``graphflow_tpu/ops/activations.py``)."""
+"""Activations (counterpart of ``graphflow_tpu/ops/activations.py``): the
+LeakyReLU every model uses and the per-size parameter gather of the
+first-order models."""
 
 from __future__ import annotations
 
@@ -9,3 +11,63 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
     """``LeakyReLU.h``: x where x > 0, else alpha * x (reference default
     alpha = 0.01, ``LeakyReLU.h:31``)."""
     return torch.where(x > 0, x, alpha * x)
+
+
+def _prefix_count_weights(s: torch.Tensor, depth: int,
+                          valid: torch.Tensor = None) -> torch.Tensor:
+    """w = C(r + depth - 1, depth) per vertex, where r = #{u <= v : s_u =
+    s_v} counts in vertex order within each graph (``s`` [..., V]; with
+    ``valid`` [..., V], only the vertices u where it is > 0).  float32, as
+    the JAX package computes it; every value is a small integer, exact in
+    any dtype."""
+    same = s[..., :, None] == s[..., None, :]
+    if valid is not None:
+        same = same & (valid[..., None, :] > 0)
+    V = s.shape[-1]
+    tril = torch.ones((V, V), dtype=torch.bool, device=s.device).tril()
+    r = (same & tril).sum(dim=-1).to(torch.float32)
+    w = r
+    for k in range(1, depth):
+        w = w * (r + k) / (k + 1)
+    return w
+
+
+class _PersizeGather(torch.autograd.Function):
+    """``table[s]`` forward; the backward scatters ``w * g`` into the table
+    instead of ``g``."""
+
+    @staticmethod
+    def forward(ctx, table, s, w):
+        ctx.save_for_backward(s, w)
+        ctx.table_shape = table.shape
+        return table[s]
+
+    @staticmethod
+    def backward(ctx, g):
+        s, w = ctx.saved_tensors
+        wex = w.reshape(w.shape + (1,) * (g.ndim - w.ndim)).to(g.dtype)
+        dtable = g.new_zeros(ctx.table_shape)
+        dtable.index_put_((s,), wex * g, accumulate=True)
+        return dtable, None, None
+
+
+def persize_gather_refgrad(table: torch.Tensor, s: torch.Tensor, depth: int,
+                           valid: torch.Tensor = None) -> torch.Tensor:
+    """Per-size parameter gather with the reference's shared-node backward
+    (``graphflow_tpu/ops/activations.py:109-164``).
+
+    The reference wires one filter node per receptive-field size
+    (``W_eye[size] = ScalarMatMul(lambda[size], eye)``) but re-adds it to
+    the topology once per vertex, so ``GraphFlow::backward`` runs the
+    shared node's backward at every occurrence over its accumulating
+    gradient buffer: vertex v's contribution to d lambda[s_v] is weighted
+    by the number of chains through the shared prefix, w = C(r + depth - 1,
+    depth) (:func:`_prefix_count_weights`), where ``depth`` is the number
+    of shared nodes on the lambda -> consumer path (SMP_theta and the concat
+    variants 1, SMP_1D 3).  The forward is the plain gather ``table[s]``;
+    plain autograd of it gives the true gradient, which differs.
+
+    ``s`` [..., V] holds sizes per graph (a batch of graphs on the leading
+    axes, each counted on its own), ``table`` [V1, ...]."""
+    return _PersizeGather.apply(table, s.long(),
+                                _prefix_count_weights(s, depth, valid))

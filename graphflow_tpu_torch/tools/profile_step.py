@@ -17,7 +17,9 @@ Usage: python -m graphflow_tpu_torch.tools.profile_step [NAME ...]
 Names: omega_f32, omega_bf16, omega_bf16_bank (the bank route over a
 materialised T, ``level_fn=risi18_bank_level``: K4 serving, K4 and K5
 training; ``tools/measure.py:bank_route_model``), ver6_f32, ver6_bf16,
-ver7_f32, ver7_bf16 (default: all).  Needs a CUDA device.
+ver7_f32, ver7_bf16, and the first-order theta (SMP_theta) and
+theta_physics (SMP_theta_physics, channels 32, 16, 8, raw normal
+features; Adam) (default: all).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,6 +47,30 @@ CONFIGS = {
     "ver7_f32": (50, "float32", "momentum", MOMENTUM_LR, False),
     "ver7_bf16": (50, "bfloat16", "momentum", MOMENTUM_LR, False),
 }
+# The first-order models, float32, Adam: name -> (constructor, raw normal
+# features in place of the one-hot ones).
+FIRST_ORDER = {"theta": ("SMP_theta", False),
+               "theta_physics": ("SMP_theta_physics", True)}
+
+
+def build(name):
+    """(model on the card, its learning rate) of configuration ``name``."""
+    from graphflow_tpu_torch import models
+
+    if name in FIRST_ORDER:
+        ctor, _ = FIRST_ORDER[name]
+        if ctor == "SMP_theta":
+            return models.SMP_theta(**MODEL, seed=0, device="cuda"), ADAM_LR
+        return models.SMP_theta_physics(
+            MODEL["max_nVertices"], MODEL["max_receptive_field"],
+            MODEL["nLevels"], MODEL["nChanels"], MODEL["nFeatures"], seed=0,
+            device="cuda"), ADAM_LR
+    contraction, dtype, optimizer, lr, bank_route = CONFIGS[name]
+    config = dict(MODEL, contraction=contraction, dtype=dtype,
+                  optimizer=optimizer)
+    return (bank_route_model(seed=0, device="cuda", **config) if bank_route
+            else models.SMP2D(models.SMP2DConfig(**config), seed=0,
+                              device="cuda")), lr
 
 
 def device_time_us(event) -> float:
@@ -87,16 +113,15 @@ def profile(fn, rounds=ROUNDS):
 
 
 def report(name, out=print):
-    from graphflow_tpu_torch.models import SMP2D, SMP2DConfig
     from graphflow_tpu_torch.utils.datasets import random_graph
 
-    contraction, dtype, optimizer, lr, bank_route = CONFIGS[name]
-    config = dict(MODEL, contraction=contraction, dtype=dtype,
-                  optimizer=optimizer)
-    model = (bank_route_model(seed=0, device="cuda", **config) if bank_route
-             else SMP2D(SMP2DConfig(**config), seed=0, device="cuda"))
+    model, lr = build(name)
     graphs = [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
               for i in range(GRAPHS)]
+    if FIRST_ORDER.get(name, (None, False))[1]:
+        rng = np.random.default_rng(0)
+        for g in graphs:
+            g.feature = rng.normal(size=g.feature.shape)
     targets = np.random.default_rng(0).normal(size=GRAPHS).tolist()
 
     def request():
@@ -128,11 +153,11 @@ def report(name, out=print):
 
 
 def main(argv=None):
-    names = list(sys.argv[1:] if argv is None else argv) or list(CONFIGS)
-    unknown = [n for n in names if n not in CONFIGS]
+    known = list(CONFIGS) + list(FIRST_ORDER)
+    names = list(sys.argv[1:] if argv is None else argv) or known
+    unknown = [n for n in names if n not in known]
     if unknown:
-        raise SystemExit(f"unknown configuration {unknown}; known: "
-                         f"{list(CONFIGS)}")
+        raise SystemExit(f"unknown configuration {unknown}; known: {known}")
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step profiles CUDA work: no CUDA device "
                            "is available")

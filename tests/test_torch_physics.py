@@ -235,6 +235,13 @@ def test_constructors_and_reexports():
 
 
 def test_theta_physics_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        models.SMP_theta_physics(V, 4, 2, 8, NFEAT, device="cpu")
-    assert jphysics.SMP_theta_physics(V, 4, 2, 8, NFEAT).order == 1
+    """The first-order tower was the one physics tower still to port; it
+    is ported now (``tests/test_torch_smp1d.py`` holds it against the JAX
+    model), with the JAX package's order and shapes."""
+    m = models.SMP_theta_physics(V, 4, 2, 8, NFEAT, device="cpu")
+    jm = jphysics.SMP_theta_physics(V, 4, 2, 8, NFEAT)
+    assert m.order == jm.order == 1
+    assert m.param_order == jm.param_order
+    jflat = _flat(jm.params)
+    assert {k: tuple(p.shape) for k, p in m.param_dict().items()} == {
+        k: tuple(x.shape) for k, x in jflat.items()}

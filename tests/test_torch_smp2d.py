@@ -171,12 +171,12 @@ def test_feature_permutation_invariance():
                                 dict(contraction=10, dtype="bfloat16"),
                                 dict(contraction=50, dtype="bfloat16")])
 def test_outside_the_slice_raises(kw):
-    """What is still to port says so: the first-order physics tower.
-    bfloat16 with the 4-, 10- and 50-case banks was outside and is ported:
-    the configuration builds, and the model serves in bfloat16."""
+    """What was outside the slice and is ported now builds: the
+    first-order physics tower (``models/smp1d.py``), and bfloat16 with the
+    4-, 10- and 50-case banks, whose model serves in bfloat16."""
     if kw.get("first_order_physics"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.SMP_theta_physics(8, 4, 2, 6, 4, device="cpu")
+        m = models.SMP_theta_physics(8, 4, 2, 6, 4, device="cpu")
+        assert m.order == 1 and m.cfg.channel_schedule == (6, 3, 1)
         return
     cfg = SMP2DConfig(**CFG, **kw)
     m = SMP2D(cfg, seed=1, device="cpu")
