@@ -105,10 +105,10 @@ Phases, each reported on its own lines:
               equal bit for bit to the NumPy path's; host ms per graph for
               each backend; an uncached and a cached 4-graph request and
               step of SMP_omega and SMP_omega_physics with each backend,
-              in turns.  After phase 15: every graph phases 4-15 prepared
-              went through the native library but the sparse route's
-              fo_degree prep, which takes the NumPy path as in the JAX
-              package;
+              in turns.  After phase 17: every graph phases 4-17 prepared
+              went through the native library but the sparse first-order
+              route's fo_degree prep, which takes the NumPy path as in the
+              JAX package, and the ELL route's prepare_graph_sparse;
  14. bucketed SMP_omega (V <= 64, P=16, C=32) on graphs of 6-64 vertices
               bucketed by size (8, 16, 32, 64): one step per bucket goes
               through K1 and K2 (P = 16 > V = 8 in the smallest) and its
@@ -122,7 +122,24 @@ Phases, each reported on its own lines:
               outputs and the first loss match the same model on the CPU,
               the loss falls, and the cached request and step walls are
               printed; SMP_theta with sparse_max_degree (the fo_idx
-              ELLPACK sum) matches its dense route.
+              ELLPACK sum) matches its dense route;
+ 16. steerable  SMP_2D, its classification head, ver2, ver3 (the
+              TENSORMUL-cast filter), ver4, its classification head, ver5
+              and Unrestricted_SMP_2D at full width (V = P = 64, C = 32,
+              two levels), Unrestricted_SMP_2D_ver2 at V = 16 (its 4-D
+              filter would take 8.7 GB at V = 64): each serves 2 requests
+              of 4 graphs and takes 2 BatchLearn steps (Momentum); one
+              graph's prediction and first-step gradients match the same
+              model on the CPU, the loss falls, and the cached request and
+              step walls and the step's peak memory are printed;
+ 17. gcn      GCN_1D/2D/3D and their _Distance twins (V = 64, H = 32,
+              max_Radius 2), GCN_MW and NeuralFingerprint on the dense
+              route (V = 64) and on the ELL route (V = 4096, edge lists
+              prepared by prepare_graph_sparse) do the same; at V = 1024
+              the ELL route matches the dense one; prepare_graph_sparse's
+              host ms a graph at V = 4096.  No kernel of the seven launches
+              in phases 16-17: the JAX package runs these families without
+              Pallas.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -152,8 +169,8 @@ sys.path.insert(0, str(ROOT))
 # tools under graphflow_tpu_torch/tools/.
 from graphflow_tpu_torch.tools.measure import (  # noqa: E402
     ADAM_LR as TRAIN_LR, ER_P, FULL_WIDTH as MODEL,
-    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, bank_route_model, same_signs,
-    time_ms)
+    GRAPHS as GRAPHS_PER_REQUEST, MOMENTUM_LR, bank_route_model, edge_graph,
+    same_signs, time_ms)
 
 SEED = 0
 # Kernel vs plain: the bound of tests/test_fused_kernel.py:49-50 (summation
@@ -1974,6 +1991,248 @@ def phase_first_order():
     return walls, max(err, sparse_err)
 
 
+# Phases 16 and 17: the steerable family at full width (P = V = 64) and
+# Unrestricted_SMP_2D_ver2 at V = 16, whose per-size 4-D filter is
+# (V+1) V^2 prevC C floats (8.7 GB at level 2 in float32 at V = 64); then
+# the GCN family, GCN_MW and NeuralFingerprint also on the ELL route.
+STEERABLE = dict(max_nVertices=64, nLevels=2, nChanels=32, nFeatures=4,
+                 nDepth=5)
+STEERABLE_4D_V = 16
+GCN = dict(nLevels=2, max_nVertices=64, nFeatures=4, nHiddens=32, nDepth=5,
+           max_Radius=2)
+ONE_HOP = dict(nLevels=2, nFeatures=4, nHiddens=32)
+# The ELL route's graphs (``tools/measure.py:edge_graph``, about 8
+# neighbours a vertex).  At V = 1024 both routes run and must agree, on
+# graphs of 512 vertices (the dense route's prep is cubic in the vertices).
+ELL_V, BOTH_ROUTES_V, BOTH_ROUTES_N = 4096, 1024, 512
+NEW_PHASE_STEPS = 2
+
+
+def kernel_counts():
+    """Every launch count of the seven kernels' wrappers."""
+    from graphflow_tpu_torch.ops.risi_aligned import risi18_aligned_t2
+    from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
+                                                   risi18_bank_backward)
+    from graphflow_tpu_torch.ops.risi_bank_ablate import risi18_bank_variant
+
+    return (level_counts()
+            + (risi18_bank.launches, risi18_bank_backward.launches,
+               risi18_bank_backward.reduce_launches,
+               risi18_aligned_t2.launches)
+            + tuple(risi18_bank_variant.launches.values()))
+
+
+def momentum_lr(model, graphs, targets):
+    """A Momentum learning rate for NEW_PHASE_STEPS steps: the first that
+    cuts the loss over those steps, taken on the model and then undone,
+    of lr0 / 4^k, where lr0 cuts it by 5 % in one step to first order
+    (lr0 |g|^2 / nBatch = 0.05 loss)."""
+    loss, grads = model._loss_and_grads(model._stack(graphs, targets))
+    norm2 = sum(float((g.double() ** 2).sum()) for g in grads.values())
+    lr = 0.05 * loss * len(graphs) / norm2
+    model.cache_parameters()
+    for _ in range(12):
+        steps = [model.BatchLearn(graphs, targets, lr)
+                 for _ in range(NEW_PHASE_STEPS)]
+        model.restore_parameters()
+        if np.isfinite(steps).all() and steps[-1][1] < steps[0][0]:
+            return lr
+        lr /= 4
+    raise AssertionError(f"no learning rate down to {lr:.3e} cuts the loss")
+
+
+def serve_and_train(what, model, cpu, requests, targets, nClasses=None):
+    """Phases 16-17 for one model: its requests, the first request's first
+    graph and its first-step gradients against the same model on the CPU,
+    then NEW_PHASE_STEPS BatchLearn steps on the first request's graphs.
+    Returns the text to log."""
+    import torch
+
+    preds = [model.Threaded_Predict(gs) for gs in requests]
+    for r, p in enumerate(preds):
+        expected = (len(requests[r]),) + ((nClasses,) if nClasses else ())
+        if p.shape != expected or not np.isfinite(p).all():
+            raise AssertionError(f"{what} request {r}: shape {p.shape}, "
+                                 f"finite {np.isfinite(p).all()}")
+    one, t_one = requests[0][:1], targets[:1]
+    err = check_close(f"{what} prediction vs the CPU", preds[0][:1],
+                      cpu.Threaded_Predict(one))
+    _, grads = model._loss_and_grads(model._stack(one, t_one))
+    _, cpu_grads = cpu._loss_and_grads(cpu._stack(one, t_one))
+    for path, g in grads.items():
+        err = max(err, check_close(f"{what} gradient {path} vs the CPU", g,
+                                   cpu_grads[path]))
+    _, req_s = synced_s(lambda: model.Threaded_Predict(requests[0]))
+
+    graphs = requests[0]
+    lr = momentum_lr(model, graphs, targets)
+    steps, step_s = [], []
+    for k in range(NEW_PHASE_STEPS):
+        if k == NEW_PHASE_STEPS - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        out, secs = synced_s(lambda: model.BatchLearn(graphs, targets, lr))
+        steps.append(out)
+        step_s.append(secs)
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e6
+    losses = [x for st in steps for x in st]
+    if not (np.isfinite(losses).all() and steps[-1][1] < steps[0][0]):
+        raise AssertionError(f"{what}: the loss did not fall: {steps}")
+    shown = np.concatenate(preds).astype(np.float64).round(4).tolist()
+    return (
+        f"predictions {shown[:4]}...; one graph's prediction and "
+        f"{len(grads)} gradients vs the CPU, max abs err {err:.3e} (bound "
+        f"1e-4*max(1,max|cpu|)); BatchLearn Momentum lr {lr:.3e} (loss_before,"
+        f" loss_after) " + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+        + f"; cached request {req_s * 1e3:.2f} ms, cached step "
+        f"{step_s[-1] * 1e3:.2f} ms (host clock, synced); the step's peak "
+        f"device memory {peak:.1f} MB above the "
+        f"{held / 1e6:.1f} MB held")
+
+
+def no_kernel_launched(phase, before):
+    """Raise unless no kernel counter moved since ``before``: the JAX
+    package runs these families without Pallas."""
+    if kernel_counts() != before:
+        raise AssertionError(f"{phase}: a TPU-kernel counterpart launched "
+                             f"({before} -> {kernel_counts()})")
+
+
+def er_requests(n, base_seed, nFeatures=4):
+    """Two requests of GRAPHS_PER_REQUEST Erdos-Renyi graphs (p = ER_P) of
+    n vertices."""
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    return [[random_graph(n, ER_P, nFeatures=nFeatures,
+                          seed=base_seed + GRAPHS_PER_REQUEST * r + i)
+             for i in range(GRAPHS_PER_REQUEST)] for r in range(2)]
+
+
+def phase_steerable():
+    """Phase 16: the steerable family, served and trained on the card."""
+    from graphflow_tpu_torch import models
+
+    t0, before = time.perf_counter(), kernel_counts()
+    regression = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    labels = [float(i % 3) for i in range(GRAPHS_PER_REQUEST)]
+    names = ["SMP_2D", "SMP_2D_classification", "SMP_2D_ver2", "SMP_2D_ver3",
+             "SMP_2D_ver4", "SMP_2D_ver4_classification", "SMP_2D_ver5",
+             "Unrestricted_SMP_2D", "Unrestricted_SMP_2D_ver2"]
+    for k, name in enumerate(names):
+        kw = dict(STEERABLE)
+        if name == "Unrestricted_SMP_2D_ver2":
+            kw["max_nVertices"] = STEERABLE_4D_V
+        if "classification" in name:
+            kw["nClasses"] = 3
+        model = getattr(models, name)(**kw, seed=SEED, device="cuda")
+        cpu = getattr(models, name)(**kw, seed=SEED, device="cpu")
+        requests = er_requests(kw["max_nVertices"], 1600 + 100 * k)
+        text = serve_and_train(
+            name, model, cpu, requests,
+            labels if "classification" in name else regression,
+            kw.get("nClasses"))
+        channels = [model.cfg.channels_at(l)
+                    for l in range(model.cfg.nLevels + 1)]
+        cast = (", TENSORMUL cast"
+                if model.cfg.filter in ("matrix", "unrestricted4d") else "")
+        log(f"phase 16 steerable: {name} ({model.cfg.filter}, "
+            f"V=P={model.cfg.P}, channels {channels}{cast}): {text}")
+    no_kernel_launched("phase 16", before)
+    log(f"phase 16 steerable: none of the seven kernels launched (the JAX "
+        f"package runs this family without Pallas); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def as_dense(eg):
+    """An edge-list graph as a DenseGraph, the dense route's input."""
+    from graphflow_tpu_torch.core.graph import DenseGraph
+
+    return DenseGraph.from_edges(eg.nVertices, eg.feature.shape[1], eg.edges,
+                                 eg.feature)
+
+
+def phase_gcn():
+    """Phase 17: the GCN family, served and trained on the card."""
+    from graphflow_tpu_torch import models
+    from graphflow_tpu_torch.core import prep
+
+    t0, before = time.perf_counter(), kernel_counts()
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    requests = er_requests(GCN["max_nVertices"], 1700)
+    for r, gs in enumerate(requests):
+        for i, g in enumerate(gs):
+            # Geometric distances: points in the unit cube.
+            x = np.random.default_rng(1800 + 10 * r + i).random(
+                (g.nVertices, 3))
+            g.distance = np.linalg.norm(x[:, None] - x[None], axis=-1)
+    for name in ("GCN_1D", "GCN_2D", "GCN_3D", "GCN_1D_Distance",
+                 "GCN_2D_Distance", "GCN_3D_Distance"):
+        model = getattr(models, name)(**GCN, seed=SEED, device="cuda")
+        cpu = getattr(models, name)(**GCN, seed=SEED, device="cpu")
+        text = serve_and_train(name, model, cpu, requests, targets)
+        log(f"phase 17 gcn: {name} (order {model.cfg.order}, "
+            f"V={GCN['max_nVertices']}, H={GCN['nHiddens']}"
+            f"{', radius uncapped' if model.cfg.uncapped_radius else ''}): "
+            f"{text}")
+
+    def one_hop(name, V, aggregation, device, nDepth=GCN["nDepth"]):
+        kw = dict(ONE_HOP, max_nVertices=V, aggregation=aggregation,
+                  seed=SEED, device=device)
+        if name == "GCN_MW":
+            kw["nDepth"] = 0 if aggregation == "ell" else nDepth
+        return getattr(models, name)(**kw)
+
+    edge_requests = [[edge_graph(ELL_V, 1900 + GRAPHS_PER_REQUEST * r + i)
+                      for i in range(GRAPHS_PER_REQUEST)] for r in range(2)]
+    t0 = time.perf_counter()
+    for eg in edge_requests[0]:
+        prep.prepare_graph_sparse(eg, ELL_V)
+    prep_ms = (time.perf_counter() - t0) * 1e3 / GRAPHS_PER_REQUEST
+    degree = np.mean([2 * len(eg.edges) / eg.nVertices
+                      for eg in edge_requests[0]])
+    for name in ("GCN_MW", "NeuralFingerprint"):
+        for aggregation, V, reqs in (("dense", GCN["max_nVertices"],
+                                      requests),
+                                     ("ell", ELL_V, edge_requests)):
+            model = one_hop(name, V, aggregation, "cuda")
+            cpu = one_hop(name, V, aggregation, "cpu")
+            sparse_before = prep.ROUTES["sparse"]
+            text = serve_and_train(name, model, cpu, reqs, targets)
+            if (prep.ROUTES["sparse"] > sparse_before) != (aggregation
+                                                          == "ell"):
+                raise AssertionError(f"{name} {aggregation}: prepared by "
+                                     f"the wrong route")
+            shape = f"V={V}, H={ONE_HOP['nHiddens']}" + (
+                f", mean degree {degree:.2f}" if aggregation == "ell" else "")
+            log(f"phase 17 gcn: {name} {aggregation} route ({shape}): "
+                f"{text}")
+        # Where both routes run: V = 1024, nDepth = 0.
+        graphs = [edge_graph(BOTH_ROUTES_N, 2000 + i)
+                  for i in range(GRAPHS_PER_REQUEST)]
+        dense_graphs = [as_dense(g) for g in graphs]
+        dense = one_hop(name, BOTH_ROUTES_V, "dense", "cuda", nDepth=0)
+        ell = one_hop(name, BOTH_ROUTES_V, "ell", "cuda")
+        both = max(
+            check_close(f"{name} ELL vs dense route",
+                        ell.Threaded_Predict(graphs),
+                        dense.Threaded_Predict(dense_graphs), 1e-5),
+            check_close(f"{name} ELL vs dense loss",
+                        ell.getLoss(graphs, targets),
+                        dense.getLoss(dense_graphs, targets), 1e-5))
+        log(f"phase 17 gcn: {name} at V={BOTH_ROUTES_V} (graphs of "
+            f"{BOTH_ROUTES_N} vertices), nDepth=0: the ELL route against the "
+            f"dense one, max abs err {both:.3e} (bound 1e-05*max(1,"
+            f"max|dense|)) ok")
+    log(f"phase 17 gcn: prepare_graph_sparse from an edge list at V={ELL_V} "
+        f"(mean degree {degree:.2f}): {prep_ms:.2f} ms a graph (host clock)")
+    no_kernel_launched("phase 17", before)
+    log(f"phase 17 gcn: none of the seven kernels launched (the JAX package "
+        f"runs this family without Pallas); {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -1984,7 +2243,7 @@ def main() -> None:
 
     phase_build()
     level_errs, level_ms = phase_kernel()
-    prep.ROUTES.clear()         # phases 4-15 prepare every graph natively
+    prep.ROUTES.clear()         # phases 4-17 prepare every graph natively
     serve_launches, slice_err = phase_slice()
     bwd_errs, bwd_ms = phase_backward()
     train_launches, train_err = phase_train()
@@ -2000,16 +2259,20 @@ def main() -> None:
     bucketed = [sum(c[k] for c in per_bucket) + bucket_launches[k]
                 for k in range(3)]
     phase_first_order()
+    phase_steerable()
+    phase_gcn()
     routes = dict(prep.ROUTES)
-    if set(routes) - {"native", "numpy_fo_degree"} or not routes.get(
-            "native"):
-        raise AssertionError(f"phases 4-15 prepared graphs by routes "
-                             f"{routes}: every one but the sparse route's "
-                             f"fo_degree prep must be native")
-    log(f"phase 13 native prep: phases 4-15 prepared {routes['native']} "
-        f"graphs natively and {routes.get('numpy_fo_degree', 0)} on the "
-        f"NumPy path with fo_degree (the sparse first-order route, NumPy in "
-        f"the JAX package too), none otherwise")
+    if set(routes) - {"native", "numpy_fo_degree", "sparse"} or not (
+            routes.get("native") and routes.get("sparse")):
+        raise AssertionError(f"phases 4-17 prepared graphs by routes "
+                             f"{routes}: every one must be native but the "
+                             f"sparse first-order route's fo_degree prep "
+                             f"and the ELL route's prepare_graph_sparse")
+    log(f"phase 13 native prep: phases 4-17 prepared {routes['native']} "
+        f"graphs natively, {routes.get('numpy_fo_degree', 0)} on the NumPy "
+        f"path with fo_degree (the sparse first-order route, NumPy in the "
+        f"JAX package too) and {routes['sparse']} by prepare_graph_sparse "
+        f"(the ELL route), none otherwise")
     torch.cuda.synchronize()
     log(f"total: {time.perf_counter() - t_start:.1f} s, the kernels' build "
         f"included")

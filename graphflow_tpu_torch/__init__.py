@@ -25,7 +25,10 @@ tensor ``ops/risi_aligned.py`` with its kernel
 ``ops/csrc/risi_aligned_t2.cu``
 for ver6/ver7 serving, the log loss and Momentum; the first-order SMP
 family (``models/smp1d.py``: SMP_theta, SMP_1D and its variants, torch ops
-with the ELLPACK sum of ``ops/sparse.py``) and the four physics towers;
+with the ELLPACK sum of ``ops/sparse.py``), the steerable second-order
+family (``models/smp2d_steerable.py``: SMP_2D, ver2-ver5, Unrestricted) and
+the GCN family (``models/gcn.py``: GCN_1D/2D/3D and _Distance, GCN_MW,
+NeuralFingerprint), both in torch ops, and the four physics towers;
 bucketed training (``models/base.py:fit_bucketed``); and host preparation
 through the native C++ library ``runtime/csrc/graph_prep.cpp``, built with
 g++ at first use (``runtime/native.py``), or its NumPy twin.  The rest of

@@ -19,8 +19,9 @@ is at distance 0 from itself even when the graph has a self loop
 (:func:`floyd_warshall`), as in both packages' native backends.  The
 first-order sparse indices ``fo_idx`` (``fo_degree=``) are built in NumPy
 only, in both packages.  ``ROUTES`` counts the graphs each route
-prepared: ``native``, ``numpy`` (asked for), ``numpy_fo_degree`` and
-``numpy_fallback`` (``"auto"`` on a machine without g++).
+prepared: ``native``, ``numpy`` (asked for), ``numpy_fo_degree``,
+``numpy_fallback`` (``"auto"`` on a machine without g++) and ``sparse``
+(:func:`prepare_graph_sparse`, the ELLPACK-only prep of the 1-hop GCNs).
 """
 
 from __future__ import annotations
@@ -159,8 +160,10 @@ class PreparedGraph:
       norm_adj, adj, sp, dist [V, V] and raw_feat [V, F]: zero-padded raw
                                    payloads (sp padded with INF)
       ell_nbr, ell_w, ell_nbr_a, ell_w_a [V, D]  ELLPACK 1-hop structures
-                                   (``ops/sparse.py``; sentinel V), absent
-                                   unless a sparse prep builds them
+                                   (``ops/sparse.py``; sentinel V), built
+                                   only by :func:`prepare_graph_sparse`,
+                                   which fills wl_feat, vmask and raw_feat
+                                   beside them and leaves the rest None
       fo_idx    [L, V, P, D]       first-order sparse aggregation: per
                                    level, the flat (w*P + q) rows of the
                                    previous level's [V, P, C] state that sum
@@ -170,17 +173,17 @@ class PreparedGraph:
     """
     wl_feat: np.ndarray
     vmask: np.ndarray
-    sizes: np.ndarray
-    nbr: np.ndarray
-    pos: np.ndarray
-    radj: np.ndarray
-    smask: np.ndarray
-    nVertices: int
-    norm_adj: np.ndarray
-    adj: np.ndarray
-    sp: np.ndarray
-    raw_feat: np.ndarray
-    dist: np.ndarray
+    sizes: Optional[np.ndarray] = None
+    nbr: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None
+    radj: Optional[np.ndarray] = None
+    smask: Optional[np.ndarray] = None
+    nVertices: int = 0
+    norm_adj: Optional[np.ndarray] = None
+    adj: Optional[np.ndarray] = None
+    sp: Optional[np.ndarray] = None
+    raw_feat: Optional[np.ndarray] = None
+    dist: Optional[np.ndarray] = None
     ell_nbr: Optional[np.ndarray] = None
     ell_w: Optional[np.ndarray] = None
     ell_nbr_a: Optional[np.ndarray] = None
@@ -322,3 +325,44 @@ def first_order_indices(adj: np.ndarray, phi, V: int, P: int,
             ranks = valid.cumsum(axis=0)[ii, jj] - 1
             fo_idx[l - 1, v, jj, ranks] = Wn[ii] * P + Q[ii, jj]
     return fo_idx
+
+
+def prepare_graph_sparse(graph, max_nVertices: int,
+                         max_degree: Optional[int] = None,
+                         dtype=np.float32) -> PreparedGraph:
+    """The light host prep of the 1-hop sparse models (GCN_MW and
+    NeuralFingerprint with ``aggregation="ell"``;
+    ``graphflow_tpu/core/prep.py:351-390``): no Floyd-Warshall and no
+    [V, V] array, only ``wl_feat`` (the raw features, also ``raw_feat``),
+    ``vmask`` and the ELLPACK lists built from the edges, ``ell_nbr`` /
+    ``ell_w`` of the normalised adjacency and ``ell_nbr_a`` / ``ell_w_a``
+    of the 0/1 one (``ops/sparse.py``), so it costs O(E).
+
+    ``graph`` is a DenseGraph or a ``(nVertices, edges, features)`` tuple;
+    with the tuple no dense adjacency is ever built."""
+    from graphflow_tpu_torch.ops import sparse
+
+    if isinstance(graph, DenseGraph):
+        n = graph.nVertices
+        edges = [(int(u), int(v))
+                 for (u, v) in np.argwhere(np.triu(graph.adj, 1) > 0)]
+        features = graph.feature
+    else:
+        n, edges, features = graph
+    V = max_nVertices
+    if n > V:
+        raise ValueError(f"graph has {n} vertices > max_nVertices={V}")
+    ROUTES["sparse"] += 1
+    features = np.asarray(features)
+    wl_feat = np.zeros((V, features.shape[1]), dtype=dtype)
+    wl_feat[:n] = features.astype(dtype)
+    vmask = np.zeros((V,), dtype=dtype)
+    vmask[:n] = 1.0
+    nbr_n, w_n = sparse.norm_adj_ell(n, edges, pad_rows=V,
+                                     max_degree=max_degree)
+    nbr_a, w_a = sparse.ell_from_edges(n, edges, pad_rows=V,
+                                       max_degree=max_degree)
+    return PreparedGraph(
+        wl_feat=wl_feat, vmask=vmask, nVertices=n, raw_feat=wl_feat,
+        ell_nbr=nbr_n, ell_w=w_n.astype(dtype),
+        ell_nbr_a=nbr_a, ell_w_a=w_a.astype(dtype))

@@ -1,6 +1,7 @@
 """Activations (counterpart of ``graphflow_tpu/ops/activations.py``): the
-LeakyReLU every model uses and the per-size parameter gather of the
-first-order models."""
+LeakyReLU every model uses, the softmax of the GCN family with the
+reference's backward, and the per-size parameter gather of the
+first-order and steerable models."""
 
 from __future__ import annotations
 
@@ -11,6 +12,40 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
     """``LeakyReLU.h``: x where x > 0, else alpha * x (reference default
     alpha = 0.01, ``LeakyReLU.h:31``)."""
     return torch.where(x > 0, x, alpha * x)
+
+
+class _ReferenceSoftmax(torch.autograd.Function):
+    """The softmax forward; the backward g * y * (1 - y)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        y = torch.softmax(x, dim=dim)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y * (1.0 - y), None
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``Softmax.h``: the max-subtracted softmax with the reference's
+    backward (``graphflow_tpu/ops/activations.py:47-72``).
+
+    ``Softmax::backward`` (``Softmax.h:57-61``) applies only the diagonal
+    of the Jacobian, dL/dx_i = g_i y_i (1 - y_i), as if softmax were an
+    elementwise sigmoid: the off-diagonal -y_i y_j terms are missing.
+    Every reference Softmax node trains with these gradients, and with the
+    true ones GCN_1D's loss curve forks from the reference's from the sixth
+    iteration on (``DATASET_r05.json``).  :func:`softmax_exact` is the true
+    gradient."""
+    return _ReferenceSoftmax.apply(x, dim)
+
+
+def softmax_exact(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The softmax with its true Jacobian-vector product."""
+    return torch.softmax(x, dim=dim)
 
 
 def _prefix_count_weights(s: torch.Tensor, depth: int,

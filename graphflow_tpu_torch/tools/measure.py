@@ -1,12 +1,14 @@
 """What the measuring scripts share (``chip_smoke.py`` and the tools beside
 this file) and the CUDA tests: the spin-timed CUDA-event timer, the
 full-width model they drive (and the same model through the bank route),
-and the level output that a backward check gives both sides."""
+the level output that a backward check gives both sides, and the
+edge-list graphs of the ELL route."""
 
 from __future__ import annotations
 
 import statistics
 
+import numpy as np
 import torch
 
 # V=64, P=16, C=32: the width of the reference configuration; two levels
@@ -20,6 +22,10 @@ GRAPHS, ER_P = 4, 0.15
 # reach 1e3-1e5, and Adam's 1e-4 sends the loss to inf in three steps
 # (probed on the CPU at V=32, P=8-12, C=16).
 ADAM_LR, MOMENTUM_LR = 1e-4, 1e-10
+
+# Edges drawn from each vertex of an edge-list graph (about twice as many
+# neighbours a vertex).
+ELL_LINKS = 4
 
 # About half a millisecond of spinning on an H100.
 SPIN_CYCLES = 1_000_000
@@ -85,3 +91,29 @@ def bank_route_model(seed=0, device="cuda", **config):
             return squared_loss(out, batch["target"])
 
     return BankRoute(SMP2DConfig(**config), seed=seed, device=device)
+
+
+class EdgeGraph:
+    """A graph kept as an edge list: unpacks as the (nVertices, edges,
+    features) tuple that ``core/prep.py:prepare_graph_sparse`` takes, and
+    can key a model's preparation memo, so that GCN_MW and
+    NeuralFingerprint on the ELL route serve and train it through the
+    model API without a [V, V] array ever being made."""
+
+    def __init__(self, n, edges, features):
+        self.nVertices, self.edges, self.feature = n, edges, features
+
+    def __iter__(self):
+        return iter((self.nVertices, self.edges, self.feature))
+
+
+def edge_graph(n: int, seed: int, nFeatures: int = 4) -> EdgeGraph:
+    """n vertices, each linked to ELL_LINKS others drawn at random (no self
+    loop, duplicates merged), one-hot features."""
+    rng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n), ELL_LINKS)
+    dst = rng.integers(0, n - 1, size=n * ELL_LINKS)
+    dst = dst + (dst >= src)
+    pairs = np.unique(np.sort(np.stack([src, dst], 1), axis=1), axis=0)
+    feats = np.eye(nFeatures)[rng.integers(0, nFeatures, size=n)]
+    return EdgeGraph(n, [tuple(map(int, e)) for e in pairs], feats)

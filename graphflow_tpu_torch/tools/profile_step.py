@@ -17,9 +17,13 @@ Usage: python -m graphflow_tpu_torch.tools.profile_step [NAME ...]
 Names: omega_f32, omega_bf16, omega_bf16_bank (the bank route over a
 materialised T, ``level_fn=risi18_bank_level``: K4 serving, K4 and K5
 training; ``tools/measure.py:bank_route_model``), ver6_f32, ver6_bf16,
-ver7_f32, ver7_bf16, and the first-order theta (SMP_theta) and
+ver7_f32, ver7_bf16, the first-order theta (SMP_theta) and
 theta_physics (SMP_theta_physics, channels 32, 16, 8, raw normal
-features; Adam) (default: all).  Needs a CUDA device.
+features; Adam), and three models without a kernel of their own, with
+Momentum: steerable (SMP_2D, uncapped: P = V = 64), gcn_3d (GCN_3D, H = 32,
+max_Radius 2) and gcn_mw_ell (GCN_MW on the ELL route at V = 4096,
+edge-list graphs of about 8 neighbours a vertex) (default: all).  Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch
 
 from graphflow_tpu_torch.tools.measure import (ADAM_LR, ER_P,
                                                FULL_WIDTH as MODEL, GRAPHS,
-                                               MOMENTUM_LR, bank_route_model)
+                                               MOMENTUM_LR, bank_route_model,
+                                               edge_graph)
 
 ROUNDS, TOP = 5, 8
 # (contraction, dtype, optimizer, learning rate, through the bank route).
@@ -51,6 +56,29 @@ CONFIGS = {
 # features in place of the one-hot ones).
 FIRST_ORDER = {"theta": ("SMP_theta", False),
                "theta_physics": ("SMP_theta_physics", True)}
+# Models without a kernel of their own (Momentum), and GCN_MW's vertices
+# on the ELL route.
+NO_KERNEL = ("steerable", "gcn_3d", "gcn_mw_ell")
+ELL_V = 4096
+
+
+def _no_kernel_family(name):
+    """(model on the card, its graphs) of a NO_KERNEL name, at
+    chip_smoke.py's phase 16 and 17 widths."""
+    from graphflow_tpu_torch import models
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    V = MODEL["max_nVertices"]
+    er = [random_graph(V, ER_P, seed=100 + i) for i in range(GRAPHS)]
+    if name == "steerable":
+        return models.SMP_2D(V, 2, MODEL["nChanels"], MODEL["nFeatures"],
+                             MODEL["nDepth"], seed=0, device="cuda"), er
+    if name == "gcn_3d":
+        return models.GCN_3D(2, V, MODEL["nFeatures"], MODEL["nChanels"],
+                             MODEL["nDepth"], 2, seed=0, device="cuda"), er
+    return (models.GCN_MW(2, ELL_V, MODEL["nFeatures"], MODEL["nChanels"], 0,
+                          seed=0, aggregation="ell", device="cuda"),
+            [edge_graph(ELL_V, 100 + i) for i in range(GRAPHS)])
 
 
 def build(name):
@@ -115,9 +143,12 @@ def profile(fn, rounds=ROUNDS):
 def report(name, out=print):
     from graphflow_tpu_torch.utils.datasets import random_graph
 
-    model, lr = build(name)
-    graphs = [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
-              for i in range(GRAPHS)]
+    if name in NO_KERNEL:
+        (model, graphs), lr = _no_kernel_family(name), MOMENTUM_LR
+    else:
+        model, lr = build(name)
+        graphs = [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
+                  for i in range(GRAPHS)]
     if FIRST_ORDER.get(name, (None, False))[1]:
         rng = np.random.default_rng(0)
         for g in graphs:
@@ -153,7 +184,7 @@ def report(name, out=print):
 
 
 def main(argv=None):
-    known = list(CONFIGS) + list(FIRST_ORDER)
+    known = list(CONFIGS) + list(FIRST_ORDER) + list(NO_KERNEL)
     names = list(sys.argv[1:] if argv is None else argv) or known
     unknown = [n for n in names if n not in known]
     if unknown:
