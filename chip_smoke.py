@@ -17,7 +17,9 @@ Phases, each reported on its own lines:
               inputs from a NumPy seed; then both versions' median
               milliseconds at the production shape and at K3's two shapes
               (64,10,20,20), (32,4,8,8), each with its bound, and at two
-              scheduled ones, per dtype;
+              scheduled ones, per dtype; last, at phase 18's field
+              (64,64,32,32), where K1 walks a vertex's rows in tiles: the
+              error, the plan, both times and the bound;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
@@ -28,7 +30,9 @@ Phases, each reported on its own lines:
               against the float32 kernels on the rounded inputs): dstate, dK
               and db; then the median milliseconds of each of K2's two
               kernels, of both together and of the plain backward at the
-              production shape, per dtype;
+              production shape, per dtype; last, kernel 1's row-tiled
+              block at (140,64,32,32), whose blocks walk two vertices,
+              for errors, and at (64,64,32,32): errors, times and bound;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
@@ -41,7 +45,9 @@ Phases, each reported on its own lines:
               by the take-gather: Z, dT and dK; then the median
               milliseconds of K4, the plain bank, K5 (both kernels and each
               alone) and the plain backward at the production shape, per
-              dtype, with the bounds of the factored functions;
+              dtype, with the bounds of the factored functions; then K4 and
+              K5 in row tiles at (140,64,32,32) for errors and at
+              (64,64,32,32) the same way;
   8. bf16     the same model in bfloat16, whose levels run the fused level
               as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
@@ -83,7 +89,9 @@ Phases, each reported on its own lines:
               float32 and bfloat16, `full` against K4 bit for bit; then
               the tool (graphflow_tpu_torch.tools.ablate_bank) prints the
               five times and the attribution at the production shape in
-              both dtypes, with K4 timed in the same rounds;
+              both dtypes, with K4 timed in the same rounds; then each
+              variant on K4's row-tiled plan at (16,64,32,32) in bfloat16:
+              error, time, plain time and bound;
  12. physics  SMP_omega_physics at full width (V=64, P=16, channels 32, 16,
               8, Coulomb adjacency with negative entries, raw features)
               serves 3 requests of 4 random graphs twice (prep uncached,
@@ -105,7 +113,7 @@ Phases, each reported on its own lines:
               equal bit for bit to the NumPy path's; host ms per graph for
               each backend; an uncached and a cached 4-graph request and
               step of SMP_omega and SMP_omega_physics with each backend,
-              in turns.  After phase 17: every graph phases 4-17 prepared
+              in turns.  After phase 18: every graph phases 4-18 prepared
               went through the native library but the sparse first-order
               route's fo_degree prep, which takes the NumPy path as in the
               JAX package, and the ELL route's prepare_graph_sparse;
@@ -139,7 +147,19 @@ Phases, each reported on its own lines:
               the ELL route matches the dense one; prepare_graph_sparse's
               host ms a graph at V = 4096.  No kernel of the seven launches
               in phases 16-17: the JAX package runs these families without
-              Pallas.
+              Pallas;
+ 18. large field  SMP_beta at V = P = 64 (no receptive-field cap), C = 32,
+              two levels, in float32 and bfloat16, and SMP_beta_physics at
+              V = 64: fields whose maps one block does not hold, which K1
+              and K2 kernel 1 walk in row tiles.  Each serves one request
+              of 4 graphs and takes one BatchLearn step (K1 and K2 counted:
+              2 levels x 3 forwards, 1 backward); the request and the first
+              loss match the same model through the plain level on the
+              card, and the gradients of the batch (256 vertices: blocks
+              of kernel 1 walk two) the sum of the plain level's per
+              graph (in float64 for a float32 model); the request's and step's walls and peak memory are
+              printed.  Then the bank route (level_fn=risi18_bank_level,
+              K4 and K5 in row tiles) at V = 64 on 3 graphs, the same way.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -196,6 +216,19 @@ KERNEL_LIBS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
 PHYSICS = dict(max_nVertices=64, max_receptive_field=16, nLevels=2,
                nChanels=32, nFeatures=4, use_coulomb=True)
 BETA = dict(max_nVertices=16, nLevels=2, nChanels=32, nFeatures=4, nDepth=5)
+# Fields beyond one block: SMP_beta and SMP_beta_physics at V = P = 64 (the
+# row-tiled K1, K2 kernel 1, K4, K5 kernel 1 and K6), phase 18; the kernel
+# phases check and time the levels' shape there (64 vertices, one graph).
+BETA64 = dict(max_nVertices=64, nLevels=2, nChanels=32, nFeatures=4, nDepth=5)
+LARGE_SHAPE = (64, 64, 32, 32)
+# SMP_beta's field on more vertices than the backward kernels' 132 vertex
+# groups, so that blocks of the row-tiled kernel 1 (K2, K5) walk two
+# vertices and carry dK, db and their buffers from one to the next; checked
+# for error, not timed.
+LARGE_MANY_SHAPE = (140, 64, 32, 32)
+# Repetitions of a plain version's timing at P = 64 (each call moves
+# gigabytes: T is 2.1 GB in float32 at LARGE_SHAPE).
+LARGE_PLAIN_REPS = 3
 # Published peaks of one H100 SXM: device memory bytes/s, and dense FLOP/s
 # for float32 outside the tensor cores and bfloat16 inside them.
 PEAK_BYTES_PER_S = 3.35e12
@@ -208,21 +241,38 @@ def log(msg: str) -> None:
 
 def check_close(what: str, got, ref, rtol: float = RTOL) -> float:
     """Max abs error of got vs ref; raises beyond rtol * max(1, max|ref|)
-    or on a non-finite value."""
+    or on a non-finite value.  In float64, on the card where both lie
+    there, 2^25 elements at a time (a gradient of T holds a billion)."""
     import torch
 
-    got = torch.as_tensor(got).detach().double().cpu()
-    ref = torch.as_tensor(ref).detach().double().cpu()
+    got = torch.as_tensor(got).detach()
+    ref = torch.as_tensor(ref).detach()
     if got.shape != ref.shape:
         raise AssertionError(f"{what}: shape {tuple(got.shape)} vs "
                              f"{tuple(ref.shape)}")
-    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
-        raise AssertionError(f"{what}: non-finite output")
-    err = float((got - ref).abs().max()) if got.numel() else 0.0
-    bound = rtol * max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
+    device = got.device if got.device == ref.device else "cpu"
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    err = scale = 0.0
+    for i in range(0, got.numel(), 1 << 25):
+        x = got[i:i + (1 << 25)].to(device).double()
+        r = ref[i:i + (1 << 25)].to(device).double()
+        if not (torch.isfinite(x).all() and torch.isfinite(r).all()):
+            raise AssertionError(f"{what}: non-finite output")
+        err = max(err, float((x - r).abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    bound = rtol * max(1.0, scale)
     if err > bound:
         raise AssertionError(f"{what}: max abs err {err:.3e} > {bound:.3e}")
     return err
+
+
+def check_rel(what: str, got, ref, rtol: float = RTOL) -> float:
+    """check_close's error as a share of its scale, max(1, max|ref|)."""
+    import torch
+
+    err = check_close(what, got, ref, rtol)
+    ref = torch.as_tensor(ref).detach()
+    return err / max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
 
 
 def nbytes(*tensors) -> int:
@@ -421,7 +471,7 @@ def synced_s(fn):
 def phase_kernel():
     import torch
     from graphflow_tpu_torch.ops.risi_level import (
-        risi18_level, risi18_level_reference)
+        level_plan, risi18_level, risi18_level_reference)
 
     errs, ms = {}, {}
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
@@ -485,6 +535,29 @@ def phase_kernel():
             log(f"phase 3 kernel: {name} N,P,C,Cout={shape} median kernel "
                 f"{time_ms(lambda: risi18_level(*sargs)):.4f} ms, plain "
                 f"{time_ms(lambda: risi18_level_reference(*sargs)):.4f} ms")
+        # SMP_beta's field at V = 64: the row-tiled block.
+        N, P, C, Cout = LARGE_SHAPE
+        largs = level_inputs(N, P, C, Cout, seed=SEED + 64, dtype=dtype)
+        lout = risi18_level(*largs)
+        torch.cuda.synchronize()
+        err = check_close(f"level {name} N={N} P={P} C={C} Cout={Cout}",
+                          lout, risi18_level_reference(*largs), rtol)
+        errs[name] = max(errs[name], err)
+        p64 = ms[name]["p64"] = {
+            "kernel": time_ms(lambda: risi18_level(*largs)),
+            "plain": time_ms(lambda: risi18_level_reference(*largs),
+                             reps=LARGE_PLAIN_REPS),
+            "bound": bound_ms(nbytes(*largs, lout), level_ops(
+                N, P, C, Cout, present_elements(largs[1], largs[2])), name),
+            "plan": level_plan(P, C, Cout, dtype)}
+        log(f"phase 3 kernel: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles: "
+            f"{p64['plan']}) max_abs_err={err:.3e} ok; median kernel "
+            f"{p64['kernel']:.4f} ms, plain {p64['plain']:.4f} ms; bound "
+            f"{p64['bound'][0]:.4f} ms by {p64['bound'][1]} "
+            f"({100 * p64['bound'][0] / p64['kernel']:.2f} % of the "
+            f"kernel's time)")
+        del largs, lout
+        torch.cuda.empty_cache()
     return errs, ms
 
 
@@ -556,8 +629,9 @@ def phase_backward():
     import torch
     from graphflow_tpu_torch.ops.risi_level import (
         _backward_finish_kernel_bf16, _backward_main_kernel,
-        _backward_reduce_kernel, risi18_level, risi18_level_backward,
-        risi18_level_backward_reference, risi18_level_reference)
+        _backward_reduce_kernel, level_backward_plan, risi18_level,
+        risi18_level_backward, risi18_level_backward_reference,
+        risi18_level_reference)
 
     def inputs(N, P, C, Cout, seed, dtype):
         g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
@@ -665,6 +739,57 @@ def phase_backward():
             both_ms = time_ms(lambda: risi18_level_backward(*sargs, sout, sg))
             log(f"phase 5 backward: {name} N,P,C,Cout={shape} median K2 "
                 f"kernel 1 {main_ms:.4f} ms, both kernels {both_ms:.4f} ms")
+        # SMP_beta's field: the row-tiled kernel 1, at V = 64 and on more
+        # vertices than it has vertex groups.
+        def check_tiled(shape, seed):
+            N, P, C, Cout = shape
+            largs, lg = inputs(N, P, C, Cout, seed, dtype)
+            lout = same_signs(risi18_level(*largs),
+                              risi18_level_reference(*largs))
+            got = risi18_level_backward(*largs, lout, lg)
+            torch.cuda.synchronize()
+            ref = risi18_level_backward_reference(*largs, lg)
+            line = []
+            for key, x, r in zip(errs[name], got, ref):
+                err = check_close(f"backward {key} {name} N={N} P={P} C={C} "
+                                  f"Cout={Cout}", x, r, rtol)
+                errs[name][key] = max(errs[name][key], err)
+                line.append(f"{key} {err:.3e}")
+            return largs, lg, lout, ", ".join(line)
+
+        line = check_tiled(LARGE_MANY_SHAPE, SEED + 140)[3]
+        log(f"phase 5 backward: {name} N,P,C,Cout={LARGE_MANY_SHAPE} (row "
+            f"tiles; more vertices than kernel 1's 132 vertex groups) "
+            f"max_abs_err {line} ok")
+        torch.cuda.empty_cache()
+        N, P, C, Cout = LARGE_SHAPE
+        largs, lg, lout, line = check_tiled(LARGE_SHAPE, SEED + 64)
+        leaves = [t.detach().requires_grad_() for t in
+                  (largs[0], largs[4], largs[5])]
+        plain_out = risi18_level_reference(leaves[0], *largs[1:4], leaves[1],
+                                           leaves[2])
+        p64 = ms[name]["p64"] = {
+            "main": time_ms(lambda: _backward_main_kernel(
+                *largs[:5], lg, lout, 0.01)),
+            "k2": time_ms(lambda: risi18_level_backward(*largs, lout, lg)),
+            "plain": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, lg, retain_graph=True),
+                reps=LARGE_PLAIN_REPS),
+            "plan": level_backward_plan(P, C, Cout, dtype)}
+        del plain_out, leaves
+        dstate, dK, db = risi18_level_backward(*largs, lout, lg)
+        p64["bound"] = bound_ms(
+            nbytes(*largs[:5], lg, lout, dstate, dK, db),
+            level_backward_ops(N, P, C, Cout,
+                               present_elements(largs[1], largs[2])), name)
+        log(f"phase 5 backward: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles:"
+            f" {p64['plan']}) max_abs_err {line} ok; median "
+            f"kernel 1 {p64['main']:.4f} ms, both kernels {p64['k2']:.4f} ms,"
+            f" plain backward {p64['plain']:.4f} ms; kernel 1's bound "
+            f"{p64['bound'][0]:.4f} ms by {p64['bound'][1]} "
+            f"({100 * p64['bound'][0] / p64['main']:.2f} % of its time)")
+        del largs, lg, lout, dstate
+        torch.cuda.empty_cache()
     return errs, ms
 
 
@@ -789,9 +914,9 @@ def bank_inputs(N, P, C, Cout, seed, dtype):
 def phase_bank():
     import torch
     from graphflow_tpu_torch.ops.risi_bank import (
-        _backward_main_kernel, _backward_reduce_kernel, risi18_bank,
-        risi18_bank_backward, risi18_bank_backward_reference,
-        risi18_bank_reference)
+        _backward_main_kernel, _backward_reduce_kernel, bank_backward_plan,
+        bank_plan, risi18_bank, risi18_bank_backward,
+        risi18_bank_backward_reference, risi18_bank_reference)
 
     errs = {"Z": 0.0, "dT": 0.0, "dK": 0.0}
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
@@ -857,6 +982,62 @@ def phase_bank():
             + ", ".join(f"{k} {m[v][0]:.4f} ms by {m[v][1]}" for k, v in (
                 ("K4", "bound"), ("K5 kernel 1", "bwd_bound"),
                 ("K5 kernel 2", "reduce_bound"))))
+
+    # SMP_beta's field on the bank route: the row-tiled K4 and K5 kernel 1
+    # at V = 64 (T is 2.1 GB in float32) and on more vertices than K5's
+    # kernel 1 has vertex groups (T 4.7 GB).
+    def check_tiled(shape, seed, dtype, rtol):
+        N, P, C, Cout = shape
+        T, A, K, g = bank_inputs(N, P, C, Cout, seed, dtype)
+        got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+        torch.cuda.synchronize()
+        ref = (risi18_bank_reference(T, A, K),
+               *risi18_bank_backward_reference(T, A, K, g))
+        line = []
+        for key, x, r in zip(errs, got, ref):
+            err = check_close(f"bank {key} N={N} P={P} C={C} Cout={Cout} "
+                              f"{dtype}", x, r, rtol)
+            errs[key] = max(errs[key], err)
+            line.append(f"{key} {err:.3e}")
+        return (T, A, K, g), got, ", ".join(line)
+
+    N, P, C, Cout = LARGE_SHAPE
+    for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
+        name = dtype_name(dtype)
+        line = check_tiled(LARGE_MANY_SHAPE, SEED + 140, dtype, rtol)[2]
+        log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_MANY_SHAPE} (row "
+            f"tiles; more vertices than K5 kernel 1's 132 vertex groups) "
+            f"max_abs_err {line} ok")
+        torch.cuda.empty_cache()
+        (T, A, K, g), got, line = check_tiled(LARGE_SHAPE, SEED + 64, dtype,
+                                              rtol)
+        Z, dT, dK = got
+        leaves = [x.detach().requires_grad_() for x in (T, K)]
+        plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
+        p64 = ms[name]["p64"] = {
+            "k4": time_ms(lambda: risi18_bank(T, A, K)),
+            "main": time_ms(lambda: _backward_main_kernel(T, A, K, g)),
+            "plain": time_ms(lambda: risi18_bank_reference(T, A, K),
+                             reps=LARGE_PLAIN_REPS),
+            "plain_bwd": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, g, retain_graph=True),
+                reps=LARGE_PLAIN_REPS),
+            "plans": (bank_plan(P, C, Cout, dtype),
+                      bank_backward_plan(P, C, Cout, dtype)),
+            "bound": bound_ms(nbytes(T, A, K, Z),
+                              bank_factored_ops(N, P, C, Cout), name),
+            "bwd_bound": bound_ms(nbytes(T, A, K, g, dT, dK),
+                                  bank_backward_factored_ops(N, P, C, Cout),
+                                  name)}
+        log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles: K4 "
+            f"{p64['plans'][0]}, K5 {p64['plans'][1]}) max_abs_err {line}"
+            f" ok; median K4 {p64['k4']:.4f} ms "
+            f"(bound {p64['bound'][0]:.4f} by {p64['bound'][1]}), K5 kernel "
+            f"1 {p64['main']:.4f} ms (bound {p64['bwd_bound'][0]:.4f} by "
+            f"{p64['bwd_bound'][1]}); plain bank {p64['plain']:.4f} ms, plain "
+            f"backward {p64['plain_bwd']:.4f} ms")
+        del T, A, K, g, got, Z, dT, dK, leaves, plain_out
+        torch.cuda.empty_cache()
     return errs, ms
 
 
@@ -1393,6 +1574,41 @@ def phase_ablate():
         raise AssertionError(f"K6 launches by mode {launches}, expected "
                              f"{expected} for each")
 
+    # SMP_beta's field: every variant on K4's row-tiled plan at P = 64, in
+    # bfloat16 (the tool's dtype), 16 vertices (T 268 MB).
+    Nl, Pl, Cl, Coutl = 16, *LARGE_SHAPE[1:]
+    T, A, K, _ = bank_inputs(Nl, Pl, Cl, Coutl, SEED + 64, torch.bfloat16)
+    bank = risi18_bank(T, A, K)
+    p64 = {}
+    for mode in MODES:
+        what = f"ablate {mode} N={Nl} P={Pl} C={Cl} Cout={Coutl} bfloat16"
+        got = risi18_bank_variant(T, A, K, mode)
+        torch.cuda.synchronize()
+        ref = risi18_bank_variant_reference(T, A, K, mode)
+        err = check_close(what, got, ref, RTOL16)
+        if mode == "full" and not torch.equal(got, bank):
+            raise AssertionError(f"{what}: differs from risi18_bank")
+        if mode == "dma" and not torch.equal(got, ref):
+            raise AssertionError(f"{what}: the copy must be exact")
+        errs[mode] = max(errs[mode], err)
+        moved = (2 * nbytes(got) if mode == "dma"
+                 else nbytes(T, A, K, got))
+        p64[mode] = {
+            "ms": time_ms(lambda: risi18_bank_variant(T, A, K, mode)),
+            "plain_ms": time_ms(lambda: risi18_bank_variant_reference(
+                T, A, K, mode), reps=LARGE_PLAIN_REPS),
+            "bound": bound_ms(moved, bank_variant_ops(mode, Nl, Pl, Cl,
+                                                      Coutl), "bfloat16"),
+            "max_abs_err": err}
+    log(f"phase 11 ablate: bfloat16 N,P,C,Cout={(Nl, Pl, Cl, Coutl)} (K4's "
+        f"row tiles) " + ", ".join(
+            f"{m} err {v['max_abs_err']:.3e}, {v['ms']:.4f} ms (plain "
+            f"{v['plain_ms']:.4f}, bound {v['bound'][0]:.4f} by "
+            f"{v['bound'][1]})" for m, v in p64.items()) + "; full == K4 "
+        "exactly, dma exact ok")
+    del T, A, K, bank
+    torch.cuda.empty_cache()
+
     # Per variant, bfloat16: the plain version's time, the bound, and for
     # dma the one PyTorch call that computes the same function (a copy).
     T, A, K = ablate_bank.make_inputs(B, P, C, torch.bfloat16)
@@ -1428,6 +1644,12 @@ def phase_ablate():
         f"streaming all of T once, which dma's kernel does and its function "
         f"does not need, {stream_floor[0]:.4f} ms; one strided copy for dma "
         f"{extra['dma']['library_ms']:.4f} ms; launches by mode {launches}")
+    for mode in MODES:
+        extra[mode]["p64"] = {"shape": [Nl, Pl, Cl, Coutl],
+                              "dtype": "bfloat16", "ms": p64[mode]["ms"],
+                              "plain_ms": p64[mode]["plain_ms"],
+                              "bound_ms": p64[mode]["bound"][0],
+                              "bound_by": p64[mode]["bound"][1]}
     return errs, tables, launches, extra
 
 
@@ -2233,6 +2455,185 @@ def phase_gcn():
         f"runs this family without Pallas); {time.perf_counter() - t0:.1f} s")
 
 
+def phase_large_field():
+    """Phase 18: SMP_beta, whose receptive field is the whole graph, at
+    V = P = 64 and full width (C = 32, two levels), in float32 and bfloat16,
+    then SMP_beta_physics at V = 64 and the bank route at V = 64: fields
+    whose maps one block does not hold, which the level kernels walk in row
+    tiles.  Each model serves one request of 4 graphs (the bank route 3)
+    and takes one BatchLearn step, counted; the request and the step's loss against the
+    same model through the plain level on the card (its T is 8.6 GB in
+    float32 at 4 graphs), the gradients of the batch against the sum of the
+    plain level's per graph (its backward on 4 graphs would hold several
+    times that)."""
+    import torch
+    from graphflow_tpu_torch.models import (SMP2D, SMP2DConfig, SMPPhysics,
+                                            SMP_beta_physics)
+    from graphflow_tpu_torch.models.smp2d import (
+        fused_level, risi18_bank_level, risi18_bank_level_reference,
+        smp2d_forward)
+    from graphflow_tpu_torch.ops.losses import squared_loss
+    from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
+                                                   risi18_bank_backward)
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    V, nL = BETA64["max_nVertices"], BETA64["nLevels"]
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    result = {"k1": 0, "k2": [0, 0], "k4": 0, "k5": [0, 0], "err": 0.0,
+              "bank_err": 0.0}
+
+    def beta(dtype):
+        return SMP2D(SMP2DConfig(**BETA64, max_receptive_field=None,
+                                 dtype=dtype), seed=SEED, device="cuda")
+
+    def forward_of(model, level_fn):
+        if isinstance(model, SMPPhysics):
+            return lambda batch: model._forward(model.params, batch,
+                                                level_fn=level_fn)[0]
+        return lambda batch: smp2d_forward(model.params, batch, model.cfg,
+                                           level_fn=level_fn)[0]
+
+    def run(label, model, fresh, graphs, rtol, kernel_fn=fused_level,
+            plain_fn=risi18_level_reference, bank=False):
+        """Serve and step, counted; then the checks on a fresh copy."""
+        if model.cfg.P != V:
+            raise AssertionError(f"{label}: P={model.cfg.P}, expected {V}")
+        reset_level_counts()
+        risi18_bank.launches = 0
+        risi18_bank_backward.launches = 0
+        risi18_bank_backward.reduce_launches = 0
+        tgts = targets[:len(graphs)]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pred, req_s = synced_s(lambda: model.Threaded_Predict(graphs))
+        step, step_s = synced_s(lambda: model.BatchLearn(graphs, tgts,
+                                                         TRAIN_LR))
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        levels = level_counts()
+        banks = (risi18_bank.launches, risi18_bank_backward.launches,
+                 risi18_bank_backward.reduce_launches)
+        # A request: one forward; a step: a forward with its backward, then
+        # the loss-only forward of loss_after.
+        want = (3 * nL, nL, nL)
+        got, other = (banks, levels) if bank else (levels, banks)
+        if got != want or any(other):
+            raise AssertionError(
+                f"{label}: launches (forward, backward kernel 1, kernel 2) "
+                f"{got}, expected {want}; the other route {other}")
+        if not np.isfinite(step).all() or pred.shape != (len(graphs),):
+            raise AssertionError(f"{label}: request {pred.shape}, step "
+                                 f"{step}")
+        # The checks: the untrained copy through the plain level; errors
+        # as a share of each check's scale.
+        batch = fresh._stack(graphs, tgts)
+        with torch.no_grad():
+            ref = forward_of(fresh, plain_fn)(batch)
+            err = check_rel(f"{label} request", pred, ref, rtol)
+            ref_loss = squared_loss(ref, batch["target"])
+            err = max(err, check_rel(f"{label} first step loss", step[0],
+                                     ref_loss, rtol))
+        del ref
+        torch.cuda.empty_cache()
+        # The step's gradients, on every graph of the batch through the
+        # kernels (blocks of kernel 1 walk several vertices), against the
+        # sum of the plain level's per graph (the loss is a sum over
+        # graphs; the plain backward of the whole batch would hold several
+        # times its 8.6 GB T).  A float32 model's plain gradients are taken
+        # in float64 as well, and held against: the plain level in float32
+        # can put an output near zero on the other side of LeakyReLU's kink
+        # than the kernels and float64 do, which moves every gradient
+        # upstream of it; its distance from float64 is printed.
+        params = fresh.param_dict()
+
+        def grads_of(fn, which):
+            one = fresh._stack([graphs[i] for i in which],
+                               [tgts[i] for i in which])
+            loss = squared_loss(forward_of(fresh, fn)(one), one["target"])
+            return torch.autograd.grad(loss,
+                                       list(fresh.param_dict().values()))
+
+        def plain_sum():
+            total = [torch.zeros_like(x, dtype=torch.float64)
+                     for x in kgrads]
+            for i in range(len(graphs)):
+                for r, x in zip(total, grads_of(plain_fn, [i])):
+                    r += x.double()
+                torch.cuda.empty_cache()
+            return total
+
+        kgrads = grads_of(kernel_fn, range(len(graphs)))
+        in_f32 = fresh.dtype == torch.float32
+        pgrads = plain_sum()
+        drift = ""
+        if in_f32:
+            plain32 = pgrads
+            fresh.double()
+            pgrads = plain_sum()
+            drift = (f"; the plain float32 level's gradients against "
+                     f"float64: " + "%.3e" % max(
+                         float((x - r).abs().max()) / max(
+                             1.0, float(r.abs().max()))
+                         for x, r in zip(plain32, pgrads))
+                     + " of max(1,max|float64|)")
+            del plain32
+        for path, x, r in zip(params, kgrads, pgrads):
+            err = max(err, check_rel(
+                f"{label} gradient {path} ({len(graphs)} graphs, plain "
+                f"{'float64' if in_f32 else 'bfloat16'})", x, r, rtol))
+        del kgrads, pgrads
+        torch.cuda.empty_cache()
+        key = "bank_err" if bank else "err"
+        result[key] = max(result[key], err)
+        if bank:
+            result["k4"] += got[0]
+            result["k5"] = [result["k5"][0] + got[1],
+                            result["k5"][1] + got[2]]
+        else:
+            result["k1"] += got[0]
+            result["k2"] = [result["k2"][0] + got[1],
+                            result["k2"][1] + got[2]]
+        log(f"phase 18 large field: {label} V=P={V} C={BETA64['nChanels']} "
+            f"predictions {np.round(pred, 4).tolist()}, BatchLearn "
+            f"({step[0]:.6f}, {step[1]:.6f}); launches {got} (= {nL} levels "
+            f"x 3 forwards, 1 backward); request {1e3 * req_s:.1f} ms, step "
+            f"(prep uncached) {1e3 * step_s:.1f} ms (host clock, synced); "
+            f"peak device memory of the request and step {peak:.1f} MB above "
+            f"{base / 1e6:.1f} MB held; max err vs plain (request, first "
+            f"loss, {len(params)} gradients of the batch against the sum "
+            f"per graph) {err:.3e} of max(1,max|plain|) (bound {rtol:g}) "
+            f"ok{drift}")
+
+    graphs = [random_graph(V, ER_P, seed=1800 + i)
+              for i in range(GRAPHS_PER_REQUEST)]
+    for dtype, rtol in (("float32", RTOL), ("bfloat16", RTOL16)):
+        run(f"SMP_beta {dtype}", beta(dtype), beta(dtype), graphs, rtol)
+    pgraphs = [physics_graph(V, 1900 + i) for i in range(GRAPHS_PER_REQUEST)]
+
+    def physics():
+        return SMP_beta_physics(max_nVertices=V, nLevels=nL,
+                                nChanels=BETA64["nChanels"],
+                                nFeatures=PHYSICS["nFeatures"],
+                                use_coulomb=True, seed=SEED, device="cuda")
+
+    # (The physics model's own level for the kernels: level_fn=None.)
+    run("SMP_beta_physics float32", physics(), physics(), pgraphs, RTOL,
+        kernel_fn=None)
+
+    # The bank route: the take-gather into T (6.4 GB at three graphs in
+    # float32, 192 vertices: more than K5 kernel 1's 132 vertex groups),
+    # then K4 and K5.
+    def bank_model():
+        return bank_route_model(seed=SEED, device="cuda", **BETA64,
+                                max_receptive_field=None)
+
+    run("SMP_beta bank route float32", bank_model(), bank_model(),
+        graphs[:3], RTOL, kernel_fn=risi18_bank_level,
+        plain_fn=risi18_bank_level_reference, bank=True)
+    return result
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -2261,14 +2662,15 @@ def main() -> None:
     phase_first_order()
     phase_steerable()
     phase_gcn()
+    large = phase_large_field()
     routes = dict(prep.ROUTES)
     if set(routes) - {"native", "numpy_fo_degree", "sparse"} or not (
             routes.get("native") and routes.get("sparse")):
-        raise AssertionError(f"phases 4-17 prepared graphs by routes "
+        raise AssertionError(f"phases 4-18 prepared graphs by routes "
                              f"{routes}: every one must be native but the "
                              f"sparse first-order route's fo_degree prep "
                              f"and the ELL route's prepare_graph_sparse")
-    log(f"phase 13 native prep: phases 4-17 prepared {routes['native']} "
+    log(f"phase 13 native prep: phases 4-18 prepared {routes['native']} "
         f"graphs natively, {routes.get('numpy_fo_degree', 0)} on the NumPy "
         f"path with fo_degree (the sparse first-order route, NumPy in the "
         f"JAX package too) and {routes['sparse']} by prepare_graph_sparse "
@@ -2297,11 +2699,24 @@ def main() -> None:
 
     # K1, K2, K4, K5 and K7: ms, plain_ms and bound_ms in float32 with the
     # bfloat16 ones beside; launches and max_abs_err cover both dtypes.
+    # The row-tiled kernels add their times at SMP_beta's field (P = 64)
+    # as "p64", per dtype, and phase 18's largest error of the models there
+    # as a share of its scale, max(1, max|plain|), as "max_rel_err_p64"
+    # (random weights give outputs of ~1e3 and losses of ~1e6-1e10).
     f32, b16 = "float32", "bfloat16"
+
+    def p64(per_dtype, ms_key, plain_key, bound_key="bound"):
+        return {"shape": list(LARGE_SHAPE), **{d: {
+            "ms": per_dtype[d]["p64"][ms_key],
+            "plain_ms": per_dtype[d]["p64"][plain_key],
+            "bound_ms": per_dtype[d]["p64"][bound_key][0],
+            "bound_by": per_dtype[d]["p64"][bound_key][1]}
+            for d in (f32, b16)}}
+
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
                serve_launches + train_launches[0] + physics_k1 + bf16["k1"]
-               + bucketed[0],
+               + bucketed[0] + large["k1"],
                max(*level_errs.values(), slice_err, physics_err, bf16["err"],
                    bucket_err),
                level_ms[f32]["kernel"], level_ms[f32]["plain"],
@@ -2314,21 +2729,25 @@ def main() -> None:
                                       "bound_by": t["bound"][1]}
                               for shape, t in level_ms[d]["k3"].items()}
                           for d in (f32, b16)},
-               launches_bucketed=bucketed[0]),
+               launches_bucketed=bucketed[0], launches_p64=large["k1"],
+               max_rel_err_p64=large["err"],
+               p64=p64(level_ms, "kernel", "plain")),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
                train_launches[1] + physics_k2[0] + bf16["k2"][0]
-               + bucketed[1],
+               + bucketed[1] + large["k2"][0],
                max(bwd_errs[f32]["dstate"], bwd_errs[b16]["dstate"],
                    train_err, physics_err, bf16["err"], bucket_err),
                bwd_ms[f32]["main"], bwd_ms[f32]["plain"],
                bwd_ms[f32]["bound"],
                **in_bf16(bwd_ms[b16]["main"], bwd_ms[b16]["plain"],
-                         bwd_ms[b16]["bound"])),
+                         bwd_ms[b16]["bound"]),
+               launches_p64=large["k2"][0], max_rel_err_p64=large["err"],
+               p64=p64(bwd_ms, "main", "plain")),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
                train_launches[2] + physics_k2[1] + bf16["k2"][1]
-               + bucketed[2],
+               + bucketed[2] + large["k2"][1],
                max(bwd_errs[d][k] for d in (f32, b16) for k in ("dK", "db")),
                bwd_ms[f32]["reduce"], bwd_ms[f32]["plain_reduce"],
                bwd_ms[f32]["reduce_bound"],
@@ -2336,19 +2755,27 @@ def main() -> None:
                **in_bf16(bwd_ms[b16]["reduce"], bwd_ms[b16]["plain_reduce"],
                          bwd_ms[b16]["reduce_bound"])),
         kernel("risi18_bank_kernel", "risi18_bank.cu", bank + "142",
-               bf16["k4"], max(bank_errs["Z"], bf16["bank_err"]),
+               bf16["k4"] + large["k4"],
+               max(bank_errs["Z"], bf16["bank_err"]),
                bank_ms[f32]["k4"], bank_ms[f32]["plain"],
                bank_ms[f32]["bound"],
                **in_bf16(bank_ms[b16]["k4"], bank_ms[b16]["plain"],
-                         bank_ms[b16]["bound"])),
+                         bank_ms[b16]["bound"]),
+               launches_p64=large["k4"], max_rel_err_p64=large["bank_err"],
+               p64=p64(bank_ms, "k4", "plain")),
         kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
-               bf16["k5"][0], max(bank_errs["dT"], bf16["bank_err"]),
+               bf16["k5"][0] + large["k5"][0],
+               max(bank_errs["dT"], bf16["bank_err"]),
                bank_ms[f32]["main"], bank_ms[f32]["plain_bwd"],
                bank_ms[f32]["bwd_bound"],
                **in_bf16(bank_ms[b16]["main"], bank_ms[b16]["plain_bwd"],
-                         bank_ms[b16]["bwd_bound"])),
+                         bank_ms[b16]["bwd_bound"]),
+               launches_p64=large["k5"][0],
+               max_rel_err_p64=large["bank_err"],
+               p64=p64(bank_ms, "main", "plain_bwd", "bwd_bound")),
         kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
-               bank + "330", bf16["k5"][1], bank_errs["dK"],
+               bank + "330", bf16["k5"][1] + large["k5"][1],
+               bank_errs["dK"],
                bank_ms[f32]["reduce"], bank_ms[f32]["plain_reduce"],
                bank_ms[f32]["reduce_bound"],
                library_ms=bank_ms[f32]["plain_reduce"],
@@ -2372,7 +2799,8 @@ def main() -> None:
     # dma also names the floor of streaming all of T, which its kernel does
     # by design; full the bound of its float32 inputs.
     for mode, extra in ablate_extra.items():
-        more = {"ms_float32": ablate_tables["float32"][0][mode]}
+        more = {"ms_float32": ablate_tables["float32"][0][mode],
+                "p64": extra["p64"]}
         if "stream_floor_ms" in extra:
             more["stream_floor_ms"] = extra["stream_floor_ms"]
         if "bound_float32" in extra:

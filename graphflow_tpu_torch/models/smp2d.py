@@ -410,9 +410,10 @@ def SMP_omega(max_nVertices, max_receptive_field, nLevels, nChanels,
 def SMP_beta(max_nVertices, nLevels, nChanels, nFeatures, nDepth,
              use_coulomb=False, seed=0, device=None) -> SMP2D:
     """``SMP_beta.h:199-208``: omega without the receptive-field cap, so
-    P = max_nVertices.  The level kernels keep a vertex's [P*P, Cout] maps
-    in one block's shared memory and refuse a field that does not fit
-    (``ops/risi_level.py:check_smem``)."""
+    P = max_nVertices.  Where a vertex's [P*P, Cout] maps do not fit one
+    block's shared memory (P >= 36 forward, >= 33 backward at Cout = 32)
+    the level kernels walk its rows in tiles; a field too large even for
+    tiles of one row is refused (``ops/risi_level.py:check_smem``)."""
     return SMP2D(SMP2DConfig(
         max_nVertices=max_nVertices, max_receptive_field=None,
         nLevels=nLevels, nChanels=nChanels, nFeatures=nFeatures,

@@ -24,8 +24,10 @@
 //      is a multiple of 16, else in register tiles on the CUDA cores; W, U
 //      and s accumulate over the chunks, and the adjacency is applied once
 //      per vertex, in the epilogue.
-// Z is rounded to T's type once.  T is already zero where a slot or a
-// position is absent, so nothing is listed or zero-filled: every slot is
+// A field whose maps do not fit one block takes K1's row-tiled block
+// (forward_block_tiled, risi18_level.cu), streaming T's rows a piece at a
+// time.  Z is rounded to T's type once.  T is already zero where a slot or
+// a position is absent, so nothing is listed or zero-filled: every slot is
 // streamed, and an empty vertex gives Z = 0.  The ablation variants
 // (risi18_bank_ablate.cu) instantiate the same block with a part left out.
 // ops/risi_bank.py:risi18_bank_factored_reference is this algebra in plain
@@ -66,6 +68,16 @@ risi18_bank_kernel(const E* __restrict__ T, const float* __restrict__ A,
                                                nullptr, Z, N, L, 0.f);
 }
 
+// The bank on a row-tiled plan (fields from 36 rows at Cout = 32).
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_bank_tiled_kernel(const E* __restrict__ T, const float* __restrict__ A,
+                         const E* __restrict__ K, E* __restrict__ Z, int N,
+                         ForwardPlan L) {
+  lv::forward_block_tiled<E, lv::kBank>(T, nullptr, nullptr, A, K, nullptr,
+                                        Z, N, L, 0.f);
+}
+
 template <typename E>
 int launch(const void* T, const void* A, const void* K, void* Z, int N,
            int P, int C, int Cout, void* stream) {
@@ -75,9 +87,10 @@ int launch(const void* T, const void* A, const void* K, void* Z, int N,
       P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
   if (L.words == 0) return cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.sp.wide ? risi18_bank_kernel<E, false, true>
-                : L.mma   ? risi18_bank_kernel<E, true, false>
-                          : risi18_bank_kernel<E, false, false>;
+  auto kernel = L.tiled   ? risi18_bank_tiled_kernel<E>
+                : L.sp.wide ? risi18_bank_kernel<E, false, true>
+                : L.mma     ? risi18_bank_kernel<E, true, false>
+                            : risi18_bank_kernel<E, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -107,9 +120,20 @@ int risi18_bank_forward_bf16(const void* T, const void* A, const void* K,
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
-// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs) in
+// row tiles of one row.
 long long risi18_bank_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, false);
+}
+
+// The plan the launcher takes (as risi18_level_plan of risi18_level.cu).
+int risi18_bank_plan(int P, int C, int Cout, int bf16, int* plan) {
+  const lv::ForwardPlan L = lv::choose_forward_plan(
+      P, C, Cout, bf16 ? 2 : 4, 16, false);
+  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
+  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
+  plan[6] = lv::pieces(L.sp);
+  return L.words == 0;
 }
 
 #ifdef RISI18_STAGE_CLOCK

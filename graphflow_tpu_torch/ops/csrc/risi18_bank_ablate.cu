@@ -34,8 +34,8 @@
 //             pays a pass that writes the sums in their place).
 // The TPU kernel's selector constants do not carry over: each variant is the
 // function tools/ablate_bank.py:variant returns for its mode.  Every variant
-// but full takes the plans whose streams keep their cells in registers
-// (fields of up to 32 rows); full is K4 and takes every plan K4 takes.
+// takes every plan K4 takes: a wide stream (fields of 33 to 35 rows at
+// Cout = 32) and a row-tiled block (from 36 rows) included.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,23 +59,29 @@ __host__ __device__ constexpr int part_of(int mode) {
                                : lv::kBank;
 }
 
-template <typename E, int kMode, bool kMma, bool kWide>
+// kTiled: K4's plan is row-tiled (forward_block_tiled, dma_block_tiled).
+template <typename E, int kMode, bool kMma, bool kWide, bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_ablate_kernel(const E* __restrict__ T, const float* __restrict__ A,
                           const E* __restrict__ K, E* __restrict__ Z,
                           float* __restrict__ sink, int N, ForwardPlan L) {
-  if constexpr (kMode == kModeDma)
+  if constexpr (kMode == kModeDma && kTiled)
+    lv::dma_block_tiled<E>(T, Z, sink, L);
+  else if constexpr (kMode == kModeDma)
     lv::dma_block<E>(T, Z, sink, L);
+  else if constexpr (kTiled)
+    lv::forward_block_tiled<E, part_of(kMode)>(T, nullptr, nullptr, A, K,
+                                               nullptr, Z, N, L, 0.f);
   else
     lv::forward_block<E, kMma, kWide, part_of(kMode)>(
         T, nullptr, nullptr, A, K, nullptr, Z, N, L, 0.f);
 }
 
-template <typename E, int kMode, bool kMma, bool kWide>
+template <typename E, int kMode, bool kMma, bool kWide, bool kTiled>
 int launch_kernel(const E* T, const float* A, const E* K, E* Z, float* sink,
                   int N, const ForwardPlan& L, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = risi18_bank_ablate_kernel<E, kMode, kMma, kWide>;
+  auto kernel = risi18_bank_ablate_kernel<E, kMode, kMma, kWide, kTiled>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -84,24 +90,26 @@ int launch_kernel(const E* T, const float* A, const E* K, E* Z, float* sink,
   return cudaGetLastError();
 }
 
-// Variant kMode on K4's plan L: dma's one kernel; K4's kernel choice for
-// full; the others refuse a wide stream.
+// Variant kMode on K4's plan L, with K4's kernel choice: a row-tiled
+// block, a wide stream, the tensor cores or the CUDA cores (dma: the
+// tiled or the whole-slot ring).
 template <typename E, int kMode>
 int launch_mode(const E* T, const float* A, const E* K, E* Z, float* sink,
                 int N, const ForwardPlan& L, cudaStream_t stream) {
+  if (L.tiled)
+    return launch_kernel<E, kMode, false, false, true>(T, A, K, Z, sink, N,
+                                                       L, stream);
   if constexpr (kMode == kModeDma) {
-    return launch_kernel<E, kMode, false, false>(T, A, K, Z, sink, N, L,
-                                                 stream);
+    return launch_kernel<E, kMode, false, false, false>(T, A, K, Z, sink, N,
+                                                        L, stream);
   } else {
-    if (!L.sp.wide)
-      return L.mma ? launch_kernel<E, kMode, true, false>(T, A, K, Z, sink,
-                                                          N, L, stream)
-                   : launch_kernel<E, kMode, false, false>(T, A, K, Z, sink,
-                                                           N, L, stream);
-    if constexpr (kMode == kModeFull)
-      return launch_kernel<E, kMode, false, true>(T, A, K, Z, sink, N, L,
-                                                  stream);
-    return cudaErrorInvalidValue;
+    if (L.sp.wide)
+      return launch_kernel<E, kMode, false, true, false>(T, A, K, Z, sink,
+                                                         N, L, stream);
+    return L.mma ? launch_kernel<E, kMode, true, false, false>(
+                       T, A, K, Z, sink, N, L, stream)
+                 : launch_kernel<E, kMode, false, false, false>(
+                       T, A, K, Z, sink, N, L, stream);
   }
 }
 
@@ -156,7 +164,8 @@ int risi18_bank_ablate_bf16(const void* T, const void* A, const void* K,
   return launch<__nv_bfloat16>(T, A, K, Z, sink, N, P, C, Cout, mode, stream);
 }
 
-// The least shared memory one block needs: K4's (risi18_bank.cu).
+// The least shared memory one block needs: K4's (risi18_bank.cu), in row
+// tiles of one row.
 long long risi18_bank_ablate_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, false);
 }

@@ -38,6 +38,10 @@
 // holds every output channel (one panel), since a chunk's dT needs all of
 // their cotangents.  The partial rows of dK are summed in a fixed order, and
 // every dT element has one writer: dT and dK are the same from run to run.
+// A field whose G and maps do not fit one block takes K2's row-tiled block
+// (backward_block_tiled): it writes dT[Xa, Xb, :] of each pair of row
+// tiles whole, in a fixed order, so dT stays written once without atomics
+// (risi18_backward_block.cuh).
 // Kernel 2 (sum_partial_rows) sums the groups' partial rows into dK.  All
 // sums are in float32; bfloat16 is converted once on load and rounded once
 // on store.
@@ -75,6 +79,19 @@ risi18_bank_bwd_kernel(const E* __restrict__ T, const float* __restrict__ A,
                                      nullptr, dT, partial, N, L, 0.f);
 }
 
+// Kernel 1 on a row-tiled plan (fields from 33 rows at Cout = 32).
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
+                             const float* __restrict__ A,
+                             const E* __restrict__ K,
+                             const E* __restrict__ gout, E* __restrict__ dT,
+                             float* __restrict__ partial, int N,
+                             BackwardPlan L) {
+  lv::backward_block_tiled<E, false>(T, nullptr, nullptr, A, K, gout,
+                                     nullptr, dT, partial, N, L, 0.f);
+}
+
 template <typename E>
 int launch(const void* T, const void* A, const void* K, const void* g,
            void* dT, void* partial, int N, int P, int C, int Cout,
@@ -87,8 +104,9 @@ int launch(const void* T, const void* A, const void* K, const void* g,
   if (L.words == 0) return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(dT) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.mma ? risi18_bank_bwd_kernel<E, true>
-                      : risi18_bank_bwd_kernel<E, false>;
+  auto kernel = L.tiled ? risi18_bank_bwd_tiled_kernel<E>
+                : L.mma ? risi18_bank_bwd_kernel<E, true>
+                        : risi18_bank_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -141,9 +159,21 @@ int risi18_bank_backward_reduce(const void* partial, void* dK, int nblocks,
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
-// (a chunk of one, the shallowest ring, all of Cout in one panel).
+// (a chunk of one, the shallowest ring, all of Cout in one panel) in row
+// tiles of one row.
 long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, false);
+}
+
+// The plan kernel 1 takes (as risi18_level_backward_plan of
+// risi18_level_bwd.cu).
+int risi18_bank_backward_plan(int P, int C, int Cout, int bf16, int* plan) {
+  const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
+                                                  16, false);
+  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
+  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
+  plan[6] = lv::pieces(L.sp);
+  return L.words == 0;
 }
 
 #ifdef RISI18_STAGE_CLOCK

@@ -27,7 +27,6 @@
 namespace risi18 {
 
 constexpr int kCases = 18;
-constexpr int kThreads = 256;                    // sum_partial_rows' blocks
 constexpr size_t kMaxSmemBytes = 232448;         // per block on sm_90
 
 // -- element types ----------------------------------------------------------
@@ -88,25 +87,86 @@ __device__ inline void load_vertex(const int* __restrict__ nbr,
   load_adjacency(radj, v, P, ALD, Ap, R, scal);
 }
 
+// -- kernel 2: the sum of the partial rows ----------------------------------
+//
 // out[i] (i < nK) or db[i - nK] = the sum of column i over the nparts
-// partial rows of width W (db may be null when W == nK).
-__global__ void __launch_bounds__(kThreads)
+// partial rows of width W (db may be null when W == nK).  The rows are
+// kernel 1's, written just before and read from L2 (9.7 MB at N = 256,
+// C = Cout = 32: 132 rows of 18464 columns).  A block takes 64 columns,
+// two a lane with 8-byte loads; its kSumWarps warps take the rows in
+// contiguous shares (warp w the rows [w * per, (w + 1) * per)), each lane
+// adding its share into kSumAcc accumulators in turn, so that kSumAcc
+// loads of a thread are in flight; then the first warp adds the shares of
+// each column in warp order from shared memory.  One launch, no atomics:
+// the sums are the same from run to run.  (It was one thread a column
+// summing every row in turn: 37 blocks on 132 SMs, each thread a chain of
+// 132 dependent loads.)  Of the geometries timed on an H100 (two or four
+// columns a lane, 2 to 32 warps, 4 or 8 accumulators) this one was the
+// fastest at every width; what remains is mostly the launch (a block
+// that reads almost nothing takes 0.0058 ms so timed).
+constexpr int kSumWarps = 16;   // warps of a block, a share of the rows each
+constexpr int kSumAcc = 4;      // accumulators (loads in flight) a thread
+constexpr int kSumCols = 64;    // columns of a block, two a lane
+
+__global__ void __launch_bounds__(32 * kSumWarps)
 sum_partial_rows(const float* __restrict__ partial, int nparts, int W,
                  int nK, float* __restrict__ out, float* __restrict__ db) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W) return;
-  float s = 0.f;
-  for (int p = 0; p < nparts; ++p) s += partial[(size_t)p * W + i];
-  if (i < nK) out[i] = s; else db[i - nK] = s;
+  __shared__ float2 share[kSumWarps][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int col = blockIdx.x * kSumCols + 2 * lane;
+  const int per = (nparts + kSumWarps - 1) / kSumWarps;
+  const int p0 = warp * per, p1 = min(nparts, p0 + per);
+  auto add = [](float2& a, const float2& x) { a.x += x.x; a.y += x.y; };
+  float2 acc[kSumAcc];
+#pragma unroll
+  for (int k = 0; k < kSumAcc; ++k) acc[k] = make_float2(0.f, 0.f);
+  if (col < W) {
+    const float* at = partial + col;
+    const bool vec = W % 2 == 0;   // rows 8-byte aligned: one load a row
+    auto load = [&](int p) {
+      const float* row = at + (size_t)p * W;
+      if (vec) return __ldg(reinterpret_cast<const float2*>(row));
+      return make_float2(__ldg(row), col + 1 < W ? __ldg(row + 1) : 0.f);
+    };
+    int p = p0;
+    for (; p + kSumAcc <= p1; p += kSumAcc) {
+      float2 x[kSumAcc];
+#pragma unroll
+      for (int k = 0; k < kSumAcc; ++k) x[k] = load(p + k);
+#pragma unroll
+      for (int k = 0; k < kSumAcc; ++k) add(acc[k], x[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kSumAcc; ++k)
+      if (p + k < p1) add(acc[k], load(p + k));
+  }
+#pragma unroll
+  for (int m = kSumAcc / 2; m > 0; m /= 2)
+#pragma unroll
+    for (int k = 0; k < m; ++k) add(acc[k], acc[k + m]);
+  share[warp][lane] = acc[0];
+  __syncthreads();
+  if (warp == 0 && col < W) {
+    float2 t = share[0][lane];
+    for (int w = 1; w < kSumWarps; ++w) add(t, share[w][lane]);
+    if (col + 1 < nK) {
+      *reinterpret_cast<float2*>(out + col) = t;   // nK is even: 18 C Cout
+    } else {
+      for (int i = 0; i < 2 && col + i < W; ++i) {
+        const float v = i ? t.y : t.x;
+        if (col + i < nK) out[col + i] = v; else db[col + i - nK] = v;
+      }
+    }
+  }
 }
 
 // Launches sum_partial_rows over W columns; returns a cudaError_t.
 inline int launch_sum_partial_rows(const float* partial, int nparts, int W,
                                    int nK, float* out, float* db,
                                    cudaStream_t stream) {
-  const int grid = (W + kThreads - 1) / kThreads;
-  sum_partial_rows<<<grid, kThreads, 0, stream>>>(partial, nparts, W, nK,
-                                                  out, db);
+  const int grid = (W + kSumCols - 1) / kSumCols;
+  sum_partial_rows<<<grid, 32 * kSumWarps, 0, stream>>>(partial, nparts, W,
+                                                        nK, out, db);
   return cudaGetLastError();
 }
 

@@ -5,7 +5,8 @@
 // its algebra are described in risi18_level.cu.  K1 streams its slots
 // gathered from the state, K4 and K6 from T (risi18_level_common.cuh:
 // GatheredSlots, StoredSlots); K1 adds the bias and LeakyReLU in the
-// epilogue, K4 writes Z as it is.
+// epilogue, K4 writes Z as it is.  forward_block_tiled is the same
+// function for a field whose maps do not fit one block, in row tiles.
 
 #pragma once
 
@@ -47,22 +48,27 @@ struct ForwardPlan {
                // ring and the maps, which are dead when the accumulators are
                // written out.  0: register tiles of 8 rows x 4 outputs on
                // the CUDA cores, added to Zs and Ws once per chunk.
-  int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, words;
+  int tiled;   // 1: the rows of Z are walked in tiles of sp.rows rows
+               // (forward_block_tiled), the products on the CUDA cores
+  int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, part,
+      words;
 };
 
 // `gather`: the block gathers its slots (K1) and keeps the vertex's
 // neighbour ids, positions and listed slots; else they take no room.
+// `rows`: the rows of a row tile (a tiled plan), 0 for none.
 inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
                                      int Co, int es, int aligned,
-                                     bool gather) {
+                                     bool gather, int rows = 0, int G = 1) {
   ForwardPlan L;
-  L.sp = make_stream_plan(P, C, Cc, D, es, aligned);
+  L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
   L.Cout = Cout; L.Co = Co; L.ZLD = round_up(Co, 4); L.ALD = P + 1;
-  const int zw = P * P * L.ZLD, stream = stream_words(L.sp);
+  L.tiled = rows > 0;
+  const int zw = L.sp.rows * P * L.ZLD, stream = stream_words(L.sp);
   // The tensor cores take 16-channel chunks of 16-row tiles, a warp a tile,
   // and up to four 8-wide tiles of outputs (which rules out a wide stream:
   // its chunks have four channels).
-  L.mma = L.sp.ncp == 16 && (P * P) % 16 == 0 &&
+  L.mma = !L.tiled && L.sp.ncp == 16 && (P * P) % 16 == 0 &&
           P * P / 16 <= kThreads / 32 && L.ZLD % 8 == 0 && L.ZLD <= 32 &&
           2 * zw <= stream;
   // Rows of K two words further apart than a multiple of eight: the four
@@ -80,16 +86,21 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
   L.ks = take(kCases * L.sp.ncp * L.KLD);
   L.zs = L.mma ? L.stream : take(zw);
   L.ws = L.mma ? L.stream + zw : take(zw);
-  L.us = take(P * L.ZLD);
+  L.us = take(L.sp.rows * L.ZLD);
   L.ss = take(L.ZLD);
+  L.part = take(L.tiled ? kTilePartWords : 0);
   L.words = w;
   return L;
 }
 
+
 // The plan that fits one block with the widest panel, then the largest
 // chunk, then the deepest ring; one whose stream keeps a thread's cells in
 // registers before a wide one (a field of more than 32 rows has only wide
-// ones); words == 0 if none fits.
+// ones).  Where no plan keeps all P*P rows of the maps (from P = 36 at
+// Cout = 32), a row-tiled one: the widest panel, then the most rows a tile,
+// then the largest chunk, the most pieces a ring buffer and the deepest
+// ring.  words == 0 if none fits.
 inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
                                        int aligned, bool gather) {
   for (int wide = 0; wide <= 1; ++wide) {
@@ -107,17 +118,34 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
       if (Co <= 4) break;
     }
   }
+  for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
+    for (int rows : kTileRows) {
+      if (rows >= P) continue;
+      for (int Cc : {kMaxChunk, 8, 4}) {
+        Cc = Cc < C ? Cc : C;
+        for (int G = kThreads / 32; G >= 1; G /= 2) {
+          for (int D = 4; D >= 2; --D) {
+            const ForwardPlan L = make_forward_plan(
+                P, C, Cout, Cc, D, Co, es, aligned, gather, rows, G);
+            if (sizeof(float) * (size_t)L.words <= kMaxSmemBytes) return L;
+          }
+        }
+      }
+    }
+    if (Co <= 4) break;
+  }
   ForwardPlan none{};
   return none;
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
-// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs) in
+// tiles of one row (P > 1; all of it at P = 1).
 inline long long min_forward_smem_bytes(int P, int Cout, bool gather) {
   const int Co = Cout < 4 ? Cout : 4;
   return (long long)sizeof(float) *
          make_forward_plan(P, 1, Cout, 1, 2, Co, (int)sizeof(float), 16,
-                           gather).words;
+                           gather, P > 1 ? 1 : 0).words;
 }
 
 // K's slabs of the direct product (into Z) and of the adjacency-weighted
@@ -204,6 +232,47 @@ __device__ __forceinline__ void mma_products(float (&acc)[4][4],
           split_tf32(kb[(2 * st + 1) * KLD + 8 * nt], bh[1], bl[1]);
           mma_3xtf32(acc[nt], ah, al, bh, bl);
         }
+      }
+    }
+  }
+}
+
+// K's rows of the chunk [c0, c0 + nc) and the panel [o0, o0 + no) into
+// Ks[(k*ncp + f)*KLD + o], zero beyond nc and no, slab 0 as S K1 + trA K7
+// and slab 2 as S K3 (kTwoProducts: as they are): a warp a row, the loads of
+// kBatch rows in flight together.  No barrier.  (forward_block keeps the
+// same loop inline: calling this from it cost K1 2 % on an H100.)
+template <int kPart, typename E>
+__device__ __forceinline__ void stage_k(const E* __restrict__ K, float* Ks,
+                                        const ForwardPlan& L, int C, int c0,
+                                        int nc, int o0, int no, float S,
+                                        float trA) {
+  const int ncp = L.sp.ncp, ZLD = L.ZLD, KLD = L.KLD, Cout = L.Cout;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+  for (int o = lane; o < ZLD; o += 32) {
+    for (int kf0 = warp; kf0 < kCases * ncp; kf0 += kBatch * nwarps) {
+      float val[kBatch], val6[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int kf = kf0 + i * nwarps, f = kf % ncp, k = kf / ncp;
+        const bool staged = k < kCases && f < nc && o < no;
+        const size_t col = (size_t)o0 + o;
+        val[i] = staged ? to_float(K[(size_t)(k * C + c0 + f) * Cout + col])
+                        : 0.f;
+        val6[i] = staged && k == 0 && kPart != kTwoProducts
+                      ? to_float(K[(size_t)(6 * C + c0 + f) * Cout + col])
+                      : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int kf = kf0 + i * nwarps, k = kf / ncp;
+        if (k >= kCases) break;
+        if constexpr (kPart == kTwoProducts)
+          Ks[kf * KLD + o] = val[i];
+        else
+          Ks[kf * KLD + o] = k == 0 ? S * val[i] + trA * val6[i]
+                             : k == 2 ? S * val[i] : val[i];
       }
     }
   }
@@ -322,10 +391,9 @@ __device__ __forceinline__ void forward_block(
       }
     }
     STAGE(2);   // K's staging
-    if constexpr (kWide) {
-      static_assert(kGroupD && kSelect, "a wide stream forms every part");
-      stream_reductions_wide(src, R, sp, s, c0, nc);
-    } else
+    if constexpr (kWide)
+      stream_reductions_wide<kGroupD, kSelect>(src, R, sp, s, c0, nc);
+    else
       stream_reductions<kGroupD, kSelect>(src, R, sp, s, c0, nc);
     STAGE(3);   // the stream
 
@@ -486,6 +554,266 @@ __device__ __forceinline__ void dma_block(const E* __restrict__ T,
     acc += stream_loads(src, sp, s, c0, nc);
     __syncthreads();   // every warp is done with the ring
   }
+  for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (tid % 32 == 0) atomicAdd(total, acc);
+  __syncthreads();
+  if (tid == 0) sink[v] = *total;
+
+  E* zv = Z + v * PP * Cout;
+  const int PC = P * C;
+  for (int i = tid; i < PP * Cout; i += nth)
+    zv[i] = Tv[(size_t)(i / Cout) * PC + i % Cout];
+}
+
+// forward_block on a row-tiled plan (L.tiled): a field whose maps and Z do
+// not fit one block (from P = 36 at Cout = 32).  Per vertex and panel:
+//   0. the scalar cases' sums over every slot (Tfull, s14, s15, t18), in a
+//      stream of their own, so that s is whole before the first tile's
+//      epilogue; Ss = their product with K's scalar slabs;
+//   then per row tile X = [x0, x0 + nx), nx <= sp.rows:
+//   1. per chunk, K's rows staged; the tile's maps, row sums and vectors
+//      (tile_reductions: the rows X of every slot, the whole slots in X);
+//      U of the tile's rows; the nine map slabs into Z and W of the tile's
+//      rows, on the CUDA cores, added up over the chunks in shared memory;
+//   2. the epilogue of the tile's rows: W against the adjacency, R U, Ap s,
+//      (K1) bias and LeakyReLU, one rounding.
+// Every sum is in float32 and none uses an atomic: Z is the same from run
+// to run.  The slots are streamed about three times over (twice by the
+// tiles, once for the scalars) and K is staged once per tile and chunk.
+template <typename E, int kPart>
+__device__ __forceinline__ void forward_block_tiled(
+    const E* __restrict__ in, const int* __restrict__ nbr,
+    const int* __restrict__ pos, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
+    int N, const ForwardPlan& L, float negslope) {
+  constexpr bool kGather = kPart == kLevel;
+  constexpr bool kGroupD = has_group_d(kPart);
+  constexpr bool kSelect = kPart != kNoSelect;
+  constexpr bool kVectors = kPart != kTwoProducts;
+  constexpr bool kWeighted = kGroupD;
+  extern __shared__ __align__(16) float smem[];
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
+  const int ZLD = L.ZLD, KLD = L.KLD, ALD = L.ALD, quads = ncp / 4;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32, nwarps = nth / 32;
+  const size_t v = blockIdx.x;
+  const int o0 = blockIdx.y * L.Co, no = min(L.Co, Cout - o0);
+  const int tiles = (P + X - 1) / X, nog = ZLD / 4;
+
+  float* Ap = smem + L.ap;
+  float* R = smem + L.r;
+  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
+  int* spos = reinterpret_cast<int*>(smem + L.ipos);
+  int* slots = reinterpret_cast<int*>(smem + L.islots);
+  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  float* Ks = smem + L.ks;
+  float* Zs = smem + L.zs;
+  float* Ws = smem + L.ws;
+  float* Us = smem + L.us;
+  float* Ss = smem + L.ss;
+  float* part = smem + L.part;
+
+  zero_words(smem + L.stream, L.words - L.stream);
+  if constexpr (kGather) {
+    load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
+                spos);
+  } else {
+    load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+  }
+  const float S = smem[L.scal], trA = smem[L.scal + 1];
+  if constexpr (kGather) list_slots(snbr, spos, P, slots);
+  const auto src = [&] {
+    if constexpr (kGather)
+      return GatheredSlots<E>{in, snbr, spos, slots};
+    else
+      return StoredSlots<E>{in + v * (size_t)P * P * P * C};
+  }();
+
+  // 0. The scalar cases: each thread adds up the cells it reads, four
+  //    channels q of a slot's (b, c), then the block sums per channel in a
+  //    fixed order (the lanes of a warp by shuffles, then the warps).
+  if constexpr (kVectors) {
+    for (int c0 = 0; c0 < C; c0 += sp.Cc) {
+      const int nc = min(sp.Cc, C - c0);
+      float4 acc[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const RowItems cells = row_items(sp, quads);
+      stream_pieces(src, sp, s, c0, nc, src.count(P) * tiles,
+                    [&](int j, int& a, int& b0) {
+                      a = src.slot(j / tiles);
+                      b0 = (j % tiles) * X;
+                    },
+                    [&](int, int a, int b0, const char* buf) {
+        for_row_items(sp, cells, min(X, P - b0), [&](int bl, int c, int q) {
+          const int b = b0 + bl;
+          const float4 x = load4(reinterpret_cast<const E*>(
+              buf + bl * sp.rowb + (c * ncp + 4 * q) * (int)sizeof(E)));
+          fma4(acc[0], 1.f, x);                        // sum T
+          if (b == a) fma4(acc[1], 1.f, x);            // T[a,a,c]
+          if (c == b) fma4(acc[2], 1.f, x);            // T[a,b,b]
+          if (a == b && b == c) fma4(acc[3], 1.f, x);  // T[a,a,a]
+        });
+      });
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        for (int m = quads; m < 32; m *= 2) {
+          acc[k].x += __shfl_xor_sync(0xffffffffu, acc[k].x, m);
+          acc[k].y += __shfl_xor_sync(0xffffffffu, acc[k].y, m);
+          acc[k].z += __shfl_xor_sync(0xffffffffu, acc[k].z, m);
+          acc[k].w += __shfl_xor_sync(0xffffffffu, acc[k].w, m);
+        }
+      }
+      // part[((warp*quads + q)*4 + k)*4 + i]: the warp's sums.
+      if (lane < quads)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          *reinterpret_cast<float4*>(part + ((warp * quads + lane) * 4 + k)
+                                                * 4) = acc[k];
+      __syncthreads();
+      for (int i = tid; i < 4 * ncp; i += nth) {
+        const int k = i / ncp, f = i % ncp;
+        float t = 0.f;
+        for (int w = 0; w < nwarps; ++w)
+          t += part[((w * quads + f / 4) * 4 + k) * 4 + f % 4];
+        s.tfull[i] = t;        // tfull, s14, s15, t18 lie in this order
+      }
+      __syncthreads();
+      for (int o = tid; o < ZLD; o += nth) {
+        float u = 0.f;
+        if (o < no) {
+          for (int f = 0; f < nc; ++f) {
+            const size_t col = (size_t)o0 + o;
+            // Without the picks (novpu) every scalar is the full sum.
+            const float tf = s.tfull[f];
+            u += tf * to_float(K[(size_t)(4 * C + c0 + f) * Cout + col])
+                 + (kSelect ? s.s14[f] : tf)
+                       * to_float(K[(size_t)(13 * C + c0 + f) * Cout + col])
+                 + (kSelect ? s.s15[f] : tf)
+                       * to_float(K[(size_t)(14 * C + c0 + f) * Cout + col])
+                 + (kSelect ? s.t18[f] : tf)
+                       * to_float(K[(size_t)(17 * C + c0 + f) * Cout + col]);
+          }
+        }
+        Ss[o] += u;
+      }
+      __syncthreads();
+    }
+  }
+
+  for (int t = 0; t < tiles; ++t) {
+    const int x0 = t * X, nx = min(X, P - x0), RR = nx * P;
+    for (int i = tid; i < X * P * ZLD; i += nth) Zs[i] = Ws[i] = 0.f;
+    for (int i = tid; i < X * ZLD; i += nth) Us[i] = 0.f;
+    for (int c0 = 0; c0 < C; c0 += sp.Cc) {
+      const int nc = min(sp.Cc, C - c0);
+      // (The previous chunk's products ended with a barrier; the stream's
+      // first barrier orders K's staging before this chunk's products.)
+      stage_k<kPart>(K, Ks, L, C, c0, nc, o0, no, S, trA);
+      tile_reductions<kGroupD, kSelect, kPart == kTwoProducts>(
+          src, R, sp, s, t, nx, c0, nc);
+      if constexpr (kVectors) {
+        for (int i = tid; i < nx * ZLD; i += nth) {
+          const int o = i % ZLD, xl = i / ZLD;
+          float u = 0.f;
+          for (int f = 0; f < nc; ++f) {
+            u += s.ta[xl * ncp + f] * Ks[(1 * ncp + f) * KLD + o]
+                 + s.tb[xl * ncp + f] * Ks[(3 * ncp + f) * KLD + o]
+                 + s.tdbc[xl * ncp + f] * Ks[(7 * ncp + f) * KLD + o]
+                 + s.tdac[xl * ncp + f] * Ks[(10 * ncp + f) * KLD + o];
+          }
+          Us[i] += u;
+        }
+      } else {
+        // The two products' maps: T_ab + T_bc + W17 over T_ab's, D_bc +
+        // D_ac over D_bc's (D_ac of the whole slots lies in M6's map).
+        float* tab = s.map(kTab, sp.mapw);
+        float* dbc = s.map(kDbc, sp.mapw);
+        const float* tbc = s.map(kTbc, sp.mapw);
+        const float* dacT = s.map(kDacT, sp.mapw);
+        const float* dac = s.map(kM6, sp.mapw);
+        for (int i = tid; i < RR * ncp; i += nth) {
+          tab[i] += tbc[i] + dacT[i];
+          dbc[i] += dac[i];
+        }
+        __syncthreads();
+      }
+      // The map products on the CUDA cores, item (matrix, row group,
+      // output group) over the tile's rows.
+      const int nrg = (RR + 7) / 8, items = nrg * nog;
+      for (int item = tid; item < (kWeighted ? 2 : 1) * items; item += nth) {
+        const bool w = item >= items;
+        const int it = w ? item - items : item, g = it % nog, r0 = it / nog;
+        float* acc_at = (w ? Ws : Zs) + 4 * g;
+        float4 acc[8];
+        int rows[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          rows[i] = min(r0 + i * nrg, RR - 1);
+          acc[i] = load4(acc_at + rows[i] * ZLD);
+        }
+        tile_product<kPart>(acc, rows, w, g, s, Ks, sp.mapw, ncp, KLD);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (r0 + i * nrg < RR)
+            *reinterpret_cast<float4*>(acc_at + rows[i] * ZLD) = acc[i];
+      }
+      __syncthreads();
+    }
+
+    // The epilogue of the tile's rows.
+    E* outv = out + (v * P + x0) * P * Cout;
+    for (int item = tid; item < RR * nog; item += nth) {
+      const int g = item % nog, r = item / nog, xl = r / P, y = r % P;
+      float4 z = load4(Zs + r * ZLD + 4 * g);
+      if constexpr (kWeighted) {
+        const float* w = Ws + xl * P * ZLD + 4 * g;
+        const float* ay = Ap + y * ALD;
+        for (int e = 0; e < P; ++e) fma4(z, ay[e], load4(w + e * ZLD));
+      }
+      if constexpr (kVectors) {
+        fma4(z, R[y], load4(Us + xl * ZLD + 4 * g));
+        fma4(z, Ap[(x0 + xl) * ALD + y], load4(Ss + 4 * g));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = 4 * g + i;
+        if (o < no) {
+          float tv = get4(z, i);
+          if constexpr (kGather) {
+            tv += to_float(bias[o0 + o]);
+            tv = tv > 0.f ? tv : negslope * tv;
+          }
+          store_value(outv + (size_t)r * Cout + o0 + o, tv);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// dma_block on a row-tiled plan: T[v] streamed a piece of sp.rows rows at a
+// time (tile_loads), then the same copy into Z.
+template <typename E>
+__device__ __forceinline__ void dma_block_tiled(const E* __restrict__ T,
+                                                E* __restrict__ Z,
+                                                float* __restrict__ sink,
+                                                const ForwardPlan& L) {
+  extern __shared__ __align__(16) float smem[];
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, PP = P * P;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const size_t v = blockIdx.x;
+  const E* Tv = T + v * PP * P * C;
+  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  const StoredSlots<E> src{Tv};
+  float* total = smem + L.scal;
+  if (tid == 0) *total = 0.f;
+  __syncthreads();
+  float acc = 0.f;
+  for (int c0 = 0; c0 < C; c0 += sp.Cc)
+    acc += tile_loads(src, sp, s, c0, min(sp.Cc, C - c0));
   for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (tid % 32 == 0) atomicAdd(total, acc);
   __syncthreads();

@@ -58,6 +58,19 @@
 // (risi18_forward_block.cuh); the bank kernel K4 (risi18_bank.cu) runs the
 // same block on slots streamed from a materialised T.
 //
+// Fields beyond one block.  Where no plan keeps the maps and Z of all P*P
+// rows (from P = 36 at Cout = 32; SMP_beta sets P = V), the launcher takes
+// a row-tiled plan (forward_block_tiled): the block walks its vertex's
+// rows x in tiles of sp.rows rows, each tile's maps streamed from the rows
+// of the tile of every slot and the whole slots in the tile (about twice
+// T's elements over all tiles), Z, W and U kept for the tile's rows only,
+// the scalar cases summed over every slot in a pass of their own first.
+// The products run on the CUDA cores there; the block stages up to 16
+// rows (pieces of a few rows of one slot) at a time and meets at a barrier
+// per stage, which with the copies' issue sets its pace (PERF.md).
+// ops/risi_bank.py:risi18_bank_tiled_reference is that decomposition in
+// plain PyTorch.
+//
 // Element types.  State, K, b and out are float32 or bfloat16 (one type; the
 // TPU kernels work in the state's dtype the same way); radj is float32.  The
 // ring holds the state's elements as they are; a bfloat16 value becomes a
@@ -107,6 +120,21 @@ risi18_level_kernel(const E* __restrict__ state,
                                                 bias, out, N, L, negslope);
 }
 
+// The level on a row-tiled plan (fields from 36 rows at Cout = 32).
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_level_tiled_kernel(const E* __restrict__ state,
+                          const int* __restrict__ nbr,
+                          const int* __restrict__ pos,
+                          const float* __restrict__ radj,
+                          const E* __restrict__ K,
+                          const E* __restrict__ bias,
+                          E* __restrict__ out,
+                          int N, ForwardPlan L, float negslope) {
+  lv::forward_block_tiled<E, lv::kLevel>(state, nbr, pos, radj, K, bias, out,
+                                         N, L, negslope);
+}
+
 // Launches the level for element type E; returns a cudaError_t.
 template <typename E>
 int launch_level(const void* state, const void* nbr, const void* pos,
@@ -121,9 +149,10 @@ int launch_level(const void* state, const void* nbr, const void* pos,
       P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true);
   if (L.words == 0) return cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.sp.wide ? risi18_level_kernel<E, false, true>
-                : L.mma   ? risi18_level_kernel<E, true, false>
-                          : risi18_level_kernel<E, false, false>;
+  auto kernel = L.tiled   ? risi18_level_tiled_kernel<E>
+                : L.sp.wide ? risi18_level_kernel<E, false, true>
+                : L.mma     ? risi18_level_kernel<E, true, false>
+                            : risi18_level_kernel<E, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -161,9 +190,25 @@ int risi18_level_forward_bf16(const void* state, const void* nbr,
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
-// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs) in
+// row tiles of one row.
 long long risi18_level_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, true);
+}
+
+// The plan the launcher takes for a state of 16-byte aligned float32 (bf16
+// = 0) or bfloat16 (bf16 = 1) elements: plan[0] the rows of a row tile (P:
+// untiled), plan[1] the panel's outputs, plan[2] the chunk's channels,
+// plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
+// for the row-tiled block, plan[6] the pieces a ring buffer holds.
+// Returns 0, or 1 where no plan fits.
+int risi18_level_plan(int P, int C, int Cout, int bf16, int* plan) {
+  const lv::ForwardPlan L = lv::choose_forward_plan(
+      P, C, Cout, bf16 ? 2 : 4, 16, true);
+  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
+  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
+  plan[6] = lv::pieces(L.sp);
+  return L.words == 0;
 }
 
 #ifdef RISI18_STAGE_CLOCK

@@ -63,7 +63,11 @@
 // this algebra in plain PyTorch.  Kernel 1's block is
 // risi18::level::backward_block (risi18_backward_block.cuh); the bank's
 // backward K5 (risi18_bank_bwd.cu) runs the same block on slots streamed
-// from a materialised T, with dT written instead of scattered.
+// from a materialised T, with dT written instead of scattered.  Where G and
+// the maps of all P*P rows do not fit one block (from P = 33 at Cout = 32)
+// kernel 1 takes a row-tiled plan (backward_block_tiled): dK from each row
+// tile's maps and G rows, and dT, which needs G and not T, from pairs of
+// row tiles (ops/risi_bank.py:risi18_bank_backward_tiled_reference).
 //
 // Element types.  State, K, g and out are float32 or bfloat16 (one type);
 // radj is float32.  Behind a bfloat16 forward (as _v3t_bwd runs the TPU
@@ -117,6 +121,23 @@ risi18_level_bwd_kernel(const E* __restrict__ state,
                         float* __restrict__ partial,
                         int N, BackwardPlan L, float negslope) {
   lv::backward_block<E, kMma, true>(state, nbr, pos, radj, K, gout, out,
+                                    dstate, partial, N, L, negslope);
+}
+
+// Kernel 1 on a row-tiled plan (fields from 33 rows at Cout = 32).
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_level_bwd_tiled_kernel(const E* __restrict__ state,
+                              const int* __restrict__ nbr,
+                              const int* __restrict__ pos,
+                              const float* __restrict__ radj,
+                              const E* __restrict__ K,
+                              const E* __restrict__ gout,
+                              const E* __restrict__ out,
+                              float* __restrict__ dstate,
+                              float* __restrict__ partial,
+                              int N, BackwardPlan L, float negslope) {
+  lv::backward_block_tiled<E, true>(state, nbr, pos, radj, K, gout, out,
                                     dstate, partial, N, L, negslope);
 }
 
@@ -174,8 +195,9 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
   if (L.words == 0) return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(out) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.mma ? risi18_level_bwd_kernel<E, true>
-                      : risi18_level_bwd_kernel<E, false>;
+  auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
+                : L.mma ? risi18_level_bwd_kernel<E, true>
+                        : risi18_level_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -260,9 +282,26 @@ int risi18_level_backward_finish_bf16(const void* partial, void* dK,
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
-// (a chunk of one, the shallowest ring, the narrowest panel of outputs).
+// (a chunk of one, the shallowest ring, the narrowest panel of outputs) in
+// row tiles of one row.
 long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, true);
+}
+
+// The plan kernel 1 takes for 16-byte aligned float32 (bf16 = 0) or
+// bfloat16 (bf16 = 1) inputs: plan[0] the rows of a row tile (P: untiled;
+// a plan with plan[5] = 1 and plan[0] = P is one tile, its stream in shared
+// memory), plan[1] the panel's outputs, plan[2] the chunk's channels,
+// plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
+// for the row-tiled block, plan[6] the pieces a ring buffer holds.
+// Returns 0, or 1 where no plan fits.
+int risi18_level_backward_plan(int P, int C, int Cout, int bf16, int* plan) {
+  const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
+                                                  16, true);
+  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
+  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
+  plan[6] = lv::pieces(L.sp);
+  return L.words == 0;
 }
 
 #ifdef RISI18_STAGE_CLOCK

@@ -80,9 +80,24 @@ inline int read_stage_cycles(long long* host) {
   if (err != cudaSuccess) return err;
   return cudaMemcpyToSymbol(stage_cycles, zeros, sizeof(zeros));
 }
+// The row-tiled stream (stream_pieces) adds, without a barrier of its
+// own, the cycles thread 0 of block (0, 0, 0) spends per stage (a ring
+// buffer's pieces) waiting for the stage's copies and the block, issuing
+// the next stage's copies and reducing the stage, to
+// stage_cycles[kPieceWait..kPieceReduce], and the stages to
+// stage_cycles[kPieces].
+enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces };
+#define PIECE_MARK(t) const long long t = clock64()
+#define PIECE_ADD(i, d)                                                  \
+  do {                                                                   \
+    if (!(blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x))           \
+      risi18::level::stage_cycles[i] += (d);                             \
+  } while (0)
 #else
 #define STAGE_CLOCK_START()
 #define STAGE(i)
+#define PIECE_MARK(t)
+#define PIECE_ADD(i, d)
 #endif
 
 
@@ -107,7 +122,19 @@ struct StreamPlan {
   int wide;    // 1: a thread's cells of a staged slot outnumber the
                // registers kept for them (a field of more than 32 rows):
                // stream_reductions_wide sums them in shared memory
+  int rows;    // rows of the maps: P, or the rows X of a row tile (a
+               // row-tiled plan: see tile_reductions)
+  // A ring buffer holds pieces(sp) pieces of `rows` rows: 1, or in a
+  // row-tiled plan whose warps keep their cells of T_bc and M10 in
+  // registers, up to kThreads / 32 / rows (tile_reductions).  It is kept
+  // in slotb, so that the untiled blocks' plan keeps its layout.
 };
+
+__host__ __device__ inline int pieces(const StreamPlan& sp) {
+  return sp.slotb / (sp.rows * sp.rowb);
+}
+
+constexpr int kMaxCells = 4;   // cells of a row a lane keeps in registers
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -128,26 +155,36 @@ inline bool stream_fits_registers(const StreamPlan& sp) {
 }
 
 // The plan of the stream for element size `es`.  `aligned`: the bytes the
-// state's base address is a multiple of (16, 8, 4 or 2).
+// state's base address is a multiple of (16, 8, 4 or 2).  `rows`: the rows
+// of a row tile, 0 for none (every row: a buffer holds a whole slot).
 inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
-                                   int aligned) {
+                                   int aligned, int rows = 0, int G = 0) {
   StreamPlan sp;
   sp.P = P; sp.C = C; sp.Cc = Cc; sp.D = D;
+  sp.rows = rows > 0 ? rows : P;
   sp.ncp = Cc <= 4 ? 4 : Cc <= 8 ? 8 : 16;
+  // A row tile of at most one row a warp whose lanes keep their cells of a
+  // row (every H-th column, H = 32 / (ncp / 4)) in registers: a ring
+  // buffer can then hold a piece for every group of `rows` warps, G of
+  // them (0: all).
+  const int nwarps = kThreads / 32, H = 32 / (sp.ncp / 4);
+  const int most = rows > 0 && rows <= nwarps && (P + H - 1) / H <= kMaxCells
+                       ? nwarps / rows : 1;
+  G = G > 0 && G < most ? G : most;
   int unit = 16;
   while (unit >= 4 && ((C * es) % unit || (Cc * es) % unit || aligned % unit))
     unit /= 2;
   sp.unit = unit >= 4 ? unit : 0;
   sp.rowb = round_up(P * sp.ncp * es, 16);   // a copy's target is aligned
-  sp.slotb = P * sp.rowb;
-  sp.mapw = round_up(P * P, 4) * sp.ncp + 8;
+  sp.slotb = G * sp.rows * sp.rowb;
+  sp.mapw = round_up(sp.rows * P, 4) * sp.ncp + 8;
   sp.wide = !stream_fits_registers(sp);
   return sp;
 }
 
 // Words of the ring, the maps, the vectors and the scalars of a chunk.
 inline int stream_words(const StreamPlan& sp) {
-  return sp.D * sp.slotb / 4 + kMaps * sp.mapw + 4 * sp.P * sp.ncp
+  return sp.D * sp.slotb / 4 + kMaps * sp.mapw + 4 * sp.rows * sp.ncp
          + 4 * sp.ncp;
 }
 
@@ -155,7 +192,8 @@ inline int stream_words(const StreamPlan& sp) {
 struct StreamBuffers {
   char* ring;
   float* maps;     // [kMaps][mapw]
-  float* ta;       // [P][ncp]: T_a, then T_b, sum_b T[x,b,b], sum_a T[a,x,a]
+  float* ta;       // [rows][ncp]: T_a, then T_b, sum_b T[x,b,b],
+                   // sum_a T[a,x,a]
   float* tb;
   float* tdbc;
   float* tdac;
@@ -174,7 +212,7 @@ __device__ inline StreamBuffers stream_buffers(float* at,
   s.ring = reinterpret_cast<char*>(at);
   s.maps = at + sp.D * sp.slotb / 4;
   float* v = s.maps + kMaps * sp.mapw;
-  const int n = sp.P * sp.ncp;
+  const int n = sp.rows * sp.ncp;
   s.ta = v; s.tb = v + n; s.tdbc = v + 2 * n; s.tdac = v + 3 * n;
   float* c = v + 4 * n;
   s.tfull = c; s.s14 = c + sp.ncp; s.s15 = c + 2 * sp.ncp;
@@ -376,6 +414,52 @@ __device__ __forceinline__ void copy_unit(const StreamPlan& sp, char* buf,
   }
 }
 
+// Items (row bl, column c, part u) of a piece of sp.rows rows, sub parts a
+// cell, item i = (bl * P + c) * sub + u: a thread's first kRowItems items
+// (i = tid, tid + blockDim.x, ...) decoded once per stream, so that the
+// loops over a piece need no division.  bl = kNoRow: no item.
+constexpr int kRowItems = 4;
+constexpr int kNoRow = 1 << 30;
+
+struct RowItems {
+  int sub;
+  int bl[kRowItems], c[kRowItems], u[kRowItems];
+};
+
+__device__ inline RowItems row_items(const StreamPlan& sp, int sub) {
+  RowItems it;
+  it.sub = sub;
+  const int total = sp.rows * sp.P * sub;
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k) {
+    const int i = threadIdx.x + blockDim.x * k;
+    it.u[k] = i % sub;
+    it.c[k] = i / sub % sp.P;
+    it.bl[k] = i < total ? i / sub / sp.P : kNoRow;
+  }
+  return it;
+}
+
+// fn(bl, c, u) for this thread's items of a piece of nb rows.
+template <typename Fn>
+__device__ __forceinline__ void for_row_items(const StreamPlan& sp,
+                                              const RowItems& it, int nb,
+                                              Fn fn) {
+#pragma unroll
+  for (int k = 0; k < kRowItems; ++k)
+    if (it.bl[k] < nb) fn(it.bl[k], it.c[k], it.u[k]);
+  for (int i = threadIdx.x + blockDim.x * kRowItems; i < nb * sp.P * it.sub;
+       i += blockDim.x)
+    fn(i / it.sub / sp.P, i / it.sub % sp.P, i % it.sub);
+}
+
+// The copy units of a run of nc elements of type E.
+template <typename E>
+__device__ inline int units_of(const StreamPlan& sp, int nc) {
+  const int es = (int)sizeof(E);
+  return nc * es / (sp.unit ? sp.unit : es);
+}
+
 // -- where the slots come from ----------------------------------------------
 // A source of slots gives the number of slots a stream walks (count), the a
 // of the i-th (slot) and starts the copies of slot a's chunk into a ring
@@ -425,6 +509,21 @@ struct GatheredSlots {
         copy_run(pos_a, sp, buf, n, b, c, dst, src);
     }
   }
+
+  // The rows b0 .. b0 + sp.rows - 1 (those < P) of slot a, every thread of
+  // the block copying its items `it` (row_items with units_of parts; a
+  // row-tiled plan, see stream_pieces).
+  __device__ __forceinline__ void issue_rows(const StreamPlan& sp, char* buf,
+                                             int a, int b0, int c0,
+                                             const RowItems& it) const {
+    const int es = (int)sizeof(E), step = sp.unit ? sp.unit : es;
+    const int n = snbr[a];
+    const int* pos_a = spos + a * sp.P;
+    for_row_items(sp, it, min(sp.rows, sp.P - b0), [&](int b, int c, int u) {
+      copy_run(pos_a, sp, buf, n, b0 + b, c,
+               b * sp.rowb + c * sp.ncp * es + u * step, c0 * es + u * step);
+    });
+  }
 };
 
 // Materialised (K4, K5, K6): slot a is T[v,a,:,:,:] of the vertex's slots
@@ -456,6 +555,22 @@ struct StoredSlots {
       if (copy_item<E>(sp, ci, k, b, c, dst, src))
         copy_unit<E>(sp, buf, dst, slot + (b * sp.P + c) * run + src, true);
     }
+  }
+
+  // The rows b0 .. b0 + sp.rows - 1 (those < P) of slot a, every thread of
+  // the block copying its items `it` (row_items with units_of parts; a
+  // row-tiled plan, see stream_pieces).
+  __device__ __forceinline__ void issue_rows(const StreamPlan& sp, char* buf,
+                                             int a, int b0, int c0,
+                                             const RowItems& it) const {
+    const int es = (int)sizeof(E), step = sp.unit ? sp.unit : es;
+    const int run = sp.C * es;
+    const char* rows = reinterpret_cast<const char*>(T)
+                       + (size_t)((a * sp.P + b0) * sp.P) * run + c0 * es;
+    for_row_items(sp, it, min(sp.rows, sp.P - b0), [&](int b, int c, int u) {
+      copy_unit<E>(sp, buf, b * sp.rowb + c * sp.ncp * es + u * step,
+                   rows + (b * sp.P + c) * run + u * step, true);
+    });
   }
 };
 
@@ -719,9 +834,9 @@ __device__ inline void stream_reductions(const Src& src, const float* R,
 // T_bc and M10 in shared memory, where every cell has one owner, instead of
 // in registers.  A slower loop for fields that few graphs have; the forward
 // has a kernel of its own for it, so that no other kernel's registers
-// depend on it.  Every part of the bank is formed (the ablation variants
-// that leave one out do not take wide plans).
-template <typename Src>
+// depend on it.  kGroupD and kSelect as in stream_reductions (the ablation
+// variants).
+template <bool kGroupD = true, bool kSelect = true, typename Src>
 __device__ inline void stream_reductions_wide(const Src& src, const float* R,
                                               const StreamPlan& sp,
                                               const StreamBuffers& s, int c0,
@@ -762,28 +877,36 @@ __device__ inline void stream_reductions_wide(const Src& src, const float* R,
         const float4 x = load4(reinterpret_cast<const E*>(
             buf + b * sp.rowb + (c * ncp + 4 * q) * (int)sizeof(E)));
         const int at = (b * P + c) * ncp + 4 * q;
-        float4 sum = load4(tbc + at), weighted = load4(m10 + at);
+        float4 sum = load4(tbc + at);
         fma4(sum, 1.f, x);
-        fma4(weighted, ra, x);
         *reinterpret_cast<float4*>(tbc + at) = sum;
-        *reinterpret_cast<float4*>(m10 + at) = weighted;
+        if constexpr (kGroupD) {
+          float4 weighted = load4(m10 + at);
+          fma4(weighted, ra, x);
+          *reinterpret_cast<float4*>(m10 + at) = weighted;
+        }
         fma4(ts, 1.f, x);
-        fma4(ws, R[c], x);
-        if (c == b)
-          *reinterpret_cast<float4*>(dbc + (a * P + b) * ncp + 4 * q) = x;
-        if (c == a)
-          *reinterpret_cast<float4*>(dacT + (b * P + a) * ncp + 4 * q) = x;
+        if constexpr (kGroupD) fma4(ws, R[c], x);
+        if constexpr (kSelect) {
+          if (c == b)
+            *reinterpret_cast<float4*>(dbc + (a * P + b) * ncp + 4 * q) = x;
+          if (c == a)
+            *reinterpret_cast<float4*>(dacT + (b * P + a) * ncp + 4 * q) =
+                x;
+        }
       }
       const float z = reduce_over_columns(ts, ws, h, quads);
       if (h < 8) {
         const int ch = 4 * q + (which & 3);
         const int ab = (a * P + b) * ncp + ch, ba = (b * P + a) * ncp + ch;
-        if (which < 4) { tab[ab] = z; tabT[ba] = z; } else m6[ab] = z;
+        if (which < 4) { tab[ab] = z; tabT[ba] = z; }
+        else if (kGroupD) m6[ab] = z;
       }
     }
   }
   __syncthreads();
-  stream_row_sums(sp, s);
+  if constexpr (!kSelect) picks_as_sums(sp, s, R);
+  stream_row_sums<kSelect>(sp, s);
 }
 
 // The stream with its loads alone (the ablation variant dma,
@@ -817,6 +940,306 @@ __device__ inline float stream_loads(const Src& src, const StreamPlan& sp,
         fma4(acc, 1.f, load4(reinterpret_cast<const E*>(
                            buf + b * sp.rowb + (c * ncp + 4 * q) * (int)sizeof(E))));
   }
+  return acc.x + acc.y + acc.z + acc.w;
+}
+
+// -- the row-tiled stream ---------------------------------------------------
+// A field whose maps do not fit one block (K1, K4, K6 from 36 rows, K2, K5
+// from 33) is walked in row tiles X = [x0, x0 + nx) of sp.rows rows.  The
+// maps of a tile's rows x need two kinds of slot data:
+//   whole slots a in X:  T_ab[x,:], M6[x,:], D_bc[x,:] (and T_a, Tdbc);
+//   rows b in X of every slot:  T_bc[x,:], M10[x,:], T_ab[:,x] (tabT),
+//                        D_ac[:,x] (dacT) (and T_b, Tdac).
+// So a tile streams "pieces" of sp.rows rows of one slot: the rows X of
+// every slot, then the other rows of the slots in X; the tiles together
+// stream each slot about twice, not P / |X| times.  A ring buffer holds
+// pieces(sp) pieces (a stage); every thread copies a share of it, and the
+// block meets at a barrier per stage (stream_pieces).  A warp reduces a row
+// of a piece as stream_reductions_wide does (its lanes over the columns,
+// float4 loads of four channels, T_ab and M6 summed over the lanes by
+// reduce_over_columns); T_bc and M10 add up in the registers of the warp
+// that owns the row (or, where a row's cells outnumber them, in shared
+// memory, each cell by one owner): no atomics, the same sums from run to
+// run.
+
+// The rows of a row tile that the planners try, largest first.
+constexpr int kTileRows[6] = {32, 16, 8, 4, 2, 1};
+
+// Words of a row-tiled block's scratch: two a thread (a pass's partial
+// sums, one float4 of four sums per warp and quad of channels at most).
+constexpr int kTilePartWords = 2 * kThreads;
+
+// Streams pieces 0 .. np - 1 of the chunk [c0, c0 + nc) through the ring,
+// pieces(sp) consecutive pieces a ring buffer (a stage): piece(j, a, b0) names
+// slot a and first row b0 of piece j, and consume(j, a, b0, buf) runs on
+// every thread, for each piece of a stage in turn, once the block has met
+// at the barrier that makes the stage's copies visible; the same barrier
+// orders the consumers of stage s - 1 before the copies of stage s + D - 1
+// into its buffer.  Ends with a barrier.
+template <typename Src, typename Piece, typename Consume>
+__device__ inline void stream_pieces(const Src& src, const StreamPlan& sp,
+                                     const StreamBuffers& s, int c0, int nc,
+                                     int np, Piece piece, Consume consume) {
+  const int D = sp.D, G = pieces(sp), ns = (np + G - 1) / G;
+  const int pieceb = sp.rows * sp.rowb;
+  const RowItems it =
+      row_items(sp, units_of<typename Src::Elem>(sp, nc));
+  auto issue = [&](int st, char* buf) {
+    for (int g = 0; g < G && st * G + g < np; ++g) {
+      int a, b0;
+      piece(st * G + g, a, b0);
+      src.issue_rows(sp, buf + g * pieceb, a, b0, c0, it);
+    }
+  };
+  for (int i = 0; i < D - 1; ++i) {
+    if (i < ns) issue(i, s.ring + i * sp.slotb);
+    cp_async_commit();
+  }
+  int stage = 0, ahead = (D - 1) % D;
+  for (int st = 0; st < ns; ++st) {
+    PIECE_MARK(t0);
+    cp_async_wait(D - 2);
+    __syncthreads();
+    PIECE_MARK(t1);
+    if (st + D - 1 < ns) issue(st + D - 1, s.ring + ahead * sp.slotb);
+    cp_async_commit();
+    PIECE_MARK(t2);
+    for (int g = 0; g < G && st * G + g < np; ++g) {
+      int a, b0;
+      piece(st * G + g, a, b0);
+      consume(st * G + g, a, b0, s.ring + stage * sp.slotb + g * pieceb);
+    }
+    PIECE_MARK(t3);
+    PIECE_ADD(kPieceWait, t1 - t0);
+    PIECE_ADD(kPieceIssue, t2 - t1);
+    PIECE_ADD(kPieceReduce, t3 - t2);
+    PIECE_ADD(kPieces, 1);
+    stage = stage + 1 == D ? 0 : stage + 1;
+    ahead = ahead + 1 == D ? 0 : ahead + 1;
+  }
+  cp_async_wait(0);
+  __syncthreads();
+}
+
+// The maps, row sums and vectors of the tile `tile` (rows [x0, x0 + nx),
+// x0 = tile * sp.rows) for the chunk [c0, c0 + nc): map row xl * P + y
+// holds, for x = x0 + xl,
+//   tab  T_ab[x,y]   tabT T_ab[y,x]   tbc  T_bc[x,y]   dbc  T[x,y,y]
+//   dacT T[y,x,y]    m6   M6[x,y]     m10  M10[x,y],
+// and s.ta .. s.tdac rows xl.  kGroupD and kSelect as in
+// stream_reductions; kDac (the ablation variant reduce) writes the whole
+// slots' D_ac[x,y] = T[x,y,x] into m6, which that variant has no use for.
+// The caller has loaded R (and the listed slots) and no thread still reads
+// s.  Ends with a barrier.
+template <bool kGroupD, bool kSelect, bool kDac, typename Src>
+__device__ inline void tile_reductions(const Src& src, const float* R,
+                                       const StreamPlan& sp,
+                                       const StreamBuffers& s, int tile,
+                                       int nx, int c0, int nc) {
+  using E = typename Src::Elem;
+  const int P = sp.P, X = sp.rows, ncp = sp.ncp, quads = ncp / 4;
+  const int tid = threadIdx.x, nth = blockDim.x, es = (int)sizeof(E);
+  const int nwarps = nth / 32, H = 32 / quads, warp = tid / 32;
+  const int lane = tid & 31, q = lane & (quads - 1), h = lane / quads;
+  const int which = 4 * (h & 1) + (h & 2) + ((h & 4) >> 2);
+  const int x0 = tile * X, nrg = (P + X - 1) / X;
+  // Where a row's cells fit a lane's registers (as for pieces(sp) > 1),
+  // warp w reduces row w % X of piece w / X of each stage and adds its
+  // cells of T_bc and M10 (the rows X of every slot) in registers, which
+  // the block adds into the maps when the stream ends, in warp order; else
+  // the warps take the rows of each piece in turn and add into the maps,
+  // each cell by one owner.
+  const bool regs = X <= nwarps && (P + H - 1) / H <= kMaxCells;
+  const int gw = warp / X, bw = warp % X;
+  float4 acc_tbc[kMaxCells], acc_m10[kMaxCells];
+#pragma unroll
+  for (int k = 0; k < kMaxCells; ++k)
+    acc_tbc[k] = acc_m10[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float* tab = s.map(kTab, sp.mapw);
+  float* tabT = s.map(kTabT, sp.mapw);
+  float* tbc = s.map(kTbc, sp.mapw);
+  float* dbc = s.map(kDbc, sp.mapw);
+  float* dacT = s.map(kDacT, sp.mapw);
+  float* m6 = s.map(kM6, sp.mapw);
+  float* m10 = s.map(kM10, sp.mapw);
+  const int n = src.count(P);
+  // The listed slots in the tile are [lo, hi) of the list (it is sorted).
+  int lo = 0, hi = 0;
+  for (int i = 0; i < n; ++i) {
+    const int a = src.slot(i);
+    lo += a < x0;
+    hi += a < x0 + nx;
+  }
+  const int np = n + (hi - lo) * (nrg - 1);
+  auto piece = [&](int j, int& a, int& b0) {
+    if (j < n) {
+      a = src.slot(j);
+      b0 = x0;
+    } else {
+      const int k = j - n, r = k % (nrg - 1);
+      a = src.slot(lo + k / (nrg - 1));
+      b0 = (r < tile ? r : r + 1) * X;
+    }
+  };
+  // Row bl of a piece (slot a, rows from b0), reduced by this warp.
+  auto reduce_row = [&](int a, int b0, int bl, const char* buf) {
+    const bool row = b0 == x0, whole = a >= x0 && a < x0 + nx;
+    const int b = b0 + bl, wa = (a - x0) * P;
+    const float ra = R[a];
+    float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), ws = ts;
+#pragma unroll
+    for (int k = 0; k < kMaxCells; ++k) {
+      // The first kMaxCells columns in registers (regs), the rest after.
+      const int c = h + H * k;
+      if (!regs || c >= P) break;
+      const float4 x = load4(reinterpret_cast<const E*>(
+          buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
+      if (row) {
+        fma4(acc_tbc[k], 1.f, x);
+        if constexpr (kGroupD) fma4(acc_m10[k], ra, x);
+        if (kSelect && c == a)
+          *reinterpret_cast<float4*>(dacT + (bl * P + a) * ncp + 4 * q) = x;
+      }
+      if (whole) {
+        const int at = (wa + b) * ncp + 4 * q;
+        if (kSelect && c == b) *reinterpret_cast<float4*>(dbc + at) = x;
+        if (kDac && c == a) *reinterpret_cast<float4*>(m6 + at) = x;
+      }
+      fma4(ts, 1.f, x);
+      if (kGroupD && whole) fma4(ws, R[c], x);
+    }
+    for (int c = regs ? P : h; c < P; c += H) {
+      const float4 x = load4(reinterpret_cast<const E*>(
+          buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
+      if (row) {
+        const int at = (bl * P + c) * ncp + 4 * q;
+        float4 sum = load4(tbc + at);
+        fma4(sum, 1.f, x);
+        *reinterpret_cast<float4*>(tbc + at) = sum;
+        if constexpr (kGroupD) {
+          float4 weighted = load4(m10 + at);
+          fma4(weighted, ra, x);
+          *reinterpret_cast<float4*>(m10 + at) = weighted;
+        }
+        if (kSelect && c == a)
+          *reinterpret_cast<float4*>(dacT + (bl * P + a) * ncp + 4 * q) = x;
+      }
+      if (whole) {
+        const int at = (wa + b) * ncp + 4 * q;
+        if (kSelect && c == b) *reinterpret_cast<float4*>(dbc + at) = x;
+        if (kDac && c == a) *reinterpret_cast<float4*>(m6 + at) = x;
+      }
+      fma4(ts, 1.f, x);
+      if (kGroupD && whole) fma4(ws, R[c], x);
+    }
+    // T_ab[a,b] (into tab for a whole slot, tabT for the tile's rows) and
+    // M6[a,b].
+    const float z = reduce_over_columns(ts, ws, h, quads);
+    if (h < 8) {
+      const int ch = 4 * q + (which & 3);
+      if (which < 4) {
+        if (row) tabT[(bl * P + a) * ncp + ch] = z;
+        if (whole) tab[(wa + b) * ncp + ch] = z;
+      } else if (kGroupD && whole) {
+        m6[(wa + b) * ncp + ch] = z;
+      }
+    }
+  };
+
+  for (int i = tid; i < kMaps * sp.mapw; i += nth) s.maps[i] = 0.f;
+  __syncthreads();
+  stream_pieces(src, sp, s, c0, nc, np, piece,
+                [&](int j, int a, int b0, const char* buf) {
+    const int nb = min(X, P - b0);
+    if (regs) {
+      if (gw == j % pieces(sp) && bw < nb) reduce_row(a, b0, bw, buf);
+    } else {
+      for (int bl = warp; bl < nb; bl += nwarps)   // the whole warp
+        reduce_row(a, b0, bl, buf);
+    }
+  });
+  if (regs) {
+    // The warps' cells of T_bc and M10, added in warp order.
+    for (int g = 0; g < nwarps / X; ++g) {
+      if (gw == g && bw < nx) {
+#pragma unroll
+        for (int k = 0; k < kMaxCells; ++k) {
+          const int c = h + H * k;
+          if (c >= P) break;
+          const int at = (bw * P + c) * ncp + 4 * q;
+          float4 sum = load4(tbc + at);
+          fma4(sum, 1.f, acc_tbc[k]);
+          *reinterpret_cast<float4*>(tbc + at) = sum;
+          if constexpr (kGroupD) {
+            float4 weighted = load4(m10 + at);
+            fma4(weighted, 1.f, acc_m10[k]);
+            *reinterpret_cast<float4*>(m10 + at) = weighted;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  if constexpr (!kSelect) {
+    // Every pick replaced by the full sum (picks_as_sums, on the tile's
+    // rows): D_bc = T_ab, D_ac = T_ab, T_bc[x,c] = T_b[x] and M10[x,c] =
+    // sum_a R[a] T_ab[a,x] for every c.
+    for (int i = tid; i < nx * P * ncp; i += nth) {
+      dbc[i] = tab[i];
+      dacT[i] = tabT[i];
+    }
+    for (int item = tid; item < nx * ncp; item += nth) {
+      const int f = item % ncp, xl = item / ncp;
+      float tb = 0.f, rb = 0.f;
+      for (int a = 0; a < P; ++a) {
+        const float v = tabT[(xl * P + a) * ncp + f];
+        tb += v;
+        rb += R[a] * v;
+      }
+      for (int c = 0; c < P; ++c) {
+        tbc[(xl * P + c) * ncp + f] = tb;
+        m10[(xl * P + c) * ncp + f] = rb;
+      }
+    }
+    __syncthreads();
+  }
+  // The tile's rows of T_a, T_b, sum_b T[x,b,b], sum_a T[a,x,a].
+  for (int item = tid; item < nx * ncp; item += nth) {
+    const int f = item % ncp, xl = item / ncp;
+    float ta = 0.f, tb = 0.f, td = 0.f, te = 0.f;
+    for (int y = 0; y < P; ++y) {
+      const int at = (xl * P + y) * ncp + f;
+      ta += tab[at]; tb += tabT[at]; td += dbc[at]; te += dacT[at];
+    }
+    s.ta[item] = ta; s.tb[item] = tb; s.tdbc[item] = td; s.tdac[item] = te;
+  }
+  __syncthreads();
+}
+
+// The loads of a row-tiled stream alone (the ablation variant dma): every
+// row of every slot that `src` yields for the chunk, a piece of sp.rows rows
+// at a time, each thread adding up the cells it reads.  Returns
+// this thread's sum; ends with a barrier.
+template <typename Src>
+__device__ inline float tile_loads(const Src& src, const StreamPlan& sp,
+                                   const StreamBuffers& s, int c0, int nc) {
+  using E = typename Src::Elem;
+  const int P = sp.P, X = sp.rows, ncp = sp.ncp, quads = ncp / 4;
+  const int nrg = (P + X - 1) / X, es = (int)sizeof(E);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  const RowItems cells = row_items(sp, quads);
+  stream_pieces(src, sp, s, c0, nc, src.count(P) * nrg,
+                [&](int j, int& a, int& b0) {
+                  a = src.slot(j / nrg);
+                  b0 = (j % nrg) * X;
+                },
+                [&](int, int, int b0, const char* buf) {
+    for_row_items(sp, cells, min(X, P - b0), [&](int bl, int c, int q) {
+      fma4(acc, 1.f, load4(reinterpret_cast<const E*>(
+                         buf + bl * sp.rowb + (c * ncp + 4 * q) * es)));
+    });
+  });
   return acc.x + acc.y + acc.z + acc.w;
 }
 

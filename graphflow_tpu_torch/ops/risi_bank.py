@@ -37,10 +37,11 @@ import functools
 import torch
 
 from graphflow_tpu_torch.ops.fused import risi18_matmul_fused
-from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _check,
-                                                _check_element_type, _entry,
-                                                _raise_on, _stream, _where,
-                                                check_smem)
+from graphflow_tpu_torch.ops.risi_level import (_bind_min_smem, _bind_plan,
+                                                _check, _check_element_type,
+                                                _entry, _raise_on, _stream,
+                                                _where, check_smem,
+                                                query_plan)
 
 # Storage dtype -> the dtype the bank computes in.
 _COMPUTE = {torch.float32: torch.float32, torch.bfloat16: torch.float32,
@@ -216,6 +217,171 @@ def risi18_bank_backward_factored_reference(T, A, K, g):
     return dT.to(T.dtype), dK.to(K.dtype)
 
 
+# -- the row-tiled decomposition ---------------------------------------------
+# Where a field's maps do not fit one block (P >= 36 forward, >= 33 backward
+# at Cout = 32), the kernels walk the rows x of Z in tiles X
+# (``csrc/risi18_forward_block.cuh:forward_block_tiled``,
+# ``csrc/risi18_backward_block.cuh:backward_block_tiled``).  The functions
+# below are that decomposition in plain PyTorch, for the CPU tests: each
+# tile is computed from the slot data the kernels stream for it and nothing
+# else.  Nothing on the main path calls them.
+
+def _tile_maps(T, R, x0, x1):
+    """The maps of the rows [x0, x1) (``_bank_reductions``' names, map row
+    x - x0), from the whole slots a in [x0, x1) and the rows b in [x0, x1)
+    of every slot only, as ``csrc/risi18_level_common.cuh:
+    tile_reductions`` forms them."""
+    Tw = T[:, x0:x1]                 # whole slots   [N, nx, P(b), P(c), C]
+    Tr = T[:, :, x0:x1]              # rows of slots [N, P(a), nx, P(c), C]
+    tab = Tw.sum(3)                                     # T_ab[x, y]
+    tabT = Tr.sum(3).transpose(1, 2)                    # T_ab[y, x]
+    dbc = Tw.diagonal(dim1=2, dim2=3).movedim(-1, 2)    # T[x, y, y]
+    dacT = Tr.diagonal(dim1=1, dim2=3).movedim(-1, 2)   # T[y, x, y]
+    return dict(
+        tab=tab, tabT=tabT, tbc=Tr.sum(1), dbc=dbc, dacT=dacT,
+        m6=torch.einsum("nxbcf,nc->nxbf", Tw, R),
+        m10=torch.einsum("naxcf,na->nxcf", Tr, R),
+        ta=tab.sum(2), tb=tabT.sum(2), tdbc=dbc.sum(2), tdac=dacT.sum(2))
+
+
+def _tiles(P, rows):
+    return [(x0, min(P, x0 + rows)) for x0 in range(0, P, rows)]
+
+
+def _adjacency(A):
+    Ap = A.clamp(min=0)
+    R = Ap.sum(-1)
+    return (Ap, R, R.sum(-1)[:, None, None, None],
+            Ap.diagonal(dim1=1, dim2=2).sum(-1)[:, None, None, None])
+
+
+def risi18_bank_tiled_reference(T, A, K, rows):
+    """Z of the bank (:func:`risi18_bank_factored_reference`) in row tiles
+    of ``rows`` rows, as ``forward_block_tiled`` forms it: the four scalars
+    (Tfull, s14, s15, t18) in a pass of their own over every slot, then per
+    tile X the maps of its rows (:func:`_tile_maps`), its rows of Z, W and
+    U, and Z's rows X = the direct products + W against the adjacency +
+    R U + Ap s.  Computed in float32 (float64 for float64) and cast to T's
+    dtype once."""
+    ct, dtype = _compute_dtype(T), T.dtype
+    T, A, K = T.to(ct), A.to(ct), K.to(ct)
+    N, P, _, _, C = T.shape
+    Kc = K.reshape(18, C, -1)
+    Ap, R, S, trA = _adjacency(A)
+    # The scalars' own pass: sum T, sum T[a,a,c], sum T[a,b,b], T[a,a,a].
+    d_aa = T.diagonal(dim1=1, dim2=2)                   # [N, P(c), C, P(a)]
+    s = (T.sum((1, 2, 3)) @ Kc[4] + d_aa.sum((1, 3)) @ Kc[13]
+         + T.diagonal(dim1=2, dim2=3).sum((1, 3)) @ Kc[14]
+         + d_aa.diagonal(dim1=1, dim2=3).sum(-1) @ Kc[17])
+    Z = []
+    for x0, x1 in _tiles(P, rows):
+        m = _tile_maps(T, R, x0, x1)
+        z = ((m["tab"] * S) @ Kc[0] + (m["tab"] * trA) @ Kc[6]
+             + (m["tbc"] * S) @ Kc[2] + m["m6"] @ Kc[5] + m["m10"] @ Kc[9])
+        W = (m["tab"] @ Kc[8] + m["tabT"] @ Kc[11] + m["tbc"] @ Kc[12]
+             + m["dbc"] @ Kc[15] + m["dacT"] @ Kc[16])
+        U = (m["ta"] @ Kc[1] + m["tb"] @ Kc[3] + m["tdbc"] @ Kc[7]
+             + m["tdac"] @ Kc[10])
+        Z.append(z + torch.einsum("nye,nxeo->nxyo", Ap, W)
+                 + R[:, None, :, None] * U[:, :, None, :]
+                 + Ap[:, x0:x1, :, None] * s[:, None, None, :])
+    return torch.cat(Z, 1).to(dtype)
+
+
+def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
+    """(dT, dK) of the bank (:func:`risi18_bank_backward_factored_reference`)
+    in row tiles of ``rows`` rows, as ``backward_block_tiled`` forms them.
+    dK: per tile X, its maps (:func:`_tile_maps`) against G and GAp of its
+    rows and its vectors against GR of its rows; the four scalars summed
+    tile by tile, times GA (summed over every row first).  dT, which needs
+    G and not T: per pair of tiles (Xa, Xb), the B maps of the rows b in Xb
+    (G, GAp and GR of those rows) and the A maps at the entries (a in Xa,
+    b in Xb) (G of the rows Xa, GAp of those entries), then
+    dT[Xa, Xb, :] = A + A6 R[c] + d(b,c) A15 + B11[b,a] + Bbc[b,c]
+    + R[a] B9[b,c] + d(a,c) B16[b,a].  -> (dT in T's dtype, dK in K's),
+    computed in float32 (float64) and rounded once."""
+    ct = _compute_dtype(T)
+    dtypes = (T.dtype, K.dtype)
+    T, A, K, G = T.to(ct), A.to(ct), K.to(ct), g.to(ct)
+    N, P, _, _, C = T.shape
+    Cout, dev = K.shape[1], T.device
+    Kc = K.reshape(18, C, Cout)
+    Ap, R, S, trA = _adjacency(A)
+    GA = torch.einsum("nxy,nxyo->no", Ap, G)
+
+    def back(x, k):        # x [..., Cout] against slab k: [..., C]
+        return x @ Kc[k].T
+
+    def rows_of(x0, x1):   # G, GAp and GR of the rows [x0, x1)
+        Gx = G[:, x0:x1]
+        return (Gx, torch.einsum("nxyo,nye->nxeo", Gx, Ap),
+                torch.einsum("nxyo,ny->nxo", Gx, R))
+
+    def maps(a, x):
+        return torch.einsum("nxyf,nxyo->fo", a, x)
+
+    def vecs(a, x):
+        return torch.einsum("nxf,nxo->fo", a, x)
+
+    dK = torch.zeros(18, C, Cout, dtype=ct)
+    sc = torch.zeros(4, N, C, dtype=ct)          # Tfull, s14, s15, t18
+    for x0, x1 in _tiles(P, rows):
+        m = _tile_maps(T, R, x0, x1)
+        Gx, GApx, GRx = rows_of(x0, x1)
+        for k, a, x in ((0, m["tab"] * S, Gx), (2, m["tbc"] * S, Gx),
+                        (5, m["m6"], Gx), (6, m["tab"] * trA, Gx),
+                        (8, m["tab"], GApx), (9, m["m10"], Gx),
+                        (11, m["tabT"], GApx), (12, m["tbc"], GApx),
+                        (15, m["dbc"], GApx), (16, m["dacT"], GApx)):
+            dK[k] += maps(a, x)
+        for k, a in ((1, m["ta"]), (3, m["tb"]), (7, m["tdbc"]),
+                     (10, m["tdac"])):
+            dK[k] += vecs(a, GRx)
+        own = torch.arange(x1 - x0, device=dev)
+        sc += torch.stack([m["ta"].sum(1),
+                           m["tab"][:, own, x0 + own].sum(1),
+                           m["tdbc"].sum(1),
+                           m["dbc"][:, own, x0 + own].sum(1)])
+    for k, j in ((4, 0), (13, 1), (14, 2), (17, 3)):
+        dK[k] = torch.einsum("nf,no->fo", sc[j], GA)
+
+    d_tfull, d_s14 = back(GA, 4)[:, None, None], back(GA, 13)[:, None, None]
+    d_s15, d_t18 = back(GA, 14)[:, None, None], back(GA, 17)[:, None, None]
+    cols = torch.arange(P, device=dev)
+    dT = torch.empty_like(T)
+    for xb0, xb1 in _tiles(P, rows):
+        Gb, GApb, GRb = rows_of(xb0, xb1)
+        tabT_b = back(GApb, 11)                          # B11[b, y]
+        tbc_b = S * back(Gb, 2) + back(GApb, 12) + back(GRb, 3)[:, :, None]
+        m10_b = back(Gb, 9)
+        dacT_b = back(GApb, 16) + back(GRb, 10)[:, :, None]
+        for xa0, xa1 in _tiles(P, rows):
+            Gab = G[:, xa0:xa1, xb0:xb1]
+            GApab = torch.einsum("nxyo,nye->nxeo", G[:, xa0:xa1],
+                                 Ap[:, :, xb0:xb1])
+            GRa = torch.einsum("nxyo,ny->nxo", G[:, xa0:xa1], R)
+            ra = torch.arange(xa0, xa1, device=dev)
+            rb = torch.arange(xb0, xb1, device=dev)
+            diag = (ra[:, None] == rb[None])[None, :, :, None]
+            tab_a = (S * back(Gab, 0) + trA * back(Gab, 6) + back(GApab, 8)
+                     + back(GRa, 1)[:, :, None] + d_tfull + diag * d_s14)
+            m6_a = back(Gab, 5)
+            dbc_a = (back(GApab, 15) + back(GRa, 7)[:, :, None] + d_s15
+                     + diag * d_t18)
+            d_bc = rb[:, None] == cols[None]
+            d_ac = ra[:, None] == cols[None]
+            dT[:, xa0:xa1, xb0:xb1] = (
+                tab_a[:, :, :, None]
+                + m6_a[:, :, :, None] * R[:, None, None, :, None]
+                + d_bc[None, None, :, :, None] * dbc_a[:, :, :, None]
+                + tabT_b[:, :, xa0:xa1].transpose(1, 2)[:, :, :, None]
+                + tbc_b[:, None]
+                + R[:, xa0:xa1, None, None, None] * m10_b[:, None]
+                + d_ac[None, :, None, :, None]
+                * dacT_b[:, :, xa0:xa1].transpose(1, 2)[:, :, :, None])
+    return dT.to(dtypes[0]), dK.reshape(18 * C, Cout).to(dtypes[1])
+
+
 @functools.lru_cache(maxsize=None)
 def _forward_lib() -> ctypes.CDLL:
     from graphflow_tpu_torch.runtime.cuda_build import load_library
@@ -226,6 +392,7 @@ def _forward_lib() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         fn.restype = i32
     _bind_min_smem(lib.risi18_bank_min_smem_bytes)
+    _bind_plan(lib.risi18_bank_plan)
     lib.risi18_bank_error_string.argtypes = [i32]
     lib.risi18_bank_error_string.restype = ctypes.c_char_p
     return lib
@@ -245,9 +412,21 @@ def _backward_lib() -> ctypes.CDLL:
     lib.risi18_bank_backward_reduce.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
     lib.risi18_bank_backward_reduce.restype = i32
     _bind_min_smem(lib.risi18_bank_backward_min_smem_bytes)
+    _bind_plan(lib.risi18_bank_backward_plan)
     lib.risi18_bank_bwd_error_string.argtypes = [i32]
     lib.risi18_bank_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bank_plan(P, C, Cout, dtype=torch.float32):
+    """K4's plan (``ops/risi_level.py:query_plan``)."""
+    return query_plan(_forward_lib().risi18_bank_plan, P, C, Cout, dtype)
+
+
+def bank_backward_plan(P, C, Cout, dtype=torch.float32):
+    """K5 kernel 1's plan (``ops/risi_level.py:query_plan``)."""
+    return query_plan(_backward_lib().risi18_bank_backward_plan, P, C, Cout,
+                      dtype)
 
 
 def _check_bank(T, A, K):

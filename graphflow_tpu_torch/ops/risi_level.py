@@ -145,6 +145,42 @@ def _bind_min_smem(fn):
     fn.restype = ctypes.c_longlong
 
 
+def _bind_plan(fn):
+    """A library's ``*_plan(P, C, Cout, bf16, int plan[7])``: the plan its
+    launcher takes (see :func:`query_plan`)."""
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+
+
+def query_plan(fn, P, C, Cout, dtype=torch.float32):
+    """The plan a kernel's launcher takes for a field of P rows, C input and
+    Cout output channels in ``dtype`` (16-byte aligned inputs), from the
+    library's ``*_plan`` entry ``fn``: a dict with ``rows`` (the rows of a
+    row tile; P for a plan that keeps every row), ``panel`` (output
+    channels a block), ``chunk`` (input channels a pass), ``depth`` (the
+    ring's buffers), ``smem_bytes``, ``tiled`` (the row-tiled block) and
+    ``pieces`` (pieces of ``rows`` rows a ring buffer holds); None where no
+    plan fits.  Needs the CUDA library (it is built with nvcc), not a
+    card."""
+    plan = (ctypes.c_int * 7)()
+    if fn(P, C, Cout, int(dtype == torch.bfloat16), plan):
+        return None
+    keys = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
+            "pieces")
+    return {k: int(v) for k, v in zip(keys, plan)}
+
+
+def level_plan(P, C, Cout, dtype=torch.float32):
+    """K1's plan (:func:`query_plan`)."""
+    return query_plan(_kernel_lib().risi18_level_plan, P, C, Cout, dtype)
+
+
+def level_backward_plan(P, C, Cout, dtype=torch.float32):
+    """K2 kernel 1's plan (:func:`query_plan`)."""
+    return query_plan(_backward_lib().risi18_level_backward_plan, P, C, Cout,
+                      dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib() -> ctypes.CDLL:
     from graphflow_tpu_torch.runtime.cuda_build import load_library
@@ -155,6 +191,7 @@ def _kernel_lib() -> ctypes.CDLL:
         fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     _bind_min_smem(lib.risi18_level_min_smem_bytes)
+    _bind_plan(lib.risi18_level_plan)
     lib.risi18_level_error_string.argtypes = [ctypes.c_int]
     lib.risi18_level_error_string.restype = ctypes.c_char_p
     return lib
@@ -179,6 +216,7 @@ def _backward_lib() -> ctypes.CDLL:
         [ptr] * 5 + [ctypes.c_longlong] + [i32] * 3 + [ptr])
     lib.risi18_level_backward_finish_bf16.restype = i32
     _bind_min_smem(lib.risi18_level_backward_min_smem_bytes)
+    _bind_plan(lib.risi18_level_backward_plan)
     lib.risi18_level_bwd_error_string.argtypes = [i32]
     lib.risi18_level_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -243,22 +281,23 @@ SMEM_LIMIT_BYTES = 232448
 
 def check_smem(what, min_smem_bytes, P, Cout):
     """Raises when a block of kernel ``what`` cannot fit its shared memory:
-    the kernels keep a vertex's [P*P]-row maps, and its output (or
-    cotangent) for at least four output channels, in one block, so a large
-    receptive field is refused, never rerouted.  ``min_smem_bytes(P,
-    Cout)`` is the library's own count of the bytes its smallest block
-    needs: ``make_forward_plan`` and ``make_backward_plan`` of
-    ``csrc/risi18_forward_block.cuh`` and ``csrc/risi18_backward_block.cuh``
-    at a chunk of one float32 channel (the level's blocks keep the
-    neighbour ids and positions as well; the bank's backward keeps all of
-    Cout in one panel)."""
+    the kernels keep a vertex's adjacency [P, P] (and the level's blocks
+    its positions), and the maps and the output (or cotangent) of a tile of
+    its rows for at least four output channels, in one block, so a
+    receptive field too large even for tiles of one row is refused, never
+    rerouted.  ``min_smem_bytes(P, Cout)`` is the library's own count of
+    the bytes its smallest block needs: ``make_forward_plan`` and
+    ``make_backward_plan`` of ``csrc/risi18_forward_block.cuh`` and
+    ``csrc/risi18_backward_block.cuh`` at a chunk of one float32 channel in
+    row tiles of one row (the bank's backward keeps all of Cout in one
+    panel)."""
     need = min_smem_bytes(P, Cout)
     if need > SMEM_LIMIT_BYTES:
         raise RuntimeError(
             f"{what}: a receptive field of P={P} at Cout={Cout} needs "
             f"{need} bytes ({need / 1024:.0f} KB) of shared memory in one "
             f"block, and an H100 block has {SMEM_LIMIT_BYTES} bytes "
-            f"(227 KB); the kernels do not tile a vertex's [P*P] rows")
+            f"(227 KB), even in row tiles of one row")
 
 
 def _raise_on(err, what, lib_error_string, where):

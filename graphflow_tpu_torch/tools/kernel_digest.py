@@ -16,7 +16,8 @@ summed by float32 atomics in an order that changes from run to run, so it
 agrees to rounding only; a redesigned kernel sums in another order).
 With ``--times`` it prints instead the spin-timed median ms of K1, of K2
 kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
-level) at every level shape that ``chip_smoke.py`` checks, so that two
+level), and of both kernels 2 (K2's in float32) beside ``partial.sum(0)``,
+at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
 bank, in the dtypes) the smoke does not time.
 
@@ -101,21 +102,35 @@ def main(argv=None):
                 from graphflow_tpu_torch.ops.risi_aligned import (
                     risi18_aligned_t2_reference)
                 from graphflow_tpu_torch.ops.risi_level import (
-                    _backward_main_kernel)
+                    _backward_main_kernel, _backward_reduce_kernel)
                 from graphflow_tpu_torch.tools.measure import time_ms
 
                 k1 = time_ms(lambda: risi18_level(*level))
                 k2 = time_ms(lambda: _backward_main_kernel(
                     *level[:5], g, out, 0.01))
+                _, partial = _backward_main_kernel(*level[:5], g, out, 0.01)
                 T = risi18_aligned_t2_reference(level[0], nbr,
                                                 pos).contiguous()
                 gb = g.view(N, P, P, Cout)
                 k4 = time_ms(lambda: risi18_bank(T, level[3], level[4]))
                 k5 = time_ms(lambda: risi_bank._backward_main_kernel(
                     T, level[3], level[4], gb))
+                _, bpartial = risi_bank._backward_main_kernel(
+                    T, level[3], level[4], gb)
+                # Kernel 2 of K2 (float32 only: bfloat16 takes
+                # finish_bf16_kernel) and of K5, beside partial.sum(0).
+                red = ""
+                if dtype == torch.float32:
+                    r2 = time_ms(lambda: _backward_reduce_kernel(
+                        partial, C, Cout))
+                    red = f"K2 kernel 2 {r2:.4f} ms, "
+                r5 = time_ms(lambda: risi_bank._backward_reduce_kernel(
+                    bpartial, C, Cout))
+                red += (f"K5 kernel 2 {r5:.4f} ms, partial.sum(0) "
+                        f"{time_ms(lambda: bpartial.sum(0)):.4f} ms")
                 print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms, K2 kernel "
                       f"1 {k2:.4f} ms, K4 {k4:.4f} ms, K5 kernel 1 "
-                      f"{k5:.4f} ms")
+                      f"{k5:.4f} ms; {red}")
                 continue
             dstate, dK, db = risi18_level_backward(*level, out, g)
             T = risi18_aligned_t2(level[0], nbr, pos)

@@ -12,7 +12,11 @@ cent above an unmarked launch; the shares are what the tool is for.  A
 forward block (K1, K4) is one vertex; a backward block (K2, K5) is the
 vertices of one vertex group for one channel chunk (two at N=256).  K4 and
 K5 run K1's and K2's blocks on slots streamed from T, so their stages are
-K1's and K2's, named for what the bank does there.
+K1's and K2's, named for what the bank does there.  On a row-tiled plan
+(a field one block does not hold, e.g. P = 64) it prints instead the
+stages of the block's stream (a ring buffer's pieces of a few rows) and
+thread 0's cycles a stage: waiting for the copies and the block, issuing
+the next copies, reducing the stage.
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -49,11 +53,27 @@ def build(name: str) -> ctypes.CDLL:
         name, flags=("-DRISI18_STAGE_CLOCK",), suffix="_clock").path))
 
 
+# stage_cycles[10..13] of a row-tiled block (csrc/risi18_level_common.cuh:
+# stream_pieces): thread 0's cycles per stage (a ring buffer's pieces)
+# waiting for its copies and the block, issuing the next stage's copies,
+# reducing the stage; the stages.
+PIECE_STAGES = ("wait and barrier", "issuing copies", "reducing")
+PIECE_SLOT = 10
+
+
 def report(what, stages, read_cycles):
     cycles = (ctypes.c_longlong * 16)()
     err = read_cycles(cycles)
     if err != 0:
         raise RuntimeError(f"{what}: reading the stage clock failed ({err})")
+    pieces = cycles[PIECE_SLOT + len(PIECE_STAGES)]
+    if pieces:
+        # A row-tiled plan: the blocks have no stage marks of their own.
+        print(f"{what}: row tiles, {pieces} stages in block (0, 0, 0), "
+              f"cycles a stage of its thread 0: " + ", ".join(
+                  f"{name} {cycles[PIECE_SLOT + i] / pieces:.0f}"
+                  for i, name in enumerate(PIECE_STAGES)))
+        return
     total = sum(cycles[:len(stages)])
     print(f"{what}: {total} cycles in block (0, 0, 0): " + ", ".join(
         f"{name} {cycles[i]} ({100 * cycles[i] / max(total, 1):.0f} %)"

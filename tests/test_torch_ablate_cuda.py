@@ -112,31 +112,48 @@ def test_variant_rejects_wrong_inputs(cuda):
         risi18_bank_variant(T, A, K.bfloat16(), "full")
     with pytest.raises(ValueError):
         risi18_bank_variant(T.transpose(1, 2), A, K, "full")
-    big = torch.zeros((1, 64, 64, 64, 1), device=cuda)
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 744384 "
+    # K4's reach (tests/test_torch_bank_cuda.py): P = 216 fits in row
+    # tiles of one row, P = 217 does not, at any Cout.
+    big = torch.zeros((1, 217, 217, 217, 1), device=cuda)
+    with pytest.raises(RuntimeError, match="P=217 at Cout=32 needs 234288 "
                                            "bytes .* shared memory"):
-        risi18_bank_variant(big, torch.zeros((1, 64, 64), device=cuda),
+        risi18_bank_variant(big, torch.zeros((1, 217, 217), device=cuda),
                             torch.zeros((18, 32), device=cuda), "full")
 
 
 @pytest.mark.parametrize("mode", MODES)
-def test_variants_on_a_field_of_more_than_32_rows(cuda, mode):
-    """Beyond 32 rows K4's block streams in shared memory (the wide stream):
-    ``full`` is K4 there too and ``dma`` streams as well; the other
-    variants are not built for it and refuse the launch."""
-    T, A, K = _inputs(2, 33, 4, 8, seed=5, device=cuda, dtype=torch.float32)
-    if mode in ("full", "dma"):
-        got = risi18_bank_variant(T, A, K, mode)
-        ref = risi18_bank_variant_reference(T, A, K, mode)
-        if mode == "dma":
-            torch.cuda.synchronize()
-            assert torch.equal(got, ref)
-        else:
-            _assert_close(got, ref)
-            assert torch.equal(got, risi18_bank(T, A, K))
+@pytest.mark.parametrize("N,P,C,Cout", [(2, 33, 4, 8), (2, 36, 4, 32),
+                                        (2, 48, 8, 4), (2, 64, 4, 32)])
+def test_variants_on_a_field_of_more_than_32_rows(cuda, dtype, mode, N, P, C,
+                                                  Cout):
+    """Beyond 32 rows K4's block streams in shared memory (the wide stream,
+    to 35 rows at Cout = 32) and from 36 rows walks the rows in tiles
+    (``forward_block_tiled``); every variant takes K4's plan, and ``full``
+    is K4 there too."""
+    T, A, K = _inputs(N, P, C, Cout, seed=5, device=cuda, dtype=dtype)
+    got = risi18_bank_variant(T, A, K, mode)
+    ref = risi18_bank_variant_reference(T, A, K, mode)
+    if mode == "dma":
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
     else:
-        with pytest.raises(RuntimeError, match="kernel launch failed"):
-            risi18_bank_variant(T, A, K, mode)
+        _assert_close(got, ref)
+        if mode == "full":
+            assert torch.equal(got, risi18_bank(T, A, K))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_variants_at_the_edge_of_their_reach(cuda, dtype, mode):
+    """P = 216, the last field whose tiles of one row fit K4's block at
+    Cout = 32: every variant runs there and matches its plain version."""
+    T, A, K = _inputs(1, 216, 1, 32, seed=216, device=cuda, dtype=dtype)
+    got = risi18_bank_variant(T, A, K, mode)
+    ref = risi18_bank_variant_reference(T, A, K, mode)
+    if mode == "dma":
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref)
+    else:
+        _assert_close(got, ref)
 
 
 def test_tool_reports_five_times_and_the_attribution(cuda):

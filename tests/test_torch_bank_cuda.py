@@ -19,7 +19,8 @@ import torch
 from graphflow_tpu_torch.ops.risi_aligned import (
     _gather_neighbor_tensors_take)
 from graphflow_tpu_torch.ops.risi_bank import (
-    risi18_bank, risi18_bank_backward, risi18_bank_backward_reference,
+    _backward_reduce_kernel, bank_backward_plan, bank_plan, risi18_bank,
+    risi18_bank_backward, risi18_bank_backward_reference,
     risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.utils.datasets import random_level_case
@@ -125,13 +126,14 @@ def test_bank_kernels_repeat_bit_for_bit(cuda, dtype, N, P, C, Cout):
 
 def test_bank_forward_streams_fields_of_more_than_32_rows(cuda, dtype):
     """Beyond 32 rows K4 streams in shared memory (the wide stream, as K1
-    does); the backward, like K2's, stops at 32 rows and refuses with its
-    bytes."""
+    does); the backward, like K2's, takes the row-tiled block there (one
+    tile of 33 rows, or several)."""
     T, A, K, g = _inputs(2, 33, 4, 8, seed=4, device=cuda, dtype=dtype)
     _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
-    with pytest.raises(RuntimeError, match="P=33 at Cout=8 needs 279168 "
-                                           "bytes .* shared memory"):
-        risi18_bank_backward(T, A, K, g)
+    for x, r in zip(risi18_bank_backward(T, A, K, g),
+                    risi18_bank_backward_reference(T, A, K, g)):
+        _assert_close(x, r)
+    assert bank_backward_plan(33, 4, 8, dtype)["tiled"] == 1
 
 
 def test_bank_autograd_on_cuda_runs_k4_and_k5(cuda, dtype):
@@ -176,17 +178,117 @@ def test_bank_kernels_reject_wrong_inputs(cuda):
 
 
 def test_bank_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """The maps and Z [P*P, Cout] live in shared memory: at P=64, Cout=32
-    they do not fit, and the launch is refused with an error, not run."""
-    T, A, K, _ = _inputs(2, 64, 2, 32, seed=8, device=cuda,
+    """The maps and Z of a tile of rows live in shared memory beside the
+    adjacency [P, P]: P=64 at Cout=32, which one block's maps and Z could
+    not hold, runs in row tiles; the first fields that even tiles of one
+    row leave no room for (K4 at P=217, K5 at P=179 with Cout=32 in one
+    panel) are refused with an error, not run."""
+    T, A, K, g = _inputs(2, 64, 2, 32, seed=8, device=cuda,
                          dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 744384 "
-                                           "bytes .* shared memory"):
-        risi18_bank(T, A, K)
-    g = torch.ones((2, 64, 64, 32), device=cuda)
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs .* "
-                                           "shared memory"):
-        risi18_bank_backward(T, A, K, g)
+    _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
+    for x, r in zip(risi18_bank_backward(T, A, K, g),
+                    risi18_bank_backward_reference(T, A, K, g)):
+        _assert_close(x, r)
+    for P, call, need in ((217, risi18_bank, 234288),
+                          (179, risi18_bank_backward, 232880)):
+        T = torch.zeros((1, P, P, P, 1), device=cuda)
+        A = torch.zeros((1, P, P), device=cuda)
+        K = torch.zeros((18, 32), device=cuda)
+        args = (T, A, K) if call is risi18_bank else (
+            T, A, K, torch.zeros((1, P, P, 32), device=cuda))
+        before = (risi18_bank.launches, risi18_bank_backward.launches)
+        with pytest.raises(RuntimeError, match=f"P={P} at Cout=32 needs "
+                                               f"{need} bytes .* shared "
+                                               f"memory"):
+            call(*args)
+        assert (risi18_bank.launches,
+                risi18_bank_backward.launches) == before
+
+
+# Fields that one block's maps do not hold: the row-tiled block (K5 from 33
+# rows, K4 from 36), at the widths of SMP_beta's levels (Cout = 32) and a
+# narrow one; two vertices, one of them empty.
+LARGE = [(2, P, C, Cout) for P in (33, 36, 48, 64)
+         for C, Cout in ((4, 4), (8, 32))]
+
+
+@pytest.mark.parametrize("N,P,C,Cout", LARGE)
+def test_bank_kernels_on_fields_beyond_one_block(cuda, dtype, N, P, C, Cout):
+    T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda, dtype=dtype)
+    got = risi18_bank(T, A, K)
+    _assert_close(got, risi18_bank_reference(T, A, K))
+    assert not got[N // 2].any()
+    for x, r in zip(risi18_bank_backward(T, A, K, g),
+                    risi18_bank_backward_reference(T, A, K, g)):
+        _assert_close(x, r)
+    second = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+    first = (got, *risi18_bank_backward(T, A, K, g))
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("P", [33, 36])
+def test_bank_kernels_walk_several_vertices_of_a_tiled_field(cuda, dtype, P):
+    """140 vertices, more than K5 kernel 1's 132 vertex groups: blocks of
+    its row-tiled plan walk two vertices each, write each one's dT and
+    carry dK from one to the next (K4 tiles from 36 rows)."""
+    N, C, Cout = 140, 4, 4
+    assert bank_backward_plan(P, C, Cout, dtype)["tiled"] == 1
+    T, A, K, g = _inputs(N, P, C, Cout, seed=P, device=cuda, dtype=dtype)
+    _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
+    for x, r in zip(risi18_bank_backward(T, A, K, g),
+                    risi18_bank_backward_reference(T, A, K, g)):
+        _assert_close(x, r)
+
+
+def test_bank_kernels_run_at_the_edge_of_their_reach(cuda, dtype):
+    """The last fields whose tiles of one row fit a block at Cout = 32:
+    K4 at P = 216 and K5 kernel 1 at P = 178 run and match."""
+    T, A, K, _ = _inputs(1, 216, 1, 32, seed=216, device=cuda, dtype=dtype)
+    _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
+    T, A, K, g = _inputs(1, 178, 1, 32, seed=178, device=cuda, dtype=dtype)
+    for x, r in zip(risi18_bank_backward(T, A, K, g),
+                    risi18_bank_backward_reference(T, A, K, g)):
+        _assert_close(x, r)
+
+
+def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
+    """The planners try the plans that keep every row first, exactly as
+    before the row tiles, and tile only where none fits: K4 from 36 rows
+    (38 in bfloat16), K5 from 33 (from 22 at Cout = 32, which it holds in
+    one panel: 23 in bfloat16).  The production shape keeps its plan
+    (rows, panel, chunk, ring depth, bytes)."""
+    for dtype, f4, f32, b32 in ((torch.float32, 36, 36, 22),
+                                (torch.bfloat16, 38, 38, 23)):
+        for C, Cout, first_fwd, first_bwd in ((4, 4, f4, 33),
+                                              (32, 32, f32, b32)):
+            for P in range(1, 65):
+                fwd = bank_plan(P, C, Cout, dtype)
+                bwd = bank_backward_plan(P, C, Cout, dtype)
+                assert fwd["tiled"] == (P >= first_fwd), (P, C, Cout)
+                assert bwd["tiled"] == (P >= first_bwd), (P, C, Cout)
+                assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
+    assert bank_plan(16, 32, 32) == dict(rows=16, panel=32, chunk=16,
+                                         depth=3, smem_bytes=210928, tiled=0,
+                                         pieces=1)
+    assert bank_backward_plan(16, 32, 32) == dict(
+        rows=16, panel=32, chunk=8, depth=4, smem_bytes=226960, tiled=0,
+        pieces=1)
+
+
+def test_bank_reduce_matches_torch_and_repeats(cuda):
+    """K5's kernel 2 sums 132 partial rows of 18C*Cout columns into dK:
+    ``partial.sum(0)`` to float32 rounding, and the same bits every run."""
+    for rows, C, Cout in ((132, 32, 32), (132, 5, 3), (7, 4, 4), (0, 2, 2)):
+        partial = torch.randn((rows, 18 * C * Cout), device=cuda)
+        dK = _backward_reduce_kernel(partial, C, Cout)
+        again = _backward_reduce_kernel(partial, C, Cout)
+        torch.cuda.synchronize()
+        assert torch.equal(dK, again)
+        ref = partial.double().sum(0).reshape(18 * C, Cout)
+        assert float((dK.double() - ref).abs().max()) <= 1e-5 * max(
+            1.0, float(ref.abs().max()))
 
 
 def test_level_kernel_refuses_bfloat16(cuda):

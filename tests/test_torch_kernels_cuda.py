@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from graphflow_tpu_torch.ops.risi_level import (
-    risi18_level, risi18_level_backward, risi18_level_backward_reference,
+    _backward_reduce_kernel, level_backward_plan, level_plan, risi18_level,
+    risi18_level_backward, risi18_level_backward_reference,
     risi18_level_reference)
 from graphflow_tpu_torch.tools.measure import same_signs
 from graphflow_tpu_torch.utils.datasets import random_level_case
@@ -185,33 +186,130 @@ def test_level_kernel_takes_float32_and_bfloat16_only(cuda):
 
 
 def test_level_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """The maps and Z [P*P, Cout] live in shared memory: at P=64, Cout=32
-    they do not fit, and the launch is refused with an error, not run."""
+    """The maps and Z of a tile of rows live in shared memory beside the
+    vertex's adjacency and positions [P, P]: P=64 at Cout=32, whose maps
+    and Z one block could not hold, runs in row tiles; P=157 leaves no room
+    even for tiles of one row, and the launch is refused with an error,
+    not run."""
     args = _inputs(2, 64, 4, 32, seed=8, device=cuda)
+    _assert_close(risi18_level(*args), risi18_level_reference(*args))
+    args = _inputs(1, 157, 1, 32, seed=8, device=cuda)
     before = risi18_level.launches
-    with pytest.raises(RuntimeError, match="P=64 at Cout=32 needs 761296 "
+    with pytest.raises(RuntimeError, match="P=157 at Cout=32 needs 233376 "
                                            "bytes .* shared memory"):
         risi18_level(*args)
     assert risi18_level.launches == before
 
 
 def test_backward_kernel_rejects_shapes_beyond_shared_memory(cuda):
-    """G and G.Ap [P*P, a panel of Cout] live in shared memory beside the
-    maps: P=32 at Cout=32 is the last field that fits both kernels (in
-    panels of four output channels); at P=33 the backward is refused with
-    its bytes, and the forward still runs."""
-    args = _inputs(2, 32, 4, 32, seed=8, device=cuda)
-    out = risi18_level(*args)
-    _assert_close(out, risi18_level_reference(*args))
-    _check_backward(args, _cotangent(2, 32, 32, seed=8, device=cuda))
-    args = _inputs(2, 33, 4, 32, seed=8, device=cuda)
-    out = torch.ones((2, 33 * 33, 32), device=cuda)
+    """G and G.Ap of a tile of rows live in shared memory beside the maps:
+    P=33 at Cout=32, the first field whose rows one block's maps and G do
+    not hold, runs in row tiles, and so does P=64; P=154 leaves no room even
+    for tiles of one row and is refused with its bytes."""
+    for P in (33, 64):
+        args = _inputs(2, P, 4, 32, seed=8, device=cuda)
+        _check_backward(args, _cotangent(2, P, 32, seed=8, device=cuda))
+    args = _inputs(1, 154, 1, 32, seed=8, device=cuda)
+    out = torch.ones((1, 154 * 154, 32), device=cuda)
     before = (risi18_level.launches, risi18_level_backward.launches)
-    with pytest.raises(RuntimeError, match="P=33 at Cout=32 needs 246592 "
+    with pytest.raises(RuntimeError, match="P=154 at Cout=32 needs 233840 "
                                            "bytes .* shared memory"):
         risi18_level_backward(*args, out, torch.ones_like(out))
     assert (risi18_level.launches, risi18_level_backward.launches) == before
+
+
+# Fields that one block's maps do not hold: the row-tiled blocks (K2 from 33
+# rows, K1 from 36), at SMP_beta's width (C = Cout = 32) and a narrow one,
+# with chunks that do not divide C; three vertices, one of them empty.
+LARGE = [(3, P, C, Cout) for P in (33, 36, 48, 64)
+         for C, Cout in ((5, 4), (32, 32))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,C,Cout", LARGE)
+def test_level_kernels_on_fields_beyond_one_block(cuda, N, P, C, Cout,
+                                                  dtype):
+    args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                   empty_vertex=N // 2, dtype=dtype)
+    before = risi18_level.launches
+    out = risi18_level(*args)
+    assert risi18_level.launches == before + 1
+    _assert_close(out, risi18_level_reference(*args))
+    got = _check_backward(args, _cotangent(N, P, Cout, seed=N, device=cuda,
+                                           dtype=dtype))
+    again = risi18_level_backward(*args, same_signs(
+        risi18_level(*args), risi18_level_reference(*args)),
+        _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(out, risi18_level(*args))
+    for x, y in zip(got[1:], again[1:]):      # dK and db, bit for bit
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [33, 36])
+def test_level_kernels_walk_several_vertices_of_a_tiled_field(cuda, P,
+                                                             dtype):
+    """140 vertices, more than the backward's 132 vertex groups: blocks of
+    the row-tiled kernel 1 walk two vertices each and carry dK, db and
+    their buffers from one to the next (K1 tiles from 36 rows)."""
+    N, C, Cout = 140, 4, 4
+    assert level_backward_plan(P, C, Cout, dtype)["tiled"] == 1
+    args = _inputs(N, P, C, Cout, seed=P, device=cuda, empty_vertex=N // 2,
+                   dtype=dtype)
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
+    _check_backward(args, _cotangent(N, P, Cout, seed=P, device=cuda,
+                                     dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_kernels_run_at_the_edge_of_their_reach(cuda, dtype):
+    """The last fields whose tiles of one row fit a block at Cout = 32:
+    K1 at P = 156 and K2 kernel 1 at P = 153 run and match."""
+    args = _inputs(1, 156, 1, 32, seed=156, device=cuda, dtype=dtype)
+    assert level_plan(156, 1, 32, dtype)["rows"] >= 1
+    _assert_close(risi18_level(*args), risi18_level_reference(*args))
+    args = _inputs(1, 153, 1, 32, seed=153, device=cuda, dtype=dtype)
+    _check_backward(args, _cotangent(1, 153, 32, seed=153, device=cuda,
+                                     dtype=dtype))
+
+
+def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
+    """The planners try the plans that keep every row first, exactly as
+    before the row tiles, and tile only where none fits: K1 from 36 rows
+    (37 in bfloat16), K2 from 33.  The production shape keeps its plan
+    (rows, panel, chunk, ring depth, bytes)."""
+    for dtype, first_fwd in ((torch.float32, 36), (torch.bfloat16, 37)):
+        for C, Cout in ((4, 4), (32, 32), (16, 8)):
+            for P in range(1, 65):
+                fwd = level_plan(P, C, Cout, dtype)
+                bwd = level_backward_plan(P, C, Cout, dtype)
+                assert fwd["tiled"] == (P >= first_fwd), (P, C, Cout)
+                assert bwd["tiled"] == (P >= 33), (P, C, Cout)
+                assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
+    assert level_plan(16, 32, 32) == dict(rows=16, panel=32, chunk=16,
+                                          depth=3, smem_bytes=212096,
+                                          tiled=0, pieces=1)
+    assert level_backward_plan(16, 32, 32) == dict(
+        rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
+        pieces=1)
+
+
+@pytest.mark.parametrize("C,Cout", [(32, 32), (5, 3), (1, 1)])
+def test_backward_reduce_matches_torch_and_repeats(cuda, C, Cout):
+    """Kernel 2 sums the partial rows (132 at N >= 132) into dK and db:
+    ``partial.sum(0)`` to float32 rounding, the same bits every run, and
+    zeros without rows."""
+    for rows in (132, 7, 0):
+        partial = torch.randn((rows, 18 * C * Cout + Cout), device=cuda)
+        dK, db = _backward_reduce_kernel(partial, C, Cout)
+        dK2, db2 = _backward_reduce_kernel(partial, C, Cout)
+        torch.cuda.synchronize()
+        assert torch.equal(dK, dK2) and torch.equal(db, db2)
+        ref = partial.double().sum(0)
+        got = torch.cat([dK.flatten(), db]).double()
+        assert float((got - ref).abs().max()) <= 1e-5 * max(
+            1.0, float(ref.abs().max()))
 
 
 # -- K2, the level backward -------------------------------------------------
