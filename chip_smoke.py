@@ -159,7 +159,29 @@ Phases, each reported on its own lines:
               of kernel 1 walk two) the sum of the plain level's per
               graph (in float64 for a float32 model); the request's and step's walls and peak memory are
               printed.  Then the bank route (level_fn=risi18_bank_level,
-              K4 and K5 in row tiles) at V = 64 on 3 graphs, the same way.
+              K4 and K5 in row tiles) at V = 64 on 3 graphs, the same way;
+ 19. pairs    SMP_omega_pairgraphs(64, 64, 16, 2, 32, 4, 4) (V = 64,
+              P = 16, towers 32 -> 16 -> 8, head 112 -> 56 -> 28) serves two
+              requests of 4 pairs (Predict per pair) and takes 3 BatchLearn
+              steps with the loss falling, K1 and K2 counted (2 towers x 2
+              levels per forward, per backward); the first pair's prediction
+              and every gradient match the same weights in float64 on the
+              CPU.  SMP_sigma_pairgraphs: the masked towers' loss and
+              gradients through K1/K2 on the scaled K against the plain
+              masked level, then steps with a fresh mask each.
+              SMP_beta_pairgraphs at V1 = 24, V2 = 40 (P = 40 > V1) against
+              the plain level in float64 on the card.  SMP_gamma, SMP_theta,
+              CCN_1D and GCN_1D/2D/3D_Kernel (V = 64, H = 32) against the
+              same model on the CPU, no kernel launched.  Each prints its
+              cached request and step walls and the step's peak memory;
+ 20. graphs   GRU_GCN_1D/2D/3D, GCA_1D, CGCN_1D/2D and LCNN(64, 4, 10, 2,
+              32, 32, 32) at V = 64 and hidden 32, as phases 16-17 do;
+              no kernel launched;
+ 21. library  LSTM and GRU (28 features, 128 hidden, 10 classes, 28
+              steps): getLoss, the logits and Learn against the CPU twin;
+              MLP([784, 128, 10]) (Momentum) and CNN() (SGD) on 64 seeded
+              28 x 28 images: a step's loss and parameters against the CPU
+              twin, then 3 steps with the loss falling; no kernel launched.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -2244,35 +2266,48 @@ def kernel_counts():
             + tuple(risi18_bank_variant.launches.values()))
 
 
-def momentum_lr(model, graphs, targets):
-    """A Momentum learning rate for NEW_PHASE_STEPS steps: the first that
-    cuts the loss over those steps, taken on the model and then undone,
-    of lr0 / 4^k, where lr0 cuts it by 5 % in one step to first order
-    (lr0 |g|^2 / nBatch = 0.05 loss)."""
-    loss, grads = model._loss_and_grads(model._stack(graphs, targets))
-    norm2 = sum(float((g.double() ** 2).sum()) for g in grads.values())
-    lr = 0.05 * loss * len(graphs) / norm2
+def falling_lr(model, learn, lr0, n_steps=NEW_PHASE_STEPS, every=False):
+    """The first learning rate of lr0 / 4^k whose ``n_steps`` steps
+    (``learn(lr)`` -> (loss_before, loss_after)) cut the loss (``every``:
+    each step cuts its own), taken on the model and then undone
+    (parameters and optimizer state)."""
+    lr = lr0
     model.cache_parameters()
     for _ in range(12):
-        steps = [model.BatchLearn(graphs, targets, lr)
-                 for _ in range(NEW_PHASE_STEPS)]
+        steps = [learn(lr) for _ in range(n_steps)]
         model.restore_parameters()
-        if np.isfinite(steps).all() and steps[-1][1] < steps[0][0]:
+        cut = (all(b < a for a, b in steps) if every
+               else steps[-1][1] < steps[0][0])
+        if np.isfinite(steps).all() and cut:
             return lr
         lr /= 4
     raise AssertionError(f"no learning rate down to {lr:.3e} cuts the loss")
 
 
-def serve_and_train(what, model, cpu, requests, targets, nClasses=None):
-    """Phases 16-17 for one model: its requests, the first request's first
-    graph and its first-step gradients against the same model on the CPU,
-    then NEW_PHASE_STEPS BatchLearn steps on the first request's graphs.
-    Returns the text to log."""
+def momentum_lr(model, graphs, targets):
+    """A Momentum learning rate for NEW_PHASE_STEPS steps (falling_lr) from
+    lr0, which cuts the loss by 5 % in one step to first order
+    (lr0 |g|^2 / nBatch = 0.05 loss)."""
+    loss, grads = model._loss_and_grads(model._stack(graphs, targets))
+    norm2 = sum(float((g.double() ** 2).sum()) for g in grads.values())
+    return falling_lr(model, lambda lr: model.BatchLearn(graphs, targets, lr),
+                      0.05 * loss * len(graphs) / norm2)
+
+
+def serve_and_train(what, model, cpu, requests, targets, nClasses=None,
+                    out_shape=()):
+    """Phases 16, 17 and 20 for one model: its requests, the first
+    request's first graph and its first-step gradients against the same
+    model on the CPU, then NEW_PHASE_STEPS BatchLearn steps on the first
+    request's graphs.  A graph's output has the shape ``out_shape`` (the
+    autoencoder's [V, V]), or [nClasses] scores.  Returns the text to
+    log."""
     import torch
 
     preds = [model.Threaded_Predict(gs) for gs in requests]
     for r, p in enumerate(preds):
-        expected = (len(requests[r]),) + ((nClasses,) if nClasses else ())
+        expected = (len(requests[r]),) + ((nClasses,) if nClasses
+                                          else out_shape)
         if p.shape != expected or not np.isfinite(p).all():
             raise AssertionError(f"{what} request {r}: shape {p.shape}, "
                                  f"finite {np.isfinite(p).all()}")
@@ -2301,7 +2336,8 @@ def serve_and_train(what, model, cpu, requests, targets, nClasses=None):
     losses = [x for st in steps for x in st]
     if not (np.isfinite(losses).all() and steps[-1][1] < steps[0][0]):
         raise AssertionError(f"{what}: the loss did not fall: {steps}")
-    shown = np.concatenate(preds).astype(np.float64).round(4).tolist()
+    shown = np.concatenate(preds).astype(np.float64).reshape(-1).round(
+        4).tolist()
     return (
         f"predictions {shown[:4]}...; one graph's prediction and "
         f"{len(grads)} gradients vs the CPU, max abs err {err:.3e} (bound "
@@ -2634,6 +2670,400 @@ def phase_large_field():
     return result
 
 
+# Phases 19-21: the pair models (SMP_omega_pairgraphs(64, 64, 16, 2, 32, 4,
+# 4): V = 64, P = 16, towers 32 -> 16 -> 8, head 112 -> 56 -> 28), the other
+# graph families at V = 64 and hidden 32, and the library models at the
+# reference's sizes (MNIST-shaped inputs, random from a seed).
+PAIR = dict(max_nVertices_1=64, max_nVertices_2=64, max_receptive_field=16,
+            nLevels=2, nChanels=32, nFeatures_1=4, nFeatures_2=4)
+BETA_PAIR_V = (24, 40)
+GCN_KERNEL = dict(nLevels=2, max_nVertices=64, nFeatures=4, nHiddens=32,
+                  nDepth=5, max_Radius=2)
+ADAM_LR0 = 1e-3
+SEQUENCE = dict(nFeatures=28, nHiddens=128, nClasses=10, max_nLevels=28)
+IMAGES = 64
+
+
+def pair_requests(V1, V2, base_seed):
+    """Two requests of GRAPHS_PER_REQUEST pairs of Erdos-Renyi graphs
+    (p = ER_P), each request ([graphs of tower 1], [graphs of tower 2])."""
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    def graphs(V, seed):
+        return [random_graph(V, ER_P, seed=seed + i)
+                for i in range(GRAPHS_PER_REQUEST)]
+
+    return [(graphs(V1, base_seed + 10 * r), graphs(V2, base_seed + 10 * r
+                                                     + 5))
+            for r in range(2)]
+
+
+def pair_grads(model, g1, g2, targets, **kw):
+    """(the loss, the gradients in param_order) of the pairs, through the
+    model's own route or the one ``kw`` names (level_fn, case_mask)."""
+    import torch
+
+    batch = model._stack(g1, g2, targets)
+    loss = model._loss(model.params, batch, **kw)
+    return loss.detach(), torch.autograd.grad(
+        loss, list(model.param_dict().values()))
+
+
+def serve_and_train_pairs(what, model, ref, requests, targets, lr0,
+                          n_steps=NEW_PHASE_STEPS, rtol=RTOL, **ref_kw):
+    """Phase 19 for one pair model: two requests (Predict for each pair),
+    counted, the first pair's prediction and gradients against ``ref`` (the
+    same weights on the CPU, or on the card through the plain level,
+    ``ref_kw``), then ``n_steps`` BatchLearn steps, counted, on the first
+    request's pairs at the first rate of lr0 / 4^k that cuts the loss.
+    -> (the text to log, K1/K2 launches while serving, while training, the
+    largest error against the reference as a share of max(1,
+    max|reference|))."""
+    import torch
+
+    reset_level_counts()
+    preds = [[model.Predict(a, b) for a, b in zip(*req)] for req in requests]
+    served = level_counts()
+    if not np.isfinite(preds).all():
+        raise AssertionError(f"{what}: non-finite predictions {preds}")
+    (g1, g2), one = requests[0], slice(0, 1)
+    with torch.no_grad():
+        batch = ref._stack(g1[one], g2[one])
+        err = check_rel(f"{what} first pair's prediction vs the reference",
+                          preds[0][0], ref._forward(ref.params, batch,
+                                                    **ref_kw)[0])
+    _, grads = pair_grads(model, g1[one], g2[one], targets[one])
+    _, ref_grads = pair_grads(ref, g1[one], g2[one], targets[one], **ref_kw)
+    for path, x, r in zip(model.param_dict(), grads, ref_grads):
+        err = max(err, check_rel(f"{what} gradient {path} vs the "
+                                 f"reference", x, r, rtol))
+    _, req_s = synced_s(lambda: [model.Predict(a, b)
+                                 for a, b in zip(g1, g2)])
+
+    lr = falling_lr(model, lambda lr: model.BatchLearn(g1, g2, targets, lr),
+                    lr0, n_steps, every=True)
+    reset_level_counts()
+    steps, step_s = [], []
+    for k in range(n_steps):
+        if k == n_steps - 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        out, secs = synced_s(lambda: model.BatchLearn(g1, g2, targets, lr))
+        steps.append(out)
+        step_s.append(secs)
+    trained = level_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e6
+    if not (np.isfinite(steps).all() and all(b < a for a, b in steps)):
+        raise AssertionError(f"{what}: the loss did not fall: {steps}")
+    shown = np.round(np.asarray(preds, np.float64).reshape(-1), 4).tolist()
+    return (
+        f"predictions {shown[:4]}...; the first pair's prediction and "
+        f"{len(grads)} gradients vs the reference, max err {err:.3e} of "
+        f"max(1,max|ref|) (bound {rtol:g}); BatchLearn lr {lr:.3e} "
+        f"(loss_before, loss_after) "
+        + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+        + f"; cached request ({len(g1)} Predict) {req_s * 1e3:.2f} ms, "
+        f"cached step {step_s[-1] * 1e3:.2f} ms (host clock, synced); the "
+        f"step's peak device memory {peak:.1f} MB above the "
+        f"{held / 1e6:.1f} MB held"), served, trained, err
+
+
+def phase_pairs():
+    """Phase 19: the pair models on the card.  SMP_omega_pairgraphs at full
+    width serves two requests and takes three steps through K1 and K2
+    (counted), against the same weights in float64 on the CPU; sigma's
+    masked towers against the plain masked level; beta pairs at V1 = 24,
+    V2 = 40 (P = 40 > V1: row-tiled) against the plain level in float64 on
+    the card; gamma, theta, CCN_1D and the GCN kernels against the same
+    model on the CPU, with no kernel launched.  -> (K1 launches, [K2
+    kernel 1, kernel 2] launches, the largest error of the kernels' paths,
+    as a share of max(1, max|reference|))."""
+    import torch
+    from graphflow_tpu_torch import models
+    from graphflow_tpu_torch.models.smp2d import case_mask_level_reference
+    from graphflow_tpu_torch.ops.contractions import dropout_case_mask
+    from graphflow_tpu_torch.ops.risi_level import (level_backward_plan,
+                                                    level_plan,
+                                                    risi18_level_reference)
+
+    nL, towers = PAIR["nLevels"], 2
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    k1, k2 = 0, [0, 0]
+    t0 = time.perf_counter()
+
+    def count(what, served, trained, n_predict, n_steps):
+        """The launches a path must make: K1 once per level and tower per
+        forward (a Predict, a step's two), K2 once per backward."""
+        nonlocal k1
+        want_served = (towers * nL * n_predict, 0, 0)
+        want_trained = (towers * nL * 2 * n_steps, towers * nL * n_steps,
+                        towers * nL * n_steps)
+        if served != want_served or trained != want_trained:
+            raise AssertionError(
+                f"{what}: launches (K1, K2 kernel 1, K2 kernel 2) serving "
+                f"{served}, training {trained}; expected {want_served}, "
+                f"{want_trained}")
+        k1 += served[0] + trained[0]
+        k2[0] += trained[1]
+        k2[1] += trained[2]
+        return (f"launches K1={served[0]} serving, K1={trained[0]} K2 "
+                f"kernel 1={trained[1]} kernel 2={trained[2]} training (= "
+                f"{towers} towers x {nL} levels x {n_predict} Predict, x 2 "
+                f"forwards and 1 backward x {n_steps} steps)")
+
+    # The slice at full width, against float64 on the CPU.
+    omega = models.SMP_omega_pairgraphs(**PAIR, seed=SEED, device="cuda")
+    cpu = models.SMP_omega_pairgraphs(**PAIR, seed=SEED,
+                                      device="cpu").double()
+    V = PAIR["max_nVertices_1"]
+    requests = pair_requests(V, V, 1900)
+    text, served, trained, err = serve_and_train_pairs(
+        "SMP_omega_pairgraphs", omega, cpu, requests, targets, ADAM_LR0,
+        n_steps=TRAIN_STEPS)
+    worst = err
+    launches = count("SMP_omega_pairgraphs", served, trained,
+                     2 * GRAPHS_PER_REQUEST, TRAIN_STEPS)
+    schedule = omega.cfg1.channel_schedule
+    log(f"phase 19 pairs: SMP_omega_pairgraphs V={V} "
+        f"P={omega.cfg1.P} towers {schedule} head "
+        f"{2 * sum(schedule)}->{omega.head_dims[0]}->{omega.head_dims[1]} "
+        f"(reference: the same weights in float64 on the CPU): {text}; "
+        f"{launches}")
+
+    # sigma: the kernels on the scaled K against the plain masked level.
+    sigma = models.SMP_sigma_pairgraphs(*PAIR.values(), seed=SEED,
+                                        device="cuda")
+    mask = dropout_case_mask(torch.Generator().manual_seed(SEED), 9, True,
+                             device="cuda")
+    plain = functools.partial(case_mask_level_reference, 18, mask)
+    g1, g2 = requests[1]
+    reset_level_counts()
+    loss, grads = pair_grads(sigma, g1, g2, targets, case_mask=mask)
+    masked = level_counts()
+    ref_loss, ref_grads = pair_grads(sigma, g1, g2, targets, case_mask=mask,
+                                     level_fn=plain)
+    want = (towers * nL, towers * nL, towers * nL)
+    if masked != want:
+        raise AssertionError(f"sigma masked step launches {masked}, "
+                             f"expected {want}")
+    k1, k2 = k1 + masked[0], [k2[0] + masked[1], k2[1] + masked[2]]
+    err = check_rel("sigma masked loss vs the plain masked level", loss,
+                    ref_loss)
+    for path, x, r in zip(sigma.param_dict(), grads, ref_grads):
+        err = max(err, check_rel(f"sigma gradient {path} vs the plain masked "
+                                 f"level", x, r))
+    reset_level_counts()
+    steps = [sigma.BatchLearn(g1, g2, targets, ADAM_LR0 / 4)
+             for _ in range(NEW_PHASE_STEPS)]
+    stepped = level_counts()
+    want = tuple(towers * nL * n * NEW_PHASE_STEPS for n in (2, 1, 1))
+    if stepped != want or not np.isfinite(steps).all():
+        raise AssertionError(f"sigma steps {steps}: launches {stepped}, "
+                             f"expected {want}")
+    k1, k2 = k1 + stepped[0], [k2[0] + stepped[1], k2[1] + stepped[2]]
+    worst = max(worst, err)
+    log(f"phase 19 pairs: SMP_sigma_pairgraphs (same widths) with the case "
+        f"mask {mask.int().tolist()}: the masked loss and "
+        f"{len(grads)} gradients through K1/K2 on the scaled K against the "
+        f"plain masked level, max err {err:.3e} of max(1,max|plain|) ok; "
+        f"launches (K1, K2 kernel 1, kernel 2) {masked}; BatchLearn with a "
+        f"fresh mask each step (loss_before, loss_after) "
+        + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+        + f", launches {stepped}")
+
+    # beta pairs: P = max(V1, V2) = 40 for both towers, tower 1 has P > V.
+    V1, V2 = BETA_PAIR_V
+    beta_args = (V1, V2, PAIR["nLevels"], PAIR["nChanels"], 4, 4)
+    beta = models.SMP_beta_pairgraphs(*beta_args, seed=SEED, device="cuda")
+    ref = models.SMP_beta_pairgraphs(*beta_args, seed=SEED,
+                                     device="cuda").double()
+    text, served, trained, err = serve_and_train_pairs(
+        "SMP_beta_pairgraphs", beta, ref, pair_requests(V1, V2, 1950),
+        targets, ADAM_LR0, level_fn=risi18_level_reference)
+    worst = max(worst, err)
+    launches = count("SMP_beta_pairgraphs", served, trained,
+                     2 * GRAPHS_PER_REQUEST, NEW_PHASE_STEPS)
+    sched, P = beta.cfg1.channel_schedule, beta.cfg1.P
+    plans = {f"{c}->{co}": (level_plan(P, c, co)["tiled"],
+                            level_backward_plan(P, c, co)["tiled"])
+             for c, co in zip(sched, sched[1:])}
+    log(f"phase 19 pairs: SMP_beta_pairgraphs V1={V1} V2={V2} P={P} towers "
+        f"{sched}, row-tiled (K1, K2 kernel 1) per level {plans} "
+        f"(reference: the plain level in float64 on the card): {text}; "
+        f"{launches}")
+    mid = time.perf_counter()
+
+    # The torch-op towers: no kernel launched (the level counts are reset
+    # per model, so they start from 0 here).
+    reset_level_counts()
+    before = kernel_counts()
+    args = tuple(PAIR.values())
+    others = [
+        ("SMP_gamma_pairgraphs", lambda dev: models.SMP_gamma_pairgraphs(
+            *args, seed=SEED, device=dev), ADAM_LR0),
+        ("SMP_theta_pairgraphs", lambda dev: models.SMP_theta_pairgraphs(
+            *args, seed=SEED, device=dev), ADAM_LR0),
+        ("CCN_1D", lambda dev: models.CCN_1D(*args, seed=SEED, device=dev),
+         ADAM_LR0)]
+    for name in ("GCN_1D_Kernel", "GCN_2D_Kernel", "GCN_3D_Kernel"):
+        others.append((name, lambda dev, n=name: getattr(models, n)(
+            **GCN_KERNEL, seed=SEED, device=dev), None))
+    for k, (name, make, lr0) in enumerate(others):
+        model, cpu = make("cuda"), make("cpu")
+        reqs = pair_requests(V, V, 2100 + 20 * k)
+        if lr0 is None:                                  # Momentum
+            g1, g2 = reqs[0]
+            loss, grads = pair_grads(model, g1, g2, targets)
+            norm2 = sum(float((g.double() ** 2).sum()) for g in grads)
+            lr0 = 0.05 * float(loss) * len(g1) / norm2
+        text, _, _, _ = serve_and_train_pairs(name, model, cpu, reqs,
+                                              targets, lr0)
+        shape = (f"GCN order {model.cfg.order}, H={model.cfg.nHiddens}"
+                 if name.startswith("GCN") else
+                 f"P={model.cfg1.P}, towers {model.cfg1.channel_schedule}")
+        log(f"phase 19 pairs: {name} (V={V}, {shape}; reference: the same "
+            f"model on the CPU): {text}")
+    no_kernel_launched("phase 19 (gamma, theta, CCN_1D, GCN kernels)",
+                       before)
+    log(f"phase 19 pairs: gamma, theta, CCN_1D and the GCN kernels launched "
+        f"none of the seven kernels; {mid - t0:.1f} s + "
+        f"{time.perf_counter() - mid:.1f} s")
+    return k1, k2, worst
+
+
+def phase_graph_families():
+    """Phase 20: GRU_GCN_1D/2D/3D, GCA_1D, CGCN_1D/2D and LCNN at V = 64 and
+    hidden 32, each served and trained against the same model on the CPU
+    (serve_and_train); no kernel launches (the JAX package runs these
+    families without Pallas)."""
+    from graphflow_tpu_torch import models
+
+    t0, before = time.perf_counter(), kernel_counts()
+    targets = np.random.default_rng(SEED).normal(
+        size=GRAPHS_PER_REQUEST).tolist()
+    V, nF, H, nD = (GCN["max_nVertices"], GCN["nFeatures"], GCN["nHiddens"],
+                    GCN["nDepth"])
+    makes = {
+        name: (lambda dev, n=name: getattr(models, n)(**GCN, seed=SEED,
+                                                      device=dev))
+        for name in ("GRU_GCN_1D", "GRU_GCN_2D", "GRU_GCN_3D", "GCA_1D")}
+    for name in ("CGCN_1D", "CGCN_2D"):
+        makes[name] = (lambda dev, n=name: getattr(models, n)(
+            GCN["nLevels"], V, nF, nD, seed=SEED, device=dev))
+    makes["LCNN"] = lambda dev: models.LCNN(V, nF, 10, 2, H, H, H, seed=SEED,
+                                            device=dev)
+    for k, (name, make) in enumerate(makes.items()):
+        model, cpu = make("cuda"), make("cpu")
+        text = serve_and_train(name, model, cpu,
+                               er_requests(V, 2200 + 100 * k), targets,
+                               out_shape=(V, V) if name == "GCA_1D" else ())
+        log(f"phase 20 graphs: {name} (V={V}, hidden {H}): {text}")
+    no_kernel_launched("phase 20", before)
+    log(f"phase 20 graphs: none of the seven kernels launched (the JAX "
+        f"package runs these families without Pallas); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_library():
+    """Phase 21: LSTM and GRU (28 features, 128 hidden, 10 classes, a
+    28-step sequence), MLP([784, 128, 10]) and CNN() on 64 images of 28 x 28,
+    random from the seed: each against its twin on the CPU (the same seed),
+    stepped with its default optimizer with the loss falling; no kernel
+    launches."""
+    import torch
+    from graphflow_tpu_torch import models
+
+    t0, before = time.perf_counter(), kernel_counts()
+    rng = np.random.default_rng(SEED)
+    xs = rng.normal(size=(SEQUENCE["max_nLevels"], SEQUENCE["nFeatures"]))
+    ts = rng.integers(0, SEQUENCE["nClasses"], size=len(xs))
+    for name in ("LSTM", "GRU"):
+        model = getattr(models, name)(**SEQUENCE, seed=SEED, device="cuda")
+        cpu = getattr(models, name)(**SEQUENCE, seed=SEED, device="cpu")
+        loss, req_s = synced_s(lambda: model.getLoss(xs, ts))
+        err = check_close(f"{name} loss vs the CPU", loss, cpu.getLoss(xs, ts))
+        with torch.no_grad():
+            logits = model._logits(model.params, model._inputs(xs))
+            err = max(err, check_close(
+                f"{name} logits vs the CPU", logits,
+                cpu._logits(cpu.params, cpu._inputs(xs))))
+        labels = model.Predict(xs)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        learned, learn_s = synced_s(lambda: model.Learn(xs, ts, 3, 0.1))
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e6
+        err = max(err, check_close(f"{name} Learn vs the CPU", learned,
+                                   cpu.Learn(xs, ts, 3, 0.1)))
+        if not (np.isfinite(learned).all() and learned[1] < learned[0]):
+            raise AssertionError(f"{name}: Learn did not cut the loss: "
+                                 f"{learned}")
+        log(f"phase 21 library: {name} ({SEQUENCE['nFeatures']} features, "
+            f"{SEQUENCE['nHiddens']} hidden, {SEQUENCE['nClasses']} classes, "
+            f"{len(xs)} steps): loss {loss:.6f}, labels {labels[:8].tolist()}"
+            f"...; Learn(3 iterations, lr 0.1, Momentum, L1 clipping) "
+            f"(first, best) ({learned[0]:.6f}, {learned[1]:.6f}); max abs "
+            f"err vs the CPU {err:.3e} ok; cached getLoss {req_s * 1e3:.2f} "
+            f"ms, Learn {learn_s * 1e3:.2f} ms (host clock, synced); its peak "
+            f"device memory {peak:.1f} MB above the {held / 1e6:.1f} MB held")
+
+    images = rng.random((IMAGES, 28, 28))
+    labels = rng.integers(0, 10, size=IMAGES)
+    for name, make, how in (
+            ("MLP", lambda dev: models.MLP([784, 128, 10], seed=SEED,
+                                           device=dev), "Momentum"),
+            ("CNN", lambda dev: models.CNN(seed=SEED, device=dev), "SGD")):
+        model, cpu = make("cuda"), make("cpu")
+        xs_t = model._inputs(images)
+        ys_t = torch.as_tensor(labels, device="cuda")
+
+        def learn(lr):
+            before = model.BatchLearn(images, labels, lr)
+            with torch.no_grad():
+                return before, float(model._batch_loss(model.params, xs_t,
+                                                       ys_t))
+
+        # From the rate that cuts the summed loss by 5 % in one step to
+        # first order (no nBatch: lr0 |g|^2 = 0.05 loss).
+        loss = model._batch_loss(model.params, xs_t, ys_t)
+        grads = torch.autograd.grad(loss, list(model.param_dict().values()))
+        lr0 = 0.05 * float(loss.detach()) / sum(
+            float((g.double() ** 2).sum()) for g in grads)
+        lr = falling_lr(model, learn, lr0, TRAIN_STEPS + 1, every=True)
+        first = model.BatchLearn(images, labels, lr)
+        err = check_close(f"{name} first loss vs the CPU", first,
+                          cpu.BatchLearn(images, labels, lr))
+        for path, p in model.param_dict().items():
+            err = max(err, check_close(f"{name} {path} after a step vs the "
+                                       f"CPU", p, cpu.param_dict()[path]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        steps, step_s = [], []
+        for _ in range(TRAIN_STEPS):
+            out, secs = synced_s(lambda: learn(lr))
+            steps.append(out)
+            step_s.append(secs)
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e6
+        if not all(b < a for a, b in steps):
+            raise AssertionError(f"{name}: the loss did not fall: {steps}")
+        _, req_s = synced_s(lambda: model.Predict(images))
+        accuracy = model.accuracy(images, labels)
+        log(f"phase 21 library: {name} ({IMAGES} images 28x28, {how} lr "
+            f"{lr:g}): "
+            f"first-step loss and every parameter after it vs the CPU, max "
+            f"abs err {err:.3e} ok; BatchLearn (loss_before, loss_after) "
+            + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
+            + f"; training accuracy {accuracy:.3f}; cached Predict of the "
+            f"batch {req_s * 1e3:.2f} ms, cached step {step_s[-1] * 1e3:.2f} "
+            f"ms (host clock, synced); a step's peak device memory "
+            f"{peak:.1f} MB above the {held / 1e6:.1f} MB held")
+    no_kernel_launched("phase 21", before)
+    log(f"phase 21 library: none of the seven kernels launched; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -2663,14 +3093,17 @@ def main() -> None:
     phase_steerable()
     phase_gcn()
     large = phase_large_field()
+    pair_k1, pair_k2, pair_err = phase_pairs()
+    phase_graph_families()
+    phase_library()
     routes = dict(prep.ROUTES)
     if set(routes) - {"native", "numpy_fo_degree", "sparse"} or not (
             routes.get("native") and routes.get("sparse")):
-        raise AssertionError(f"phases 4-18 prepared graphs by routes "
+        raise AssertionError(f"phases 4-21 prepared graphs by routes "
                              f"{routes}: every one must be native but the "
                              f"sparse first-order route's fo_degree prep "
                              f"and the ELL route's prepare_graph_sparse")
-    log(f"phase 13 native prep: phases 4-18 prepared {routes['native']} "
+    log(f"phase 13 native prep: phases 4-21 prepared {routes['native']} "
         f"graphs natively, {routes.get('numpy_fo_degree', 0)} on the NumPy "
         f"path with fo_degree (the sparse first-order route, NumPy in the "
         f"JAX package too) and {routes['sparse']} by prepare_graph_sparse "
@@ -2716,7 +3149,7 @@ def main() -> None:
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
                serve_launches + train_launches[0] + physics_k1 + bf16["k1"]
-               + bucketed[0] + large["k1"],
+               + bucketed[0] + large["k1"] + pair_k1,
                max(*level_errs.values(), slice_err, physics_err, bf16["err"],
                    bucket_err),
                level_ms[f32]["kernel"], level_ms[f32]["plain"],
@@ -2729,25 +3162,27 @@ def main() -> None:
                                       "bound_by": t["bound"][1]}
                               for shape, t in level_ms[d]["k3"].items()}
                           for d in (f32, b16)},
-               launches_bucketed=bucketed[0], launches_p64=large["k1"],
+               launches_bucketed=bucketed[0], launches_pairs=pair_k1,
+               max_rel_err_pairs=pair_err, launches_p64=large["k1"],
                max_rel_err_p64=large["err"],
                p64=p64(level_ms, "kernel", "plain")),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
                train_launches[1] + physics_k2[0] + bf16["k2"][0]
-               + bucketed[1] + large["k2"][0],
+               + bucketed[1] + large["k2"][0] + pair_k2[0],
                max(bwd_errs[f32]["dstate"], bwd_errs[b16]["dstate"],
                    train_err, physics_err, bf16["err"], bucket_err),
                bwd_ms[f32]["main"], bwd_ms[f32]["plain"],
                bwd_ms[f32]["bound"],
                **in_bf16(bwd_ms[b16]["main"], bwd_ms[b16]["plain"],
                          bwd_ms[b16]["bound"]),
+               launches_pairs=pair_k2[0], max_rel_err_pairs=pair_err,
                launches_p64=large["k2"][0], max_rel_err_p64=large["err"],
                p64=p64(bwd_ms, "main", "plain")),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
                train_launches[2] + physics_k2[1] + bf16["k2"][1]
-               + bucketed[2] + large["k2"][1],
+               + bucketed[2] + large["k2"][1] + pair_k2[1],
                max(bwd_errs[d][k] for d in (f32, b16) for k in ("dK", "db")),
                bwd_ms[f32]["reduce"], bwd_ms[f32]["plain_reduce"],
                bwd_ms[f32]["reduce_bound"],

@@ -28,11 +28,16 @@ family (``models/smp1d.py``: SMP_theta, SMP_1D and its variants, torch ops
 with the ELLPACK sum of ``ops/sparse.py``), the steerable second-order
 family (``models/smp2d_steerable.py``: SMP_2D, ver2-ver5, Unrestricted) and
 the GCN family (``models/gcn.py``: GCN_1D/2D/3D and _Distance, GCN_MW,
-NeuralFingerprint), both in torch ops, and the four physics towers;
+NeuralFingerprint), both in torch ops, and the four physics towers; the
+pair-of-graphs models (``models/pairgraphs.py``: the SMP pairgraphs, whose
+second-order towers run the level kernels, CCN_1D and the GCN kernels),
+GRU_GCN, GCA_1D and CGCN, LCNN, LSTM and GRU, MLP and CNN (torch ops, with
+the convolutions and pools of ``ops/conv.py``) and the five optimizers;
 bucketed training (``models/base.py:fit_bucketed``); and host preparation
 through the native C++ library ``runtime/csrc/graph_prep.cpp``, built with
-g++ at first use (``runtime/native.py``), or its NumPy twin.  The rest of
-the JAX package is queued in ROADMAP.md.
+g++ at first use (``runtime/native.py``), or its NumPy twin.  Every model
+file of the JAX package has its counterpart; the rest of the JAX package
+is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

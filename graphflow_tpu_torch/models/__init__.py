@@ -3,10 +3,13 @@ second-order SMP family (SMP_omega, SMP_beta, SMP_gamma, SMP_2D_ver6/7/8,
 the classification heads and the names of the reference's GPU model
 classes), the first-order SMP family (SMP_theta, SMP_1D and its variants),
 the steerable second-order family (SMP_2D, ver2-ver5, Unrestricted), the
-GCN family (GCN_1D/2D/3D and _Distance, GCN_MW, NeuralFingerprint) and the
-physics family."""
+GCN family (GCN_1D/2D/3D and _Distance, GCN_MW, NeuralFingerprint), the
+physics family, the pair-of-graphs models (the SMP pairgraphs, CCN_1D, the
+GCN kernels), GRU_GCN, GCA_1D and CGCN, LCNN, and the library models LSTM,
+GRU, MLP and CNN."""
 
-from graphflow_tpu_torch.models.base import GraphModel, fit_bucketed
+from graphflow_tpu_torch.models.base import (GraphModel, ParamModel,
+                                            fit_bucketed)
 from graphflow_tpu_torch.models.smp2d import (
     SMP2D, SMP2DConfig, SMP_2D_ver6, SMP_2D_ver6_classification, SMP_2D_ver7,
     SMP_2D_ver7_classification, SMP_2D_ver8, SMP_2D_ver8_thread, SMP_beta,
@@ -26,8 +29,25 @@ from graphflow_tpu_torch.models.gcn import (
 from graphflow_tpu_torch.models.physics import (
     SMPPhysics, SMP_beta_physics, SMP_gamma_physics, SMP_omega_physics,
     SMP_theta_physics)
+from graphflow_tpu_torch.models.pairgraphs import (
+    CCN_1D, GCNKernel, GCN_1D_Kernel, GCN_2D_Kernel, GCN_3D_Kernel,
+    PairGraphModel, SMPPairGraphs, SMP_beta_pairgraphs, SMP_gamma_pairgraphs,
+    SMP_omega_pairgraphs, SMP_sigma_pairgraphs, SMP_theta_pairgraphs)
+from graphflow_tpu_torch.models.gru_gcn import (GRU_GCN, GRU_GCN_1D,
+                                                GRU_GCN_2D, GRU_GCN_3D)
+from graphflow_tpu_torch.models.gca import CGCN, CGCN_1D, CGCN_2D, GCA_1D
+from graphflow_tpu_torch.models.lcnn import LCNN
+from graphflow_tpu_torch.models.rnn import GRU, LSTM
+from graphflow_tpu_torch.models.mlp import CNN, MLP
 
-__all__ = ["GCN", "GCNConfig", "GCN_1D", "GCN_1D_Distance", "GCN_2D",
+__all__ = ["CCN_1D", "CGCN", "CGCN_1D", "CGCN_2D", "CNN", "GCA_1D",
+           "GCNKernel", "GCN_1D_Kernel", "GCN_2D_Kernel", "GCN_3D_Kernel",
+           "GRU", "GRU_GCN", "GRU_GCN_1D", "GRU_GCN_2D", "GRU_GCN_3D",
+           "LCNN", "LSTM", "MLP", "PairGraphModel", "ParamModel",
+           "SMPPairGraphs", "SMP_beta_pairgraphs", "SMP_gamma_pairgraphs",
+           "SMP_omega_pairgraphs", "SMP_sigma_pairgraphs",
+           "SMP_theta_pairgraphs",
+           "GCN", "GCNConfig", "GCN_1D", "GCN_1D_Distance", "GCN_2D",
            "GCN_2D_Distance", "GCN_3D", "GCN_3D_Distance", "GCN_MW",
            "GraphModel", "NeuralFingerprint", "SMP1D", "SMP1DConfig", "SMP2D",
            "SMP2DConfig", "SMP2DSteerable", "SMP2DSteerableConfig", "SMP_2D",

@@ -27,7 +27,6 @@ import dataclasses
 
 import numpy as np
 import torch
-from torch import nn
 
 from graphflow_tpu_torch.core import prep
 from graphflow_tpu_torch.core.graph import DenseGraph
@@ -190,44 +189,8 @@ def gcn_forward(params, g, cfg: GCNConfig):
     return final @ params["W"], final
 
 
-def _flatten(tree):
-    """{"W": w, "levels": [{"W1": ...}, ...], ...} -> {"W": w,
-    "levels/0/W1": ..., ...}."""
-    flat = {}
-    for key, node in tree.items():
-        if isinstance(node, list):
-            for l, lev in enumerate(node):
-                flat.update({f"{key}/{l}/{k}": v for k, v in lev.items()})
-        else:
-            flat[key] = node
-    return flat
-
-
 class _Model(GraphModel):
-    """Parameters registered under '/'-joined paths in ``param_order``; the
-    JAX tree rebuilt by :attr:`params`."""
-
-    def _register(self, tree, order):
-        self.param_order = order
-        flat = _flatten(tree)
-        for path in order:
-            self.register_parameter(path, nn.Parameter(flat[path]))
-        self._finish_init()
-
-    @property
-    def params(self):
-        d = self.param_dict()
-        tree = {}
-        for path, p in d.items():
-            keys = path.split("/")
-            if len(keys) == 1:
-                tree[path] = p
-                continue
-            levels = tree.setdefault(keys[0], [])
-            while len(levels) <= int(keys[1]):
-                levels.append({})
-            levels[int(keys[1])][keys[2]] = p
-        return tree
+    """The squared loss of the prediction."""
 
     def _loss(self, params, batch):
         pred, _ = self._forward(params, batch)

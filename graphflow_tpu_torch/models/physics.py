@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from graphflow_tpu_torch.core import prep
 from graphflow_tpu_torch.core.graph import DenseGraph
@@ -89,7 +88,6 @@ class SMPPhysics(GraphModel):
             self.cfg = SMP1DConfig(**common)
             init, per_level = init_smp1d_params, ("lambda1", "lambda2", "b",
                                                   "K")
-        self._per_level = per_level
 
         # nTotal = the per-level channel counts summed; nHidden = nTotal // 2
         # (SMP_omega_physics.h:211-233).
@@ -98,30 +96,15 @@ class SMPPhysics(GraphModel):
         device = resolve_device(device)
         generator = torch.Generator().manual_seed(seed)
         tower = init(generator, self.cfg, device)
-        fresh = {"tower/H": tower["H"],
-                 **{f"tower/levels/{l}/{k}": lv[k]
-                    for l, lv in enumerate(tower["levels"])
-                    for k in per_level},
-                 "W1": uniform_init((nHidden, nTotal), generator,
-                                    torch.float32, device),
-                 "W2": uniform_init((nHidden,), generator, torch.float32,
-                                    device)}
-        self.param_order = (["tower/H"]
-                            + [f"tower/levels/{l}/{k}"
-                               for l in range(nLevels) for k in per_level]
-                            + ["W1", "W2"])
-        for path in self.param_order:
-            self.register_parameter(path, nn.Parameter(fresh[path]))
-        self._finish_init()
-
-    @property
-    def params(self):
-        """The parameters as the JAX tree."""
-        d = self.param_dict()
-        levels = [{k: d[f"tower/levels/{l}/{k}"] for k in self._per_level}
-                  for l in range(self.cfg.nLevels)]
-        return {"tower": {"H": d["tower/H"], "levels": levels},
-                "W1": d["W1"], "W2": d["W2"]}
+        tree = {"tower": tower,
+                "W1": uniform_init((nHidden, nTotal), generator,
+                                   torch.float32, device),
+                "W2": uniform_init((nHidden,), generator, torch.float32,
+                                   device)}
+        self._register(tree, ["tower/H"]
+                       + [f"tower/levels/{l}/{k}" for l in range(nLevels)
+                          for k in per_level]
+                       + ["W1", "W2"])
 
     def _prepare(self, graph: DenseGraph,
                  pad_nVertices=None) -> prep.PreparedGraph:

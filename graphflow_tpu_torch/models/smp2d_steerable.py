@@ -40,7 +40,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from graphflow_tpu_torch.core import prep
 from graphflow_tpu_torch.core.graph import DenseGraph
@@ -459,27 +458,11 @@ class SMP2DSteerable(GraphModel):
                          **({"gamma": cfg.momentum_param}
                             if cfg.optimizer == "momentum" else {}))
         self.cfg = cfg
-        self.param_order = (["H", "W"]
-                            + [f"levels/{l}/{k}" for l in range(cfg.nLevels)
-                               for k in cfg.level_keys()])
-        p = init_steerable_params(torch.Generator().manual_seed(seed), cfg,
-                                  resolve_device(device))
-        fresh = {"H": p["H"], "W": p["W"],
-                 **{f"levels/{l}/{k}": v
-                    for l, lv in enumerate(p["levels"])
-                    for k, v in lv.items()}}
-        for path in self.param_order:
-            self.register_parameter(path, nn.Parameter(fresh[path]))
-        self._finish_init()
-
-    @property
-    def params(self):
-        """The parameters as the JAX tree {"H", "levels": [...], "W"}."""
-        d = self.param_dict()
-        return {"H": d["H"], "W": d["W"],
-                "levels": [{k: d[f"levels/{l}/{k}"]
-                            for k in self.cfg.level_keys()}
-                           for l in range(self.cfg.nLevels)]}
+        self._register(
+            init_steerable_params(torch.Generator().manual_seed(seed), cfg,
+                                  resolve_device(device)),
+            ["H", "W"] + [f"levels/{l}/{k}" for l in range(cfg.nLevels)
+                          for k in cfg.level_keys()])
 
     def _prepare(self, graph: DenseGraph) -> prep.PreparedGraph:
         pg = prep.prepare_graph(

@@ -1,11 +1,32 @@
 """Activations (counterpart of ``graphflow_tpu/ops/activations.py``): the
-LeakyReLU every model uses, the softmax of the GCN family with the
-reference's backward, and the per-size parameter gather of the
-first-order and steerable models."""
+elementwise ops, the LeakyReLU every model uses, the softmax of the GCN
+family with the reference's backward, and the per-size parameter gather
+of the first-order and steerable models."""
 
 from __future__ import annotations
 
 import torch
+
+
+def identity(x: torch.Tensor) -> torch.Tensor:
+    """``Identity.h``: y = x."""
+    return x
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``Sigmoid.h:29-37``: y = 1 / (1 + exp(-x))."""
+    return torch.sigmoid(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """``Tanh.h``: y = tanh(x)."""
+    return torch.tanh(x)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``ReLU.h``: y = max(x, 0); at x = 0 the gradient is split in half,
+    as for ``jnp.maximum``."""
+    return torch.maximum(x, torch.zeros_like(x))
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:

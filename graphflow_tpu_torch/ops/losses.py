@@ -1,4 +1,4 @@
-"""Losses (counterpart of ``graphflow_tpu/ops/losses.py``).
+"""Losses and regularizers (counterpart of ``graphflow_tpu/ops/losses.py``).
 
 Each loss returns the scalar to be minimised, and torch autograd seeds the
 reverse sweep.  That folds the reference's sign conventions into the
@@ -24,3 +24,23 @@ def log_loss(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     package's ``astype(int32)`` does."""
     logp = torch.log_softmax(scores, dim=-1)
     return -logp.gather(-1, labels.long()[:, None]).sum()
+
+
+def _leaves(params):
+    """The tensors of a dict ({path: tensor} or a nested tree), a list or
+    one tensor."""
+    if isinstance(params, torch.Tensor):
+        return [params]
+    if isinstance(params, dict):
+        params = params.values()
+    return [x for p in params for x in _leaves(p)]
+
+
+def l1_regularization(params, lam: float) -> torch.Tensor:
+    """``L1Regularization.h``: lam * sum |w| over the parameters."""
+    return lam * sum(torch.sum(torch.abs(p)) for p in _leaves(params))
+
+
+def l2_regularization(params, lam: float) -> torch.Tensor:
+    """``L2Regularization.h``: lam / 2 * sum w^2 over the parameters."""
+    return 0.5 * lam * sum(torch.sum(p * p) for p in _leaves(params))

@@ -1,18 +1,19 @@
-"""Adam and Momentum with the reference's semantics (counterpart of
-``graphflow_tpu/optim/optimizers.py:adam`` and ``:momentum``).
+"""The reference's optimizers (counterpart of
+``graphflow_tpu/optim/optimizers.py``): SGD, Momentum, Adam, AdaMax and
+AdaDelta with the reference's semantics.
 
 An optimizer is a triple (init, update, set_element_schedule) over a dict
 {path: tensor} of parameters in registration order.  ``update`` changes
 the parameters in place under ``torch.no_grad()`` and returns a new state
-(Adam: ``{"m": {path: tensor}, "v": {path: tensor}, "t": int}``; Momentum:
-``{path: velocity}``); the old state's tensors are never written, so a
-caller may keep it to restore.
+(SGD: ``()``; Momentum: ``{path: velocity}``; Adam: ``{"m": {path:
+tensor}, "v": {path: tensor}, "t": int}``; AdaMax: ``{"m", "u", "t"}``;
+AdaDelta: ``{"eg", "ed"}``); the old state's tensors are never written, so
+a caller may keep it to restore.
 
 The reference's ``Learn(lr, nBatch)`` overloads divide the gradients by
-nBatch before the update; ``update(..., nBatch=k)`` does the same, and
-Adam then applies the reference's per-element bias correction (see
-:func:`adam`).  ``torch.optim.Adam`` has no such schedule.  The other
-optimizers of the JAX package are ROADMAP queue 1, item 9.
+nBatch before the update; ``update(..., nBatch=k)`` does the same, for
+every optimizer, and Adam then applies the reference's per-element bias
+correction (see :func:`adam`).  ``torch.optim.Adam`` has no such schedule.
 """
 
 from __future__ import annotations
@@ -100,6 +101,22 @@ def adam(beta1: float = 0.9, beta2: float = 0.999,
     return Optimizer(init, update, set_element_schedule)
 
 
+def sgd() -> Optimizer:
+    """``SGD.h:36-50``: p -= lr * g."""
+
+    def init(params: Params):
+        return ()
+
+    @torch.no_grad()
+    def update(params: Params, state, grads: Params, lr, nBatch=None):
+        grads = _scale(grads, nBatch)
+        for k, p in params.items():
+            p.sub_(lr * grads[k])
+        return params, state
+
+    return Optimizer(init, update, None)
+
+
 def momentum(gamma: float = 0.9) -> Optimizer:
     """``Momentum.h:46-68``: v = gamma * v + lr * g, then p -= v, with g
     divided by nBatch first when it is given."""
@@ -118,7 +135,63 @@ def momentum(gamma: float = 0.9) -> Optimizer:
     return Optimizer(init, update, None)
 
 
-_REGISTRY = {"adam": adam, "momentum": momentum}
+def adamax(beta1: float = 0.9, beta2: float = 0.999) -> Optimizer:
+    """``AdaMax.h:70-95``: Adam with an infinity norm.  As in the reference
+    (and the JAX package) the norm is ONE exponentially weighted scalar per
+    parameter tensor, u = max(beta2 u, max|g|), not one per element; a
+    tensor whose gradients have all been zero has u = 0, and its update is
+    0 / 0."""
+
+    def init(params: Params):
+        return {"m": {k: torch.zeros_like(p) for k, p in params.items()},
+                "u": {k: p.new_zeros(()) for k, p in params.items()},
+                "t": 0}
+
+    @torch.no_grad()
+    def update(params: Params, state, grads: Params, lr, nBatch=None):
+        grads = _scale(grads, nBatch)
+        t = state["t"] + 1
+        m = {k: beta1 * state["m"][k] + (1 - beta1) * g
+             for k, g in grads.items()}
+        u = {k: torch.maximum(beta2 * state["u"][k], g.abs().max())
+             for k, g in grads.items()}
+        c1 = 1 - beta1 ** torch.tensor(float(t), dtype=torch.float32)
+        # lr / c1 in float32, as JAX divides (a Python scalar over a tensor
+        # would be its reciprocal times the scalar in torch, rounded twice).
+        step = torch.tensor(lr, dtype=torch.float32) / c1
+        for k, p in params.items():
+            p.copy_(p - step.to(p.device) * m[k] / u[k])
+        return params, {"m": m, "u": u, "t": t}
+
+    return Optimizer(init, update, None)
+
+
+def adadelta(p_decay: float = 0.95, epsilon: float = 1e-6) -> Optimizer:
+    """``AdaDelta.h:67-89``: no learning rate (``update`` takes one and
+    ignores it, as the reference ignores alpha)."""
+
+    def init(params: Params):
+        return {"eg": {k: torch.zeros_like(p) for k, p in params.items()},
+                "ed": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(params: Params, state, grads: Params, lr=None, nBatch=None):
+        grads = _scale(grads, nBatch)
+        eg, ed = {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            eg[k] = p_decay * state["eg"][k] + (1 - p_decay) * g * g
+            dx = -torch.sqrt(state["ed"][k] + epsilon) / torch.sqrt(
+                eg[k] + epsilon) * g
+            ed[k] = p_decay * state["ed"][k] + (1 - p_decay) * dx * dx
+            p.add_(dx)
+        return params, {"eg": eg, "ed": ed}
+
+    return Optimizer(init, update, None)
+
+
+_REGISTRY = {"sgd": sgd, "momentum": momentum, "adam": adam,
+             "adamax": adamax, "adadelta": adadelta}
 
 
 def make_optimizer(name: str, **kwargs) -> Optimizer:
@@ -126,6 +199,6 @@ def make_optimizer(name: str, **kwargs) -> Optimizer:
     make = _REGISTRY.get(name.lower())
     if make is None:
         raise NotImplementedError(
-            f"optimizer {name!r} is ROADMAP queue 1, item 9; the port has "
-            f"{sorted(_REGISTRY)}")
+            f"optimizer {name!r}: the JAX package has no such optimizer "
+            f"either; the port has {sorted(_REGISTRY)}")
     return make(**kwargs)

@@ -22,8 +22,14 @@ theta_physics (SMP_theta_physics, channels 32, 16, 8, raw normal
 features; Adam), and three models without a kernel of their own, with
 Momentum: steerable (SMP_2D, uncapped: P = V = 64), gcn_3d (GCN_3D, H = 32,
 max_Radius 2) and gcn_mw_ell (GCN_MW on the ELL route at V = 4096,
-edge-list graphs of about 8 neighbours a vertex) (default: all).  Needs a
-CUDA device.
+edge-list graphs of about 8 neighbours a vertex); and the models of
+``chip_smoke.py`` phases 19-21 at their widths there (:data:`LATER`): the
+pair models (a request is a Predict for each of 4 pairs, a step one
+BatchLearn on them; omega_pairs, sigma_pairs and beta_pairs (V1 = 24,
+V2 = 40) run the level kernels), the other graph families (V = 64, hidden
+32), LSTM and GRU (28 features, 128 hidden, a 28-step sequence: a request
+is Predict, a step one Learn iteration) and MLP and CNN (64 images of
+28 x 28: Predict and BatchLearn) (default: all).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,6 +66,69 @@ FIRST_ORDER = {"theta": ("SMP_theta", False),
 # on the ELL route.
 NO_KERNEL = ("steerable", "gcn_3d", "gcn_mw_ell")
 ELL_V = 4096
+# chip_smoke.py phases 19-21: name -> constructor in graphflow_tpu_torch.
+# models; the pair models take SMP_omega_pairgraphs(64, 64, 16, 2, 32, 4,
+# 4)'s arguments (beta its own), the graph families V = 64, hidden 32.
+LATER = {"omega_pairs": "SMP_omega_pairgraphs",
+         "sigma_pairs": "SMP_sigma_pairgraphs",
+         "beta_pairs": "SMP_beta_pairgraphs",
+         "gamma_pairs": "SMP_gamma_pairgraphs",
+         "theta_pairs": "SMP_theta_pairgraphs", "ccn_1d": "CCN_1D",
+         "gcn_1d_kernel": "GCN_1D_Kernel", "gcn_2d_kernel": "GCN_2D_Kernel",
+         "gcn_3d_kernel": "GCN_3D_Kernel", "gru_gcn_1d": "GRU_GCN_1D",
+         "gru_gcn_2d": "GRU_GCN_2D", "gru_gcn_3d": "GRU_GCN_3D",
+         "gca_1d": "GCA_1D", "cgcn_1d": "CGCN_1D", "cgcn_2d": "CGCN_2D",
+         "lcnn": "LCNN", "lstm": "LSTM", "gru": "GRU", "mlp": "MLP",
+         "cnn": "CNN"}
+BETA_PAIR_V = (24, 40)
+
+
+def _later(name):
+    """(request, step) callables of a LATER model on the card, at the
+    widths of chip_smoke.py phases 19-21 (seeded weights and inputs)."""
+    from graphflow_tpu_torch import models
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    ctor, V = getattr(models, LATER[name]), MODEL["max_nVertices"]
+    C, F, D = MODEL["nChanels"], MODEL["nFeatures"], MODEL["nDepth"]
+    rng = np.random.default_rng(0)
+    targets = rng.normal(size=GRAPHS).tolist()
+
+    def er(n, seed):
+        return [random_graph(n, ER_P, seed=seed + i) for i in range(GRAPHS)]
+
+    if name in ("lstm", "gru"):
+        model = ctor(28, 128, 10, 28, seed=0, device="cuda")
+        xs, ts = rng.normal(size=(28, 28)), rng.integers(0, 10, size=28)
+        return (lambda: model.Predict(xs),
+                lambda: model.Learn(xs, ts, 1, 0.1))
+    if name in ("mlp", "cnn"):
+        model = (ctor([784, 128, 10], seed=0, device="cuda")
+                 if name == "mlp" else ctor(seed=0, device="cuda"))
+        xs, ys = rng.random((64, 28, 28)), rng.integers(0, 10, size=64)
+        return (lambda: model.Predict(xs),
+                lambda: model.BatchLearn(xs, ys, 1e-4))
+    V1, V2, lr = V, V, ADAM_LR
+    if name == "beta_pairs":
+        V1, V2 = BETA_PAIR_V
+        model = ctor(V1, V2, 2, C, F, F, seed=0, device="cuda")
+    elif name.endswith("_pairs") or name == "ccn_1d":
+        model = ctor(V, V, MODEL["max_receptive_field"], 2, C, F, F, seed=0,
+                     device="cuda")
+    elif name.startswith("cgcn"):
+        model, lr = ctor(2, V, F, D, seed=0, device="cuda"), MOMENTUM_LR
+    elif name == "lcnn":
+        model, lr = (ctor(V, F, 10, 2, C, C, C, seed=0, device="cuda"),
+                     MOMENTUM_LR)
+    else:               # the GCN kernels and the GRU_GCN and GCA families
+        model, lr = ctor(2, V, F, C, D, 2, seed=0, device="cuda"), MOMENTUM_LR
+    if name.endswith(("_pairs", "_kernel")) or name == "ccn_1d":
+        g1, g2 = er(V1, 100), er(V2, 200)
+        return (lambda: [model.Predict(a, b) for a, b in zip(g1, g2)],
+                lambda: model.BatchLearn(g1, g2, targets, lr))
+    graphs = er(V, 100)
+    return (lambda: model.Threaded_Predict(graphs),
+            lambda: model.BatchLearn(graphs, targets, lr))
 
 
 def _no_kernel_family(name):
@@ -140,9 +209,12 @@ def profile(fn, rounds=ROUNDS):
     return sum(r[1] for r in rows), rows
 
 
-def report(name, out=print):
+def _workload(name):
+    """(request, step) callables of configuration ``name``."""
     from graphflow_tpu_torch.utils.datasets import random_graph
 
+    if name in LATER:
+        return _later(name)
     if name in NO_KERNEL:
         (model, graphs), lr = _no_kernel_family(name), MOMENTUM_LR
     else:
@@ -154,12 +226,12 @@ def report(name, out=print):
         for g in graphs:
             g.feature = rng.normal(size=g.feature.shape)
     targets = np.random.default_rng(0).normal(size=GRAPHS).tolist()
+    return (lambda: model.Threaded_Predict(graphs),
+            lambda: model.BatchLearn(graphs, targets, lr))
 
-    def request():
-        return model.Threaded_Predict(graphs)
 
-    def step():
-        return model.BatchLearn(graphs, targets, lr)
+def report(name, out=print):
+    request, step = _workload(name)
 
     for what, call in (("step", step), ("request", request)):
         for _ in range(3):
@@ -184,7 +256,7 @@ def report(name, out=print):
 
 
 def main(argv=None):
-    known = list(CONFIGS) + list(FIRST_ORDER) + list(NO_KERNEL)
+    known = list(CONFIGS) + list(FIRST_ORDER) + list(NO_KERNEL) + list(LATER)
     names = list(sys.argv[1:] if argv is None else argv) or known
     unknown = [n for n in names if n not in known]
     if unknown:

@@ -31,12 +31,10 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.as_tensor(a)
 
 
-def params_from_jax(tree: Any, dtype=None, device=None
-                    ) -> Dict[str, torch.Tensor]:
-    """Flatten a tree of NumPy-convertible arrays into {path: tensor}, dicts
-    in insertion order and lists by index; bfloat16 stays bfloat16 unless
-    ``dtype`` says otherwise."""
-    flat: Dict[str, torch.Tensor] = {}
+def flatten(tree: Any, leaf=lambda x: x) -> Dict[str, Any]:
+    """A tree of dicts and lists -> {path: leaf(x)}, dicts in insertion
+    order and lists by index, paths '/'-joined."""
+    flat: Dict[str, Any] = {}
 
     def walk(node, prefix):
         if isinstance(node, dict):
@@ -44,8 +42,7 @@ def params_from_jax(tree: Any, dtype=None, device=None
         elif isinstance(node, (list, tuple)):
             items = enumerate(node)
         else:
-            flat[prefix] = _from_numpy(np.array(node)).to(
-                dtype=dtype, device=device)
+            flat[prefix] = leaf(node)
             return
         for k, child in items:
             walk(child, f"{prefix}/{k}" if prefix else str(k))
@@ -54,10 +51,18 @@ def params_from_jax(tree: Any, dtype=None, device=None
     return flat
 
 
-def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_jax`: {path: tensor} -> a tree of
-    NumPy arrays (bfloat16 as float32), a numeric path component indexing a
-    list."""
+def params_from_jax(tree: Any, dtype=None, device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """Flatten a tree of NumPy-convertible arrays into {path: tensor}
+    (:func:`flatten`); bfloat16 stays bfloat16 unless ``dtype`` says
+    otherwise."""
+    return flatten(tree, lambda a: _from_numpy(np.array(a)).to(
+        dtype=dtype, device=device))
+
+
+def unflatten(params: Dict[str, Any], leaf=lambda t: t) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_jax`: {path: x} -> the tree of
+    ``leaf(x)``, a numeric path component indexing a list."""
     tree: Dict[str, Any] = {}
     for path, t in params.items():
         keys = path.split("/")
@@ -69,9 +74,14 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
                 node = node[int(k)]
             else:
                 node = node.setdefault(k, [] if nxt.isdigit() else {})
-        value = to_numpy(t)
+        value = leaf(t)
         if isinstance(node, list):
             node.append(value)
         else:
             node[keys[-1]] = value
     return tree
+
+
+def params_to_numpy(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """{path: tensor} -> the tree of NumPy arrays (bfloat16 as float32)."""
+    return unflatten(params, to_numpy)
