@@ -182,6 +182,25 @@ Phases, each reported on its own lines:
               MLP([784, 128, 10]) (Momentum) and CNN() (SGD) on 64 seeded
               28 x 28 images: a step's loss and parameters against the CPU
               twin, then 3 steps with the loss falling; no kernel launched.
+ 22. parallel the full-width SMP_omega (V=64, P=16, C=32, two levels, 4
+              Erdos-Renyi graphs p=0.15) on four spawned ranks, data x
+              graph = 2 x 2, all on the one card over gloo: a data-parallel
+              step over "data" (2 ranks a group; K1, K2) whose loss and
+              summed gradients match the single-process step on the card;
+              the vertex-partitioned forward with both halos and the
+              partitioned train step over both axes (the bank: K4, K5),
+              whose predictions, loss and gradients match the unsharded
+              model through level_fn=risi18_bank_level on the card and the
+              plain level in float64; every rank's launches counted per
+              kernel, the replicas bit-identical after an Adam step, a
+              failing rank failing the phase.  Then the partitioned step's
+              wall per rank, rank 0's device busy and kernels, the halo
+              rows per level, and K4 and K5 at the partition's shape;
+ 23. entry    entry() against the plain level; dryrun_multichip(4); the five
+              examples for 3 epochs (1 for the CNN), K1/K2 or K4/K5
+              launched where each belongs, in this process and in the
+              ranks; the npz and torch.save round trips of a model on the
+              card; time_torch on a K1 launch.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -420,13 +439,10 @@ def import_port():
 
 
 def phase_build():
-    from concurrent.futures import ThreadPoolExecutor
-
-    from graphflow_tpu_torch.runtime.cuda_build import build_library
+    from graphflow_tpu_torch.runtime.cuda_build import build_libraries
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_LIBS)) as pool:
-        results = list(pool.map(build_library, KERNEL_LIBS))
+    results = build_libraries(KERNEL_LIBS)
     for res in results:
         log(f"phase 2 build: {res.path.relative_to(ROOT)} "
             f"{'built' if res.rebuilt else 'up to date'} in "
@@ -3064,6 +3080,435 @@ def phase_library():
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# Phase 22: the full-width model on data x graph = 2 x 2 ranks (all on the
+# one card over gloo), on graphs of its own.
+PAR_MESH = {"data": 2, "graph": 2}
+PAR_GRAPH_SEED = 3000
+PAR_TIMED_STEPS = 5
+# Phase 23: epochs of each example.
+EXAMPLE_EPOCHS = 3
+
+
+def reset_model_counts():
+    """Zero the launch counts of K1, K2, K4 and K5."""
+    from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
+                                                   risi18_bank_backward)
+
+    reset_level_counts()
+    risi18_bank.launches = 0
+    risi18_bank_backward.launches = 0
+    risi18_bank_backward.reduce_launches = 0
+
+
+def parallel_batch():
+    """Phase 22's GRAPHS_PER_REQUEST Erdos-Renyi graphs at the full width,
+    and their targets."""
+    from graphflow_tpu_torch.utils.datasets import random_graph
+
+    graphs = [random_graph(MODEL["max_nVertices"], ER_P,
+                           seed=PAR_GRAPH_SEED + i)
+              for i in range(GRAPHS_PER_REQUEST)]
+    return graphs, np.random.default_rng(SEED).normal(size=len(graphs))
+
+
+def parallel_rank(rank, device):
+    """Phase 22 on one rank of the data x graph mesh: a data-parallel step
+    over "data" (2 ranks a group), the partitioned forward with both halos
+    and the partitioned train step over both axes, each counted.  A step
+    with SGD at lr = nBatch moves every parameter by exactly its summed
+    gradient (nBatch is a power of two), which the parent holds against
+    the references; the Adam steps are the optimizer's own."""
+    import torch
+    from graphflow_tpu_torch import parallel
+    from graphflow_tpu_torch.models import SMP_omega
+    from graphflow_tpu_torch.ops import launch_counts
+    from graphflow_tpu_torch.optim import make_optimizer
+    from graphflow_tpu_torch.tools.profile_step import profile
+    from graphflow_tpu_torch.utils.convert import unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = SMP_omega(**MODEL, seed=SEED, device=device)
+    p0 = {k: v.detach().clone() for k, v in model.param_dict().items()}
+    graphs, targets = parallel_batch()
+    mesh = parallel.make_mesh(PAR_MESH)
+    out = {"coords": mesh.coords}
+
+    def counted(fn):
+        reset_model_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, launch_counts()
+
+    def fresh():
+        return {k: v.clone().requires_grad_() for k, v in p0.items()}
+
+    def moved(params):
+        return {k: (p0[k] - params[k].detach()).cpu() for k in p0}
+
+    def kept(params):
+        return {k: v.detach().cpu() for k, v in params.items()}
+
+    sgd = make_optimizer("sgd")
+    batch = parallel.shard_batch(model._stack(graphs, targets), mesh)
+    step = parallel.make_dp_train_step(model._loss, sgd, mesh, "data")
+    (params, _, loss), n = counted(
+        lambda: step(fresh(), (), batch, float(len(graphs))))
+    out["dp_sgd"] = (float(loss), moved(params), n)
+    step = parallel.make_dp_train_step(model._loss, model.opt, mesh, "data")
+    (params, _, loss), n = counted(
+        lambda: step(fresh(), model.opt.init(p0), batch, TRAIN_LR))
+    out["dp_adam"] = (float(loss), kept(params), n)
+
+    plan = parallel.plan_partition_batch([model.prepare(g) for g in graphs],
+                                         PAR_MESH["graph"])
+    inputs = parallel.shard_inputs(plan, mesh, device=device)
+    for halo in ("targeted", "all_gather"):
+        fwd = parallel.make_partitioned_forward(model.cfg, plan, mesh,
+                                                halo=halo, device=device)
+        with torch.no_grad():
+            (pred, feat), n = counted(lambda: fwd(unflatten(p0), inputs))
+        out[("forward", halo)] = (pred.cpu(), feat.cpu(), n)
+    step = parallel.make_partitioned_train_step(model.cfg, plan, sgd, mesh,
+                                                device=device)
+    (params, _, loss), n = counted(
+        lambda: step(fresh(), (), inputs, targets, float(plan.batch)))
+    out["part_sgd"] = (float(loss), moved(params), n)
+    adam = make_optimizer("adam")
+    step = parallel.make_partitioned_train_step(model.cfg, plan, adam, mesh,
+                                                device=device)
+    params = fresh()
+    (params, state, loss), n = counted(
+        lambda: step(params, adam.init(params), inputs, targets, TRAIN_LR))
+    out["part_adam"] = (float(loss), kept(params), n)
+
+    # The step's wall on the host clock (every rank), then one profiled
+    # step on rank 0 (device busy and kernels; the others step beside it).
+    def one_step():
+        nonlocal params, state
+        params, state, _ = step(params, state, inputs, targets, TRAIN_LR)
+
+    walls = [synced_s(one_step)[1] for _ in range(PAR_TIMED_STEPS)]
+    out["walls"] = walls
+    out["profile"] = profile(one_step, 1) if rank == 0 else None
+    if rank:
+        synced_s(one_step)
+    return out
+
+
+def phase_parallel():
+    """Phase 22 (module docstring); returns the ranks' summed launches,
+    the largest error as a share of its scale, and K4's and K5's times at
+    the partition's shape."""
+    import torch
+    from graphflow_tpu_torch import parallel
+    from graphflow_tpu_torch.models import SMP_omega
+    from graphflow_tpu_torch.models.smp2d import (risi18_bank_level,
+                                                  smp2d_forward)
+    from graphflow_tpu_torch.ops.losses import squared_loss
+    from graphflow_tpu_torch.ops.risi_bank import (
+        _backward_main_kernel, risi18_bank, risi18_bank_backward,
+        risi18_bank_reference)
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
+    from graphflow_tpu_torch.utils.convert import unflatten
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    world = int(np.prod(list(PAR_MESH.values())))
+    backend, devices = parallel.placement(world)
+    ranks = parallel.run_ranks(parallel_rank, world)
+    spawned = time.perf_counter() - t0
+
+    model = SMP_omega(**MODEL, seed=SEED, device="cuda")
+    graphs, targets = parallel_batch()
+    batch = model._stack(graphs, targets)
+    plan = parallel.plan_partition_batch([model.prepare(g) for g in graphs],
+                                         PAR_MESH["graph"])
+    nL, P, C = MODEL["nLevels"], MODEL["max_receptive_field"], MODEL["nChanels"]
+    blocks = int(plan.n_interior > 0) + int(plan.n_interior < plan.Vs)
+
+    def reference(level_fn, dtype):
+        p = {k: v.detach().to(dtype).requires_grad_()
+             for k, v in model.param_dict().items()}
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        pred, feat = smp2d_forward(unflatten(p), b, model.cfg,
+                                   level_fn=level_fn, training=True)
+        loss = squared_loss(pred, b["target"])
+        grads = torch.autograd.grad(loss, list(p.values()))
+        return {"pred": pred.detach(), "feat": feat.detach(),
+                "loss": loss.detach(), "grads": dict(zip(p, grads))}
+
+    # The single-process step (the fused level, K1 and K2), the unsharded
+    # bank route (K4 and K5, as the partition) and the plain level in
+    # float64.
+    refs = {"single": reference(None, torch.float32),
+            "bank": reference(risi18_bank_level, torch.float32),
+            "plain64": reference(risi18_level_reference, torch.float64)}
+    # Each rank's largest error as a share of max(1, max|ref|).
+    rel = [0.0] * world
+
+    def hold(what, got, ref):
+        r = int(what.split()[1])
+        rel[r] = max(rel[r], check_rel(f"phase 22 {what}", got, ref))
+
+    def expect(what, n, **want):
+        want = {k: want.get(k, 0) for k in n}
+        if n != want:
+            raise AssertionError(f"phase 22 {what}: launches {n}, expected "
+                                 f"{want}")
+
+    one = {"K1": nL, "K2": nL, "K2r": nL}
+    banked = {"K4": nL * blocks, "K5": nL * blocks, "K5r": nL * blocks}
+    launches = {k: 0 for k in ranks[0]["dp_sgd"][2]}
+    for r, out in enumerate(ranks):
+        d = out["coords"]["data"]
+        share = slice(2 * d, 2 * d + 2)
+        for name in ("dp_sgd", "dp_adam", "part_sgd", "part_adam",
+                     ("forward", "targeted"), ("forward", "all_gather")):
+            for k, v in out[name][-1].items():
+                launches[k] += v
+        loss, grads, n = out["dp_sgd"]
+        expect(f"rank {r} DP step", n, **one)
+        expect(f"rank {r} DP Adam step", out["dp_adam"][2], **one)
+        hold(f"rank {r} DP loss", loss, refs["single"]["loss"])
+        hold(f"rank {r} DP Adam loss", out["dp_adam"][0],
+             refs["single"]["loss"])
+        for k, g in grads.items():
+            hold(f"rank {r} DP gradient {k}", g, refs["single"]["grads"][k])
+        for halo in ("targeted", "all_gather"):
+            pred, feat, n = out[("forward", halo)]
+            # all_gather runs every vertex against the gathered rows.
+            expect(f"rank {r} {halo} forward", n,
+                   K4=nL * (blocks if halo == "targeted" else 1))
+            for ref in ("bank", "plain64"):
+                hold(f"rank {r} {halo} prediction vs {ref}", pred,
+                     refs[ref]["pred"][share])
+                hold(f"rank {r} {halo} feature vs {ref}", feat,
+                     refs[ref]["feat"][share])
+        loss, grads, n = out["part_sgd"]
+        expect(f"rank {r} partitioned step", n, **banked)
+        expect(f"rank {r} partitioned Adam step", out["part_adam"][2],
+               **banked)
+        for ref in ("bank", "plain64"):
+            hold(f"rank {r} partitioned loss vs {ref}", loss,
+                 refs[ref]["loss"])
+            hold(f"rank {r} partitioned Adam loss vs {ref}",
+                 out["part_adam"][0], refs[ref]["loss"])
+            for k, g in grads.items():
+                hold(f"rank {r} partitioned gradient {k} vs {ref}", g,
+                     refs[ref]["grads"][k])
+    # Replicas: the DP groups (one per graph coordinate) and all four
+    # ranks after the partitioned step hold the same bits.
+    for name, same in (("dp_adam", lambda a, b: a["coords"]["graph"]
+                        == b["coords"]["graph"]),
+                       ("part_adam", lambda a, b: True)):
+        for a in ranks:
+            for b in ranks:
+                if same(a, b) and not all(torch.equal(a[name][1][k],
+                                                      b[name][1][k])
+                                          for k in a[name][1]):
+                    raise AssertionError(f"phase 22 {name}: replicas differ "
+                                         f"after the step")
+
+    # K4 and K5 at the partition's boundary block: a data share of graphs
+    # times its rows.
+    N = GRAPHS_PER_REQUEST // PAR_MESH["data"] * (plan.Vs - plan.n_interior)
+    T, A, K, g = bank_inputs(N, P, C, C, SEED, torch.float32)
+    leaves = [x.detach().requires_grad_() for x in (T, K)]
+    plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
+    Z = risi18_bank(T, A, K)
+    dT, dK = risi18_bank_backward(T, A, K, g)
+    times = {
+        "k4": {"ms": time_ms(lambda: risi18_bank(T, A, K)),
+               "plain_ms": time_ms(lambda: risi18_bank_reference(T, A, K)),
+               "bound": bound_ms(nbytes(T, A, K, Z),
+                                 bank_factored_ops(N, P, C, C))},
+        "k5": {"ms": time_ms(lambda: _backward_main_kernel(T, A, K, g)),
+               "plain_ms": time_ms(lambda: torch.autograd.grad(
+                   plain_out, leaves, g, retain_graph=True)),
+               "bound": bound_ms(nbytes(T, A, K, g, dT, dK),
+                                 bank_backward_factored_ops(N, P, C, C))}}
+    busy_ms, rows = ranks[0]["profile"]
+    kernel_ms = {key: sum(ms for name, ms, _ in rows if key in name)
+                 for key in ("risi18_bank_kernel", "risi18_bank_bwd_kernel",
+                             "sum_partial_rows")}
+    walls = [statistics.median(out["walls"]) * 1e3 for out in ranks]
+    log(f"phase 22 parallel: {world} ranks on {', '.join(devices)} over "
+        f"{backend} (data x graph = {PAR_MESH['data']} x "
+        f"{PAR_MESH['graph']}), spawned, run "
+        f"and joined in {spawned:.1f} s; SMP_omega V={MODEL['max_nVertices']}"
+        f" P={P} C={C} {nL} levels nDepth={MODEL['nDepth']}, "
+        f"{len(graphs)} Erdos-Renyi graphs p={ER_P}")
+    log(f"phase 22 parallel: plan Vs={plan.Vs}, interior prefix "
+        f"{plan.n_interior}, shifts {plan.shift_sizes}; halo rows a shard "
+        f"and level {plan.rows_targeted} targeted vs {plan.rows_allgather} "
+        f"all_gather; per level (targeted max, mean; all_gather) "
+        + ", ".join(f"({c['targeted_max']}, {c['targeted_mean']:.1f}; "
+                    f"{c['allgather']})" for c in plan.comm_per_level))
+    for r, out in enumerate(ranks):
+        log(f"phase 22 parallel: rank {r} {out['coords']}: launches DP "
+            f"{out['dp_sgd'][2]}, partitioned forward "
+            f"{out[('forward', 'targeted')][2]}, partitioned step "
+            f"{out['part_sgd'][2]}; DP loss {out['dp_sgd'][0]:.6f}, "
+            f"partitioned loss {out['part_sgd'][0]:.6f} (references: single "
+            f"{float(refs['single']['loss']):.6f}, bank route "
+            f"{float(refs['bank']['loss']):.6f}, plain float64 "
+            f"{float(refs['plain64']['loss']):.6f}); largest error "
+            f"{rel[r]:.3e} of max(1, max|ref|)")
+    log(f"phase 22 parallel: the DP step's loss and summed gradients vs the "
+        f"single-process step (K1, K2), the partitioned forward (both "
+        f"halos), loss and gradients vs the unsharded bank route (K4, K5) "
+        f"and the plain level in float64: largest error {max(rel):.3e} of "
+        f"max(1, max|ref|) (bound {RTOL:g}) ok; replicas bit-identical "
+        f"after the Adam steps")
+    log(f"phase 22 parallel: partitioned Adam step wall (host clock, synced, "
+        f"median of {PAR_TIMED_STEPS}) per rank "
+        + ", ".join(f"{w:.2f}" for w in walls)
+        + f" ms; rank 0's device busy {busy_ms:.3f} ms a step, of it K4 "
+        f"{kernel_ms['risi18_bank_kernel']:.3f} ms, K5 kernel 1 "
+        f"{kernel_ms['risi18_bank_bwd_kernel']:.3f} ms, K5 kernel 2 "
+        f"{kernel_ms['sum_partial_rows']:.3f} ms; top kernels "
+        + ", ".join(f"{name[:60]} {ms:.3f} ms x{cnt:g}"
+                    for name, ms, cnt in rows[:6]))
+    for key, label in (("k4", "K4"), ("k5", "K5 kernel 1")):
+        t = times[key]
+        log(f"phase 22 parallel: {label} at the boundary block's shape "
+            f"({N},{P},{C},{C}) float32: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms by "
+            f"{t['bound'][1]} (CUDA events behind a spin, 20 reps)")
+    log(f"phase 22 parallel: launches over the ranks {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "rel": max(rel), "shape": [N, P, C, C],
+            "times": times}
+
+
+def phase_entry_examples():
+    """Phase 23 (module docstring); returns the launches of K1, K2, K4 and
+    K5 in this process and in the ranks."""
+    import tempfile
+
+    import torch
+    from graphflow_tpu_torch import entry as port_entry
+    from graphflow_tpu_torch.examples import (multichip_data_parallel,
+                                              partitioned_training,
+                                              permutation_invariance,
+                                              train_mnist_cnn,
+                                              train_smp_omega)
+    from graphflow_tpu_torch.models import SMP_omega
+    from graphflow_tpu_torch.models.smp2d import SMP2DConfig, smp2d_forward
+    from graphflow_tpu_torch.ops import launch_counts
+    from graphflow_tpu_torch.ops.risi_level import (risi18_level,
+                                                    risi18_level_reference)
+    from graphflow_tpu_torch.utils import checkpoint, profiling
+
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in launch_counts()}
+
+    def counted(what, fn, **want):
+        reset_model_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        n = launch_counts()
+        for k, v in n.items():
+            launches[k] += v
+        missing = [k for k in want if not n[k]]
+        if missing:
+            raise AssertionError(f"phase 23 {what}: {missing} launched no "
+                                 f"time ({n})")
+        return res, n
+
+    def ranks_launched(what, reports, *kernels):
+        for r, rep in enumerate(reports):
+            for k, v in rep["launches"].items():
+                launches[k] += v
+            missing = [k for k in kernels if not rep["launches"][k]]
+            if missing:
+                raise AssertionError(f"phase 23 {what}: rank {r} launched "
+                                     f"no {missing} ({rep['launches']})")
+        return reports[0]["launches"]
+
+    # entry(): SMP_omega(10, 4, 2, 16, 4, 5) on the toy molecules.
+    fn, (params, batch) = port_entry.entry()
+    with torch.no_grad():
+        pred, n = counted("entry()", lambda: fn(params, batch), K1=True)
+        plain, _ = smp2d_forward(params, batch, SMP2DConfig(
+            max_nVertices=10, max_receptive_field=4, nLevels=2, nChanels=16,
+            nFeatures=4, nDepth=5), level_fn=risi18_level_reference)
+    err = check_close("phase 23 entry()", pred, plain)
+    log(f"phase 23 entry: entry() forward {pred.cpu().numpy().round(4)} "
+        f"(K1 {n['K1']} launches), max abs err vs the plain level "
+        f"{err:.3e} ok")
+
+    reports = port_entry.dryrun_multichip(4)
+    n = ranks_launched("dryrun_multichip(4)", reports, "K1", "K2", "K4",
+                       "K5")
+    log("phase 23 entry: dryrun_multichip(4) ok on every rank: DP loss "
+        f"{reports[0]['dp'][0]:.6f} vs one process {reports[0]['dp'][1]:.6f}"
+        f", partitioned forward {reports[0]['forward'][0]:.6f} vs "
+        f"{reports[0]['forward'][1]:.6f}, partitioned step loss "
+        f"{reports[0]['train'][0]:.6f} vs {reports[0]['train'][1]:.6f}; "
+        f"rank 0 launches {n}")
+
+    losses, n = counted("train_smp_omega", lambda: train_smp_omega.main(
+        EXAMPLE_EPOCHS), K1=True, K2=True)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train_smp_omega: non-finite loss {losses}")
+    gaps, _ = counted("permutation_invariance",
+                      lambda: permutation_invariance.main(2), K1=True)
+    if not (np.isfinite(gaps).all() and max(gaps) < 1e-3):
+        raise AssertionError(f"permutation_invariance: gaps {gaps}")
+    accuracy, _ = counted("train_mnist_cnn",
+                          lambda: train_mnist_cnn.main(1))
+    dp = multichip_data_parallel.main(EXAMPLE_EPOCHS)
+    dp_n = ranks_launched("multichip_data_parallel", dp, "K1", "K2")
+    part = partitioned_training.main(EXAMPLE_EPOCHS)
+    part_n = ranks_launched("partitioned_training", part, "K4", "K5")
+    for name, reports in (("multichip_data_parallel", dp),
+                          ("partitioned_training", part)):
+        if not np.isfinite([r["losses"] for r in reports]).all():
+            raise AssertionError(f"{name}: a non-finite loss")
+    log(f"phase 23 entry: examples for {EXAMPLE_EPOCHS} epochs: "
+        f"train_smp_omega (loss_before, loss_after) "
+        + ", ".join(f"({a:.4f}, {b:.4f})" for a, b in losses)
+        + f"; permutation_invariance L1 gaps {gaps}; train_mnist_cnn "
+        f"(synthetic digits, 1 epoch) accuracy {accuracy}; "
+        f"multichip_data_parallel losses {dp[0]['losses']} (rank 0 "
+        f"launches {dp_n}); partitioned_training losses "
+        f"{part[0]['losses']}, halo rows {part[0]['rows']} (rank 0 "
+        f"launches {part_n})")
+
+    # Checkpoints of a model on the card, and the timer on a K1 launch
+    # (not counted: a measurement).
+    model = SMP_omega(**MODEL, seed=SEED, device="cuda")
+    params = model.param_dict()
+    template = {k: torch.zeros_like(v) for k, v in params.items()}
+    with tempfile.TemporaryDirectory() as d:
+        for what, save, load in (("npz", checkpoint.save_npz,
+                                  checkpoint.load_npz),
+                                 ("pt", checkpoint.save_torch,
+                                  checkpoint.load_torch)):
+            path = f"{d}/params.{what}"
+            save(path, params)
+            back = load(path, template)
+            if not all(back[k].device == params[k].device
+                       and torch.equal(back[k], params[k]) for k in params):
+                raise AssertionError(f"phase 23 {what} round trip differs")
+    args = level_inputs(*LEVEL_SHAPES[0], SEED)
+    stats = profiling.time_torch(risi18_level, *args, iters=20)
+    reset_model_counts()
+    if set(stats) != {"mean", "min", "max", "std"} or not stats["min"] > 0:
+        raise AssertionError(f"phase 23 time_torch: {stats}")
+    log(f"phase 23 entry: npz and torch.save round trips of the full-width "
+        f"model on the card equal bit for bit; time_torch(K1 at "
+        f"{LEVEL_SHAPES[0]}) " + ", ".join(
+            f"{k} {v * 1e3:.4f} ms" for k, v in stats.items())
+        + " (host clock, each call synchronised)")
+    log(f"phase 23 entry: launches here and in the ranks {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -3096,14 +3541,18 @@ def main() -> None:
     pair_k1, pair_k2, pair_err = phase_pairs()
     phase_graph_families()
     phase_library()
+    par = phase_parallel()
+    ent = phase_entry_examples()
+    # Phases 22-23's launches, here and in the ranks, by kernel.
+    spread = {k: par["launches"][k] + ent[k] for k in ent}
     routes = dict(prep.ROUTES)
     if set(routes) - {"native", "numpy_fo_degree", "sparse"} or not (
             routes.get("native") and routes.get("sparse")):
-        raise AssertionError(f"phases 4-21 prepared graphs by routes "
+        raise AssertionError(f"phases 4-23 prepared graphs by routes "
                              f"{routes}: every one must be native but the "
                              f"sparse first-order route's fo_degree prep "
                              f"and the ELL route's prepare_graph_sparse")
-    log(f"phase 13 native prep: phases 4-21 prepared {routes['native']} "
+    log(f"phase 13 native prep: phases 4-23 prepared {routes['native']} "
         f"graphs natively, {routes.get('numpy_fo_degree', 0)} on the NumPy "
         f"path with fo_degree (the sparse first-order route, NumPy in the "
         f"JAX package too) and {routes['sparse']} by prepare_graph_sparse "
@@ -3146,10 +3595,17 @@ def main() -> None:
             "bound_by": per_dtype[d]["p64"][bound_key][1]}
             for d in (f32, b16)}}
 
+    def partition(key):
+        """A kernel's float32 numbers at phase 22's boundary block."""
+        t = par["times"][key]
+        return {"shape": par["shape"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1]}
+
     kernels = [
         kernel("risi18_level_kernel", "risi18_level.cu", fused + "526",
                serve_launches + train_launches[0] + physics_k1 + bf16["k1"]
-               + bucketed[0] + large["k1"] + pair_k1,
+               + bucketed[0] + large["k1"] + pair_k1 + spread["K1"],
                max(*level_errs.values(), slice_err, physics_err, bf16["err"],
                    bucket_err),
                level_ms[f32]["kernel"], level_ms[f32]["plain"],
@@ -3163,13 +3619,14 @@ def main() -> None:
                               for shape, t in level_ms[d]["k3"].items()}
                           for d in (f32, b16)},
                launches_bucketed=bucketed[0], launches_pairs=pair_k1,
+               launches_parallel=spread["K1"],
                max_rel_err_pairs=pair_err, launches_p64=large["k1"],
                max_rel_err_p64=large["err"],
                p64=p64(level_ms, "kernel", "plain")),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
                train_launches[1] + physics_k2[0] + bf16["k2"][0]
-               + bucketed[1] + large["k2"][0] + pair_k2[0],
+               + bucketed[1] + large["k2"][0] + pair_k2[0] + spread["K2"],
                max(bwd_errs[f32]["dstate"], bwd_errs[b16]["dstate"],
                    train_err, physics_err, bf16["err"], bucket_err),
                bwd_ms[f32]["main"], bwd_ms[f32]["plain"],
@@ -3177,29 +3634,34 @@ def main() -> None:
                **in_bf16(bwd_ms[b16]["main"], bwd_ms[b16]["plain"],
                          bwd_ms[b16]["bound"]),
                launches_pairs=pair_k2[0], max_rel_err_pairs=pair_err,
+               launches_parallel=spread["K2"],
                launches_p64=large["k2"][0], max_rel_err_p64=large["err"],
                p64=p64(bwd_ms, "main", "plain")),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
                train_launches[2] + physics_k2[1] + bf16["k2"][1]
-               + bucketed[2] + large["k2"][1] + pair_k2[1],
+               + bucketed[2] + large["k2"][1] + pair_k2[1] + spread["K2r"],
                max(bwd_errs[d][k] for d in (f32, b16) for k in ("dK", "db")),
                bwd_ms[f32]["reduce"], bwd_ms[f32]["plain_reduce"],
                bwd_ms[f32]["reduce_bound"],
                library_ms=bwd_ms[f32]["plain_reduce"],
+               launches_parallel=spread["K2r"],
                **in_bf16(bwd_ms[b16]["reduce"], bwd_ms[b16]["plain_reduce"],
                          bwd_ms[b16]["reduce_bound"])),
         kernel("risi18_bank_kernel", "risi18_bank.cu", bank + "142",
-               bf16["k4"] + large["k4"],
+               bf16["k4"] + large["k4"] + spread["K4"],
                max(bank_errs["Z"], bf16["bank_err"]),
                bank_ms[f32]["k4"], bank_ms[f32]["plain"],
                bank_ms[f32]["bound"],
                **in_bf16(bank_ms[b16]["k4"], bank_ms[b16]["plain"],
                          bank_ms[b16]["bound"]),
                launches_p64=large["k4"], max_rel_err_p64=large["bank_err"],
-               p64=p64(bank_ms, "k4", "plain")),
+               p64=p64(bank_ms, "k4", "plain"),
+               launches_parallel=spread["K4"],
+               max_rel_err_parallel=par["rel"],
+               partition=partition("k4")),
         kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
-               bf16["k5"][0] + large["k5"][0],
+               bf16["k5"][0] + large["k5"][0] + spread["K5"],
                max(bank_errs["dT"], bf16["bank_err"]),
                bank_ms[f32]["main"], bank_ms[f32]["plain_bwd"],
                bank_ms[f32]["bwd_bound"],
@@ -3207,13 +3669,17 @@ def main() -> None:
                          bank_ms[b16]["bwd_bound"]),
                launches_p64=large["k5"][0],
                max_rel_err_p64=large["bank_err"],
-               p64=p64(bank_ms, "main", "plain_bwd", "bwd_bound")),
+               p64=p64(bank_ms, "main", "plain_bwd", "bwd_bound"),
+               launches_parallel=spread["K5"],
+               max_rel_err_parallel=par["rel"],
+               partition=partition("k5")),
         kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
-               bank + "330", bf16["k5"][1] + large["k5"][1],
+               bank + "330", bf16["k5"][1] + large["k5"][1] + spread["K5r"],
                bank_errs["dK"],
                bank_ms[f32]["reduce"], bank_ms[f32]["plain_reduce"],
                bank_ms[f32]["reduce_bound"],
                library_ms=bank_ms[f32]["plain_reduce"],
+               launches_parallel=spread["K5r"],
                **in_bf16(bank_ms[b16]["reduce"], bank_ms[b16]["plain_reduce"],
                          bank_ms[b16]["reduce_bound"])),
         kernel("risi18_aligned_t2_kernel", "risi_aligned_t2.cu",

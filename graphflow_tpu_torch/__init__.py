@@ -36,8 +36,12 @@ the convolutions and pools of ``ops/conv.py``) and the five optimizers;
 bucketed training (``models/base.py:fit_bucketed``); and host preparation
 through the native C++ library ``runtime/csrc/graph_prep.cpp``, built with
 g++ at first use (``runtime/native.py``), or its NumPy twin.  Every model
-file of the JAX package has its counterpart; the rest of the JAX package
-is queued in ROADMAP.md.
+file of the JAX package has its counterpart.  ``parallel/`` scales out
+over ranks (process groups named like a mesh, data-parallel training, the
+vertex-partitioned SMP2D whose levels run the bank kernels), ``entry.py``
+and ``examples/`` are the counterparts of ``__graft_entry__.py`` and
+``examples/``, and ``utils/`` holds the datasets, checkpoints and
+profiling; the op library that no model calls is queued in ROADMAP.md.
 """
 
 from graphflow_tpu_torch.core.graph import DenseGraph

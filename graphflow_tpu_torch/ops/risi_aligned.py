@@ -38,20 +38,23 @@ def _gather_neighbor_tensors_take(state_pad, nbr, pos):
     """The flat-take gather and alignment X f X^T (counterpart of
     ``smp2d.py:_gather_neighbor_tensors_take``).
 
-    state_pad [N, P+1, P+1, C] (the state zero-padded by one position on
-    both spatial axes), nbr [N, P] in [0, N], pos [N, P, P] in [0, P]
+    state_pad [R, P+1, P+1, C] (the state zero-padded by one position on
+    both spatial axes), nbr [N, P] in [0, R], pos [N, P, P] in [0, P]
     -> T [N, P, P, P, C], T[v,i,p1,p2] = state_pad[nbr[v,i], pos[v,i,p1],
-    pos[v,i,p2]].  Neighbour id and row position fold into one row index
-    over the [(N+1)(P+1), (P+1)C] view; the appended zero vertex row makes
-    the sentinel N read zeros, where ``jnp.take`` would clamp and torch
-    would raise (CPU) or read out of range (CUDA).  The rows are taken with
-    ``index_select``, whose adjoint is ``index_add_``, a scatter-add like
-    ``jnp.take``'s; the adjoint of indexing ``src[rows]`` sorts the indices
-    first, and took twice as long per bfloat16 step on an H100.
+    pos[v,i,p2]].  The source may hold more rows than there are vertices
+    to gather for (R >= N): a partitioned level gathers from its state
+    with the halo appended (``parallel/partition.py``).  Neighbour id and
+    row position fold into one row index over the [(R+1)(P+1), (P+1)C]
+    view; the appended zero vertex row makes the sentinel R read zeros,
+    where ``jnp.take`` would clamp and torch would raise (CPU) or read out
+    of range (CUDA).  The rows are taken with ``index_select``, whose
+    adjoint is ``index_add_``, a scatter-add like ``jnp.take``'s; the
+    adjoint of indexing ``src[rows]`` sorts the indices first, and took
+    twice as long per bfloat16 step on an H100.
     """
-    N, Q, _, C = state_pad.shape
-    P = nbr.shape[1]
-    src = torch.cat([state_pad.reshape(N * Q, Q * C),
+    R, Q, _, C = state_pad.shape
+    N, P = nbr.shape
+    src = torch.cat([state_pad.reshape(R * Q, Q * C),
                      state_pad.new_zeros((Q, Q * C))], dim=0)
     rows = nbr.long()[:, :, None] * Q + pos.long()                # [N, P, P]
     Ar = src.index_select(0, rows.reshape(-1)).reshape(N, P, P, Q, C)

@@ -93,6 +93,21 @@ def build_library(name: str, flags=(), suffix: str = "") -> BuildResult:
                   BUILD_DIR / f"lib{name}{suffix}.so", sources)
 
 
+# The kernels of the models' paths: the fused level (K1) and its backward
+# (K2), the bank (K4) and its backward (K5), which a partitioned level runs.
+MODEL_KERNELS = ("risi18_level", "risi18_level_bwd", "risi18_bank",
+                 "risi18_bank_bwd")
+
+
+def build_libraries(names=MODEL_KERNELS) -> list:
+    """:func:`build_library` for each of ``names``, one ``nvcc`` each, all
+    at once; the BuildResults in the order of ``names``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build_library, names))
+
+
 def find_gxx() -> str:
     """``g++`` from PATH."""
     found = shutil.which("g++")

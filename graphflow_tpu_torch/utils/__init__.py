@@ -1,1 +1,1 @@
-"""Datasets, checkpoints and weight conversion."""
+"""Datasets, checkpoints, weight conversion and profiling."""
