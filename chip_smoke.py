@@ -200,7 +200,24 @@ Phases, each reported on its own lines:
               examples for 3 epochs (1 for the CNN), K1/K2 or K4/K5
               launched where each belongs, in this process and in the
               ranks; the npz and torch.save round trips of a model on the
-              card; time_torch on a K1 launch.
+              card; time_torch on a K1 launch;
+ 24. oplib    the op library that no model calls, at a model's widths (sets
+              of 64 vectors of 32 channels, [16, 16, 32] maps, RisiLayer3D
+              at D = 32, [256, 256] products, the case-table engine's 10-,
+              18- and 50-case banks, risi18_matmul_reference and
+              smp2d_layer_fused at (B, N, C, Cout) = (256, 16, 32, 32)):
+              every function of ops/activations.py (dropout, masking,
+              norm3d), ops/linalg.py and ops/reductions.py in float32 (and
+              matmul in bfloat16) on the card against the same function on
+              the CPU in float64, values and gradients; the production
+              banks and risi18_matmul_fused against the spec engine;
+              dropout from a CUDA generator (keep rate, the same draw for
+              the same seed, a CPU generator refused); no kernel launched.
+              Then K4 against risi18_matmul_reference in float32 and
+              bfloat16 at phase 7's tolerances, and the median ms of the
+              18-case spec engine, the production bank, the unfused and
+              fused products and K4 at that shape, with the card's name and
+              power limit.
 Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
@@ -406,6 +423,15 @@ def present_elements(nbr, pos) -> int:
     return int((has_nbr * set_pos * set_pos).sum())
 
 
+def card_line() -> str:
+    """nvidia-smi's ``name, power.limit`` of the card."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device():
     import torch
 
@@ -413,11 +439,7 @@ def phase_device():
         raise SystemExit("phase 1 device: FAILED, torch.cuda.is_available() "
                          "is false; this script runs only on a GPU")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     log(f"phase 1 device: {name} (torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(card)
@@ -3509,6 +3531,286 @@ def phase_entry_examples():
     return launches
 
 
+# The op library that no model calls (phase 24), at a model's widths: sets
+# of 64 vertices of 32 channels, a level's [P, P, C] = [16, 16, 32] maps,
+# RisiLayer3D at D = 32, [256, 256] products, and the contraction banks at
+# (B, N, C) = (256, 16, 32), Cout = 32.
+OPLIB_V, OPLIB_P, OPLIB_C = 64, 16, 32
+OPLIB_BANK = BANK_SHAPES[0]
+OPLIB_DROPOUT_P = 0.3
+
+
+class Fixed:
+    """An input of an op library check that is not differentiated."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+def oplib_cases(rng, V=OPLIB_V, P=OPLIB_P, C=OPLIB_C):
+    """{name: (function of the inputs, inputs)}: one or more checks of every
+    function of ops/activations.py (dropout, masking, norm3d),
+    ops/linalg.py and ops/reductions.py.  Inputs are float64 arrays, each
+    differentiated unless ``Fixed``."""
+    from graphflow_tpu_torch import ops
+
+    def x(*shape):
+        return rng.normal(size=shape)
+
+    mask = (rng.random(V) < 0.8).astype(np.float64)
+    ties = rng.integers(0, V, size=32 * V).astype(np.float64)
+    seq = Fixed(rng.permutation(V)[:V // 2] + rng.random(V // 2) * 0.99)
+    return {
+        "masking": (ops.masking, [x(V, C), x(V, C)]),
+        "norm3d": (ops.norm3d, [x(V, P, C)]),
+        "dropout (eval)": (lambda t: ops.dropout(t, None, OPLIB_DROPOUT_P,
+                                                 False), [x(V, C)]),
+        "add": (ops.add, [x(V, C), x(V, C)]),
+        "subtract": (ops.subtract, [x(V, C), x(V, C)]),
+        "multiply": (ops.multiply, [x(V, C), x(V, C)]),
+        "inner_product": (ops.inner_product, [x(V, C), x(V, C)]),
+        "outer_product": (ops.outer_product, [x(V), x(C)]),
+        "transpose": (ops.transpose, [x(4 * V, 4 * V)]),
+        "scalar_matmul": (ops.scalar_matmul, [x(1), x(4 * V, 4 * V)]),
+        "mat_vec_mul": (ops.mat_vec_mul, [x(4 * V, 4 * V), x(4 * V)]),
+        "matmul": (ops.matmul, [x(4 * V, 4 * V), x(4 * V, 4 * V)]),
+        "mat_tensor_mul": (ops.mat_tensor_mul, [x(P, P), x(P, P, C)]),
+        "tensor_mat_mul": (ops.tensor_mat_mul, [x(P, P, C), x(P, P)]),
+        "tensor_mul": (ops.tensor_mul, [x(P, P, C), x(P, P, C)]),
+        "tensor4d_tensor3d_mul": (ops.tensor4d_tensor3d_mul,
+                                  [x(P, P, C, C), x(P, P, C)]),
+        "custom_matmul_tensor": (ops.custom_matmul_tensor,
+                                 [x(C, C), x(P, P, C)]),
+        "vector_broadcast_mat": (ops.vector_broadcast_mat, [x(C), x(P, P)]),
+        "mat_broadcast_mat": (ops.mat_broadcast_mat, [x(C, C), x(P, P)]),
+        "vector_add_matrix": (ops.vector_add_matrix, [x(C), x(V, C)]),
+        "vector_add_tensor": (ops.vector_add_tensor, [x(C), x(P, P, C)]),
+        "linear_gram": (ops.linear_gram, [x(V, C)]),
+        "sum_components": (ops.sum_components, [x(V, C)]),
+        "sum_vectors": (ops.sum_vectors, [x(V, C), mask]),
+        "average_vectors": (ops.average_vectors, [x(V, C), mask]),
+        "sum_matrices": (ops.sum_matrices, [x(V, P, C), mask]),
+        "sum_tensor3d": (ops.sum_tensor3d, [x(V, P, P, C), mask]),
+        "sum_rows": (ops.sum_rows, [x(V, C)]),
+        "shrink_matrix": (lambda m: ops.shrink_matrix(m, 1), [x(V, C)]),
+        "shrink_tensor": (ops.shrink_tensor, [x(P, P, C)]),
+        "concat": (lambda a, b: ops.concat([a, b]), [x(V), x(P, C)]),
+        "matrix_concat": (lambda a, b: ops.matrix_concat([a, b]),
+                          [x(V, C), x(P, C)]),
+        "tensor3d_concat": (lambda a, b: ops.tensor3d_concat([a, b]),
+                            [x(P, P, C), x(P, P, 8)]),
+        "tensor4d_concat": (lambda a, b: ops.tensor4d_concat([a, b]),
+                            [x(P, P, P, C), x(P, P, P, 8)]),
+        "stack_tensor3d": (lambda *t: ops.stack_tensor3d(list(t)),
+                           [x(P, P, C) for _ in range(4)]),
+        "shuffle_matrix": (ops.shuffle_matrix, [x(V, C), seq]),
+        "sort_vector": (ops.sort_vector, [ties]),
+        "kmax": (lambda v: ops.kmax(v, C), [ties]),
+        "vertex_representation": (
+            lambda f, w: ops.vertex_representation(f, w, 5, V),
+            [x(C), x(C)]),
+        "risi_layer_1d": (ops.risi_layer_1d, [x(V, C), mask]),
+        "risi_layer_2d": (ops.risi_layer_2d, [x(V, C), mask]),
+        "risi_layer_3d": (ops.risi_layer_3d, [x(V, C), mask]),
+        "reshape2d": (lambda t: ops.reshape2d(t, V, P * C), [x(V, P, C)]),
+        "reshape3d": (lambda t: ops.reshape3d(t, V, P, C), [x(V, P * C)]),
+        "reshape4d": (lambda t: ops.reshape4d(t, V, P, P, C // P),
+                      [x(V, P, C)]),
+    }
+
+
+def oplib_check(what, fn, inputs, device, dtype, rtol, seed):
+    """fn on ``device`` in ``dtype`` against fn on the CPU in float64 on the
+    same (rounded) values: the output and the gradient of every input not
+    ``Fixed``, for one seeded cotangent.  Returns the largest error as a
+    share of its scale (raises beyond rtol)."""
+    import torch
+
+    def leaves(dev, dt):
+        out = []
+        for v in inputs:
+            fixed = isinstance(v, Fixed)
+            t = torch.as_tensor(v.value if fixed else v).to(dtype)
+            t = t.to(device=dev, dtype=dt)
+            out.append(t if fixed else t.requires_grad_())
+        return out
+
+    card, host = leaves(device, dtype), leaves("cpu", torch.float64)
+    got, ref = fn(*card), fn(*host)
+    rel = check_rel(f"oplib {what} {dtype_name(dtype)}", got, ref, rtol)
+    free = [i for i, v in enumerate(inputs) if not isinstance(v, Fixed)]
+    if not ref.requires_grad:
+        return rel
+    g = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=tuple(ref.shape))).to(dtype)
+    grads = [torch.autograd.grad(o, [x[i] for i in free], c,
+                                 allow_unused=True)
+             for o, x, c in ((got, card, g.to(device)),
+                             (ref, host, g.double()))]
+    for i, a, b in zip(free, *grads):
+        if a is None and b is None:
+            continue
+        if a is None or b is None:
+            raise AssertionError(f"oplib {what}: gradient {i} defined on "
+                                 f"one side only")
+        rel = max(rel, check_rel(f"oplib {what} {dtype_name(dtype)} "
+                                 f"gradient {i}", a, b, rtol))
+    return rel
+
+
+def oplib_bank_cases(T, A, K, b):
+    """{name: (function, inputs)} of the contraction engine and the banks
+    held against it, over T [B, N, N, N, C], A [B, N, N], K [18C, Cout] and
+    b [Cout] (NumPy float64)."""
+    from graphflow_tpu_torch.ops import contractions as tc
+    from graphflow_tpu_torch.ops import fused
+
+    A = Fixed(A)
+    return {
+        "risi_contraction_10_spec": (tc.risi_contraction_10_spec, [T, A]),
+        "risi_contraction_18_spec": (tc.risi_contraction_18_spec, [T, A]),
+        "risi_contraction_50_spec": (tc.risi_contraction_50_spec, [T, A]),
+        "risi_contraction_18_batched": (tc.risi_contraction_18_batched,
+                                        [T, A]),
+        "risi18_matmul_reference": (fused.risi18_matmul_reference,
+                                    [T, A, K]),
+        "smp2d_layer_fused": (fused.smp2d_layer_fused, [T, A, K, b]),
+    }
+
+
+def oplib_checks(device, rng, bank_shape=OPLIB_BANK, **widths):
+    """Every op library check on ``device`` (float32, and bfloat16 for
+    matmul) against the CPU in float64; returns {name: largest relative
+    error}."""
+    import torch
+
+    errs = {}
+    for i, (name, (fn, inputs)) in enumerate(oplib_cases(rng,
+                                                         **widths).items()):
+        errs[name] = oplib_check(name, fn, inputs, device, torch.float32,
+                                 RTOL, SEED + i)
+        if name == "matmul":
+            errs["matmul bfloat16"] = oplib_check(
+                name, fn, inputs, device, torch.bfloat16, RTOL16, SEED + i)
+    N, P, C, Cout = bank_shape
+    T = rng.normal(size=(N, P, P, P, C))
+    A = rng.normal(size=(N, P, P))
+    K = rng.normal(size=(18 * C, Cout)) / np.sqrt(18 * C)
+    b = rng.normal(size=Cout)
+    for i, (name, (fn, inputs)) in enumerate(
+            oplib_bank_cases(T, A, K, b).items()):
+        errs[name] = oplib_check(name, fn, inputs, device, torch.float32,
+                                 RTOL, SEED + 100 + i)
+    return errs
+
+
+def phase_oplib():
+    """Phase 24 (module docstring); returns K4's error against the spec
+    engine as a share of its scale, its launches there and the times."""
+    import torch
+    from graphflow_tpu_torch import ops
+    from graphflow_tpu_torch.models.gcn import GCN_MW, GCNMWConfig
+    from graphflow_tpu_torch.ops import activations
+    from graphflow_tpu_torch.ops import contractions as tc
+    from graphflow_tpu_torch.ops import fused, losses
+    from graphflow_tpu_torch.ops.risi_bank import risi18_bank
+
+    t0 = time.perf_counter()
+    before = kernel_counts()
+    errs = oplib_checks("cuda", np.random.default_rng(SEED + 24))
+    for name, err in errs.items():
+        log(f"phase 24 oplib: {name} vs float64 on the CPU, values and "
+            f"gradients: max err {err:.3e} of scale (bound "
+            f"{RTOL16 if 'bfloat16' in name else RTOL:g}) ok")
+
+    # The production banks and the fused product against the spec engine,
+    # on the card: float32 against float64.
+    N, P, C, Cout = OPLIB_BANK
+    T, A, K, _ = bank_inputs(N, P, C, Cout, SEED + 24, torch.float32)
+    T64, A64, K64 = T.double(), A.double(), K.double()
+    for what, got, ref in (
+            ("risi_contraction_10", lambda: tc.risi_contraction_10(T, A),
+             lambda: tc.risi_contraction_10_spec(T64, A64)),
+            ("risi_contraction_18", lambda: tc.risi_contraction_18(T, A),
+             lambda: tc.risi_contraction_18_spec(T64, A64)),
+            ("risi_contraction_50", lambda: tc.risi_contraction_50(T, A),
+             lambda: tc.risi_contraction_50_spec(T64, A64)),
+            ("risi18_matmul_fused", lambda: fused.risi18_matmul_fused(T, A, K),
+             lambda: fused.risi18_matmul_reference(T64, A64, K64))):
+        err = check_rel(f"oplib {what} vs the spec engine", got(), ref())
+        errs[what + " vs spec"] = err
+        log(f"phase 24 oplib: {what} (float32) vs the spec engine (float64) "
+            f"at N,P,C={(N, P, C)}: max err {err:.3e} of scale ok")
+    if not (losses.LOG_ZERO == -1e9 and GCN_MW(
+            2, 64, 4, 32, 0, device="cuda").cfg == GCNMWConfig(2, 64, 4, 32,
+                                                               0)):
+        raise AssertionError("oplib: LOG_ZERO or GCN_MW.cfg")
+
+    # Dropout from a CUDA generator: the keep rate, the same draw again, no
+    # rescale, and a CPU generator refused.
+    x = torch.ones(1024, 1024, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kept = ops.dropout(x, gen, OPLIB_DROPOUT_P, train=True)
+    rate = float(kept.mean())
+    again = ops.dropout(x, torch.Generator(device="cuda").manual_seed(SEED),
+                        OPLIB_DROPOUT_P, train=True)
+    if not (abs(rate - OPLIB_DROPOUT_P) < 2e-3 and torch.equal(kept, again)
+            and set(kept.unique().tolist()) <= {0.0, 1.0}):
+        raise AssertionError(f"oplib dropout: keep rate {rate}")
+    try:
+        ops.dropout(x, torch.Generator(), OPLIB_DROPOUT_P, train=True)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("oplib dropout drew a CUDA tensor's uniforms "
+                             "from a CPU generator")
+    u = torch.rand(x.shape, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(SEED))
+    if not torch.equal(kept, activations.dropout_apply(x, u,
+                                                       OPLIB_DROPOUT_P)):
+        raise AssertionError("oplib dropout: not the mask of its uniforms")
+    log(f"phase 24 oplib: dropout(p={OPLIB_DROPOUT_P}) from a CUDA "
+        f"generator keeps {rate:.5f} of 1048576 entries, no rescale, the "
+        f"same draw for the same seed; a CPU generator refused")
+    no_kernel_launched("phase 24 oplib", before)
+
+    # K4 against the spec engine's unfused product, a yardstick independent
+    # of the factored plain bank of phase 7, at phase 7's tolerances.
+    k4 = {}
+    launches = risi18_bank.launches
+    for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
+        Td, Ad, Kd, _ = bank_inputs(N, P, C, Cout, SEED + 24, dtype)
+        got = risi18_bank(Td, Ad, Kd)
+        ref = fused.risi18_matmul_reference(Td.double(), Ad.double(),
+                                            Kd.double())
+        k4[dtype_name(dtype)] = check_rel(
+            f"K4 vs risi18_matmul_reference {dtype_name(dtype)}", got, ref,
+            rtol)
+        log(f"phase 24 oplib: K4 {dtype_name(dtype)} at {OPLIB_BANK} vs "
+            f"risi18_matmul_reference (the spec engine in float64): max err "
+            f"{k4[dtype_name(dtype)]:.3e} of scale (bound {rtol:g}) ok")
+    launches = risi18_bank.launches - launches
+    if launches != 2:
+        raise AssertionError(f"phase 24 oplib: K4 launches {launches}, "
+                             f"expected 2 (one a dtype)")
+
+    ms = {"risi_contraction_18_spec":
+          time_ms(lambda: tc.risi_contraction_18_spec(T, A)),
+          "risi_contraction_18": time_ms(lambda: tc.risi_contraction_18(T, A)),
+          "risi18_matmul_reference":
+          time_ms(lambda: fused.risi18_matmul_reference(T, A, K)),
+          "risi18_matmul_fused":
+          time_ms(lambda: fused.risi18_matmul_fused(T, A, K)),
+          "risi18_bank (K4)": time_ms(lambda: risi18_bank(T, A, K))}
+    log(f"phase 24 oplib: median ms at N,P,C,Cout={OPLIB_BANK} float32 on "
+        f"{card_line()}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + " (CUDA events behind a spin, 20 reps)")
+    log(f"phase 24 oplib: {len(errs)} checks, largest error "
+        f"{max(errs.values()):.3e} of scale; {time.perf_counter() - t0:.1f} s")
+    return {"err_spec": max(k4.values()), "launches_spec": launches,
+            "spec_ms": ms, "err": max(errs.values())}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     name = phase_device()
@@ -3543,6 +3845,7 @@ def main() -> None:
     phase_library()
     par = phase_parallel()
     ent = phase_entry_examples()
+    oplib = phase_oplib()
     # Phases 22-23's launches, here and in the ranks, by kernel.
     spread = {k: par["launches"][k] + ent[k] for k in ent}
     routes = dict(prep.ROUTES)
@@ -3659,7 +3962,10 @@ def main() -> None:
                p64=p64(bank_ms, "k4", "plain"),
                launches_parallel=spread["K4"],
                max_rel_err_parallel=par["rel"],
-               partition=partition("k4")),
+               partition=partition("k4"),
+               max_rel_err_spec=oplib["err_spec"],
+               launches_spec=oplib["launches_spec"],
+               spec_ms=oplib["spec_ms"]),
         kernel("risi18_bank_bwd_kernel", "risi18_bank_bwd.cu", bank + "330",
                bf16["k5"][0] + large["k5"][0] + spread["K5"],
                max(bank_errs["dT"], bf16["bank_err"]),

@@ -41,11 +41,19 @@ over ranks (process groups named like a mesh, data-parallel training, the
 vertex-partitioned SMP2D whose levels run the bank kernels), ``entry.py``
 and ``examples/`` are the counterparts of ``__graft_entry__.py`` and
 ``examples/``, and ``utils/`` holds the datasets, checkpoints and
-profiling; the op library that no model calls is queued in ROADMAP.md.
+profiling.  The op library that no model calls is ported too:
+``ops/linalg.py``, ``ops/reductions.py``, the non-inverted dropout,
+masking and ``norm3d``, the contraction banks' case-table engine
+(``risi_contraction_10/18/50_spec``) and the unfused yardstick
+``ops/fused.py:risi18_matmul_reference``; ``graphflow_tpu_torch.ops``
+exports every op that ``graphflow_tpu.ops`` exports.
 """
 
+from graphflow_tpu_torch.version import __version__
 from graphflow_tpu_torch.core.graph import DenseGraph
+from graphflow_tpu_torch.core import prep
+from graphflow_tpu_torch import ops
+from graphflow_tpu_torch import optim
+from graphflow_tpu_torch import models
 
-__version__ = "0.1.0"
-
-__all__ = ["DenseGraph", "__version__"]
+__all__ = ["__version__", "DenseGraph", "prep", "ops", "optim", "models"]

@@ -298,6 +298,19 @@ def _ell(g, key: str, h):
     return out.reshape(B, V, H)
 
 
+@dataclasses.dataclass
+class GCNMWConfig:
+    """GCN_MW's sizes, held by the model as ``cfg`` as in the JAX package
+    (``graphflow_tpu/models/gcn.py:281-288``)."""
+    nLevels: int
+    max_nVertices: int
+    nFeatures: int
+    nHiddens: int
+    nDepth: int
+    momentum_param: float = 0.9
+    dtype: str = "float32"
+
+
 class GCN_MW(_Model):
     """``GCN_MW.h``: hidden_l = LeakyReLU(norm_adj hidden_{l-1} W_l).
 
@@ -314,8 +327,8 @@ class GCN_MW(_Model):
         self.aggregation = _route(aggregation, max_nVertices, nDepth == 0)
         if self.aggregation == "ell" and nDepth != 0:
             raise ValueError("ELL aggregation needs nDepth == 0")
-        self.nLevels, self.max_nVertices = nLevels, max_nVertices
-        self.nDepth = nDepth
+        self.cfg = GCNMWConfig(nLevels, max_nVertices, nFeatures, nHiddens,
+                               nDepth, momentum_param)
         gen, dev = torch.Generator().manual_seed(seed), resolve_device(device)
         feat_dim = nFeatures * (nDepth + 1)
         tree = {"levels": [{"W": uniform_init(
@@ -326,10 +339,11 @@ class GCN_MW(_Model):
                        + ["W"])
 
     def _prepare(self, graph):
+        cfg = self.cfg
         if self.aggregation == "ell":
-            return prep.prepare_graph_sparse(graph, self.max_nVertices)
-        return prep.prepare_graph(graph, self.nLevels, self.max_nVertices, 1,
-                                  self.nDepth)
+            return prep.prepare_graph_sparse(graph, cfg.max_nVertices)
+        return prep.prepare_graph(graph, cfg.nLevels, cfg.max_nVertices, 1,
+                                  cfg.nDepth)
 
     def _forward(self, params, g):
         hidden = g["wl_feat"]

@@ -1,7 +1,8 @@
 """Activations (counterpart of ``graphflow_tpu/ops/activations.py``): the
 elementwise ops, the LeakyReLU every model uses, the softmax of the GCN
-family with the reference's backward, and the per-size parameter gather
-of the first-order and steerable models."""
+family with the reference's backward, the per-size parameter gather of
+the first-order and steerable models, and the non-inverted dropout,
+masking and norm3d that no model calls."""
 
 from __future__ import annotations
 
@@ -127,3 +128,44 @@ def persize_gather_refgrad(table: torch.Tensor, s: torch.Tensor, depth: int,
     axes, each counted on its own), ``table`` [V1, ...]."""
     return _PersizeGather.apply(table, s.long(),
                                 _prefix_count_weights(s, depth, valid))
+
+
+def dropout_apply(x: torch.Tensor, uniforms: torch.Tensor,
+                  probability: float) -> torch.Tensor:
+    """The train-time mask of :func:`dropout` on given uniforms: x where
+    uniform <= probability, else 0 (no rescale)."""
+    return torch.where(uniforms <= probability, x, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, generator: torch.Generator, probability: float,
+            train: bool) -> torch.Tensor:
+    """``DropOut.h:41-67``: non-inverted dropout.  At train time each entry
+    is kept where a uniform draw is <= ``probability`` and is not rescaled;
+    at eval time x is multiplied by ``probability``.
+
+    The uniforms are drawn on x's device from ``generator``, which must
+    live there (a CUDA tensor takes a CUDA generator; torch raises
+    otherwise).  torch's draw is not JAX's: the same seed keeps other
+    entries."""
+    if not train:
+        return probability * x
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return dropout_apply(x, u, probability)
+
+
+def masking(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``Masking.h``: x where mask > 0, else 0; the gradient is gated the
+    same way."""
+    return torch.where(mask > 0.0, x, torch.zeros_like(x))
+
+
+def norm3d(x: torch.Tensor, eps_free: bool = True) -> torch.Tensor:
+    """``Norm3D.h``: per-depth min-max normalisation of a [R, Ch, D]
+    tensor.  The reference treats min and max as constants in its backward
+    (the gradient is g / range), so both are detached; where min equals max
+    the range is 1.  ``eps_free`` is accepted and ignored, as in the JAX
+    package."""
+    mn = x.amin(dim=(0, 1), keepdim=True).detach()
+    mx = x.amax(dim=(0, 1), keepdim=True).detach()
+    rng = torch.where(mn < mx, mx - mn, torch.ones_like(mn))
+    return (x - mn) / rng

@@ -6,7 +6,10 @@ A[d, e], each case fixes two of the five indices and contracts or ties the
 rest (``RisiContraction_18.h:73-331``, ``RisiContraction_50.h:94-431``).
 Every case is a scalar times a slab, an outer product with a row or column
 sum of A, or one small product with A, over shared reductions of T:
-O(N^3 C) work.
+O(N^3 C) work.  The generic case-table engine (``_case_table_50``,
+``_contract_cases``, the ``_spec`` banks) computes each case as one einsum
+from the table instead: the executable specification that the banks, the
+fused products and the bank kernel are held against.
 
 Only the 18-case bank applies the reference's ``adj_value > 0`` guard; the
 10- and 50-case banks multiply by A as it is, and the 4-case bank takes no
@@ -37,7 +40,78 @@ import torch
 
 ein = torch.einsum
 
+nContractions_4 = 4
+nContractions_10 = 10
 nContractions_18 = 18
+nContractions_50 = 50
+
+# The generic case-table engine: the executable specification that the
+# banks below are held against (``graphflow_tpu/ops/contractions.py:45-96``).
+
+_PAIRS = (("a", "b"), ("a", "c"), ("a", "d"), ("a", "e"), ("b", "c"),
+          ("b", "d"), ("b", "e"), ("c", "d"), ("c", "e"), ("d", "e"))
+
+
+def _case_table_50():
+    """The 50 cases in the reference's order (``RisiContraction_50.h:94-431``),
+    each (fixed pair, tie group or None): cases 1-10 fix each pair and
+    contract the other three independently, 11-40 fix each pair and tie one
+    lexicographic pair of the rest, 41-50 fix each pair and tie all three of
+    the rest."""
+    table = [(p, None) for p in _PAIRS]
+    for p in _PAIRS:
+        rest = [i for i in "abcde" if i not in p]
+        for t in ((rest[0], rest[1]), (rest[0], rest[2]), (rest[1], rest[2])):
+            table.append((p, t))
+    for p in _PAIRS:
+        table.append((p, tuple(i for i in "abcde" if i not in p)))
+    return tuple(table)
+
+
+_TABLE_50 = _case_table_50()
+
+# The 18-case subset by 1-based place in the 50-case table (the "(k/50)"
+# comments of ``RisiContraction_18.h:103-319``).
+_SUBSET_18 = (1, 3, 5, 6, 10, 11, 13, 17, 18, 23, 26, 27, 28, 38, 40, 43, 46,
+              50)
+
+
+def _case_einsum(T, A, fixed, tie):
+    """One case as an einsum of T[..., a,b,c,f] and A[..., d,e]: the tied
+    indices share the first one's letter."""
+    sym = {i: i for i in "abcde"}
+    if tie is not None:
+        for i in tie[1:]:
+            sym[i] = tie[0]
+    t_sub = "..." + sym["a"] + sym["b"] + sym["c"] + "f"
+    a_sub = "..." + sym["d"] + sym["e"]
+    out = "..." + sym[fixed[0]] + sym[fixed[1]] + "f"
+    return ein(f"{t_sub},{a_sub}->{out}", T, A)
+
+
+def _contract_cases(T, A, cases):
+    """The given (1-based) cases of the 50-case table, joined along the
+    channels."""
+    return torch.cat([_case_einsum(T, A, *_TABLE_50[c - 1]) for c in cases],
+                     dim=-1)
+
+
+def risi_contraction_10_spec(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The 10-case bank by the case-table engine (no positivity guard)."""
+    return _contract_cases(T, A, range(1, 11))
+
+
+def risi_contraction_50_spec(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The 50-case bank by the case-table engine (no positivity guard)."""
+    return _contract_cases(T, A, range(1, 51))
+
+
+def risi_contraction_18_spec(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """The 18-case bank by the case-table engine, with the reference's
+    ``adj_value > 0`` guard (``RisiContraction_18.h:90``): the yardstick of
+    :func:`risi_contraction_18` and of the kernels that compute it."""
+    Ap = torch.where(A > 0, A, torch.zeros_like(A))
+    return _contract_cases(T, Ap, _SUBSET_18)
 
 
 def risi_contraction_4(T: torch.Tensor) -> torch.Tensor:
@@ -345,6 +419,18 @@ def risi_contraction_18(T: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
         AoT * t18[..., None, None, :],                   # 18 (d,e) a==b==c
     ]
     return torch.cat(ys, dim=-1)
+
+
+def risi_contraction_18_batched(T: torch.Tensor,
+                                A: torch.Tensor) -> torch.Tensor:
+    """The 18-case bank over a batch: T [B, N, N, N, C], A [B, N, N] ->
+    [B, N, N, 18C].  :func:`risi_contraction_18` takes any leading
+    dimensions; this form checks for exactly one."""
+    if T.ndim != 5 or A.ndim != 3:
+        raise ValueError(f"risi_contraction_18_batched: T {tuple(T.shape)} "
+                         f"must be [B, N, N, N, C] and A {tuple(A.shape)} "
+                         f"[B, N, N]")
+    return risi_contraction_18(T, A)
 
 
 def risi_contraction_18_dropout(T: torch.Tensor, A: torch.Tensor,

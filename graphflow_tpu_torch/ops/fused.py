@@ -11,11 +11,24 @@ Z = reshape(Risi18(T, A)) @ K without materialising the [P, P, 18C] bank:
 This is the decomposition the CUDA level kernel follows
 (``ops/csrc/risi18_level.cu``); it is exact algebra, so it equals
 ``risi_contraction_18`` followed by the product with K.
+:func:`risi18_matmul_reference` is that unfused product on the case-table
+engine, the yardstick of the fused forms and of the bank kernel.
 """
 
 from __future__ import annotations
 
 import torch
+
+from graphflow_tpu_torch.ops.activations import leaky_relu
+from graphflow_tpu_torch.ops.contractions import risi_contraction_18_spec
+
+
+def risi18_matmul_reference(T: torch.Tensor, A: torch.Tensor,
+                            K: torch.Tensor) -> torch.Tensor:
+    """The unfused Z = reshape(Risi18(T, A)) @ K, the bank from the
+    case-table engine (``risi_contraction_18_spec``).  T: [..., P, P, P,
+    C], A: [..., P, P], K: [18*C, Cout] -> [..., P, P, Cout]."""
+    return risi_contraction_18_spec(T, A) @ K
 
 
 def risi18_matmul_fused(T: torch.Tensor, A: torch.Tensor,
@@ -71,3 +84,10 @@ def risi18_matmul_fused(T: torch.Tensor, A: torch.Tensor,
     ], dim=-1)
     K_D = torch.cat([Kc[i] for i in (5, 8, 9, 11, 12, 15, 16)], dim=0)
     return Z + M @ K_D
+
+
+def smp2d_layer_fused(T: torch.Tensor, A: torch.Tensor, K: torch.Tensor,
+                      b: torch.Tensor, alpha: float = 0.01) -> torch.Tensor:
+    """One SMP second-order layer: the fused bank with K, plus the bias b
+    [Cout], then LeakyReLU with slope ``alpha``."""
+    return leaky_relu(risi18_matmul_fused(T, A, K) + b, alpha)

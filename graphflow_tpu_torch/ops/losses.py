@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+LOG_ZERO = -1e9  # the reference's LOG_ZERO guard (``LogLoss.h``)
+
 
 def squared_loss(predict: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """``SquaredLoss.h:41-66``: 0.5 * ||predict - target||^2."""
