@@ -18,8 +18,10 @@ Phases, each reported on its own lines:
               milliseconds at the production shape and at K3's two shapes
               (64,10,20,20), (32,4,8,8), each with its bound, and at two
               scheduled ones, per dtype; last, at phase 18's field
-              (64,64,32,32), where K1 walks a vertex's rows in tiles: the
-              error, the plan, both times and the bound;
+              (64,64,32,32), where K1 spreads a vertex's row tiles over a
+              cluster of blocks: the error, the plan (with its blocks a
+              cluster, tiles a block and whether the products run on the
+              tensor cores), both times and the bound;
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
@@ -30,9 +32,11 @@ Phases, each reported on its own lines:
               against the float32 kernels on the rounded inputs): dstate, dK
               and db; then the median milliseconds of each of K2's two
               kernels, of both together and of the plain backward at the
-              production shape, per dtype; last, kernel 1's row-tiled
-              block at (140,64,32,32), whose blocks walk two vertices,
-              for errors, and at (64,64,32,32): errors, times and bound;
+              production shape, per dtype; last, kernel 1's cluster
+              plan (a vertex's row tiles over a cluster of blocks) at
+              (140,64,32,32), whose clusters walk two vertices, for
+              errors, and at (64,64,32,32): errors, the plan, times and
+              bound;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
@@ -222,8 +226,9 @@ Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
 bfloat16), counted from the shapes of this run's inputs.
-The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.  Any failure raises, so the
+The line before the last is a JSON object describing each kernel (K1's
+and K2's entries add "tiled_plan", the cluster plan they take at
+(64,64,32,32) per dtype); the last line is {"ok": true, "device": {...}}.  Any failure raises, so the
 script exits non-zero and prints no result.  Without a CUDA device, or
 without the package beside this file, it fails.
 """
@@ -3925,7 +3930,9 @@ def main() -> None:
                launches_parallel=spread["K1"],
                max_rel_err_pairs=pair_err, launches_p64=large["k1"],
                max_rel_err_p64=large["err"],
-               p64=p64(level_ms, "kernel", "plain")),
+               p64=p64(level_ms, "kernel", "plain"),
+               tiled_plan={d: level_ms[d]["p64"]["plan"]
+                           for d in (f32, b16)}),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
                train_launches[1] + physics_k2[0] + bf16["k2"][0]
@@ -3939,7 +3946,9 @@ def main() -> None:
                launches_pairs=pair_k2[0], max_rel_err_pairs=pair_err,
                launches_parallel=spread["K2"],
                launches_p64=large["k2"][0], max_rel_err_p64=large["err"],
-               p64=p64(bwd_ms, "main", "plain")),
+               p64=p64(bwd_ms, "main", "plain"),
+               tiled_plan={d: bwd_ms[d]["p64"]["plan"]
+                           for d in (f32, b16)}),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
                train_launches[2] + physics_k2[1] + bf16["k2"][1]

@@ -6,10 +6,13 @@
 // takes G from the cotangent through LeakyReLU', sums db and scatters dT
 // into dstate with atomics; K5 streams them from T, takes G as the
 // cotangent itself and writes dT, which each vertex owns, once per element.
-// backward_block_tiled is the same function for a field whose G and maps do
-// not fit one block, in row tiles.
+// backward_block_tiled (K5) and backward_block_cluster (K2) are the same
+// function for a field whose G and maps do not fit one block, in row tiles:
+// one block a vertex group, or a vertex's tiles spread over a cluster.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -51,7 +54,14 @@ struct BackwardPlan {
                // bytes
   int ALD;     // P + 1
   int tiled;   // 1: a vertex is walked in row tiles of sp.rows rows
-               // (backward_block_tiled), the products on the CUDA cores
+               // (backward_block_tiled, backward_block_cluster)
+  int cluster; // blocks a cluster of the cluster plan (K2's row tiles,
+               // backward_block_cluster), 0 for one block a vertex group
+  int tiles_per_block;  // the row tiles one block of the cluster takes
+  int ring;    // -1: the ring lies in the stream area; else its offset
+               // over G and GAp (a cluster plan whose ring holds several
+               // pieces and fits there: backward_block_cluster forms G
+               // and GAp of a tile after its stream)
   int ap, r, scal, inbr, ipos, islots, g, gap, gr, ga, gax, gsx, stream, ks,
       dkv, dbs, red, sacc, part, words;
 };
@@ -61,20 +71,29 @@ struct BackwardPlan {
 // `gather`: the block gathers its slots and scatters dstate (K2), and keeps
 // the vertex's neighbour ids, positions, listed slots and db's sums; else
 // (K5) they take no room.
-// `rows`: the rows of a row tile (a tiled plan), 0 for none.
+// `rows`: the rows of a row tile (a tiled plan), 0 for none.  `cluster`:
+// a row-tiled plan for backward_block_cluster (K2), whose dK map cases run
+// on the tensor cores where the plan allows; else backward_block_tiled's
+// (K5), on the CUDA cores.
 inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
                                        int Co, int es, int aligned, bool wide,
-                                       bool gather, int rows = 0, int G = 1) {
+                                       bool gather, int rows = 0, int G = 1,
+                                       bool cluster = false) {
   BackwardPlan L;
+  if (rows > 0 && cluster) rows = balanced_rows(P, rows);
   L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
   L.Cout = Cout; L.Co = Co; L.ALD = P + 1; L.wide_g = 0;
   L.tiled = rows > 0;
+  const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
+  L.cluster = L.tiled && cluster ? cluster_blocks(tiles) : 0;
+  L.tiles_per_block = L.cluster ? tiles_a_block(tiles) : 1;
   // The tensor cores take chunks of 8 or 16 channels, 16-row tiles of the
-  // maps, a warp a tile, and the panel's outputs eight at a time.
+  // maps, a warp a tile, and the panel's outputs eight at a time; dK's map
+  // cases of a cluster plan's row tile take its rows eight at a time.
   const int Co4 = round_up(Co, 4);
-  L.mma = !L.tiled && (L.sp.ncp == 8 || L.sp.ncp == 16) &&
-          (P * P) % 16 == 0 && P * P / 16 <= kThreads / 32 && Co4 % 8 == 0 &&
-          Co4 <= 32;
+  L.mma = (L.sp.ncp == 8 || L.sp.ncp == 16) && Co4 % 8 == 0 && Co4 <= 32 &&
+          ((!L.tiled && (P * P) % 16 == 0 && P * P / 16 <= kThreads / 32) ||
+           (L.cluster && (L.sp.rows * P) % 8 == 0));
   // Four more than the panel: rows a multiple of 4 words apart fall on
   // different banks, and an 8-wide tile may read past an odd group of four.
   // Eight more for the tensor cores, whose lanes read two words of each of
@@ -96,7 +115,12 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   L.ga = take(L.GLD);
   L.gax = take(L.tiled ? 0 : P * L.GLD);
   L.gsx = take(gather && !L.tiled ? P * L.GLD : 0);
-  L.stream = take(stream_words(L.sp));
+  // A cluster plan's ring lies over G and GAp where it holds several
+  // pieces (a tile's cells in registers: tile_regs) and fits there.
+  const bool over_g = L.cluster && pieces(L.sp) > 1 &&
+                      ring_words(L.sp) <= L.gr - L.g;
+  L.stream = take(stream_words(L.sp) - (over_g ? ring_words(L.sp) : 0));
+  L.ring = over_g ? L.g : -1;
   L.ks = take(kCases * L.sp.ncp * L.GLD);
   L.dkv = take(8 * L.sp.ncp * L.GLD);
   L.dbs = take(gather ? L.GLD : 0);
@@ -116,9 +140,14 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
 // the most pieces a ring buffer and the deepest ring.  words == 0 if none
 // fits.  Without `gather` (K5) the
 // panel is all of Cout: a chunk's dT needs every output's cotangents, and
-// it is written once, without atomics.
+// it is written once, without atomics.  With `cluster` (K2) the row-tiled
+// plan is a cluster plan (backward_block_cluster), one whose tiles keep
+// their cells in registers (tile_regs) first, and the rows of G, GAp and K
+// eight words further apart than the panel before four where its dK runs
+// on the tensor cores; every plan that fits without it fits with it.
 inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
-                                         int aligned, bool gather) {
+                                         int aligned, bool gather,
+                                         bool cluster = false) {
   // Every dK tile (slab, four channels, eight outputs) needs a thread.
   auto dk_tiles_fit = [](const BackwardPlan& L, int Co) {
     return kSlabs * (L.sp.ncp / 4) * ((Co + 7) / 8) <= kThreads;
@@ -139,24 +168,30 @@ inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
     }
     if (Co <= 4 || !gather) break;
   }
-  for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
-    for (int k = -1; k < 6; ++k) {
-      const int rows = k < 0 ? P : kTileRows[k];
-      if (rows > P || (k >= 0 && rows == P)) continue;
-      for (int Cc : {kMaxChunk, 8, 4}) {
-        Cc = Cc < C ? Cc : C;
-        for (int G = kThreads / 32; G >= 1; G /= 2) {
-          for (int D = 4; D >= 2; --D) {
-            const BackwardPlan L = make_backward_plan(
-                P, C, Cout, Cc, D, Co, es, aligned, false, gather, rows, G);
-            if (dk_tiles_fit(L, Co) &&
-                sizeof(float) * (size_t)L.words <= risi18::kMaxSmemBytes)
-              return L;
+  for (int regs = cluster ? 1 : 0; regs >= 0; --regs) {
+    for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
+      for (int k = -1; k < 6; ++k) {
+        const int rows = k < 0 ? P : kTileRows[k];
+        if (rows > P || (k >= 0 && rows == P)) continue;
+        for (int Cc : {kMaxChunk, 8, 4}) {
+          Cc = Cc < C ? Cc : C;
+          for (int G = kThreads / 32; G >= 1; G /= 2) {
+            for (int D = 4; D >= 2; --D) {
+              for (bool wide : {true, false}) {
+                if (wide && !cluster) continue;
+                const BackwardPlan L =
+                    make_backward_plan(P, C, Cout, Cc, D, Co, es, aligned,
+                                       wide, gather, rows, G, cluster);
+                if ((!regs || tile_regs(L.sp)) && dk_tiles_fit(L, Co) &&
+                    sizeof(float) * (size_t)L.words <= risi18::kMaxSmemBytes)
+                  return L;
+              }
+            }
           }
         }
       }
+      if (Co <= 4 || !gather) break;
     }
-    if (Co <= 4 || !gather) break;
   }
   BackwardPlan none{};
   return none;
@@ -874,9 +909,11 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
   return acc.x + acc.y + acc.z + acc.w;
 }
 
-// backward_block on a row-tiled plan (L.tiled): a field whose maps and G do
-// not fit one block (from P = 33 at Cout = 32).  Per vertex:
-//   0. GA and db's sums over every row of geff, read from g (and out);
+// The bank's backward_block (K5 kernel 1: slots stored in T, G the
+// cotangent itself, dT written) on a row-tiled plan (L.tiled): a field
+// whose maps and G do not fit one block (from P = 33 at Cout = 32).  Per
+// vertex:
+//   0. GA over every row of G, read from g;
 //   1. per row tile X (rows [x0, x0 + nx)): G, GAp and GR of its rows; its
 //      maps (tile_reductions); dK's map and vector cases of its rows, added
 //      to the block's sums; its part of the four scalars, added in tile
@@ -894,38 +931,27 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
 //      the slab transposed.  So the block takes the row tiles Xb in turn,
 //      forms the B maps of its rows, then, for each tile Xa, the A maps of
 //      rows Xa at the columns Xb (GAp of those entries only), and writes
-//      dT[Xa, Xb, :] whole: K5 stores each element of its dT once, in a
-//      fixed order, with no atomics and no partial sum in device memory
-//      (one rounding of a bfloat16 dT); K2 scatters it with atomics, as it
-//      does untiled.  Each tile pair reloads G of rows Xa (from L2).
+//      dT[Xa, Xb, :] whole, each element once, in a fixed order, with no
+//      atomics and no partial sum in device memory (one rounding of a
+//      bfloat16 dT).  Each tile pair reloads G of rows Xa (from L2).
 // The products run on the CUDA cores; every other sum as untiled.
-template <typename E, bool kGather>
+template <typename E>
 __device__ __forceinline__ void backward_block_tiled(
-    const E* __restrict__ in, const int* __restrict__ nbr,
-    const int* __restrict__ pos, const float* __restrict__ radj,
-    const E* __restrict__ K, const E* __restrict__ gout,
-    const E* __restrict__ out,
-    std::conditional_t<kGather, float, E>* __restrict__ dst,
-    float* __restrict__ partial, int N, const BackwardPlan& L,
-    float negslope) {
+    const E* __restrict__ in, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ gout, E* __restrict__ dst,
+    float* __restrict__ partial, int N, const BackwardPlan& L) {
   extern __shared__ __align__(16) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
   const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
   const int tid = threadIdx.x, nth = blockDim.x;
-  auto group = [] { return kGather ? blockIdx.x : blockIdx.y; };
-  auto groups = [] { return kGather ? gridDim.x : gridDim.y; };
-  auto chunk = [] { return kGather ? blockIdx.y : blockIdx.x; };
-  const int c0 = chunk() * sp.Cc, nc = min(sp.Cc, C - c0);
+  const int c0 = blockIdx.x * sp.Cc, nc = min(sp.Cc, C - c0);
   const int o0 = blockIdx.z * L.Co, no = min(L.Co, Cout - o0);
   const int n4 = round_up(no, 4) / 4;     // groups of four outputs
   const int tiles = (P + X - 1) / X, quads = ncp / 4;
 
   float* Ap = smem + L.ap;
   float* R = smem + L.r;
-  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
-  int* spos = reinterpret_cast<int*>(smem + L.ipos);
-  int* slots = reinterpret_cast<int*>(smem + L.islots);
   float* G = smem + L.g;
   float* GAp = smem + L.gap;
   float* GR = smem + L.gr;
@@ -933,7 +959,6 @@ __device__ __forceinline__ void backward_block_tiled(
   const StreamBuffers s = stream_buffers(smem + L.stream, sp);
   float* Ks = smem + L.ks;
   float* dKv = smem + L.dkv;
-  float* dbs = smem + L.dbs;
   float* red = smem + L.red;
   float* sacc = smem + L.sacc;
   float* part = smem + L.part;
@@ -965,58 +990,35 @@ __device__ __forceinline__ void backward_block_tiled(
   for (int i = 0; i < 4; ++i)
     dk[i][0] = dk[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 && (kGather ||
-                                                            L.wide_g);
+  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 && L.wide_g;
   const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
   const size_t vT = (size_t)PP * P * C;
 
-  for (size_t v = group(); v < (size_t)N; v += groups()) {
+  for (size_t v = blockIdx.y; v < (size_t)N; v += gridDim.y) {
     const E* gv = gout + v * PP * Cout + o0;
-    const E* ov = kGather ? out + v * PP * Cout + o0 : nullptr;
     // (The barrier that ended the previous vertex ordered its reads of the
     // structure before these writes.)
-    if constexpr (kGather) {
-      risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R,
-                          smem + L.scal, snbr, spos);
-    } else {
-      risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
-    }
+    risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
     const float S = smem[L.scal], trA = smem[L.scal + 1];
-    if constexpr (kGather) list_slots(snbr, spos, P, slots);
-    const auto src = [&] {
-      if constexpr (kGather)
-        return GatheredSlots<E>{in, snbr, spos, slots};
-      else
-        return StoredSlots<E>{in + v * vT};
-    }();
+    const StoredSlots<E> src{in + v * vT};
 
-    // 0. GA = sum_{x,y} Ap[x,y] G[x,y,:] and db's sums, item (output,
-    //    part of the rows), the parts added in order.
+    // 0. GA = sum_{x,y} Ap[x,y] G[x,y,:], item (output, part of the rows),
+    //    the parts added in order.
     {
       const int gparts = nth / no;
       if (tid < gparts * no) {
         const int o = tid % no, p = tid / no;
-        float ga = 0.f, gs = 0.f;
-        for (int r = p; r < PP; r += gparts) {
-          float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
-          if constexpr (kGather)
-            if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
-              gi *= negslope;
-          ga += Ap[(r / P) * ALD + r % P] * gi;
-          gs += gi;
-        }
+        float ga = 0.f;
+        for (int r = p; r < PP; r += gparts)
+          ga += Ap[(r / P) * ALD + r % P]
+                * risi18::to_float(gv[(size_t)r * Cout + o]);
         part[tid] = ga;
-        part[nth + tid] = gs;
       }
       __syncthreads();
       for (int o = tid; o < no; o += nth) {
-        float ga = 0.f, gs = 0.f;
-        for (int p = 0; p < gparts; ++p) {
-          ga += part[p * no + o];
-          gs += part[nth + p * no + o];
-        }
+        float ga = 0.f;
+        for (int p = 0; p < gparts; ++p) ga += part[p * no + o];
         GA[o] = ga;
-        if constexpr (kGather) dbs[o] += gs;   // (written by chunk 0's blocks)
       }
       for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
     }
@@ -1025,8 +1027,8 @@ __device__ __forceinline__ void backward_block_tiled(
     // with a barrier.
     auto tile_g = [&](int x0, int nx) {
       __syncthreads();                    // G's and GAp's readers are done
-      load_geff_rows<E, kGather>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
-                                 wide_g, negslope);
+      load_geff_rows<E, false>(gv, nullptr, x0 * P, nx * P, G, GLD, no,
+                               Cout, wide_g, 0.f);
       __syncthreads();
       for (int item = tid; item < nx * P * n4; item += nth) {
         const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
@@ -1139,8 +1141,8 @@ __device__ __forceinline__ void backward_block_tiled(
         // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
         // al*X + bl.
         __syncthreads();                  // G's readers are done
-        load_geff_rows<E, kGather>(gv, ov, xa0 * P, nxa * P, G, GLD, no,
-                                   Cout, wide_g, negslope);
+        load_geff_rows<E, false>(gv, nullptr, xa0 * P, nxa * P, G, GLD, no,
+                                 Cout, wide_g, 0.f);
         __syncthreads();
         for (int item = tid; item < nxa * nxb * n4; item += nth) {
           const int og = item % n4, ab = item / n4, bl = ab % nxb;
@@ -1200,27 +1202,14 @@ __device__ __forceinline__ void backward_block_tiled(
           fma4(val, R[a], load4(m10 + Bbc));
           if (c == b) fma4(val, 1.f, load4(dbc + A));
           if (c == a) fma4(val, 1.f, load4(dacT + Bba));
-          if constexpr (kGather) {
-            const int n = snbr[a], p1 = spos[a * P + b], p2 = spos[a * P + c];
-            if ((n | p1 | p2) < 0) continue;
-            float* at = dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
-            if (vec_scatter) {
-              atomicAdd(reinterpret_cast<float4*>(at), val);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
-            }
+          E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
+                  + 4 * q;
+          if (vec_scatter) {
+            store4(at, val);
           } else {
-            E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
-                    + 4 * q;
-            if (vec_scatter) {
-              store4(at, val);
-            } else {
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
-            }
+            for (int i = 0; i < 4; ++i)
+              if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
           }
         }
       }
@@ -1253,7 +1242,7 @@ __device__ __forceinline__ void backward_block_tiled(
     }
   }
   const size_t nK = (size_t)kCases * C * Cout;
-  float* part_row = partial + group() * (nK + (kGather ? Cout : 0));
+  float* part_row = partial + blockIdx.y * nK;
   for (int i = tid; i < kSlabs * nc * no; i += nth) {
     const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
     part_row[(size_t)(kSlabCase[j] * C + c0 + f) * Cout + o0 + o] =
@@ -1264,8 +1253,501 @@ __device__ __forceinline__ void backward_block_tiled(
     part_row[(size_t)(kVectorCase[j] * C + c0 + f) * Cout + o0 + o] =
         dKv[(j * ncp + f) * GLD + o];
   }
-  if (kGather && chunk() == 0)
-    for (int o = tid; o < no; o += nth) part_row[nK + o0 + o] = dbs[o];
+}
+
+// For n items of four outputs each, out = sum over y < P of terms
+// add(item, y, acc): kSplit lanes of a warp take an item, each the y of one
+// residue mod kSplit, and shuffles add their sums, which store(item, acc)
+// receives in the item's first lane.  A sum of P terms per thread was a
+// chain of P dependent loads with few items to spread over the block
+// (GR of a tile's rows: tile rows x four outputs).  The loop is uniform in
+// each warp, which every shuffle needs.
+template <int kSplit, typename Add, typename Store>
+__device__ __forceinline__ void split_sums(int n, int P, Add add,
+                                           Store store) {
+  const int lane = threadIdx.x % 32;
+  for (int base = threadIdx.x - lane; base < n * kSplit;
+       base += blockDim.x) {
+    const int i = base + lane, item = i / kSplit, part = i % kSplit;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (item < n)
+      for (int y = part; y < P; y += kSplit) add(item, y, acc);
+#pragma unroll
+    for (int m = 1; m < kSplit; m *= 2) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, m);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, m);
+    }
+    if (item < n && part == 0) store(item, acc);
+  }
+}
+
+// K2 kernel 1 on a cluster plan (L.cluster > 0; fields from P = 33 at
+// Cout = 32): the row tiles of each vertex spread over a cluster of
+// L.cluster blocks (grid (vertex groups * L.cluster, chunks, panels),
+// cluster (L.cluster, 1, 1)), block `rank` taking the tiles rank, rank +
+// cluster, ...; the cluster walks the vertices of its group.  Per vertex:
+//   0. this block's part of GA = sum_{x,y} Ap[x,y] G[x,y,:] and of db's
+//      sums, over its tiles' rows of geff; the cluster meets, and every
+//      block adds the parts from distributed shared memory in rank order
+//      (a second meeting keeps each part alive until all have read it);
+//   1. per own tile X: its maps (tile_reductions, a warp copying the row
+//      it reduces: stream_rows), then G, GAp and GR of its rows (the ring
+//      may lie over G and GAp: L.ring), dK's map cases of its rows (on the
+//      tensor cores where the plan has `mma`: dk_maps_mma over the tile's
+//      rows, the sums kept in registers over tiles and vertices), its
+//      vector cases, and its part of the four scalars; then dK's scalar
+//      cases, that part times GA;
+//   2. the scalars' cotangents (GA against K's slabs 5, 14, 15, 18) and dT
+//      for the rows b of its own tiles, tile pair by tile pair as
+//      backward_block_tiled forms it (the sums of G against Ap and R
+//      spread over lanes: split_sums), scattered with float32 atomics.
+// When the cluster has walked its vertices, the blocks' dK rows and db
+// are added in distributed shared memory in rank order, each block
+// writing a share of the group's one partial row: kernel 2 sums as many
+// rows as without clusters (vertex_groups).  dK and db have no atomics and
+// a fixed order of sums; dstate's atomics are float32, as untiled.
+template <typename E, bool kMma>
+__device__ __forceinline__ void backward_block_cluster(
+    const E* __restrict__ in, const int* __restrict__ nbr,
+    const int* __restrict__ pos, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ gout,
+    const E* __restrict__ out, float* __restrict__ dst,
+    float* __restrict__ partial, int N, const BackwardPlan& L,
+    float negslope) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
+  const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int CL = L.cluster, rank = (int)cluster.block_rank();
+  const int group = blockIdx.x / CL, groups = gridDim.x / CL;
+  const int c0 = blockIdx.y * sp.Cc, nc = min(sp.Cc, C - c0);
+  const int o0 = blockIdx.z * L.Co, no = min(L.Co, Cout - o0);
+  const int n4 = round_up(no, 4) / 4;     // groups of four outputs
+  const int tiles = (P + X - 1) / X, quads = ncp / 4;
+
+  float* Ap = smem + L.ap;
+  float* R = smem + L.r;
+  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
+  int* spos = reinterpret_cast<int*>(smem + L.ipos);
+  int* slots = reinterpret_cast<int*>(smem + L.islots);
+  float* G = smem + L.g;
+  float* GAp = smem + L.gap;
+  float* GR = smem + L.gr;
+  float* GA = smem + L.ga;
+  const StreamBuffers s = stream_buffers(
+      smem + L.stream, sp, L.ring >= 0 ? smem + L.ring : nullptr);
+  float* Ks = smem + L.ks;
+  float* dKv = smem + L.dkv;
+  float* dbs = smem + L.dbs;
+  float* red = smem + L.red;
+  float* sacc = smem + L.sacc;
+  float* part = smem + L.part;
+  float* tab = s.map(kTab, sp.mapw);
+  float* tabT = s.map(kTabT, sp.mapw);
+  float* tbc = s.map(kTbc, sp.mapw);
+  float* dbc = s.map(kDbc, sp.mapw);
+  float* dacT = s.map(kDacT, sp.mapw);
+  float* m6 = s.map(kM6, sp.mapw);
+  float* m10 = s.map(kM10, sp.mapw);
+
+  STAGE_CLOCK_START();
+  zero_words(smem + L.g, L.words - L.g);
+  __syncthreads();
+  for (int i = tid; i < kCases * nc * no; i += nth) {
+    const int o = i % no, kf = i / no, f = kf % nc, k = kf / nc;
+    Ks[(k * ncp + f) * GLD + o] = risi18::to_float(
+        K[(size_t)(k * C + c0 + f) * Cout + o0 + o]);
+  }
+  auto kslab = [&](int k, int f) { return Ks + (k * ncp + f) * GLD; };
+
+  // dK's map cases.  On the CUDA cores: a thread's register tile (slab,
+  // four channels, eight outputs) over its part of a tile's row quads.
+  const int nog = (no + 7) / 8, dtiles = kSlabs * quads * nog;
+  const int parts = max(1, min(min(nth / dtiles, 8), round_up(X * P, 4) / 4));
+  float4 dk[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dk[i][0] = dk[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // On the tensor cores: a warp owns 16 channels of one slab or of two (as
+  // backward_block) over its part of a tile's rows, all outputs of them.
+  const int mtiles = ncp == 16 ? kSlabs : 6;
+  const int mparts = max(1, nth / 32 / mtiles);
+  const int mt = warp % mtiles, mpart = warp / mtiles;
+  const int sl_lo = ncp == 16 ? mt : 5 * (mt / 3) + 2 * (mt % 3);
+  const int sl_hi = ncp == 16 ? mt : (mt % 3 < 2 ? sl_lo + 1 : -1);
+  float dkm[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dkm[nt][i] = 0.f;
+
+  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0;
+  const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
+  STAGE(0);   // set-up and K's staging
+
+  for (size_t v = group; v < (size_t)N; v += groups) {
+    const E* gv = gout + v * PP * Cout + o0;
+    const E* ov = out + v * PP * Cout + o0;
+    // (The barrier that ended the previous vertex ordered its reads of the
+    // structure before these writes.)
+    risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal,
+                        snbr, spos);
+    const float S = smem[L.scal], trA = smem[L.scal + 1];
+    list_slots(snbr, spos, P, slots);
+    const GatheredSlots<E> src{in, snbr, spos, slots};
+
+    // 0. This block's part of GA and of db's sums, item (output, part of
+    //    its rows), the parts added in order; GA's part goes to G's first
+    //    row, which the cluster reads before any block writes G again.
+    {
+      const int gparts = nth / no;
+      if (tid < gparts * no) {
+        const int o = tid % no, p = tid / no;
+        float ga = 0.f, gs = 0.f;
+        for (int t = rank; t < tiles; t += CL) {
+          const int r1 = min(P, (t + 1) * X) * P;
+          for (int r = t * X * P + p; r < r1; r += gparts) {
+            float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
+            if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
+              gi *= negslope;
+            ga += Ap[(r / P) * ALD + r % P] * gi;
+            gs += gi;
+          }
+        }
+        part[tid] = ga;
+        part[nth + tid] = gs;
+      }
+      __syncthreads();
+      for (int o = tid; o < no; o += nth) {
+        float ga = 0.f, gs = 0.f;
+        for (int p = 0; p < gparts; ++p) {
+          ga += part[p * no + o];
+          gs += part[nth + p * no + o];
+        }
+        G[o] = ga;
+        dbs[o] += gs;          // (written by chunk 0's blocks)
+      }
+      for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
+    }
+    cluster.sync();
+    for (int o = tid; o < no; o += nth) {
+      float ga = 0.f;
+      for (int r = 0; r < CL; ++r) ga += cluster.map_shared_rank(G, r)[o];
+      GA[o] = ga;              // sum_{x,y} Ap[x,y] G[x,y,o], every row
+    }
+    cluster.sync();            // every part read: G may be written again
+    STAGE(1);   // the structure, geff's sums and the cluster's exchange
+
+    // G, GAp and GR of the rows [x0, x0 + nx) (GAp of every column).  Ends
+    // with a barrier.
+    auto tile_g = [&](int x0, int nx) {
+      __syncthreads();                    // G's and GAp's readers are done
+      load_geff_rows<E, true>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
+                              wide_g, negslope);
+      __syncthreads();
+      for (int item = tid; item < nx * P * n4; item += nth) {
+        const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
+        const float* g = G + xl * P * GLD + 4 * og;
+        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int y = 0; y < P; ++y)
+          fma4(acc, Ap[y * ALD + e], load4(g + y * GLD));
+        *reinterpret_cast<float4*>(GAp + r * GLD + 4 * og) = acc;
+      }
+      split_sums<16>(nx * n4, P,
+          [&](int item, int y, float4& acc) {
+            fma4(acc, R[y], load4(G + ((item / n4) * P + y) * GLD
+                                  + 4 * (item % n4)));
+          },
+          [&](int item, const float4& acc) {
+            *reinterpret_cast<float4*>(GR + (item / n4) * GLD
+                                       + 4 * (item % n4)) = acc;
+          });
+      __syncthreads();
+    };
+
+    // 1. The own tiles' maps and dK.
+    for (int t = rank; t < tiles; t += CL) {
+      const int x0 = t * X, nx = min(X, P - x0), RR = nx * P;
+      // The tile's stream, then G of its rows: where the ring lies over G
+      // and GAp, zeroed first, as the stream reads the channels past nc of
+      // a cell that no copy writes (the last tile's barrier ordered G's
+      // readers before).
+      if (L.ring >= 0) zero_words(smem + L.ring, ring_words(sp));
+      tile_reductions<true, true, false, GatheredSlots<E>, true>(
+          src, R, sp, s, t, nx, c0, nc);
+      tile_g(x0, nx);
+      STAGE(2);   // the tile's stream and G of its rows
+      // This tile's part of Tfull, s14, s15 and t18.
+      for (int i = tid; i < 4 * ncp; i += nth) {
+        const int k = i / ncp, f = i % ncp;
+        float a = 0.f;
+        for (int xl = 0; xl < nx; ++xl) {
+          const int diag = (xl * P + x0 + xl) * ncp + f;
+          a += k == 0 ? s.ta[xl * ncp + f] : k == 1 ? tab[diag]
+               : k == 2 ? s.tdbc[xl * ncp + f] : dbc[diag];
+        }
+        sacc[i] += a;
+      }
+      // dK's map cases over the tile's rows.
+      if constexpr (kMma) {
+        // Rows past RR of a short last tile are zeros of the maps.
+        const int r8 = round_up(RR, 8);
+        const int rpp = round_up((r8 / 8 + mparts - 1) / mparts * 8, 8);
+        if (mpart < mparts) {
+          auto scale_of = [&](int sl) {
+            const int kind = sl < 0 ? 0 : kSlabScale[sl];
+            return sl < 0 ? 0.f : kind == 1 ? S : kind == 2 ? trA : 1.f;
+          };
+          const int f_hi = ncp == 16 ? 8 : 0;
+          dk_maps_mma(dkm, s.map(kSlabMap[sl_lo], sp.mapw) + (lane >> 2),
+                      scale_of(sl_lo),
+                      s.map(kSlabMap[max(sl_hi, 0)], sp.mapw) + (lane >> 2)
+                          + f_hi,
+                      scale_of(sl_hi), sl_lo >= 5 ? GAp : G, mpart * rpp,
+                      min(r8, (mpart + 1) * rpp), (no + 7) / 8, ncp, GLD,
+                      lane);
+        }
+      } else {
+        const int nq = round_up(RR, 4) / 4, qpp = (nq + parts - 1) / parts;
+        const int item = tid;
+        if (item < dtiles * parts) {
+          const int tt = item % dtiles, pt = item / dtiles;
+          const int og = tt % nog, sq = tt / nog, q = sq % quads;
+          const int sl = sq / quads;
+          const float* map = s.map(kSlabMap[sl], sp.mapw) + 4 * q;
+          const float* gm = (sl >= 5 ? GAp : G) + 8 * og;
+          const int kind = kSlabScale[sl];
+          const float scale = kind == 1 ? S : kind == 2 ? trA : 1.f;
+          const int r1 = min(nq, (pt + 1) * qpp) * 4;
+          for (int r = pt * qpp * 4; r < r1; ++r) {
+            float4 m = load4(map + r * ncp);
+            m.x *= scale; m.y *= scale; m.z *= scale; m.w *= scale;
+            const float4 g0 = load4(gm + r * GLD);
+            const float4 g1 = load4(gm + r * GLD + 4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              fma4(dk[i][0], get4(m, i), g0);
+              fma4(dk[i][1], get4(m, i), g1);
+            }
+          }
+        }
+      }
+      // The vector cases of the tile's rows against GR.
+      for (int i = tid; i < 4 * nc * no; i += nth) {
+        const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
+        const float* vec = (j == 0 ? s.ta : j == 1 ? s.tb
+                            : j == 2 ? s.tdbc : s.tdac) + f;
+        float acc = 0.f;
+        for (int xl = 0; xl < nx; ++xl)
+          acc += vec[xl * ncp] * GR[xl * GLD + o];
+        dKv[(j * ncp + f) * GLD + o] += acc;
+      }
+      __syncthreads();
+      STAGE(3);   // dK of the tile
+    }
+    // The scalar cases: this block's part of the four scalars times GA.
+    // Then the scalars' cotangents, GA against K's slabs 5, 14, 15, 18,
+    // over s's scalars.
+    for (int i = tid; i < 4 * nc * no; i += nth) {
+      const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
+      dKv[((4 + j) * ncp + f) * GLD + o] += sacc[j * ncp + f] * GA[o];
+    }
+    for (int i = tid; i < 4 * ncp; i += nth) {
+      const int j = i / ncp, f = i % ncp;
+      const int k = j == 0 ? 4 : j == 1 ? 13 : j == 2 ? 14 : 17;
+      s.tfull[i] = dot_rows(GA, kslab(k, f), n4);   // tfull, s14, s15, t18
+    }
+
+    // 2. dT of the rows b of the own tiles, tile pair by tile pair.
+    for (int tb = rank; tb < tiles; tb += CL) {
+      const int xb0 = tb * X, nxb = min(X, P - xb0), RRb = nxb * P;
+      tile_g(xb0, nxb);
+      // dT_b and dTdac of the rows b.
+      for (int i = tid; i < nxb * ncp; i += nth) {
+        const int f = i % ncp, xl = i / ncp;
+        s.tb[i] = dot_rows(GR + xl * GLD, kslab(3, f), n4);
+        s.tdac[i] = dot_rows(GR + xl * GLD, kslab(10, f), n4);
+      }
+      __syncthreads();
+      // The B maps of the rows b = xb0 + bl: row bl*P + y.
+      for (int i = tid; i < RRb * ncp; i += nth) {
+        const int f = i % ncp, r = i / ncp, xl = r / P;
+        const float* g = G + r * GLD;
+        const float* gp = GAp + r * GLD;
+        tabT[i] = dot_rows(gp, kslab(11, f), n4);
+        tbc[i] = S * dot_rows(g, kslab(2, f), n4)
+                 + dot_rows(gp, kslab(12, f), n4) + s.tb[xl * ncp + f];
+        m10[i] = dot_rows(g, kslab(9, f), n4);
+        dacT[i] = dot_rows(gp, kslab(16, f), n4) + s.tdac[xl * ncp + f];
+      }
+      STAGE(4);   // the scalars' cotangents, G and the B maps of rows b
+      for (int ta = 0; ta < tiles; ++ta) {
+        const int xa0 = ta * X, nxa = min(X, P - xa0);
+        // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
+        // al*X + bl.
+        __syncthreads();                  // G's readers are done
+        load_geff_rows<E, true>(gv, ov, xa0 * P, nxa * P, G, GLD, no, Cout,
+                                wide_g, negslope);
+        __syncthreads();
+        STAGE(6);   // G of the rows a
+        split_sums<4>(nxa * nxb * n4, P,
+            [&](int item, int y, float4& acc) {
+              const int og = item % n4, ab = item / n4;
+              fma4(acc, Ap[y * ALD + xb0 + ab % nxb],
+                   load4(G + ((ab / nxb) * P + y) * GLD + 4 * og));
+            },
+            [&](int item, const float4& acc) {
+              const int og = item % n4, ab = item / n4;
+              *reinterpret_cast<float4*>(
+                  GAp + ((ab / nxb) * X + ab % nxb) * GLD + 4 * og) = acc;
+            });
+        split_sums<16>(nxa * n4, P,
+            [&](int item, int y, float4& acc) {
+              fma4(acc, R[y], load4(G + ((item / n4) * P + y) * GLD
+                                    + 4 * (item % n4)));
+            },
+            [&](int item, const float4& acc) {
+              *reinterpret_cast<float4*>(GR + (item / n4) * GLD
+                                         + 4 * (item % n4)) = acc;
+            });
+        __syncthreads();
+        STAGE(7);   // GAp at (a, b) and GR of the rows a
+        // The A maps at (a, b), row al*X + bl (dT_a and dTdbc of row a
+        // from GR in the same item).
+        for (int i = tid; i < nxa * nxb * ncp; i += nth) {
+          const int f = i % ncp, ab = i / ncp, bl = ab % nxb, al = ab / nxb;
+          const bool diag = xa0 + al == xb0 + bl;
+          const float* g = G + (al * P + xb0 + bl) * GLD;
+          const float* gp = GAp + (al * X + bl) * GLD;
+          const float* gr = GR + al * GLD;
+          const int at = (al * X + bl) * ncp + f;
+          tab[at] = S * dot_rows(g, kslab(0, f), n4)
+                    + trA * dot_rows(g, kslab(6, f), n4)
+                    + dot_rows(gp, kslab(8, f), n4)
+                    + dot_rows(gr, kslab(1, f), n4) + s.tfull[f]
+                    + (diag ? s.s14[f] : 0.f);
+          m6[at] = dot_rows(g, kslab(5, f), n4);
+          dbc[at] = dot_rows(gp, kslab(15, f), n4)
+                    + dot_rows(gr, kslab(7, f), n4) + s.s15[f]
+                    + (diag ? s.t18[f] : 0.f);
+        }
+        __syncthreads();
+        STAGE(8);   // the A maps
+        // dT[a, b, c] for a in Xa, b in Xb, item (a, b, c, four channels),
+        // scattered into dstate.
+        for (int item = tid; item < nxa * nxb * P * quads; item += nth) {
+          const int q = item % quads, rest = item / quads, c = rest % P;
+          const int ab = rest / P, bl = ab % nxb, al = ab / nxb;
+          const int a = xa0 + al, b = xb0 + bl;
+          if (4 * q >= nc) continue;
+          const int n = snbr[a], p1 = spos[a * P + b], p2 = spos[a * P + c];
+          if ((n | p1 | p2) < 0) continue;
+          const int A = (al * X + bl) * ncp + 4 * q;
+          const int Bba = (bl * P + a) * ncp + 4 * q;
+          const int Bbc = (bl * P + c) * ncp + 4 * q;
+          float4 val = load4(tab + A);
+          const float4 fbc = load4(tbc + Bbc), fba = load4(tabT + Bba);
+          val.x += fbc.x + fba.x; val.y += fbc.y + fba.y;
+          val.z += fbc.z + fba.z; val.w += fbc.w + fba.w;
+          fma4(val, R[c], load4(m6 + A));
+          fma4(val, R[a], load4(m10 + Bbc));
+          if (c == b) fma4(val, 1.f, load4(dbc + A));
+          if (c == a) fma4(val, 1.f, load4(dacT + Bba));
+          float* at = dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
+          if (vec_scatter) {
+            atomicAdd(reinterpret_cast<float4*>(at), val);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
+          }
+        }
+        STAGE(9);   // the scatter
+      }
+    }
+    __syncthreads();
+  }
+
+  // The block's dK rows: the k-parts of the map cases summed in order.
+  if constexpr (kMma) {
+    const int g = lane >> 2, t = lane & 3;
+    for (int p = 0; p < mparts; ++p) {
+      if (mpart == p) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (8 * nt >= no) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int sl = h ? sl_hi : sl_lo;
+            if (sl < 0) continue;
+            const int f = ncp == 16 ? g + 8 * h : g;
+            float* at = red + (sl * ncp + f) * GLD + 8 * nt + 2 * t;
+            at[0] += dkm[nt][2 * h];
+            at[1] += dkm[nt][2 * h + 1];
+          }
+        }
+      }
+      __syncthreads();
+    }
+  } else {
+    const int item = tid;
+    const bool active = item < dtiles * parts;
+    const int tt = item % dtiles, pt = item / dtiles;
+    const int og = tt % nog, sq = tt / nog, q = sq % quads, sl = sq / quads;
+    for (int p = 0; p < parts; ++p) {
+      if (active && pt == p) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* at = red + (sl * ncp + 4 * q + i) * GLD + 8 * og;
+          const float4 a0 = load4(at), a1 = load4(at + 4);
+          *reinterpret_cast<float4*>(at) = make_float4(
+              a0.x + dk[i][0].x, a0.y + dk[i][0].y, a0.z + dk[i][0].z,
+              a0.w + dk[i][0].w);
+          *reinterpret_cast<float4*>(at + 4) = make_float4(
+              a1.x + dk[i][1].x, a1.y + dk[i][1].y, a1.z + dk[i][1].z,
+              a1.w + dk[i][1].w);
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // The group's partial row: every entry the blocks' values added in rank
+  // order from distributed shared memory, block `rank` writing the entries
+  // rank * nth + tid, + CL * nth, ...
+  cluster.sync();
+  const size_t nK = (size_t)kCases * C * Cout;
+  float* part_row = partial + group * (nK + Cout);
+  const int nm = kSlabs * nc * no, nv = 8 * nc * no;
+  const int total = nm + nv + (blockIdx.y == 0 ? no : 0);
+  for (int i = rank * nth + tid; i < total; i += CL * nth) {
+    const float* from;
+    size_t to;
+    if (i < nm) {
+      const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
+      from = red + (j * ncp + f) * GLD + o;
+      to = (size_t)(kSlabCase[j] * C + c0 + f) * Cout + o0 + o;
+    } else if (i < nm + nv) {
+      const int k = i - nm, o = k % no, jf = k / no, f = jf % nc;
+      const int j = jf / nc;
+      from = dKv + (j * ncp + f) * GLD + o;
+      to = (size_t)(kVectorCase[j] * C + c0 + f) * Cout + o0 + o;
+    } else {
+      const int o = i - nm - nv;
+      from = dbs + o;
+      to = nK + o0 + o;
+    }
+    float sum = 0.f;
+    for (int r = 0; r < CL; ++r) sum += *cluster.map_shared_rank(from, r);
+    part_row[to] = sum;
+  }
+  cluster.sync();   // every value read: a block may now end
+  STAGE(5);   // the partial row
 }
 
 }  // namespace level

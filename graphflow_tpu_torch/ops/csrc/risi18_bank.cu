@@ -74,8 +74,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_tiled_kernel(const E* __restrict__ T, const float* __restrict__ A,
                          const E* __restrict__ K, E* __restrict__ Z, int N,
                          ForwardPlan L) {
-  lv::forward_block_tiled<E, lv::kBank>(T, nullptr, nullptr, A, K, nullptr,
-                                        Z, N, L, 0.f);
+  lv::forward_block_tiled<E, lv::kBank>(T, A, K, Z, L);
 }
 
 template <typename E>
@@ -132,7 +131,7 @@ int risi18_bank_plan(int P, int C, int Cout, int bf16, int* plan) {
       P, C, Cout, bf16 ? 2 : 4, 16, false);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
-  plan[6] = lv::pieces(L.sp);
+  plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
   return L.words == 0;
 }
 

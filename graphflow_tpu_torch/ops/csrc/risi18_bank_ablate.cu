@@ -70,8 +70,7 @@ risi18_bank_ablate_kernel(const E* __restrict__ T, const float* __restrict__ A,
   else if constexpr (kMode == kModeDma)
     lv::dma_block<E>(T, Z, sink, L);
   else if constexpr (kTiled)
-    lv::forward_block_tiled<E, part_of(kMode)>(T, nullptr, nullptr, A, K,
-                                               nullptr, Z, N, L, 0.f);
+    lv::forward_block_tiled<E, part_of(kMode)>(T, A, K, Z, L);
   else
     lv::forward_block<E, kMma, kWide, part_of(kMode)>(
         T, nullptr, nullptr, A, K, nullptr, Z, N, L, 0.f);

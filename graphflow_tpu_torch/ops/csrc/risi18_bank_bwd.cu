@@ -88,8 +88,7 @@ risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
                              const E* __restrict__ gout, E* __restrict__ dT,
                              float* __restrict__ partial, int N,
                              BackwardPlan L) {
-  lv::backward_block_tiled<E, false>(T, nullptr, nullptr, A, K, gout,
-                                     nullptr, dT, partial, N, L, 0.f);
+  lv::backward_block_tiled<E>(T, A, K, gout, dT, partial, N, L);
 }
 
 template <typename E>
@@ -172,7 +171,7 @@ int risi18_bank_backward_plan(int P, int C, int Cout, int bf16, int* plan) {
                                                   16, false);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
-  plan[6] = lv::pieces(L.sp);
+  plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
   return L.words == 0;
 }
 

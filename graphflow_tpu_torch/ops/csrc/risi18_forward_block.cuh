@@ -5,10 +5,14 @@
 // its algebra are described in risi18_level.cu.  K1 streams its slots
 // gathered from the state, K4 and K6 from T (risi18_level_common.cuh:
 // GatheredSlots, StoredSlots); K1 adds the bias and LeakyReLU in the
-// epilogue, K4 writes Z as it is.  forward_block_tiled is the same
-// function for a field whose maps do not fit one block, in row tiles.
+// epilogue, K4 writes Z as it is.  forward_block_tiled (K4, K6) and
+// forward_block_cluster (K1) are the same function for a field whose maps
+// do not fit one block, in row tiles: one block a vertex, or the tiles
+// spread over a cluster of blocks.
 
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -49,28 +53,45 @@ struct ForwardPlan {
                // written out.  0: register tiles of 8 rows x 4 outputs on
                // the CUDA cores, added to Zs and Ws once per chunk.
   int tiled;   // 1: the rows of Z are walked in tiles of sp.rows rows
-               // (forward_block_tiled), the products on the CUDA cores
+               // (forward_block_tiled, forward_block_cluster)
+  int cluster; // blocks a cluster of the cluster plan (K1's row tiles,
+               // forward_block_cluster), 0 for a plan of one block a vertex
+  int tiles_per_block;  // the row tiles one block of the cluster takes
   int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, part,
       words;
 };
 
 // `gather`: the block gathers its slots (K1) and keeps the vertex's
 // neighbour ids, positions and listed slots; else they take no room.
-// `rows`: the rows of a row tile (a tiled plan), 0 for none.
+// `rows`: the rows of a row tile (a tiled plan), 0 for none.  `cluster`:
+// a row-tiled plan for forward_block_cluster (K1), whose products run on
+// the tensor cores where a tile's rows allow it; else forward_block_tiled's
+// (K4, K6), on the CUDA cores.
 inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
                                      int Co, int es, int aligned,
-                                     bool gather, int rows = 0, int G = 1) {
+                                     bool gather, int rows = 0, int G = 1,
+                                     bool cluster = false) {
   ForwardPlan L;
+  if (rows > 0 && cluster) rows = balanced_rows(P, rows);
   L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
   L.Cout = Cout; L.Co = Co; L.ZLD = round_up(Co, 4); L.ALD = P + 1;
   L.tiled = rows > 0;
+  const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
+  L.cluster = L.tiled && cluster ? cluster_blocks(tiles) : 0;
+  L.tiles_per_block = L.cluster ? tiles_a_block(tiles) : 1;
   const int zw = L.sp.rows * P * L.ZLD, stream = stream_words(L.sp);
   // The tensor cores take 16-channel chunks of 16-row tiles, a warp a tile,
   // and up to four 8-wide tiles of outputs (which rules out a wide stream:
-  // its chunks have four channels).
-  L.mma = !L.tiled && L.sp.ncp == 16 && (P * P) % 16 == 0 &&
-          P * P / 16 <= kThreads / 32 && L.ZLD % 8 == 0 && L.ZLD <= 32 &&
-          2 * zw <= stream;
+  // its chunks have four channels).  A cluster plan's row tile (its rows of
+  // the maps, sp.rows * P, a multiple of 16 and at most a 16-row tile a
+  // warp) takes them with chunks of 8 or 16 channels.
+  const int rr = L.sp.rows * P;
+  L.mma = (!L.tiled && L.sp.ncp == 16 && (P * P) % 16 == 0 &&
+           P * P / 16 <= kThreads / 32 && L.ZLD % 8 == 0 && L.ZLD <= 32 &&
+           2 * zw <= stream) ||
+          (L.cluster && (L.sp.ncp == 8 || L.sp.ncp == 16) && rr % 16 == 0 &&
+           rr / 16 <= kThreads / 32 && L.ZLD % 8 == 0 && L.ZLD <= 32 &&
+           2 * zw <= stream);
   // Rows of K two words further apart than a multiple of eight: the four
   // rows that the lanes of a tensor-core tile read fall on different banks.
   L.KLD = L.mma ? L.ZLD + 2 : L.ZLD;
@@ -100,9 +121,14 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
 // ones).  Where no plan keeps all P*P rows of the maps (from P = 36 at
 // Cout = 32), a row-tiled one: the widest panel, then the most rows a tile,
 // then the largest chunk, the most pieces a ring buffer and the deepest
-// ring.  words == 0 if none fits.
+// ring.  With `cluster` (K1) the row-tiled plan is a cluster plan
+// (forward_block_cluster), and one whose tiles keep their cells in
+// registers (tile_regs: every warp reduces a row of each stage) comes
+// before any other; every plan that fits without it fits with it, so the
+// fields served are the same.  words == 0 if none fits.
 inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
-                                       int aligned, bool gather) {
+                                       int aligned, bool gather,
+                                       bool cluster = false) {
   for (int wide = 0; wide <= 1; ++wide) {
     for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
       for (int Cc : {kMaxChunk, 8, 4}) {
@@ -118,21 +144,26 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
       if (Co <= 4) break;
     }
   }
-  for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
-    for (int rows : kTileRows) {
-      if (rows >= P) continue;
-      for (int Cc : {kMaxChunk, 8, 4}) {
-        Cc = Cc < C ? Cc : C;
-        for (int G = kThreads / 32; G >= 1; G /= 2) {
-          for (int D = 4; D >= 2; --D) {
-            const ForwardPlan L = make_forward_plan(
-                P, C, Cout, Cc, D, Co, es, aligned, gather, rows, G);
-            if (sizeof(float) * (size_t)L.words <= kMaxSmemBytes) return L;
+  for (int regs = cluster ? 1 : 0; regs >= 0; --regs) {
+    for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
+      for (int rows : kTileRows) {
+        if (rows >= P) continue;
+        for (int Cc : {kMaxChunk, 8, 4}) {
+          Cc = Cc < C ? Cc : C;
+          for (int G = kThreads / 32; G >= 1; G /= 2) {
+            for (int D = 4; D >= 2; --D) {
+              const ForwardPlan L =
+                  make_forward_plan(P, C, Cout, Cc, D, Co, es, aligned,
+                                    gather, rows, G, cluster);
+              if ((!regs || tile_regs(L.sp)) &&
+                  sizeof(float) * (size_t)L.words <= kMaxSmemBytes)
+                return L;
+            }
           }
         }
       }
+      if (Co <= 4) break;
     }
-    if (Co <= 4) break;
   }
   ForwardPlan none{};
   return none;
@@ -195,15 +226,17 @@ __device__ __forceinline__ void tile_product(float4 (&acc)[8],
   }
 }
 
-// The products of `nslab` maps of a 16-channel chunk with their slabs of K
-// on the tensor cores: acc[nt] (rows row0 + g and row0 + g + 8, outputs
-// 8 nt + 2t, 2t + 1; g = lane / 4, t = lane % 4) += map[16 rows x 16] times
-// K's slab [16 x 8 nt..], for nt < nnt.  Every float is split in two TF32
-// values and every product takes three passes (mma_3xtf32): float32
-// products, as on the CUDA cores.  The order of the channels in a k-step is
-// free as long as both operands follow it: a lane reads the four channels
-// 4t..4t+3 of its two rows as one float4 each and feeds 4t, 4t + 1 to the
-// first step and 4t + 2, 4t + 3 to the second, and reads K's rows to match.
+// The products of `nslab` maps of a chunk of kNcp = 16 (or 8) channels
+// with their slabs of K on the tensor cores: acc[nt] (rows row0 + g and
+// row0 + g + 8, outputs 8 nt + 2t, 2t + 1; g = lane / 4, t = lane % 4) +=
+// map[16 rows x kNcp] times K's slab [kNcp x 8 nt..], for nt < nnt.  Every
+// float is split in two TF32 values and every product takes three passes
+// (mma_3xtf32): float32 products, as on the CUDA cores.  The order of the
+// channels in a k-step is free as long as both operands follow it: a lane
+// reads the kNcp / 4 channels from kNcp / 4 * t of its two rows in one
+// load each (a float4, or a float2 at kNcp = 8) and feeds each pair of
+// them to one k-step, and reads K's rows to match.
+template <int kNcp = 16>
 __device__ __forceinline__ void mma_products(float (&acc)[4][4],
                                              const int* slab,
                                              const int* which, int nslab,
@@ -211,19 +244,31 @@ __device__ __forceinline__ void mma_products(float (&acc)[4][4],
                                              const StreamBuffers& s,
                                              const float* Ks, int mapw,
                                              int KLD, int lane) {
+  static_assert(kNcp == 16 || kNcp == 8, "a chunk of 8 or 16 channels");
+  constexpr int kLane = kNcp / 4;      // channels a lane reads of a row
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll 1
   for (int j = 0; j < nslab; ++j) {
-    const float* map = s.map(which[j], mapw) + (row0 + g) * 16 + 4 * t;
-    const float4 top = load4(map), bottom = load4(map + 8 * 16);
-    const float* kb = Ks + (slab[j] * 16 + 4 * t) * KLD + g;
+    const float* map =
+        s.map(which[j], mapw) + (row0 + g) * kNcp + kLane * t;
+    float top[kLane], bottom[kLane];
+    if constexpr (kNcp == 16) {
+      const float4 a = load4(map), b = load4(map + 8 * kNcp);
+      top[0] = a.x; top[1] = a.y; top[2] = a.z; top[3] = a.w;
+      bottom[0] = b.x; bottom[1] = b.y; bottom[2] = b.z; bottom[3] = b.w;
+    } else {
+      const float2 a = *reinterpret_cast<const float2*>(map);
+      const float2 b = *reinterpret_cast<const float2*>(map + 8 * kNcp);
+      top[0] = a.x; top[1] = a.y; bottom[0] = b.x; bottom[1] = b.y;
+    }
+    const float* kb = Ks + (slab[j] * kNcp + kLane * t) * KLD + g;
 #pragma unroll
-    for (int st = 0; st < 2; ++st) {
+    for (int st = 0; st < kNcp / 8; ++st) {
       unsigned ah[4], al[4];
-      split_tf32(st ? top.z : top.x, ah[0], al[0]);
-      split_tf32(st ? bottom.z : bottom.x, ah[1], al[1]);
-      split_tf32(st ? top.w : top.y, ah[2], al[2]);
-      split_tf32(st ? bottom.w : bottom.y, ah[3], al[3]);
+      split_tf32(top[2 * st], ah[0], al[0]);
+      split_tf32(bottom[2 * st], ah[1], al[1]);
+      split_tf32(top[2 * st + 1], ah[2], al[2]);
+      split_tf32(bottom[2 * st + 1], ah[3], al[3]);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         if (nt < nnt) {
@@ -565,8 +610,9 @@ __device__ __forceinline__ void dma_block(const E* __restrict__ T,
     zv[i] = Tv[(size_t)(i / Cout) * PC + i % Cout];
 }
 
-// forward_block on a row-tiled plan (L.tiled): a field whose maps and Z do
-// not fit one block (from P = 36 at Cout = 32).  Per vertex and panel:
+// The bank's forward_block (K4, K6: slots stored in T [N,P,P,P,C], Z as it
+// is) on a row-tiled plan (L.tiled): a field whose maps and Z do not fit
+// one block (from P = 36 at Cout = 32).  Per vertex and panel:
 //   0. the scalar cases' sums over every slot (Tfull, s14, s15, t18), in a
 //      stream of their own, so that s is whole before the first tile's
 //      epilogue; Ss = their product with K's scalar slabs;
@@ -576,17 +622,15 @@ __device__ __forceinline__ void dma_block(const E* __restrict__ T,
 //      U of the tile's rows; the nine map slabs into Z and W of the tile's
 //      rows, on the CUDA cores, added up over the chunks in shared memory;
 //   2. the epilogue of the tile's rows: W against the adjacency, R U, Ap s,
-//      (K1) bias and LeakyReLU, one rounding.
+//      one rounding.
 // Every sum is in float32 and none uses an atomic: Z is the same from run
 // to run.  The slots are streamed about three times over (twice by the
 // tiles, once for the scalars) and K is staged once per tile and chunk.
 template <typename E, int kPart>
 __device__ __forceinline__ void forward_block_tiled(
-    const E* __restrict__ in, const int* __restrict__ nbr,
-    const int* __restrict__ pos, const float* __restrict__ radj,
-    const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
-    int N, const ForwardPlan& L, float negslope) {
-  constexpr bool kGather = kPart == kLevel;
+    const E* __restrict__ in, const float* __restrict__ radj,
+    const E* __restrict__ K, E* __restrict__ out, const ForwardPlan& L) {
+  static_assert(kPart != kLevel, "K1 runs forward_block_cluster");
   constexpr bool kGroupD = has_group_d(kPart);
   constexpr bool kSelect = kPart != kNoSelect;
   constexpr bool kVectors = kPart != kTwoProducts;
@@ -603,9 +647,6 @@ __device__ __forceinline__ void forward_block_tiled(
 
   float* Ap = smem + L.ap;
   float* R = smem + L.r;
-  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
-  int* spos = reinterpret_cast<int*>(smem + L.ipos);
-  int* slots = reinterpret_cast<int*>(smem + L.islots);
   const StreamBuffers s = stream_buffers(smem + L.stream, sp);
   float* Ks = smem + L.ks;
   float* Zs = smem + L.zs;
@@ -615,20 +656,9 @@ __device__ __forceinline__ void forward_block_tiled(
   float* part = smem + L.part;
 
   zero_words(smem + L.stream, L.words - L.stream);
-  if constexpr (kGather) {
-    load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
-                spos);
-  } else {
-    load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
-  }
+  load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
   const float S = smem[L.scal], trA = smem[L.scal + 1];
-  if constexpr (kGather) list_slots(snbr, spos, P, slots);
-  const auto src = [&] {
-    if constexpr (kGather)
-      return GatheredSlots<E>{in, snbr, spos, slots};
-    else
-      return StoredSlots<E>{in + v * (size_t)P * P * P * C};
-  }();
+  const StoredSlots<E> src{in + v * (size_t)P * P * P * C};
 
   // 0. The scalar cases: each thread adds up the cells it reads, four
   //    channels q of a slot's (b, c), then the block sums per channel in a
@@ -779,18 +809,233 @@ __device__ __forceinline__ void forward_block_tiled(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int o = 4 * g + i;
-        if (o < no) {
-          float tv = get4(z, i);
-          if constexpr (kGather) {
-            tv += to_float(bias[o0 + o]);
-            tv = tv > 0.f ? tv : negslope * tv;
-          }
-          store_value(outv + (size_t)r * Cout + o0 + o, tv);
-        }
+        if (o < no) store_value(outv + (size_t)r * Cout + o0 + o, get4(z, i));
       }
     }
     __syncthreads();
   }
+}
+
+// K1 on a cluster plan (L.cluster > 0; fields from P = 36 at Cout = 32):
+// the row tiles of vertex v and output panel blockIdx.y spread over a
+// cluster of L.cluster blocks (grid (N * L.cluster, panels), cluster
+// (L.cluster, 1, 1)), block `rank` taking the tiles rank, rank + cluster,
+// ...  Per tile X = [x0, x0 + nx), per chunk: K's rows staged, the tile's
+// maps (tile_reductions: the rows X of every slot, the whole slots in X),
+// U of its rows, this block's part of the four scalars and of s (below),
+// and the nine map slabs into Z and W of its rows, on the tensor cores
+// where the plan has `mma` (a warp keeps 16 rows of each over the chunks,
+// three TF32 passes a product) or on the CUDA cores.  Then the tile's
+// pre-activation Z + W Ap^T + R U, float32, into `pre` [N, P*P, Cout]
+// (out itself in float32), which the block reads back when s is whole.
+//
+// The scalar cases are sums over the slots a of per-slot sums: Tfull =
+// sum_a T_a[a], s14 = sum_a T_ab[a,a], s15 = sum_a Tdbc[a], t18 = sum_a
+// D_bc[a,a], and the whole slots of a tile are rows of its maps.  So each
+// block adds its tiles' rows into its part of s (Tfull K5 + s14 K14 + s15
+// K15 + t18 K18), the cluster meets, and every block adds the parts from
+// distributed shared memory in rank order: s is whole without a pass of
+// its own over the slots, and the same in every block.  A second meeting
+// keeps each block's part alive until the others have read it.  Then the
+// epilogue of the block's rows: pre + Ap[x,y] s + b, LeakyReLU, one
+// rounding.  Every sum is float32 and in a fixed order, with no atomics:
+// Z is the same from run to run.
+template <typename E, bool kMma>
+__device__ __forceinline__ void forward_block_cluster(
+    const E* __restrict__ state, const int* __restrict__ nbr,
+    const int* __restrict__ pos, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
+    float* __restrict__ pre, int N, const ForwardPlan& L, float negslope) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const StreamPlan& sp = L.sp;
+  const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
+  const int ZLD = L.ZLD, KLD = L.KLD, ALD = L.ALD;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int CL = L.cluster, rank = (int)cluster.block_rank();
+  const size_t v = blockIdx.x / CL;
+  const int o0 = blockIdx.y * L.Co, no = min(L.Co, Cout - o0);
+  const int tiles = (P + X - 1) / X, nog = ZLD / 4;
+
+  float* Ap = smem + L.ap;
+  float* R = smem + L.r;
+  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
+  int* spos = reinterpret_cast<int*>(smem + L.ipos);
+  int* slots = reinterpret_cast<int*>(smem + L.islots);
+  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  float* Ks = smem + L.ks;
+  float* Zs = smem + L.zs;
+  float* Ws = smem + L.ws;
+  float* Us = smem + L.us;
+  float* Ss = smem + L.ss;
+  float* Sp = smem + L.part;     // [ZLD]: this block's part of s
+  const float* tab = s.map(kTab, sp.mapw);
+  const float* dbc = s.map(kDbc, sp.mapw);
+
+  STAGE_CLOCK_START();
+  zero_words(smem + L.stream, L.words - L.stream);
+  load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
+              spos);
+  const float S = smem[L.scal], trA = smem[L.scal + 1];
+  list_slots(snbr, spos, P, slots);
+  const GatheredSlots<E> src{state, snbr, spos, slots};
+  STAGE(0);   // set-up
+  float accz[4][4], accw[4][4];
+  const bool has_tile = kMma && warp < X * P / 16;
+
+  for (int t = rank; t < tiles; t += CL) {
+    const int x0 = t * X, nx = min(X, P - x0), RR = nx * P;
+    for (int i = tid; i < X * ZLD; i += nth) Us[i] = 0.f;
+    if constexpr (kMma) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) accz[nt][i] = accw[nt][i] = 0.f;
+    } else {
+      for (int i = tid; i < X * P * ZLD; i += nth) Zs[i] = Ws[i] = 0.f;
+    }
+    for (int c0 = 0; c0 < C; c0 += sp.Cc) {
+      const int nc = min(sp.Cc, C - c0);
+      // (The previous chunk's products ended with a barrier; the stream's
+      // first barrier orders K's staging before this chunk's readers.)
+      stage_k<kLevel>(K, Ks, L, C, c0, nc, o0, no, S, trA);
+      tile_reductions<true, true, false, GatheredSlots<E>, true>(
+          src, R, sp, s, t, nx, c0, nc);
+      STAGE(1);   // K's staging and the tile's stream
+      for (int i = tid; i < nx * ZLD; i += nth) {
+        const int o = i % ZLD, xl = i / ZLD;
+        float u = 0.f;
+        for (int f = 0; f < nc; ++f) {
+          u += s.ta[xl * ncp + f] * Ks[(1 * ncp + f) * KLD + o]
+               + s.tb[xl * ncp + f] * Ks[(3 * ncp + f) * KLD + o]
+               + s.tdbc[xl * ncp + f] * Ks[(7 * ncp + f) * KLD + o]
+               + s.tdac[xl * ncp + f] * Ks[(10 * ncp + f) * KLD + o];
+        }
+        Us[i] += u;
+      }
+      // This block's part of s: the tile's whole slots x0 + xl.
+      for (int o = tid; o < ZLD; o += nth) {
+        float u = 0.f;
+        for (int f = 0; f < nc; ++f) {
+          float tf = 0.f, s14 = 0.f, s15 = 0.f, t18 = 0.f;
+          for (int xl = 0; xl < nx; ++xl) {
+            const int diag = (xl * P + x0 + xl) * ncp + f;
+            tf += s.ta[xl * ncp + f];
+            s14 += tab[diag];
+            s15 += s.tdbc[xl * ncp + f];
+            t18 += dbc[diag];
+          }
+          u += tf * Ks[(4 * ncp + f) * KLD + o]
+               + s14 * Ks[(13 * ncp + f) * KLD + o]
+               + s15 * Ks[(14 * ncp + f) * KLD + o]
+               + t18 * Ks[(17 * ncp + f) * KLD + o];
+        }
+        Sp[o] += u;
+      }
+      // The map products, over the tile's rows (on the tensor cores, rows
+      // past RR of a short last tile are zeros of the maps).
+      if constexpr (kMma) {
+        if (has_tile) {
+          if (ncp == 16) {
+            mma_products<16>(accz, kDirectSlab, kDirectMap, 4, 16 * warp,
+                             ZLD / 8, s, Ks, sp.mapw, KLD, lane);
+            mma_products<16>(accw, kWeightedSlab, kWeightedMap, 5,
+                             16 * warp, ZLD / 8, s, Ks, sp.mapw, KLD, lane);
+          } else {
+            mma_products<8>(accz, kDirectSlab, kDirectMap, 4, 16 * warp,
+                            ZLD / 8, s, Ks, sp.mapw, KLD, lane);
+            mma_products<8>(accw, kWeightedSlab, kWeightedMap, 5, 16 * warp,
+                            ZLD / 8, s, Ks, sp.mapw, KLD, lane);
+          }
+        }
+      } else {
+        const int nrg = (RR + 7) / 8, items = nrg * nog;
+        for (int item = tid; item < 2 * items; item += nth) {
+          const bool w = item >= items;
+          const int it = w ? item - items : item, g = it % nog;
+          const int r0 = it / nog;
+          float* acc_at = (w ? Ws : Zs) + 4 * g;
+          float4 acc[8];
+          int rows[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            rows[i] = min(r0 + i * nrg, RR - 1);
+            acc[i] = load4(acc_at + rows[i] * ZLD);
+          }
+          tile_product<kLevel>(acc, rows, w, g, s, Ks, sp.mapw, ncp, KLD);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (r0 + i * nrg < RR)
+              *reinterpret_cast<float4*>(acc_at + rows[i] * ZLD) = acc[i];
+        }
+      }
+      __syncthreads();
+      STAGE(2);   // U, the part of s and the products
+    }
+    if constexpr (kMma) {
+      // The last barrier freed the ring and the maps: Zs and Ws lie there.
+      if (has_tile) {
+        const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt < ZLD / 8) {
+            const int at = (16 * warp + g) * ZLD + 8 * nt + 2 * t4;
+            *reinterpret_cast<float2*>(Zs + at) =
+                make_float2(accz[nt][0], accz[nt][1]);
+            *reinterpret_cast<float2*>(Zs + at + 8 * ZLD) =
+                make_float2(accz[nt][2], accz[nt][3]);
+            *reinterpret_cast<float2*>(Ws + at) =
+                make_float2(accw[nt][0], accw[nt][1]);
+            *reinterpret_cast<float2*>(Ws + at + 8 * ZLD) =
+                make_float2(accw[nt][2], accw[nt][3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // The tile's pre-activation: Z + W against the adjacency + R U.
+    float* prev = pre + (v * P + x0) * P * Cout + o0;
+    for (int item = tid; item < RR * nog; item += nth) {
+      const int g = item % nog, r = item / nog, xl = r / P, y = r % P;
+      float4 z = load4(Zs + r * ZLD + 4 * g);
+      const float* w = Ws + xl * P * ZLD + 4 * g;
+      const float* ay = Ap + y * ALD;
+      for (int e = 0; e < P; ++e) fma4(z, ay[e], load4(w + e * ZLD));
+      fma4(z, R[y], load4(Us + xl * ZLD + 4 * g));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * g + i < no) prev[(size_t)r * Cout + 4 * g + i] = get4(z, i);
+    }
+    __syncthreads();
+    STAGE(3);   // the pre-activation
+  }
+
+  // s: the blocks' parts in rank order, from distributed shared memory.
+  cluster.sync();
+  for (int o = tid; o < ZLD; o += nth) {
+    float t = 0.f;
+    for (int r = 0; r < CL; ++r) t += cluster.map_shared_rank(Sp, r)[o];
+    Ss[o] = t;
+  }
+  cluster.sync();   // every part read: a block may now end
+  STAGE(4);   // the cluster's exchange of s
+
+  // The epilogue of the block's rows: + Ap[x,y] s, bias, LeakyReLU.
+  for (int t = rank; t < tiles; t += CL) {
+    const int x0 = t * X, RR = min(X, P - x0) * P;
+    const float* prev = pre + (v * P + x0) * P * Cout + o0;
+    E* outv = out + (v * P + x0) * P * Cout + o0;
+    for (int item = tid; item < RR * no; item += nth) {
+      const int o = item % no, r = item / no, x = x0 + r / P, y = r % P;
+      float tv = prev[(size_t)r * Cout + o] + Ap[x * ALD + y] * Ss[o]
+                 + to_float(bias[o0 + o]);
+      tv = tv > 0.f ? tv : negslope * tv;
+      store_value(outv + (size_t)r * Cout + o, tv);
+    }
+  }
+  STAGE(5);   // the epilogue
 }
 
 // dma_block on a row-tiled plan: T[v] streamed a piece of sp.rows rows at a

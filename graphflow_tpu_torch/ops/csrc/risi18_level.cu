@@ -60,16 +60,25 @@
 //
 // Fields beyond one block.  Where no plan keeps the maps and Z of all P*P
 // rows (from P = 36 at Cout = 32; SMP_beta sets P = V), the launcher takes
-// a row-tiled plan (forward_block_tiled): the block walks its vertex's
-// rows x in tiles of sp.rows rows, each tile's maps streamed from the rows
-// of the tile of every slot and the whole slots in the tile (about twice
-// T's elements over all tiles), Z, W and U kept for the tile's rows only,
-// the scalar cases summed over every slot in a pass of their own first.
-// The products run on the CUDA cores there; the block stages up to 16
-// rows (pieces of a few rows of one slot) at a time and meets at a barrier
-// per stage, which with the copies' issue sets its pace (PERF.md).
-// ops/risi_bank.py:risi18_bank_tiled_reference is that decomposition in
-// plain PyTorch.
+// a cluster plan (forward_block_cluster): the vertex's rows x in tiles of
+// sp.rows rows, spread over a thread-block cluster of up to 8 blocks (grid
+// (N * cluster, panels)), each tile's maps streamed from the rows of the
+// tile of every slot and the whole slots in the tile (about twice T's
+// elements over all tiles), Z, W and U kept for the tile's rows only.
+// The scalar cases are sums over the slots of per-slot sums that a tile's
+// whole slots give, so each block sums its tiles' part of s and the
+// cluster adds the parts through distributed shared memory, in rank
+// order, before the epilogue adds Ap s: no pass over the slots for the
+// scalars alone.  A tile's pre-activations wait for that in float32 in
+// `pre` (out itself in float32).  The products run on the tensor cores
+// where a tile's rows make at most one 16-row tile a warp (P = 64: tiles
+// of 4 rows), else on the CUDA cores.  The block stages up to 16 rows
+// (pieces of a few rows of one slot) at a time and meets at a barrier per
+// stage, which with the copies' issue sets its pace (PERF.md).  A card
+// that cannot place the cluster refuses the launch, and the wrapper
+// raises.  ops/risi_bank.py:risi18_bank_cluster_reference is that
+// decomposition in plain PyTorch.  (The bank's kernels K4 and K6 keep one
+// block a vertex there: forward_block_tiled.)
 //
 // Element types.  State, K, b and out are float32 or bfloat16 (one type; the
 // TPU kernels work in the state's dtype the same way); radj is float32.  The
@@ -120,37 +129,80 @@ risi18_level_kernel(const E* __restrict__ state,
                                                 bias, out, N, L, negslope);
 }
 
-// The level on a row-tiled plan (fields from 36 rows at Cout = 32).
-template <typename E>
+// The level on a cluster plan (fields from 36 rows at Cout = 32): a
+// vertex's row tiles over a cluster of blocks (forward_block_cluster).
+template <typename E, bool kMma>
 __global__ void __launch_bounds__(kThreads, 1)
-risi18_level_tiled_kernel(const E* __restrict__ state,
-                          const int* __restrict__ nbr,
-                          const int* __restrict__ pos,
-                          const float* __restrict__ radj,
-                          const E* __restrict__ K,
-                          const E* __restrict__ bias,
-                          E* __restrict__ out,
-                          int N, ForwardPlan L, float negslope) {
-  lv::forward_block_tiled<E, lv::kLevel>(state, nbr, pos, radj, K, bias, out,
-                                         N, L, negslope);
+risi18_level_cluster_kernel(const E* __restrict__ state,
+                            const int* __restrict__ nbr,
+                            const int* __restrict__ pos,
+                            const float* __restrict__ radj,
+                            const E* __restrict__ K,
+                            const E* __restrict__ bias,
+                            E* __restrict__ out,
+                            float* __restrict__ pre,
+                            int N, ForwardPlan L, float negslope) {
+  lv::forward_block_cluster<E, kMma>(state, nbr, pos, radj, K, bias, out,
+                                     pre, N, L, negslope);
+}
+
+// Launches a cluster plan: grid (N * L.cluster, panels), clusters of
+// L.cluster blocks along x.  A cluster the card cannot place is refused
+// (cudaErrorLaunchOutOfResources), never run another way.
+template <typename E>
+int launch_cluster(const E* state, const int* nbr, const int* pos,
+                   const float* radj, const E* K, const E* b, E* out,
+                   float* pre, int N, int Cout, const ForwardPlan& L,
+                   float negslope, cudaStream_t stream) {
+  if (pre == nullptr) return cudaErrorInvalidValue;
+  auto kernel = L.mma ? risi18_level_cluster_kernel<E, true>
+                      : risi18_level_cluster_kernel<E, false>;
+  const size_t bytes = sizeof(float) * (size_t)L.words;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)N * L.cluster, (Cout + L.Co - 1) / L.Co);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&config, kernel, state, nbr, pos, radj, K, b,
+                           out, pre, N, L, negslope);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Launches the level for element type E; returns a cudaError_t.
 template <typename E>
 int launch_level(const void* state, const void* nbr, const void* pos,
                  const void* radj, const void* K, const void* b, void* out,
-                 int N, int P, int C, int Cout, float negslope,
+                 void* pre, int N, int P, int C, int Cout, float negslope,
                  void* stream) {
   if (N <= 0) return cudaSuccess;
   if (P <= 0 || C <= 0 || Cout <= 0) return cudaErrorInvalidValue;
   // The stream indexes the state's [N,P,P] elements with an int.
   if ((long long)N * P * P >= (1LL << 31)) return cudaErrorInvalidValue;
   const ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true);
   if (L.words == 0) return cudaErrorInvalidValue;
+  if (L.cluster)
+    return launch_cluster<E>((const E*)state, (const int*)nbr,
+                             (const int*)pos, (const float*)radj,
+                             (const E*)K, (const E*)b, (E*)out, (float*)pre,
+                             N, Cout, L, negslope, (cudaStream_t)stream);
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.tiled   ? risi18_level_tiled_kernel<E>
-                : L.sp.wide ? risi18_level_kernel<E, false, true>
+  auto kernel = L.sp.wide ? risi18_level_kernel<E, false, true>
                 : L.mma     ? risi18_level_kernel<E, true, false>
                             : risi18_level_kernel<E, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -170,23 +222,26 @@ extern "C" {
 // Launches the level on `stream`; returns a cudaError_t (0 on success).
 // state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
 // K [18C,Cout], b [Cout] -> out [N,P*P,Cout], all contiguous; state, K, b
-// and out in float32 (_f32) or bfloat16 (_bf16).
+// and out in float32 (_f32) or bfloat16 (_bf16).  pre: float32 [N,P*P,Cout]
+// scratch for the pre-activations of a cluster plan (risi18_level_plan's
+// plan[7] > 0; out itself may serve in float32), else not read (may be
+// null).
 int risi18_level_forward_f32(const void* state, const void* nbr,
                              const void* pos, const void* radj,
                              const void* K, const void* b, void* out,
-                             int N, int P, int C, int Cout, float negslope,
-                             void* stream) {
-  return launch_level<float>(state, nbr, pos, radj, K, b, out, N, P, C, Cout,
-                             negslope, stream);
+                             void* pre, int N, int P, int C, int Cout,
+                             float negslope, void* stream) {
+  return launch_level<float>(state, nbr, pos, radj, K, b, out, pre, N, P, C,
+                             Cout, negslope, stream);
 }
 
 int risi18_level_forward_bf16(const void* state, const void* nbr,
                               const void* pos, const void* radj,
                               const void* K, const void* b, void* out,
-                              int N, int P, int C, int Cout, float negslope,
-                              void* stream) {
-  return launch_level<__nv_bfloat16>(state, nbr, pos, radj, K, b, out, N, P,
-                                     C, Cout, negslope, stream);
+                              void* pre, int N, int P, int C, int Cout,
+                              float negslope, void* stream) {
+  return launch_level<__nv_bfloat16>(state, nbr, pos, radj, K, b, out, pre,
+                                     N, P, C, Cout, negslope, stream);
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
@@ -200,14 +255,18 @@ long long risi18_level_min_smem_bytes(int P, int Cout) {
 // = 0) or bfloat16 (bf16 = 1) elements: plan[0] the rows of a row tile (P:
 // untiled), plan[1] the panel's outputs, plan[2] the chunk's channels,
 // plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
-// for the row-tiled block, plan[6] the pieces a ring buffer holds.
-// Returns 0, or 1 where no plan fits.
+// for a row-tiled block, plan[6] the pieces a ring buffer holds, plan[7]
+// the blocks of a cluster (0: one block a vertex and panel), plan[8] the
+// row tiles a block of the cluster takes, plan[9] 1 where the map products
+// run on the tensor cores.  Returns 0, or 1 where no plan fits.
 int risi18_level_plan(int P, int C, int Cout, int bf16, int* plan) {
   const lv::ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, bf16 ? 2 : 4, 16, true);
+      P, C, Cout, bf16 ? 2 : 4, 16, true, true);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
-  plan[6] = lv::pieces(L.sp);
+  plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
+  plan[7] = L.cluster;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma;
   return L.words == 0;
 }
 

@@ -206,11 +206,20 @@ struct StreamBuffers {
   }
 };
 
+// The ring's words.
+__host__ __device__ inline int ring_words(const StreamPlan& sp) {
+  return sp.D * sp.slotb / 4;
+}
+
+// The buffers of a stream area at `at`: the ring, then the maps, vectors
+// and scalars; or, with `ring` given, the ring there and the rest at `at`
+// (stream_words(sp) - ring_words(sp) words).
 __device__ inline StreamBuffers stream_buffers(float* at,
-                                               const StreamPlan& sp) {
+                                               const StreamPlan& sp,
+                                               float* ring = nullptr) {
   StreamBuffers s;
-  s.ring = reinterpret_cast<char*>(at);
-  s.maps = at + sp.D * sp.slotb / 4;
+  s.ring = reinterpret_cast<char*>(ring ? ring : at);
+  s.maps = ring ? at : at + ring_words(sp);
   float* v = s.maps + kMaps * sp.mapw;
   const int n = sp.rows * sp.ncp;
   s.ta = v; s.tb = v + n; s.tdbc = v + 2 * n; s.tdac = v + 3 * n;
@@ -523,6 +532,21 @@ struct GatheredSlots {
       copy_run(pos_a, sp, buf, n, b0 + b, c,
                b * sp.rowb + c * sp.ncp * es + u * step, c0 * es + u * step);
     });
+  }
+
+  // Row b of slot a into `row`, `sub` copies a cell, the lanes of one
+  // warp copying it (stream_rows).
+  __device__ __forceinline__ void issue_row(const StreamPlan& sp, char* row,
+                                            int a, int b, int c0, int sub,
+                                            int lane) const {
+    const int es = (int)sizeof(E), step = sp.unit ? sp.unit : es;
+    const int n = snbr[a];
+    const int* pos_a = spos + a * sp.P;
+    for (int i = lane; i < sp.P * sub; i += 32) {
+      const int c = i / sub, u = i - c * sub;
+      copy_run(pos_a, sp, row, n, b, c, c * sp.ncp * es + u * step,
+               c0 * es + u * step);
+    }
   }
 };
 
@@ -965,8 +989,42 @@ __device__ inline float stream_loads(const Src& src, const StreamPlan& sp,
 // The rows of a row tile that the planners try, largest first.
 constexpr int kTileRows[6] = {32, 16, 8, 4, 2, 1};
 
+// Whether tile_reductions keeps a warp's cells of T_bc and M10 in
+// registers (a row of a piece a warp): then a ring buffer may hold several
+// pieces, and every warp reduces a row of each stage.
+__host__ __device__ inline bool tile_regs(const StreamPlan& sp) {
+  const int H = 32 / (sp.ncp / 4);
+  return sp.rows <= kThreads / 32 && (sp.P + H - 1) / H <= kMaxCells;
+}
+
+// The cluster plans (K1's forward_block_cluster, K2 kernel 1's
+// backward_block_cluster) spread a vertex's row tiles over a cluster of up
+// to kMaxCluster blocks, the most a cluster takes without the non-portable
+// attribute.  tiles_a_block = ceil(tiles / kMaxCluster) tiles each, and as
+// few blocks as that needs: block `rank` takes the tiles rank, rank +
+// cluster, ...
+constexpr int kMaxCluster = 8;
+
+__host__ __device__ inline int tiles_a_block(int tiles) {
+  return (tiles + kMaxCluster - 1) / kMaxCluster;
+}
+__host__ __device__ inline int cluster_blocks(int tiles) {
+  const int per = tiles_a_block(tiles);
+  return (tiles + per - 1) / per;
+}
+
+// The rows of a cluster plan's tile for a planner's `rows`: as many tiles,
+// as even as the count allows (P = 40 in tiles of 16 becomes 14, 14, 12,
+// not 16, 16, 8), so that no block of the cluster waits long for another
+// at the meetings.  Never more rows than `rows`.
+inline int balanced_rows(int P, int rows) {
+  const int tiles = (P + rows - 1) / rows;
+  return (P + tiles - 1) / tiles;
+}
+
 // Words of a row-tiled block's scratch: two a thread (a pass's partial
-// sums, one float4 of four sums per warp and quad of channels at most).
+// sums, one float4 of four sums per warp and quad of channels at most; a
+// cluster block's part of s).
 constexpr int kTilePartWords = 2 * kThreads;
 
 // Streams pieces 0 .. np - 1 of the chunk [c0, c0 + nc) through the ring,
@@ -1021,6 +1079,66 @@ __device__ inline void stream_pieces(const Src& src, const StreamPlan& sp,
   __syncthreads();
 }
 
+// stream_pieces where a warp reduces one row of each stage (tile_regs):
+// warp w copies and reduces row w % sp.rows of piece w / sp.rows of every
+// stage, so that it waits for its own copies only (cp.async's wait and the
+// warp's barrier) and the block meets once, when the stream ends.  The
+// warps drift apart: one's copies, bound by the lines their scattered
+// runs touch, overlap another's reductions, where stream_pieces' barrier
+// a stage made every warp issue, then every warp reduce.  A ring buffer's
+// row is written and read by its one warp, whose barrier at each stage
+// orders the reads of the stage before it ahead of the copies into its
+// buffer.  consume(a, b0, buf) runs on the owning warp for its row of a
+// piece (slot a from row b0, the piece at buf).  Ends with a barrier.
+template <typename Src, typename Piece, typename Consume>
+__device__ inline void stream_rows(const Src& src, const StreamPlan& sp,
+                                   const StreamBuffers& s, int c0, int nc,
+                                   int np, Piece piece, Consume consume) {
+  const int D = sp.D, G = pieces(sp), X = sp.rows, ns = (np + G - 1) / G;
+  const int pieceb = X * sp.rowb, sub = units_of<typename Src::Elem>(sp, nc);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gw = warp / X, bw = warp % X;
+  // The piece of stage st this warp owns a row of: false if none.
+  auto own = [&](int st, int& a, int& b0) {
+    const int j = st * G + gw;
+    if (gw >= G || j >= np) return false;
+    piece(j, a, b0);
+    return b0 + bw < sp.P;
+  };
+  auto issue = [&](int st, char* buf) {
+    int a, b0;
+    if (own(st, a, b0))
+      src.issue_row(sp, buf + gw * pieceb + bw * sp.rowb, a, b0 + bw, c0,
+                    sub, lane);
+  };
+  for (int i = 0; i < D - 1; ++i) {
+    if (i < ns) issue(i, s.ring + i * sp.slotb);
+    cp_async_commit();
+  }
+  int stage = 0, ahead = (D - 1) % D;
+  for (int st = 0; st < ns; ++st) {
+    PIECE_MARK(t0);
+    cp_async_wait(D - 2);
+    __syncwarp();
+    PIECE_MARK(t1);
+    if (st + D - 1 < ns) issue(st + D - 1, s.ring + ahead * sp.slotb);
+    cp_async_commit();
+    PIECE_MARK(t2);
+    int a, b0;
+    if (own(st, a, b0))
+      consume(a, b0, s.ring + stage * sp.slotb + gw * pieceb);
+    PIECE_MARK(t3);
+    PIECE_ADD(kPieceWait, t1 - t0);
+    PIECE_ADD(kPieceIssue, t2 - t1);
+    PIECE_ADD(kPieceReduce, t3 - t2);
+    PIECE_ADD(kPieces, 1);
+    stage = stage + 1 == D ? 0 : stage + 1;
+    ahead = ahead + 1 == D ? 0 : ahead + 1;
+  }
+  cp_async_wait(0);
+  __syncthreads();
+}
+
 // The maps, row sums and vectors of the tile `tile` (rows [x0, x0 + nx),
 // x0 = tile * sp.rows) for the chunk [c0, c0 + nc): map row xl * P + y
 // holds, for x = x0 + xl,
@@ -1029,9 +1147,12 @@ __device__ inline void stream_pieces(const Src& src, const StreamPlan& sp,
 // and s.ta .. s.tdac rows xl.  kGroupD and kSelect as in
 // stream_reductions; kDac (the ablation variant reduce) writes the whole
 // slots' D_ac[x,y] = T[x,y,x] into m6, which that variant has no use for.
-// The caller has loaded R (and the listed slots) and no thread still reads
-// s.  Ends with a barrier.
-template <bool kGroupD, bool kSelect, bool kDac, typename Src>
+// kWarpRows: where the warps keep their cells in registers, the stream is
+// stream_rows (a warp copies the row it reduces; K1's and K2's cluster
+// blocks), else stream_pieces.  The caller has loaded R (and the listed
+// slots) and no thread still reads s.  Ends with a barrier.
+template <bool kGroupD, bool kSelect, bool kDac, typename Src,
+          bool kWarpRows = false>
 __device__ inline void tile_reductions(const Src& src, const float* R,
                                        const StreamPlan& sp,
                                        const StreamBuffers& s, int tile,
@@ -1049,7 +1170,7 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
   // the block adds into the maps when the stream ends, in warp order; else
   // the warps take the rows of each piece in turn and add into the maps,
   // each cell by one owner.
-  const bool regs = X <= nwarps && (P + H - 1) / H <= kMaxCells;
+  const bool regs = tile_regs(sp);
   const int gw = warp / X, bw = warp % X;
   float4 acc_tbc[kMaxCells], acc_m10[kMaxCells];
 #pragma unroll
@@ -1148,16 +1269,28 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
 
   for (int i = tid; i < kMaps * sp.mapw; i += nth) s.maps[i] = 0.f;
   __syncthreads();
-  stream_pieces(src, sp, s, c0, nc, np, piece,
-                [&](int j, int a, int b0, const char* buf) {
-    const int nb = min(X, P - b0);
+  bool streamed = false;
+  if constexpr (kWarpRows) {
     if (regs) {
-      if (gw == j % pieces(sp) && bw < nb) reduce_row(a, b0, bw, buf);
-    } else {
-      for (int bl = warp; bl < nb; bl += nwarps)   // the whole warp
-        reduce_row(a, b0, bl, buf);
+      stream_rows(src, sp, s, c0, nc, np, piece,
+                  [&](int a, int b0, const char* buf) {
+                    reduce_row(a, b0, bw, buf);
+                  });
+      streamed = true;
     }
-  });
+  }
+  if (!streamed) {
+    stream_pieces(src, sp, s, c0, nc, np, piece,
+                  [&](int j, int a, int b0, const char* buf) {
+      const int nb = min(X, P - b0);
+      if (regs) {
+        if (gw == j % pieces(sp) && bw < nb) reduce_row(a, b0, bw, buf);
+      } else {
+        for (int bl = warp; bl < nb; bl += nwarps)   // the whole warp
+          reduce_row(a, b0, bl, buf);
+      }
+    });
+  }
   if (regs) {
     // The warps' cells of T_bc and M10, added in warp order.
     for (int g = 0; g < nwarps / X; ++g) {

@@ -219,12 +219,14 @@ def risi18_bank_backward_factored_reference(T, A, K, g):
 
 # -- the row-tiled decomposition ---------------------------------------------
 # Where a field's maps do not fit one block (P >= 36 forward, >= 33 backward
-# at Cout = 32), the kernels walk the rows x of Z in tiles X
-# (``csrc/risi18_forward_block.cuh:forward_block_tiled``,
-# ``csrc/risi18_backward_block.cuh:backward_block_tiled``).  The functions
-# below are that decomposition in plain PyTorch, for the CPU tests: each
-# tile is computed from the slot data the kernels stream for it and nothing
-# else.  Nothing on the main path calls them.
+# at Cout = 32), the kernels walk the rows x of Z in tiles X: one block a
+# vertex (K4 and K6: ``csrc/risi18_forward_block.cuh:forward_block_tiled``;
+# K5: ``csrc/risi18_backward_block.cuh:backward_block_tiled``), or the tiles
+# spread over a cluster of blocks (K1: ``forward_block_cluster``; K2 kernel
+# 1: ``backward_block_cluster``).  The functions below are those
+# decompositions in plain PyTorch, for the CPU tests: each tile is computed
+# from the slot data the kernels stream for it and nothing else.  Nothing
+# on the main path calls them.
 
 def _tile_maps(T, R, x0, x1):
     """The maps of the rows [x0, x1) (``_bank_reductions``' names, map row
@@ -288,26 +290,67 @@ def risi18_bank_tiled_reference(T, A, K, rows):
     return torch.cat(Z, 1).to(dtype)
 
 
-def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
-    """(dT, dK) of the bank (:func:`risi18_bank_backward_factored_reference`)
-    in row tiles of ``rows`` rows, as ``backward_block_tiled`` forms them.
-    dK: per tile X, its maps (:func:`_tile_maps`) against G and GAp of its
-    rows and its vectors against GR of its rows; the four scalars summed
-    tile by tile, times GA (summed over every row first).  dT, which needs
-    G and not T: per pair of tiles (Xa, Xb), the B maps of the rows b in Xb
-    (G, GAp and GR of those rows) and the A maps at the entries (a in Xa,
-    b in Xb) (G of the rows Xa, GAp of those entries), then
-    dT[Xa, Xb, :] = A + A6 R[c] + d(b,c) A15 + B11[b,a] + Bbc[b,c]
-    + R[a] B9[b,c] + d(a,c) B16[b,a].  -> (dT in T's dtype, dK in K's),
-    computed in float32 (float64) and rounded once."""
-    ct = _compute_dtype(T)
-    dtypes = (T.dtype, K.dtype)
-    T, A, K, G = T.to(ct), A.to(ct), K.to(ct), g.to(ct)
+def risi18_bank_cluster_reference(T, A, K, rows, cluster):
+    """Z of the bank (:func:`risi18_bank_factored_reference`) as
+    ``csrc/risi18_forward_block.cuh:forward_block_cluster`` forms it: the
+    row tiles of ``rows`` rows spread over a cluster of ``cluster`` blocks,
+    block ``rank`` taking the tiles rank, rank + cluster, ...  Per own tile
+    X: its maps (:func:`_tile_maps`), its rows of the pre-activation
+    (the direct products + W against the adjacency + R U) and the block's
+    part of s from the tile's whole slots (Tfull K5 + s14 K14 + s15 K15 +
+    t18 K18 over the slots a in X); s = the blocks' parts added in rank
+    order; then Z's rows X = pre + Ap s.  No pass over the slots for the
+    scalars alone.  Computed in float32 (float64 for float64) and cast to
+    T's dtype once."""
+    ct, dtype = _compute_dtype(T), T.dtype
+    T, A, K = T.to(ct), A.to(ct), K.to(ct)
     N, P, _, _, C = T.shape
-    Cout, dev = K.shape[1], T.device
+    Kc = K.reshape(18, C, -1)
+    Ap, R, S, trA = _adjacency(A)
+    tiles = _tiles(P, rows)
+    pre, parts = [None] * len(tiles), []
+    for rank in range(cluster):
+        part = torch.zeros(N, Kc.shape[2], dtype=ct, device=T.device)
+        for t in range(rank, len(tiles), cluster):
+            x0, x1 = tiles[t]
+            m = _tile_maps(T, R, x0, x1)
+            z = ((m["tab"] * S) @ Kc[0] + (m["tab"] * trA) @ Kc[6]
+                 + (m["tbc"] * S) @ Kc[2] + m["m6"] @ Kc[5]
+                 + m["m10"] @ Kc[9])
+            W = (m["tab"] @ Kc[8] + m["tabT"] @ Kc[11] + m["tbc"] @ Kc[12]
+                 + m["dbc"] @ Kc[15] + m["dacT"] @ Kc[16])
+            U = (m["ta"] @ Kc[1] + m["tb"] @ Kc[3] + m["tdbc"] @ Kc[7]
+                 + m["tdac"] @ Kc[10])
+            pre[t] = (z + torch.einsum("nye,nxeo->nxyo", Ap, W)
+                      + R[:, None, :, None] * U[:, :, None, :])
+            own = torch.arange(x1 - x0, device=T.device)
+            part = part + (m["ta"].sum(1) @ Kc[4]
+                           + m["tab"][:, own, x0 + own].sum(1) @ Kc[13]
+                           + m["tdbc"].sum(1) @ Kc[14]
+                           + m["dbc"][:, own, x0 + own].sum(1) @ Kc[17])
+        parts.append(part)
+    s = parts[0]
+    for part in parts[1:]:
+        s = s + part
+    Z = [pre[t] + Ap[:, x0:x1, :, None] * s[:, None, None, :]
+         for t, (x0, x1) in enumerate(tiles)]
+    return torch.cat(Z, 1).to(dtype)
+
+
+def _bank_backward_cluster(T, A, K, G, rows, cluster):
+    """(dT, dK, [db's part of each block]) of the bank for the cotangent G
+    [N, P, P, Cout] in row tiles of ``rows`` rows over a cluster of
+    ``cluster`` blocks, block ``rank`` taking the tiles rank, rank +
+    cluster, ..., in T's dtype (no rounding): see
+    :func:`risi18_bank_backward_cluster_reference`."""
+    N, P, _, _, C = T.shape
+    Cout, dev, ct = K.shape[1], T.device, T.dtype
     Kc = K.reshape(18, C, Cout)
     Ap, R, S, trA = _adjacency(A)
-    GA = torch.einsum("nxy,nxyo->no", Ap, G)
+    tiles = _tiles(P, rows)
+
+    def own_tiles(rank):
+        return [tiles[t] for t in range(rank, len(tiles), cluster)]
 
     def back(x, k):        # x [..., Cout] against slab k: [..., C]
         return x @ Kc[k].T
@@ -323,39 +366,55 @@ def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
     def vecs(a, x):
         return torch.einsum("nxf,nxo->fo", a, x)
 
-    dK = torch.zeros(18, C, Cout, dtype=ct)
-    sc = torch.zeros(4, N, C, dtype=ct)          # Tfull, s14, s15, t18
-    for x0, x1 in _tiles(P, rows):
-        m = _tile_maps(T, R, x0, x1)
-        Gx, GApx, GRx = rows_of(x0, x1)
-        for k, a, x in ((0, m["tab"] * S, Gx), (2, m["tbc"] * S, Gx),
-                        (5, m["m6"], Gx), (6, m["tab"] * trA, Gx),
-                        (8, m["tab"], GApx), (9, m["m10"], Gx),
-                        (11, m["tabT"], GApx), (12, m["tbc"], GApx),
-                        (15, m["dbc"], GApx), (16, m["dacT"], GApx)):
-            dK[k] += maps(a, x)
-        for k, a in ((1, m["ta"]), (3, m["tb"]), (7, m["tdbc"]),
-                     (10, m["tdac"])):
-            dK[k] += vecs(a, GRx)
-        own = torch.arange(x1 - x0, device=dev)
-        sc += torch.stack([m["ta"].sum(1),
-                           m["tab"][:, own, x0 + own].sum(1),
-                           m["tdbc"].sum(1),
-                           m["dbc"][:, own, x0 + own].sum(1)])
-    for k, j in ((4, 0), (13, 1), (14, 2), (17, 3)):
-        dK[k] = torch.einsum("nf,no->fo", sc[j], GA)
+    # 0. GA and db from each block's own rows, added in rank order.
+    ga_parts = [sum(torch.einsum("nxy,nxyo->no", Ap[:, x0:x1], G[:, x0:x1])
+                    for x0, x1 in own_tiles(rank)) for rank in range(cluster)]
+    db_parts = [sum(G[:, x0:x1].sum((0, 1, 2)) for x0, x1 in own_tiles(rank))
+                for rank in range(cluster)]
+    GA = ga_parts[0]
+    for part in ga_parts[1:]:
+        GA = GA + part
 
+    # 1. dK, block by block: the own tiles' map and vector cases, then the
+    #    block's part of the four scalars times GA; added in rank order.
+    dK = torch.zeros(18, C, Cout, dtype=ct)
+    for rank in range(cluster):
+        dKr = torch.zeros(18, C, Cout, dtype=ct)
+        sc = torch.zeros(4, N, C, dtype=ct)       # Tfull, s14, s15, t18
+        for x0, x1 in own_tiles(rank):
+            m = _tile_maps(T, R, x0, x1)
+            Gx, GApx, GRx = rows_of(x0, x1)
+            for k, a, x in ((0, m["tab"] * S, Gx), (2, m["tbc"] * S, Gx),
+                            (5, m["m6"], Gx), (6, m["tab"] * trA, Gx),
+                            (8, m["tab"], GApx), (9, m["m10"], Gx),
+                            (11, m["tabT"], GApx), (12, m["tbc"], GApx),
+                            (15, m["dbc"], GApx), (16, m["dacT"], GApx)):
+                dKr[k] += maps(a, x)
+            for k, a in ((1, m["ta"]), (3, m["tb"]), (7, m["tdbc"]),
+                         (10, m["tdac"])):
+                dKr[k] += vecs(a, GRx)
+            own = torch.arange(x1 - x0, device=dev)
+            sc += torch.stack([m["ta"].sum(1),
+                               m["tab"][:, own, x0 + own].sum(1),
+                               m["tdbc"].sum(1),
+                               m["dbc"][:, own, x0 + own].sum(1)])
+        for k, j in ((4, 0), (13, 1), (14, 2), (17, 3)):
+            dKr[k] = torch.einsum("nf,no->fo", sc[j], GA)
+        dK = dK + dKr
+
+    # 2. dT, which needs G and not T: per block, the rows b of its own
+    #    tiles Xb, paired with every tile Xa.
     d_tfull, d_s14 = back(GA, 4)[:, None, None], back(GA, 13)[:, None, None]
     d_s15, d_t18 = back(GA, 14)[:, None, None], back(GA, 17)[:, None, None]
     cols = torch.arange(P, device=dev)
     dT = torch.empty_like(T)
-    for xb0, xb1 in _tiles(P, rows):
+    for xb0, xb1 in tiles:
         Gb, GApb, GRb = rows_of(xb0, xb1)
         tabT_b = back(GApb, 11)                          # B11[b, y]
         tbc_b = S * back(Gb, 2) + back(GApb, 12) + back(GRb, 3)[:, :, None]
         m10_b = back(Gb, 9)
         dacT_b = back(GApb, 16) + back(GRb, 10)[:, :, None]
-        for xa0, xa1 in _tiles(P, rows):
+        for xa0, xa1 in tiles:
             Gab = G[:, xa0:xa1, xb0:xb1]
             GApab = torch.einsum("nxyo,nye->nxeo", G[:, xa0:xa1],
                                  Ap[:, :, xb0:xb1])
@@ -379,7 +438,39 @@ def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
                 + R[:, xa0:xa1, None, None, None] * m10_b[:, None]
                 + d_ac[None, :, None, :, None]
                 * dacT_b[:, :, xa0:xa1].transpose(1, 2)[:, :, :, None])
-    return dT.to(dtypes[0]), dK.reshape(18 * C, Cout).to(dtypes[1])
+    return dT, dK.reshape(18 * C, Cout), db_parts
+
+
+def risi18_bank_backward_cluster_reference(T, A, K, g, rows, cluster):
+    """(dT, dK) of the bank (:func:`risi18_bank_backward_factored_reference`)
+    as ``csrc/risi18_backward_block.cuh:backward_block_cluster`` forms
+    them: the row tiles of ``rows`` rows spread over a cluster of
+    ``cluster`` blocks, block ``rank`` taking the tiles rank, rank +
+    cluster, ...  GA = the blocks' parts over their own rows, added in rank
+    order.  dK: per block, its tiles' maps (:func:`_tile_maps`) against G
+    and GAp of their rows, its vectors against GR, and its part of the four
+    scalars times GA; the blocks' dK added in rank order.  dT, which needs
+    G and not T: per block, for the rows b of its own tiles Xb and every
+    tile Xa, the B maps of the rows b (G, GAp and GR of those rows) and the
+    A maps at the entries (a in Xa, b in Xb) (G of the rows Xa, GAp of
+    those entries), dT[Xa, Xb, :] = A + A6 R[c] + d(b,c) A15 + B11[b,a] +
+    Bbc[b,c] + R[a] B9[b,c] + d(a,c) B16[b,a].  -> (dT in T's dtype, dK in
+    K's), computed in float32 (float64) and rounded once."""
+    ct = _compute_dtype(T)
+    dT, dK, _ = _bank_backward_cluster(T.to(ct), A.to(ct), K.to(ct),
+                                       g.to(ct), rows, cluster)
+    return dT.to(T.dtype), dK.to(K.dtype)
+
+
+def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
+    """(dT, dK) of the bank (:func:`risi18_bank_backward_factored_reference`)
+    in row tiles of ``rows`` rows, as ``backward_block_tiled`` forms them:
+    :func:`risi18_bank_backward_cluster_reference` with one block, which
+    walks every tile (dK: per tile X its maps against G and GAp of its rows
+    and its vectors against GR of its rows, the four scalars summed tile by
+    tile, times GA; dT per pair of tiles).  -> (dT in T's dtype, dK in
+    K's), computed in float32 (float64) and rounded once."""
+    return risi18_bank_backward_cluster_reference(T, A, K, g, rows, 1)
 
 
 @functools.lru_cache(maxsize=None)

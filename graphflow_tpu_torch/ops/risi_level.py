@@ -138,6 +138,60 @@ def risi18_level_backward_factored_reference(state, nbr, pos, radj, K, b, g,
     return dstate.to(state.dtype), dK.to(K.dtype), db.to(b.dtype)
 
 
+def risi18_level_cluster_reference(state, nbr, pos, radj, K, b, rows,
+                                   cluster, negslope=0.01):
+    """The level as K1's cluster plan forms it
+    (``csrc/risi18_forward_block.cuh:forward_block_cluster``), in plain
+    PyTorch: the take-gather, then the bank in row tiles of ``rows`` rows
+    over a cluster of ``cluster`` blocks
+    (``ops/risi_bank.py:risi18_bank_cluster_reference``: each block's
+    tiles, the scalar cases' parts added in rank order), then b and
+    LeakyReLU, computed as :func:`risi18_level_reference` computes and
+    rounded once."""
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
+    from graphflow_tpu_torch.ops.risi_bank import risi18_bank_cluster_reference
+
+    ct = _COMPUTE[state.dtype]
+    N, P, _, C = state.shape
+    T = risi18_aligned_t2_reference(state.to(ct), nbr, pos)
+    Z = risi18_bank_cluster_reference(T, radj.to(ct), K.to(ct), rows, cluster)
+    Z = Z.reshape(N, P * P, -1) + b.to(ct)
+    return leaky_relu(Z, negslope).to(state.dtype)
+
+
+def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
+                                            rows, cluster, negslope=0.01):
+    """The level's gradients as K2 kernel 1's cluster plan forms them
+    (``csrc/risi18_backward_block.cuh:backward_block_cluster``), in plain
+    PyTorch: G is the cotangent times LeakyReLU'; per block of a cluster of
+    ``cluster``, its row tiles of ``rows`` rows give its parts of GA, db
+    and dK and dT of its rows b (``ops/risi_bank.py:
+    _bank_backward_cluster``); GA, dK and db are the blocks' parts added in
+    rank order, and dT goes back through the gather.  -> (dstate, dK, db),
+    each in the dtype of its parameter."""
+    from graphflow_tpu_torch.ops.risi_aligned import (
+        risi18_aligned_t2_reference)
+    from graphflow_tpu_torch.ops.risi_bank import _bank_backward_cluster
+
+    ct = _COMPUTE[state.dtype]
+    N, P, _, C = state.shape
+    Cout = K.shape[1]
+    out = risi18_level_reference(state, nbr, pos, radj, K, b, negslope)
+    G = torch.where(out.to(ct) > 0, g.to(ct), negslope * g.to(ct))
+    G = G.reshape(N, P, P, Cout)
+    with torch.enable_grad():
+        leaf = state.detach().to(ct).requires_grad_()
+        T = risi18_aligned_t2_reference(leaf, nbr, pos)
+    dT, dK, db_parts = _bank_backward_cluster(T.detach(), radj.to(ct),
+                                              K.to(ct), G, rows, cluster)
+    (dstate,) = torch.autograd.grad(T, leaf, dT)
+    db = db_parts[0]
+    for part in db_parts[1:]:
+        db = db + part
+    return dstate.to(state.dtype), dK.to(K.dtype), db.to(b.dtype)
+
+
 def _bind_min_smem(fn):
     """A library's ``*_min_smem_bytes(P, Cout)``: the least shared memory
     one block of its kernel needs, by the kernel's own layout."""
@@ -146,39 +200,50 @@ def _bind_min_smem(fn):
 
 
 def _bind_plan(fn):
-    """A library's ``*_plan(P, C, Cout, bf16, int plan[7])``: the plan its
+    """A library's ``*_plan(P, C, Cout, bf16, int plan[])``: the plan its
     launcher takes (see :func:`query_plan`)."""
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
-def query_plan(fn, P, C, Cout, dtype=torch.float32):
+PLAN_KEYS = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
+             "pieces")
+# The level kernels' plans add their cluster plans' fields.
+CLUSTER_PLAN_KEYS = PLAN_KEYS + ("cluster", "tiles_per_block", "mma")
+
+
+def query_plan(fn, P, C, Cout, dtype=torch.float32, keys=PLAN_KEYS):
     """The plan a kernel's launcher takes for a field of P rows, C input and
     Cout output channels in ``dtype`` (16-byte aligned inputs), from the
     library's ``*_plan`` entry ``fn``: a dict with ``rows`` (the rows of a
     row tile; P for a plan that keeps every row), ``panel`` (output
     channels a block), ``chunk`` (input channels a pass), ``depth`` (the
-    ring's buffers), ``smem_bytes``, ``tiled`` (the row-tiled block) and
-    ``pieces`` (pieces of ``rows`` rows a ring buffer holds); None where no
-    plan fits.  Needs the CUDA library (it is built with nvcc), not a
-    card."""
-    plan = (ctypes.c_int * 7)()
+    ring's buffers), ``smem_bytes``, ``tiled`` (a row-tiled block) and
+    ``pieces`` (pieces of ``rows`` rows a ring buffer holds), and with
+    :data:`CLUSTER_PLAN_KEYS` (K1, K2 kernel 1) ``cluster`` (blocks a
+    cluster, 0 for one block a vertex), ``tiles_per_block`` (row tiles a
+    block of the cluster takes) and ``mma`` (1: the products run on the
+    tensor cores); None where no plan fits.  Needs the CUDA library (it is
+    built with nvcc), not a card."""
+    plan = (ctypes.c_int * len(keys))()
     if fn(P, C, Cout, int(dtype == torch.bfloat16), plan):
         return None
-    keys = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
-            "pieces")
     return {k: int(v) for k, v in zip(keys, plan)}
 
 
+@functools.lru_cache(maxsize=None)
 def level_plan(P, C, Cout, dtype=torch.float32):
-    """K1's plan (:func:`query_plan`)."""
-    return query_plan(_kernel_lib().risi18_level_plan, P, C, Cout, dtype)
+    """K1's plan (:func:`query_plan` with :data:`CLUSTER_PLAN_KEYS`)."""
+    return query_plan(_kernel_lib().risi18_level_plan, P, C, Cout, dtype,
+                      CLUSTER_PLAN_KEYS)
 
 
+@functools.lru_cache(maxsize=None)
 def level_backward_plan(P, C, Cout, dtype=torch.float32):
-    """K2 kernel 1's plan (:func:`query_plan`)."""
+    """K2 kernel 1's plan (:func:`query_plan` with
+    :data:`CLUSTER_PLAN_KEYS`)."""
     return query_plan(_backward_lib().risi18_level_backward_plan, P, C, Cout,
-                      dtype)
+                      dtype, CLUSTER_PLAN_KEYS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,7 +253,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("risi18_level")
     ptr = ctypes.c_void_p
     for fn in (lib.risi18_level_forward_f32, lib.risi18_level_forward_bf16):
-        fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr]
+        fn.argtypes = [ptr] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     _bind_min_smem(lib.risi18_level_min_smem_bytes)
     _bind_plan(lib.risi18_level_plan)
@@ -307,20 +372,27 @@ def _raise_on(err, what, lib_error_string, where):
 
 
 def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
-    """K1: one launch of ``risi18_level_forward_{f32,bf16}``."""
+    """K1: one launch of ``risi18_level_forward_{f32,bf16}``.  A cluster
+    plan keeps its pre-activations in float32 until the cluster has summed
+    the scalar cases: in ``out`` itself in float32, in a float32 scratch
+    [N, P*P, Cout] in bfloat16."""
     N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
     dev, dt = state.device, state.dtype
     _check("b", b, dt, (Cout,), dev)
     lib = _kernel_lib()
     check_smem("risi18_level", lib.risi18_level_min_smem_bytes, P, Cout)
     out = torch.empty((N, P * P, Cout), dtype=dt, device=dev)
+    plan = level_plan(P, C, Cout, dt)
+    pre = out
+    if dt != torch.float32 and plan is not None and plan["cluster"]:
+        pre = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _entry(lib, "risi18_level_forward", dt)(
             state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
-            K.data_ptr(), b.data_ptr(), out.data_ptr(), N, P, C, Cout,
-            float(negslope), _stream(dev))
+            K.data_ptr(), b.data_ptr(), out.data_ptr(), pre.data_ptr(), N, P,
+            C, Cout, float(negslope), _stream(dev))
     _raise_on(err, "risi18_level", lib.risi18_level_error_string,
-              _where(N, P, C, Cout, dt))
+              _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level.launches += 1
     return out
 
@@ -350,7 +422,9 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
             partial.data_ptr(), N, P, C, Cout, float(negslope), nblocks,
             _stream(dev))
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
-              _where(N, P, C, Cout, dt))
+              _where(N, P, C, Cout, dt)
+              + (f", plan {level_backward_plan(P, C, Cout, dt)}" if err
+                 else ""))
     risi18_level_backward.launches += 1
     return dstate, partial
 

@@ -19,12 +19,16 @@ kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
 level), and of both kernels 2 (K2's in float32) beside ``partial.sum(0)``,
 at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
-bank, in the dtypes) the smoke does not time.
+bank, in the dtypes) the smoke does not time.  ``--shapes`` names other
+level shapes (``N,P,C,Cout`` each), and ``--level-only`` times K1 and K2
+kernel 1 alone there, with the plan each checkout's launchers take and
+each kernel's bound by ``chip_smoke.py``'s count (``level_ops``,
+``level_backward_ops`` and the bytes of its inputs and outputs).
 
 Usage:
     python graphflow_tpu_torch/tools/kernel_digest.py [--root DIR]
         [--dtypes float32,bfloat16] [--save FILE] [--against FILE]
-        [--times]
+        [--times [--shapes N,P,C,Cout ...] [--level-only]]
 
 ``--root`` names the checkout whose ``graphflow_tpu_torch`` is imported
 (default: the one this file lies in), so one copy of this tool can drive an
@@ -63,7 +67,11 @@ def main(argv=None):
     ap.add_argument("--save")
     ap.add_argument("--against")
     ap.add_argument("--times", action="store_true")
+    ap.add_argument("--shapes", nargs="+", default=None)
+    ap.add_argument("--level-only", action="store_true")
     args = ap.parse_args(argv)
+    shapes = ([tuple(int(x) for x in a.split(",")) for a in args.shapes]
+              if args.shapes else (TIME_SHAPES if args.times else SHAPES))
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_digest runs CUDA kernels: no CUDA device "
                            "is available")
@@ -84,8 +92,7 @@ def main(argv=None):
     outputs = {}
     for name in args.dtypes.split(","):
         dtype = getattr(torch, name)
-        for i, (N, P, C, Cout) in enumerate(TIME_SHAPES if args.times
-                                            else SHAPES):
+        for i, (N, P, C, Cout) in enumerate(shapes):
             d = random_level_case(N, P, C, Cout, seed=i, empty_vertex=N // 2)
             f = {k: torch.as_tensor(d[k], dtype=torch.float32, device="cuda")
                  for k in ("state", "radj", "K", "b")}
@@ -108,6 +115,26 @@ def main(argv=None):
                 k1 = time_ms(lambda: risi18_level(*level))
                 k2 = time_ms(lambda: _backward_main_kernel(
                     *level[:5], g, out, 0.01))
+                if args.level_only:
+                    from chip_smoke import (bound_ms, level_backward_ops,
+                                            level_ops, nbytes,
+                                            present_elements)
+                    from graphflow_tpu_torch.ops.risi_level import (
+                        level_backward_plan, level_plan)
+                    present = present_elements(nbr, pos)
+                    grads = risi18_level_backward(*level, out, g)
+                    b1 = bound_ms(nbytes(*level, out),
+                                  level_ops(N, P, C, Cout, present), name)
+                    b2 = bound_ms(nbytes(*level[:5], g, out, *grads),
+                                  level_backward_ops(N, P, C, Cout, present),
+                                  name)
+                    print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms (bound "
+                          f"{b1[0]:.4f} by {b1[1]}), K2 kernel 1 {k2:.4f} ms "
+                          f"(bound {b2[0]:.4f} by {b2[1]}); plans "
+                          f"{level_plan(P, C, Cout, dtype)}, "
+                          f"{level_backward_plan(P, C, Cout, dtype)}",
+                          flush=True)
+                    continue
                 _, partial = _backward_main_kernel(*level[:5], g, out, 0.01)
                 T = risi18_aligned_t2_reference(level[0], nbr,
                                                 pos).contiguous()

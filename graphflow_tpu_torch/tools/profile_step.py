@@ -17,7 +17,10 @@ Usage: python -m graphflow_tpu_torch.tools.profile_step [NAME ...]
 Names: omega_f32, omega_bf16, omega_bf16_bank (the bank route over a
 materialised T, ``level_fn=risi18_bank_level``: K4 serving, K4 and K5
 training; ``tools/measure.py:bank_route_model``), ver6_f32, ver6_bf16,
-ver7_f32, ver7_bf16, the first-order theta (SMP_theta) and
+ver7_f32, ver7_bf16, beta_f32 and beta_bf16 (``beta`` names both:
+SMP_beta, whose field is the whole graph, at V = P = 64, C = 32, two
+levels: K1 and K2 kernel 1 on their cluster plans), the first-order theta
+(SMP_theta) and
 theta_physics (SMP_theta_physics, channels 32, 16, 8, raw normal
 features; Adam), and three models without a kernel of their own, with
 Momentum: steerable (SMP_2D, uncapped: P = V = 64), gcn_3d (GCN_3D, H = 32,
@@ -58,6 +61,8 @@ CONFIGS = {
     "ver7_f32": (50, "float32", "momentum", MOMENTUM_LR, False),
     "ver7_bf16": (50, "bfloat16", "momentum", MOMENTUM_LR, False),
 }
+# SMP_beta at V = P = 64 (no receptive-field cap), Adam: name -> dtype.
+BETA = {"beta_f32": "float32", "beta_bf16": "bfloat16"}
 # The first-order models, float32, Adam: name -> (constructor, raw normal
 # features in place of the one-hot ones).
 FIRST_ORDER = {"theta": ("SMP_theta", False),
@@ -154,6 +159,10 @@ def build(name):
     """(model on the card, its learning rate) of configuration ``name``."""
     from graphflow_tpu_torch import models
 
+    if name in BETA:
+        return models.SMP2D(models.SMP2DConfig(
+            **MODEL | {"max_receptive_field": None}, dtype=BETA[name]),
+            seed=0, device="cuda"), ADAM_LR
     if name in FIRST_ORDER:
         ctor, _ = FIRST_ORDER[name]
         if ctor == "SMP_theta":
@@ -256,8 +265,11 @@ def report(name, out=print):
 
 
 def main(argv=None):
-    known = list(CONFIGS) + list(FIRST_ORDER) + list(NO_KERNEL) + list(LATER)
+    known = (list(CONFIGS) + list(BETA) + list(FIRST_ORDER) + list(NO_KERNEL)
+             + list(LATER))
     names = list(sys.argv[1:] if argv is None else argv) or known
+    names = [n for name in names
+             for n in (list(BETA) if name == "beta" else [name])]
     unknown = [n for n in names if n not in known]
     if unknown:
         raise SystemExit(f"unknown configuration {unknown}; known: {known}")

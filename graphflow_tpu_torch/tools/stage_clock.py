@@ -13,10 +13,15 @@ forward block (K1, K4) is one vertex; a backward block (K2, K5) is the
 vertices of one vertex group for one channel chunk (two at N=256).  K4 and
 K5 run K1's and K2's blocks on slots streamed from T, so their stages are
 K1's and K2's, named for what the bank does there.  On a row-tiled plan
-(a field one block does not hold, e.g. P = 64) it prints instead the
-stages of the block's stream (a ring buffer's pieces of a few rows) and
-thread 0's cycles a stage: waiting for the copies and the block, issuing
-the next copies, reducing the stage.
+(a field one block does not hold, e.g. P = 64) it prints the stages of the
+block's stream (a ring buffer's pieces of a few rows) and thread 0's
+cycles a stage: waiting for the copies and the block, issuing the next
+copies, reducing the stage.  K1 and K2 run such a field on cluster plans
+(a vertex's row tiles over a cluster of blocks), whose marks it prints as
+well: block (0, 0, 0) is rank 0 of the first cluster, and its marks split
+its own tiles into the stream, the products and the rest, and name the
+cycles it waits at the cluster's meetings.  K4 and K5 keep one block a
+vertex on such a field and have no marks there.
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -44,6 +49,18 @@ BANK_STAGES = ("set-up (adjacency)", "first copies", "K staging",
 BANK_BACKWARD_STAGES = ("set-up, K staging", "G = g", "adjacency",
                         "first copies, GAp, GR", "stream from T", "dK",
                         "cotangents", "dT written", "partial row")
+# The cluster plans' marks (csrc/risi18_forward_block.cuh:
+# forward_block_cluster, csrc/risi18_backward_block.cuh:
+# backward_block_cluster).
+CLUSTER_STAGES = ("set-up", "K staging and the tiles' stream",
+                  "U, the part of s and the products", "pre-activations",
+                  "the cluster's exchange of s (meetings)", "epilogue")
+CLUSTER_BACKWARD_STAGES = (
+    "set-up, K staging", "structure, geff's sums, GA's exchange (meetings)",
+    "the tiles' stream and G", "dK of the tiles",
+    "the scalars' cotangents, G and B maps of rows b",
+    "the partial row's exchange (meetings)", "G of rows a",
+    "GAp and GR of rows a", "A maps", "scatter")
 ROUNDS = 3
 
 
@@ -61,19 +78,20 @@ PIECE_STAGES = ("wait and barrier", "issuing copies", "reducing")
 PIECE_SLOT = 10
 
 
-def report(what, stages, read_cycles):
+def report(what, stages, read_cycles, cluster_stages=None):
     cycles = (ctypes.c_longlong * 16)()
     err = read_cycles(cycles)
     if err != 0:
         raise RuntimeError(f"{what}: reading the stage clock failed ({err})")
     pieces = cycles[PIECE_SLOT + len(PIECE_STAGES)]
     if pieces:
-        # A row-tiled plan: the blocks have no stage marks of their own.
         print(f"{what}: row tiles, {pieces} stages in block (0, 0, 0), "
               f"cycles a stage of its thread 0: " + ", ".join(
                   f"{name} {cycles[PIECE_SLOT + i] / pieces:.0f}"
                   for i, name in enumerate(PIECE_STAGES)))
-        return
+        if cluster_stages is None or not any(cycles[:len(cluster_stages)]):
+            return      # one block a vertex (K4, K5): no marks there
+        stages = cluster_stages
     total = sum(cycles[:len(stages)])
     print(f"{what}: {total} cycles in block (0, 0, 0): " + ", ".join(
         f"{name} {cycles[i]} ({100 * cycles[i] / max(total, 1):.0f} %)"
@@ -113,19 +131,23 @@ def main(argv=None):
         partial = torch.empty((groups, 18 * C * Cout + Cout),
                               dtype=torch.float32, device="cuda")
         forward = getattr(fwd, f"risi18_level_forward_{suffix}")
-        forward.argtypes = [ptr] * 7 + [i32] * 4 + [ctypes.c_float, ptr]
+        forward.argtypes = [ptr] * 8 + [i32] * 4 + [ctypes.c_float, ptr]
+        # A cluster plan's float32 pre-activations: out itself in float32.
+        pre = (out if dtype == torch.float32 else
+               torch.empty(out.shape, dtype=torch.float32, device="cuda"))
         backward = getattr(bwd, f"risi18_level_backward_{suffix}")
         backward.argtypes = [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
         shape = f"(N,P,C,Cout)=({N},{P},{C},{Cout}) {suffix}"
         for _ in range(ROUNDS):
             err = forward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
                           f32["radj"].data_ptr(), K.data_ptr(), b.data_ptr(),
-                          out.data_ptr(), N, P, C, Cout, 0.01, stream)
+                          out.data_ptr(), pre.data_ptr(), N, P, C, Cout,
+                          0.01, stream)
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"risi18_level launch failed ({err})")
             report(f"K1 {shape}", FORWARD_STAGES,
-                   fwd.risi18_level_stage_cycles)
+                   fwd.risi18_level_stage_cycles, CLUSTER_STAGES)
         for _ in range(ROUNDS):
             err = backward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
                            f32["radj"].data_ptr(), K.data_ptr(), g.data_ptr(),
@@ -137,7 +159,8 @@ def main(argv=None):
                 raise RuntimeError(f"risi18_level_backward launch failed "
                                    f"({err})")
             report(f"K2 kernel 1 {shape}", BACKWARD_STAGES,
-                   bwd.risi18_level_backward_stage_cycles)
+                   bwd.risi18_level_backward_stage_cycles,
+                   CLUSTER_BACKWARD_STAGES)
         T = risi18_aligned_t2_reference(state, nbr, pos).contiguous()
         Z = torch.empty((N, P, P, Cout), dtype=dtype, device="cuda")
         dT = torch.empty_like(T)

@@ -218,10 +218,11 @@ def test_backward_kernel_rejects_shapes_beyond_shared_memory(cuda):
     assert (risi18_level.launches, risi18_level_backward.launches) == before
 
 
-# Fields that one block's maps do not hold: the row-tiled blocks (K2 from 33
-# rows, K1 from 36), at SMP_beta's width (C = Cout = 32) and a narrow one,
+# Fields that one block's maps do not hold: the cluster plans (K2 from 33
+# rows, K1 from 36; at P = 40 and Cout = 32 K1 on the CUDA cores, at 64 on
+# the tensor cores), at SMP_beta's width (C = Cout = 32) and a narrow one,
 # with chunks that do not divide C; three vertices, one of them empty.
-LARGE = [(3, P, C, Cout) for P in (33, 36, 48, 64)
+LARGE = [(3, P, C, Cout) for P in (33, 36, 40, 48, 64)
          for C, Cout in ((5, 4), (32, 32))]
 
 
@@ -247,14 +248,15 @@ def test_level_kernels_on_fields_beyond_one_block(cuda, N, P, C, Cout,
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("P", [33, 36])
+@pytest.mark.parametrize("P", [33, 36, 64])
 def test_level_kernels_walk_several_vertices_of_a_tiled_field(cuda, P,
                                                              dtype):
-    """140 vertices, more than the backward's 132 vertex groups: blocks of
-    the row-tiled kernel 1 walk two vertices each and carry dK, db and
+    """140 vertices, more than the backward's 132 vertex groups: clusters
+    of kernel 1 walk two vertices each and their blocks carry dK, db and
     their buffers from one to the next (K1 tiles from 36 rows)."""
     N, C, Cout = 140, 4, 4
     assert level_backward_plan(P, C, Cout, dtype)["tiled"] == 1
+    assert level_backward_plan(P, C, Cout, dtype)["cluster"] >= 1
     args = _inputs(N, P, C, Cout, seed=P, device=cuda, empty_vertex=N // 2,
                    dtype=dtype)
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
@@ -268,7 +270,12 @@ def test_level_kernels_run_at_the_edge_of_their_reach(cuda, dtype):
     K1 at P = 156 and K2 kernel 1 at P = 153 run and match."""
     args = _inputs(1, 156, 1, 32, seed=156, device=cuda, dtype=dtype)
     assert level_plan(156, 1, 32, dtype)["rows"] >= 1
+    assert level_plan(156, 1, 32, dtype)["cluster"] == 8
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
+    assert level_backward_plan(153, 1, 32, dtype)["cluster"] == 8
+    # (check_smem refuses by the float32 plan's bytes: P = 157 and 154.)
+    assert level_plan(157, 1, 32) is None
+    assert level_backward_plan(154, 1, 32) is None
     args = _inputs(1, 153, 1, 32, seed=153, device=cuda, dtype=dtype)
     _check_backward(args, _cotangent(1, 153, 32, seed=153, device=cuda,
                                      dtype=dtype))
@@ -289,10 +296,36 @@ def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
                 assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
     assert level_plan(16, 32, 32) == dict(rows=16, panel=32, chunk=16,
                                           depth=3, smem_bytes=212096,
-                                          tiled=0, pieces=1)
+                                          tiled=0, pieces=1, cluster=0,
+                                          tiles_per_block=1, mma=1)
     assert level_backward_plan(16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
-        pieces=1)
+        pieces=1, cluster=0, tiles_per_block=1, mma=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_plans_report_their_clusters(cuda, dtype):
+    """Every row-tiled plan of K1 and K2 kernel 1 is a cluster plan: at
+    most 8 blocks (the portable cluster), each with its share of the
+    tiles, as few blocks as that share needs; an untiled plan has none.
+    SMP_beta's field at C = Cout = 32 takes clusters of 8 blocks with 2
+    tiles each and the tensor cores, in both directions."""
+    for C, Cout in ((4, 4), (32, 32), (16, 8)):
+        for P in list(range(30, 65)) + [100, 153]:
+            for plan in (level_plan(P, C, Cout, dtype),
+                         level_backward_plan(P, C, Cout, dtype)):
+                if not plan["tiled"]:
+                    assert plan["cluster"] == 0, (P, C, Cout, plan)
+                    continue
+                tiles = -(-P // plan["rows"])
+                per, blocks = plan["tiles_per_block"], plan["cluster"]
+                assert 1 <= blocks <= 8, (P, C, Cout, plan)
+                assert per == -(-tiles // 8), (P, C, Cout, plan)
+                assert blocks == -(-tiles // per), (P, C, Cout, plan)
+    for plan in (level_plan(64, 32, 32, dtype),
+                 level_backward_plan(64, 32, 32, dtype)):
+        assert (plan["rows"], plan["cluster"], plan["tiles_per_block"],
+                plan["mma"]) == (4, 8, 2, 1), plan
 
 
 @pytest.mark.parametrize("C,Cout", [(32, 32), (5, 3), (1, 1)])
@@ -388,11 +421,13 @@ def test_backward_kernel_all_absent_vertex(cuda):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("N,P,C,Cout", [(256, 16, 32, 32), (600, 4, 8, 4),
-                                        (24, 7, 8, 8)])
+                                        (24, 7, 8, 8), (8, 64, 32, 32),
+                                        (6, 40, 32, 32)])
 def test_level_kernels_repeat_bit_for_bit(cuda, N, P, C, Cout, dtype):
     """K1's output and K2's dK and db come out the same from run to run
-    (the partial rows are summed in a fixed order); dstate is summed by
-    atomics and agrees to rounding only."""
+    (the partial rows are summed in a fixed order, and on a cluster plan
+    the blocks' parts in rank order); dstate is summed by atomics and
+    agrees to rounding only."""
     args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
                    empty_vertex=N // 2, dtype=dtype)
     g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
