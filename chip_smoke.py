@@ -36,11 +36,14 @@ Phases, each reported on its own lines:
               plan (a vertex's row tiles over a cluster of blocks) at
               (140,64,32,32), whose clusters walk two vertices, for
               errors, and at (64,64,32,32): errors, the plan, times and
+              bound; then kernel 1 at the beta pairs' field
+              (160,40,32,16), where the grid fills the card: plan, time,
               bound;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
-              the plain level's, every loss must be finite, and K1 and K2
+              the plain level's on the same weights in float64, every loss
+              must be finite, and K1 and K2
               must launch once per level per forward and per backward.
               Then the seconds per step (prep uncached and cached) and one
               step's split into host batching, forward, backward and Adam;
@@ -50,8 +53,11 @@ Phases, each reported on its own lines:
               milliseconds of K4, the plain bank, K5 (both kernels and each
               alone) and the plain backward at the production shape, per
               dtype, with the bounds of the factored functions; then K4 and
-              K5 in row tiles at (140,64,32,32) for errors and at
-              (64,64,32,32) the same way;
+              K5 kernel 1 on their cluster plans (asserted from the plans,
+              each launched once) at (140,64,32,32) (errors, times,
+              bounds), at (256,64,32,32) (errors against the plain
+              versions run 64 vertices at a time) and at (64,64,32,32)
+              the same way with the plain versions' times;
   8. bf16     the same model in bfloat16, whose levels run the fused level
               as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
@@ -90,20 +96,24 @@ Phases, each reported on its own lines:
               split into K7, the 50-case bank and the rest;
  11. ablate   K6, the five ablation variants of the bank kernel, against
               their plain versions on the card at phase 7's ten shapes in
-              float32 and bfloat16, `full` against K4 bit for bit; then
+              float32 and bfloat16, `full` against K4 bit for bit (where
+              one block holds the field, as K4 does there); then
               the tool (graphflow_tpu_torch.tools.ablate_bank) prints the
               five times and the attribution at the production shape in
               both dtypes, with K4 timed in the same rounds; then each
-              variant on K4's row-tiled plan at (16,64,32,32) in bfloat16:
-              error, time, plain time and bound;
+              variant at (16,64,32,32) in bfloat16 on the row-tiled block
+              of one block a vertex (K4 runs a cluster plan there, and
+              `full` is held against it within the tolerance): error,
+              time, plain time and bound;
  12. physics  SMP_omega_physics at full width (V=64, P=16, channels 32, 16,
               8, Coulomb adjacency with negative entries, raw features)
               serves 3 requests of 4 random graphs twice (prep uncached,
               then cached), one Predict and one Feature through K1 at
               C != Cout, then takes 3 BatchLearn steps and one
               Learn(nIterations=2) through K2; outputs, the first step's
-              loss and every gradient must match the same model through
-              the plain level, and K1 and K2 must launch once per level per
+              loss and every gradient must match the same weights through
+              the plain level in float64, and K1 and K2 must launch once
+              per level per
               forward and backward.  SMP_gamma_physics serves and takes a
               step (against the same model on the CPU); SMP_beta with an
               uncapped field (V = P = 16) serves and takes a step through
@@ -124,7 +134,8 @@ Phases, each reported on its own lines:
  14. bucketed SMP_omega (V <= 64, P=16, C=32) on graphs of 6-64 vertices
               bucketed by size (8, 16, 32, 64): one step per bucket goes
               through K1 and K2 (P = 16 > V = 8 in the smallest) and its
-              loss matches the plain level; the bucket-padded predictions
+              loss, gradients and predictions match the plain level in
+              float64 on the same weights; the bucket-padded predictions
               match the V=64 ones; fit_bucketed trains 4 epochs, K1 and K2
               launching once per level per step, and the loss falls;
  15. first order  SMP_theta (V=64, P=16, C=32), SMP_1D and
@@ -163,7 +174,9 @@ Phases, each reported on its own lines:
               of kernel 1 walk two) the sum of the plain level's per
               graph (in float64 for a float32 model); the request's and step's walls and peak memory are
               printed.  Then the bank route (level_fn=risi18_bank_level,
-              K4 and K5 in row tiles) at V = 64 on 3 graphs, the same way;
+              K4 and K5 kernel 1 on cluster plans, asserted from the
+              levels' plans and printed) at V = 64 on 3 graphs, the same
+              way;
  19. pairs    SMP_omega_pairgraphs(64, 64, 16, 2, 32, 4, 4) (V = 64,
               P = 16, towers 32 -> 16 -> 8, head 112 -> 56 -> 28) serves two
               requests of 4 pairs (Predict per pair) and takes 3 BatchLearn
@@ -226,9 +239,10 @@ Each kernel's bound is the larger of its bytes (every input read once,
 every output written once) over 3.35 TB/s and its operations over the
 card's peak for the inputs' type (67 TFLOP/s float32, 989 TFLOP/s
 bfloat16), counted from the shapes of this run's inputs.
-The line before the last is a JSON object describing each kernel (K1's
-and K2's entries add "tiled_plan", the cluster plan they take at
-(64,64,32,32) per dtype); the last line is {"ok": true, "device": {...}}.  Any failure raises, so the
+The line before the last is a JSON object describing each kernel (K1's,
+K2's, K4's and K5's entries add "tiled_plan", the cluster plan each takes
+at (64,64,32,32) per dtype); the last line is {"ok": true, "device":
+{...}}.  Any failure raises, so the
 script exits non-zero and prints no result.  Without a CUDA device, or
 without the package beside this file, it fails.
 """
@@ -289,6 +303,13 @@ LARGE_SHAPE = (64, 64, 32, 32)
 # vertices and carry dK, db and their buffers from one to the next; checked
 # for error, not timed.
 LARGE_MANY_SHAPE = (140, 64, 32, 32)
+# SMP_beta's batch of 4 graphs at V = 64 (phase 18's request and step): the
+# bank's cluster plans there take one block a cluster (T is 8.6 GB in
+# float32; the plain versions run 64 vertices at a time).
+LARGE_BATCH_SHAPE = (256, 64, 32, 32)
+# The beta pairs' field (phase 19: P = 40, 160 vertices, C -> Cout 32 ->
+# 16), where the grid of K2 kernel 1 fills the card without clusters.
+PAIR_SHAPE = (160, 40, 32, 16)
 # Repetitions of a plain version's timing at P = 64 (each call moves
 # gigabytes: T is 2.1 GB in float32 at LARGE_SHAPE).
 LARGE_PLAIN_REPS = 3
@@ -336,6 +357,20 @@ def check_rel(what: str, got, ref, rtol: float = RTOL) -> float:
     err = check_close(what, got, ref, rtol)
     ref = torch.as_tensor(ref).detach()
     return err / max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
+
+
+def float64_tree(tree):
+    """``tree`` (dicts, lists and tuples of tensors) with every floating
+    tensor in float64: a float32 model's weights or batch for the plain
+    level in float64, the yardstick of the float32 kernels (the plain level
+    in float32 can put an output on the other side of LeakyReLU's kink)."""
+    if isinstance(tree, dict):
+        return {k: float64_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(float64_tree(v) for v in tree)
+    if hasattr(tree, "is_floating_point") and tree.is_floating_point():
+        return tree.double()
+    return tree
 
 
 def nbytes(*tensors) -> int:
@@ -614,7 +649,7 @@ def phase_kernel():
                              reps=LARGE_PLAIN_REPS),
             "bound": bound_ms(nbytes(*largs, lout), level_ops(
                 N, P, C, Cout, present_elements(largs[1], largs[2])), name),
-            "plan": level_plan(P, C, Cout, dtype)}
+            "plan": level_plan(N, P, C, Cout, dtype)}
         log(f"phase 3 kernel: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles: "
             f"{p64['plan']}) max_abs_err={err:.3e} ok; median kernel "
             f"{p64['kernel']:.4f} ms, plain {p64['plain']:.4f} ms; bound "
@@ -840,7 +875,7 @@ def phase_backward():
             "plain": time_ms(lambda: torch.autograd.grad(
                 plain_out, leaves, lg, retain_graph=True),
                 reps=LARGE_PLAIN_REPS),
-            "plan": level_backward_plan(P, C, Cout, dtype)}
+            "plan": level_backward_plan(N, P, C, Cout, dtype)}
         del plain_out, leaves
         dstate, dK, db = risi18_level_backward(*largs, lout, lg)
         p64["bound"] = bound_ms(
@@ -855,6 +890,25 @@ def phase_backward():
             f"({100 * p64['bound'][0] / p64['main']:.2f} % of its time)")
         del largs, lg, lout, dstate
         torch.cuda.empty_cache()
+        # The beta pairs' field, where 132 vertex groups x chunks already
+        # fill the card: kernel 1 on its plan there.
+        N, P, C, Cout = PAIR_SHAPE
+        pargs, pg = inputs(N, P, C, Cout, SEED + 40, dtype)
+        pout = risi18_level(*pargs)
+        p40 = ms[name]["p40"] = {
+            "main": time_ms(lambda: _backward_main_kernel(
+                *pargs[:5], pg, pout, 0.01)),
+            "plan": level_backward_plan(N, P, C, Cout, dtype),
+            "bound": bound_ms(
+                nbytes(*pargs[:5], pg, pout,
+                       *risi18_level_backward(*pargs, pout, pg)),
+                level_backward_ops(N, P, C, Cout,
+                                   present_elements(pargs[1], pargs[2])),
+                name)}
+        log(f"phase 5 backward: {name} N,P,C,Cout={PAIR_SHAPE} (plan "
+            f"{p40['plan']}): median kernel 1 {p40['main']:.4f} ms; bound "
+            f"{p40['bound'][0]:.4f} ms by {p40['bound'][1]}")
+        del pargs, pg, pout
     return errs, ms
 
 
@@ -876,19 +930,23 @@ def phase_train():
         return [random_graph(MODEL["max_nVertices"], ER_P, seed=100 + i)
                 for i in range(GRAPHS_PER_REQUEST)]
 
-    # The first step's loss and gradients, kernel against plain level, on
-    # graphs of their own so that the counted run prepares its batch anew.
-    batch = model._stack(er_batch(), targets)
+    # The first step's loss and gradients, kernel against the plain level
+    # in float64 (the same weights), on graphs of their own so that the
+    # counted run prepares its batch anew.
+    first = er_batch()
     params = model.param_dict()
+    model64 = SMP_omega(**MODEL, seed=SEED, device="cuda").double()
 
-    def loss_and_grads(level_fn):
-        pred, _ = smp2d_forward(model.params, batch, model.cfg,
-                                level_fn=level_fn)
+    def loss_and_grads(m, level_fn):
+        batch = m._stack(first, targets)
+        pred, _ = smp2d_forward(m.params, batch, m.cfg, level_fn=level_fn)
         loss = squared_loss(pred, batch["target"])
-        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), torch.autograd.grad(
+            loss, list(m.param_dict().values()))
 
-    k_loss, k_grads = loss_and_grads(risi18_level)
-    p_loss, p_grads = loss_and_grads(risi18_level_reference)
+    k_loss, k_grads = loss_and_grads(model, risi18_level)
+    p_loss, p_grads = loss_and_grads(model64, risi18_level_reference)
+    del model64
     grad_err = check_close("train loss", k_loss, p_loss)
     for path, x, r in zip(params, k_grads, p_grads):
         grad_err = max(grad_err, check_close(f"gradient {path}", x, r))
@@ -943,8 +1001,8 @@ def phase_train():
                                            TRAIN_LR, nBatch=len(graphs)))
 
     log(f"phase 6 train: first-step loss {float(k_loss):.6f} vs plain level "
-        f"{float(p_loss):.6f}; {len(params)} gradients; max abs err "
-        f"{grad_err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
+        f"in float64 {float(p_loss):.6f}; {len(params)} gradients; max abs "
+        f"err {grad_err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
     log(f"phase 6 train: BatchLearn (loss_before, loss_after) "
         + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
         + f"; Learn(C2H4, nIterations=2) ({learn[0]:.6f}, {learn[1]:.6f}); "
@@ -1048,34 +1106,82 @@ def phase_bank():
                 ("K4", "bound"), ("K5 kernel 1", "bwd_bound"),
                 ("K5 kernel 2", "reduce_bound"))))
 
-    # SMP_beta's field on the bank route: the row-tiled K4 and K5 kernel 1
-    # at V = 64 (T is 2.1 GB in float32) and on more vertices than K5's
-    # kernel 1 has vertex groups (T 4.7 GB).
-    def check_tiled(shape, seed, dtype, rtol):
+    # SMP_beta's field on the bank route: K4 and K5 kernel 1 on their
+    # cluster plans at V = 64 (T is 2.1 GB in float32), on more vertices
+    # than K5's kernel 1 has vertex groups (T 4.7 GB) and at a batch of 4
+    # graphs (T 8.6 GB; the plain versions 64 vertices at a time: each
+    # vertex's Z and dT are its own, dK sums over them in float32).
+    def plain(T, A, K, g, step):
+        Z, dT, dK = [], [], 0.0
+        for i in range(0, T.shape[0], step):
+            s = slice(i, i + step)
+            Z.append(risi18_bank_reference(T[s], A[s], K))
+            d, k = risi18_bank_backward_reference(T[s].float(), A[s],
+                                                  K.float(), g[s].float())
+            dT.append(d.to(T.dtype))
+            dK = dK + k
+        return torch.cat(Z), torch.cat(dT), dK.to(K.dtype)
+
+    def check_tiled(shape, seed, dtype, rtol, step=None):
         N, P, C, Cout = shape
         T, A, K, g = bank_inputs(N, P, C, Cout, seed, dtype)
+        plans = (bank_plan(N, P, C, Cout, dtype),
+                 bank_backward_plan(N, P, C, Cout, dtype))
+        if not all(p is not None and p["cluster"] >= 1 for p in plans):
+            raise AssertionError(f"bank N={N} P={P} C={C} Cout={Cout} "
+                                 f"{dtype}: plans {plans}, expected cluster "
+                                 f"plans for K4 and K5 kernel 1")
+        before = (risi18_bank.launches, risi18_bank_backward.launches)
         got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
         torch.cuda.synchronize()
-        ref = (risi18_bank_reference(T, A, K),
-               *risi18_bank_backward_reference(T, A, K, g))
+        if (risi18_bank.launches - before[0],
+                risi18_bank_backward.launches - before[1]) != (1, 1):
+            raise AssertionError(f"bank N={N} P={P}: K4 and K5 kernel 1 "
+                                 f"must launch once each")
+        ref = (plain(T, A, K, g, step) if step else
+               (risi18_bank_reference(T, A, K),
+                *risi18_bank_backward_reference(T, A, K, g)))
         line = []
         for key, x, r in zip(errs, got, ref):
             err = check_close(f"bank {key} N={N} P={P} C={C} Cout={Cout} "
                               f"{dtype}", x, r, rtol)
             errs[key] = max(errs[key], err)
             line.append(f"{key} {err:.3e}")
-        return (T, A, K, g), got, ", ".join(line)
+        del ref
+        return (T, A, K, g), got, ", ".join(line), plans
+
+    def cluster_line(plans):
+        return ", ".join(f"{k} cluster {p['cluster']} x {p['tiles_per_block']}"
+                         f" tiles (rows {p['rows']}, chunk {p['chunk']}, "
+                         f"pieces {p['pieces']}, mma {p['mma']})"
+                         for k, p in zip(("K4", "K5 kernel 1"), plans))
 
     N, P, C, Cout = LARGE_SHAPE
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
         name = dtype_name(dtype)
-        line = check_tiled(LARGE_MANY_SHAPE, SEED + 140, dtype, rtol)[2]
-        log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_MANY_SHAPE} (row "
-            f"tiles; more vertices than K5 kernel 1's 132 vertex groups) "
-            f"max_abs_err {line} ok")
-        torch.cuda.empty_cache()
-        (T, A, K, g), got, line = check_tiled(LARGE_SHAPE, SEED + 64, dtype,
-                                              rtol)
+        for shape, seed, step in ((LARGE_MANY_SHAPE, SEED + 140, None),
+                                  (LARGE_BATCH_SHAPE, SEED + 256, 64)):
+            (T, A, K, g), got, line, plans = check_tiled(shape, seed, dtype,
+                                                         rtol, step)
+            timed = ""
+            if shape == LARGE_MANY_SHAPE:
+                Z, dT, dK = got
+                k4 = time_ms(lambda: risi18_bank(T, A, K))
+                k5 = time_ms(lambda: _backward_main_kernel(T, A, K, g))
+                b4 = bound_ms(nbytes(T, A, K, Z),
+                              bank_factored_ops(*shape), name)
+                b5 = bound_ms(nbytes(T, A, K, g, dT, dK),
+                              bank_backward_factored_ops(*shape), name)
+                timed = (f"; median K4 {k4:.4f} ms (bound {b4[0]:.4f} by "
+                         f"{b4[1]}), K5 kernel 1 {k5:.4f} ms (bound "
+                         f"{b5[0]:.4f} by {b5[1]})")
+            log(f"phase 7 bank: {name} N,P,C,Cout={shape} ("
+                f"{cluster_line(plans)}; one launch each) max_abs_err {line}"
+                f" ok{timed}")
+            del T, A, K, g, got
+            torch.cuda.empty_cache()
+        (T, A, K, g), got, line, plans = check_tiled(LARGE_SHAPE, SEED + 64,
+                                                     dtype, rtol)
         Z, dT, dK = got
         leaves = [x.detach().requires_grad_() for x in (T, K)]
         plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
@@ -1087,16 +1193,15 @@ def phase_bank():
             "plain_bwd": time_ms(lambda: torch.autograd.grad(
                 plain_out, leaves, g, retain_graph=True),
                 reps=LARGE_PLAIN_REPS),
-            "plans": (bank_plan(P, C, Cout, dtype),
-                      bank_backward_plan(P, C, Cout, dtype)),
+            "plans": plans,
             "bound": bound_ms(nbytes(T, A, K, Z),
                               bank_factored_ops(N, P, C, Cout), name),
             "bwd_bound": bound_ms(nbytes(T, A, K, g, dT, dK),
                                   bank_backward_factored_ops(N, P, C, Cout),
                                   name)}
-        log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles: K4 "
-            f"{p64['plans'][0]}, K5 {p64['plans'][1]}) max_abs_err {line}"
-            f" ok; median K4 {p64['k4']:.4f} ms "
+        log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_SHAPE} "
+            f"({cluster_line(plans)}; K4 {plans[0]}, K5 {plans[1]}) "
+            f"max_abs_err {line} ok; median K4 {p64['k4']:.4f} ms "
             f"(bound {p64['bound'][0]:.4f} by {p64['bound'][1]}), K5 kernel "
             f"1 {p64['main']:.4f} ms (bound {p64['bwd_bound'][0]:.4f} by "
             f"{p64['bwd_bound'][1]}); plain bank {p64['plain']:.4f} ms, plain "
@@ -1593,7 +1698,7 @@ def phase_variants():
 
 def phase_ablate():
     import torch
-    from graphflow_tpu_torch.ops.risi_bank import risi18_bank
+    from graphflow_tpu_torch.ops.risi_bank import bank_plan, risi18_bank
     from graphflow_tpu_torch.ops.risi_bank_ablate import (
         MODES, risi18_bank_variant, risi18_bank_variant_reference)
     from graphflow_tpu_torch.tools import ablate_bank
@@ -1639,11 +1744,17 @@ def phase_ablate():
         raise AssertionError(f"K6 launches by mode {launches}, expected "
                              f"{expected} for each")
 
-    # SMP_beta's field: every variant on K4's row-tiled plan at P = 64, in
-    # bfloat16 (the tool's dtype), 16 vertices (T 268 MB).
+    # SMP_beta's field: every variant on the row-tiled block of one block a
+    # vertex at P = 64, in bfloat16 (the tool's dtype), 16 vertices (T 268
+    # MB).  K4 runs a cluster plan there: `full` is the other block, held
+    # against K4 within the tolerance.
     Nl, Pl, Cl, Coutl = 16, *LARGE_SHAPE[1:]
     T, A, K, _ = bank_inputs(Nl, Pl, Cl, Coutl, SEED + 64, torch.bfloat16)
     bank = risi18_bank(T, A, K)
+    k4_plan = bank_plan(Nl, Pl, Cl, Coutl, torch.bfloat16)
+    if not k4_plan["cluster"]:
+        raise AssertionError(f"K4 at N={Nl} P={Pl}: plan {k4_plan}, "
+                             f"expected a cluster plan")
     p64 = {}
     for mode in MODES:
         what = f"ablate {mode} N={Nl} P={Pl} C={Cl} Cout={Coutl} bfloat16"
@@ -1651,8 +1762,8 @@ def phase_ablate():
         torch.cuda.synchronize()
         ref = risi18_bank_variant_reference(T, A, K, mode)
         err = check_close(what, got, ref, RTOL16)
-        if mode == "full" and not torch.equal(got, bank):
-            raise AssertionError(f"{what}: differs from risi18_bank")
+        if mode == "full":
+            check_close(what + " vs K4's cluster plan", got, bank, RTOL16)
         if mode == "dma" and not torch.equal(got, ref):
             raise AssertionError(f"{what}: the copy must be exact")
         errs[mode] = max(errs[mode], err)
@@ -1664,13 +1775,21 @@ def phase_ablate():
                 T, A, K, mode), reps=LARGE_PLAIN_REPS),
             "bound": bound_ms(moved, bank_variant_ops(mode, Nl, Pl, Cl,
                                                       Coutl), "bfloat16"),
-            "max_abs_err": err}
-    log(f"phase 11 ablate: bfloat16 N,P,C,Cout={(Nl, Pl, Cl, Coutl)} (K4's "
-        f"row tiles) " + ", ".join(
+            "max_abs_err": err,
+            # dma's function is one strided copy, which PyTorch does alone.
+            "library_ms": time_ms(lambda: T.reshape(
+                Nl, Pl * Pl, Pl * Cl)[:, :, :Coutl].contiguous())
+            if mode == "dma" else None}
+    log(f"phase 11 ablate: bfloat16 N,P,C,Cout={(Nl, Pl, Cl, Coutl)} (the "
+        f"row-tiled block one a vertex; K4 a cluster of "
+        f"{k4_plan['cluster']}) " + ", ".join(
             f"{m} err {v['max_abs_err']:.3e}, {v['ms']:.4f} ms (plain "
             f"{v['plain_ms']:.4f}, bound {v['bound'][0]:.4f} by "
-            f"{v['bound'][1]})" for m, v in p64.items()) + "; full == K4 "
-        "exactly, dma exact ok")
+            f"{v['bound'][1]}"
+            + (f"; .contiguous() {v['library_ms']:.4f} ms"
+               if v["library_ms"] is not None else "") + ")"
+            for m, v in p64.items()) + "; full within "
+        "1e-2 of K4's cluster plan, dma exact ok")
     del T, A, K, bank
     torch.cuda.empty_cache()
 
@@ -1714,7 +1833,8 @@ def phase_ablate():
                               "dtype": "bfloat16", "ms": p64[mode]["ms"],
                               "plain_ms": p64[mode]["plain_ms"],
                               "bound_ms": p64[mode]["bound"][0],
-                              "bound_by": p64[mode]["bound"][1]}
+                              "bound_by": p64[mode]["bound"][1],
+                              "library_ms": p64[mode]["library_ms"]}
     return errs, tables, launches, extra
 
 
@@ -1754,11 +1874,13 @@ def phase_physics():
         size=GRAPHS_PER_REQUEST).tolist()
 
     counts, reset = level_counts, reset_level_counts
+    # The yardstick: the same weights through the plain level in float64.
+    model64 = SMP_omega_physics(**PHYSICS, seed=SEED, device="cuda").double()
 
     def plain(graphs):
         with torch.no_grad():
-            return model._forward(model.params, model._stack(graphs),
-                                  level_fn=risi18_level_reference)
+            return model64._forward(model64.params, model64._stack(graphs),
+                                    level_fn=risi18_level_reference)
 
     # Serving, counted: each request twice (prep uncached, then cached).
     reset()
@@ -1796,15 +1918,17 @@ def phase_physics():
         return [physics_graph(V, seed0 + i)
                 for i in range(GRAPHS_PER_REQUEST)]
 
-    batch = model._stack(batch_of(700), targets)
     params = model.param_dict()
 
-    def loss_and_grads(level_fn):
-        loss = model._loss(model.params, batch, level_fn=level_fn)
-        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+    def loss_and_grads(m, level_fn):
+        loss = m._loss(m.params, m._stack(batch_of(700), targets),
+                       level_fn=level_fn)
+        return loss.detach(), torch.autograd.grad(
+            loss, list(m.param_dict().values()))
 
-    k_loss, k_grads = loss_and_grads(None)
-    p_loss, p_grads = loss_and_grads(risi18_level_reference)
+    k_loss, k_grads = loss_and_grads(model, None)
+    p_loss, p_grads = loss_and_grads(model64, risi18_level_reference)
+    del model64
     grad_err = check_close("physics train loss", k_loss, p_loss)
     for path, x, r in zip(params, k_grads, p_grads):
         grad_err = max(grad_err, check_close(f"physics gradient {path}", x,
@@ -1838,10 +1962,11 @@ def phase_physics():
         + ", ".join(f"{x:.4f}" for x in seconds["cached"])
         + f"; predictions {np.concatenate(preds[:N_REQUESTS]).round(6).tolist()}"
         f" Predict={pred_small:.6f}; K1 launches={served[0]} (= {nL} levels x"
-        f" {forwards} forwards); max abs err vs plain level {serve_err:.3e} "
-        f"(bound {RTOL:g}*max(1,max|plain|)) ok")
+        f" {forwards} forwards); max abs err vs plain level in float64 "
+        f"{serve_err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
     log(f"phase 12 physics: first-step loss {float(k_loss):.6f} vs plain "
-        f"level {float(p_loss):.6f}; {len(params)} gradients; max abs err "
+        f"level in float64 {float(p_loss):.6f}; {len(params)} gradients; "
+        f"max abs err "
         f"{grad_err:.3e} ok; BatchLearn (loss_before, loss_after) "
         + ", ".join(f"({a:.6f}, {b:.6f})" for a, b in steps)
         + f"; Learn(nIterations=2) ({learn[0]:.6f}, {learn[1]:.6f}); all "
@@ -1864,8 +1989,8 @@ def phase_physics():
     with torch.no_grad():
         got = smp2d_level_features(tower, stacked, model.cfg, case_mask=mask)
         ref = smp2d_level_features(
-            tower, stacked, model.cfg, level_fn=functools.partial(
-                case_mask_level_reference, 18, mask))
+            float64_tree(tower), float64_tree(stacked), model.cfg,
+            level_fn=functools.partial(case_mask_level_reference, 18, mask))
     if counts() != (nL, 0, 0):
         raise AssertionError(f"masked tower launches {counts()}, expected "
                              f"K1 {nL}")
@@ -1874,7 +1999,7 @@ def phase_physics():
     k1 += nL
     log(f"phase 12 physics: smp2d_level_features with case_mask "
         f"{mask.int().tolist()} (widths {[x.shape[1] for x in got]}): K1 "
-        f"launches={nL}; max abs err vs the masked plain level "
+        f"launches={nL}; max abs err vs the masked plain level in float64 "
         f"{mask_err:.3e} ok")
     max_err = max(max_err, mask_err)
 
@@ -1905,7 +2030,7 @@ def phase_physics():
     if b_counts != (3 * nL, nL, nL):
         raise AssertionError(f"SMP_beta launches {b_counts}, expected K1 "
                              f"{3 * nL}, K2 {nL}")
-    beta2 = SMP_beta(**BETA, seed=SEED, device="cuda")
+    beta2 = SMP_beta(**BETA, seed=SEED, device="cuda").double()
     with torch.no_grad():
         ref, _ = smp2d_forward(beta2.params, beta2._stack(b_graphs),
                                beta2.cfg, level_fn=risi18_level_reference)
@@ -1922,7 +2047,7 @@ def phase_physics():
     log(f"phase 12 physics: SMP_beta V=P={beta.cfg.P} C=32 predictions "
         f"{b_pred.round(6).tolist()}, BatchLearn ({b_step[0]:.6f}, "
         f"{b_step[1]:.6f}); launches K1={b_counts[0]} K2={b_counts[1]}; max "
-        f"abs err vs plain level {b_err:.3e} ok")
+        f"abs err vs plain level in float64 {b_err:.3e} ok")
     return k1, k2, max(max_err, g_err, b_err)
 
 
@@ -2077,6 +2202,7 @@ def phase_bucketed():
     from graphflow_tpu_torch.models.smp2d import smp2d_forward
     from graphflow_tpu_torch.ops.losses import squared_loss
     from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
+    from graphflow_tpu_torch.utils.convert import unflatten
     from graphflow_tpu_torch.utils.datasets import random_graph
 
     nL = MODEL["nLevels"]
@@ -2089,14 +2215,20 @@ def phase_bucketed():
         raise AssertionError(f"buckets {sorted(batches)}, expected {BUCKETS}")
 
     params = model.param_dict()
+    # The yardstick: the same weights and batches through the plain level
+    # in float64.
+    params64 = {k: p.detach().double().requires_grad_()
+                for k, p in params.items()}
+    tree64 = unflatten(params64)
 
     def plain_loss_and_grads(batch):
-        pred, _ = smp2d_forward(model.params, batch, model.cfg,
+        batch = float64_tree(batch)
+        pred, _ = smp2d_forward(tree64, batch, model.cfg,
                                 level_fn=risi18_level_reference,
                                 training=True)
         loss = squared_loss(pred, batch["target"])
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return float(loss.detach()), dict(zip(params, grads))
+        grads = torch.autograd.grad(loss, list(params64.values()))
+        return float(loss.detach()), dict(zip(params64, grads))
 
     # One step per bucket through K1 and K2, held leaf by leaf against the
     # plain level on the same batch and weights; then each bucket's
@@ -2116,7 +2248,7 @@ def phase_bucketed():
                                        grads[path], p_grads[path]))
         with torch.no_grad():
             pred, _ = model._forward(model.params, batch)
-            plain, _ = smp2d_forward(model.params, batch, model.cfg,
+            plain, _ = smp2d_forward(tree64, float64_tree(batch), model.cfg,
                                      level_fn=risi18_level_reference)
         err = max(err, check_close(f"bucket V={b} predictions", pred, plain))
         by_bucket.update({id(g): float(p) for g, p in zip(gs, pred)})
@@ -2150,7 +2282,7 @@ def phase_bucketed():
         f"kernel 2) " + ", ".join(f"V={b}: {c}" for b, c in
                                   per_bucket.items())
         + f"; loss, {len(params)} gradients and predictions vs plain level "
-        f"in each bucket, predictions vs V=64 padding: max abs err "
+        f"in float64 in each bucket, predictions vs V=64 padding: max abs err "
         f"{err:.3e} (bound {RTOL:g}*max(1,max|plain|)) ok")
     log(f"phase 14 bucketed: fit_bucketed {BUCKET_EPOCHS} epochs, Adam lr "
         f"{TRAIN_LR:g}: summed loss {before:.6f} -> {after:.6f} (last epoch "
@@ -2552,7 +2684,8 @@ def phase_large_field():
         fused_level, risi18_bank_level, risi18_bank_level_reference,
         smp2d_forward)
     from graphflow_tpu_torch.ops.losses import squared_loss
-    from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
+    from graphflow_tpu_torch.ops.risi_bank import (bank_backward_plan,
+                                                   bank_plan, risi18_bank,
                                                    risi18_bank_backward)
     from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
     from graphflow_tpu_torch.utils.datasets import random_graph
@@ -2604,6 +2737,21 @@ def phase_large_field():
         if not np.isfinite(step).all() or pred.shape != (len(graphs),):
             raise AssertionError(f"{label}: request {pred.shape}, step "
                                  f"{step}")
+        plans = ""
+        if bank:
+            # The levels' plans for the batch's vertices: cluster plans.
+            sched = [model.cfg.channels_at(l) for l in range(nL + 1)]
+            n = len(graphs) * V
+            levels = [(bank_plan(n, V, c, co, model.dtype),
+                       bank_backward_plan(n, V, c, co, model.dtype))
+                      for c, co in zip(sched, sched[1:])]
+            if not all(p["cluster"] >= 1 for pair in levels for p in pair):
+                raise AssertionError(f"{label}: plans {levels}, expected "
+                                     f"cluster plans for K4 and K5 kernel 1")
+            plans = "; K4, K5 kernel 1 clusters per level " + ", ".join(
+                f"{c}->{co}: {f['cluster']} x {f['tiles_per_block']}, "
+                f"{b['cluster']} x {b['tiles_per_block']} tiles"
+                for (c, co), (f, b) in zip(zip(sched, sched[1:]), levels))
         # The checks: the untrained copy through the plain level; errors
         # as a share of each check's scale.
         batch = fresh._stack(graphs, tgts)
@@ -2676,7 +2824,8 @@ def phase_large_field():
         log(f"phase 18 large field: {label} V=P={V} C={BETA64['nChanels']} "
             f"predictions {np.round(pred, 4).tolist()}, BatchLearn "
             f"({step[0]:.6f}, {step[1]:.6f}); launches {got} (= {nL} levels "
-            f"x 3 forwards, 1 backward); request {1e3 * req_s:.1f} ms, step "
+            f"x 3 forwards, 1 backward{plans}); request {1e3 * req_s:.1f} "
+            f"ms, step "
             f"(prep uncached) {1e3 * step_s:.1f} ms (host clock, synced); "
             f"peak device memory of the request and step {peak:.1f} MB above "
             f"{base / 1e6:.1f} MB held; max err vs plain (request, first "
@@ -2929,8 +3078,9 @@ def phase_pairs():
     launches = count("SMP_beta_pairgraphs", served, trained,
                      2 * GRAPHS_PER_REQUEST, NEW_PHASE_STEPS)
     sched, P = beta.cfg1.channel_schedule, beta.cfg1.P
-    plans = {f"{c}->{co}": (level_plan(P, c, co)["tiled"],
-                            level_backward_plan(P, c, co)["tiled"])
+    N = GRAPHS_PER_REQUEST * P   # (the tiling does not depend on N)
+    plans = {f"{c}->{co}": (level_plan(N, P, c, co)["tiled"],
+                            level_backward_plan(N, P, c, co)["tiled"])
              for c, co in zip(sched, sched[1:])}
     log(f"phase 19 pairs: SMP_beta_pairgraphs V1={V1} V2={V2} P={P} towers "
         f"{sched}, row-tiled (K1, K2 kernel 1) per level {plans} "
@@ -3969,6 +4119,8 @@ def main() -> None:
                          bank_ms[b16]["bound"]),
                launches_p64=large["k4"], max_rel_err_p64=large["bank_err"],
                p64=p64(bank_ms, "k4", "plain"),
+               tiled_plan={d: bank_ms[d]["p64"]["plans"][0]
+                           for d in (f32, b16)},
                launches_parallel=spread["K4"],
                max_rel_err_parallel=par["rel"],
                partition=partition("k4"),
@@ -3985,6 +4137,8 @@ def main() -> None:
                launches_p64=large["k5"][0],
                max_rel_err_p64=large["bank_err"],
                p64=p64(bank_ms, "main", "plain_bwd", "bwd_bound"),
+               tiled_plan={d: bank_ms[d]["p64"]["plans"][1]
+                           for d in (f32, b16)},
                launches_parallel=spread["K5"],
                max_rel_err_parallel=par["rel"],
                partition=partition("k5")),

@@ -6,9 +6,10 @@
 // takes G from the cotangent through LeakyReLU', sums db and scatters dT
 // into dstate with atomics; K5 streams them from T, takes G as the
 // cotangent itself and writes dT, which each vertex owns, once per element.
-// backward_block_tiled (K5) and backward_block_cluster (K2) are the same
-// function for a field whose G and maps do not fit one block, in row tiles:
-// one block a vertex group, or a vertex's tiles spread over a cluster.
+// backward_block_cluster (K2, K5) and backward_block_tiled (where a
+// cluster plan would be one block on the CUDA cores) are the same function
+// for a field whose G and maps do not fit one block, in row tiles: a
+// vertex's tiles spread over a cluster, or one block a vertex group.
 
 #pragma once
 
@@ -42,6 +43,11 @@ __device__ inline void store4(__nv_bfloat16* p, const float4& v) {
 constexpr int kGroups = 132;     // vertex groups: partial rows of dK (and db)
 constexpr int kSlabs = 10;       // dK's map cases, cases 1 and 7 apart
 
+// Number of vertex groups (partial rows) for N vertices.
+inline int vertex_groups(int N) {
+  return N < kGroups ? (N > 0 ? N : 0) : kGroups;
+}
+
 // A backward block's shared memory, offsets in 4-byte words.
 struct BackwardPlan {
   StreamPlan sp;
@@ -55,8 +61,9 @@ struct BackwardPlan {
   int ALD;     // P + 1
   int tiled;   // 1: a vertex is walked in row tiles of sp.rows rows
                // (backward_block_tiled, backward_block_cluster)
-  int cluster; // blocks a cluster of the cluster plan (K2's row tiles,
-               // backward_block_cluster), 0 for one block a vertex group
+  int cluster; // blocks a cluster of the cluster plan (K2's and K5's row
+               // tiles, backward_block_cluster), 0 for one block a vertex
+               // group
   int tiles_per_block;  // the row tiles one block of the cluster takes
   int ring;    // -1: the ring lies in the stream area; else its offset
                // over G and GAp (a cluster plan whose ring holds several
@@ -72,21 +79,24 @@ struct BackwardPlan {
 // the vertex's neighbour ids, positions, listed slots and db's sums; else
 // (K5) they take no room.
 // `rows`: the rows of a row tile (a tiled plan), 0 for none.  `cluster`:
-// a row-tiled plan for backward_block_cluster (K2), whose dK map cases run
-// on the tensor cores where the plan allows; else backward_block_tiled's
-// (K5), on the CUDA cores.
+// a row-tiled plan for backward_block_cluster (K2, K5), whose dK map cases
+// run on the tensor cores where the plan allows, its cluster sized for N
+// vertices (cluster_shape: the grid is vertex groups x chunks x
+// panels); else backward_block_tiled's, on the CUDA cores.
 inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
                                        int Co, int es, int aligned, bool wide,
                                        bool gather, int rows = 0, int G = 1,
-                                       bool cluster = false) {
+                                       bool cluster = false, int N = 0) {
   BackwardPlan L;
   if (rows > 0 && cluster) rows = balanced_rows(P, rows);
   L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
   L.Cout = Cout; L.Co = Co; L.ALD = P + 1; L.wide_g = 0;
   L.tiled = rows > 0;
   const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
-  L.cluster = L.tiled && cluster ? cluster_blocks(tiles) : 0;
-  L.tiles_per_block = L.cluster ? tiles_a_block(tiles) : 1;
+  const ClusterShape cs = cluster_shape(
+      tiles, vertex_groups(N) * ((C + Cc - 1) / Cc) * ((Cout + Co - 1) / Co));
+  L.cluster = L.tiled && cluster ? cs.blocks : 0;
+  L.tiles_per_block = L.cluster ? cs.per : 1;
   // The tensor cores take chunks of 8 or 16 channels, 16-row tiles of the
   // maps, a warp a tile, and the panel's outputs eight at a time; dK's map
   // cases of a cluster plan's row tile take its rows eight at a time.
@@ -140,14 +150,19 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
 // the most pieces a ring buffer and the deepest ring.  words == 0 if none
 // fits.  Without `gather` (K5) the
 // panel is all of Cout: a chunk's dT needs every output's cotangents, and
-// it is written once, without atomics.  With `cluster` (K2) the row-tiled
-// plan is a cluster plan (backward_block_cluster), one whose tiles keep
-// their cells in registers (tile_regs) first, and the rows of G, GAp and K
-// eight words further apart than the panel before four where its dK runs
-// on the tensor cores; every plan that fits without it fits with it.
+// it is written once, without atomics.  With `cluster` (K2, K5) the
+// row-tiled plan is a cluster plan (backward_block_cluster) for N vertices,
+// one whose tiles keep their cells in registers (tile_regs) first, and the
+// rows of G, GAp and K eight words further apart than the panel before four
+// where its dK runs on the tensor cores; every plan that fits without it
+// fits with it.  A cluster plan of one block with dK on the CUDA cores has
+// nothing over the row-tiled block of one block a vertex group but the
+// cluster's meetings, and measured slower on an H100 at P = 40 (K2 kernel 1
+// by 1.5-4 %, K5 kernel 1 by 12-17 %: PERF.md); there the row-tiled plan
+// is taken instead.
 inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
                                          int aligned, bool gather,
-                                         bool cluster = false) {
+                                         bool cluster = false, int N = 0) {
   // Every dK tile (slab, four channels, eight outputs) needs a thread.
   auto dk_tiles_fit = [](const BackwardPlan& L, int Co) {
     return kSlabs * (L.sp.ncp / 4) * ((Co + 7) / 8) <= kThreads;
@@ -168,33 +183,40 @@ inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
     }
     if (Co <= 4 || !gather) break;
   }
-  for (int regs = cluster ? 1 : 0; regs >= 0; --regs) {
-    for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
-      for (int k = -1; k < 6; ++k) {
-        const int rows = k < 0 ? P : kTileRows[k];
-        if (rows > P || (k >= 0 && rows == P)) continue;
-        for (int Cc : {kMaxChunk, 8, 4}) {
-          Cc = Cc < C ? Cc : C;
-          for (int G = kThreads / 32; G >= 1; G /= 2) {
-            for (int D = 4; D >= 2; --D) {
-              for (bool wide : {true, false}) {
-                if (wide && !cluster) continue;
-                const BackwardPlan L =
-                    make_backward_plan(P, C, Cout, Cc, D, Co, es, aligned,
-                                       wide, gather, rows, G, cluster);
-                if ((!regs || tile_regs(L.sp)) && dk_tiles_fit(L, Co) &&
-                    sizeof(float) * (size_t)L.words <= risi18::kMaxSmemBytes)
-                  return L;
+  auto tiled = [&](bool clustered) {
+    for (int regs = clustered ? 1 : 0; regs >= 0; --regs) {
+      for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
+        for (int k = -1; k < 6; ++k) {
+          const int rows = k < 0 ? P : kTileRows[k];
+          if (rows > P || (k >= 0 && rows == P)) continue;
+          for (int Cc : {kMaxChunk, 8, 4}) {
+            Cc = Cc < C ? Cc : C;
+            for (int G = kThreads / 32; G >= 1; G /= 2) {
+              for (int D = 4; D >= 2; --D) {
+                for (bool wide : {true, false}) {
+                  if (wide && !clustered) continue;
+                  const BackwardPlan L = make_backward_plan(
+                      P, C, Cout, Cc, D, Co, es, aligned, wide, gather, rows,
+                      G, clustered, N);
+                  if ((!regs || tile_regs(L.sp)) && dk_tiles_fit(L, Co) &&
+                      sizeof(float) * (size_t)L.words <=
+                          risi18::kMaxSmemBytes)
+                    return L;
+                }
               }
             }
           }
         }
+        if (Co <= 4 || !gather) break;
       }
-      if (Co <= 4 || !gather) break;
     }
-  }
-  BackwardPlan none{};
-  return none;
+    BackwardPlan none{};
+    return none;
+  };
+  const BackwardPlan L = tiled(cluster);
+  if (!cluster || (L.words && (L.cluster > 1 || L.mma))) return L;
+  const BackwardPlan one = tiled(false);
+  return one.words ? one : L;
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
@@ -205,11 +227,6 @@ inline long long min_backward_smem_bytes(int P, int Cout, bool gather) {
   return (long long)sizeof(float) *
          make_backward_plan(P, 1, Cout, 1, 2, Co, (int)sizeof(float), 16,
                             false, gather, 1).words;
-}
-
-// Number of vertex groups (partial rows) for N vertices.
-inline int vertex_groups(int N) {
-  return N < kGroups ? (N > 0 ? N : 0) : kGroups;
 }
 
 // dK's map slabs: the map, whether it meets GAp (else G), its per-vertex
@@ -909,11 +926,12 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
   return acc.x + acc.y + acc.z + acc.w;
 }
 
-// The bank's backward_block (K5 kernel 1: slots stored in T, G the
-// cotangent itself, dT written) on a row-tiled plan (L.tiled): a field
-// whose maps and G do not fit one block (from P = 33 at Cout = 32).  Per
-// vertex:
-//   0. GA over every row of G, read from g;
+// backward_block on a row-tiled plan of one block a vertex group
+// (L.tiled, L.cluster == 0): a field whose maps and G do not fit one block
+// (from P = 33 at Cout = 32), where a cluster plan would be one block on
+// the CUDA cores (choose_backward_plan), which measured slower than this
+// block.  Per vertex:
+//   0. GA and db's sums over every row of geff, read from g (and out);
 //   1. per row tile X (rows [x0, x0 + nx)): G, GAp and GR of its rows; its
 //      maps (tile_reductions); dK's map and vector cases of its rows, added
 //      to the block's sums; its part of the four scalars, added in tile
@@ -931,27 +949,38 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
 //      the slab transposed.  So the block takes the row tiles Xb in turn,
 //      forms the B maps of its rows, then, for each tile Xa, the A maps of
 //      rows Xa at the columns Xb (GAp of those entries only), and writes
-//      dT[Xa, Xb, :] whole, each element once, in a fixed order, with no
-//      atomics and no partial sum in device memory (one rounding of a
-//      bfloat16 dT).  Each tile pair reloads G of rows Xa (from L2).
+//      dT[Xa, Xb, :] whole: K5 stores each element of its dT once, in a
+//      fixed order, with no atomics and no partial sum in device memory
+//      (one rounding of a bfloat16 dT); K2 scatters it with atomics, as it
+//      does untiled.  Each tile pair reloads G of rows Xa (from L2).
 // The products run on the CUDA cores; every other sum as untiled.
-template <typename E>
+template <typename E, bool kGather>
 __device__ __forceinline__ void backward_block_tiled(
-    const E* __restrict__ in, const float* __restrict__ radj,
-    const E* __restrict__ K, const E* __restrict__ gout, E* __restrict__ dst,
-    float* __restrict__ partial, int N, const BackwardPlan& L) {
+    const E* __restrict__ in, const int* __restrict__ nbr,
+    const int* __restrict__ pos, const float* __restrict__ radj,
+    const E* __restrict__ K, const E* __restrict__ gout,
+    const E* __restrict__ out,
+    std::conditional_t<kGather, float, E>* __restrict__ dst,
+    float* __restrict__ partial, int N, const BackwardPlan& L,
+    float negslope) {
   extern __shared__ __align__(16) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
   const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int c0 = blockIdx.x * sp.Cc, nc = min(sp.Cc, C - c0);
+  auto group = [] { return kGather ? blockIdx.x : blockIdx.y; };
+  auto groups = [] { return kGather ? gridDim.x : gridDim.y; };
+  auto chunk = [] { return kGather ? blockIdx.y : blockIdx.x; };
+  const int c0 = chunk() * sp.Cc, nc = min(sp.Cc, C - c0);
   const int o0 = blockIdx.z * L.Co, no = min(L.Co, Cout - o0);
   const int n4 = round_up(no, 4) / 4;     // groups of four outputs
   const int tiles = (P + X - 1) / X, quads = ncp / 4;
 
   float* Ap = smem + L.ap;
   float* R = smem + L.r;
+  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
+  int* spos = reinterpret_cast<int*>(smem + L.ipos);
+  int* slots = reinterpret_cast<int*>(smem + L.islots);
   float* G = smem + L.g;
   float* GAp = smem + L.gap;
   float* GR = smem + L.gr;
@@ -959,6 +988,7 @@ __device__ __forceinline__ void backward_block_tiled(
   const StreamBuffers s = stream_buffers(smem + L.stream, sp);
   float* Ks = smem + L.ks;
   float* dKv = smem + L.dkv;
+  float* dbs = smem + L.dbs;
   float* red = smem + L.red;
   float* sacc = smem + L.sacc;
   float* part = smem + L.part;
@@ -990,35 +1020,58 @@ __device__ __forceinline__ void backward_block_tiled(
   for (int i = 0; i < 4; ++i)
     dk[i][0] = dk[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 && L.wide_g;
+  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 && (kGather ||
+                                                            L.wide_g);
   const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
   const size_t vT = (size_t)PP * P * C;
 
-  for (size_t v = blockIdx.y; v < (size_t)N; v += gridDim.y) {
+  for (size_t v = group(); v < (size_t)N; v += groups()) {
     const E* gv = gout + v * PP * Cout + o0;
+    const E* ov = kGather ? out + v * PP * Cout + o0 : nullptr;
     // (The barrier that ended the previous vertex ordered its reads of the
     // structure before these writes.)
-    risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+    if constexpr (kGather) {
+      risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R,
+                          smem + L.scal, snbr, spos);
+    } else {
+      risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+    }
     const float S = smem[L.scal], trA = smem[L.scal + 1];
-    const StoredSlots<E> src{in + v * vT};
+    if constexpr (kGather) list_slots(snbr, spos, P, slots);
+    const auto src = [&] {
+      if constexpr (kGather)
+        return GatheredSlots<E>{in, snbr, spos, slots};
+      else
+        return StoredSlots<E>{in + v * vT};
+    }();
 
-    // 0. GA = sum_{x,y} Ap[x,y] G[x,y,:], item (output, part of the rows),
-    //    the parts added in order.
+    // 0. GA = sum_{x,y} Ap[x,y] G[x,y,:] and db's sums, item (output,
+    //    part of the rows), the parts added in order.
     {
       const int gparts = nth / no;
       if (tid < gparts * no) {
         const int o = tid % no, p = tid / no;
-        float ga = 0.f;
-        for (int r = p; r < PP; r += gparts)
-          ga += Ap[(r / P) * ALD + r % P]
-                * risi18::to_float(gv[(size_t)r * Cout + o]);
+        float ga = 0.f, gs = 0.f;
+        for (int r = p; r < PP; r += gparts) {
+          float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
+          if constexpr (kGather)
+            if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
+              gi *= negslope;
+          ga += Ap[(r / P) * ALD + r % P] * gi;
+          gs += gi;
+        }
         part[tid] = ga;
+        part[nth + tid] = gs;
       }
       __syncthreads();
       for (int o = tid; o < no; o += nth) {
-        float ga = 0.f;
-        for (int p = 0; p < gparts; ++p) ga += part[p * no + o];
+        float ga = 0.f, gs = 0.f;
+        for (int p = 0; p < gparts; ++p) {
+          ga += part[p * no + o];
+          gs += part[nth + p * no + o];
+        }
         GA[o] = ga;
+        if constexpr (kGather) dbs[o] += gs;   // (written by chunk 0's blocks)
       }
       for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
     }
@@ -1027,8 +1080,8 @@ __device__ __forceinline__ void backward_block_tiled(
     // with a barrier.
     auto tile_g = [&](int x0, int nx) {
       __syncthreads();                    // G's and GAp's readers are done
-      load_geff_rows<E, false>(gv, nullptr, x0 * P, nx * P, G, GLD, no,
-                               Cout, wide_g, 0.f);
+      load_geff_rows<E, kGather>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
+                                 wide_g, negslope);
       __syncthreads();
       for (int item = tid; item < nx * P * n4; item += nth) {
         const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
@@ -1141,8 +1194,8 @@ __device__ __forceinline__ void backward_block_tiled(
         // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
         // al*X + bl.
         __syncthreads();                  // G's readers are done
-        load_geff_rows<E, false>(gv, nullptr, xa0 * P, nxa * P, G, GLD, no,
-                                 Cout, wide_g, 0.f);
+        load_geff_rows<E, kGather>(gv, ov, xa0 * P, nxa * P, G, GLD, no,
+                                   Cout, wide_g, negslope);
         __syncthreads();
         for (int item = tid; item < nxa * nxb * n4; item += nth) {
           const int og = item % n4, ab = item / n4, bl = ab % nxb;
@@ -1202,14 +1255,27 @@ __device__ __forceinline__ void backward_block_tiled(
           fma4(val, R[a], load4(m10 + Bbc));
           if (c == b) fma4(val, 1.f, load4(dbc + A));
           if (c == a) fma4(val, 1.f, load4(dacT + Bba));
-          E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
-                  + 4 * q;
-          if (vec_scatter) {
-            store4(at, val);
-          } else {
+          if constexpr (kGather) {
+            const int n = snbr[a], p1 = spos[a * P + b], p2 = spos[a * P + c];
+            if ((n | p1 | p2) < 0) continue;
+            float* at = dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
+            if (vec_scatter) {
+              atomicAdd(reinterpret_cast<float4*>(at), val);
+            } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
+              for (int i = 0; i < 4; ++i)
+                if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
+            }
+          } else {
+            E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
+                    + 4 * q;
+            if (vec_scatter) {
+              store4(at, val);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
+            }
           }
         }
       }
@@ -1242,7 +1308,7 @@ __device__ __forceinline__ void backward_block_tiled(
     }
   }
   const size_t nK = (size_t)kCases * C * Cout;
-  float* part_row = partial + blockIdx.y * nK;
+  float* part_row = partial + group() * (nK + (kGather ? Cout : 0));
   for (int i = tid; i < kSlabs * nc * no; i += nth) {
     const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
     part_row[(size_t)(kSlabCase[j] * C + c0 + f) * Cout + o0 + o] =
@@ -1253,6 +1319,8 @@ __device__ __forceinline__ void backward_block_tiled(
     part_row[(size_t)(kVectorCase[j] * C + c0 + f) * Cout + o0 + o] =
         dKv[(j * ncp + f) * GLD + o];
   }
+  if (kGather && chunk() == 0)
+    for (int o = tid; o < no; o += nth) part_row[nK + o0 + o] = dbs[o];
 }
 
 // For n items of four outputs each, out = sum over y < P of terms
@@ -1283,13 +1351,16 @@ __device__ __forceinline__ void split_sums(int n, int P, Add add,
   }
 }
 
-// K2 kernel 1 on a cluster plan (L.cluster > 0; fields from P = 33 at
-// Cout = 32): the row tiles of each vertex spread over a cluster of
-// L.cluster blocks (grid (vertex groups * L.cluster, chunks, panels),
-// cluster (L.cluster, 1, 1)), block `rank` taking the tiles rank, rank +
-// cluster, ...; the cluster walks the vertices of its group.  Per vertex:
-//   0. this block's part of GA = sum_{x,y} Ap[x,y] G[x,y,:] and of db's
-//      sums, over its tiles' rows of geff; the cluster meets, and every
+// K2 kernel 1 (kGather: slots gathered from the state, G = geff through
+// LeakyReLU', db, dT scattered into dstate) and K5 kernel 1 (slots stored
+// in T, G = g itself, dT written) on a cluster plan (L.cluster > 0; fields
+// from P = 33 at Cout = 32): the row tiles of each vertex spread over a
+// cluster of L.cluster blocks (grid (vertex groups * L.cluster, chunks,
+// panels), cluster (L.cluster, 1, 1)), block `rank` taking the tiles rank,
+// rank + cluster, ...; the cluster walks the vertices of its group.  Per
+// vertex:
+//   0. this block's part of GA = sum_{x,y} Ap[x,y] G[x,y,:] (and of db's
+//      sums), over its tiles' rows of G; the cluster meets, and every
 //      block adds the parts from distributed shared memory in rank order
 //      (a second meeting keeps each part alive until all have read it);
 //   1. per own tile X: its maps (tile_reductions, a warp copying the row
@@ -1302,18 +1373,23 @@ __device__ __forceinline__ void split_sums(int n, int P, Add add,
 //   2. the scalars' cotangents (GA against K's slabs 5, 14, 15, 18) and dT
 //      for the rows b of its own tiles, tile pair by tile pair as
 //      backward_block_tiled forms it (the sums of G against Ap and R
-//      spread over lanes: split_sums), scattered with float32 atomics.
-// When the cluster has walked its vertices, the blocks' dK rows and db
+//      spread over lanes: split_sums): K2 scatters it with float32 atomics;
+//      K5 writes dT[v, a, b, :] for every a and the rows b of its tiles,
+//      so every element of dT has one writer, the block that owns row b's
+//      tile, and is written once, rounded to E once.
+// When the cluster has walked its vertices, the blocks' dK rows (and db)
 // are added in distributed shared memory in rank order, each block
 // writing a share of the group's one partial row: kernel 2 sums as many
 // rows as without clusters (vertex_groups).  dK and db have no atomics and
-// a fixed order of sums; dstate's atomics are float32, as untiled.
-template <typename E, bool kMma>
+// a fixed order of sums, so K5's dT and dK repeat bit for bit; K2's
+// dstate's atomics are float32, as untiled.
+template <typename E, bool kMma, bool kGather>
 __device__ __forceinline__ void backward_block_cluster(
     const E* __restrict__ in, const int* __restrict__ nbr,
     const int* __restrict__ pos, const float* __restrict__ radj,
     const E* __restrict__ K, const E* __restrict__ gout,
-    const E* __restrict__ out, float* __restrict__ dst,
+    const E* __restrict__ out,
+    std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
     float negslope) {
   namespace cg = cooperative_groups;
@@ -1387,22 +1463,36 @@ __device__ __forceinline__ void backward_block_cluster(
 #pragma unroll
     for (int i = 0; i < 4; ++i) dkm[nt][i] = 0.f;
 
-  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0;
+  // Four channels of one element in one access (a float4 atomic in K2, a
+  // store of four in K5).
+  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 &&
+                           (kGather || L.wide_g);
   const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
+  const size_t vT = (size_t)PP * P * C;      // elements of one vertex's T
   STAGE(0);   // set-up and K's staging
 
   for (size_t v = group; v < (size_t)N; v += groups) {
     const E* gv = gout + v * PP * Cout + o0;
-    const E* ov = out + v * PP * Cout + o0;
+    const E* ov = kGather ? out + v * PP * Cout + o0 : nullptr;
     // (The barrier that ended the previous vertex ordered its reads of the
     // structure before these writes.)
-    risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal,
-                        snbr, spos);
+    if constexpr (kGather) {
+      risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R,
+                          smem + L.scal, snbr, spos);
+      list_slots(snbr, spos, P, slots);
+    } else {
+      risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+    }
     const float S = smem[L.scal], trA = smem[L.scal + 1];
-    list_slots(snbr, spos, P, slots);
-    const GatheredSlots<E> src{in, snbr, spos, slots};
+    const auto src = [&] {
+      if constexpr (kGather)
+        return GatheredSlots<E>{in, snbr, spos, slots};
+      else
+        return StoredSlots<E>{in + v * vT};
+    }();
+    using Src = std::remove_const_t<decltype(src)>;
 
-    // 0. This block's part of GA and of db's sums, item (output, part of
+    // 0. This block's part of GA (and of db's sums), item (output, part of
     //    its rows), the parts added in order; GA's part goes to G's first
     //    row, which the cluster reads before any block writes G again.
     {
@@ -1414,24 +1504,25 @@ __device__ __forceinline__ void backward_block_cluster(
           const int r1 = min(P, (t + 1) * X) * P;
           for (int r = t * X * P + p; r < r1; r += gparts) {
             float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
-            if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
-              gi *= negslope;
+            if constexpr (kGather)
+              if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
+                gi *= negslope;
             ga += Ap[(r / P) * ALD + r % P] * gi;
             gs += gi;
           }
         }
         part[tid] = ga;
-        part[nth + tid] = gs;
+        if constexpr (kGather) part[nth + tid] = gs;
       }
       __syncthreads();
       for (int o = tid; o < no; o += nth) {
         float ga = 0.f, gs = 0.f;
         for (int p = 0; p < gparts; ++p) {
           ga += part[p * no + o];
-          gs += part[nth + p * no + o];
+          if constexpr (kGather) gs += part[nth + p * no + o];
         }
         G[o] = ga;
-        dbs[o] += gs;          // (written by chunk 0's blocks)
+        if constexpr (kGather) dbs[o] += gs;   // (written by chunk 0's)
       }
       for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
     }
@@ -1448,8 +1539,8 @@ __device__ __forceinline__ void backward_block_cluster(
     // with a barrier.
     auto tile_g = [&](int x0, int nx) {
       __syncthreads();                    // G's and GAp's readers are done
-      load_geff_rows<E, true>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
-                              wide_g, negslope);
+      load_geff_rows<E, kGather>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
+                                 wide_g, negslope);
       __syncthreads();
       for (int item = tid; item < nx * P * n4; item += nth) {
         const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
@@ -1479,8 +1570,8 @@ __device__ __forceinline__ void backward_block_cluster(
       // a cell that no copy writes (the last tile's barrier ordered G's
       // readers before).
       if (L.ring >= 0) zero_words(smem + L.ring, ring_words(sp));
-      tile_reductions<true, true, false, GatheredSlots<E>, true>(
-          src, R, sp, s, t, nx, c0, nc);
+      tile_reductions<true, true, false, Src, true>(src, R, sp, s, t, nx,
+                                                    c0, nc);
       tile_g(x0, nx);
       STAGE(2);   // the tile's stream and G of its rows
       // This tile's part of Tfull, s14, s15 and t18.
@@ -1592,8 +1683,8 @@ __device__ __forceinline__ void backward_block_cluster(
         // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
         // al*X + bl.
         __syncthreads();                  // G's readers are done
-        load_geff_rows<E, true>(gv, ov, xa0 * P, nxa * P, G, GLD, no, Cout,
-                                wide_g, negslope);
+        load_geff_rows<E, kGather>(gv, ov, xa0 * P, nxa * P, G, GLD, no,
+                                   Cout, wide_g, negslope);
         __syncthreads();
         STAGE(6);   // G of the rows a
         split_sums<4>(nxa * nxb * n4, P,
@@ -1639,15 +1730,18 @@ __device__ __forceinline__ void backward_block_cluster(
         }
         __syncthreads();
         STAGE(8);   // the A maps
-        // dT[a, b, c] for a in Xa, b in Xb, item (a, b, c, four channels),
-        // scattered into dstate.
+        // dT[a, b, c] for a in Xa, b in Xb, item (a, b, c, four channels):
+        // K2 scatters it into dstate, K5 writes it into dT[v].
         for (int item = tid; item < nxa * nxb * P * quads; item += nth) {
           const int q = item % quads, rest = item / quads, c = rest % P;
           const int ab = rest / P, bl = ab % nxb, al = ab / nxb;
           const int a = xa0 + al, b = xb0 + bl;
           if (4 * q >= nc) continue;
-          const int n = snbr[a], p1 = spos[a * P + b], p2 = spos[a * P + c];
-          if ((n | p1 | p2) < 0) continue;
+          int n = 0, p1 = 0, p2 = 0;
+          if constexpr (kGather) {
+            n = snbr[a]; p1 = spos[a * P + b]; p2 = spos[a * P + c];
+            if ((n | p1 | p2) < 0) continue;
+          }
           const int A = (al * X + bl) * ncp + 4 * q;
           const int Bba = (bl * P + a) * ncp + 4 * q;
           const int Bbc = (bl * P + c) * ncp + 4 * q;
@@ -1659,16 +1753,29 @@ __device__ __forceinline__ void backward_block_cluster(
           fma4(val, R[a], load4(m10 + Bbc));
           if (c == b) fma4(val, 1.f, load4(dbc + A));
           if (c == a) fma4(val, 1.f, load4(dacT + Bba));
-          float* at = dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
-          if (vec_scatter) {
-            atomicAdd(reinterpret_cast<float4*>(at), val);
-          } else {
+          if constexpr (kGather) {
+            float* at =
+                dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
+            if (vec_scatter) {
+              atomicAdd(reinterpret_cast<float4*>(at), val);
+            } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
+              for (int i = 0; i < 4; ++i)
+                if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
+            }
+          } else {
+            E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
+                    + 4 * q;
+            if (vec_scatter) {
+              store4(at, val);
+            } else {
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
+            }
           }
         }
-        STAGE(9);   // the scatter
+        STAGE(9);   // the scatter (K2) or dT (K5)
       }
     }
     __syncthreads();
@@ -1722,9 +1829,9 @@ __device__ __forceinline__ void backward_block_cluster(
   // rank * nth + tid, + CL * nth, ...
   cluster.sync();
   const size_t nK = (size_t)kCases * C * Cout;
-  float* part_row = partial + group * (nK + Cout);
+  float* part_row = partial + group * (nK + (kGather ? Cout : 0));
   const int nm = kSlabs * nc * no, nv = 8 * nc * no;
-  const int total = nm + nv + (blockIdx.y == 0 ? no : 0);
+  const int total = nm + nv + (kGather && blockIdx.y == 0 ? no : 0);
   for (int i = rank * nth + tid; i < total; i += CL * nth) {
     const float* from;
     size_t to;

@@ -24,9 +24,20 @@
 //      is a multiple of 16, else in register tiles on the CUDA cores; W, U
 //      and s accumulate over the chunks, and the adjacency is applied once
 //      per vertex, in the epilogue.
-// A field whose maps do not fit one block takes K1's row-tiled block
-// (forward_block_tiled, risi18_level.cu), streaming T's rows a piece at a
-// time.  Z is rounded to T's type once.  T is already zero where a slot or
+// A field whose maps do not fit one block (from P = 36 at Cout = 32: the
+// bank route of SMP_beta, the partitioned level) takes K1's cluster plan
+// (forward_block_cluster, risi18_level.cu): a vertex's row tiles over a
+// thread-block cluster, sized for N by the rule K1, K2, K4 and K5 share
+// (cluster_shape), each tile streaming the rows of the tile of every slot and
+// the whole slots in the tile from T, a warp copying the row it reduces
+// (StoredSlots::issue_row), so the tiles together read T about twice; the
+// scalar cases meet through distributed shared memory, and a tile's
+// pre-activations wait for them in float32 in `pre` (Z itself in float32,
+// a scratch in bfloat16).  A cluster plan only shrinks a block, so every
+// field the row-tiled block of one block a vertex (forward_block_tiled,
+// which streams T about three times, products on the CUDA cores) served
+// has one; the ablation variants keep that block.  Z is rounded to T's
+// type once.  T is already zero where a slot or
 // a position is absent, so nothing is listed or zero-filled: every slot is
 // streamed, and an empty vertex gives Z = 0.  The ablation variants
 // (risi18_bank_ablate.cu) instantiate the same block with a part left out.
@@ -68,26 +79,39 @@ risi18_bank_kernel(const E* __restrict__ T, const float* __restrict__ A,
                                                nullptr, Z, N, L, 0.f);
 }
 
-// The bank on a row-tiled plan (fields from 36 rows at Cout = 32).
-template <typename E>
+// The bank on a cluster plan (fields from 36 rows at Cout = 32): a
+// vertex's row tiles over a cluster of blocks (forward_block_cluster).
+template <typename E, bool kMma>
 __global__ void __launch_bounds__(kThreads, 1)
-risi18_bank_tiled_kernel(const E* __restrict__ T, const float* __restrict__ A,
-                         const E* __restrict__ K, E* __restrict__ Z, int N,
-                         ForwardPlan L) {
-  lv::forward_block_tiled<E, lv::kBank>(T, A, K, Z, L);
+risi18_bank_cluster_kernel(const E* __restrict__ T,
+                           const float* __restrict__ A,
+                           const E* __restrict__ K, E* __restrict__ Z,
+                           float* __restrict__ pre, int N, ForwardPlan L) {
+  lv::forward_block_cluster<E, kMma, lv::kBank>(T, nullptr, nullptr, A, K,
+                                                nullptr, Z, pre, N, L, 0.f);
 }
 
 template <typename E>
-int launch(const void* T, const void* A, const void* K, void* Z, int N,
-           int P, int C, int Cout, void* stream) {
+int launch(const void* T, const void* A, const void* K, void* Z, void* pre,
+           int N, int P, int C, int Cout, void* stream) {
   if (P <= 0 || C <= 0 || Cout <= 0 || N < 0) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   const ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
   const size_t bytes = sizeof(float) * (size_t)L.words;
-  auto kernel = L.tiled   ? risi18_bank_tiled_kernel<E>
-                : L.sp.wide ? risi18_bank_kernel<E, false, true>
+  if (L.cluster) {
+    // Grid (N * L.cluster, panels), clusters of L.cluster blocks along x;
+    // the pre-activations wait in `pre`.
+    if (pre == nullptr) return cudaErrorInvalidValue;
+    return lv::launch_clusters(
+        L.mma ? risi18_bank_cluster_kernel<E, true>
+              : risi18_bank_cluster_kernel<E, false>,
+        dim3((unsigned)N * L.cluster, (Cout + L.Co - 1) / L.Co), L.cluster,
+        bytes, (cudaStream_t)stream, (const E*)T, (const float*)A,
+        (const E*)K, (E*)Z, (float*)pre, N, L);
+  }
+  auto kernel = L.sp.wide ? risi18_bank_kernel<E, false, true>
                 : L.mma     ? risi18_bank_kernel<E, true, false>
                             : risi18_bank_kernel<E, false, false>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -105,17 +129,20 @@ extern "C" {
 
 // Launches the bank on `stream`; returns a cudaError_t (0 on success).
 // T [N,P,P,P,C], A [N,P,P] f32, K [18C,Cout] -> Z [N,P*P,Cout], all
-// contiguous; T, K and Z are f32 (_f32) or bf16 (_bf16).
+// contiguous; T, K and Z are f32 (_f32) or bf16 (_bf16).  pre: float32
+// [N,P*P,Cout] scratch for the pre-activations of a cluster plan
+// (risi18_bank_plan's plan[7] > 0; Z itself may serve in float32), else not
+// read (may be null).
 int risi18_bank_forward_f32(const void* T, const void* A, const void* K,
-                            void* Z, int N, int P, int C, int Cout,
-                            void* stream) {
-  return launch<float>(T, A, K, Z, N, P, C, Cout, stream);
+                            void* Z, void* pre, int N, int P, int C,
+                            int Cout, void* stream) {
+  return launch<float>(T, A, K, Z, pre, N, P, C, Cout, stream);
 }
 
 int risi18_bank_forward_bf16(const void* T, const void* A, const void* K,
-                             void* Z, int N, int P, int C, int Cout,
-                             void* stream) {
-  return launch<__nv_bfloat16>(T, A, K, Z, N, P, C, Cout, stream);
+                             void* Z, void* pre, int N, int P, int C,
+                             int Cout, void* stream) {
+  return launch<__nv_bfloat16>(T, A, K, Z, pre, N, P, C, Cout, stream);
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
@@ -125,13 +152,16 @@ long long risi18_bank_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, false);
 }
 
-// The plan the launcher takes (as risi18_level_plan of risi18_level.cu).
-int risi18_bank_plan(int P, int C, int Cout, int bf16, int* plan) {
-  const lv::ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, bf16 ? 2 : 4, 16, false);
+// The plan the launcher takes for N vertices (as risi18_level_plan of
+// risi18_level.cu, its ten fields).
+int risi18_bank_plan(int N, int P, int C, int Cout, int bf16, int* plan) {
+  const ForwardPlan L = lv::choose_forward_plan(P, C, Cout, bf16 ? 2 : 4,
+                                                16, false, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
+  plan[7] = L.cluster;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma;
   return L.words == 0;
 }
 

@@ -34,8 +34,11 @@
 //             pays a pass that writes the sums in their place).
 // The TPU kernel's selector constants do not carry over: each variant is the
 // function tools/ablate_bank.py:variant returns for its mode.  Every variant
-// takes every plan K4 takes: a wide stream (fields of 33 to 35 rows at
-// Cout = 32) and a row-tiled block (from 36 rows) included.
+// takes every plan K4 takes where one block holds the field, a wide stream
+// (fields of 33 to 35 rows at Cout = 32) included; beyond (from 36 rows),
+// where K4 spreads a vertex's row tiles over a cluster of blocks, the
+// variants keep the row-tiled block of one block a vertex, so there they
+// attribute that block, not K4 (tools/ablate_bank.py says so).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +62,7 @@ __host__ __device__ constexpr int part_of(int mode) {
                                : lv::kBank;
 }
 
-// kTiled: K4's plan is row-tiled (forward_block_tiled, dma_block_tiled).
+// kTiled: the plan is row-tiled (forward_block_tiled, dma_block_tiled).
 template <typename E, int kMode, bool kMma, bool kWide, bool kTiled>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_ablate_kernel(const E* __restrict__ T, const float* __restrict__ A,
@@ -120,7 +123,10 @@ int launch(const void* T, const void* A, const void* K, void* Z, void* sink,
   if (mode == kModeDma && (Cout > P * C || sink == nullptr))
     return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
-  // K4's plan (risi18_bank.cu), whatever the mode.
+  // One plan whatever the mode: K4's where one block holds the field
+  // (risi18_bank.cu); beyond, the row-tiled plan of one block a vertex
+  // (no cluster), where K4 itself runs a cluster plan, so that `full` is
+  // K4 only where one block holds the field.
   const ForwardPlan L = lv::choose_forward_plan(
       P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
   if (L.words == 0) return cudaErrorInvalidValue;

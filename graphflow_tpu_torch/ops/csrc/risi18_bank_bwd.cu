@@ -38,10 +38,19 @@
 // holds every output channel (one panel), since a chunk's dT needs all of
 // their cotangents.  The partial rows of dK are summed in a fixed order, and
 // every dT element has one writer: dT and dK are the same from run to run.
-// A field whose G and maps do not fit one block takes K2's row-tiled block
-// (backward_block_tiled): it writes dT[Xa, Xb, :] of each pair of row
-// tiles whole, in a fixed order, so dT stays written once without atomics
-// (risi18_backward_block.cuh).
+// A field whose G and maps do not fit one block (from P = 33 at Cout = 32)
+// takes K2's cluster plan (backward_block_cluster): a vertex's row tiles
+// over a thread-block cluster, sized for N by the rule K1, K2, K4 and K5
+// share (cluster_shape), dK's map cases on the tensor cores where the plan
+// has mma, and dT[a, b, :] for every a written by the block that owns row
+// b's tile, each element once, in a fixed order, without atomics; each
+// cluster writes one partial row of dK (its blocks' parts added in rank
+// order through distributed shared memory), so kernel 2 is unchanged.
+// Where that plan would be one block with dK on the CUDA cores (a grid that
+// fills the card, chunks of 4 channels: the beta pairs' P = 40), the
+// row-tiled block of one block a vertex group (backward_block_tiled), which
+// measured faster there, writes dT[Xa, Xb, :] of each pair of row tiles the
+// same way (risi18_backward_block.cuh: choose_backward_plan).
 // Kernel 2 (sum_partial_rows) sums the groups' partial rows into dK.  All
 // sums are in float32; bfloat16 is converted once on load and rounded once
 // on store.
@@ -79,7 +88,24 @@ risi18_bank_bwd_kernel(const E* __restrict__ T, const float* __restrict__ A,
                                      nullptr, dT, partial, N, L, 0.f);
 }
 
-// Kernel 1 on a row-tiled plan (fields from 33 rows at Cout = 32).
+// Kernel 1 on a cluster plan (fields from 33 rows at Cout = 32): a
+// vertex's row tiles over a cluster of blocks (backward_block_cluster).
+template <typename E, bool kMma>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_bank_bwd_cluster_kernel(const E* __restrict__ T,
+                               const float* __restrict__ A,
+                               const E* __restrict__ K,
+                               const E* __restrict__ gout,
+                               E* __restrict__ dT,
+                               float* __restrict__ partial, int N,
+                               BackwardPlan L) {
+  lv::backward_block_cluster<E, kMma, false>(T, nullptr, nullptr, A, K,
+                                             gout, nullptr, dT, partial, N,
+                                             L, 0.f);
+}
+
+// Kernel 1 on a row-tiled plan of one block a vertex group, where a
+// cluster plan would be one block on the CUDA cores.
 template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
@@ -88,7 +114,8 @@ risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
                              const E* __restrict__ gout, E* __restrict__ dT,
                              float* __restrict__ partial, int N,
                              BackwardPlan L) {
-  lv::backward_block_tiled<E>(T, A, K, gout, dT, partial, N, L);
+  lv::backward_block_tiled<E, false>(T, nullptr, nullptr, A, K, gout,
+                                     nullptr, dT, partial, N, L, 0.f);
 }
 
 template <typename E>
@@ -99,10 +126,20 @@ int launch(const void* T, const void* A, const void* K, const void* g,
   if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   BackwardPlan L = lv::choose_backward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(dT) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
+  if (L.cluster)
+    // Grid (vertex groups * L.cluster, chunks), clusters along x: each
+    // cluster walks the vertices of its group and writes its partial row.
+    return lv::launch_clusters(
+        L.mma ? risi18_bank_bwd_cluster_kernel<E, true>
+              : risi18_bank_bwd_cluster_kernel<E, false>,
+        dim3(nblocks * L.cluster, (C + L.sp.Cc - 1) / L.sp.Cc, 1),
+        L.cluster, bytes, (cudaStream_t)stream, (const E*)T,
+        (const float*)A, (const E*)K, (const E*)g, (E*)dT, (float*)partial,
+        N, L);
   auto kernel = L.tiled ? risi18_bank_bwd_tiled_kernel<E>
                 : L.mma ? risi18_bank_bwd_kernel<E, true>
                         : risi18_bank_bwd_kernel<E, false>;
@@ -164,14 +201,17 @@ long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, false);
 }
 
-// The plan kernel 1 takes (as risi18_level_backward_plan of
-// risi18_level_bwd.cu).
-int risi18_bank_backward_plan(int P, int C, int Cout, int bf16, int* plan) {
+// The plan kernel 1 takes for N vertices (as risi18_level_backward_plan of
+// risi18_level_bwd.cu, its ten fields).
+int risi18_bank_backward_plan(int N, int P, int C, int Cout, int bf16,
+                              int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  16, false);
+                                                  16, false, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
+  plan[7] = L.cluster;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma;
   return L.words == 0;
 }
 

@@ -5,10 +5,10 @@
 // its algebra are described in risi18_level.cu.  K1 streams its slots
 // gathered from the state, K4 and K6 from T (risi18_level_common.cuh:
 // GatheredSlots, StoredSlots); K1 adds the bias and LeakyReLU in the
-// epilogue, K4 writes Z as it is.  forward_block_tiled (K4, K6) and
-// forward_block_cluster (K1) are the same function for a field whose maps
-// do not fit one block, in row tiles: one block a vertex, or the tiles
-// spread over a cluster of blocks.
+// epilogue, K4 writes Z as it is.  forward_block_cluster (K1, K4) and
+// forward_block_tiled (K6) are the same function for a field whose maps do
+// not fit one block, in row tiles: the tiles spread over a cluster of
+// blocks, or one block a vertex.
 
 #pragma once
 
@@ -54,8 +54,9 @@ struct ForwardPlan {
                // the CUDA cores, added to Zs and Ws once per chunk.
   int tiled;   // 1: the rows of Z are walked in tiles of sp.rows rows
                // (forward_block_tiled, forward_block_cluster)
-  int cluster; // blocks a cluster of the cluster plan (K1's row tiles,
-               // forward_block_cluster), 0 for a plan of one block a vertex
+  int cluster; // blocks a cluster of the cluster plan (K1's and K4's row
+               // tiles, forward_block_cluster), 0 for a plan of one block a
+               // vertex
   int tiles_per_block;  // the row tiles one block of the cluster takes
   int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, part,
       words;
@@ -64,21 +65,23 @@ struct ForwardPlan {
 // `gather`: the block gathers its slots (K1) and keeps the vertex's
 // neighbour ids, positions and listed slots; else they take no room.
 // `rows`: the rows of a row tile (a tiled plan), 0 for none.  `cluster`:
-// a row-tiled plan for forward_block_cluster (K1), whose products run on
-// the tensor cores where a tile's rows allow it; else forward_block_tiled's
-// (K4, K6), on the CUDA cores.
+// a row-tiled plan for forward_block_cluster (K1, K4), whose products run
+// on the tensor cores where a tile's rows allow it, its cluster sized for N
+// vertices (cluster_shape: the grid is N x panels); else
+// forward_block_tiled's (K6), on the CUDA cores.
 inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
                                      int Co, int es, int aligned,
                                      bool gather, int rows = 0, int G = 1,
-                                     bool cluster = false) {
+                                     bool cluster = false, int N = 0) {
   ForwardPlan L;
   if (rows > 0 && cluster) rows = balanced_rows(P, rows);
   L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
   L.Cout = Cout; L.Co = Co; L.ZLD = round_up(Co, 4); L.ALD = P + 1;
   L.tiled = rows > 0;
   const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
-  L.cluster = L.tiled && cluster ? cluster_blocks(tiles) : 0;
-  L.tiles_per_block = L.cluster ? tiles_a_block(tiles) : 1;
+  const ClusterShape cs = cluster_shape(tiles, N * ((Cout + Co - 1) / Co));
+  L.cluster = L.tiled && cluster ? cs.blocks : 0;
+  L.tiles_per_block = L.cluster ? cs.per : 1;
   const int zw = L.sp.rows * P * L.ZLD, stream = stream_words(L.sp);
   // The tensor cores take 16-channel chunks of 16-row tiles, a warp a tile,
   // and up to four 8-wide tiles of outputs (which rules out a wide stream:
@@ -121,14 +124,22 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
 // ones).  Where no plan keeps all P*P rows of the maps (from P = 36 at
 // Cout = 32), a row-tiled one: the widest panel, then the most rows a tile,
 // then the largest chunk, the most pieces a ring buffer and the deepest
-// ring.  With `cluster` (K1) the row-tiled plan is a cluster plan
-// (forward_block_cluster), and one whose tiles keep their cells in
-// registers (tile_regs: every warp reduces a row of each stage) comes
-// before any other; every plan that fits without it fits with it, so the
-// fields served are the same.  words == 0 if none fits.
+// ring.  With `cluster` (K1, K4) the row-tiled plan is a cluster plan
+// (forward_block_cluster) for N vertices, and one whose tiles keep their
+// cells in registers (tile_regs: every warp reduces a row of each stage)
+// comes before any other; of those, the first one whose stage keeps three
+// quarters of the warps busy (fills_warps) where its stage also reduces
+// more channel-rows than the first one's (stage_work).  The first one of
+// K4 in bfloat16 at P = 64 took tiles of 8 rows, one piece a stage and
+// chunks of 4 channels, half its warps idle (32 channel-rows a stage),
+// where tiles of 4 rows, 4 pieces and chunks of 8 fit too (128): 5.81 →
+// 2.86 ms on an H100; where the two reduce as much a stage (8 rows of 8
+// channels against 2 pieces of 8 rows of 4), the filled stage was as often
+// slower (PERF.md).  Every plan that fits without the cluster fits with
+// it, so the fields served are the same.  words == 0 if none fits.
 inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
                                        int aligned, bool gather,
-                                       bool cluster = false) {
+                                       bool cluster = false, int N = 0) {
   for (int wide = 0; wide <= 1; ++wide) {
     for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
       for (int Cc : {kMaxChunk, 8, 4}) {
@@ -144,7 +155,9 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
       if (Co <= 4) break;
     }
   }
-  for (int regs = cluster ? 1 : 0; regs >= 0; --regs) {
+  // The first row-tiled plan that fits: with its cells in registers
+  // (regs), and its stage keeping the warps busy (busy).
+  auto tiled = [&](bool regs, bool busy) {
     for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
       for (int rows : kTileRows) {
         if (rows >= P) continue;
@@ -154,8 +167,9 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
             for (int D = 4; D >= 2; --D) {
               const ForwardPlan L =
                   make_forward_plan(P, C, Cout, Cc, D, Co, es, aligned,
-                                    gather, rows, G, cluster);
+                                    gather, rows, G, cluster, N);
               if ((!regs || tile_regs(L.sp)) &&
+                  (!busy || fills_warps(L.sp)) &&
                   sizeof(float) * (size_t)L.words <= kMaxSmemBytes)
                 return L;
             }
@@ -164,9 +178,18 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
       }
       if (Co <= 4) break;
     }
+    ForwardPlan none{};
+    return none;
+  };
+  if (cluster) {
+    const ForwardPlan first = tiled(true, false);
+    if (first.words) {
+      const ForwardPlan filled = tiled(true, true);
+      return filled.words && stage_work(filled.sp) > stage_work(first.sp)
+                 ? filled : first;
+    }
   }
-  ForwardPlan none{};
-  return none;
+  return tiled(false, false);
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
@@ -610,9 +633,10 @@ __device__ __forceinline__ void dma_block(const E* __restrict__ T,
     zv[i] = Tv[(size_t)(i / Cout) * PC + i % Cout];
 }
 
-// The bank's forward_block (K4, K6: slots stored in T [N,P,P,P,C], Z as it
-// is) on a row-tiled plan (L.tiled): a field whose maps and Z do not fit
-// one block (from P = 36 at Cout = 32).  Per vertex and panel:
+// The bank's forward_block (K6's variants: slots stored in T [N,P,P,P,C],
+// Z as it is) on a row-tiled plan (L.tiled) of one block a vertex: a field
+// whose maps and Z do not fit one block (from P = 36 at Cout = 32), where
+// K4 runs forward_block_cluster.  Per vertex and panel:
 //   0. the scalar cases' sums over every slot (Tfull, s14, s15, t18), in a
 //      stream of their own, so that s is whole before the first tile's
 //      epilogue; Ss = their product with K's scalar slabs;
@@ -816,18 +840,23 @@ __device__ __forceinline__ void forward_block_tiled(
   }
 }
 
-// K1 on a cluster plan (L.cluster > 0; fields from P = 36 at Cout = 32):
-// the row tiles of vertex v and output panel blockIdx.y spread over a
+// K1 (kLevel: slots gathered from the state) and K4 (kBank: slots stored
+// in T) on a cluster plan (L.cluster > 0; fields from P = 36 at Cout =
+// 32): the row tiles of vertex v and output panel blockIdx.y spread over a
 // cluster of L.cluster blocks (grid (N * L.cluster, panels), cluster
 // (L.cluster, 1, 1)), block `rank` taking the tiles rank, rank + cluster,
 // ...  Per tile X = [x0, x0 + nx), per chunk: K's rows staged, the tile's
-// maps (tile_reductions: the rows X of every slot, the whole slots in X),
-// U of its rows, this block's part of the four scalars and of s (below),
-// and the nine map slabs into Z and W of its rows, on the tensor cores
-// where the plan has `mma` (a warp keeps 16 rows of each over the chunks,
-// three TF32 passes a product) or on the CUDA cores.  Then the tile's
+// maps (tile_reductions: the rows X of every slot, the whole slots in X, a
+// warp copying the row it reduces: stream_rows; the tiles together stream
+// each slot about twice), U of its rows, this block's part of the four
+// scalars and of s (below), and the nine map slabs into Z and W of its
+// rows, on the tensor cores where the plan has `mma` (a warp keeps 16 rows
+// of each over the chunks, three TF32 passes a product) or on the CUDA
+// cores.  Then the tile's
 // pre-activation Z + W Ap^T + R U, float32, into `pre` [N, P*P, Cout]
 // (out itself in float32), which the block reads back when s is whole.
+// K4 reads T, whose absent slots the take-gather wrote as zeros, so it
+// streams every slot and lists none.
 //
 // The scalar cases are sums over the slots a of per-slot sums: Tfull =
 // sum_a T_a[a], s14 = sum_a T_ab[a,a], s15 = sum_a Tdbc[a], t18 = sum_a
@@ -837,15 +866,18 @@ __device__ __forceinline__ void forward_block_tiled(
 // distributed shared memory in rank order: s is whole without a pass of
 // its own over the slots, and the same in every block.  A second meeting
 // keeps each block's part alive until the others have read it.  Then the
-// epilogue of the block's rows: pre + Ap[x,y] s + b, LeakyReLU, one
+// epilogue of the block's rows: pre + Ap[x,y] s (K1: + b, LeakyReLU), one
 // rounding.  Every sum is float32 and in a fixed order, with no atomics:
 // Z is the same from run to run.
-template <typename E, bool kMma>
+template <typename E, bool kMma, int kPart>
 __device__ __forceinline__ void forward_block_cluster(
-    const E* __restrict__ state, const int* __restrict__ nbr,
+    const E* __restrict__ in, const int* __restrict__ nbr,
     const int* __restrict__ pos, const float* __restrict__ radj,
     const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
     float* __restrict__ pre, int N, const ForwardPlan& L, float negslope) {
+  static_assert(kPart == kLevel || kPart == kBank,
+                "K6's variants run forward_block_tiled");
+  constexpr bool kGather = kPart == kLevel;
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -876,11 +908,21 @@ __device__ __forceinline__ void forward_block_cluster(
 
   STAGE_CLOCK_START();
   zero_words(smem + L.stream, L.words - L.stream);
-  load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
-              spos);
+  if constexpr (kGather) {
+    load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R, smem + L.scal, snbr,
+                spos);
+    list_slots(snbr, spos, P, slots);
+  } else {
+    load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
+  }
   const float S = smem[L.scal], trA = smem[L.scal + 1];
-  list_slots(snbr, spos, P, slots);
-  const GatheredSlots<E> src{state, snbr, spos, slots};
+  const auto src = [&] {
+    if constexpr (kGather)
+      return GatheredSlots<E>{in, snbr, spos, slots};
+    else
+      return StoredSlots<E>{in + v * (size_t)P * P * P * C};
+  }();
+  using Src = std::remove_const_t<decltype(src)>;
   STAGE(0);   // set-up
   float accz[4][4], accw[4][4];
   const bool has_tile = kMma && warp < X * P / 16;
@@ -900,9 +942,9 @@ __device__ __forceinline__ void forward_block_cluster(
       const int nc = min(sp.Cc, C - c0);
       // (The previous chunk's products ended with a barrier; the stream's
       // first barrier orders K's staging before this chunk's readers.)
-      stage_k<kLevel>(K, Ks, L, C, c0, nc, o0, no, S, trA);
-      tile_reductions<true, true, false, GatheredSlots<E>, true>(
-          src, R, sp, s, t, nx, c0, nc);
+      stage_k<kPart>(K, Ks, L, C, c0, nc, o0, no, S, trA);
+      tile_reductions<true, true, false, Src, true>(src, R, sp, s, t, nx,
+                                                    c0, nc);
       STAGE(1);   // K's staging and the tile's stream
       for (int i = tid; i < nx * ZLD; i += nth) {
         const int o = i % ZLD, xl = i / ZLD;
@@ -964,7 +1006,7 @@ __device__ __forceinline__ void forward_block_cluster(
             rows[i] = min(r0 + i * nrg, RR - 1);
             acc[i] = load4(acc_at + rows[i] * ZLD);
           }
-          tile_product<kLevel>(acc, rows, w, g, s, Ks, sp.mapw, ncp, KLD);
+          tile_product<kPart>(acc, rows, w, g, s, Ks, sp.mapw, ncp, KLD);
 #pragma unroll
           for (int i = 0; i < 8; ++i)
             if (r0 + i * nrg < RR)
@@ -1022,16 +1064,18 @@ __device__ __forceinline__ void forward_block_cluster(
   cluster.sync();   // every part read: a block may now end
   STAGE(4);   // the cluster's exchange of s
 
-  // The epilogue of the block's rows: + Ap[x,y] s, bias, LeakyReLU.
+  // The epilogue of the block's rows: + Ap[x,y] s (K1: bias, LeakyReLU).
   for (int t = rank; t < tiles; t += CL) {
     const int x0 = t * X, RR = min(X, P - x0) * P;
     const float* prev = pre + (v * P + x0) * P * Cout + o0;
     E* outv = out + (v * P + x0) * P * Cout + o0;
     for (int item = tid; item < RR * no; item += nth) {
       const int o = item % no, r = item / no, x = x0 + r / P, y = r % P;
-      float tv = prev[(size_t)r * Cout + o] + Ap[x * ALD + y] * Ss[o]
-                 + to_float(bias[o0 + o]);
-      tv = tv > 0.f ? tv : negslope * tv;
+      float tv = prev[(size_t)r * Cout + o] + Ap[x * ALD + y] * Ss[o];
+      if constexpr (kGather) {
+        tv += to_float(bias[o0 + o]);
+        tv = tv > 0.f ? tv : negslope * tv;
+      }
       store_value(outv + (size_t)r * Cout + o, tv);
     }
   }

@@ -61,8 +61,10 @@
 // Fields beyond one block.  Where no plan keeps the maps and Z of all P*P
 // rows (from P = 36 at Cout = 32; SMP_beta sets P = V), the launcher takes
 // a cluster plan (forward_block_cluster): the vertex's rows x in tiles of
-// sp.rows rows, spread over a thread-block cluster of up to 8 blocks (grid
-// (N * cluster, panels)), each tile's maps streamed from the rows of the
+// sp.rows rows, spread over a thread-block cluster of up to 8 blocks, fewer
+// where the grid of vertices and panels already fills the card (grid (N *
+// cluster, panels); the size rule is risi18_level_common.cuh:cluster_shape,
+// so the plan depends on N), each tile's maps streamed from the rows of the
 // tile of every slot and the whole slots in the tile (about twice T's
 // elements over all tiles), Z, W and U kept for the tile's rows only.
 // The scalar cases are sums over the slots of per-slot sums that a tile's
@@ -77,8 +79,9 @@
 // stage, which with the copies' issue sets its pace (PERF.md).  A card
 // that cannot place the cluster refuses the launch, and the wrapper
 // raises.  ops/risi_bank.py:risi18_bank_cluster_reference is that
-// decomposition in plain PyTorch.  (The bank's kernels K4 and K6 keep one
-// block a vertex there: forward_block_tiled.)
+// decomposition in plain PyTorch.  (The bank K4 runs the same cluster
+// block on slots stored in T; K6's variants keep one block a vertex there:
+// forward_block_tiled.)
 //
 // Element types.  State, K, b and out are float32 or bfloat16 (one type; the
 // TPU kernels work in the state's dtype the same way); radj is float32.  The
@@ -142,45 +145,9 @@ risi18_level_cluster_kernel(const E* __restrict__ state,
                             E* __restrict__ out,
                             float* __restrict__ pre,
                             int N, ForwardPlan L, float negslope) {
-  lv::forward_block_cluster<E, kMma>(state, nbr, pos, radj, K, bias, out,
-                                     pre, N, L, negslope);
-}
-
-// Launches a cluster plan: grid (N * L.cluster, panels), clusters of
-// L.cluster blocks along x.  A cluster the card cannot place is refused
-// (cudaErrorLaunchOutOfResources), never run another way.
-template <typename E>
-int launch_cluster(const E* state, const int* nbr, const int* pos,
-                   const float* radj, const E* K, const E* b, E* out,
-                   float* pre, int N, int Cout, const ForwardPlan& L,
-                   float negslope, cudaStream_t stream) {
-  if (pre == nullptr) return cudaErrorInvalidValue;
-  auto kernel = L.mma ? risi18_level_cluster_kernel<E, true>
-                      : risi18_level_cluster_kernel<E, false>;
-  const size_t bytes = sizeof(float) * (size_t)L.words;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3((unsigned)N * L.cluster, (Cout + L.Co - 1) / L.Co);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = bytes;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = L.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-  if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  err = cudaLaunchKernelEx(&config, kernel, state, nbr, pos, radj, K, b,
-                           out, pre, N, L, negslope);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  lv::forward_block_cluster<E, kMma, lv::kLevel>(state, nbr, pos, radj, K,
+                                                 bias, out, pre, N, L,
+                                                 negslope);
 }
 
 // Launches the level for element type E; returns a cudaError_t.
@@ -194,14 +161,21 @@ int launch_level(const void* state, const void* nbr, const void* pos,
   // The stream indexes the state's [N,P,P] elements with an int.
   if ((long long)N * P * P >= (1LL << 31)) return cudaErrorInvalidValue;
   const ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
-  if (L.cluster)
-    return launch_cluster<E>((const E*)state, (const int*)nbr,
-                             (const int*)pos, (const float*)radj,
-                             (const E*)K, (const E*)b, (E*)out, (float*)pre,
-                             N, Cout, L, negslope, (cudaStream_t)stream);
   const size_t bytes = sizeof(float) * (size_t)L.words;
+  if (L.cluster) {
+    // Grid (N * L.cluster, panels), clusters of L.cluster blocks along x;
+    // the pre-activations wait in `pre`.
+    if (pre == nullptr) return cudaErrorInvalidValue;
+    return lv::launch_clusters(
+        L.mma ? risi18_level_cluster_kernel<E, true>
+              : risi18_level_cluster_kernel<E, false>,
+        dim3((unsigned)N * L.cluster, (Cout + L.Co - 1) / L.Co), L.cluster,
+        bytes, (cudaStream_t)stream, (const E*)state, (const int*)nbr,
+        (const int*)pos, (const float*)radj, (const E*)K, (const E*)b,
+        (E*)out, (float*)pre, N, L, negslope);
+  }
   auto kernel = L.sp.wide ? risi18_level_kernel<E, false, true>
                 : L.mma     ? risi18_level_kernel<E, true, false>
                             : risi18_level_kernel<E, false, false>;
@@ -251,17 +225,18 @@ long long risi18_level_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, true);
 }
 
-// The plan the launcher takes for a state of 16-byte aligned float32 (bf16
-// = 0) or bfloat16 (bf16 = 1) elements: plan[0] the rows of a row tile (P:
+// The plan the launcher takes for N vertices of a state of 16-byte aligned
+// float32 (bf16 = 0) or bfloat16 (bf16 = 1) elements (N sizes a cluster
+// plan's clusters: cluster_shape): plan[0] the rows of a row tile (P:
 // untiled), plan[1] the panel's outputs, plan[2] the chunk's channels,
 // plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
 // for a row-tiled block, plan[6] the pieces a ring buffer holds, plan[7]
 // the blocks of a cluster (0: one block a vertex and panel), plan[8] the
 // row tiles a block of the cluster takes, plan[9] 1 where the map products
 // run on the tensor cores.  Returns 0, or 1 where no plan fits.
-int risi18_level_plan(int P, int C, int Cout, int bf16, int* plan) {
+int risi18_level_plan(int N, int P, int C, int Cout, int bf16, int* plan) {
   const lv::ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, bf16 ? 2 : 4, 16, true, true);
+      P, C, Cout, bf16 ? 2 : 4, 16, true, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)

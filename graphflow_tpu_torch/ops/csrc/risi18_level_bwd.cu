@@ -66,14 +66,19 @@
 // from a materialised T, with dT written instead of scattered.  Where G and
 // the maps of all P*P rows do not fit one block (from P = 33 at Cout = 32)
 // kernel 1 takes a cluster plan (backward_block_cluster): a vertex's row
-// tiles spread over a thread-block cluster of up to 8 blocks, each taking
-// dK from its tiles' maps and G rows (the map cases on the tensor cores
-// where the plan has mma) and dT, which needs G and not T, for the rows b
-// of its tiles from pairs of row tiles; GA and the blocks' dK and db are
-// exchanged through distributed shared memory in rank order, and each
+// tiles spread over a thread-block cluster of up to 8 blocks (fewer where
+// the grid of vertex groups, chunks and panels already fills the card:
+// risi18_level_common.cuh:cluster_shape, so the plan depends on N), each
+// taking dK from its tiles' maps and G rows (the map cases on the tensor
+// cores where the plan has mma) and dT, which needs G and not T, for the
+// rows b of its tiles from pairs of row tiles; GA and the blocks' dK and db
+// are exchanged through distributed shared memory in rank order, and each
 // cluster writes one partial row, so kernel 2 is unchanged
-// (ops/risi_bank.py:risi18_bank_backward_cluster_reference).  The bank's
-// K5 keeps one block a vertex group there (backward_block_tiled).
+// (ops/risi_bank.py:risi18_bank_backward_cluster_reference).  Where that
+// plan would be one block with dK on the CUDA cores, kernel 1 takes the
+// row-tiled block of one block a vertex group (backward_block_tiled),
+// which measured faster there (the beta pairs' P = 40).  The bank's K5
+// runs the same blocks on T and writes dT.
 //
 // Element types.  State, K, g and out are float32 or bfloat16 (one type);
 // radj is float32.  Behind a bfloat16 forward (as _v3t_bwd runs the TPU
@@ -130,6 +135,24 @@ risi18_level_bwd_kernel(const E* __restrict__ state,
                                     dstate, partial, N, L, negslope);
 }
 
+// Kernel 1 on a row-tiled plan of one block a vertex group, where a
+// cluster plan would be one block on the CUDA cores (choose_backward_plan).
+template <typename E>
+__global__ void __launch_bounds__(kThreads, 1)
+risi18_level_bwd_tiled_kernel(const E* __restrict__ state,
+                              const int* __restrict__ nbr,
+                              const int* __restrict__ pos,
+                              const float* __restrict__ radj,
+                              const E* __restrict__ K,
+                              const E* __restrict__ gout,
+                              const E* __restrict__ out,
+                              float* __restrict__ dstate,
+                              float* __restrict__ partial,
+                              int N, BackwardPlan L, float negslope) {
+  lv::backward_block_tiled<E, true>(state, nbr, pos, radj, K, gout, out,
+                                    dstate, partial, N, L, negslope);
+}
+
 // Kernel 1 on a cluster plan (fields from 33 rows at Cout = 32): a
 // vertex's row tiles over a cluster of blocks (backward_block_cluster).
 template <typename E, bool kMma>
@@ -144,8 +167,9 @@ risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
                                 float* __restrict__ dstate,
                                 float* __restrict__ partial,
                                 int N, BackwardPlan L, float negslope) {
-  lv::backward_block_cluster<E, kMma>(state, nbr, pos, radj, K, gout, out,
-                                      dstate, partial, N, L, negslope);
+  lv::backward_block_cluster<E, kMma, true>(state, nbr, pos, radj, K, gout,
+                                            out, dstate, partial, N, L,
+                                            negslope);
 }
 
 // Kernel 2 behind a bfloat16 forward.  The first sum_blocks blocks sum the
@@ -198,46 +222,23 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
   if ((long long)N * P * P >= (1LL << 31)) return cudaErrorInvalidValue;
   if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   BackwardPlan L = lv::choose_backward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(out) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
   const dim3 grid(nblocks * (L.cluster ? L.cluster : 1),
                   (C + L.sp.Cc - 1) / L.sp.Cc, (Cout + L.Co - 1) / L.Co);
-  if (L.cluster) {
-    // A cluster the card cannot place is refused
-    // (cudaErrorLaunchOutOfResources), never run another way.
-    auto kernel = L.mma ? risi18_level_bwd_cluster_kernel<E, true>
-                        : risi18_level_bwd_cluster_kernel<E, false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t config = {};
-    config.gridDim = grid;
-    config.blockDim = dim3(kThreads);
-    config.dynamicSmemBytes = bytes;
-    config.stream = (cudaStream_t)stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = L.cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    config.attrs = attr;
-    config.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&config, kernel, (const E*)state,
-                             (const int*)nbr, (const int*)pos,
-                             (const float*)radj, (const E*)K, (const E*)g,
-                             (const E*)out, (float*)dstate, (float*)partial,
-                             N, L, negslope);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-  }
-  auto kernel = L.mma ? risi18_level_bwd_kernel<E, true>
-                      : risi18_level_bwd_kernel<E, false>;
+  if (L.cluster)
+    return lv::launch_clusters(
+        L.mma ? risi18_level_bwd_cluster_kernel<E, true>
+              : risi18_level_bwd_cluster_kernel<E, false>,
+        grid, L.cluster, bytes, (cudaStream_t)stream, (const E*)state,
+        (const int*)nbr, (const int*)pos, (const float*)radj, (const E*)K,
+        (const E*)g, (const E*)out, (float*)dstate, (float*)partial, N, L,
+        negslope);
+  auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
+                : L.mma ? risi18_level_bwd_kernel<E, true>
+                        : risi18_level_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -326,8 +327,9 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, true);
 }
 
-// The plan kernel 1 takes for 16-byte aligned float32 (bf16 = 0) or
-// bfloat16 (bf16 = 1) inputs: plan[0] the rows of a row tile (P: untiled;
+// The plan kernel 1 takes for N vertices of 16-byte aligned float32 (bf16
+// = 0) or bfloat16 (bf16 = 1) inputs (N sizes a cluster plan's clusters:
+// cluster_shape): plan[0] the rows of a row tile (P: untiled;
 // a plan with plan[5] = 1 and plan[0] = P is one tile, its stream in shared
 // memory), plan[1] the panel's outputs, plan[2] the chunk's channels,
 // plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
@@ -335,9 +337,10 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 // the blocks of a cluster (0: one block a vertex group, chunk and panel),
 // plan[8] the row tiles a block of the cluster takes, plan[9] 1 where dK's
 // map cases run on the tensor cores.  Returns 0, or 1 where no plan fits.
-int risi18_level_backward_plan(int P, int C, int Cout, int bf16, int* plan) {
+int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
+                               int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  16, true, true);
+                                                  16, true, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)

@@ -596,6 +596,22 @@ struct StoredSlots {
                    rows + (b * sp.P + c) * run + u * step, true);
     });
   }
+
+  // Row b of slot a into `row`, `sub` copies a cell, the lanes of one
+  // warp copying it (stream_rows): P runs of nc elements at stride C.
+  __device__ __forceinline__ void issue_row(const StreamPlan& sp, char* row,
+                                            int a, int b, int c0, int sub,
+                                            int lane) const {
+    const int es = (int)sizeof(E), step = sp.unit ? sp.unit : es;
+    const int run = sp.C * es;
+    const char* from = reinterpret_cast<const char*>(T)
+                       + (size_t)((a * sp.P + b) * sp.P) * run + c0 * es;
+    for (int i = lane; i < sp.P * sub; i += 32) {
+      const int c = i / sub, u = i - c * sub;
+      copy_unit<E>(sp, row, c * sp.ncp * es + u * step,
+                   from + c * run + u * step, true);
+    }
+  }
 };
 
 // Starts the copies of the first D - 1 slots of a chunk.  The caller may
@@ -997,20 +1013,90 @@ __host__ __device__ inline bool tile_regs(const StreamPlan& sp) {
   return sp.rows <= kThreads / 32 && (sp.P + H - 1) / H <= kMaxCells;
 }
 
-// The cluster plans (K1's forward_block_cluster, K2 kernel 1's
-// backward_block_cluster) spread a vertex's row tiles over a cluster of up
-// to kMaxCluster blocks, the most a cluster takes without the non-portable
-// attribute.  tiles_a_block = ceil(tiles / kMaxCluster) tiles each, and as
-// few blocks as that needs: block `rank` takes the tiles rank, rank +
-// cluster, ...
-constexpr int kMaxCluster = 8;
-
-__host__ __device__ inline int tiles_a_block(int tiles) {
-  return (tiles + kMaxCluster - 1) / kMaxCluster;
+// Whether a stage of a row-tiled plan keeps at least three quarters of the
+// block's warps busy: a warp takes a row of a piece, and a stage holds
+// pieces(sp) pieces of sp.rows rows (stream_rows).
+__host__ __device__ inline bool fills_warps(const StreamPlan& sp) {
+  return 4 * sp.rows * pieces(sp) >= 3 * (kThreads / 32);
 }
-__host__ __device__ inline int cluster_blocks(int tiles) {
-  const int per = tiles_a_block(tiles);
-  return (tiles + per - 1) / per;
+
+// The channel-rows a stage of a row-tiled plan reduces.
+__host__ __device__ inline int stage_work(const StreamPlan& sp) {
+  return sp.rows * pieces(sp) * sp.Cc;
+}
+
+// The cluster plans (forward_block_cluster: K1, K4; backward_block_cluster:
+// K2 kernel 1, K5 kernel 1) spread a vertex's row tiles over a cluster of
+// up to kMaxCluster blocks, the most a cluster takes without the
+// non-portable attribute: with a share of `per` tiles a block, as few
+// blocks as that share needs, block `rank` taking the tiles rank, rank +
+// cluster, ...  A cluster's blocks add no work, they split a vertex's
+// tiles; one block an SM, so the kernel's time goes as the rounds of
+// clusters the card runs one after another times the tiles a block takes:
+//   ceil(grid / floor(kSMs / blocks)) * per,
+// grid the clusters of the launch (K1, K4: vertices x panels; K2, K5:
+// vertex groups x chunks x panels).  cluster_shape takes the shape with the
+// fewest, and of those the fewest blocks (each costs the cluster's meetings
+// and, in the backward, the vertex's structure and G's sums once more).
+// So a grid that already fills the card about twice takes one block a
+// cluster, and a small one spreads its tiles over up to kMaxCluster.  That
+// count fits what the clusters of 1, 2, 4 and 8 measured on an H100 for K1
+// and K2 kernel 1 at (64,64,32,32), (256,64,32,32), (160,40,32,16) and
+// (160,40,16,8) (PERF.md).  It is the one rule of every cluster plan, so a
+// launcher and its plan query agree (both give it the same N).
+constexpr int kMaxCluster = 8;
+constexpr int kSMs = 132;   // an H100 SXM
+
+struct ClusterShape {
+  int blocks;   // blocks a cluster
+  int per;      // row tiles a block takes, at most
+};
+
+__host__ __device__ inline ClusterShape cluster_shape(int tiles, int grid) {
+  ClusterShape best{1, tiles};
+  long long least = -1;
+  for (int cap = 1; cap <= kMaxCluster; ++cap) {
+    const int per = (tiles + cap - 1) / cap, blocks = (tiles + per - 1) / per;
+    const int at_once = kSMs / blocks;
+    const long long cost = (long long)((grid + at_once - 1) / at_once) * per;
+    if (least < 0 || cost < least) {
+      least = cost;
+      best = {blocks, per};
+    }
+  }
+  return best;
+}
+
+// Launches `kernel` (kThreads threads a block, `bytes` of dynamic shared
+// memory) on `stream` over `grid`, in clusters of `cluster` blocks along x,
+// with `args`; returns a cudaError_t.  A cluster the card cannot place is
+// refused (cudaErrorLaunchOutOfResources), never run another way.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid,
+                                   int cluster, size_t bytes,
+                                   cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = bytes;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // The rows of a cluster plan's tile for a planner's `rows`: as many tiles,
@@ -1148,9 +1234,9 @@ __device__ inline void stream_rows(const Src& src, const StreamPlan& sp,
 // stream_reductions; kDac (the ablation variant reduce) writes the whole
 // slots' D_ac[x,y] = T[x,y,x] into m6, which that variant has no use for.
 // kWarpRows: where the warps keep their cells in registers, the stream is
-// stream_rows (a warp copies the row it reduces; K1's and K2's cluster
-// blocks), else stream_pieces.  The caller has loaded R (and the listed
-// slots) and no thread still reads s.  Ends with a barrier.
+// stream_rows (a warp copies the row it reduces; the cluster blocks of
+// K1, K2, K4 and K5), else stream_pieces.  The caller has loaded R (and
+// the listed slots) and no thread still reads s.  Ends with a barrier.
 template <bool kGroupD, bool kSelect, bool kDac, typename Src,
           bool kWarpRows = false>
 __device__ inline void tile_reductions(const Src& src, const float* R,

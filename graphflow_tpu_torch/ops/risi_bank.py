@@ -219,11 +219,12 @@ def risi18_bank_backward_factored_reference(T, A, K, g):
 
 # -- the row-tiled decomposition ---------------------------------------------
 # Where a field's maps do not fit one block (P >= 36 forward, >= 33 backward
-# at Cout = 32), the kernels walk the rows x of Z in tiles X: one block a
-# vertex (K4 and K6: ``csrc/risi18_forward_block.cuh:forward_block_tiled``;
-# K5: ``csrc/risi18_backward_block.cuh:backward_block_tiled``), or the tiles
-# spread over a cluster of blocks (K1: ``forward_block_cluster``; K2 kernel
-# 1: ``backward_block_cluster``).  The functions below are those
+# at Cout = 32), the kernels walk the rows x of Z in tiles X: spread over a
+# cluster of blocks (K1 and K4: ``csrc/risi18_forward_block.cuh:
+# forward_block_cluster``; K2 kernel 1 and K5 kernel 1:
+# ``csrc/risi18_backward_block.cuh:backward_block_cluster``), or one block a
+# vertex (K6's variants: ``forward_block_tiled``; K4 and K5 where a field
+# fits no cluster plan).  The functions below are those
 # decompositions in plain PyTorch, for the CPU tests: each tile is computed
 # from the slot data the kernels stream for it and nothing else.  Nothing
 # on the main path calls them.
@@ -480,7 +481,7 @@ def _forward_lib() -> ctypes.CDLL:
     lib = load_library("risi18_bank")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.risi18_bank_forward_f32, lib.risi18_bank_forward_bf16):
-        fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         fn.restype = i32
     _bind_min_smem(lib.risi18_bank_min_smem_bytes)
     _bind_plan(lib.risi18_bank_plan)
@@ -509,15 +510,18 @@ def _backward_lib() -> ctypes.CDLL:
     return lib
 
 
-def bank_plan(P, C, Cout, dtype=torch.float32):
-    """K4's plan (``ops/risi_level.py:query_plan``)."""
-    return query_plan(_forward_lib().risi18_bank_plan, P, C, Cout, dtype)
+@functools.lru_cache(maxsize=None)
+def bank_plan(N, P, C, Cout, dtype=torch.float32):
+    """K4's plan for N vertices (``ops/risi_level.py:query_plan``)."""
+    return query_plan(_forward_lib().risi18_bank_plan, N, P, C, Cout, dtype)
 
 
-def bank_backward_plan(P, C, Cout, dtype=torch.float32):
-    """K5 kernel 1's plan (``ops/risi_level.py:query_plan``)."""
-    return query_plan(_backward_lib().risi18_bank_backward_plan, P, C, Cout,
-                      dtype)
+@functools.lru_cache(maxsize=None)
+def bank_backward_plan(N, P, C, Cout, dtype=torch.float32):
+    """K5 kernel 1's plan for N vertices (``ops/risi_level.py:
+    query_plan``)."""
+    return query_plan(_backward_lib().risi18_bank_backward_plan, N, P, C,
+                      Cout, dtype)
 
 
 def _check_bank(T, A, K):
@@ -536,17 +540,25 @@ def _check_bank(T, A, K):
 
 
 def _forward_kernel(T, A, K):
-    """K4: one launch of ``risi18_bank_forward_{f32,bf16}``."""
+    """K4: one launch of ``risi18_bank_forward_{f32,bf16}``.  A cluster
+    plan keeps its pre-activations in float32 until the cluster has summed
+    the scalar cases: in Z itself in float32, in a float32 scratch [N, P*P,
+    Cout] in bfloat16."""
     N, P, C, Cout = _check_bank(T, A, K)
+    dev, dt = T.device, T.dtype
     lib = _forward_lib()
     check_smem("risi18_bank", lib.risi18_bank_min_smem_bytes, P, Cout)
-    Z = torch.empty((N, P, P, Cout), dtype=T.dtype, device=T.device)
-    with torch.cuda.device(T.device):
-        err = _entry(lib, "risi18_bank_forward", T.dtype)(
-            T.data_ptr(), A.data_ptr(), K.data_ptr(), Z.data_ptr(), N, P, C,
-            Cout, _stream(T.device))
+    Z = torch.empty((N, P, P, Cout), dtype=dt, device=dev)
+    plan = bank_plan(N, P, C, Cout, dt)
+    pre = Z
+    if dt != torch.float32 and plan is not None and plan["cluster"]:
+        pre = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry(lib, "risi18_bank_forward", dt)(
+            T.data_ptr(), A.data_ptr(), K.data_ptr(), Z.data_ptr(),
+            pre.data_ptr(), N, P, C, Cout, _stream(dev))
     _raise_on(err, "risi18_bank", lib.risi18_bank_error_string,
-              _where(N, P, C, Cout, T.dtype))
+              _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_bank.launches += 1
     return Z
 
@@ -571,7 +583,9 @@ def _backward_main_kernel(T, A, K, g):
             dT.data_ptr(), partial.data_ptr(), N, P, C, Cout, nblocks,
             _stream(T.device))
     _raise_on(err, "risi18_bank_backward", lib.risi18_bank_bwd_error_string,
-              _where(N, P, C, Cout, T.dtype))
+              _where(N, P, C, Cout, T.dtype)
+              + (f", plan {bank_backward_plan(N, P, C, Cout, T.dtype)}"
+                 if err else ""))
     risi18_bank_backward.launches += 1
     return dT, partial
 

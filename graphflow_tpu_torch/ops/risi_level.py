@@ -200,50 +200,48 @@ def _bind_min_smem(fn):
 
 
 def _bind_plan(fn):
-    """A library's ``*_plan(P, C, Cout, bf16, int plan[])``: the plan its
-    launcher takes (see :func:`query_plan`)."""
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    """A library's ``*_plan(N, P, C, Cout, bf16, int plan[])``: the plan
+    its launcher takes (see :func:`query_plan`)."""
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
 PLAN_KEYS = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
-             "pieces")
-# The level kernels' plans add their cluster plans' fields.
-CLUSTER_PLAN_KEYS = PLAN_KEYS + ("cluster", "tiles_per_block", "mma")
+             "pieces", "cluster", "tiles_per_block", "mma")
 
 
-def query_plan(fn, P, C, Cout, dtype=torch.float32, keys=PLAN_KEYS):
-    """The plan a kernel's launcher takes for a field of P rows, C input and
-    Cout output channels in ``dtype`` (16-byte aligned inputs), from the
-    library's ``*_plan`` entry ``fn``: a dict with ``rows`` (the rows of a
-    row tile; P for a plan that keeps every row), ``panel`` (output
-    channels a block), ``chunk`` (input channels a pass), ``depth`` (the
-    ring's buffers), ``smem_bytes``, ``tiled`` (a row-tiled block) and
-    ``pieces`` (pieces of ``rows`` rows a ring buffer holds), and with
-    :data:`CLUSTER_PLAN_KEYS` (K1, K2 kernel 1) ``cluster`` (blocks a
-    cluster, 0 for one block a vertex), ``tiles_per_block`` (row tiles a
-    block of the cluster takes) and ``mma`` (1: the products run on the
-    tensor cores); None where no plan fits.  Needs the CUDA library (it is
-    built with nvcc), not a card."""
-    plan = (ctypes.c_int * len(keys))()
-    if fn(P, C, Cout, int(dtype == torch.bfloat16), plan):
+def query_plan(fn, N, P, C, Cout, dtype=torch.float32):
+    """The plan a kernel's launcher takes for N vertices of a field of P
+    rows, C input and Cout output channels in ``dtype`` (16-byte aligned
+    inputs), from the library's ``*_plan`` entry ``fn``: a dict with
+    ``rows`` (the rows of a row tile; P for a plan that keeps every row),
+    ``panel`` (output channels a block), ``chunk`` (input channels a pass),
+    ``depth`` (the ring's buffers), ``smem_bytes``, ``tiled`` (a row-tiled
+    block), ``pieces`` (pieces of ``rows`` rows a ring buffer holds),
+    ``cluster`` (blocks a cluster of a cluster plan, 0 for one block a
+    vertex or vertex group), ``tiles_per_block`` (row tiles a block of the
+    cluster takes) and ``mma`` (1: the products run on the tensor cores);
+    None where no plan fits.  N matters to a cluster plan only: a cluster
+    takes fewer blocks where the grid of one block a vertex already fills
+    the card (``csrc/risi18_level_common.cuh:cluster_shape``).  Needs the CUDA
+    library (it is built with nvcc), not a card."""
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    if fn(N, P, C, Cout, int(dtype == torch.bfloat16), plan):
         return None
-    return {k: int(v) for k, v in zip(keys, plan)}
+    return {k: int(v) for k, v in zip(PLAN_KEYS, plan)}
 
 
 @functools.lru_cache(maxsize=None)
-def level_plan(P, C, Cout, dtype=torch.float32):
-    """K1's plan (:func:`query_plan` with :data:`CLUSTER_PLAN_KEYS`)."""
-    return query_plan(_kernel_lib().risi18_level_plan, P, C, Cout, dtype,
-                      CLUSTER_PLAN_KEYS)
+def level_plan(N, P, C, Cout, dtype=torch.float32):
+    """K1's plan for N vertices (:func:`query_plan`)."""
+    return query_plan(_kernel_lib().risi18_level_plan, N, P, C, Cout, dtype)
 
 
 @functools.lru_cache(maxsize=None)
-def level_backward_plan(P, C, Cout, dtype=torch.float32):
-    """K2 kernel 1's plan (:func:`query_plan` with
-    :data:`CLUSTER_PLAN_KEYS`)."""
-    return query_plan(_backward_lib().risi18_level_backward_plan, P, C, Cout,
-                      dtype, CLUSTER_PLAN_KEYS)
+def level_backward_plan(N, P, C, Cout, dtype=torch.float32):
+    """K2 kernel 1's plan for N vertices (:func:`query_plan`)."""
+    return query_plan(_backward_lib().risi18_level_backward_plan, N, P, C,
+                      Cout, dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -382,7 +380,7 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     lib = _kernel_lib()
     check_smem("risi18_level", lib.risi18_level_min_smem_bytes, P, Cout)
     out = torch.empty((N, P * P, Cout), dtype=dt, device=dev)
-    plan = level_plan(P, C, Cout, dt)
+    plan = level_plan(N, P, C, Cout, dt)
     pre = out
     if dt != torch.float32 and plan is not None and plan["cluster"]:
         pre = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
@@ -423,7 +421,7 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
             _stream(dev))
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
               _where(N, P, C, Cout, dt)
-              + (f", plan {level_backward_plan(P, C, Cout, dt)}" if err
+              + (f", plan {level_backward_plan(N, P, C, Cout, dt)}" if err
                  else ""))
     risi18_level_backward.launches += 1
     return dstate, partial

@@ -32,6 +32,12 @@ resolve).  Each difference is also taken within every round, and printed
 with the quartiles of those paired differences: a stage whose quartiles
 straddle zero is not resolved by the run.
 
+The variants are K4's block with a part left out on every plan one block
+a vertex runs.  Where K4 itself runs a cluster plan (a field one block
+does not hold: P >= 36 at C = 32), the variants keep the row-tiled block
+of one block a vertex (``forward_block_tiled``), and the tool says so in a
+line before its table: the attribution is then that block's, not K4's.
+
 Usage: python -m graphflow_tpu_torch.tools.ablate_bank [B] [P] [C]
 (defaults 256 16 32; float32 then bfloat16).  Needs a CUDA device.
 """
@@ -44,7 +50,7 @@ import sys
 import numpy as np
 import torch
 
-from graphflow_tpu_torch.ops.risi_bank import risi18_bank
+from graphflow_tpu_torch.ops.risi_bank import bank_plan, risi18_bank
 from graphflow_tpu_torch.ops.risi_bank_ablate import risi18_bank_variant
 from graphflow_tpu_torch.tools.measure import time_in_turns
 
@@ -126,12 +132,28 @@ def report(B, P, C, dtype, out=print):
     return ms, parts, spread
 
 
+def cluster_note(B, P, C, dtype):
+    """The line that says where the variants and K4 part: None where K4
+    runs the variants' block (one block a vertex holds the field)."""
+    plan = bank_plan(B, P, C, C, dtype)
+    if plan is None or not plan["cluster"]:
+        return None
+    return (f"B={B} P={P} C={C} {str(dtype)[6:]}: the variants run the "
+            f"row-tiled block of one block a vertex (forward_block_tiled), "
+            f"while K4 (bank) runs a cluster plan of {plan['cluster']} "
+            f"blocks: the attribution below is that block's, not K4's, and "
+            f"full - bank compares the two blocks")
+
+
 def main(argv=None):
     B, P, C = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         raise RuntimeError("ablate_bank times CUDA kernels: no CUDA device "
                            "is available")
     for dtype in DTYPES:
+        note = cluster_note(B, P, C, dtype)
+        if note:
+            print(note)
         report(B, P, C, dtype)
 
 

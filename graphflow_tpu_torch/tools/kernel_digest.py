@@ -131,8 +131,8 @@ def main(argv=None):
                     print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms (bound "
                           f"{b1[0]:.4f} by {b1[1]}), K2 kernel 1 {k2:.4f} ms "
                           f"(bound {b2[0]:.4f} by {b2[1]}); plans "
-                          f"{level_plan(P, C, Cout, dtype)}, "
-                          f"{level_backward_plan(P, C, Cout, dtype)}",
+                          f"{level_plan(N, P, C, Cout, dtype)}, "
+                          f"{level_backward_plan(N, P, C, Cout, dtype)}",
                           flush=True)
                     continue
                 _, partial = _backward_main_kernel(*level[:5], g, out, 0.01)

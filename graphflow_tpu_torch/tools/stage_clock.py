@@ -20,8 +20,10 @@ copies, reducing the stage.  K1 and K2 run such a field on cluster plans
 (a vertex's row tiles over a cluster of blocks), whose marks it prints as
 well: block (0, 0, 0) is rank 0 of the first cluster, and its marks split
 its own tiles into the stream, the products and the rest, and name the
-cycles it waits at the cluster's meetings.  K4 and K5 keep one block a
-vertex on such a field and have no marks there.
+cycles it waits at the cluster's meetings.  K4 and K5 kernel 1 run the
+same cluster blocks on T there, with the same marks (K2's names: for K5
+the structure is the adjacency, geff is g itself and the scatter writes
+dT).
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -90,7 +92,7 @@ def report(what, stages, read_cycles, cluster_stages=None):
                   f"{name} {cycles[PIECE_SLOT + i] / pieces:.0f}"
                   for i, name in enumerate(PIECE_STAGES)))
         if cluster_stages is None or not any(cycles[:len(cluster_stages)]):
-            return      # one block a vertex (K4, K5): no marks there
+            return      # one block a vertex: no marks there
         stages = cluster_stages
     total = sum(cycles[:len(stages)])
     print(f"{what}: {total} cycles in block (0, 0, 0): " + ", ".join(
@@ -167,18 +169,19 @@ def main(argv=None):
         bank_partial = torch.empty((groups, 18 * C * Cout),
                                    dtype=torch.float32, device="cuda")
         bank_forward = getattr(bank, f"risi18_bank_forward_{suffix}")
-        bank_forward.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        bank_forward.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        bank_pre = Z if dtype == torch.float32 else pre
         bank_backward = getattr(bank_bwd, f"risi18_bank_backward_{suffix}")
         bank_backward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         for _ in range(ROUNDS):
             err = bank_forward(T.data_ptr(), f32["radj"].data_ptr(),
-                               K.data_ptr(), Z.data_ptr(), N, P, C, Cout,
-                               stream)
+                               K.data_ptr(), Z.data_ptr(),
+                               bank_pre.data_ptr(), N, P, C, Cout, stream)
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"risi18_bank launch failed ({err})")
             report(f"K4 {shape}", BANK_STAGES,
-                   bank.risi18_bank_stage_cycles)
+                   bank.risi18_bank_stage_cycles, CLUSTER_STAGES)
         for _ in range(ROUNDS):
             err = bank_backward(T.data_ptr(), f32["radj"].data_ptr(),
                                 K.data_ptr(), g.data_ptr(), dT.data_ptr(),
@@ -189,7 +192,8 @@ def main(argv=None):
                 raise RuntimeError(f"risi18_bank_backward launch failed "
                                    f"({err})")
             report(f"K5 kernel 1 {shape}", BANK_BACKWARD_STAGES,
-                   bank_bwd.risi18_bank_backward_stage_cycles)
+                   bank_bwd.risi18_bank_backward_stage_cycles,
+                   CLUSTER_BACKWARD_STAGES)
 
 
 if __name__ == "__main__":

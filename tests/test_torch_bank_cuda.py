@@ -24,6 +24,7 @@ from graphflow_tpu_torch.ops.risi_bank import (
     risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.utils.datasets import random_level_case
+from test_torch_kernels_cuda import check_cluster_plan
 
 pytestmark = pytest.mark.cuda
 
@@ -133,7 +134,7 @@ def test_bank_forward_streams_fields_of_more_than_32_rows(cuda, dtype):
     for x, r in zip(risi18_bank_backward(T, A, K, g),
                     risi18_bank_backward_reference(T, A, K, g)):
         _assert_close(x, r)
-    assert bank_backward_plan(33, 4, 8, dtype)["tiled"] == 1
+    assert bank_backward_plan(2, 33, 4, 8, dtype)["tiled"] == 1
 
 
 def test_bank_autograd_on_cuda_runs_k4_and_k5(cuda, dtype):
@@ -234,7 +235,7 @@ def test_bank_kernels_walk_several_vertices_of_a_tiled_field(cuda, dtype, P):
     its row-tiled plan walk two vertices each, write each one's dT and
     carry dK from one to the next (K4 tiles from 36 rows)."""
     N, C, Cout = 140, 4, 4
-    assert bank_backward_plan(P, C, Cout, dtype)["tiled"] == 1
+    assert bank_backward_plan(N, P, C, Cout, dtype)["tiled"] == 1
     T, A, K, g = _inputs(N, P, C, Cout, seed=P, device=cuda, dtype=dtype)
     _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
     for x, r in zip(risi18_bank_backward(T, A, K, g),
@@ -244,13 +245,83 @@ def test_bank_kernels_walk_several_vertices_of_a_tiled_field(cuda, dtype, P):
 
 def test_bank_kernels_run_at_the_edge_of_their_reach(cuda, dtype):
     """The last fields whose tiles of one row fit a block at Cout = 32:
-    K4 at P = 216 and K5 kernel 1 at P = 178 run and match."""
+    K4 at P = 216 and K5 kernel 1 at P = 178 run and match, on cluster
+    plans of 8 blocks (one vertex leaves the card idle)."""
+    assert bank_plan(1, 216, 1, 32, dtype)["cluster"] == 8
+    assert bank_backward_plan(1, 178, 1, 32, dtype)["cluster"] == 8
     T, A, K, _ = _inputs(1, 216, 1, 32, seed=216, device=cuda, dtype=dtype)
     _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
     T, A, K, g = _inputs(1, 178, 1, 32, seed=178, device=cuda, dtype=dtype)
     for x, r in zip(risi18_bank_backward(T, A, K, g),
                     risi18_bank_backward_reference(T, A, K, g)):
         _assert_close(x, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_bank_plans_report_their_clusters(cuda, dtype):
+    """Every row-tiled plan of K4 and K5 kernel 1 is a cluster plan sized
+    for N by the rule K1 and K2 kernel 1 follow
+    (``test_torch_kernels_cuda.py:check_cluster_plan``; K5's one-block
+    clusters on the CUDA cores take the row-tiled block one a vertex group),
+    with the tensor cores where a tile's rows allow them; an untiled plan
+    has none.  At
+    SMP_beta's field (C = Cout = 32) one vertex spreads over 8 blocks of 2
+    tiles, 64 vertices over 2 blocks of 8 tiles forward and one block
+    backward (64 groups x 4 chunks), 256 over one block."""
+    for C, Cout in ((4, 4), (32, 32), (16, 8)):
+        for P in list(range(20, 65)) + [100, 178]:
+            for N in (1, 64, 140, 160, 256):
+                fwd = bank_plan(N, P, C, Cout, dtype)
+                if fwd is not None:
+                    check_cluster_plan(fwd, P, N * -(-Cout // fwd["panel"]))
+                bwd = bank_backward_plan(N, P, C, Cout, dtype)
+                check_cluster_plan(bwd, P, min(N, 132) * -(-C // bwd["chunk"])
+                                   * -(-Cout // bwd["panel"]), backward=True)
+    for N, fwd, bwd in ((1, (8, 2), (8, 2)), (64, (2, 8), (1, 16)),
+                        (256, (1, 16), (1, 16))):
+        for plan, want in ((bank_plan(N, 64, 32, 32, dtype), fwd),
+                           (bank_backward_plan(N, 64, 32, 32, dtype), bwd)):
+            assert (plan["rows"], plan["cluster"], plan["tiles_per_block"],
+                    plan["mma"]) == (4, *want, 1), (N, plan)
+
+
+def _cluster_sizes(P, C, Cout, dtype, most_bytes):
+    """{(K4's cluster, K5 kernel 1's cluster): the least N whose plans take
+    them}, over the N whose T holds at most ``most_bytes``."""
+    sizes = {}
+    per_vertex = P ** 4 * C * torch.finfo(dtype).bits // 8
+    for N in range(1, most_bytes // per_vertex + 1):
+        key = (bank_plan(N, P, C, Cout, dtype)["cluster"],
+               bank_backward_plan(N, P, C, Cout, dtype)["cluster"])
+        sizes.setdefault(key, N)
+    return sizes
+
+
+@pytest.mark.parametrize("C,Cout", [(1, 4), (8, 8)])
+def test_bank_kernels_at_every_cluster_size(cuda, dtype, C, Cout):
+    """K4 and K5 kernel 1 at every cluster size the rule picks as N grows
+    (P = 40: three tiles a vertex, clusters of 3, 2 and 1 blocks; K5's
+    cluster of one is the row-tiled block one a vertex group, 0, where its
+    dK would run on the CUDA cores: 4 channels a chunk, as at C = 1, and at
+    C = 8 in float32; in bfloat16 the chunk of 8 takes the tensor cores),
+    against the plain bank and bit for bit from run to run."""
+    P = 40
+    sizes = _cluster_sizes(P, C, Cout, dtype, 8 << 30)
+    one = 1 if (C, dtype) == (8, torch.bfloat16) else 0
+    assert {f for f, _ in sizes} >= {1, 2, 3}, sizes
+    assert {b for _, b in sizes} >= {one, 2, 3}, sizes
+    for N in sorted(sizes.values()):
+        T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                             dtype=dtype)
+        got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+        _assert_close(got[0], risi18_bank_reference(T, A, K))
+        for x, r in zip(got[1:], risi18_bank_backward_reference(T, A, K, g)):
+            _assert_close(x, r)
+        again = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+        torch.cuda.synchronize()
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
 
 
 def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
@@ -264,17 +335,17 @@ def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
         for C, Cout, first_fwd, first_bwd in ((4, 4, f4, 33),
                                               (32, 32, f32, b32)):
             for P in range(1, 65):
-                fwd = bank_plan(P, C, Cout, dtype)
-                bwd = bank_backward_plan(P, C, Cout, dtype)
+                fwd = bank_plan(64, P, C, Cout, dtype)
+                bwd = bank_backward_plan(64, P, C, Cout, dtype)
                 assert fwd["tiled"] == (P >= first_fwd), (P, C, Cout)
                 assert bwd["tiled"] == (P >= first_bwd), (P, C, Cout)
                 assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
-    assert bank_plan(16, 32, 32) == dict(rows=16, panel=32, chunk=16,
-                                         depth=3, smem_bytes=210928, tiled=0,
-                                         pieces=1)
-    assert bank_backward_plan(16, 32, 32) == dict(
+    assert bank_plan(256, 16, 32, 32) == dict(
+        rows=16, panel=32, chunk=16, depth=3, smem_bytes=210928, tiled=0,
+        pieces=1, cluster=0, tiles_per_block=1, mma=1)
+    assert bank_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=226960, tiled=0,
-        pieces=1)
+        pieces=1, cluster=0, tiles_per_block=1, mma=1)
 
 
 def test_bank_reduce_matches_torch_and_repeats(cuda):

@@ -14,6 +14,11 @@ in the backward GA, db and dK) as the blocks' parts added in rank order.
 * The same against the untiled factored references, for tiles that divide
   P and tiles that leave a short last tile, and clusters of 1, 2, 4 and 8
   blocks (float64, 1e-10).
+* The shapes the cluster plans take for the bank (K4, K5 kernel 1) and
+  the level: tiles balanced as the planners make them (P = 40 in tiles of
+  14, 14 and 12 rows) on clusters of 3, 2 (a block with two tiles, one
+  with one) and 1 block, against the JAX package and the untiled
+  references (float64, 1e-10).
 * float32 and bfloat16 in, float32 sums, rounded once.
 
 Small: N <= 3 vertices, P in {33, 36, 40}, C <= 3, Cout <= 4.
@@ -46,6 +51,11 @@ CLUSTERS = [1, 2, 4, 8]
 # that leave a short last tile (4 and 8 of 33, 5 of 36, 7 of 40).
 TILED = [(3, 33, 2, 4, 4), (2, 33, 3, 3, 8), (2, 36, 2, 3, 4),
          (2, 36, 3, 4, 5), (2, 40, 2, 4, 7), (2, 40, 3, 2, 8)]
+# balanced_rows of csrc/risi18_level_common.cuh: 16-row tiles of P = 40
+# become 14, 14, 12 (and of P = 33, 11, 11, 11); cluster_shape spreads
+# three tiles over 3, 2 or 1 blocks as the grid grows.
+BALANCED = [(2, 40, 3, 4, 14), (3, 33, 2, 3, 11)]
+BALANCED_CLUSTERS = [3, 2, 1]
 
 
 def _close(got, ref, rtol=RTOL64):
@@ -140,6 +150,40 @@ def test_cluster_level_equals_the_untiled_one(N, P, C, Cout, rows, cluster):
     ref = risi18_level_backward_factored_reference(*targs, _t(g))
     for x, r in zip(got, ref):
         assert x.dtype == r.dtype
+        _close(x, r)
+
+
+@pytest.mark.parametrize("cluster", BALANCED_CLUSTERS)
+@pytest.mark.parametrize("N,P,C,Cout,rows", BALANCED)
+def test_balanced_cluster_bank_matches_jax(N, P, C, Cout, rows, cluster):
+    T, A, K, g = _bank_case(N, P, C, Cout)
+    jT, jA, jK = (jnp.asarray(x) for x in (T, A, K))
+    tT, tA, tK = _t(T), _t(A), _t(K)
+    Z = risi18_bank_cluster_reference(tT, tA, tK, rows, cluster)
+    _close(Z, _jax_bank(jT, jA, jK))
+    _close(Z, risi18_bank_factored_reference(tT, tA, tK))
+    dT, dK = risi18_bank_backward_cluster_reference(tT, tA, tK, _t(g), rows,
+                                                    cluster)
+    _, vjp = jax.vjp(lambda t, k: _jax_bank(t, jA, k), jT, jK)
+    ref_dT, ref_dK = vjp(jnp.asarray(g))
+    _close(dT, ref_dT)
+    _close(dK, ref_dK)
+
+
+@pytest.mark.parametrize("cluster", BALANCED_CLUSTERS)
+def test_balanced_cluster_level_matches_jax(cluster):
+    N, P, C, Cout, rows = BALANCED[0]
+    args, g = _level_case(N, P, C, Cout)
+    targs = [_t(a) for a in args]
+    jargs = [jnp.asarray(a) for a in args]
+    _close(risi18_level_cluster_reference(*targs, rows, cluster),
+           _reference_level(*jargs))
+    got = risi18_level_backward_cluster_reference(*targs, _t(g), rows,
+                                                  cluster)
+    state, nbr, pos, radj, K, b = jargs
+    _, vjp = jax.vjp(lambda s, k, bb: _reference_level(s, nbr, pos, radj, k,
+                                                       bb), state, K, b)
+    for x, r in zip(got, vjp(jnp.asarray(g))):
         _close(x, r)
 
 

@@ -192,6 +192,54 @@ def test_ell_route_equals_dense_route(name):
            RTOL32)
 
 
+def _parting_graphs(mod):
+    """Two 5-vertex paths with one-hot features on which the routes part:
+    one with a self loop at vertex 2, one whose edge (1, 2) weighs 2."""
+    feats = np.eye(4)[[0, 1, 2, 3, 0]]
+    path = [(i, i + 1) for i in range(4)]
+    loop = mod.DenseGraph.from_edges(5, 4, path, feats)
+    loop.adj[2, 2] = 1
+    heavy = mod.DenseGraph.from_edges(5, 4, path, feats)
+    heavy.adj[1, 2] = heavy.adj[2, 1] = 2
+    return [loop, heavy]
+
+
+@pytest.mark.parametrize("name", sorted(SPARSE))
+def test_route_disagreement_follows_jax(name):
+    """Where the routes part, the port parts as the JAX package does: the
+    dense route reads a self loop and an edge's weight (D^-1/2 (A+I)
+    D^-1/2 of the weighted adj), the ELL route keeps triu(adj, 1) > 0
+    (``graphflow_tpu/core/prep.py:367-369``).  The port's dense-minus-ELL
+    prediction difference equals the JAX package's, both models in
+    float64 on the same weights, graph by graph; the difference is not
+    zero, so a change to either route shows here."""
+    diffs = {}
+    for pkg, mod in (("jax", jdatasets), ("port", datasets)):
+        preds = {}
+        for aggregation in ("dense", "ell"):
+            jm = getattr(jgcn, name)(**SPARSE[name], seed=3,
+                                     aggregation=aggregation)
+            jm.params = jax.tree_util.tree_map(
+                lambda x: x.astype(jnp.float64), jm.params)
+            jm._finish_init()
+            model = jm
+            if pkg == "port":
+                model = getattr(models, name)(**SPARSE[name], device="cpu",
+                                              aggregation=aggregation)
+                model = model.double()
+                model.load_params(_flat(jm.params))
+                model._finish_init()
+            preds[aggregation] = np.asarray(
+                model.Threaded_Predict(_parting_graphs(mod)),
+                dtype=np.float64)
+        diffs[pkg] = preds["dense"] - preds["ell"]
+    _close(diffs["port"], diffs["jax"], RTOL_FWD)
+    # A material share of the prediction: the self loop in both models,
+    # the weight in GCN_MW (NeuralFingerprint reads no edge weight).
+    parted = np.abs(diffs["jax"]) > 1e-4 * np.abs(preds["ell"])
+    assert parted[0] and (parted[1] or name == "NeuralFingerprint")
+
+
 def test_aggregation_auto():
     """"auto" takes ELL from 1024 vertices, for GCN_MW only at nDepth 0."""
     def route(ctor, **kw):

@@ -248,15 +248,22 @@ def test_level_kernels_on_fields_beyond_one_block(cuda, N, P, C, Cout,
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("C,Cout", [(4, 4), (8, 8)])
 @pytest.mark.parametrize("P", [33, 36, 64])
-def test_level_kernels_walk_several_vertices_of_a_tiled_field(cuda, P,
-                                                             dtype):
-    """140 vertices, more than the backward's 132 vertex groups: clusters
-    of kernel 1 walk two vertices each and their blocks carry dK, db and
-    their buffers from one to the next (K1 tiles from 36 rows)."""
-    N, C, Cout = 140, 4, 4
-    assert level_backward_plan(P, C, Cout, dtype)["tiled"] == 1
-    assert level_backward_plan(P, C, Cout, dtype)["cluster"] >= 1
+def test_level_kernels_walk_several_vertices_of_a_tiled_field(cuda, P, C,
+                                                             Cout, dtype):
+    """140 vertices, more than the backward's 132 vertex groups: the blocks
+    of kernel 1 walk two vertices each and carry dK, db and their buffers
+    from one to the next (K1 tiles from 36 rows).  132 groups already fill
+    the card, so kernel 1 takes a cluster of one block where dK runs on the
+    tensor cores (8 channels a chunk: P = 36 in both dtypes), else the
+    row-tiled block one a vertex group (4 channels a chunk)."""
+    N = 140
+    plan = level_backward_plan(N, P, C, Cout, dtype)
+    assert plan["tiled"] == 1 and plan["cluster"] in (0, 1), plan
+    assert plan["cluster"] == plan["mma"], plan
+    if (P, C) == (36, 8):
+        assert plan["cluster"] == 1, plan
     args = _inputs(N, P, C, Cout, seed=P, device=cuda, empty_vertex=N // 2,
                    dtype=dtype)
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
@@ -269,13 +276,13 @@ def test_level_kernels_run_at_the_edge_of_their_reach(cuda, dtype):
     """The last fields whose tiles of one row fit a block at Cout = 32:
     K1 at P = 156 and K2 kernel 1 at P = 153 run and match."""
     args = _inputs(1, 156, 1, 32, seed=156, device=cuda, dtype=dtype)
-    assert level_plan(156, 1, 32, dtype)["rows"] >= 1
-    assert level_plan(156, 1, 32, dtype)["cluster"] == 8
+    assert level_plan(1, 156, 1, 32, dtype)["rows"] >= 1
+    assert level_plan(1, 156, 1, 32, dtype)["cluster"] == 8
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
-    assert level_backward_plan(153, 1, 32, dtype)["cluster"] == 8
+    assert level_backward_plan(1, 153, 1, 32, dtype)["cluster"] == 8
     # (check_smem refuses by the float32 plan's bytes: P = 157 and 154.)
-    assert level_plan(157, 1, 32) is None
-    assert level_backward_plan(154, 1, 32) is None
+    assert level_plan(1, 157, 1, 32) is None
+    assert level_backward_plan(1, 154, 1, 32) is None
     args = _inputs(1, 153, 1, 32, seed=153, device=cuda, dtype=dtype)
     _check_backward(args, _cotangent(1, 153, 32, seed=153, device=cuda,
                                      dtype=dtype))
@@ -289,43 +296,76 @@ def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
     for dtype, first_fwd in ((torch.float32, 36), (torch.bfloat16, 37)):
         for C, Cout in ((4, 4), (32, 32), (16, 8)):
             for P in range(1, 65):
-                fwd = level_plan(P, C, Cout, dtype)
-                bwd = level_backward_plan(P, C, Cout, dtype)
+                fwd = level_plan(64, P, C, Cout, dtype)
+                bwd = level_backward_plan(64, P, C, Cout, dtype)
                 assert fwd["tiled"] == (P >= first_fwd), (P, C, Cout)
                 assert bwd["tiled"] == (P >= 33), (P, C, Cout)
                 assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
-    assert level_plan(16, 32, 32) == dict(rows=16, panel=32, chunk=16,
+    assert level_plan(256, 16, 32, 32) == dict(rows=16, panel=32, chunk=16,
                                           depth=3, smem_bytes=212096,
                                           tiled=0, pieces=1, cluster=0,
                                           tiles_per_block=1, mma=1)
-    assert level_backward_plan(16, 32, 32) == dict(
+    assert level_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
         pieces=1, cluster=0, tiles_per_block=1, mma=1)
 
 
+def cluster_rounds(tiles, blocks, per, grid, sms=132):
+    """The rounds of clusters one SM a block runs one after another, times
+    the tiles a block takes: what ``csrc/risi18_level_common.cuh:
+    cluster_shape`` makes least (of equal counts, the fewest blocks)."""
+    return -(-grid // (sms // blocks)) * per
+
+
+def check_cluster_plan(plan, P, grid, backward=False):
+    """A row-tiled plan is a cluster plan of at most 8 blocks, each with its
+    share of the tiles and as few blocks as that share needs, and no other
+    shape of at most 8 blocks runs fewer rounds of tiles for ``grid``
+    clusters, nor as few with fewer blocks; an untiled plan has none.  A
+    backward plan whose cluster would be one block with dK on the CUDA
+    cores is the row-tiled block of one block a vertex group instead
+    (``cluster`` 0, ``mma`` 0)."""
+    if not plan["tiled"] or (backward and plan["cluster"] == 0):
+        assert plan["cluster"] == 0 and not (plan["tiled"] and plan["mma"]), \
+            plan
+        return
+    tiles = -(-P // plan["rows"])
+    per, blocks = plan["tiles_per_block"], plan["cluster"]
+    assert 1 <= blocks <= 8 and per >= -(-tiles // 8), plan
+    assert blocks == -(-tiles // per), plan
+    best = cluster_rounds(tiles, blocks, per, grid)
+    for cap in range(1, 9):
+        p = -(-tiles // cap)
+        b = -(-tiles // p)
+        cost = cluster_rounds(tiles, b, p, grid)
+        assert cost > best or (cost == best and b >= blocks), (plan, cap)
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 def test_level_plans_report_their_clusters(cuda, dtype):
-    """Every row-tiled plan of K1 and K2 kernel 1 is a cluster plan: at
-    most 8 blocks (the portable cluster), each with its share of the
-    tiles, as few blocks as that share needs; an untiled plan has none.
-    SMP_beta's field at C = Cout = 32 takes clusters of 8 blocks with 2
-    tiles each and the tensor cores, in both directions."""
+    """Every row-tiled plan of K1 and K2 kernel 1 is a cluster plan sized
+    for N: the fewest rounds of tiles on the card's 132 SMs, where a
+    cluster's blocks split a vertex's tiles (the grid: vertices x panels
+    forward, vertex groups x chunks x panels backward), but a backward one
+    that would be one block on the CUDA cores; an untiled plan has none.
+    SMP_beta's field at C = Cout = 32 spreads one vertex over 8 blocks of
+    2 tiles, a batch of 64 vertices over 2 blocks of 8 tiles forward and
+    one block backward (64 groups x 4 chunks already fill the
+    card twice), and a batch of 256 over one block in both directions."""
     for C, Cout in ((4, 4), (32, 32), (16, 8)):
         for P in list(range(30, 65)) + [100, 153]:
-            for plan in (level_plan(P, C, Cout, dtype),
-                         level_backward_plan(P, C, Cout, dtype)):
-                if not plan["tiled"]:
-                    assert plan["cluster"] == 0, (P, C, Cout, plan)
-                    continue
-                tiles = -(-P // plan["rows"])
-                per, blocks = plan["tiles_per_block"], plan["cluster"]
-                assert 1 <= blocks <= 8, (P, C, Cout, plan)
-                assert per == -(-tiles // 8), (P, C, Cout, plan)
-                assert blocks == -(-tiles // per), (P, C, Cout, plan)
-    for plan in (level_plan(64, 32, 32, dtype),
-                 level_backward_plan(64, 32, 32, dtype)):
-        assert (plan["rows"], plan["cluster"], plan["tiles_per_block"],
-                plan["mma"]) == (4, 8, 2, 1), plan
+            for N in (1, 64, 140, 160, 256):
+                fwd = level_plan(N, P, C, Cout, dtype)
+                check_cluster_plan(fwd, P, N * -(-Cout // fwd["panel"]))
+                bwd = level_backward_plan(N, P, C, Cout, dtype)
+                check_cluster_plan(bwd, P, min(N, 132) * -(-C // bwd["chunk"])
+                                   * -(-Cout // bwd["panel"]), backward=True)
+    for N, fwd, bwd in ((1, (8, 2), (8, 2)), (64, (2, 8), (1, 16)),
+                        (256, (1, 16), (1, 16))):
+        for plan, want in ((level_plan(N, 64, 32, 32, dtype), fwd),
+                           (level_backward_plan(N, 64, 32, 32, dtype), bwd)):
+            assert (plan["rows"], plan["cluster"], plan["tiles_per_block"],
+                    plan["mma"]) == (4, *want, 1), (N, plan)
 
 
 @pytest.mark.parametrize("C,Cout", [(32, 32), (5, 3), (1, 1)])
