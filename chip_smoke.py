@@ -36,9 +36,12 @@ Phases, each reported on its own lines:
               plan (a vertex's row tiles over a cluster of blocks) at
               (140,64,32,32), whose clusters walk two vertices, for
               errors, and at (64,64,32,32): errors, the plan, times and
-              bound; then kernel 1 at the beta pairs' field
-              (160,40,32,16), where the grid fills the card: plan, time,
-              bound;
+              bound, and kernel 0 (GAp and the row sums of geff once a
+              vertex, launched before kernel 1 on a cluster plan and
+              asserted so at every shape) against its plain version, its
+              time and bound, with kernel 1 alone on its scratch; then
+              kernel 1 at the beta pairs' field (160,40,32,16), where the
+              grid fills the card: plan, time, bound;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
@@ -54,10 +57,12 @@ Phases, each reported on its own lines:
               alone) and the plain backward at the production shape, per
               dtype, with the bounds of the factored functions; then K4 and
               K5 kernel 1 on their cluster plans (asserted from the plans,
-              each launched once) at (140,64,32,32) (errors, times,
-              bounds), at (256,64,32,32) (errors against the plain
-              versions run 64 vertices at a time) and at (64,64,32,32)
-              the same way with the plain versions' times;
+              each launched once, K5's kernel 0 once before it) at
+              (140,64,32,32) (errors, times, bounds), at (256,64,32,32)
+              (errors against the plain versions run 64 vertices at a
+              time) and at (64,64,32,32) the same way with the plain
+              versions' times, and K5's kernel 0 against its plain
+              version (error, times, bound);
   8. bf16     the same model in bfloat16, whose levels run the fused level
               as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
@@ -168,7 +173,8 @@ Phases, each reported on its own lines:
               V = 64: fields whose maps one block does not hold, which K1
               and K2 kernel 1 walk in row tiles.  Each serves one request
               of 4 graphs and takes one BatchLearn step (K1 and K2 counted:
-              2 levels x 3 forwards, 1 backward); the request and the first
+              2 levels x 3 forwards, 1 backward, and kernel 0 once a
+              level's backward); the request and the first
               loss match the same model through the plain level on the
               card, and the gradients of the batch (256 vertices: blocks
               of kernel 1 walk two) the sum of the plain level's per
@@ -454,6 +460,15 @@ def bank_variant_ops(mode, N, P, C, Cout):
             "dma": 0}[mode]
 
 
+def sums_ops(N, P, Cout, gather):
+    """Kernel 0 of the row-tiled backward plans
+    (csrc/risi18_backward_block.cuh:backward_sums_kernel): GAp (2 * P per
+    row and output), the row sums GR, GAx and GSx (six per row and output)
+    and, for the level (``gather``), LeakyReLU' (one)."""
+    rows = N * P * P
+    return rows * Cout * (2 * P + 6 + (1 if gather else 0))
+
+
 def present_elements(nbr, pos) -> int:
     """Elements of the gathered T [N,P,P,P] that are present: slot a of
     vertex v has a neighbour, and positions b and c are set."""
@@ -554,8 +569,28 @@ def reset_level_counts():
     from graphflow_tpu_torch.ops.risi_level import (risi18_level,
                                                     risi18_level_backward)
     risi18_level.launches = 0
+    risi18_level_backward.sums_launches = 0
     risi18_level_backward.launches = 0
     risi18_level_backward.reduce_launches = 0
+
+
+def sums_counts():
+    """Launches of kernel 0 (the row-tiled backward plans' sums of G once a
+    vertex): K2's, K5's."""
+    from graphflow_tpu_torch.ops.risi_bank import risi18_bank_backward
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_backward
+    return (risi18_level_backward.sums_launches,
+            risi18_bank_backward.sums_launches)
+
+
+def expect_sums(what, before, cluster, which=0):
+    """Raises unless kernel 0 (K2's, which = 0; K5's, 1) launched once
+    since the counts ``before`` on a cluster plan (``cluster`` > 0), and
+    not at all on another."""
+    got = sums_counts()[which] - before[which]
+    if got != int(cluster > 0):
+        raise AssertionError(f"{what}: kernel 0 launched {got} times on a "
+                             f"plan of cluster {cluster}")
 
 
 def synced_s(fn):
@@ -729,9 +764,9 @@ def phase_backward():
     import torch
     from graphflow_tpu_torch.ops.risi_level import (
         _backward_finish_kernel_bf16, _backward_main_kernel,
-        _backward_reduce_kernel, level_backward_plan, risi18_level,
-        risi18_level_backward, risi18_level_backward_reference,
-        risi18_level_reference)
+        _backward_reduce_kernel, _backward_sums_kernel, level_backward_plan,
+        risi18_level, risi18_level_backward, risi18_level_backward_reference,
+        risi18_level_backward_sums_reference, risi18_level_reference)
 
     def inputs(N, P, C, Cout, seed, dtype):
         g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
@@ -748,7 +783,10 @@ def phase_backward():
             args, g = inputs(N, P, C, Cout, SEED + i, dtype)
             out = same_signs(risi18_level(*args),
                              risi18_level_reference(*args))
+            before = sums_counts()
             got = risi18_level_backward(*args, out, g)
+            expect_sums(f"backward {name} N={N} P={P}", before,
+                        level_backward_plan(N, P, C, Cout, dtype)["cluster"])
             torch.cuda.synchronize()
             ref = risi18_level_backward_reference(*args, g)
             second = None
@@ -846,7 +884,9 @@ def phase_backward():
             largs, lg = inputs(N, P, C, Cout, seed, dtype)
             lout = same_signs(risi18_level(*largs),
                               risi18_level_reference(*largs))
+            before = sums_counts()
             got = risi18_level_backward(*largs, lout, lg)
+            expect_sums(f"backward {name} N={N} P={P}", before, True)
             torch.cuda.synchronize()
             ref = risi18_level_backward_reference(*largs, lg)
             line = []
@@ -882,13 +922,37 @@ def phase_backward():
             nbytes(*largs[:5], lg, lout, dstate, dK, db),
             level_backward_ops(N, P, C, Cout,
                                present_elements(largs[1], largs[2])), name)
+        # Kernel 0 (GAp and the row sums of geff once a vertex), which the
+        # cluster plan launches before kernel 1: against its plain
+        # version (float32 sums on both sides), alone.
+        sums = _backward_sums_kernel(largs[3], lg, lout, 0.01)
+        sums_ref = risi18_level_backward_sums_reference(largs[3], lg, lout)
+        k0 = p64["sums"] = {
+            "err": max(check_close(f"kernel 0 {key} {name} "
+                                   f"N,P,C,Cout={LARGE_SHAPE}", x, r, RTOL)
+                       for key, x, r in zip(("gap", "sums"), sums,
+                                            sums_ref)),
+            "ms": time_ms(lambda: _backward_sums_kernel(largs[3], lg, lout,
+                                                        0.01)),
+            "plain_ms": time_ms(lambda: risi18_level_backward_sums_reference(
+                largs[3], lg, lout)),
+            "bound": bound_ms(nbytes(largs[3], lg, lout, *sums),
+                              sums_ops(N, P, Cout, True), name)}
+        # Kernel 1 alone, on the scratch kernel 0 left.
+        p64["kernel1"] = time_ms(lambda: _backward_main_kernel(
+            *largs[:5], lg, lout, 0.01, sums=sums))
         log(f"phase 5 backward: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles:"
             f" {p64['plan']}) max_abs_err {line} ok; median "
-            f"kernel 1 {p64['main']:.4f} ms, both kernels {p64['k2']:.4f} ms,"
-            f" plain backward {p64['plain']:.4f} ms; kernel 1's bound "
-            f"{p64['bound'][0]:.4f} ms by {p64['bound'][1]} "
-            f"({100 * p64['bound'][0] / p64['main']:.2f} % of its time)")
-        del largs, lg, lout, dstate
+            f"kernels 0 and 1 {p64['main']:.4f} ms (kernel 0 "
+            f"{k0['ms']:.4f}, kernel 1 {p64['kernel1']:.4f}), both kernels "
+            f"{p64['k2']:.4f} ms, plain backward {p64['plain']:.4f} ms; "
+            f"kernel 1's bound {p64['bound'][0]:.4f} ms by {p64['bound'][1]} "
+            f"({100 * p64['bound'][0] / p64['main']:.2f} % of kernels 0 and "
+            f"1); kernel 0 max_abs_err {k0['err']:.3e} (bound "
+            f"{RTOL:g}*max(1,max|plain|)), plain {k0['plain_ms']:.4f} ms, "
+            f"bound {k0['bound'][0]:.4f} ms by {k0['bound'][1]}, scratch "
+            f"{nbytes(*sums) / 1e6:.1f} MB")
+        del largs, lg, lout, dstate, sums, sums_ref
         torch.cuda.empty_cache()
         # The beta pairs' field, where 132 vertex groups x chunks already
         # fill the card: kernel 1 on its plan there.
@@ -1037,16 +1101,20 @@ def bank_inputs(N, P, C, Cout, seed, dtype):
 def phase_bank():
     import torch
     from graphflow_tpu_torch.ops.risi_bank import (
-        _backward_main_kernel, _backward_reduce_kernel, bank_backward_plan,
-        bank_plan, risi18_bank, risi18_bank_backward,
-        risi18_bank_backward_reference, risi18_bank_reference)
+        _backward_main_kernel, _backward_reduce_kernel,
+        _backward_sums_kernel, bank_backward_plan, bank_plan, risi18_bank,
+        risi18_bank_backward, risi18_bank_backward_reference,
+        risi18_bank_backward_sums_reference, risi18_bank_reference)
 
     errs = {"Z": 0.0, "dT": 0.0, "dK": 0.0}
     for dtype, rtol in ((torch.float32, RTOL), (torch.bfloat16, RTOL16)):
         for i, (N, P, C, Cout) in enumerate(BANK_SHAPES + SCHEDULE_SHAPES
                                             + MANY_VERTEX_SHAPES):
             T, A, K, g = bank_inputs(N, P, C, Cout, SEED + i, dtype)
+            before = sums_counts()
             got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
+            expect_sums(f"bank N={N} P={P} {dtype}", before,
+                        bank_backward_plan(N, P, C, Cout, dtype)["cluster"], 1)
             torch.cuda.synchronize()
             ref = (risi18_bank_reference(T, A, K),
                    *risi18_bank_backward_reference(T, A, K, g))
@@ -1132,12 +1200,14 @@ def phase_bank():
                                  f"{dtype}: plans {plans}, expected cluster "
                                  f"plans for K4 and K5 kernel 1")
         before = (risi18_bank.launches, risi18_bank_backward.launches)
+        k0 = sums_counts()
         got = (risi18_bank(T, A, K), *risi18_bank_backward(T, A, K, g))
         torch.cuda.synchronize()
         if (risi18_bank.launches - before[0],
                 risi18_bank_backward.launches - before[1]) != (1, 1):
             raise AssertionError(f"bank N={N} P={P}: K4 and K5 kernel 1 "
                                  f"must launch once each")
+        expect_sums(f"bank N={N} P={P} {dtype}", k0, True, 1)
         ref = (plain(T, A, K, g, step) if step else
                (risi18_bank_reference(T, A, K),
                 *risi18_bank_backward_reference(T, A, K, g)))
@@ -1173,7 +1243,7 @@ def phase_bank():
                 b5 = bound_ms(nbytes(T, A, K, g, dT, dK),
                               bank_backward_factored_ops(*shape), name)
                 timed = (f"; median K4 {k4:.4f} ms (bound {b4[0]:.4f} by "
-                         f"{b4[1]}), K5 kernel 1 {k5:.4f} ms (bound "
+                         f"{b4[1]}), K5 kernels 0 and 1 {k5:.4f} ms (bound "
                          f"{b5[0]:.4f} by {b5[1]})")
             log(f"phase 7 bank: {name} N,P,C,Cout={shape} ("
                 f"{cluster_line(plans)}; one launch each) max_abs_err {line}"
@@ -1199,14 +1269,36 @@ def phase_bank():
             "bwd_bound": bound_ms(nbytes(T, A, K, g, dT, dK),
                                   bank_backward_factored_ops(N, P, C, Cout),
                                   name)}
+        # Kernel 0 (GAp and the row sums of g once a vertex), which the
+        # cluster plan launches before kernel 1: against its plain
+        # version (float32 sums on both sides), alone; then kernel 1 alone
+        # on its scratch.
+        sums = _backward_sums_kernel(A, g)
+        k0 = p64["sums"] = {
+            "err": max(check_close(f"K5 kernel 0 {key} {name} "
+                                   f"N,P,C,Cout={LARGE_SHAPE}", x, r, RTOL)
+                       for key, x, r in zip(
+                           ("gap", "sums"), sums,
+                           risi18_bank_backward_sums_reference(A, g))),
+            "ms": time_ms(lambda: _backward_sums_kernel(A, g)),
+            "plain_ms": time_ms(lambda: risi18_bank_backward_sums_reference(
+                A, g)),
+            "bound": bound_ms(nbytes(A, g, *sums),
+                              sums_ops(N, P, Cout, False), name)}
+        p64["kernel1"] = time_ms(lambda: _backward_main_kernel(
+            T, A, K, g, sums=sums))
         log(f"phase 7 bank: {name} N,P,C,Cout={LARGE_SHAPE} "
             f"({cluster_line(plans)}; K4 {plans[0]}, K5 {plans[1]}) "
             f"max_abs_err {line} ok; median K4 {p64['k4']:.4f} ms "
-            f"(bound {p64['bound'][0]:.4f} by {p64['bound'][1]}), K5 kernel "
-            f"1 {p64['main']:.4f} ms (bound {p64['bwd_bound'][0]:.4f} by "
+            f"(bound {p64['bound'][0]:.4f} by {p64['bound'][1]}), K5 kernels "
+            f"0 and 1 {p64['main']:.4f} ms (kernel 0 {k0['ms']:.4f}, kernel "
+            f"1 {p64['kernel1']:.4f}; bound {p64['bwd_bound'][0]:.4f} by "
             f"{p64['bwd_bound'][1]}); plain bank {p64['plain']:.4f} ms, plain "
-            f"backward {p64['plain_bwd']:.4f} ms")
-        del T, A, K, g, got, Z, dT, dK, leaves, plain_out
+            f"backward {p64['plain_bwd']:.4f} ms; K5 kernel 0 max_abs_err "
+            f"{k0['err']:.3e} (bound {RTOL:g}*max(1,max|plain|)), plain "
+            f"{k0['plain_ms']:.4f} ms, bound {k0['bound'][0]:.4f} ms by "
+            f"{k0['bound'][1]}")
+        del T, A, K, g, got, Z, dT, dK, leaves, plain_out, sums
         torch.cuda.empty_cache()
     return errs, ms
 
@@ -2687,14 +2779,15 @@ def phase_large_field():
     from graphflow_tpu_torch.ops.risi_bank import (bank_backward_plan,
                                                    bank_plan, risi18_bank,
                                                    risi18_bank_backward)
-    from graphflow_tpu_torch.ops.risi_level import risi18_level_reference
+    from graphflow_tpu_torch.ops.risi_level import (level_backward_plan,
+                                                    risi18_level_reference)
     from graphflow_tpu_torch.utils.datasets import random_graph
 
     V, nL = BETA64["max_nVertices"], BETA64["nLevels"]
     targets = np.random.default_rng(SEED).normal(
         size=GRAPHS_PER_REQUEST).tolist()
-    result = {"k1": 0, "k2": [0, 0], "k4": 0, "k5": [0, 0], "err": 0.0,
-              "bank_err": 0.0}
+    result = {"k1": 0, "k2": [0, 0], "k4": 0, "k5": [0, 0], "k0": [0, 0],
+              "err": 0.0, "bank_err": 0.0}
 
     def beta(dtype):
         return SMP2D(SMP2DConfig(**BETA64, max_receptive_field=None,
@@ -2714,6 +2807,7 @@ def phase_large_field():
             raise AssertionError(f"{label}: P={model.cfg.P}, expected {V}")
         reset_level_counts()
         risi18_bank.launches = 0
+        risi18_bank_backward.sums_launches = 0
         risi18_bank_backward.launches = 0
         risi18_bank_backward.reduce_launches = 0
         tgts = targets[:len(graphs)]
@@ -2726,22 +2820,31 @@ def phase_large_field():
         levels = level_counts()
         banks = (risi18_bank.launches, risi18_bank_backward.launches,
                  risi18_bank_backward.reduce_launches)
+        sums = sums_counts()
         # A request: one forward; a step: a forward with its backward, then
-        # the loss-only forward of loss_after.
+        # the loss-only forward of loss_after.  Kernel 0 runs once a level's
+        # backward where its plan is a cluster plan (the levels of 32 -> 32
+        # channels; a physics tower's halved ones take the one-block row
+        # tiles).
+        sched = [model.cfg.channels_at(l) for l in range(nL + 1)]
+        n = len(graphs) * V
+        bwd_plan = bank_backward_plan if bank else level_backward_plan
+        k0 = sum(bwd_plan(n, V, c, co, model.dtype)["cluster"] > 0
+                 for c, co in zip(sched, sched[1:]))
         want = (3 * nL, nL, nL)
         got, other = (banks, levels) if bank else (levels, banks)
-        if got != want or any(other):
+        if (got != want or any(other)
+                or sums != ((0, k0) if bank else (k0, 0))):
             raise AssertionError(
                 f"{label}: launches (forward, backward kernel 1, kernel 2) "
-                f"{got}, expected {want}; the other route {other}")
+                f"{got}, expected {want}; the other route {other}; kernel "
+                f"0 (K2's, K5's) {sums}")
         if not np.isfinite(step).all() or pred.shape != (len(graphs),):
             raise AssertionError(f"{label}: request {pred.shape}, step "
                                  f"{step}")
         plans = ""
         if bank:
             # The levels' plans for the batch's vertices: cluster plans.
-            sched = [model.cfg.channels_at(l) for l in range(nL + 1)]
-            n = len(graphs) * V
             levels = [(bank_plan(n, V, c, co, model.dtype),
                        bank_backward_plan(n, V, c, co, model.dtype))
                       for c, co in zip(sched, sched[1:])]
@@ -2813,6 +2916,7 @@ def phase_large_field():
         torch.cuda.empty_cache()
         key = "bank_err" if bank else "err"
         result[key] = max(result[key], err)
+        result["k0"] = [a + b for a, b in zip(result["k0"], sums)]
         if bank:
             result["k4"] += got[0]
             result["k5"] = [result["k5"][0] + got[1],
@@ -2824,7 +2928,8 @@ def phase_large_field():
         log(f"phase 18 large field: {label} V=P={V} C={BETA64['nChanels']} "
             f"predictions {np.round(pred, 4).tolist()}, BatchLearn "
             f"({step[0]:.6f}, {step[1]:.6f}); launches {got} (= {nL} levels "
-            f"x 3 forwards, 1 backward{plans}); request {1e3 * req_s:.1f} "
+            f"x 3 forwards, 1 backward{plans}), kernel 0 "
+            f"{sums[1] if bank else sums[0]}; request {1e3 * req_s:.1f} "
             f"ms, step "
             f"(prep uncached) {1e3 * step_s:.1f} ms (host clock, synced); "
             f"peak device memory of the request and step {peak:.1f} MB above "
@@ -4053,6 +4158,19 @@ def main() -> None:
             "bound_by": per_dtype[d]["p64"][bound_key][1]}
             for d in (f32, b16)}}
 
+    def sums_kernel(label, per_dtype, launches, replaces):
+        """Kernel 0 of a backward's cluster plans at SMP_beta's field
+        (phase 5 or 7), float32 with bfloat16 beside; its launches are
+        phase 18's."""
+        k = {d: per_dtype[d]["p64"]["sums"] for d in (f32, b16)}
+        return kernel(f"backward_sums_kernel ({label}, kernel 0)",
+                      "risi18_backward_block.cuh", replaces, launches,
+                      max(k[d]["err"] for d in (f32, b16)), k[f32]["ms"],
+                      k[f32]["plain_ms"], k[f32]["bound"],
+                      shape=list(LARGE_SHAPE),
+                      **in_bf16(k[b16]["ms"], k[b16]["plain_ms"],
+                                k[b16]["bound"]))
+
     def partition(key):
         """A kernel's float32 numbers at phase 22's boundary block."""
         t = par["times"][key]
@@ -4097,6 +4215,8 @@ def main() -> None:
                launches_parallel=spread["K2"],
                launches_p64=large["k2"][0], max_rel_err_p64=large["err"],
                p64=p64(bwd_ms, "main", "plain"),
+               p64_kernel1_ms={d: bwd_ms[d]["p64"]["kernel1"]
+                               for d in (f32, b16)},
                tiled_plan={d: bwd_ms[d]["p64"]["plan"]
                            for d in (f32, b16)}),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
@@ -4137,11 +4257,17 @@ def main() -> None:
                launches_p64=large["k5"][0],
                max_rel_err_p64=large["bank_err"],
                p64=p64(bank_ms, "main", "plain_bwd", "bwd_bound"),
+               p64_kernel1_ms={d: bank_ms[d]["p64"]["kernel1"]
+                               for d in (f32, b16)},
                tiled_plan={d: bank_ms[d]["p64"]["plans"][1]
                            for d in (f32, b16)},
                launches_parallel=spread["K5"],
                max_rel_err_parallel=par["rel"],
                partition=partition("k5")),
+        sums_kernel("risi18_level_bwd", bwd_ms, large["k0"][0],
+                    fused + "767"),
+        sums_kernel("risi18_bank_bwd", bank_ms, large["k0"][1],
+                    bank + "330"),
         kernel("sum_partial_rows (risi18_bank_bwd)", "risi18_bank_bwd.cu",
                bank + "330", bf16["k5"][1] + large["k5"][1] + spread["K5r"],
                bank_errs["dK"],

@@ -136,6 +136,8 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   L.dbs = take(gather ? L.GLD : 0);
   L.red = take(kSlabs * L.sp.ncp * L.GLD);
   L.sacc = take(L.tiled ? 4 * L.sp.ncp : 0);
+  // (A cluster plan's block takes GA and db's sums from kernel 0, not from
+  // parts here; it keeps its dT pass's parameters in these words.)
   L.part = take(L.tiled ? kTilePartWords : 0);
   L.words = w;
   return L;
@@ -926,6 +928,502 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
   return acc.x + acc.y + acc.z + acc.w;
 }
 
+// -- kernel 0 of the row-tiled plans ----------------------------------------
+//
+// Once a vertex, the sums of G that every channel chunk of kernel 1 reads
+// on a cluster plan (backward_block_cluster), into float32 scratch:
+//   gap  [N,P,P,Cout]  GAp[x,e,:] = sum_y G[x,y,:] Ap[y,e],
+//   sums [N,3,P,Cout]  GR[x,:]  = sum_y R[y] G[x,y,:],
+//                      GAx[x,:] = sum_y Ap[x,y] G[x,y,:]  (GA = sum_x GAx),
+//                      GSx[x,:] = sum_y G[x,y,:]          (db's sums),
+// with G = g through LeakyReLU' of out (kGather, K2) or g itself (K5).  A
+// block of kSumThreads takes sum_rows(P) rows x of one vertex and the
+// outputs 32 at a time: the rows' panel of G and the vertex's adjacency in
+// shared memory, a thread a column e of GAp with 32 outputs in registers
+// (the lanes read consecutive Ap[y, e] and one broadcast row of G); R's
+// row sums a warp a row.  Kernel 1 formed GAp and GR of a tile's rows once
+// per tile and chunk, and GAp at (a, b) and GR of rows a once per pair of
+// tiles: 16 times a vertex and chunk at P = 64 in tiles of 4 rows.
+constexpr int kSumRows = 8;       // rows x a block of kernel 0 takes, at most
+constexpr int kSumThreads = 512;
+constexpr int kSumPanel = 32;     // outputs a pass of kernel 0
+
+// Scratch floats of kernel 0 for one vertex: GAp, GR, GAx and GSx.
+__host__ __device__ inline long long sums_words(int P, int Cout) {
+  return (long long)(P * P + 3 * P) * Cout;
+}
+
+// The rows x a block of kernel 0 takes: kSumRows, or as many as shared
+// memory holds beside the adjacency (6 at P = 156).
+inline int sum_rows(int P) {
+  const long long fixed = round_up(P * (P + 1), 4) + round_up(P, 4);
+  const long long room = (long long)(risi18::kMaxSmemBytes / sizeof(float))
+                         - fixed;
+  const long long rows = room / ((long long)P * kSumPanel);
+  return (int)(rows < kSumRows ? (rows > 0 ? rows : 0) : kSumRows);
+}
+
+// Shared memory of a block of kernel 0: Ap, R and a panel of G's rows.
+inline size_t sums_smem_bytes(int P) {
+  return sizeof(float) * ((size_t)round_up(P * (P + 1), 4) + round_up(P, 4)
+                          + (size_t)sum_rows(P) * P * kSumPanel);
+}
+
+template <typename E, bool kGather>
+__global__ void __launch_bounds__(kSumThreads)
+backward_sums_kernel(const float* __restrict__ radj, const E* __restrict__ g,
+                     const E* __restrict__ out, float* __restrict__ gap,
+                     float* __restrict__ sums, int P, int Cout, int rows,
+                     float negslope) {
+  extern __shared__ __align__(16) float smem[];
+  const int ALD = P + 1, PP = P * P, tid = threadIdx.x, nth = blockDim.x;
+  const int lane = tid % 32, nwarps = nth / 32;
+  const int per = (P + rows - 1) / rows;
+  const size_t v = blockIdx.x / per;
+  const int x0 = (int)(blockIdx.x % per) * rows;
+  const int nx = min(rows, P - x0);
+  float* Ap = smem;
+  float* R = Ap + round_up(P * ALD, 4);
+  float* Gs = R + round_up(P, 4);          // [nx * P][kSumPanel]
+  // The guarded adjacency, then R[d] = sum_e Ap[d, e], a warp a row.
+#pragma unroll 8
+  for (int i = tid; i < PP; i += nth) {
+    const float a = radj[v * PP + i];
+    Ap[(i / P) * ALD + (i % P)] = a > 0.f ? a : 0.f;
+  }
+  __syncthreads();
+  for (int d = tid / 32; d < P; d += nwarps) {
+    float r = 0.f;
+    for (int e = lane; e < P; e += 32) r += Ap[d * ALD + e];
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) r += __shfl_xor_sync(0xffffffffu, r, m);
+    if (lane == 0) R[d] = r;
+  }
+  const size_t row0 = v * PP + (size_t)x0 * P;
+  for (int p0 = 0; p0 < Cout; p0 += kSumPanel) {
+    const int np = min(kSumPanel, Cout - p0);
+    __syncthreads();             // the last panel's readers are done
+    // Four outputs an item, in one 16- or 8-byte load where the rows
+    // allow it, unrolled so that a thread's loads are in flight together.
+    const bool wide = Cout % 4 == 0 && (size_t)g % 16 == 0 &&
+                      (!kGather || (size_t)out % 16 == 0);
+#pragma unroll 8
+    for (int i = tid; i < nx * P * (kSumPanel / 4); i += nth) {
+      const int o = 4 * (i % (kSumPanel / 4));
+      const size_t at = (row0 + i / (kSumPanel / 4)) * Cout + p0 + o;
+      float4 gi = make_float4(0.f, 0.f, 0.f, 0.f), oi = gi;
+      if (wide && o < np) {
+        gi = load4(g + at);
+        if constexpr (kGather) oi = load4(out + at);
+      } else {
+        for (int k = 0; k < 4 && o + k < np; ++k) {
+          reinterpret_cast<float*>(&gi)[k] = to_float(g[at + k]);
+          if constexpr (kGather)
+            reinterpret_cast<float*>(&oi)[k] = to_float(out[at + k]);
+        }
+      }
+      if constexpr (kGather) {
+        gi.x = oi.x > 0.f ? gi.x : negslope * gi.x;
+        gi.y = oi.y > 0.f ? gi.y : negslope * gi.y;
+        gi.z = oi.z > 0.f ? gi.z : negslope * gi.z;
+        gi.w = oi.w > 0.f ? gi.w : negslope * gi.w;
+      }
+      *reinterpret_cast<float4*>(Gs + 4 * i) = gi;
+    }
+    __syncthreads();
+    const int n4 = round_up(np, 4) / 4;
+    for (int item = tid; item < nx * P; item += nth) {
+      const int e = item % P, xl = item / P;
+      const float* gx = Gs + xl * P * kSumPanel;
+      float4 acc[kSumPanel / 4];
+#pragma unroll
+      for (int k = 0; k < kSumPanel / 4; ++k)
+        acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int y = 0; y < P; ++y) {
+        const float a = Ap[y * ALD + e];
+#pragma unroll
+        for (int k = 0; k < kSumPanel / 4; ++k)
+          if (k < n4) fma4(acc[k], a, load4(gx + y * kSumPanel + 4 * k));
+      }
+      float* at = gap + (row0 + (size_t)xl * P + e) * Cout + p0;
+#pragma unroll
+      for (int k = 0; k < kSumPanel / 4; ++k) {
+        if (k >= n4) continue;
+        if (Cout % 4 == 0) {
+          *reinterpret_cast<float4*>(at + 4 * k) = acc[k];
+        } else {
+          for (int i = 0; i < 4; ++i)
+            if (4 * k + i < np) at[4 * k + i] = get4(acc[k], i);
+        }
+      }
+    }
+    for (int item = tid; item < nx * np; item += nth) {
+      const int o = item % np, xl = item / np, x = x0 + xl;
+      const float* gx = Gs + xl * P * kSumPanel + o;
+      float gr = 0.f, ga = 0.f, gs = 0.f;
+      for (int y = 0; y < P; ++y) {
+        const float gy = gx[y * kSumPanel];
+        gr += R[y] * gy;
+        ga += Ap[x * ALD + y] * gy;
+        gs += gy;
+      }
+      float* at = sums + (v * 3 * P + x) * Cout + p0 + o;
+      at[0] = gr;
+      at[(size_t)P * Cout] = ga;
+      at[2 * (size_t)P * Cout] = gs;
+    }
+  }
+}
+
+// Launches kernel 0 on `stream` for N vertices; returns a cudaError_t.
+template <typename E, bool kGather>
+inline int launch_backward_sums(const float* radj, const E* g, const E* out,
+                                float* gap, float* sums, int N, int P,
+                                int Cout, float negslope,
+                                cudaStream_t stream) {
+  if (N < 0 || P <= 0 || Cout <= 0) return cudaErrorInvalidValue;
+  if (N == 0) return cudaSuccess;
+  const int rows = sum_rows(P);
+  const size_t bytes = sums_smem_bytes(P);
+  const long long blocks = rows ? (long long)N * ((P + rows - 1) / rows) : 0;
+  if (rows == 0 || bytes > risi18::kMaxSmemBytes || blocks >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  auto kernel = backward_sums_kernel<E, kGather>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, kSumThreads, bytes, stream>>>(
+      radj, g, out, gap, sums, P, Cout, rows, negslope);
+  return cudaGetLastError();
+}
+
+// The backward plan queries' twelve fields (risi18_level_backward_plan,
+// risi18_bank_backward_plan): the plan, then kernel 0's scratch words a
+// vertex and its shared memory in bytes (0 for a plan of no cluster,
+// which launches no kernel 0).
+inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
+                                 int* plan) {
+  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
+  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
+  plan[6] = L.words ? pieces(L.sp) : 0;   // (none fits: no ring)
+  plan[7] = L.cluster;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma;
+  const bool sums = L.words && L.cluster;
+  plan[10] = sums ? (int)sums_words(P, Cout) : 0;
+  plan[11] = sums ? (int)sums_smem_bytes(P) : 0;
+}
+
+// -- the dT pass of a row tile ----------------------------------------------
+//
+// The row-tiled blocks form dT from G, not T.  Split by the row whose G
+// they come from,
+//   dT[a,b,c] = A[a,b] + A6[a,b] R[c] + d(b,c) A15[a,b]               (row a)
+//             + B11[b,a] + Bbc[b,c] + R[a] B9[b,c] + d(a,c) B16[b,a] (row b),
+// with, K_k K's k-th [C, Cout] slab (0-based) and each product taken with
+// the slab transposed,
+//   A   = G (S K0 + trA K6) + GAp K8 + GR K1 + dTfull + d(a,b) ds14,
+//   A6  = G K5,   A15 = GAp K15 + GR K7 + ds15 + d(a,b) dt18   (at (a, b)),
+//   B11 = GAp K11,   Bbc = G (S K2) + GAp K12 + GR K3,
+//   B9  = G K9,      B16 = GAp K16 + GR K10                    (at (b, y)),
+// G and GAp at the map's own entry, GR at its first row.  For a tile Xb of
+// rows b a block forms the A maps of every a at the columns Xb and the B
+// maps of the rows Xb, then writes dT[:, Xb, :, chunk] in one pass: 13
+// products of rows of kernel 0's scratch (G from g and out) read straight
+// into the tensor cores' fragments, S and trA folded into the slabs of G.
+
+// Two values of a row at o and o + 1 (zero from `no` on), as one load where
+// `vec` says the row allows it.
+template <typename E>
+__device__ __forceinline__ float2 pair_of(const E* p, int o, int no,
+                                          bool vec) {
+  if (vec && o + 1 < no) {
+    if constexpr (std::is_same<E, float>::value)
+      return *reinterpret_cast<const float2*>(p + o);
+    else
+      return __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(p + o));
+  }
+  return make_float2(o < no ? risi18::to_float(p[o]) : 0.f,
+                     o + 1 < no ? risi18::to_float(p[o + 1]) : 0.f);
+}
+
+// What a row tile's dT pass reads and writes, for one vertex and chunk.
+template <typename E, bool kGather>
+struct TileDT {
+  const E* gv;          // g at the vertex's panel: rows of Cout
+  const E* ov;          // out likewise (kGather)
+  const float* gapv;    // kernel 0's GAp at the vertex's panel
+  const float* grv;     // kernel 0's GR at the vertex's panel
+  const float* Ks;      // K's slabs of the chunk, (k*ncp + f)*GLD + o
+  const float* R;
+  const int* snbr;      // kGather
+  const int* spos;
+  StreamBuffers s;      // the maps of a tile, tfull, s14, s15, t18
+  std::conditional_t<kGather, float, E>* dst;   // dstate, or dT
+  size_t v;
+  int P, C, Cout, no, ncp, nc, c0, GLD, mapw;
+  float S, trA, negslope;
+  bool vec_g;           // g's (and out's) rows take 2-value loads
+  bool vec_s;           // the scratch's rows do
+  bool vec_scatter;     // dst takes four channels in one access
+};
+
+// The maps of the 16 rows from m0 of one side of tile [xb0, xb0 + nxb) on
+// the tensor cores, this warp's: the B rows (brows), m = bl*P + y at
+// (xb0 + bl, y), into tabT, tbc, m10, dacT; or the A rows, m = a*nxb + bl
+// at (a, xb0 + bl), into tab, m6, dbc.  Rows from RR on are not stored.
+// mma.sync m16n8k8 in three TF32 passes (mma_3xtf32), a channel of the
+// chunk a column, eight a tile nt < kNT; channels from ncp on take zero
+// slabs.
+template <int kNT, typename E, bool kGather>
+__device__ __forceinline__ void dT_maps_mma(const TileDT<E, kGather>& d,
+                                            bool brows, int m0, int RR,
+                                            int xb0, int nxb, int lane) {
+  const int g = lane >> 2, t = lane & 3, P = d.P, ncp = d.ncp;
+  // The lane's two rows: offsets of G's and GAp's row and of GR's in the
+  // vertex's panel (-1 past RR).
+  int grow[2], xrow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + g + 8 * h;
+    if (m >= RR) {
+      grow[h] = xrow[h] = -1;
+    } else if (brows) {
+      xrow[h] = (xb0 + m / P) * d.Cout;
+      grow[h] = ((xb0 + m / P) * P + m % P) * d.Cout;
+    } else {
+      xrow[h] = (m / nxb) * d.Cout;
+      grow[h] = ((m / nxb) * P + xb0 + m % nxb) * d.Cout;
+    }
+  }
+  float y[4][kNT][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[j][nt][i] = 0.f;
+  // (Loading two k-steps' fragments before using either, or forming the
+  // next tile's maps while this tile's dT is written, raised the block's
+  // register spills and measured slower on an H100: PERF.md.)
+  const int ksteps = (d.no + 7) / 8;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int o = 8 * ks + 2 * t;
+    float2 fg[2], fp[2], fr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 zero = make_float2(0.f, 0.f);
+      fg[h] = fp[h] = fr[h] = zero;
+      if (grow[h] < 0) continue;
+      fg[h] = pair_of(d.gv + grow[h], o, d.no, d.vec_g);
+      fp[h] = pair_of(d.gapv + grow[h], o, d.no, d.vec_s);
+      fr[h] = pair_of(d.grv + xrow[h], o, d.no, d.vec_s);
+      if constexpr (kGather) {
+        const float2 s = pair_of(d.ov + grow[h], o, d.no, d.vec_g);
+        if (!(s.x > 0.f)) fg[h].x *= d.negslope;
+        if (!(s.y > 0.f)) fg[h].y *= d.negslope;
+      }
+    }
+    // K's slab k at the lane's channel (zero past ncp) and k-step.
+    auto slab = [&](int k, int nt) {
+      const int ch = 8 * nt + g;
+      return ch < ncp ? *reinterpret_cast<const float2*>(
+                            d.Ks + (k * ncp + ch) * d.GLD + 8 * ks + 2 * t)
+                      : make_float2(0.f, 0.f);
+    };
+    // acc += A's fragment times the slab kv, three TF32 passes.  A's
+    // fragment: rows g, g + 8 at k positions t (column o) and t + 4
+    // (column o + 1), as cotangent_maps_mma orders them.  One source's
+    // split fragment is live at a time: G's, GAp's, GR's.
+    unsigned ah[4], al[4];
+    auto frag = [&](const float2 (&f)[2]) {
+      split_tf32(f[0].x, ah[0], al[0]);
+      split_tf32(f[1].x, ah[1], al[1]);
+      split_tf32(f[0].y, ah[2], al[2]);
+      split_tf32(f[1].y, ah[3], al[3]);
+    };
+    auto mma = [&](float (&acc)[4], float2 kv) {
+      unsigned bh[2], bl[2];
+      split_tf32(kv.x, bh[0], bl[0]);
+      split_tf32(kv.y, bh[1], bl[1]);
+      mma_3xtf32(acc, ah, al, bh, bl);
+    };
+    frag(fg);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (brows) {
+        const float2 k2 = slab(2, nt);
+        mma(y[1][nt], make_float2(d.S * k2.x, d.S * k2.y));
+        mma(y[2][nt], slab(9, nt));
+      } else {
+        const float2 s0 = slab(0, nt), s6 = slab(6, nt);
+        mma(y[0][nt], make_float2(d.S * s0.x + d.trA * s6.x,
+                                  d.S * s0.y + d.trA * s6.y));
+        mma(y[1][nt], slab(5, nt));
+      }
+    }
+    frag(fp);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (brows) {
+        mma(y[0][nt], slab(11, nt));
+        mma(y[1][nt], slab(12, nt));
+        mma(y[3][nt], slab(16, nt));
+      } else {
+        mma(y[0][nt], slab(8, nt));
+        mma(y[2][nt], slab(15, nt));
+      }
+    }
+    frag(fr);
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (brows) {
+        mma(y[1][nt], slab(3, nt));
+        mma(y[3][nt], slab(10, nt));
+      } else {
+        mma(y[0][nt], slab(1, nt));
+        mma(y[2][nt], slab(7, nt));
+      }
+    }
+  }
+  // D's rows g and g + 8, channels ch and ch + 1.
+  const StreamBuffers& s = d.s;
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int ch = 8 * nt + 2 * t;
+    if (ch >= ncp) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (grow[h] < 0) continue;
+      const int m = m0 + g + 8 * h, at = m * ncp + ch;
+      auto two = [&](int j) {
+        return make_float2(y[j][nt][2 * h], y[j][nt][2 * h + 1]);
+      };
+      auto put = [&](int map, float2 val) {
+        *reinterpret_cast<float2*>(s.map(map, d.mapw) + at) = val;
+      };
+      if (brows) {
+        put(kTabT, two(0));
+        put(kTbc, two(1));
+        put(kM10, two(2));
+        put(kDacT, two(3));
+      } else {
+        const bool diag = m / nxb == xb0 + m % nxb;
+        float2 a = two(0), c = two(2);
+        a.x += s.tfull[ch] + (diag ? s.s14[ch] : 0.f);
+        a.y += s.tfull[ch + 1] + (diag ? s.s14[ch + 1] : 0.f);
+        c.x += s.s15[ch] + (diag ? s.t18[ch] : 0.f);
+        c.y += s.s15[ch + 1] + (diag ? s.t18[ch + 1] : 0.f);
+        put(kTab, a);
+        put(kM6, two(1));
+        put(kDbc, c);
+      }
+    }
+  }
+}
+
+// The maps of tile [xb0, xb0 + nxb): its A rows' and B rows' 16-row tiles
+// over the block's warps.  No barrier.
+template <typename E, bool kGather>
+__device__ __forceinline__ void dT_maps(const TileDT<E, kGather>& d,
+                                        int xb0, int nxb) {
+  const int RR = nxb * d.P, mt = (RR + 15) / 16;
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  for (int w = threadIdx.x / 32; w < 2 * mt; w += nwarps) {
+    const bool brows = w >= mt;
+    const int m0 = 16 * (brows ? w - mt : w);
+    if (d.ncp == 16)
+      dT_maps_mma<2>(d, brows, m0, RR, xb0, nxb, lane);
+    else
+      dT_maps_mma<1>(d, brows, m0, RR, xb0, nxb, lane);
+  }
+}
+
+// dT[a, b, c] for every a, the rows b of tile [xb0, xb0 + nxb) and every c,
+// four channels of the chunk an item, from the tile's maps: K2 scatters it
+// into dstate with float32 atomics, K5 writes it into dT[v], each element
+// once, rounded to E once.  A thread keeps (channels, c, b) and walks the
+// rows a (a share of them where the block has threads to spare), so the
+// lanes of a warp write consecutive c.  No barrier.
+template <typename E, bool kGather>
+__device__ __forceinline__ void dT_assemble(const TileDT<E, kGather>& d,
+                                            int xb0, int nxb) {
+  const int P = d.P, ncp = d.ncp, quads = ncp / 4, nth = blockDim.x;
+  const int per_a = quads * P * nxb;
+  const int parts = max(1, nth / per_a);
+  const StreamBuffers& s = d.s;
+  const float* tab = s.map(kTab, d.mapw);
+  const float* tabT = s.map(kTabT, d.mapw);
+  const float* tbc = s.map(kTbc, d.mapw);
+  const float* dbc = s.map(kDbc, d.mapw);
+  const float* dacT = s.map(kDacT, d.mapw);
+  const float* m6 = s.map(kM6, d.mapw);
+  const float* m10 = s.map(kM10, d.mapw);
+  for (int i = threadIdx.x; i < per_a * parts; i += nth) {
+    const int base = i % per_a, part = i / per_a;
+    const int q = base % quads, c = (base / quads) % P;
+    const int bl = base / (quads * P), b = xb0 + bl;
+    if (4 * q >= d.nc) continue;
+    const int Bbc = (bl * P + c) * ncp + 4 * q;
+    const float4 fbc = load4(tbc + Bbc), f10 = load4(m10 + Bbc);
+    const float rc = d.R[c];
+    for (int a = part; a < P; a += parts) {
+      int n = 0, p1 = 0, p2 = 0;
+      if constexpr (kGather) {
+        n = d.snbr[a]; p1 = d.spos[a * P + b]; p2 = d.spos[a * P + c];
+        if ((n | p1 | p2) < 0) continue;
+      }
+      const int A = (a * nxb + bl) * ncp + 4 * q;
+      const int Bba = (bl * P + a) * ncp + 4 * q;
+      float4 val = load4(tab + A);
+      const float4 fba = load4(tabT + Bba);
+      val.x += fbc.x + fba.x; val.y += fbc.y + fba.y;
+      val.z += fbc.z + fba.z; val.w += fbc.w + fba.w;
+      fma4(val, rc, load4(m6 + A));
+      fma4(val, d.R[a], f10);
+      if (c == b) fma4(val, 1.f, load4(dbc + A));
+      if (c == a) fma4(val, 1.f, load4(dacT + Bba));
+      if constexpr (kGather) {
+        float* at = d.dst + (((size_t)n * P + p1) * P + p2) * d.C + d.c0
+                    + 4 * q;
+        if (d.vec_scatter) {
+          atomicAdd(reinterpret_cast<float4*>(at), val);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (4 * q + k < d.nc) atomicAdd(at + k, get4(val, k));
+        }
+      } else {
+        E* at = d.dst + d.v * ((size_t)P * P * P * d.C)
+                + ((size_t)(a * P + b) * P + c) * d.C + d.c0 + 4 * q;
+        if (d.vec_scatter) {
+          store4(at, val);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (4 * q + k < d.nc) risi18::store_value(at + k, get4(val, k));
+        }
+      }
+    }
+  }
+}
+
+// dT of the tiles first, first + step, ... of a vertex, one pass a tile:
+// the tile's maps, a barrier, its dT, a barrier.  Starts with a barrier.
+template <typename E, bool kGather>
+__device__ __forceinline__ void dT_pass(const TileDT<E, kGather>& d,
+                                        int first, int step, int tiles,
+                                        int X) {
+  for (int tb = first; tb < tiles; tb += step) {
+    const int xb0 = tb * X, nxb = min(X, d.P - xb0);
+    __syncthreads();                  // the maps' readers are done
+    dT_maps(d, xb0, nxb);
+    __syncthreads();
+    dT_assemble(d, xb0, nxb);
+  }
+  __syncthreads();
+}
+
 // backward_block on a row-tiled plan of one block a vertex group
 // (L.tiled, L.cluster == 0): a field whose maps and G do not fit one block
 // (from P = 33 at Cout = 32), where a cluster plan would be one block on
@@ -1323,34 +1821,6 @@ __device__ __forceinline__ void backward_block_tiled(
     for (int o = tid; o < no; o += nth) part_row[nK + o0 + o] = dbs[o];
 }
 
-// For n items of four outputs each, out = sum over y < P of terms
-// add(item, y, acc): kSplit lanes of a warp take an item, each the y of one
-// residue mod kSplit, and shuffles add their sums, which store(item, acc)
-// receives in the item's first lane.  A sum of P terms per thread was a
-// chain of P dependent loads with few items to spread over the block
-// (GR of a tile's rows: tile rows x four outputs).  The loop is uniform in
-// each warp, which every shuffle needs.
-template <int kSplit, typename Add, typename Store>
-__device__ __forceinline__ void split_sums(int n, int P, Add add,
-                                           Store store) {
-  const int lane = threadIdx.x % 32;
-  for (int base = threadIdx.x - lane; base < n * kSplit;
-       base += blockDim.x) {
-    const int i = base + lane, item = i / kSplit, part = i % kSplit;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (item < n)
-      for (int y = part; y < P; y += kSplit) add(item, y, acc);
-#pragma unroll
-    for (int m = 1; m < kSplit; m *= 2) {
-      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, m);
-      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, m);
-      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, m);
-      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, m);
-    }
-    if (item < n && part == 0) store(item, acc);
-  }
-}
-
 // K2 kernel 1 (kGather: slots gathered from the state, G = geff through
 // LeakyReLU', db, dT scattered into dstate) and K5 kernel 1 (slots stored
 // in T, G = g itself, dT written) on a cluster plan (L.cluster > 0; fields
@@ -1359,24 +1829,23 @@ __device__ __forceinline__ void split_sums(int n, int P, Add add,
 // panels), cluster (L.cluster, 1, 1)), block `rank` taking the tiles rank,
 // rank + cluster, ...; the cluster walks the vertices of its group.  Per
 // vertex:
-//   0. this block's part of GA = sum_{x,y} Ap[x,y] G[x,y,:] (and of db's
-//      sums), over its tiles' rows of G; the cluster meets, and every
-//      block adds the parts from distributed shared memory in rank order
-//      (a second meeting keeps each part alive until all have read it);
+//   0. GA from kernel 0's row sums (backward_sums_kernel: GAp and the row
+//      sums of G once a vertex, in `gap` and `sums`), and this block's part
+//      of db's sums over its tiles' rows;
 //   1. per own tile X: its maps (tile_reductions, a warp copying the row
-//      it reduces: stream_rows), then G, GAp and GR of its rows (the ring
-//      may lie over G and GAp: L.ring), dK's map cases of its rows (on the
-//      tensor cores where the plan has `mma`: dk_maps_mma over the tile's
-//      rows, the sums kept in registers over tiles and vertices), its
-//      vector cases, and its part of the four scalars; then dK's scalar
-//      cases, that part times GA;
+//      it reduces: stream_rows), then G of its rows and their GAp and GR
+//      from the scratch (the ring may lie over G and GAp: L.ring), dK's map
+//      cases of its rows (on the tensor cores where the plan has `mma`:
+//      dk_maps_mma over the tile's rows, the sums kept in registers over
+//      tiles and vertices), its vector cases, and its part of the four
+//      scalars; then dK's scalar cases, that part times GA;
 //   2. the scalars' cotangents (GA against K's slabs 5, 14, 15, 18) and dT
-//      for the rows b of its own tiles, tile pair by tile pair as
-//      backward_block_tiled forms it (the sums of G against Ap and R
-//      spread over lanes: split_sums): K2 scatters it with float32 atomics;
-//      K5 writes dT[v, a, b, :] for every a and the rows b of its tiles,
-//      so every element of dT has one writer, the block that owns row b's
-//      tile, and is written once, rounded to E once.
+//      for the rows b of its own tiles, one pass a tile (dT_pass): the
+//      tile's A and B maps on the tensor cores from rows of G, GAp and GR
+//      (dT_maps), then dT[:, Xb, :] (dT_assemble): K2 scatters it with
+//      float32 atomics; K5 writes dT[v, a, b, :] for every a and the rows
+//      b of its tiles, so every element of dT has one writer, the block
+//      that owns row b's tile, and is written once, rounded to E once.
 // When the cluster has walked its vertices, the blocks' dK rows (and db)
 // are added in distributed shared memory in rank order, each block
 // writing a share of the group's one partial row: kernel 2 sums as many
@@ -1388,7 +1857,8 @@ __device__ __forceinline__ void backward_block_cluster(
     const E* __restrict__ in, const int* __restrict__ nbr,
     const int* __restrict__ pos, const float* __restrict__ radj,
     const E* __restrict__ K, const E* __restrict__ gout,
-    const E* __restrict__ out,
+    const E* __restrict__ out, const float* __restrict__ gap,
+    const float* __restrict__ sums,
     std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
     float negslope) {
@@ -1423,14 +1893,8 @@ __device__ __forceinline__ void backward_block_cluster(
   float* dbs = smem + L.dbs;
   float* red = smem + L.red;
   float* sacc = smem + L.sacc;
-  float* part = smem + L.part;
-  float* tab = s.map(kTab, sp.mapw);
-  float* tabT = s.map(kTabT, sp.mapw);
-  float* tbc = s.map(kTbc, sp.mapw);
-  float* dbc = s.map(kDbc, sp.mapw);
-  float* dacT = s.map(kDacT, sp.mapw);
-  float* m6 = s.map(kM6, sp.mapw);
-  float* m10 = s.map(kM10, sp.mapw);
+  const float* tab = s.map(kTab, sp.mapw);
+  const float* dbc = s.map(kDbc, sp.mapw);
 
   STAGE_CLOCK_START();
   zero_words(smem + L.g, L.words - L.g);
@@ -1468,6 +1932,7 @@ __device__ __forceinline__ void backward_block_cluster(
   const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 &&
                            (kGather || L.wide_g);
   const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
+  const bool wide_s = Cout % 4 == 0 && L.Co % 4 == 0;   // the scratch's rows
   const size_t vT = (size_t)PP * P * C;      // elements of one vertex's T
   STAGE(0);   // set-up and K's staging
 
@@ -1492,73 +1957,36 @@ __device__ __forceinline__ void backward_block_cluster(
     }();
     using Src = std::remove_const_t<decltype(src)>;
 
-    // 0. This block's part of GA (and of db's sums), item (output, part of
-    //    its rows), the parts added in order; GA's part goes to G's first
-    //    row, which the cluster reads before any block writes G again.
-    {
-      const int gparts = nth / no;
-      if (tid < gparts * no) {
-        const int o = tid % no, p = tid / no;
-        float ga = 0.f, gs = 0.f;
-        for (int t = rank; t < tiles; t += CL) {
-          const int r1 = min(P, (t + 1) * X) * P;
-          for (int r = t * X * P + p; r < r1; r += gparts) {
-            float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
-            if constexpr (kGather)
-              if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
-                gi *= negslope;
-            ga += Ap[(r / P) * ALD + r % P] * gi;
-            gs += gi;
-          }
-        }
-        part[tid] = ga;
-        if constexpr (kGather) part[nth + tid] = gs;
-      }
-      __syncthreads();
-      for (int o = tid; o < no; o += nth) {
-        float ga = 0.f, gs = 0.f;
-        for (int p = 0; p < gparts; ++p) {
-          ga += part[p * no + o];
-          if constexpr (kGather) gs += part[nth + p * no + o];
-        }
-        G[o] = ga;
-        if constexpr (kGather) dbs[o] += gs;   // (written by chunk 0's)
-      }
-      for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
-    }
-    cluster.sync();
+    // 0. GA = sum_x GAx[x], every row, and this block's part of db's sums
+    //    over the rows of its tiles, from kernel 0's row sums.
+    const float* gapv = gap + v * PP * Cout + o0;
+    const float* sv = sums + v * 3 * P * Cout + o0;    // GR, GAx, GSx
     for (int o = tid; o < no; o += nth) {
       float ga = 0.f;
-      for (int r = 0; r < CL; ++r) ga += cluster.map_shared_rank(G, r)[o];
-      GA[o] = ga;              // sum_{x,y} Ap[x,y] G[x,y,o], every row
+      for (int x = 0; x < P; ++x) ga += sv[(size_t)(P + x) * Cout + o];
+      GA[o] = ga;
+      if constexpr (kGather) {
+        float gs = 0.f;
+        for (int t = rank; t < tiles; t += CL)
+          for (int x = t * X; x < min(P, (t + 1) * X); ++x)
+            gs += sv[(size_t)(2 * P + x) * Cout + o];
+        dbs[o] += gs;          // (written by chunk 0's blocks)
+      }
     }
-    cluster.sync();            // every part read: G may be written again
-    STAGE(1);   // the structure, geff's sums and the cluster's exchange
+    for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
+    __syncthreads();
+    STAGE(1);   // the structure, GA and db's sums
 
-    // G, GAp and GR of the rows [x0, x0 + nx) (GAp of every column).  Ends
-    // with a barrier.
+    // G of the rows [x0, x0 + nx) from g (and out), GAp (of every column)
+    // and GR of them from kernel 0's sums.  Ends with a barrier.
     auto tile_g = [&](int x0, int nx) {
       __syncthreads();                    // G's and GAp's readers are done
       load_geff_rows<E, kGather>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
                                  wide_g, negslope);
-      __syncthreads();
-      for (int item = tid; item < nx * P * n4; item += nth) {
-        const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
-        const float* g = G + xl * P * GLD + 4 * og;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int y = 0; y < P; ++y)
-          fma4(acc, Ap[y * ALD + e], load4(g + y * GLD));
-        *reinterpret_cast<float4*>(GAp + r * GLD + 4 * og) = acc;
-      }
-      split_sums<16>(nx * n4, P,
-          [&](int item, int y, float4& acc) {
-            fma4(acc, R[y], load4(G + ((item / n4) * P + y) * GLD
-                                  + 4 * (item % n4)));
-          },
-          [&](int item, const float4& acc) {
-            *reinterpret_cast<float4*>(GR + (item / n4) * GLD
-                                       + 4 * (item % n4)) = acc;
-          });
+      load_geff_rows<float, false>(gapv, nullptr, x0 * P, nx * P, GAp, GLD,
+                                   no, Cout, wide_s, 0.f);
+      load_geff_rows<float, false>(sv, nullptr, x0, nx, GR, GLD, no, Cout,
+                                   wide_s, 0.f);
       __syncthreads();
     };
 
@@ -1655,130 +2083,25 @@ __device__ __forceinline__ void backward_block_cluster(
       s.tfull[i] = dot_rows(GA, kslab(k, f), n4);   // tfull, s14, s15, t18
     }
 
-    // 2. dT of the rows b of the own tiles, tile pair by tile pair.
-    for (int tb = rank; tb < tiles; tb += CL) {
-      const int xb0 = tb * X, nxb = min(X, P - xb0), RRb = nxb * P;
-      tile_g(xb0, nxb);
-      // dT_b and dTdac of the rows b.
-      for (int i = tid; i < nxb * ncp; i += nth) {
-        const int f = i % ncp, xl = i / ncp;
-        s.tb[i] = dot_rows(GR + xl * GLD, kslab(3, f), n4);
-        s.tdac[i] = dot_rows(GR + xl * GLD, kslab(10, f), n4);
-      }
-      __syncthreads();
-      // The B maps of the rows b = xb0 + bl: row bl*P + y.
-      for (int i = tid; i < RRb * ncp; i += nth) {
-        const int f = i % ncp, r = i / ncp, xl = r / P;
-        const float* g = G + r * GLD;
-        const float* gp = GAp + r * GLD;
-        tabT[i] = dot_rows(gp, kslab(11, f), n4);
-        tbc[i] = S * dot_rows(g, kslab(2, f), n4)
-                 + dot_rows(gp, kslab(12, f), n4) + s.tb[xl * ncp + f];
-        m10[i] = dot_rows(g, kslab(9, f), n4);
-        dacT[i] = dot_rows(gp, kslab(16, f), n4) + s.tdac[xl * ncp + f];
-      }
-      STAGE(4);   // the scalars' cotangents, G and the B maps of rows b
-      for (int ta = 0; ta < tiles; ++ta) {
-        const int xa0 = ta * X, nxa = min(X, P - xa0);
-        // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
-        // al*X + bl.
-        __syncthreads();                  // G's readers are done
-        load_geff_rows<E, kGather>(gv, ov, xa0 * P, nxa * P, G, GLD, no,
-                                   Cout, wide_g, negslope);
-        __syncthreads();
-        STAGE(6);   // G of the rows a
-        split_sums<4>(nxa * nxb * n4, P,
-            [&](int item, int y, float4& acc) {
-              const int og = item % n4, ab = item / n4;
-              fma4(acc, Ap[y * ALD + xb0 + ab % nxb],
-                   load4(G + ((ab / nxb) * P + y) * GLD + 4 * og));
-            },
-            [&](int item, const float4& acc) {
-              const int og = item % n4, ab = item / n4;
-              *reinterpret_cast<float4*>(
-                  GAp + ((ab / nxb) * X + ab % nxb) * GLD + 4 * og) = acc;
-            });
-        split_sums<16>(nxa * n4, P,
-            [&](int item, int y, float4& acc) {
-              fma4(acc, R[y], load4(G + ((item / n4) * P + y) * GLD
-                                    + 4 * (item % n4)));
-            },
-            [&](int item, const float4& acc) {
-              *reinterpret_cast<float4*>(GR + (item / n4) * GLD
-                                         + 4 * (item % n4)) = acc;
-            });
-        __syncthreads();
-        STAGE(7);   // GAp at (a, b) and GR of the rows a
-        // The A maps at (a, b), row al*X + bl (dT_a and dTdbc of row a
-        // from GR in the same item).
-        for (int i = tid; i < nxa * nxb * ncp; i += nth) {
-          const int f = i % ncp, ab = i / ncp, bl = ab % nxb, al = ab / nxb;
-          const bool diag = xa0 + al == xb0 + bl;
-          const float* g = G + (al * P + xb0 + bl) * GLD;
-          const float* gp = GAp + (al * X + bl) * GLD;
-          const float* gr = GR + al * GLD;
-          const int at = (al * X + bl) * ncp + f;
-          tab[at] = S * dot_rows(g, kslab(0, f), n4)
-                    + trA * dot_rows(g, kslab(6, f), n4)
-                    + dot_rows(gp, kslab(8, f), n4)
-                    + dot_rows(gr, kslab(1, f), n4) + s.tfull[f]
-                    + (diag ? s.s14[f] : 0.f);
-          m6[at] = dot_rows(g, kslab(5, f), n4);
-          dbc[at] = dot_rows(gp, kslab(15, f), n4)
-                    + dot_rows(gr, kslab(7, f), n4) + s.s15[f]
-                    + (diag ? s.t18[f] : 0.f);
-        }
-        __syncthreads();
-        STAGE(8);   // the A maps
-        // dT[a, b, c] for a in Xa, b in Xb, item (a, b, c, four channels):
-        // K2 scatters it into dstate, K5 writes it into dT[v].
-        for (int item = tid; item < nxa * nxb * P * quads; item += nth) {
-          const int q = item % quads, rest = item / quads, c = rest % P;
-          const int ab = rest / P, bl = ab % nxb, al = ab / nxb;
-          const int a = xa0 + al, b = xb0 + bl;
-          if (4 * q >= nc) continue;
-          int n = 0, p1 = 0, p2 = 0;
-          if constexpr (kGather) {
-            n = snbr[a]; p1 = spos[a * P + b]; p2 = spos[a * P + c];
-            if ((n | p1 | p2) < 0) continue;
-          }
-          const int A = (al * X + bl) * ncp + 4 * q;
-          const int Bba = (bl * P + a) * ncp + 4 * q;
-          const int Bbc = (bl * P + c) * ncp + 4 * q;
-          float4 val = load4(tab + A);
-          const float4 fbc = load4(tbc + Bbc), fba = load4(tabT + Bba);
-          val.x += fbc.x + fba.x; val.y += fbc.y + fba.y;
-          val.z += fbc.z + fba.z; val.w += fbc.w + fba.w;
-          fma4(val, R[c], load4(m6 + A));
-          fma4(val, R[a], load4(m10 + Bbc));
-          if (c == b) fma4(val, 1.f, load4(dbc + A));
-          if (c == a) fma4(val, 1.f, load4(dacT + Bba));
-          if constexpr (kGather) {
-            float* at =
-                dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
-            if (vec_scatter) {
-              atomicAdd(reinterpret_cast<float4*>(at), val);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
-            }
-          } else {
-            E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
-                    + 4 * q;
-            if (vec_scatter) {
-              store4(at, val);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
-            }
-          }
-        }
-        STAGE(9);   // the scatter (K2) or dT (K5)
-      }
-    }
+    STAGE(4);   // the scalars' cotangents
+    // 2. dT of the rows b of the own tiles, one pass a tile (dT_pass).
+    //    The pass's parameters lie in shared memory (L.part), read where
+    //    they are used: held in registers beside the stream's and dK's,
+    //    they made the block spill 160-216 bytes a thread and run 6-12 %
+    //    slower on an H100 (PERF.md).
+    static_assert(sizeof(TileDT<E, kGather>) <= sizeof(float) *
+                                                   kTilePartWords,
+                  "the dT pass's parameters fit the part words");
+    auto* dp = reinterpret_cast<TileDT<E, kGather>*>(smem + L.part);
+    if (tid == 0)
+      *dp = TileDT<E, kGather>{gv, ov, gapv, sv, Ks, R, snbr, spos, s, dst,
+                               v, P, C, Cout, no, ncp, nc, c0, GLD,
+                               sp.mapw, S, trA, negslope,
+                               L.wide_g && Cout % 2 == 0, Cout % 2 == 0,
+                               vec_scatter};
     __syncthreads();
+    dT_pass(*dp, rank, CL, tiles, X);
+    STAGE(6);   // dT: the tiles' maps and the scatter (K2) or dT (K5)
   }
 
   // The block's dK rows: the k-parts of the map cases summed in order.

@@ -43,14 +43,16 @@
 // over a thread-block cluster, sized for N by the rule K1, K2, K4 and K5
 // share (cluster_shape), dK's map cases on the tensor cores where the plan
 // has mma, and dT[a, b, :] for every a written by the block that owns row
-// b's tile, each element once, in a fixed order, without atomics; each
-// cluster writes one partial row of dK (its blocks' parts added in rank
-// order through distributed shared memory), so kernel 2 is unchanged.
+// b's tile, each element once, in a fixed order, without atomics, one pass
+// a row tile (the tile's maps on the tensor cores: dT_maps, dT_assemble);
+// each cluster writes one partial row of dK (its blocks' parts added in
+// rank order through distributed shared memory), so kernel 2 is unchanged.
 // Where that plan would be one block with dK on the CUDA cores (a grid that
 // fills the card, chunks of 4 channels: the beta pairs' P = 40), the
 // row-tiled block of one block a vertex group (backward_block_tiled), which
-// measured faster there, writes dT[Xa, Xb, :] of each pair of row tiles the
-// same way (risi18_backward_block.cuh: choose_backward_plan).
+// measured faster there, writes dT the same way (risi18_backward_block.cuh:
+// choose_backward_plan).  Both read kernel 0 (backward_sums_kernel: GAp and
+// the row sums of g once a vertex, float32 scratch), launched before them.
 // Kernel 2 (sum_partial_rows) sums the groups' partial rows into dK.  All
 // sums are in float32; bfloat16 is converted once on load and rounded once
 // on store.
@@ -96,12 +98,14 @@ risi18_bank_bwd_cluster_kernel(const E* __restrict__ T,
                                const float* __restrict__ A,
                                const E* __restrict__ K,
                                const E* __restrict__ gout,
+                               const float* __restrict__ gap,
+                               const float* __restrict__ sums,
                                E* __restrict__ dT,
                                float* __restrict__ partial, int N,
                                BackwardPlan L) {
   lv::backward_block_cluster<E, kMma, false>(T, nullptr, nullptr, A, K,
-                                             gout, nullptr, dT, partial, N,
-                                             L, 0.f);
+                                             gout, nullptr, gap, sums, dT,
+                                             partial, N, L, 0.f);
 }
 
 // Kernel 1 on a row-tiled plan of one block a vertex group, where a
@@ -120,14 +124,17 @@ risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
 
 template <typename E>
 int launch(const void* T, const void* A, const void* K, const void* g,
-           void* dT, void* partial, int N, int P, int C, int Cout,
-           int nblocks, void* stream) {
+           const void* gap, const void* sums, void* dT, void* partial,
+           int N, int P, int C, int Cout, int nblocks, void* stream) {
   if (P <= 0 || C <= 0 || Cout <= 0 || N < 0) return cudaErrorInvalidValue;
   if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   BackwardPlan L = lv::choose_backward_plan(
       P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
+  // A cluster plan reads kernel 0's sums.
+  if (L.cluster && (gap == nullptr || sums == nullptr))
+    return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(dT) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
   if (L.cluster)
@@ -138,17 +145,17 @@ int launch(const void* T, const void* A, const void* K, const void* g,
               : risi18_bank_bwd_cluster_kernel<E, false>,
         dim3(nblocks * L.cluster, (C + L.sp.Cc - 1) / L.sp.Cc, 1),
         L.cluster, bytes, (cudaStream_t)stream, (const E*)T,
-        (const float*)A, (const E*)K, (const E*)g, (E*)dT, (float*)partial,
-        N, L);
+        (const float*)A, (const E*)K, (const E*)g, (const float*)gap,
+        (const float*)sums, (E*)dT, (float*)partial, N, L);
+  // Chunks along x: the blocks of one vertex group start side by side
+  // (backward_block).
+  const dim3 grid((C + L.sp.Cc - 1) / L.sp.Cc, nblocks, 1);
   auto kernel = L.tiled ? risi18_bank_bwd_tiled_kernel<E>
                 : L.mma ? risi18_bank_bwd_kernel<E, true>
                         : risi18_bank_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  // Chunks along x: the blocks of one vertex group start side by side
-  // (backward_block).
-  const dim3 grid((C + L.sp.Cc - 1) / L.sp.Cc, nblocks, 1);
   kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
       (const E*)T, (const float*)A, (const E*)K, (const E*)g, (E*)dT,
       (float*)partial, N, L);
@@ -162,25 +169,48 @@ extern "C" {
 // Number of partial rows (vertex groups of kernel 1) for N vertices.
 int risi18_bank_backward_blocks(int N) { return lv::vertex_groups(N); }
 
+// Kernel 0 on `stream` (the cluster plans' sums of g once a vertex,
+// risi18_backward_block.cuh:backward_sums_kernel); returns a cudaError_t.
+// A [N,P,P] f32, g [N,P*P,Cout] (f32 or bf16) -> gap [N,P,P,Cout] f32 and
+// sums [N,3,P,Cout] f32 (GR, GAx, GSx), all contiguous.
+int risi18_bank_backward_sums_f32(const void* A, const void* g, void* gap,
+                                  void* sums, int N, int P, int Cout,
+                                  void* stream) {
+  return lv::launch_backward_sums<float, false>(
+      (const float*)A, (const float*)g, nullptr, (float*)gap, (float*)sums,
+      N, P, Cout, 0.f, (cudaStream_t)stream);
+}
+
+int risi18_bank_backward_sums_bf16(const void* A, const void* g, void* gap,
+                                   void* sums, int N, int P, int Cout,
+                                   void* stream) {
+  return lv::launch_backward_sums<__nv_bfloat16, false>(
+      (const float*)A, (const __nv_bfloat16*)g, nullptr, (float*)gap,
+      (float*)sums, N, P, Cout, 0.f, (cudaStream_t)stream);
+}
+
 // Kernel 1 on `stream`; returns a cudaError_t (0 on success).
-// T [N,P,P,P,C], A [N,P,P] f32, K [18C,Cout], g [N,P*P,Cout] -> dT
+// T [N,P,P,P,C], A [N,P,P] f32, K [18C,Cout], g [N,P*P,Cout], and on a
+// cluster plan kernel 0's gap and sums (else they may be null) -> dT
 // [N,P,P,P,C] (every element written) and partial [nblocks, 18C*Cout] f32,
 // all contiguous; T, K, g and dT are f32 (_f32) or bf16 (_bf16);
 // nblocks = risi18_bank_backward_blocks(N).
 int risi18_bank_backward_f32(const void* T, const void* A, const void* K,
-                             const void* g, void* dT, void* partial, int N,
-                             int P, int C, int Cout, int nblocks,
+                             const void* g, const void* gap,
+                             const void* sums, void* dT, void* partial,
+                             int N, int P, int C, int Cout, int nblocks,
                              void* stream) {
-  return launch<float>(T, A, K, g, dT, partial, N, P, C, Cout, nblocks,
-                       stream);
+  return launch<float>(T, A, K, g, gap, sums, dT, partial, N, P, C, Cout,
+                       nblocks, stream);
 }
 
 int risi18_bank_backward_bf16(const void* T, const void* A, const void* K,
-                              const void* g, void* dT, void* partial, int N,
-                              int P, int C, int Cout, int nblocks,
+                              const void* g, const void* gap,
+                              const void* sums, void* dT, void* partial,
+                              int N, int P, int C, int Cout, int nblocks,
                               void* stream) {
-  return launch<__nv_bfloat16>(T, A, K, g, dT, partial, N, P, C, Cout,
-                               nblocks, stream);
+  return launch<__nv_bfloat16>(T, A, K, g, gap, sums, dT, partial, N, P, C,
+                               Cout, nblocks, stream);
 }
 
 // Kernel 2 on `stream`: partial [nblocks, 18C*Cout] -> dK [18C,Cout] f32
@@ -202,16 +232,12 @@ long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
 }
 
 // The plan kernel 1 takes for N vertices (as risi18_level_backward_plan of
-// risi18_level_bwd.cu, its ten fields).
+// risi18_level_bwd.cu, its twelve fields).
 int risi18_bank_backward_plan(int N, int P, int C, int Cout, int bf16,
                               int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
                                                   16, false, true, N);
-  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
-  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
-  plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
-  plan[7] = L.cluster;
-  plan[8] = L.tiles_per_block; plan[9] = L.mma;
+  lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }
 

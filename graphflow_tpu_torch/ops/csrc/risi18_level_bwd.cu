@@ -71,14 +71,20 @@
 // risi18_level_common.cuh:cluster_shape, so the plan depends on N), each
 // taking dK from its tiles' maps and G rows (the map cases on the tensor
 // cores where the plan has mma) and dT, which needs G and not T, for the
-// rows b of its tiles from pairs of row tiles; GA and the blocks' dK and db
+// rows b of its tiles, one pass a row tile: the tile's maps on the tensor
+// cores from rows of G, GAp and GR, then dT[:, Xb, :] scattered
+// (risi18_backward_block.cuh:dT_maps, dT_assemble); the blocks' dK and db
 // are exchanged through distributed shared memory in rank order, and each
 // cluster writes one partial row, so kernel 2 is unchanged
 // (ops/risi_bank.py:risi18_bank_backward_cluster_reference).  Where that
 // plan would be one block with dK on the CUDA cores, kernel 1 takes the
 // row-tiled block of one block a vertex group (backward_block_tiled),
-// which measured faster there (the beta pairs' P = 40).  The bank's K5
-// runs the same blocks on T and writes dT.
+// which measured faster there (the beta pairs' P = 40), with the same dT
+// pass.  Both row-tiled blocks read kernel 0 (backward_sums_kernel),
+// launched before them: GAp [N,P,P,Cout] and the row sums of geff GR, GAx
+// (GA's) and GSx (db's) [N,3,P,Cout] in float32 scratch, once a vertex
+// where kernel 1 formed them once per chunk, tile and pair of tiles.  The
+// bank's K5 runs the same blocks on T and writes dT.
 //
 // Element types.  State, K, g and out are float32 or bfloat16 (one type);
 // radj is float32.  Behind a bfloat16 forward (as _v3t_bwd runs the TPU
@@ -164,12 +170,14 @@ risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
                                 const E* __restrict__ K,
                                 const E* __restrict__ gout,
                                 const E* __restrict__ out,
+                                const float* __restrict__ gap,
+                                const float* __restrict__ sums,
                                 float* __restrict__ dstate,
                                 float* __restrict__ partial,
                                 int N, BackwardPlan L, float negslope) {
   lv::backward_block_cluster<E, kMma, true>(state, nbr, pos, radj, K, gout,
-                                            out, dstate, partial, N, L,
-                                            negslope);
+                                            out, gap, sums, dstate, partial,
+                                            N, L, negslope);
 }
 
 // Kernel 2 behind a bfloat16 forward.  The first sum_blocks blocks sum the
@@ -213,9 +221,9 @@ constexpr int kMaxCastBlocks = 1056;   // eight blocks for each of 132 SMs
 template <typename E>
 int launch_backward(const void* state, const void* nbr, const void* pos,
                     const void* radj, const void* K, const void* g,
-                    const void* out, void* dstate, void* partial, int N,
-                    int P, int C, int Cout, float negslope, int nblocks,
-                    void* stream) {
+                    const void* out, const void* gap, const void* sums,
+                    void* dstate, void* partial, int N, int P, int C,
+                    int Cout, float negslope, int nblocks, void* stream) {
   if (N <= 0) return cudaSuccess;
   if (P <= 0 || C <= 0 || Cout <= 0) return cudaErrorInvalidValue;
   // The stream indexes the state's [N,P,P] elements with an int.
@@ -224,6 +232,9 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
   BackwardPlan L = lv::choose_backward_plan(
       P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
+  // A cluster plan reads kernel 0's sums.
+  if (L.cluster && (gap == nullptr || sums == nullptr))
+    return cudaErrorInvalidValue;
   L.wide_g = lv::alignment_of(g) == 16 && lv::alignment_of(out) == 16;
   const size_t bytes = sizeof(float) * (size_t)L.words;
   const dim3 grid(nblocks * (L.cluster ? L.cluster : 1),
@@ -234,8 +245,8 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
               : risi18_level_bwd_cluster_kernel<E, false>,
         grid, L.cluster, bytes, (cudaStream_t)stream, (const E*)state,
         (const int*)nbr, (const int*)pos, (const float*)radj, (const E*)K,
-        (const E*)g, (const E*)out, (float*)dstate, (float*)partial, N, L,
-        negslope);
+        (const E*)g, (const E*)out, (const float*)gap, (const float*)sums,
+        (float*)dstate, (float*)partial, N, L, negslope);
   auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
                 : L.mma ? risi18_level_bwd_kernel<E, true>
                         : risi18_level_bwd_kernel<E, false>;
@@ -256,9 +267,34 @@ extern "C" {
 // Number of partial rows (vertex groups of kernel 1) for N vertices.
 int risi18_level_backward_blocks(int N) { return lv::vertex_groups(N); }
 
+// Kernel 0 on `stream` (the cluster plans' sums of geff once a vertex,
+// risi18_backward_block.cuh:backward_sums_kernel); returns a cudaError_t.
+// radj [N,P,P] f32, g and out [N,P*P,Cout] (f32 or bf16) -> gap
+// [N,P,P,Cout] f32 and sums [N,3,P,Cout] f32 (GR, GAx, GSx), all
+// contiguous.
+int risi18_level_backward_sums_f32(const void* radj, const void* g,
+                                   const void* out, void* gap, void* sums,
+                                   int N, int P, int Cout, float negslope,
+                                   void* stream) {
+  return lv::launch_backward_sums<float, true>(
+      (const float*)radj, (const float*)g, (const float*)out, (float*)gap,
+      (float*)sums, N, P, Cout, negslope, (cudaStream_t)stream);
+}
+
+int risi18_level_backward_sums_bf16(const void* radj, const void* g,
+                                    const void* out, void* gap, void* sums,
+                                    int N, int P, int Cout, float negslope,
+                                    void* stream) {
+  return lv::launch_backward_sums<__nv_bfloat16, true>(
+      (const float*)radj, (const __nv_bfloat16*)g,
+      (const __nv_bfloat16*)out, (float*)gap, (float*)sums, N, P, Cout,
+      negslope, (cudaStream_t)stream);
+}
+
 // Kernel 1 on `stream`; returns a cudaError_t (0 on success).
 // state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
-// K [18C,Cout], g and out [N,P*P,Cout] -> adds into dstate [N,P,P,C] f32
+// K [18C,Cout], g and out [N,P*P,Cout], and on a cluster plan kernel 0's
+// gap and sums (else they may be null) -> adds into dstate [N,P,P,C] f32
 // (zeroed by the caller) and writes partial [nblocks, 18C*Cout + Cout] f32,
 // all contiguous; nblocks = risi18_level_backward_blocks(N).  State, K, g
 // and out are float32 (_f32) or bfloat16 (_bf16); dstate is float32 in both
@@ -267,23 +303,25 @@ int risi18_level_backward_blocks(int N) { return lv::vertex_groups(N); }
 int risi18_level_backward_f32(const void* state, const void* nbr,
                               const void* pos, const void* radj,
                               const void* K, const void* g, const void* out,
+                              const void* gap, const void* sums,
                               void* dstate, void* partial, int N, int P,
                               int C, int Cout, float negslope, int nblocks,
                               void* stream) {
-  return launch_backward<float>(state, nbr, pos, radj, K, g, out, dstate,
-                                partial, N, P, C, Cout, negslope, nblocks,
-                                stream);
+  return launch_backward<float>(state, nbr, pos, radj, K, g, out, gap, sums,
+                                dstate, partial, N, P, C, Cout, negslope,
+                                nblocks, stream);
 }
 
 int risi18_level_backward_bf16(const void* state, const void* nbr,
                                const void* pos, const void* radj,
                                const void* K, const void* g, const void* out,
+                               const void* gap, const void* sums,
                                void* dstate, void* partial, int N, int P,
                                int C, int Cout, float negslope, int nblocks,
                                void* stream) {
   return launch_backward<__nv_bfloat16>(state, nbr, pos, radj, K, g, out,
-                                        dstate, partial, N, P, C, Cout,
-                                        negslope, nblocks, stream);
+                                        gap, sums, dstate, partial, N, P, C,
+                                        Cout, negslope, nblocks, stream);
 }
 
 // Kernel 2 on `stream`: partial [nblocks, 18C*Cout + Cout] -> dK [18C,Cout],
@@ -336,16 +374,14 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 // for a row-tiled block, plan[6] the pieces a ring buffer holds, plan[7]
 // the blocks of a cluster (0: one block a vertex group, chunk and panel),
 // plan[8] the row tiles a block of the cluster takes, plan[9] 1 where dK's
-// map cases run on the tensor cores.  Returns 0, or 1 where no plan fits.
+// map cases run on the tensor cores, plan[10] kernel 0's float32 scratch
+// words a vertex (0: a plan of no cluster, which launches no kernel 0) and
+// plan[11] its shared memory in bytes.  Returns 0, or 1 where no plan fits.
 int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
                                int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
                                                   16, true, true, N);
-  plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
-  plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
-  plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
-  plan[7] = L.cluster;
-  plan[8] = L.tiles_per_block; plan[9] = L.mma;
+  lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }
 

@@ -64,9 +64,11 @@ def _gather_neighbor_tensors_take(state_pad, nbr, pos):
 
 def risi18_aligned_t2_reference(state, nbr, pos):
     """Plain version: ids outside [0, N) become N and positions outside
-    [0, P) become P, then the take-gather of the padded state.  Any dtype;
-    differentiable by torch autograd."""
-    N, P = nbr.shape
+    [0, P) become P, then the take-gather of the padded state (N the
+    state's vertices: nbr may list fewer, for a check that runs the plain
+    level a few vertices at a time).  Any dtype; differentiable by torch
+    autograd."""
+    N, P = state.shape[0], nbr.shape[1]
     nbr = torch.where((nbr >= 0) & (nbr < N), nbr, torch.full_like(nbr, N))
     pos = torch.where((pos >= 0) & (pos < P), pos, torch.full_like(pos, P))
     state_pad = torch.nn.functional.pad(state, (0, 0, 0, 1, 0, 1))

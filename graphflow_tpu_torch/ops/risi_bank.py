@@ -338,6 +338,21 @@ def risi18_bank_cluster_reference(T, A, K, rows, cluster):
     return torch.cat(Z, 1).to(dtype)
 
 
+def backward_sums_reference(G, A):
+    """Kernel 0 of K2's and K5's cluster plans
+    (``csrc/risi18_backward_block.cuh:backward_sums_kernel``) in plain
+    PyTorch, in G's dtype: for G [N,P,P,Cout] and the guarded adjacency
+    Ap of A, GAp[x,e] = sum_y G[x,y] Ap[y,e] and the row sums GR[x] =
+    sum_y R[y] G[x,y], GAx[x] = sum_y Ap[x,y] G[x,y] and GSx[x] =
+    sum_y G[x,y] -> (gap [N,P,P,Cout], sums [N,3,P,Cout]: GR, GAx, GSx)."""
+    Ap = A.clamp(min=0)
+    R = Ap.sum(-1)
+    GAp = torch.einsum("nxyo,nye->nxeo", G, Ap)
+    sums = torch.stack([torch.einsum("nxyo,ny->nxo", G, R),
+                        torch.einsum("nxy,nxyo->nxo", Ap, G), G.sum(2)], 1)
+    return GAp, sums
+
+
 def _bank_backward_cluster(T, A, K, G, rows, cluster):
     """(dT, dK, [db's part of each block]) of the bank for the cotangent G
     [N, P, P, Cout] in row tiles of ``rows`` rows over a cluster of
@@ -349,6 +364,9 @@ def _bank_backward_cluster(T, A, K, G, rows, cluster):
     Kc = K.reshape(18, C, Cout)
     Ap, R, S, trA = _adjacency(A)
     tiles = _tiles(P, rows)
+    # Kernel 0, once a vertex: GAp, and per row GR, GA's and db's sums.
+    GAp, sums = backward_sums_reference(G, A)
+    GR, GAx, GSx = sums.unbind(1)
 
     def own_tiles(rank):
         return [tiles[t] for t in range(rank, len(tiles), cluster)]
@@ -356,35 +374,27 @@ def _bank_backward_cluster(T, A, K, G, rows, cluster):
     def back(x, k):        # x [..., Cout] against slab k: [..., C]
         return x @ Kc[k].T
 
-    def rows_of(x0, x1):   # G, GAp and GR of the rows [x0, x1)
-        Gx = G[:, x0:x1]
-        return (Gx, torch.einsum("nxyo,nye->nxeo", Gx, Ap),
-                torch.einsum("nxyo,ny->nxo", Gx, R))
-
     def maps(a, x):
         return torch.einsum("nxyf,nxyo->fo", a, x)
 
     def vecs(a, x):
         return torch.einsum("nxf,nxo->fo", a, x)
 
-    # 0. GA and db from each block's own rows, added in rank order.
-    ga_parts = [sum(torch.einsum("nxy,nxyo->no", Ap[:, x0:x1], G[:, x0:x1])
-                    for x0, x1 in own_tiles(rank)) for rank in range(cluster)]
-    db_parts = [sum(G[:, x0:x1].sum((0, 1, 2)) for x0, x1 in own_tiles(rank))
+    # 0. GA from every row's sum; db's part of each block from its rows.
+    GA = GAx.sum(1)
+    db_parts = [sum(GSx[:, x0:x1].sum((0, 1)) for x0, x1 in own_tiles(rank))
                 for rank in range(cluster)]
-    GA = ga_parts[0]
-    for part in ga_parts[1:]:
-        GA = GA + part
 
-    # 1. dK, block by block: the own tiles' map and vector cases, then the
-    #    block's part of the four scalars times GA; added in rank order.
+    # 1. dK, block by block: the own tiles' map and vector cases (G of the
+    #    tile's rows, GAp and GR of them from kernel 0), then the block's
+    #    part of the four scalars times GA; added in rank order.
     dK = torch.zeros(18, C, Cout, dtype=ct)
     for rank in range(cluster):
         dKr = torch.zeros(18, C, Cout, dtype=ct)
         sc = torch.zeros(4, N, C, dtype=ct)       # Tfull, s14, s15, t18
         for x0, x1 in own_tiles(rank):
             m = _tile_maps(T, R, x0, x1)
-            Gx, GApx, GRx = rows_of(x0, x1)
+            Gx, GApx, GRx = G[:, x0:x1], GAp[:, x0:x1], GR[:, x0:x1]
             for k, a, x in ((0, m["tab"] * S, Gx), (2, m["tbc"] * S, Gx),
                             (5, m["m6"], Gx), (6, m["tab"] * trA, Gx),
                             (8, m["tab"], GApx), (9, m["m10"], Gx),
@@ -403,42 +413,47 @@ def _bank_backward_cluster(T, A, K, G, rows, cluster):
             dKr[k] = torch.einsum("nf,no->fo", sc[j], GA)
         dK = dK + dKr
 
-    # 2. dT, which needs G and not T: per block, the rows b of its own
-    #    tiles Xb, paired with every tile Xa.
+    # 2. dT, which needs G and not T, one pass a row tile Xb: the B maps of
+    #    the rows b in Xb (at (b, y)) and the A maps of every row a at the
+    #    columns Xb (at (a, b)), each a sum of products of G, GAp and GR's
+    #    rows with K's slabs, S and trA folded into the slabs of G; then
+    #    dT[:, Xb] = A + A6 R[c] + d(b,c) A15 + B11[b,a] + Bbc[b,c]
+    #    + R[a] B9[b,c] + d(a,c) B16[b,a] for every a and c.
+    s = S[:, 0, 0, 0, None, None]
+    KA = s * Kc[0] + trA[:, 0, 0, 0, None, None] * Kc[6]     # [N, C, Cout]
+    KB = s * Kc[2]
+
+    def back_v(x, k):      # x [N, ..., Cout] against a vertex's slab k
+        return torch.einsum("n...o,nfo->n...f", x, k)
+
     d_tfull, d_s14 = back(GA, 4)[:, None, None], back(GA, 13)[:, None, None]
     d_s15, d_t18 = back(GA, 14)[:, None, None], back(GA, 17)[:, None, None]
     cols = torch.arange(P, device=dev)
     dT = torch.empty_like(T)
     for xb0, xb1 in tiles:
-        Gb, GApb, GRb = rows_of(xb0, xb1)
-        tabT_b = back(GApb, 11)                          # B11[b, y]
-        tbc_b = S * back(Gb, 2) + back(GApb, 12) + back(GRb, 3)[:, :, None]
-        m10_b = back(Gb, 9)
-        dacT_b = back(GApb, 16) + back(GRb, 10)[:, :, None]
-        for xa0, xa1 in tiles:
-            Gab = G[:, xa0:xa1, xb0:xb1]
-            GApab = torch.einsum("nxyo,nye->nxeo", G[:, xa0:xa1],
-                                 Ap[:, :, xb0:xb1])
-            GRa = torch.einsum("nxyo,ny->nxo", G[:, xa0:xa1], R)
-            ra = torch.arange(xa0, xa1, device=dev)
-            rb = torch.arange(xb0, xb1, device=dev)
-            diag = (ra[:, None] == rb[None])[None, :, :, None]
-            tab_a = (S * back(Gab, 0) + trA * back(Gab, 6) + back(GApab, 8)
-                     + back(GRa, 1)[:, :, None] + d_tfull + diag * d_s14)
-            m6_a = back(Gab, 5)
-            dbc_a = (back(GApab, 15) + back(GRa, 7)[:, :, None] + d_s15
-                     + diag * d_t18)
-            d_bc = rb[:, None] == cols[None]
-            d_ac = ra[:, None] == cols[None]
-            dT[:, xa0:xa1, xb0:xb1] = (
-                tab_a[:, :, :, None]
-                + m6_a[:, :, :, None] * R[:, None, None, :, None]
-                + d_bc[None, None, :, :, None] * dbc_a[:, :, :, None]
-                + tabT_b[:, :, xa0:xa1].transpose(1, 2)[:, :, :, None]
-                + tbc_b[:, None]
-                + R[:, xa0:xa1, None, None, None] * m10_b[:, None]
-                + d_ac[None, :, None, :, None]
-                * dacT_b[:, :, xa0:xa1].transpose(1, 2)[:, :, :, None])
+        # The B maps, rows (b, y).
+        Gb, GApb, GRb = G[:, xb0:xb1], GAp[:, xb0:xb1], GR[:, xb0:xb1, None]
+        tabT = back(GApb, 11)
+        tbc = back_v(Gb, KB) + back(GApb, 12) + back(GRb, 3)
+        m10 = back(Gb, 9)
+        dacT = back(GApb, 16) + back(GRb, 10)
+        # The A maps, rows (a, b).
+        Ga, GApa, GRa = G[:, :, xb0:xb1], GAp[:, :, xb0:xb1], GR[:, :, None]
+        rb = torch.arange(xb0, xb1, device=dev)
+        diag = (cols[:, None] == rb[None])[None, :, :, None]
+        tab = (back_v(Ga, KA) + back(GApa, 8) + back(GRa, 1) + d_tfull
+               + diag * d_s14)
+        m6 = back(Ga, 5)
+        dbc = back(GApa, 15) + back(GRa, 7) + d_s15 + diag * d_t18
+        # The assembly, dT[a, b, c] for b in Xb.
+        d_bc = (rb[:, None] == cols[None])[None, None, :, :, None]
+        d_ac = (cols[:, None] == cols[None])[None, :, None, :, None]
+        dT[:, :, xb0:xb1] = (
+            tab[:, :, :, None] + m6[:, :, :, None] * R[:, None, None, :, None]
+            + d_bc * dbc[:, :, :, None]
+            + tabT.transpose(1, 2)[:, :, :, None] + tbc[:, None]
+            + R[:, :, None, None, None] * m10[:, None]
+            + d_ac * dacT.transpose(1, 2)[:, :, :, None])
     return dT, dK.reshape(18 * C, Cout), db_parts
 
 
@@ -447,16 +462,17 @@ def risi18_bank_backward_cluster_reference(T, A, K, g, rows, cluster):
     as ``csrc/risi18_backward_block.cuh:backward_block_cluster`` forms
     them: the row tiles of ``rows`` rows spread over a cluster of
     ``cluster`` blocks, block ``rank`` taking the tiles rank, rank +
-    cluster, ...  GA = the blocks' parts over their own rows, added in rank
-    order.  dK: per block, its tiles' maps (:func:`_tile_maps`) against G
-    and GAp of their rows, its vectors against GR, and its part of the four
-    scalars times GA; the blocks' dK added in rank order.  dT, which needs
-    G and not T: per block, for the rows b of its own tiles Xb and every
-    tile Xa, the B maps of the rows b (G, GAp and GR of those rows) and the
-    A maps at the entries (a in Xa, b in Xb) (G of the rows Xa, GAp of
-    those entries), dT[Xa, Xb, :] = A + A6 R[c] + d(b,c) A15 + B11[b,a] +
-    Bbc[b,c] + R[a] B9[b,c] + d(a,c) B16[b,a].  -> (dT in T's dtype, dK in
-    K's), computed in float32 (float64) and rounded once."""
+    cluster, ...  Kernel 0 (:func:`backward_sums_reference`) forms GAp and
+    the row sums of G once a vertex; GA = the sum of every row's.  dK: per
+    block, its tiles' maps (:func:`_tile_maps`) against G and GAp of their
+    rows, its vectors against GR, and its part of the four scalars times
+    GA; the blocks' dK added in rank order.  dT, which needs G and not T,
+    one pass a row tile Xb: the B maps of the rows b in Xb and the A maps
+    of every row a at the columns Xb, products of G, GAp and GR with K's
+    slabs (S K1 + trA K7 and S K3 per vertex), then dT[:, Xb, :] = A + A6
+    R[c] + d(b,c) A15 + B11[b,a] + Bbc[b,c] + R[a] B9[b,c] + d(a,c)
+    B16[b,a].  -> (dT in T's dtype, dK in K's), computed in float32
+    (float64) and rounded once."""
     ct = _compute_dtype(T)
     dT, dK, _ = _bank_backward_cluster(T.to(ct), A.to(ct), K.to(ct),
                                        g.to(ct), rows, cluster)
@@ -465,12 +481,13 @@ def risi18_bank_backward_cluster_reference(T, A, K, g, rows, cluster):
 
 def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
     """(dT, dK) of the bank (:func:`risi18_bank_backward_factored_reference`)
-    in row tiles of ``rows`` rows, as ``backward_block_tiled`` forms them:
-    :func:`risi18_bank_backward_cluster_reference` with one block, which
-    walks every tile (dK: per tile X its maps against G and GAp of its rows
-    and its vectors against GR of its rows, the four scalars summed tile by
-    tile, times GA; dT per pair of tiles).  -> (dT in T's dtype, dK in
-    K's), computed in float32 (float64) and rounded once."""
+    in row tiles of ``rows`` rows: :func:`risi18_bank_backward_cluster_reference`
+    with one block, which walks every tile (dK: per tile X its maps against
+    G and GAp of its rows and its vectors against GR of its rows, the four
+    scalars summed tile by tile, times GA; dT one pass a tile).
+    ``backward_block_tiled`` forms the same sums for dK, and dT's entries
+    from the same terms, grouped by pairs of row tiles.  -> (dT in T's
+    dtype, dK in K's), computed in float32 (float64) and rounded once."""
     return risi18_bank_backward_cluster_reference(T, A, K, g, rows, 1)
 
 
@@ -499,7 +516,11 @@ def _backward_lib() -> ctypes.CDLL:
     lib.risi18_bank_backward_blocks.argtypes = [i32]
     lib.risi18_bank_backward_blocks.restype = i32
     for fn in (lib.risi18_bank_backward_f32, lib.risi18_bank_backward_bf16):
-        fn.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        fn.restype = i32
+    for fn in (lib.risi18_bank_backward_sums_f32,
+               lib.risi18_bank_backward_sums_bf16):
+        fn.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         fn.restype = i32
     lib.risi18_bank_backward_reduce.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
     lib.risi18_bank_backward_reduce.restype = i32
@@ -519,9 +540,9 @@ def bank_plan(N, P, C, Cout, dtype=torch.float32):
 @functools.lru_cache(maxsize=None)
 def bank_backward_plan(N, P, C, Cout, dtype=torch.float32):
     """K5 kernel 1's plan for N vertices (``ops/risi_level.py:
-    query_plan``)."""
+    query_plan``, with kernel 0's scratch)."""
     return query_plan(_backward_lib().risi18_bank_backward_plan, N, P, C,
-                      Cout, dtype)
+                      Cout, dtype, backward=True)
 
 
 def _check_bank(T, A, K):
@@ -563,9 +584,60 @@ def _forward_kernel(T, A, K):
     return Z
 
 
-def _backward_main_kernel(T, A, K, g):
+def _backward_sums_kernel(A, g):
+    """K5, kernel 0 (``risi18_bank_backward_sums_{f32,bf16}``): once a
+    vertex, GAp and the row sums of g, the float32 scratch kernel 1 reads on
+    a cluster plan; returns (gap [N,P,P,Cout], sums [N,3,P,Cout]: GR,
+    GAx, GSx), float32."""
+    _check_element_type("g", g)
+    if g.dim() != 4:
+        raise ValueError(f"g has shape {tuple(g.shape)}, expected "
+                         f"[N, P, P, Cout]")
+    N, P, _, Cout = g.shape
+    dev, dt = g.device, g.dtype
+    _check("A", A, torch.float32, (N, P, P), dev)
+    _check("g", g, dt, (N, P, P, Cout), dev)
+    lib = _backward_lib()
+    gap = torch.empty((N, P, P, Cout), dtype=torch.float32, device=dev)
+    sums = torch.empty((N, 3, P, Cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry(lib, "risi18_bank_backward_sums", dt)(
+            A.data_ptr(), g.data_ptr(), gap.data_ptr(), sums.data_ptr(), N,
+            P, Cout, _stream(dev))
+    _raise_on(err, "risi18_bank_backward sums",
+              lib.risi18_bank_bwd_error_string,
+              f"N={N} P={P} Cout={Cout} {dt}")
+    risi18_bank_backward.sums_launches += 1
+    return gap, sums
+
+
+def risi18_bank_backward_sums_reference(A, g):
+    """Plain kernel 0 of the bank's backward: :func:`backward_sums_reference`
+    of g [N,P,P,Cout] computed in float32 (float64 stays float64) -> (gap
+    [N,P,P,Cout], sums [N,3,P,Cout])."""
+    ct = _compute_dtype(g)
+    return backward_sums_reference(g.to(ct), A.to(ct))
+
+
+def risi18_bank_backward_sums(A, g):
+    """Kernel 0 of the bank's backward on a cluster plan: A [N,P,P], g
+    [N,P,P,Cout] -> (gap [N,P,P,Cout], sums [N,3,P,Cout]: GR, GAx, GSx),
+    float32 (float64 for float64 on the CPU).  CPU tensors run
+    :func:`risi18_bank_backward_sums_reference`; CUDA tensors launch kernel
+    0 (``csrc/risi18_bank_bwd.cu``), or raise."""
+    if g.device.type == "cpu":
+        return risi18_bank_backward_sums_reference(A, g)
+    if g.device.type != "cuda":
+        raise ValueError(f"no bank kernel for device {g.device}")
+    return _backward_sums_kernel(A, g)
+
+
+def _backward_main_kernel(T, A, K, g, sums=None):
     """K5, kernel 1: dT (every element written) and per-block partial rows
-    of dK; returns (dT, partial)."""
+    of dK; returns (dT, partial).  On a cluster plan kernel 0
+    (:func:`_backward_sums_kernel`) runs first, and kernel 1 reads its
+    scratch (the plan's ``scratch_bytes``), or the (gap, sums) that
+    ``sums`` gives (a timing of kernel 1 alone)."""
     N, P, C, Cout = _check_bank(T, A, K)
     _check("g", g, T.dtype, (N, P, P, Cout), T.device)
     lib = _backward_lib()
@@ -577,15 +649,21 @@ def _backward_main_kernel(T, A, K, g):
                           device=T.device)
     if N == 0:
         return dT, partial
+    plan = bank_backward_plan(N, P, C, Cout, T.dtype)
+    gap = None
+    if plan is not None and plan["cluster"]:
+        gap, sums = _backward_sums_kernel(A, g) if sums is None else sums
+    else:
+        sums = None
     with torch.cuda.device(T.device):
         err = _entry(lib, "risi18_bank_backward", T.dtype)(
             T.data_ptr(), A.data_ptr(), K.data_ptr(), g.data_ptr(),
-            dT.data_ptr(), partial.data_ptr(), N, P, C, Cout, nblocks,
-            _stream(T.device))
+            None if gap is None else gap.data_ptr(),
+            None if sums is None else sums.data_ptr(), dT.data_ptr(),
+            partial.data_ptr(), N, P, C, Cout, nblocks, _stream(T.device))
     _raise_on(err, "risi18_bank_backward", lib.risi18_bank_bwd_error_string,
-              _where(N, P, C, Cout, T.dtype)
-              + (f", plan {bank_backward_plan(N, P, C, Cout, T.dtype)}"
-                 if err else ""))
+              _where(N, P, C, Cout, T.dtype) + (f", plan {plan}" if err
+                                                else ""))
     risi18_bank_backward.launches += 1
     return dT, partial
 
@@ -625,6 +703,7 @@ def risi18_bank_backward(T, A, K, g):
     return dT, dK.to(K.dtype)
 
 
+risi18_bank_backward.sums_launches = 0     # kernel 0 (cluster plans)
 risi18_bank_backward.launches = 0          # kernel 1 (dT, partials)
 risi18_bank_backward.reduce_launches = 0   # kernel 2 (dK)
 

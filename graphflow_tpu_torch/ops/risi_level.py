@@ -67,7 +67,9 @@ def risi18_level_reference(state, nbr, pos, radj, K, b, negslope=0.01):
         raise TypeError(f"state has dtype {state.dtype}; the level takes "
                         f"{sorted(str(d) for d in _COMPUTE)}")
     ct = _COMPUTE[state.dtype]
-    N, P, _, C = state.shape
+    # The vertices nbr lists (all of the state's, or some of them for a
+    # check that runs the plain level a few vertices at a time).
+    N, P, C = nbr.shape[0], state.shape[1], state.shape[3]
     # Cast up before the gather: autograd then scatters dstate in ``ct`` and
     # rounds it once, as the kernels do, not once per added slot.
     T = risi18_aligned_t2_reference(state.to(ct), nbr, pos)
@@ -201,16 +203,21 @@ def _bind_min_smem(fn):
 
 def _bind_plan(fn):
     """A library's ``*_plan(N, P, C, Cout, bf16, int plan[])``: the plan
-    its launcher takes (see :func:`query_plan`)."""
+    its launcher takes (see :func:`query_plan`; ten fields forward, twelve
+    backward)."""
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
 PLAN_KEYS = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
              "pieces", "cluster", "tiles_per_block", "mma")
+# The backward plans' two more fields: kernel 0's float32 scratch words a
+# vertex, reported as ``scratch_bytes`` for the N vertices, and its shared
+# memory.
+BACKWARD_PLAN_KEYS = PLAN_KEYS + ("scratch_bytes", "sums_smem_bytes")
 
 
-def query_plan(fn, N, P, C, Cout, dtype=torch.float32):
+def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False):
     """The plan a kernel's launcher takes for N vertices of a field of P
     rows, C input and Cout output channels in ``dtype`` (16-byte aligned
     inputs), from the library's ``*_plan`` entry ``fn``: a dict with
@@ -223,12 +230,21 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32):
     cluster takes) and ``mma`` (1: the products run on the tensor cores);
     None where no plan fits.  N matters to a cluster plan only: a cluster
     takes fewer blocks where the grid of one block a vertex already fills
-    the card (``csrc/risi18_level_common.cuh:cluster_shape``).  Needs the CUDA
-    library (it is built with nvcc), not a card."""
-    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    the card (``csrc/risi18_level_common.cuh:cluster_shape``).  A backward
+    plan (``backward``) adds ``scratch_bytes``, the float32 scratch kernel 0
+    fills for N vertices (GAp [N,P,P,Cout] and the row sums [N,3,P,Cout]:
+    ``csrc/risi18_backward_block.cuh:backward_sums_kernel``), and
+    ``sums_smem_bytes``, kernel 0's shared memory a block; both 0 on a
+    plan of no cluster, which launches no kernel 0.  Needs the CUDA library
+    (it is built with nvcc), not a card."""
+    keys = BACKWARD_PLAN_KEYS if backward else PLAN_KEYS
+    plan = (ctypes.c_int * len(keys))()
     if fn(N, P, C, Cout, int(dtype == torch.bfloat16), plan):
         return None
-    return {k: int(v) for k, v in zip(PLAN_KEYS, plan)}
+    got = {k: int(v) for k, v in zip(keys, plan)}
+    if backward:
+        got["scratch_bytes"] *= 4 * N
+    return got
 
 
 @functools.lru_cache(maxsize=None)
@@ -239,9 +255,10 @@ def level_plan(N, P, C, Cout, dtype=torch.float32):
 
 @functools.lru_cache(maxsize=None)
 def level_backward_plan(N, P, C, Cout, dtype=torch.float32):
-    """K2 kernel 1's plan for N vertices (:func:`query_plan`)."""
+    """K2 kernel 1's plan for N vertices (:func:`query_plan`, with kernel
+    0's scratch)."""
     return query_plan(_backward_lib().risi18_level_backward_plan, N, P, C,
-                      Cout, dtype)
+                      Cout, dtype, backward=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,7 +287,11 @@ def _backward_lib() -> ctypes.CDLL:
     lib.risi18_level_backward_blocks.restype = i32
     for fn in (lib.risi18_level_backward_f32,
                lib.risi18_level_backward_bf16):
-        fn.argtypes = [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * 11 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+        fn.restype = i32
+    for fn in (lib.risi18_level_backward_sums_f32,
+               lib.risi18_level_backward_sums_bf16):
+        fn.argtypes = [ptr] * 5 + [i32] * 3 + [ctypes.c_float, ptr]
         fn.restype = i32
     lib.risi18_level_backward_reduce_f32.argtypes = (
         [ptr] * 3 + [i32] * 3 + [ptr])
@@ -395,11 +416,70 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     return out
 
 
-def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
+def _backward_sums_kernel(radj, g, out, negslope):
+    """K2, kernel 0 (``risi18_level_backward_sums_{f32,bf16}``): once a
+    vertex, GAp and the row sums of geff = g through LeakyReLU' of out, the
+    float32 scratch that kernel 1 reads on a cluster plan; returns (gap
+    [N,P,P,Cout], sums [N,3,P,Cout]: GR, GAx, GSx), float32."""
+    _check_element_type("g", g)
+    if g.dim() != 3 or radj.dim() != 3:
+        raise ValueError(f"g has shape {tuple(g.shape)} and radj "
+                         f"{tuple(radj.shape)}, expected [N, P*P, Cout] and "
+                         f"[N, P, P]")
+    N, P, Cout = g.shape[0], radj.shape[1], g.shape[2]
+    dev, dt = g.device, g.dtype
+    _check("radj", radj, torch.float32, (N, P, P), dev)
+    _check("g", g, dt, (N, P * P, Cout), dev)
+    _check("out", out, dt, (N, P * P, Cout), dev)
+    lib = _backward_lib()
+    gap = torch.empty((N, P, P, Cout), dtype=torch.float32, device=dev)
+    sums = torch.empty((N, 3, P, Cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _entry(lib, "risi18_level_backward_sums", dt)(
+            radj.data_ptr(), g.data_ptr(), out.data_ptr(), gap.data_ptr(),
+            sums.data_ptr(), N, P, Cout, float(negslope), _stream(dev))
+    _raise_on(err, "risi18_level_backward sums",
+              lib.risi18_level_bwd_error_string,
+              f"N={N} P={P} Cout={Cout} {dt}")
+    risi18_level_backward.sums_launches += 1
+    return gap, sums
+
+
+def risi18_level_backward_sums_reference(radj, g, out, negslope=0.01):
+    """Plain kernel 0 of the level's backward: geff = g where out > 0, else
+    negslope g, computed in float32 (float64 stays float64), as
+    [N,P,P,Cout], and its sums (``ops/risi_bank.py:
+    backward_sums_reference``) -> (gap [N,P,P,Cout], sums [N,3,P,Cout])."""
+    from graphflow_tpu_torch.ops.risi_bank import backward_sums_reference
+
+    ct = _COMPUTE[g.dtype]
+    N, P = radj.shape[:2]
+    G = torch.where(out.to(ct) > 0, g.to(ct), negslope * g.to(ct))
+    return backward_sums_reference(G.reshape(N, P, P, -1), radj.to(ct))
+
+
+def risi18_level_backward_sums(radj, g, out, negslope=0.01):
+    """Kernel 0 of the level's backward on a cluster plan: radj [N,P,P],
+    g and out [N,P*P,Cout] -> (gap [N,P,P,Cout], sums [N,3,P,Cout]: GR,
+    GAx, GSx), float32 (float64 for float64 on the CPU).  CPU tensors run
+    :func:`risi18_level_backward_sums_reference`; CUDA tensors launch
+    kernel 0 (``csrc/risi18_level_bwd.cu``), or raise."""
+    if g.device.type == "cpu":
+        return risi18_level_backward_sums_reference(radj, g, out, negslope)
+    if g.device.type != "cuda":
+        raise ValueError(f"no level kernel for device {g.device}")
+    return _backward_sums_kernel(radj, g, out, negslope)
+
+
+def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope,
+                          sums=None):
     """K2, kernel 1 (``risi18_level_backward_{f32,bf16}``): dstate (float32
     atomics into float32 zeros, whatever the state's dtype) and one partial
     row of [dK | db] per vertex group; returns (dstate in float32,
-    partial)."""
+    partial).  On a cluster plan kernel 0 (:func:`_backward_sums_kernel`)
+    runs first, and kernel 1 reads its scratch (the plan's
+    ``scratch_bytes``), or the (gap, sums) that ``sums`` gives (a timing of
+    kernel 1 alone)."""
     N, P, C, Cout = _check_level(state, nbr, pos, radj, K)
     dev, dt = state.device, state.dtype
     _check("g", g, dt, (N, P * P, Cout), dev)
@@ -413,16 +493,22 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope):
                           dtype=torch.float32, device=dev)
     if N == 0:
         return dstate, partial
+    plan = level_backward_plan(N, P, C, Cout, dt)
+    gap = None
+    if plan is not None and plan["cluster"]:
+        gap, sums = _backward_sums_kernel(radj, g, out, negslope) if sums is None else sums
+    else:
+        sums = None
     with torch.cuda.device(dev):
         err = _entry(lib, "risi18_level_backward", dt)(
             state.data_ptr(), nbr.data_ptr(), pos.data_ptr(), radj.data_ptr(),
-            K.data_ptr(), g.data_ptr(), out.data_ptr(), dstate.data_ptr(),
+            K.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if gap is None else gap.data_ptr(),
+            None if sums is None else sums.data_ptr(), dstate.data_ptr(),
             partial.data_ptr(), N, P, C, Cout, float(negslope), nblocks,
             _stream(dev))
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
-              _where(N, P, C, Cout, dt)
-              + (f", plan {level_backward_plan(N, P, C, Cout, dt)}" if err
-                 else ""))
+              _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level_backward.launches += 1
     return dstate, partial
 
@@ -503,6 +589,7 @@ def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
     return dstate, dK, db
 
 
+risi18_level_backward.sums_launches = 0     # kernel 0 (cluster plans)
 risi18_level_backward.launches = 0          # kernel 1 (dstate, partials)
 risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db; bf16: dstate)
 

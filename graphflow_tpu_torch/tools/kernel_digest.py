@@ -16,7 +16,9 @@ summed by float32 atomics in an order that changes from run to run, so it
 agrees to rounding only; a redesigned kernel sums in another order).
 With ``--times`` it prints instead the spin-timed median ms of K1, of K2
 kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
-level), and of both kernels 2 (K2's in float32) beside ``partial.sum(0)``,
+level; each backward's kernel 1 with the kernel 0 that a cluster plan
+launches before it), and of both kernels 2 (K2's in float32) beside
+``partial.sum(0)``,
 at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
 bank, in the dtypes) the smoke does not time.  ``--shapes`` names other

@@ -23,7 +23,10 @@ its own tiles into the stream, the products and the rest, and name the
 cycles it waits at the cluster's meetings.  K4 and K5 kernel 1 run the
 same cluster blocks on T there, with the same marks (K2's names: for K5
 the structure is the adjacency, geff is g itself and the scatter writes
-dT).
+dT).  On a cluster plan kernel 0 (GAp and the row sums of G once a
+vertex) runs before kernel 1, unclocked; the cluster plans' dT phase is
+one pass a row tile, the next tile's maps formed on the tensor cores while
+this tile's dT is scattered (K5: written), one mark for the whole phase.
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -58,11 +61,10 @@ CLUSTER_STAGES = ("set-up", "K staging and the tiles' stream",
                   "U, the part of s and the products", "pre-activations",
                   "the cluster's exchange of s (meetings)", "epilogue")
 CLUSTER_BACKWARD_STAGES = (
-    "set-up, K staging", "structure, geff's sums, GA's exchange (meetings)",
-    "the tiles' stream and G", "dK of the tiles",
-    "the scalars' cotangents, G and B maps of rows b",
-    "the partial row's exchange (meetings)", "G of rows a",
-    "GAp and GR of rows a", "A maps", "scatter")
+    "set-up, K staging", "structure, GA and db's sums",
+    "the tiles' stream and G", "dK of the tiles", "the scalars' cotangents",
+    "the partial row's exchange (meetings)",
+    "dT: the tiles' maps (tensor cores) and scatter")
 ROUNDS = 3
 
 
@@ -138,7 +140,17 @@ def main(argv=None):
         pre = (out if dtype == torch.float32 else
                torch.empty(out.shape, dtype=torch.float32, device="cuda"))
         backward = getattr(bwd, f"risi18_level_backward_{suffix}")
-        backward.argtypes = [ptr] * 9 + [i32] * 4 + [ctypes.c_float, i32, ptr]
+        backward.argtypes = [ptr] * 11 + [i32] * 4 + [ctypes.c_float, i32,
+                                                      ptr]
+        # Kernel 0's scratch, filled before kernel 1 on a cluster plan.
+        gap = torch.empty((N, P, P, Cout), dtype=torch.float32,
+                          device="cuda")
+        sums = torch.empty((N, 3, P, Cout), dtype=torch.float32,
+                           device="cuda")
+        level_sums = getattr(bwd, f"risi18_level_backward_sums_{suffix}")
+        level_sums.argtypes = [ptr] * 5 + [i32] * 3 + [ctypes.c_float, ptr]
+        bank_sums = getattr(bank_bwd, f"risi18_bank_backward_sums_{suffix}")
+        bank_sums.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         shape = f"(N,P,C,Cout)=({N},{P},{C},{Cout}) {suffix}"
         for _ in range(ROUNDS):
             err = forward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
@@ -151,11 +163,15 @@ def main(argv=None):
             report(f"K1 {shape}", FORWARD_STAGES,
                    fwd.risi18_level_stage_cycles, CLUSTER_STAGES)
         for _ in range(ROUNDS):
-            err = backward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
-                           f32["radj"].data_ptr(), K.data_ptr(), g.data_ptr(),
-                           out.data_ptr(), dstate.data_ptr(),
-                           partial.data_ptr(), N, P, C, Cout, 0.01, groups,
-                           stream)
+            err = level_sums(f32["radj"].data_ptr(), g.data_ptr(),
+                             out.data_ptr(), gap.data_ptr(), sums.data_ptr(),
+                             N, P, Cout, 0.01, stream)
+            err = err or backward(
+                state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
+                f32["radj"].data_ptr(), K.data_ptr(), g.data_ptr(),
+                out.data_ptr(), gap.data_ptr(), sums.data_ptr(),
+                dstate.data_ptr(), partial.data_ptr(), N, P, C, Cout, 0.01,
+                groups, stream)
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"risi18_level_backward launch failed "
@@ -172,7 +188,7 @@ def main(argv=None):
         bank_forward.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
         bank_pre = Z if dtype == torch.float32 else pre
         bank_backward = getattr(bank_bwd, f"risi18_bank_backward_{suffix}")
-        bank_backward.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        bank_backward.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         for _ in range(ROUNDS):
             err = bank_forward(T.data_ptr(), f32["radj"].data_ptr(),
                                K.data_ptr(), Z.data_ptr(),
@@ -183,10 +199,13 @@ def main(argv=None):
             report(f"K4 {shape}", BANK_STAGES,
                    bank.risi18_bank_stage_cycles, CLUSTER_STAGES)
         for _ in range(ROUNDS):
-            err = bank_backward(T.data_ptr(), f32["radj"].data_ptr(),
-                                K.data_ptr(), g.data_ptr(), dT.data_ptr(),
-                                bank_partial.data_ptr(), N, P, C, Cout,
-                                groups, stream)
+            err = bank_sums(f32["radj"].data_ptr(), g.data_ptr(),
+                            gap.data_ptr(), sums.data_ptr(), N, P, Cout,
+                            stream)
+            err = err or bank_backward(
+                T.data_ptr(), f32["radj"].data_ptr(), K.data_ptr(),
+                g.data_ptr(), gap.data_ptr(), sums.data_ptr(), dT.data_ptr(),
+                bank_partial.data_ptr(), N, P, C, Cout, groups, stream)
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"risi18_bank_backward launch failed "

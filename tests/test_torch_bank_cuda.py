@@ -21,10 +21,12 @@ from graphflow_tpu_torch.ops.risi_aligned import (
 from graphflow_tpu_torch.ops.risi_bank import (
     _backward_reduce_kernel, bank_backward_plan, bank_plan, risi18_bank,
     risi18_bank_backward, risi18_bank_backward_reference,
+    risi18_bank_backward_sums, risi18_bank_backward_sums_reference,
     risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.utils.datasets import random_level_case
-from test_torch_kernels_cuda import check_cluster_plan
+from test_torch_kernels_cuda import (TILED_FIELDS, check_cluster_plan,
+                                     cluster_sizes, sums_bytes)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,10 +79,16 @@ def _assert_close(got, ref):
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype and got.shape == ref.shape
     rtol = RTOL[ref.dtype]
-    got, ref = got.double(), ref.double()
-    assert torch.isfinite(got).all()
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= rtol * scale
+    # In float64 2^25 elements at a time: a dT of 8.6 GB in float32 would
+    # take 17 GB a copy.
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    err = scale = 0.0
+    for i in range(0, got.numel(), 1 << 25):
+        x, r = got[i:i + (1 << 25)].double(), ref[i:i + (1 << 25)].double()
+        assert torch.isfinite(x).all()
+        err = max(err, float((x - r).abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    assert err <= rtol * max(1.0, scale)
 
 
 @pytest.fixture(params=[torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -345,7 +353,75 @@ def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
         pieces=1, cluster=0, tiles_per_block=1, mma=1)
     assert bank_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=226960, tiled=0,
-        pieces=1, cluster=0, tiles_per_block=1, mma=1)
+        pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
+        sums_smem_bytes=0)
+
+
+def _bank_backward_in_chunks(T, A, K, g, chunk=32):
+    """The plain backward of a bank over many vertices, 32 at a time (T is
+    8.6 GB at N = 256, P = 64, C = 32 in float32): dT's chunks side by
+    side, dK's added in float64, from the inputs cast up to float32 and
+    rounded to their dtype once."""
+    dTs, dK = [], None
+    for v0 in range(0, T.shape[0], chunk):
+        dT, part = risi18_bank_backward_reference(
+            T[v0:v0 + chunk].float(), A[v0:v0 + chunk], K.float(),
+            g[v0:v0 + chunk].float())
+        dTs.append(dT.to(T.dtype))
+        dK = part.double() if dK is None else dK + part.double()
+    return torch.cat(dTs), dK.to(K.dtype)
+
+
+@pytest.mark.parametrize("P,C,Cout", TILED_FIELDS)
+def test_bank_backward_on_row_tiled_plans_at_every_cluster_size(
+        cuda, dtype, P, C, Cout):
+    """K5 kernel 1 on the row-tiled plans (on a cluster plan kernel 0's
+    sums once a vertex and dT one pass a row tile) at every cluster size
+    the rule picks, and at 140 and 256 vertices: against the plain
+    backward, dT and dK the same bits from run to run, kernel 0 launched
+    once a backward on a cluster plan and not otherwise, and the plan's
+    scratch as kernel 0 lays it out."""
+    for N in cluster_sizes(bank_backward_plan, P, C, Cout, dtype):
+        plan = bank_backward_plan(N, P, C, Cout, dtype)
+        assert plan["tiled"] == 1, plan
+        # Kernel 0 and its scratch on a cluster plan; the one-block
+        # row-tiled block forms its sums itself.
+        clustered = plan["cluster"] > 0
+        assert (plan["scratch_bytes"], plan["sums_smem_bytes"]) == (
+            sums_bytes(N, P, Cout) if clustered else (0, 0)), plan
+        T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                             dtype=dtype)
+        counts = (risi18_bank_backward.sums_launches,
+                  risi18_bank_backward.launches)
+        got = risi18_bank_backward(T, A, K, g)
+        assert (risi18_bank_backward.sums_launches,
+                risi18_bank_backward.launches) == (counts[0] + clustered,
+                                                   counts[1] + 1)
+        for x, r in zip(got, _bank_backward_in_chunks(T, A, K, g)):
+            _assert_close(x, r)
+        again = risi18_bank_backward(T, A, K, g)
+        torch.cuda.synchronize()
+        for x, y in zip(got, again):              # dT and dK, bit for bit
+            assert torch.equal(x, y), (N, plan)
+        del T, got, again
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("N,P,Cout", [(3, 33, 32), (2, 64, 3), (2, 64, 40),
+                                      (1, 178, 32), (140, 37, 8)])
+def test_bank_backward_sums_kernel_matches_plain(cuda, dtype, N, P, Cout):
+    """Kernel 0 of K5 (GAp and the row sums GR, GAx, GSx of g) against its
+    plain version: Cout of one partial pass (3), of one and two passes of
+    32 (32, 40), the largest field K5 kernel 1 reaches (178), and more
+    vertices than kernel 1 has vertex groups."""
+    _, A, _, g = _inputs(N, P, 1, Cout, seed=P + Cout, device=cuda,
+                         dtype=dtype)
+    before = risi18_bank_backward.sums_launches
+    got = risi18_bank_backward_sums(A, g)
+    assert risi18_bank_backward.sums_launches == before + 1
+    for x, r in zip(got, risi18_bank_backward_sums_reference(A, g)):
+        assert x.shape == r.shape and x.dtype == torch.float32
+        _assert_close(x, r)
 
 
 def test_bank_reduce_matches_torch_and_repeats(cuda):

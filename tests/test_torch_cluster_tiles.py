@@ -19,9 +19,16 @@ in the backward GA, db and dK) as the blocks' parts added in rank order.
   14, 14 and 12 rows) on clusters of 3, 2 (a block with two tiles, one
   with one) and 1 block, against the JAX package and the untiled
   references (float64, 1e-10).
+* Kernel 0 of K2's and K5's cluster plans (GAp and the row sums GR,
+  GAx, GSx of G once a vertex: ``ops/risi_bank.py:
+  risi18_bank_backward_sums``, ``ops/risi_level.py:
+  risi18_level_backward_sums`` on the CPU) against the same sums in JAX,
+  and the dT of one pass a row tile that the references now form against
+  the vjp of ``risi_contraction_18`` for tiles that leave a short last
+  tile and balanced ones, on clusters of 1, 2, 4 and 8 (float64, 1e-10).
 * float32 and bfloat16 in, float32 sums, rounded once.
 
-Small: N <= 3 vertices, P in {33, 36, 40}, C <= 3, Cout <= 4.
+Small: N <= 3 vertices, P in {33, 35, 36, 37, 40}, C <= 3, Cout <= 4.
 """
 
 import jax
@@ -34,12 +41,13 @@ from graphflow_tpu.ops.contractions import risi_contraction_18
 from graphflow_tpu.ops.risi_fused_pallas import _reference_level
 from graphflow_tpu_torch.ops.risi_bank import (
     risi18_bank_backward_cluster_reference,
-    risi18_bank_backward_factored_reference, risi18_bank_cluster_reference,
-    risi18_bank_factored_reference, risi18_bank_reference)
+    risi18_bank_backward_factored_reference, risi18_bank_backward_sums,
+    risi18_bank_cluster_reference, risi18_bank_factored_reference,
+    risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import (
     risi18_level_backward_cluster_reference,
-    risi18_level_backward_factored_reference, risi18_level_cluster_reference,
-    risi18_level_factored_reference)
+    risi18_level_backward_factored_reference, risi18_level_backward_sums,
+    risi18_level_cluster_reference, risi18_level_factored_reference)
 from graphflow_tpu_torch.utils import datasets
 
 torch.set_num_threads(1)
@@ -200,3 +208,59 @@ def test_cluster_decomposition_keeps_the_dtypes():
         ref = risi18_bank_reference(T.to(dt), A, K.to(dt))
         scale = max(1.0, float(ref.float().abs().max()))
         assert float((Z.float() - ref.float()).abs().max()) <= tol * scale
+
+
+def _jax_sums(G, A):
+    """GAp and the row sums GR, GAx, GSx of G [N,P,P,Cout] in JAX."""
+    Ap = jnp.maximum(A, 0.0)
+    R = Ap.sum(-1)
+    return (jnp.einsum("nxyo,nye->nxeo", G, Ap),
+            jnp.stack([jnp.einsum("nxyo,ny->nxo", G, R),
+                       jnp.einsum("nxy,nxyo->nxo", Ap, G), G.sum(2)], 1))
+
+
+@pytest.mark.parametrize("N,P,Cout", [(2, 33, 3), (3, 36, 4), (1, 40, 1)])
+def test_bank_backward_sums_match_jax(N, P, Cout):
+    """Kernel 0's function for the bank (G = g) on the CPU: float64 in,
+    float64 out, against the same sums in JAX."""
+    rng = np.random.default_rng(P + Cout)
+    G, A = rng.normal(size=(N, P, P, Cout)), rng.normal(size=(N, P, P))
+    gap, sums = risi18_bank_backward_sums(_t(A), _t(G))
+    assert gap.dtype == sums.dtype == torch.float64
+    for got, ref in zip((gap, sums), _jax_sums(jnp.asarray(G),
+                                               jnp.asarray(A))):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("N,P,C,Cout", [(2, 33, 2, 3), (2, 37, 1, 4)])
+def test_level_backward_sums_take_geff(N, P, C, Cout):
+    """Kernel 0's function for the level: G = g through LeakyReLU' of the
+    level's output (the JAX XLA level's), then the sums, against JAX."""
+    args, g = _level_case(N, P, C, Cout)
+    out = np.array(_reference_level(*(jnp.asarray(a) for a in args)))
+    gap, sums = risi18_level_backward_sums(_t(args[3]), _t(g), _t(out))
+    G = np.where(out > 0, g, 0.01 * g).reshape(N, P, P, Cout)
+    for got, ref in zip((gap, sums), _jax_sums(jnp.asarray(G),
+                                               jnp.asarray(args[3]))):
+        _close(got, ref)
+
+
+# One dT pass a row tile: fields whose tiles leave a short last tile (4 of
+# 35, 8 of 37) and balanced ones (13 of 37: 13, 13, 11).
+DT_PASSES = [(2, 35, 2, 3, 4), (2, 37, 1, 4, 8), (2, 37, 2, 2, 13)]
+
+
+@pytest.mark.parametrize("cluster", CLUSTERS)
+@pytest.mark.parametrize("N,P,C,Cout,rows", DT_PASSES)
+def test_dT_one_pass_a_tile_matches_jax(N, P, C, Cout, rows, cluster):
+    """dT of the bank as the row-tiled blocks now form it, one pass a row
+    tile from kernel 0's sums, against the vjp of the JAX package's
+    18-case contraction times K (float64, 1e-10)."""
+    T, A, K, g = _bank_case(N, P, C, Cout)
+    dT, _ = risi18_bank_backward_cluster_reference(_t(T), _t(A), _t(K),
+                                                   _t(g), rows, cluster)
+    jA = jnp.asarray(A)
+    _, vjp = jax.vjp(lambda t: _jax_bank(t, jA, jnp.asarray(K)),
+                     jnp.asarray(T))
+    (ref,) = vjp(jnp.asarray(g))
+    _close(dT, ref)

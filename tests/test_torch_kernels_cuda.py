@@ -21,6 +21,7 @@ import torch
 from graphflow_tpu_torch.ops.risi_level import (
     _backward_reduce_kernel, level_backward_plan, level_plan, risi18_level,
     risi18_level_backward, risi18_level_backward_reference,
+    risi18_level_backward_sums, risi18_level_backward_sums_reference,
     risi18_level_reference)
 from graphflow_tpu_torch.tools.measure import same_signs
 from graphflow_tpu_torch.utils.datasets import random_level_case
@@ -63,10 +64,16 @@ def _assert_close(got, ref):
     torch.cuda.synchronize()
     assert got.dtype == ref.dtype
     rtol = RTOL_BF16 if got.dtype == torch.bfloat16 else RTOL
-    got, ref = got.double(), ref.double()
-    assert torch.isfinite(got).all()
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((got - ref).abs().max()) <= rtol * scale
+    # In float64 2^25 elements at a time: a dT of 8.6 GB in float32 would
+    # take 17 GB a copy.
+    got, ref = got.reshape(-1), ref.reshape(-1)
+    err = scale = 0.0
+    for i in range(0, got.numel(), 1 << 25):
+        x, r = got[i:i + (1 << 25)].double(), ref[i:i + (1 << 25)].double()
+        assert torch.isfinite(x).all()
+        err = max(err, float((x - r).abs().max()))
+        scale = max(scale, float(r.abs().max()))
+    assert err <= rtol * max(1.0, scale)
 
 
 # (12, 12, 40, 16) walks the channels in several chunks; the next four are the
@@ -307,7 +314,8 @@ def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
                                           tiles_per_block=1, mma=1)
     assert level_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
-        pieces=1, cluster=0, tiles_per_block=1, mma=1)
+        pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
+        sums_smem_bytes=0)
 
 
 def cluster_rounds(tiles, blocks, per, grid, sms=132):
@@ -366,6 +374,121 @@ def test_level_plans_report_their_clusters(cuda, dtype):
                            (level_backward_plan(N, 64, 32, 32, dtype), bwd)):
             assert (plan["rows"], plan["cluster"], plan["tiles_per_block"],
                     plan["mma"]) == (4, *want, 1), (N, plan)
+
+
+def sums_bytes(N, P, Cout):
+    """Kernel 0's float32 scratch for N vertices (GAp and the three row
+    sums) and its shared memory a block (the adjacency, R, and up to eight
+    rows of G, 32 outputs a pass, as many as 227 KB hold), by its layout in
+    ``csrc/risi18_backward_block.cuh``."""
+    up4 = lambda x: -(-x // 4) * 4
+    fixed = up4(P * (P + 1)) + up4(P)
+    rows = min(8, (232448 // 4 - fixed) // (P * 32))
+    return (4 * N * (P * P + 3 * P) * Cout, 4 * (fixed + rows * P * 32))
+
+
+def cluster_sizes(plan_fn, P, C, Cout, dtype, most=300):
+    """{cluster of the plan (0: the row-tiled block one a vertex group):
+    the least N <= most whose plan takes it}, with N = 140 and 256 added
+    under their own keys: the N that put the size rule on every cluster
+    size it picks."""
+    sizes = {}
+    for N in range(1, most + 1):
+        sizes.setdefault(plan_fn(N, P, C, Cout, dtype)["cluster"], N)
+    return sorted(set(sizes.values()) | {140, 256})
+
+
+# The row-tiled plans' fields (K2 kernel 1 and K5 kernel 1): P = 33 and 50
+# are the row-tiled block one a vertex group at N >= 12 and 14, 37 and 40
+# clusters of up to 5 blocks, 64 SMP_beta's field (clusters of 1, 2, 3,
+# 4, 6 and 8); Cout = 3 takes kernel 0's and the dT maps' partial rows.
+TILED_FIELDS = [(P, 32, 32) for P in (33, 37, 40, 50, 64)] + [(33, 5, 3),
+                                                               (64, 5, 3)]
+
+
+def _level_in_chunks(args, chunk=32):
+    """The plain level's output, 32 vertices at a time (its gathered T at
+    N = 256, P = 64, C = 32 is 8.6 GB in float32)."""
+    state, nbr, pos, radj, K, b = args
+    return torch.cat([risi18_level_reference(
+        state, nbr[v0:v0 + chunk], pos[v0:v0 + chunk], radj[v0:v0 + chunk],
+        K, b) for v0 in range(0, state.shape[0], chunk)])
+
+
+def _level_backward_in_chunks(args, g, chunk=32):
+    """The plain backward of a level with many vertices, 32 at a time:
+    every chunk's dstate, dK and db added in float64, computed from the
+    inputs cast up to float32 and rounded to the inputs' dtype once."""
+    state, nbr, pos, radj, K, b = args
+    up = lambda t: t.float() if t.is_floating_point() else t
+    total = None
+    for v0 in range(0, state.shape[0], chunk):
+        part = risi18_level_backward_reference(
+            up(state), nbr[v0:v0 + chunk], pos[v0:v0 + chunk],
+            radj[v0:v0 + chunk], up(K), up(b), up(g[v0:v0 + chunk]))
+        part = [x.double() for x in part]
+        total = part if total is None else [t + x for t, x in zip(total,
+                                                                  part)]
+    return [t.to(p.dtype) for t, p in zip(total, (state, K, b))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("P,C,Cout", TILED_FIELDS)
+def test_backward_kernel_on_row_tiled_plans_at_every_cluster_size(
+        cuda, P, C, Cout, dtype):
+    """K2 kernel 1 on the row-tiled plans (on a cluster plan kernel 0's
+    sums once a vertex and dT one pass a row tile) at every cluster size
+    the rule picks, and at 140 and 256 vertices: against the plain backward
+    (dstate, dK, db), dK and db the same bits from run to run, kernel 0
+    launched once a backward on a cluster plan and not otherwise, and the
+    plan's scratch as kernel 0 lays it out."""
+    for N in cluster_sizes(level_backward_plan, P, C, Cout, dtype):
+        plan = level_backward_plan(N, P, C, Cout, dtype)
+        assert plan["tiled"] == 1, plan
+        # Kernel 0 and its scratch on a cluster plan; the one-block
+        # row-tiled block forms its sums itself.
+        clustered = plan["cluster"] > 0
+        assert (plan["scratch_bytes"], plan["sums_smem_bytes"]) == (
+            sums_bytes(N, P, Cout) if clustered else (0, 0)), plan
+        args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                       empty_vertex=N // 2, dtype=dtype)
+        g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
+        # LeakyReLU' reads the sign of ``out``: both sides get one.
+        out = same_signs(risi18_level(*args), _level_in_chunks(args))
+        counts = (risi18_level_backward.sums_launches,
+                  risi18_level_backward.launches)
+        got = risi18_level_backward(*args, out, g)
+        assert (risi18_level_backward.sums_launches,
+                risi18_level_backward.launches) == (counts[0] + clustered,
+                                                    counts[1] + 1)
+        for x, r in zip(got, _level_backward_in_chunks(args, g)):
+            _assert_close(x, r)
+        again = risi18_level_backward(*args, out, g)
+        torch.cuda.synchronize()
+        for x, y in zip(got[1:], again[1:]):      # dK and db, bit for bit
+            assert torch.equal(x, y), (N, plan)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,Cout", [(3, 33, 32), (2, 64, 3), (2, 64, 40),
+                                      (1, 153, 32), (140, 37, 8)])
+def test_backward_sums_kernel_matches_plain(cuda, N, P, Cout, dtype):
+    """Kernel 0 of K2 (GAp and the row sums GR, GAx, GSx of geff) against
+    its plain version: Cout of one partial pass (3), of one and two passes
+    of 32 (32, 40), the largest field K2 kernel 1 reaches (153), and more
+    vertices than kernel 1 has vertex groups."""
+    args = _inputs(N, P, 4, Cout, seed=P + Cout, device=cuda,
+                   empty_vertex=N // 2, dtype=dtype)
+    g = _cotangent(N, P, Cout, seed=P, device=cuda, dtype=dtype)
+    out = same_signs(risi18_level(*args), risi18_level_reference(*args))
+    before = risi18_level_backward.sums_launches
+    got = risi18_level_backward_sums(args[3], g, out)
+    assert risi18_level_backward.sums_launches == before + 1
+    ref = risi18_level_backward_sums_reference(args[3], g, out)
+    for x, r in zip(got, ref):
+        assert x.shape == r.shape and x.dtype == torch.float32
+        # Both sides sum float32 values from the same inputs.
+        _assert_close(x, r)
 
 
 @pytest.mark.parametrize("C,Cout", [(32, 32), (5, 3), (1, 1)])
