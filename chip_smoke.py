@@ -569,9 +569,29 @@ def reset_level_counts():
     from graphflow_tpu_torch.ops.risi_level import (risi18_level,
                                                     risi18_level_backward)
     risi18_level.launches = 0
+    risi18_level.tma_launches = 0
     risi18_level_backward.sums_launches = 0
     risi18_level_backward.launches = 0
+    risi18_level_backward.tma_launches = 0
     risi18_level_backward.reduce_launches = 0
+
+
+def tma_counts():
+    """Of K1's and K2 kernel 1's launches, those whose stream took one
+    tensor copy a gathered row (their plan's ``stream`` "tma")."""
+    from graphflow_tpu_torch.ops.risi_level import (risi18_level,
+                                                    risi18_level_backward)
+    return (risi18_level.tma_launches, risi18_level_backward.tma_launches)
+
+
+def expect_tma(what, plan, before, which):
+    """Raises unless ``plan`` (K1's, which = 0; K2 kernel 1's, 1) names
+    the tensor-copy route and the one launch since the counts ``before``
+    took it."""
+    got = tma_counts()[which] - before[which]
+    if plan["stream"] != "tma" or got != 1:
+        raise AssertionError(f"{what}: plan {plan}, {got} launches on the "
+                             f"tensor-copy route, expected 1")
 
 
 def sums_counts():
@@ -673,7 +693,10 @@ def phase_kernel():
         # SMP_beta's field at V = 64: the row-tiled block.
         N, P, C, Cout = LARGE_SHAPE
         largs = level_inputs(N, P, C, Cout, seed=SEED + 64, dtype=dtype)
+        before = tma_counts()
         lout = risi18_level(*largs)
+        expect_tma(f"level {name} N={N} P={P}", level_plan(N, P, C, Cout,
+                                                           dtype), before, 0)
         torch.cuda.synchronize()
         err = check_close(f"level {name} N={N} P={P} C={C} Cout={Cout}",
                           lout, risi18_level_reference(*largs), rtol)
@@ -765,8 +788,9 @@ def phase_backward():
     from graphflow_tpu_torch.ops.risi_level import (
         _backward_finish_kernel_bf16, _backward_main_kernel,
         _backward_reduce_kernel, _backward_sums_kernel, level_backward_plan,
-        risi18_level, risi18_level_backward, risi18_level_backward_reference,
-        risi18_level_backward_sums_reference, risi18_level_reference)
+        level_plan, risi18_level, risi18_level_backward,
+        risi18_level_backward_reference, risi18_level_backward_sums_reference,
+        risi18_level_reference)
 
     def inputs(N, P, C, Cout, seed, dtype):
         g = np.random.default_rng(seed).normal(size=(N, P * P, Cout))
@@ -882,11 +906,16 @@ def phase_backward():
         def check_tiled(shape, seed):
             N, P, C, Cout = shape
             largs, lg = inputs(N, P, C, Cout, seed, dtype)
-            lout = same_signs(risi18_level(*largs),
-                              risi18_level_reference(*largs))
-            before = sums_counts()
+            routes = tma_counts()
+            kout = risi18_level(*largs)
+            expect_tma(f"level {name} N={N} P={P}", level_plan(
+                N, P, C, Cout, dtype), routes, 0)
+            lout = same_signs(kout, risi18_level_reference(*largs))
+            before, routes = sums_counts(), tma_counts()
             got = risi18_level_backward(*largs, lout, lg)
             expect_sums(f"backward {name} N={N} P={P}", before, True)
+            expect_tma(f"backward {name} N={N} P={P}", level_backward_plan(
+                N, P, C, Cout, dtype), routes, 1)
             torch.cuda.synchronize()
             ref = risi18_level_backward_reference(*largs, lg)
             line = []
@@ -2839,6 +2868,21 @@ def phase_large_field():
                 f"{label}: launches (forward, backward kernel 1, kernel 2) "
                 f"{got}, expected {want}; the other route {other}; kernel "
                 f"0 (K2's, K5's) {sums}")
+        # The stream's route: every K1 launch and every K2 kernel 1 launch
+        # on a cluster plan (those that launch kernel 0) took one tensor
+        # copy a gathered row; the bank's stored slots never do.
+        routes = tma_counts()
+        if bank:
+            stored = [p["stream"] for c, co in zip(sched, sched[1:])
+                      for p in (bank_plan(n, V, c, co, model.dtype),
+                                bank_backward_plan(n, V, c, co,
+                                                   model.dtype))]
+            if any(r != "cp_async" for r in stored):
+                raise AssertionError(f"{label}: K4, K5 routes {stored}")
+        elif routes != (got[0], k0):
+            raise AssertionError(
+                f"{label}: launches on the tensor-copy route (K1, K2 kernel "
+                f"1) {routes}, expected ({got[0]}, {k0})")
         if not np.isfinite(step).all() or pred.shape != (len(graphs),):
             raise AssertionError(f"{label}: request {pred.shape}, step "
                                  f"{step}")
@@ -2929,7 +2973,10 @@ def phase_large_field():
             f"predictions {np.round(pred, 4).tolist()}, BatchLearn "
             f"({step[0]:.6f}, {step[1]:.6f}); launches {got} (= {nL} levels "
             f"x 3 forwards, 1 backward{plans}), kernel 0 "
-            f"{sums[1] if bank else sums[0]}; request {1e3 * req_s:.1f} "
+            f"{sums[1] if bank else sums[0]}, stream "
+            f"{'cp.async (stored slots)' if bank else 'tensor copies: '}"
+            f"{'' if bank else f'{routes[0]} K1, {routes[1]} K2 kernel 1'}; "
+            f"request {1e3 * req_s:.1f} "
             f"ms, step "
             f"(prep uncached) {1e3 * step_s:.1f} ms (host clock, synced); "
             f"peak device memory of the request and step {peak:.1f} MB above "

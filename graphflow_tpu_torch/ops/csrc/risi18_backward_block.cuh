@@ -69,8 +69,8 @@ struct BackwardPlan {
                // over G and GAp (a cluster plan whose ring holds several
                // pieces and fits there: backward_block_cluster forms G
                // and GAp of a tile after its stream)
-  int ap, r, scal, inbr, ipos, islots, g, gap, gr, ga, gax, gsx, stream, ks,
-      dkv, dbs, red, sacc, part, words;
+  int ap, r, scal, inbr, ipos, islots, bars, g, gap, gr, ga, gax, gsx,
+      stream, ks, dkv, dbs, red, sacc, part, words;
 };
 
 // `wide`: on the tensor cores, whether the rows of G, GAp and K lie eight
@@ -89,7 +89,8 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
                                        bool cluster = false, int N = 0) {
   BackwardPlan L;
   if (rows > 0 && cluster) rows = balanced_rows(P, rows);
-  L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
+  L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G,
+                          gather && cluster);
   L.Cout = Cout; L.Co = Co; L.ALD = P + 1; L.wide_g = 0;
   L.tiled = rows > 0;
   const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
@@ -119,6 +120,11 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   L.inbr = take(gather ? P : 0);
   L.ipos = take(gather ? P * P : 0);
   L.islots = take(gather ? P + 1 : 0);
+  L.bars = take(barrier_words(L.sp));
+  // The ring lies over G or leads the stream area: either aligned for the
+  // tensor copies.
+  const int align = L.sp.tma ? kTmaAlign / 4 : 4;
+  w = round_up(w, align);
   L.g = take(grows * L.GLD);
   L.gap = take(grows * L.GLD);
   L.gr = take(L.sp.rows * L.GLD);
@@ -129,6 +135,7 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   // pieces (a tile's cells in registers: tile_regs) and fits there.
   const bool over_g = L.cluster && pieces(L.sp) > 1 &&
                       ring_words(L.sp) <= L.gr - L.g;
+  if (!over_g) w = round_up(w, align);
   L.stream = take(stream_words(L.sp) - (over_g ? ring_words(L.sp) : 0));
   L.ring = over_g ? L.g : -1;
   L.ks = take(kCases * L.sp.ncp * L.GLD);
@@ -385,7 +392,7 @@ __device__ __forceinline__ void backward_block(
     std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
     float negslope) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp;
   const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
@@ -975,7 +982,7 @@ backward_sums_kernel(const float* __restrict__ radj, const E* __restrict__ g,
                      const E* __restrict__ out, float* __restrict__ gap,
                      float* __restrict__ sums, int P, int Cout, int rows,
                      float negslope) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const int ALD = P + 1, PP = P * P, tid = threadIdx.x, nth = blockDim.x;
   const int lane = tid % 32, nwarps = nth / 32;
   const int per = (P + rows - 1) / rows;
@@ -1097,10 +1104,11 @@ inline int launch_backward_sums(const float* radj, const E* g, const E* out,
   return cudaGetLastError();
 }
 
-// The backward plan queries' twelve fields (risi18_level_backward_plan,
+// The backward plan queries' thirteen fields (risi18_level_backward_plan,
 // risi18_bank_backward_plan): the plan, then kernel 0's scratch words a
 // vertex and its shared memory in bytes (0 for a plan of no cluster,
-// which launches no kernel 0).
+// which launches no kernel 0), then 1 where the stream takes the tensor
+// copies (sp.tma).
 inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
                                  int* plan) {
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
@@ -1111,6 +1119,7 @@ inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
   const bool sums = L.words && L.cluster;
   plan[10] = sums ? (int)sums_words(P, Cout) : 0;
   plan[11] = sums ? (int)sums_smem_bytes(P) : 0;
+  plan[12] = L.sp.tma;
 }
 
 // -- the dT pass of a row tile ----------------------------------------------
@@ -1461,7 +1470,7 @@ __device__ __forceinline__ void backward_block_tiled(
     std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
     float negslope) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
   const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
@@ -1833,7 +1842,10 @@ __device__ __forceinline__ void backward_block_tiled(
 //      sums of G once a vertex, in `gap` and `sums`), and this block's part
 //      of db's sums over its tiles' rows;
 //   1. per own tile X: its maps (tile_reductions, a warp copying the row
-//      it reduces: stream_rows), then G of its rows and their GAp and GR
+//      it reduces: stream_rows, or for K2 on the tensor-copy route (kTma,
+//      for a plan with sp.tma) one tensor copy a row through `map`, read
+//      through the slot's
+//      permutation: stream_rows_tma), then G of its rows and their GAp and GR
 //      from the scratch (the ring may lie over G and GAp: L.ring), dK's map
 //      cases of its rows (on the tensor cores where the plan has `mma`:
 //      dk_maps_mma over the tile's rows, the sums kept in registers over
@@ -1852,7 +1864,7 @@ __device__ __forceinline__ void backward_block_tiled(
 // rows as without clusters (vertex_groups).  dK and db have no atomics and
 // a fixed order of sums, so K5's dT and dK repeat bit for bit; K2's
 // dstate's atomics are float32, as untiled.
-template <typename E, bool kMma, bool kGather>
+template <typename E, bool kMma, bool kGather, bool kTma = false>
 __device__ __forceinline__ void backward_block_cluster(
     const E* __restrict__ in, const int* __restrict__ nbr,
     const int* __restrict__ pos, const float* __restrict__ radj,
@@ -1861,9 +1873,9 @@ __device__ __forceinline__ void backward_block_cluster(
     const float* __restrict__ sums,
     std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
-    float negslope) {
+    float negslope, const CUtensorMap* map = nullptr) {
   namespace cg = cooperative_groups;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
@@ -1887,7 +1899,8 @@ __device__ __forceinline__ void backward_block_cluster(
   float* GR = smem + L.gr;
   float* GA = smem + L.ga;
   const StreamBuffers s = stream_buffers(
-      smem + L.stream, sp, L.ring >= 0 ? smem + L.ring : nullptr);
+      smem + L.stream, sp, L.ring >= 0 ? smem + L.ring : nullptr,
+      smem + L.bars);
   float* Ks = smem + L.ks;
   float* dKv = smem + L.dkv;
   float* dbs = smem + L.dbs;
@@ -1951,7 +1964,7 @@ __device__ __forceinline__ void backward_block_cluster(
     const float S = smem[L.scal], trA = smem[L.scal + 1];
     const auto src = [&] {
       if constexpr (kGather)
-        return GatheredSlots<E>{in, snbr, spos, slots};
+        return GatheredSlots<E>{in, snbr, spos, slots, map};
       else
         return StoredSlots<E>{in + v * vT};
     }();
@@ -1996,10 +2009,10 @@ __device__ __forceinline__ void backward_block_cluster(
       // The tile's stream, then G of its rows: where the ring lies over G
       // and GAp, zeroed first, as the stream reads the channels past nc of
       // a cell that no copy writes (the last tile's barrier ordered G's
-      // readers before).
-      if (L.ring >= 0) zero_words(smem + L.ring, ring_words(sp));
-      tile_reductions<true, true, false, Src, true>(src, R, sp, s, t, nx,
-                                                    c0, nc);
+      // readers before); a tensor copy writes every channel of its box.
+      if (L.ring >= 0 && !kTma) zero_words(smem + L.ring, ring_words(sp));
+      tile_reductions<true, true, false, Src, true, kTma>(src, R, sp, s, t,
+                                                          nx, c0, nc);
       tile_g(x0, nx);
       STAGE(2);   // the tile's stream and G of its rows
       // This tile's part of Tfull, s14, s15 and t18.

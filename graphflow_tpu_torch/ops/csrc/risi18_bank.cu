@@ -152,16 +152,18 @@ long long risi18_bank_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, false);
 }
 
-// The plan the launcher takes for N vertices (as risi18_level_plan of
-// risi18_level.cu, its ten fields).
-int risi18_bank_plan(int N, int P, int C, int Cout, int bf16, int* plan) {
+// The plan the launcher takes for N vertices of a T whose base address is
+// a multiple of `aligned` bytes (as risi18_level_plan of risi18_level.cu,
+// its eleven fields; the stream of stored slots is always cp.async's).
+int risi18_bank_plan(int N, int P, int C, int Cout, int bf16, int aligned,
+                     int* plan) {
   const ForwardPlan L = lv::choose_forward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                16, false, true, N);
+                                                aligned, false, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
   plan[7] = L.cluster;
-  plan[8] = L.tiles_per_block; plan[9] = L.mma;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma; plan[10] = L.sp.tma;
   return L.words == 0;
 }
 

@@ -231,12 +231,14 @@ long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, false);
 }
 
-// The plan kernel 1 takes for N vertices (as risi18_level_backward_plan of
-// risi18_level_bwd.cu, its twelve fields).
+// The plan kernel 1 takes for N vertices of a T whose base address is a
+// multiple of `aligned` bytes (as risi18_level_backward_plan of
+// risi18_level_bwd.cu, its thirteen fields; the stream of stored slots is
+// always cp.async's).
 int risi18_bank_backward_plan(int N, int P, int C, int Cout, int bf16,
-                              int* plan) {
+                              int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  16, false, true, N);
+                                                  aligned, false, true, N);
   lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }

@@ -58,8 +58,8 @@ struct ForwardPlan {
                // tiles, forward_block_cluster), 0 for a plan of one block a
                // vertex
   int tiles_per_block;  // the row tiles one block of the cluster takes
-  int ap, r, scal, inbr, ipos, islots, stream, ks, zs, ws, us, ss, part,
-      words;
+  int ap, r, scal, inbr, ipos, islots, bars, stream, ks, zs, ws, us, ss,
+      part, words;
 };
 
 // `gather`: the block gathers its slots (K1) and keeps the vertex's
@@ -75,7 +75,8 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
                                      bool cluster = false, int N = 0) {
   ForwardPlan L;
   if (rows > 0 && cluster) rows = balanced_rows(P, rows);
-  L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G);
+  L.sp = make_stream_plan(P, C, Cc, D, es, aligned, rows, G,
+                          gather && cluster);
   L.Cout = Cout; L.Co = Co; L.ZLD = round_up(Co, 4); L.ALD = P + 1;
   L.tiled = rows > 0;
   const int tiles = (P + L.sp.rows - 1) / L.sp.rows;
@@ -106,6 +107,9 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
   L.inbr = take(gather ? P : 0);
   L.ipos = take(gather ? P * P : 0);
   L.islots = take(gather ? P + 1 : 0);
+  L.bars = take(barrier_words(L.sp));
+  // The ring leads the stream area: aligned for the tensor copies.
+  if (L.sp.tma) w = round_up(w, kTmaAlign / 4);
   L.stream = take(stream);
   L.ks = take(kCases * L.sp.ncp * L.KLD);
   L.zs = L.mma ? L.stream : take(zw);
@@ -365,7 +369,7 @@ __device__ __forceinline__ void forward_block(
   // The vector and scalar cases (U and s) and the adjacency-weighted W.
   constexpr bool kVectors = kPart != kTwoProducts;
   constexpr bool kWeighted = kGroupD;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp;
   const int ZLD = L.ZLD, KLD = L.KLD, ALD = L.ALD, PP = P * P;
@@ -604,7 +608,7 @@ __device__ __forceinline__ void dma_block(const E* __restrict__ T,
                                           E* __restrict__ Z,
                                           float* __restrict__ sink,
                                           const ForwardPlan& L) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, PP = P * P;
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -659,7 +663,7 @@ __device__ __forceinline__ void forward_block_tiled(
   constexpr bool kSelect = kPart != kNoSelect;
   constexpr bool kVectors = kPart != kTwoProducts;
   constexpr bool kWeighted = kGroupD;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
   const int ZLD = L.ZLD, KLD = L.KLD, ALD = L.ALD, quads = ncp / 4;
@@ -847,8 +851,11 @@ __device__ __forceinline__ void forward_block_tiled(
 // (L.cluster, 1, 1)), block `rank` taking the tiles rank, rank + cluster,
 // ...  Per tile X = [x0, x0 + nx), per chunk: K's rows staged, the tile's
 // maps (tile_reductions: the rows X of every slot, the whole slots in X, a
-// warp copying the row it reduces: stream_rows; the tiles together stream
-// each slot about twice), U of its rows, this block's part of the four
+// warp copying the row it reduces: stream_rows, or for K1 on the
+// tensor-copy route (kTma, for a plan with sp.tma) one tensor copy a row
+// through `map`, read through the slot's permutation: stream_rows_tma;
+// the tiles together
+// stream each slot about twice), U of its rows, this block's part of the four
 // scalars and of s (below), and the nine map slabs into Z and W of its
 // rows, on the tensor cores where the plan has `mma` (a warp keeps 16 rows
 // of each over the chunks, three TF32 passes a product) or on the CUDA
@@ -869,17 +876,18 @@ __device__ __forceinline__ void forward_block_tiled(
 // epilogue of the block's rows: pre + Ap[x,y] s (K1: + b, LeakyReLU), one
 // rounding.  Every sum is float32 and in a fixed order, with no atomics:
 // Z is the same from run to run.
-template <typename E, bool kMma, int kPart>
+template <typename E, bool kMma, int kPart, bool kTma = false>
 __device__ __forceinline__ void forward_block_cluster(
     const E* __restrict__ in, const int* __restrict__ nbr,
     const int* __restrict__ pos, const float* __restrict__ radj,
     const E* __restrict__ K, const E* __restrict__ bias, E* __restrict__ out,
-    float* __restrict__ pre, int N, const ForwardPlan& L, float negslope) {
+    float* __restrict__ pre, int N, const ForwardPlan& L, float negslope,
+    const CUtensorMap* map = nullptr) {
   static_assert(kPart == kLevel || kPart == kBank,
                 "K6's variants run forward_block_tiled");
   constexpr bool kGather = kPart == kLevel;
   namespace cg = cooperative_groups;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
@@ -896,7 +904,8 @@ __device__ __forceinline__ void forward_block_cluster(
   int* snbr = reinterpret_cast<int*>(smem + L.inbr);
   int* spos = reinterpret_cast<int*>(smem + L.ipos);
   int* slots = reinterpret_cast<int*>(smem + L.islots);
-  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
+  const StreamBuffers s =
+      stream_buffers(smem + L.stream, sp, nullptr, smem + L.bars);
   float* Ks = smem + L.ks;
   float* Zs = smem + L.zs;
   float* Ws = smem + L.ws;
@@ -918,7 +927,7 @@ __device__ __forceinline__ void forward_block_cluster(
   const float S = smem[L.scal], trA = smem[L.scal + 1];
   const auto src = [&] {
     if constexpr (kGather)
-      return GatheredSlots<E>{in, snbr, spos, slots};
+      return GatheredSlots<E>{in, snbr, spos, slots, map};
     else
       return StoredSlots<E>{in + v * (size_t)P * P * P * C};
   }();
@@ -943,8 +952,8 @@ __device__ __forceinline__ void forward_block_cluster(
       // (The previous chunk's products ended with a barrier; the stream's
       // first barrier orders K's staging before this chunk's readers.)
       stage_k<kPart>(K, Ks, L, C, c0, nc, o0, no, S, trA);
-      tile_reductions<true, true, false, Src, true>(src, R, sp, s, t, nx,
-                                                    c0, nc);
+      tile_reductions<true, true, false, Src, true, kTma>(src, R, sp, s, t,
+                                                          nx, c0, nc);
       STAGE(1);   // K's staging and the tile's stream
       for (int i = tid; i < nx * ZLD; i += nth) {
         const int o = i % ZLD, xl = i / ZLD;
@@ -1089,7 +1098,7 @@ __device__ __forceinline__ void dma_block_tiled(const E* __restrict__ T,
                                                 E* __restrict__ Z,
                                                 float* __restrict__ sink,
                                                 const ForwardPlan& L) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(128) float smem[];
   const StreamPlan& sp = L.sp;
   const int P = sp.P, C = sp.C, Cout = L.Cout, PP = P * P;
   const int tid = threadIdx.x, nth = blockDim.x;

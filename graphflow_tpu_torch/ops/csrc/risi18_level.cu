@@ -134,7 +134,9 @@ risi18_level_kernel(const E* __restrict__ state,
 
 // The level on a cluster plan (fields from 36 rows at Cout = 32): a
 // vertex's row tiles over a cluster of blocks (forward_block_cluster).
-template <typename E, bool kMma>
+// kTma: the plan's stream takes the tensor copies (L.sp.tma), through the
+// state's tensor map `map` (else not read).
+template <typename E, bool kMma, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_level_cluster_kernel(const E* __restrict__ state,
                             const int* __restrict__ nbr,
@@ -144,10 +146,10 @@ risi18_level_cluster_kernel(const E* __restrict__ state,
                             const E* __restrict__ bias,
                             E* __restrict__ out,
                             float* __restrict__ pre,
-                            int N, ForwardPlan L, float negslope) {
-  lv::forward_block_cluster<E, kMma, lv::kLevel>(state, nbr, pos, radj, K,
-                                                 bias, out, pre, N, L,
-                                                 negslope);
+                            int N, ForwardPlan L, float negslope,
+                            const __grid_constant__ CUtensorMap map) {
+  lv::forward_block_cluster<E, kMma, lv::kLevel, kTma>(
+      state, nbr, pos, radj, K, bias, out, pre, N, L, negslope, &map);
 }
 
 // Launches the level for element type E; returns a cudaError_t.
@@ -166,15 +168,24 @@ int launch_level(const void* state, const void* nbr, const void* pos,
   const size_t bytes = sizeof(float) * (size_t)L.words;
   if (L.cluster) {
     // Grid (N * L.cluster, panels), clusters of L.cluster blocks along x;
-    // the pre-activations wait in `pre`.
+    // the pre-activations wait in `pre`.  A tensor map that does not encode
+    // is an error, never another route.
     if (pre == nullptr) return cudaErrorInvalidValue;
+    CUtensorMap map = {};
+    if (L.sp.tma) {
+      const int err = lv::encode_state_map(&map, state, N, L.sp,
+                                           (int)sizeof(E));
+      if (err != 0) return err;
+    }
     return lv::launch_clusters(
-        L.mma ? risi18_level_cluster_kernel<E, true>
-              : risi18_level_cluster_kernel<E, false>,
+        L.sp.tma ? (L.mma ? risi18_level_cluster_kernel<E, true, true>
+                          : risi18_level_cluster_kernel<E, false, true>)
+                 : (L.mma ? risi18_level_cluster_kernel<E, true, false>
+                          : risi18_level_cluster_kernel<E, false, false>),
         dim3((unsigned)N * L.cluster, (Cout + L.Co - 1) / L.Co), L.cluster,
         bytes, (cudaStream_t)stream, (const E*)state, (const int*)nbr,
         (const int*)pos, (const float*)radj, (const E*)K, (const E*)b,
-        (E*)out, (float*)pre, N, L, negslope);
+        (E*)out, (float*)pre, N, L, negslope, map);
   }
   auto kernel = L.sp.wide ? risi18_level_kernel<E, false, true>
                 : L.mma     ? risi18_level_kernel<E, true, false>
@@ -193,7 +204,8 @@ int launch_level(const void* state, const void* nbr, const void* pos,
 
 extern "C" {
 
-// Launches the level on `stream`; returns a cudaError_t (0 on success).
+// Launches the level on `stream`; returns a cudaError_t (0 on success), or
+// the tensor map's error (risi18_level_error_string names both).
 // state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
 // K [18C,Cout], b [Cout] -> out [N,P*P,Cout], all contiguous; state, K, b
 // and out in float32 (_f32) or bfloat16 (_bf16).  pre: float32 [N,P*P,Cout]
@@ -225,23 +237,26 @@ long long risi18_level_min_smem_bytes(int P, int Cout) {
   return lv::min_forward_smem_bytes(P, Cout, true);
 }
 
-// The plan the launcher takes for N vertices of a state of 16-byte aligned
-// float32 (bf16 = 0) or bfloat16 (bf16 = 1) elements (N sizes a cluster
-// plan's clusters: cluster_shape): plan[0] the rows of a row tile (P:
-// untiled), plan[1] the panel's outputs, plan[2] the chunk's channels,
-// plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
-// for a row-tiled block, plan[6] the pieces a ring buffer holds, plan[7]
-// the blocks of a cluster (0: one block a vertex and panel), plan[8] the
-// row tiles a block of the cluster takes, plan[9] 1 where the map products
-// run on the tensor cores.  Returns 0, or 1 where no plan fits.
-int risi18_level_plan(int N, int P, int C, int Cout, int bf16, int* plan) {
+// The plan the launcher takes for N vertices of a state of float32 (bf16
+// = 0) or bfloat16 (bf16 = 1) elements whose base address is a multiple
+// of `aligned` bytes (16, 8, 4 or 2; N sizes a cluster plan's clusters:
+// cluster_shape): plan[0] the rows of a row tile (P: untiled), plan[1]
+// the panel's outputs, plan[2] the chunk's channels, plan[3] the ring's
+// depth, plan[4] the shared memory in bytes, plan[5] 1 for a row-tiled
+// block, plan[6] the pieces a ring buffer holds, plan[7] the blocks of a
+// cluster (0: one block a vertex and panel), plan[8] the row tiles a block
+// of the cluster takes, plan[9] 1 where the map products run on the tensor
+// cores, plan[10] 1 where the stream takes one tensor copy a gathered row
+// (else cp.async a cell).  Returns 0, or 1 where no plan fits.
+int risi18_level_plan(int N, int P, int C, int Cout, int bf16, int aligned,
+                      int* plan) {
   const lv::ForwardPlan L = lv::choose_forward_plan(
-      P, C, Cout, bf16 ? 2 : 4, 16, true, true, N);
+      P, C, Cout, bf16 ? 2 : 4, aligned, true, true, N);
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
   plan[4] = (int)(sizeof(float) * L.words); plan[5] = L.tiled;
   plan[6] = L.words ? lv::pieces(L.sp) : 0;   // (none fits: no ring)
   plan[7] = L.cluster;
-  plan[8] = L.tiles_per_block; plan[9] = L.mma;
+  plan[8] = L.tiles_per_block; plan[9] = L.mma; plan[10] = L.sp.tma;
   return L.words == 0;
 }
 
@@ -253,7 +268,7 @@ int risi18_level_stage_cycles(long long* host) {
 #endif
 
 const char* risi18_level_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return lv::error_string(err);
 }
 
 }  // extern "C"

@@ -161,7 +161,9 @@ risi18_level_bwd_tiled_kernel(const E* __restrict__ state,
 
 // Kernel 1 on a cluster plan (fields from 33 rows at Cout = 32): a
 // vertex's row tiles over a cluster of blocks (backward_block_cluster).
-template <typename E, bool kMma>
+// kTma: the plan's stream takes the tensor copies (L.sp.tma), through the
+// state's tensor map `map` (else not read).
+template <typename E, bool kMma, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
                                 const int* __restrict__ nbr,
@@ -174,10 +176,11 @@ risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
                                 const float* __restrict__ sums,
                                 float* __restrict__ dstate,
                                 float* __restrict__ partial,
-                                int N, BackwardPlan L, float negslope) {
-  lv::backward_block_cluster<E, kMma, true>(state, nbr, pos, radj, K, gout,
-                                            out, gap, sums, dstate, partial,
-                                            N, L, negslope);
+                                int N, BackwardPlan L, float negslope,
+                                const __grid_constant__ CUtensorMap map) {
+  lv::backward_block_cluster<E, kMma, true, kTma>(
+      state, nbr, pos, radj, K, gout, out, gap, sums, dstate, partial, N, L,
+      negslope, &map);
 }
 
 // Kernel 2 behind a bfloat16 forward.  The first sum_blocks blocks sum the
@@ -239,14 +242,24 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
   const size_t bytes = sizeof(float) * (size_t)L.words;
   const dim3 grid(nblocks * (L.cluster ? L.cluster : 1),
                   (C + L.sp.Cc - 1) / L.sp.Cc, (Cout + L.Co - 1) / L.Co);
-  if (L.cluster)
+  if (L.cluster) {
+    // A tensor map that does not encode is an error, never another route.
+    CUtensorMap map = {};
+    if (L.sp.tma) {
+      const int err = lv::encode_state_map(&map, state, N, L.sp,
+                                           (int)sizeof(E));
+      if (err != 0) return err;
+    }
     return lv::launch_clusters(
-        L.mma ? risi18_level_bwd_cluster_kernel<E, true>
-              : risi18_level_bwd_cluster_kernel<E, false>,
+        L.sp.tma ? (L.mma ? risi18_level_bwd_cluster_kernel<E, true, true>
+                          : risi18_level_bwd_cluster_kernel<E, false, true>)
+                 : (L.mma ? risi18_level_bwd_cluster_kernel<E, true, false>
+                          : risi18_level_bwd_cluster_kernel<E, false, false>),
         grid, L.cluster, bytes, (cudaStream_t)stream, (const E*)state,
         (const int*)nbr, (const int*)pos, (const float*)radj, (const E*)K,
         (const E*)g, (const E*)out, (const float*)gap, (const float*)sums,
-        (float*)dstate, (float*)partial, N, L, negslope);
+        (float*)dstate, (float*)partial, N, L, negslope, map);
+  }
   auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
                 : L.mma ? risi18_level_bwd_kernel<E, true>
                         : risi18_level_bwd_kernel<E, false>;
@@ -291,7 +304,8 @@ int risi18_level_backward_sums_bf16(const void* radj, const void* g,
       negslope, (cudaStream_t)stream);
 }
 
-// Kernel 1 on `stream`; returns a cudaError_t (0 on success).
+// Kernel 1 on `stream`; returns a cudaError_t (0 on success), or the
+// tensor map's error (risi18_level_bwd_error_string names both).
 // state [N,P,P,C], nbr [N,P] i32, pos [N,P,P] i32, radj [N,P,P] f32,
 // K [18C,Cout], g and out [N,P*P,Cout], and on a cluster plan kernel 0's
 // gap and sums (else they may be null) -> adds into dstate [N,P,P,C] f32
@@ -365,8 +379,9 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
   return lv::min_backward_smem_bytes(P, Cout, true);
 }
 
-// The plan kernel 1 takes for N vertices of 16-byte aligned float32 (bf16
-// = 0) or bfloat16 (bf16 = 1) inputs (N sizes a cluster plan's clusters:
+// The plan kernel 1 takes for N vertices of float32 (bf16 = 0) or
+// bfloat16 (bf16 = 1) inputs whose state starts at a multiple of
+// `aligned` bytes (N sizes a cluster plan's clusters:
 // cluster_shape): plan[0] the rows of a row tile (P: untiled;
 // a plan with plan[5] = 1 and plan[0] = P is one tile, its stream in shared
 // memory), plan[1] the panel's outputs, plan[2] the chunk's channels,
@@ -375,12 +390,14 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 // the blocks of a cluster (0: one block a vertex group, chunk and panel),
 // plan[8] the row tiles a block of the cluster takes, plan[9] 1 where dK's
 // map cases run on the tensor cores, plan[10] kernel 0's float32 scratch
-// words a vertex (0: a plan of no cluster, which launches no kernel 0) and
-// plan[11] its shared memory in bytes.  Returns 0, or 1 where no plan fits.
+// words a vertex (0: a plan of no cluster, which launches no kernel 0),
+// plan[11] its shared memory in bytes and plan[12] 1 where the stream
+// takes one tensor copy a gathered row (else cp.async a cell).  Returns 0,
+// or 1 where no plan fits.
 int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
-                               int* plan) {
+                               int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  16, true, true, N);
+                                                  aligned, true, true, N);
   lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }
@@ -393,7 +410,7 @@ int risi18_level_backward_stage_cycles(long long* host) {
 #endif
 
 const char* risi18_level_bwd_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
+  return lv::error_string(err);
 }
 
 }  // extern "C"

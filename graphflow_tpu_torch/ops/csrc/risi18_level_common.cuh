@@ -27,6 +27,24 @@
 // materialised one reads T from device memory (134 MB at N=256 in float32),
 // which L2 does not hold.
 //
+// The tensor-copy route (sp.tma: a cluster plan of K1 or K2 whose chunk
+// and C are multiples of 16 bytes and whose state is 16-byte aligned,
+// make_stream_plan).  Row b of gathered slot a is state[n, p1, pos[a, c],
+// c0:c0+nc] for c = 0..P-1 (n = nbr[a], p1 = pos[a, b]): a permutation of
+// the columns of one contiguous row of the neighbour's block, state[n, p1,
+// 0:P, c0:c0+ncp], P cells at a stride of C elements, the same
+// permutation pos[a, .] for every row b of the slot.  So one thread of the
+// warp that reduces the row copies it in storage order with one TMA copy
+// of a {ncp, P} box of the state seen as [N*P*P rows, C channels] (channels
+// past C come back as zeros), which completes on the warp's own mbarrier,
+// and the warp applies the permutation when it reads the row: lane (h, q)
+// reads column c at cell pos[a, c] of the buffer, and zeros where pos[a, c]
+// is absent (stream_rows_tma, tile_reductions).  A row whose p1 is absent
+// is not copied and adds nothing.  Where the cp.async route pays the index
+// arithmetic, the absence tests and the issue of one 16-byte copy per cell
+// (128 copies a row of 64 cells of 8 float32 channels), this route issues
+// one instruction a row.
+//
 // The reductions of a staged slot need no atomics and no shared
 // read-modify-write.  A warp takes one row b; its lane (h, q) owns four
 // channels q of the columns h, h + H, ... and loads each owned cell once,
@@ -51,6 +69,10 @@
 // staged as zeros.
 
 #pragma once
+
+#include <cuda.h>   // CUtensorMap (its encoder is reached through the runtime)
+#include <stdint.h>
+#include <stdio.h>
 
 #include "risi18_common.cuh"
 
@@ -124,6 +146,8 @@ struct StreamPlan {
                // stream_reductions_wide sums them in shared memory
   int rows;    // rows of the maps: P, or the rows X of a row tile (a
                // row-tiled plan: see tile_reductions)
+  int tma;     // 1: a warp's gathered row arrives by one tensor copy
+               // (stream_rows_tma); 0: by cp.async, cell by cell
   // A ring buffer holds pieces(sp) pieces of `rows` rows: 1, or in a
   // row-tiled plan whose warps keep their cells of T_bc and M10 in
   // registers, up to kThreads / 32 / rows (tile_reductions).  It is kept
@@ -154,11 +178,24 @@ inline bool stream_fits_registers(const StreamPlan& sp) {
   return ((sp.P + nwarps - 1) / nwarps) * ((sp.P + H - 1) / H) <= kMaxA;
 }
 
+// Whether a row-tiled plan's warps keep their cells of T_bc and M10 in
+// registers (tile_reductions): then a warp reduces one row of each stage.
+__host__ __device__ inline bool tile_regs(const StreamPlan& sp);
+
+// Bytes a tensor copy's destination is aligned to in shared memory.
+constexpr int kTmaAlign = 128;
+
 // The plan of the stream for element size `es`.  `aligned`: the bytes the
 // state's base address is a multiple of (16, 8, 4 or 2).  `rows`: the rows
 // of a row tile, 0 for none (every row: a buffer holds a whole slot).
+// `gathered_rows`: the block gathers its slots and a warp copies the row
+// it reduces (a cluster plan of K1 or K2); the stream then takes the
+// tensor-copy route where the plan allows it (tile_regs: a warp reduces a
+// row; a row's box of ncp channels and the state's rows of C channels
+// multiples of 16 bytes; the state 16-byte aligned), whatever the data.
 inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
-                                   int aligned, int rows = 0, int G = 0) {
+                                   int aligned, int rows = 0, int G = 0,
+                                   bool gathered_rows = false) {
   StreamPlan sp;
   sp.P = P; sp.C = C; sp.Cc = Cc; sp.D = D;
   sp.rows = rows > 0 ? rows : P;
@@ -175,7 +212,12 @@ inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
   while (unit >= 4 && ((C * es) % unit || (Cc * es) % unit || aligned % unit))
     unit /= 2;
   sp.unit = unit >= 4 ? unit : 0;
-  sp.rowb = round_up(P * sp.ncp * es, 16);   // a copy's target is aligned
+  sp.tma = gathered_rows && rows > 0 && tile_regs(sp) &&
+           (sp.ncp * es) % 16 == 0 && (C * es) % 16 == 0 &&
+           aligned % 16 == 0;
+  // A copy's target is aligned: 16 bytes for cp.async, 128 for a tensor
+  // copy.
+  sp.rowb = round_up(P * sp.ncp * es, sp.tma ? kTmaAlign : 16);
   sp.slotb = G * sp.rows * sp.rowb;
   sp.mapw = round_up(sp.rows * P, 4) * sp.ncp + 8;
   sp.wide = !stream_fits_registers(sp);
@@ -201,6 +243,7 @@ struct StreamBuffers {
   float* s14;
   float* s15;
   float* t18;
+  uint64_t* bars;  // [kThreads / 32][D]: the warps' mbarriers (tma)
   __device__ float* map(int which, int mapw) const {
     return maps + which * mapw;
   }
@@ -211,13 +254,22 @@ __host__ __device__ inline int ring_words(const StreamPlan& sp) {
   return sp.D * sp.slotb / 4;
 }
 
+// Words of the warps' mbarriers of a stream on the tensor-copy route (one
+// for each warp and ring buffer), 0 on the cp.async route.
+__host__ __device__ inline int barrier_words(const StreamPlan& sp) {
+  return sp.tma ? 2 * (kThreads / 32) * sp.D : 0;
+}
+
 // The buffers of a stream area at `at`: the ring, then the maps, vectors
 // and scalars; or, with `ring` given, the ring there and the rest at `at`
-// (stream_words(sp) - ring_words(sp) words).
+// (stream_words(sp) - ring_words(sp) words).  `bars`: the warps'
+// mbarriers (barrier_words), where the stream takes the tensor copies.
 __device__ inline StreamBuffers stream_buffers(float* at,
                                                const StreamPlan& sp,
-                                               float* ring = nullptr) {
+                                               float* ring = nullptr,
+                                               float* bars = nullptr) {
   StreamBuffers s;
+  s.bars = reinterpret_cast<uint64_t*>(bars);
   s.ring = reinterpret_cast<char*>(ring ? ring : at);
   s.maps = ring ? at : at + ring_words(sp);
   float* v = s.maps + kMaps * sp.mapw;
@@ -258,6 +310,70 @@ __device__ inline void cp_async_wait(int pending) {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
   else
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// -- tensor copies and mbarriers (the tensor-copy route) --------------------
+
+__device__ __forceinline__ unsigned smem_address(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// An mbarrier that completes a phase at `count` arrivals and the bytes they
+// expect.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_address(bar)), "r"(count) : "memory");
+}
+
+// Frees the mbarrier's word for other use; nothing may be pending on it.
+__device__ __forceinline__ void mbar_inval(uint64_t* bar) {
+  asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n"
+               :: "r"(smem_address(bar)) : "memory");
+}
+
+// Makes the initialised mbarriers visible to the tensor copies.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Orders this thread's earlier writes to shared memory before the tensor
+// copies (the async proxy) that a later barrier lets start.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of tensor copies (0: none).
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar,
+                                                   unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_address(bar)), "r"(bytes) : "memory");
+}
+
+// Waits until the mbarrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned at = smem_address(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(at), "r"(parity) : "memory");
+  }
+}
+
+// The box of `map` at (column x, row y) into `dst` (kTmaAlign-aligned),
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_address(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_address(bar)), "r"(x), "r"(y)
+      : "memory");
 }
 
 __device__ inline float4 load4(const float* p) {
@@ -484,6 +600,7 @@ struct GatheredSlots {
   const int* snbr;
   const int* spos;
   const int* slots;
+  const CUtensorMap* map;   // the state as [N*P*P, C] (sp.tma), else null
 
   __device__ int count(int P) const { return slots[P]; }
   __device__ int slot(int i) const { return slots[i]; }
@@ -547,6 +664,25 @@ struct GatheredSlots {
       copy_run(pos_a, sp, row, n, b, c, c * sp.ncp * es + u * step,
                c0 * es + u * step);
     }
+  }
+
+  // Whether row b of slot a holds anything: its neighbour and p1 present.
+  __device__ __forceinline__ bool row_present(const StreamPlan& sp, int a,
+                                              int b) const {
+    return (snbr[a] | spos[a * sp.P + b]) >= 0;
+  }
+
+  // Row b of slot a in storage order, state[n, p1, 0:P, c0:c0+ncp], into
+  // `row` by one tensor copy (one thread), arriving on `bar` with the
+  // bytes it expects: none where the row is absent, which is not copied.
+  __device__ __forceinline__ void issue_row_tma(const StreamPlan& sp,
+                                                char* row, int a, int b,
+                                                int c0, uint64_t* bar) const {
+    const bool present = row_present(sp, a, b);
+    mbar_arrive_expect(bar, present ? sp.P * sp.ncp * (int)sizeof(E) : 0);
+    if (present)
+      tma_load_2d(row, map, c0, (snbr[a] * sp.P + spos[a * sp.P + b]) * sp.P,
+                  bar);
   }
 };
 
@@ -1067,6 +1203,88 @@ __host__ __device__ inline ClusterShape cluster_shape(int tiles, int grid) {
   return best;
 }
 
+// -- the state's tensor map (host) -------------------------------------------
+
+// An error of the tensor-copy route's set-up: kTensorMapError + the CUresult
+// of cuTensorMapEncodeTiled (or CUDA_ERROR_NOT_FOUND where the driver has
+// no such entry point).  error_string names it; the wrappers raise.
+constexpr int kTensorMapError = 1 << 20;
+
+// The L2 promotion of the state's tensor copies: none.  A row's runs of
+// ncp channels (32 bytes at 8 float32 channels) lie C elements apart,
+// each in its own 128-byte line at C = 32, so promoting a run to its line
+// (128 B) or more (256 B) reads lines the box does not need: K1 at
+// (256,64,32,32) f32 took 8.82 ms with 128-byte promotion, 8.84 with
+// 256-byte and 7.26 with none, K2 kernel 1 17.61 / 17.64 / 15.44; the
+// same within 1 % in bfloat16 and at N = 64 (an H100; PERF.md).
+constexpr CUtensorMapL2promotion kStateL2Promotion =
+    CU_TENSOR_MAP_L2_PROMOTION_NONE;
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to the driver
+// library): 0 and the function, or a cudaError_t or kTensorMapError + a
+// CUresult.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+inline int encode_tiled_entry(EncodeTiled* fn) {
+  void* entry = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &entry, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &entry, cudaEnableDefault, &found);
+#endif
+  if (err != cudaSuccess) return err;
+  if (found != cudaDriverEntryPointSuccess || entry == nullptr)
+    return kTensorMapError + CUDA_ERROR_NOT_FOUND;
+  *fn = reinterpret_cast<EncodeTiled>(entry);
+  return 0;
+}
+
+// The tensor map of a gathered stream (sp.tma): the state [N, P, P, C] of
+// element size es seen as [N*P*P rows, C channels] (a row stride of C*es
+// bytes), a box of {ncp channels, P rows}: row b of a slot, a neighbour's
+// state[n, p1, 0:P, c0:c0+ncp].  No swizzle; channels past C read zeros
+// (OOB_FILL_NONE; the NaN request is not taken).  Returns 0, a cudaError_t
+// or kTensorMapError + a CUresult.
+inline int encode_state_map(CUtensorMap* map, const void* state, int N,
+                            const StreamPlan& sp, int es) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    const int err = encode_tiled_entry(&encode);
+    if (err != 0) return err;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)sp.C,
+                              (cuuint64_t)N * sp.P * sp.P};
+  const cuuint64_t strides[1] = {(cuuint64_t)sp.C * es};
+  const cuuint32_t box[2] = {(cuuint32_t)sp.ncp, (cuuint32_t)sp.P};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(
+      map, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(state), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      kStateL2Promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+// The text of a launcher's error: a cudaError_t, or the tensor map's.
+inline const char* error_string(int err) {
+  if (err >= kTensorMapError) {
+    static thread_local char text[96];
+    snprintf(text, sizeof(text),
+             "cuTensorMapEncodeTiled of the state failed: CUresult %d",
+             err - kTensorMapError);
+    return text;
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
+
 // Launches `kernel` (kThreads threads a block, `bytes` of dynamic shared
 // memory) on `stream` over `grid`, in clusters of `cluster` blocks along x,
 // with `args`; returns a cudaError_t.  A cluster the card cannot place is
@@ -1225,6 +1443,78 @@ __device__ inline void stream_rows(const Src& src, const StreamPlan& sp,
   __syncthreads();
 }
 
+// stream_rows on the tensor-copy route (sp.tma; a gathered source): warp w
+// owns row w % sp.rows of piece w / sp.rows of every stage as there, and
+// its lane 0 copies the row in storage order with one tensor copy
+// (GatheredSlots::issue_row_tma) that completes on the warp's mbarrier of
+// the ring buffer, arming it with the bytes it expects (none for a stage
+// where the warp owns no row, or whose row is absent).  The warp waits on
+// that mbarrier alone, so the warps still drift apart; its barrier after
+// the wait orders its reads of the buffer it last read before the copy that
+// lane 0 then starts into it.  consume(a, b0, buf) runs on the owning warp
+// for a present row only (an absent one adds nothing to the maps, which
+// start at zero); it reads the row through the permutation pos[a, .].  The
+// caller has fenced its threads' writes to shared memory for the async
+// proxy (fence_proxy_async) before the barrier that precedes this.  The
+// mbarriers live for one call: initialised here, invalidated at the end,
+// when every copy has been waited for.  Ends with a barrier.
+template <typename Src, typename Piece, typename Consume>
+__device__ inline void stream_rows_tma(const Src& src, const StreamPlan& sp,
+                                       const StreamBuffers& s, int c0,
+                                       int np, Piece piece, Consume consume) {
+  const int D = sp.D, G = pieces(sp), X = sp.rows, ns = (np + G - 1) / G;
+  const int pieceb = X * sp.rowb;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int gw = warp / X, bw = warp % X;
+  uint64_t* bars = s.bars + warp * D;
+  auto own = [&](int st, int& a, int& b0) {
+    const int j = st * G + gw;
+    if (gw >= G || j >= np) return false;
+    piece(j, a, b0);
+    return b0 + bw < sp.P;
+  };
+  // Lane 0: the copy of the warp's row of stage st into ring buffer i.
+  auto issue = [&](int st, int i) {
+    int a, b0;
+    if (own(st, a, b0))
+      src.issue_row_tma(sp, s.ring + i * sp.slotb + gw * pieceb + bw * sp.rowb,
+                        a, b0 + bw, c0, bars + i);
+    else
+      mbar_arrive_expect(bars + i, 0);
+  };
+  if (lane == 0) {
+    for (int i = 0; i < D; ++i) mbar_init(bars + i, 1);
+    fence_mbarrier_init();
+    for (int i = 0; i < D - 1 && i < ns; ++i) issue(i, i);
+  }
+  __syncwarp();
+  unsigned parity = 0;   // bit i: the phase ring buffer i waits for next
+  int stage = 0, ahead = (D - 1) % D;
+  for (int st = 0; st < ns; ++st) {
+    PIECE_MARK(t0);
+    mbar_wait(bars + stage, (parity >> stage) & 1u);
+    parity ^= 1u << stage;
+    __syncwarp();
+    PIECE_MARK(t1);
+    if (lane == 0 && st + D - 1 < ns) issue(st + D - 1, ahead);
+    PIECE_MARK(t2);
+    int a, b0;
+    if (own(st, a, b0) && src.row_present(sp, a, b0 + bw))
+      consume(a, b0, s.ring + stage * sp.slotb + gw * pieceb);
+    PIECE_MARK(t3);
+    PIECE_ADD(kPieceWait, t1 - t0);
+    PIECE_ADD(kPieceIssue, t2 - t1);
+    PIECE_ADD(kPieceReduce, t3 - t2);
+    PIECE_ADD(kPieces, 1);
+    stage = stage + 1 == D ? 0 : stage + 1;
+    ahead = ahead + 1 == D ? 0 : ahead + 1;
+  }
+  __syncwarp();
+  if (lane == 0)
+    for (int i = 0; i < D; ++i) mbar_inval(bars + i);
+  __syncthreads();
+}
+
 // The maps, row sums and vectors of the tile `tile` (rows [x0, x0 + nx),
 // x0 = tile * sp.rows) for the chunk [c0, c0 + nc): map row xl * P + y
 // holds, for x = x0 + xl,
@@ -1235,10 +1525,13 @@ __device__ inline void stream_rows(const Src& src, const StreamPlan& sp,
 // slots' D_ac[x,y] = T[x,y,x] into m6, which that variant has no use for.
 // kWarpRows: where the warps keep their cells in registers, the stream is
 // stream_rows (a warp copies the row it reduces; the cluster blocks of
-// K1, K2, K4 and K5), else stream_pieces.  The caller has loaded R (and
-// the listed slots) and no thread still reads s.  Ends with a barrier.
+// K1, K2, K4 and K5), else stream_pieces.  kTma (a plan with sp.tma, so
+// kWarpRows and registers; K1's and K2's cluster kernels are compiled for
+// each route): stream_rows_tma, a warp reading its row through the slot's
+// permutation.  The caller has loaded R (and the listed slots) and
+// no thread still reads s.  Ends with a barrier.
 template <bool kGroupD, bool kSelect, bool kDac, typename Src,
-          bool kWarpRows = false>
+          bool kWarpRows = false, bool kTma = false>
 __device__ inline void tile_reductions(const Src& src, const float* R,
                                        const StreamPlan& sp,
                                        const StreamBuffers& s, int tile,
@@ -1288,19 +1581,33 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
       b0 = (r < tile ? r : r + 1) * X;
     }
   };
-  // Row bl of a piece (slot a, rows from b0), reduced by this warp.
-  auto reduce_row = [&](int a, int b0, int bl, const char* buf) {
+  // Row bl of a piece (slot a, rows from b0), reduced by this warp; column
+  // c of the row lies at cell c of the buffer, or with kTma at cell
+  // perm[c] (none: -1, which reads zeros).  The picks and the registers of
+  // T_bc and M10 follow the column c.
+  auto reduce_row = [&](int a, int b0, int bl, const char* buf,
+                        const int* perm) {
     const bool row = b0 == x0, whole = a >= x0 && a < x0 + nx;
     const int b = b0 + bl, wa = (a - x0) * P;
     const float ra = R[a];
+    auto cell = [&](int c) {
+      if constexpr (kTma) {
+        const int at = perm[c];
+        return at < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                      : load4(reinterpret_cast<const E*>(
+                            buf + bl * sp.rowb + (at * ncp + 4 * q) * es));
+      } else {
+        return load4(reinterpret_cast<const E*>(
+            buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
+      }
+    };
     float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), ws = ts;
 #pragma unroll
     for (int k = 0; k < kMaxCells; ++k) {
       // The first kMaxCells columns in registers (regs), the rest after.
       const int c = h + H * k;
       if (!regs || c >= P) break;
-      const float4 x = load4(reinterpret_cast<const E*>(
-          buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
+      const float4 x = cell(c);
       if (row) {
         fma4(acc_tbc[k], 1.f, x);
         if constexpr (kGroupD) fma4(acc_m10[k], ra, x);
@@ -1316,8 +1623,7 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
       if (kGroupD && whole) fma4(ws, R[c], x);
     }
     for (int c = regs ? P : h; c < P; c += H) {
-      const float4 x = load4(reinterpret_cast<const E*>(
-          buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
+      const float4 x = cell(c);
       if (row) {
         const int at = (bl * P + c) * ncp + 4 * q;
         float4 sum = load4(tbc + at);
@@ -1354,13 +1660,23 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
   };
 
   for (int i = tid; i < kMaps * sp.mapw; i += nth) s.maps[i] = 0.f;
+  // Every thread's writes to shared memory so far (the ring's zeros, maps
+  // or products that lay over it) ordered before the tensor copies.
+  if constexpr (kTma) fence_proxy_async();
   __syncthreads();
   bool streamed = false;
-  if constexpr (kWarpRows) {
+  if constexpr (kTma) {
+    static_assert(kWarpRows, "the tensor copies feed stream_rows' warps");
+    stream_rows_tma(src, sp, s, c0, np, piece,
+                    [&](int a, int b0, const char* buf) {
+                      reduce_row(a, b0, bw, buf, src.spos + a * P);
+                    });
+    streamed = true;
+  } else if constexpr (kWarpRows) {
     if (regs) {
       stream_rows(src, sp, s, c0, nc, np, piece,
                   [&](int a, int b0, const char* buf) {
-                    reduce_row(a, b0, bw, buf);
+                    reduce_row(a, b0, bw, buf, nullptr);
                   });
       streamed = true;
     }
@@ -1370,10 +1686,11 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
                   [&](int j, int a, int b0, const char* buf) {
       const int nb = min(X, P - b0);
       if (regs) {
-        if (gw == j % pieces(sp) && bw < nb) reduce_row(a, b0, bw, buf);
+        if (gw == j % pieces(sp) && bw < nb)
+          reduce_row(a, b0, bw, buf, nullptr);
       } else {
         for (int bl = warp; bl < nb; bl += nwarps)   // the whole warp
-          reduce_row(a, b0, bl, buf);
+          reduce_row(a, b0, bl, buf, nullptr);
       }
     });
   }

@@ -14,6 +14,9 @@ forward launches the hand-written kernel ``csrc/risi18_level.cu`` (K1) and
 whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
 ``risi18_level_backward`` is the backward's wrapper and
 ``risi18_level_backward_reference`` its plain version.
+``risi18_row_gather_reference`` forms the gathered slots as the cluster
+plans' tensor-copy route does (a neighbour's row copied in storage order,
+then read through the slot's permutation of its columns).
 ``risi18_level_factored_reference`` and
 ``risi18_level_backward_factored_reference`` are the same two functions in
 the algebra the kernels use (nine map products and the adjacency applied
@@ -140,40 +143,77 @@ def risi18_level_backward_factored_reference(state, nbr, pos, radj, K, b, g,
     return dstate.to(state.dtype), dK.to(K.dtype), db.to(b.dtype)
 
 
+def risi18_row_gather_reference(state, nbr, pos, chunk=16):
+    """The aligned slots T [V, P, P, P, C] of ``nbr`` [V, P] and ``pos``
+    [V, P, P] over ``state`` [N, P, P, C], formed as K1's and K2 kernel 1's
+    cluster plans stream them on the tensor-copy route
+    (``csrc/risi18_level_common.cuh:GatheredSlots::issue_row_tma``,
+    ``tile_reductions``), chunk by chunk of ``chunk`` channels (the box's
+    width, ncp): row b of slot a is the neighbour's row state[n, p1, :,
+    c0:c0+chunk] in storage order (n = nbr[v, a], p1 = pos[v, a, b]), zeros
+    past C and for an absent n or p1; column c of it is then the cell
+    pos[v, a, c] of that row, zero where the position is absent.  Absent
+    means outside [0, N) or [0, P) (the sentinels N and P).  It only
+    indexes, so it is :func:`risi_aligned.risi18_aligned_t2_reference`'s T
+    bit for bit, in the state's dtype, and autograd scatters its cotangent
+    back into the state."""
+    N, P, _, C = state.shape
+    V = nbr.shape[0]
+    n_ok = (nbr >= 0) & (nbr < N)                          # [V, P]
+    p_ok = (pos >= 0) & (pos < P)                          # [V, P, P]
+    n = torch.where(n_ok, nbr, 0).long()
+    p = torch.where(p_ok, pos, 0).long()
+    row_ok = (n_ok[:, :, None] & p_ok)[..., None, None]    # [V, a, b, 1, 1]
+    cell = p[:, :, None, :, None].expand(V, P, P, P, chunk)
+    cell_ok = p_ok[:, :, None, :, None]                    # [V, a, 1, c, 1]
+    zero = state.new_zeros(())
+    parts = []
+    for c0 in range(0, C, chunk):
+        box = state[..., c0:c0 + chunk]
+        if box.shape[-1] < chunk:      # the box's channels past C: zeros
+            box = torch.cat([box, state.new_zeros(
+                (N, P, P, chunk - box.shape[-1]))], -1)
+        # Rows b of the slots in storage order: [V, a, b, P cells, chunk].
+        rows = torch.where(row_ok, box[n[:, :, None], p], zero)
+        # Column c read at cell pos[v, a, c] of its row.
+        T = torch.where(cell_ok, torch.gather(rows, 3, cell), zero)
+        parts.append(T[..., :min(chunk, C - c0)])
+    return torch.cat(parts, -1)
+
+
 def risi18_level_cluster_reference(state, nbr, pos, radj, K, b, rows,
-                                   cluster, negslope=0.01):
+                                   cluster, negslope=0.01, chunk=16):
     """The level as K1's cluster plan forms it
     (``csrc/risi18_forward_block.cuh:forward_block_cluster``), in plain
-    PyTorch: the take-gather, then the bank in row tiles of ``rows`` rows
-    over a cluster of ``cluster`` blocks
-    (``ops/risi_bank.py:risi18_bank_cluster_reference``: each block's
-    tiles, the scalar cases' parts added in rank order), then b and
-    LeakyReLU, computed as :func:`risi18_level_reference` computes and
-    rounded once."""
-    from graphflow_tpu_torch.ops.risi_aligned import (
-        risi18_aligned_t2_reference)
+    PyTorch: the slots gathered as the tensor-copy route gathers them, in
+    chunks of ``chunk`` channels (:func:`risi18_row_gather_reference`),
+    then the bank in row tiles of ``rows`` rows over a cluster of
+    ``cluster`` blocks (``ops/risi_bank.py:risi18_bank_cluster_reference``:
+    each block's tiles, the scalar cases' parts added in rank order), then
+    b and LeakyReLU, computed as :func:`risi18_level_reference` computes
+    and rounded once."""
     from graphflow_tpu_torch.ops.risi_bank import risi18_bank_cluster_reference
 
     ct = _COMPUTE[state.dtype]
     N, P, _, C = state.shape
-    T = risi18_aligned_t2_reference(state.to(ct), nbr, pos)
+    T = risi18_row_gather_reference(state.to(ct), nbr, pos, chunk)
     Z = risi18_bank_cluster_reference(T, radj.to(ct), K.to(ct), rows, cluster)
     Z = Z.reshape(N, P * P, -1) + b.to(ct)
     return leaky_relu(Z, negslope).to(state.dtype)
 
 
 def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
-                                            rows, cluster, negslope=0.01):
+                                            rows, cluster, negslope=0.01,
+                                            chunk=16):
     """The level's gradients as K2 kernel 1's cluster plan forms them
     (``csrc/risi18_backward_block.cuh:backward_block_cluster``), in plain
-    PyTorch: G is the cotangent times LeakyReLU'; per block of a cluster of
-    ``cluster``, its row tiles of ``rows`` rows give its parts of GA, db
-    and dK and dT of its rows b (``ops/risi_bank.py:
-    _bank_backward_cluster``); GA, dK and db are the blocks' parts added in
-    rank order, and dT goes back through the gather.  -> (dstate, dK, db),
-    each in the dtype of its parameter."""
-    from graphflow_tpu_torch.ops.risi_aligned import (
-        risi18_aligned_t2_reference)
+    PyTorch: G is the cotangent times LeakyReLU'; the slots gathered as the
+    tensor-copy route gathers them (:func:`risi18_row_gather_reference`,
+    chunks of ``chunk`` channels); per block of a cluster of ``cluster``,
+    its row tiles of ``rows`` rows give its parts of GA, db and dK and dT
+    of its rows b (``ops/risi_bank.py:_bank_backward_cluster``); GA, dK and
+    db are the blocks' parts added in rank order, and dT goes back through
+    the gather.  -> (dstate, dK, db), each in the dtype of its parameter."""
     from graphflow_tpu_torch.ops.risi_bank import _bank_backward_cluster
 
     ct = _COMPUTE[state.dtype]
@@ -184,7 +224,7 @@ def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
     G = G.reshape(N, P, P, Cout)
     with torch.enable_grad():
         leaf = state.detach().to(ct).requires_grad_()
-        T = risi18_aligned_t2_reference(leaf, nbr, pos)
+        T = risi18_row_gather_reference(leaf, nbr, pos, chunk)
     dT, dK, db_parts = _bank_backward_cluster(T.detach(), radj.to(ct),
                                               K.to(ct), G, rows, cluster)
     (dstate,) = torch.autograd.grad(T, leaf, dT)
@@ -202,36 +242,51 @@ def _bind_min_smem(fn):
 
 
 def _bind_plan(fn):
-    """A library's ``*_plan(N, P, C, Cout, bf16, int plan[])``: the plan
-    its launcher takes (see :func:`query_plan`; ten fields forward, twelve
-    backward)."""
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    """A library's ``*_plan(N, P, C, Cout, bf16, aligned, int plan[])``:
+    the plan its launcher takes (see :func:`query_plan`; eleven fields
+    forward, thirteen backward)."""
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
 
 
 PLAN_KEYS = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
-             "pieces", "cluster", "tiles_per_block", "mma")
-# The backward plans' two more fields: kernel 0's float32 scratch words a
-# vertex, reported as ``scratch_bytes`` for the N vertices, and its shared
-# memory.
-BACKWARD_PLAN_KEYS = PLAN_KEYS + ("scratch_bytes", "sums_smem_bytes")
+             "pieces", "cluster", "tiles_per_block", "mma", "stream")
+# The backward plans' two more fields before ``stream``: kernel 0's float32
+# scratch words a vertex, reported as ``scratch_bytes`` for the N vertices,
+# and its shared memory.
+BACKWARD_PLAN_KEYS = PLAN_KEYS[:-1] + ("scratch_bytes", "sums_smem_bytes",
+                                       "stream")
 
 
-def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False):
+def alignment_of(t):
+    """The bytes ``t``'s first element's address is a multiple of, up to
+    16, as the launchers read it (``csrc/risi18_level_common.cuh:
+    alignment_of``)."""
+    a = t.data_ptr()
+    return 16 if a % 16 == 0 else 8 if a % 8 == 0 else 4 if a % 4 == 0 else 2
+
+
+def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False,
+               aligned=16):
     """The plan a kernel's launcher takes for N vertices of a field of P
-    rows, C input and Cout output channels in ``dtype`` (16-byte aligned
-    inputs), from the library's ``*_plan`` entry ``fn``: a dict with
+    rows, C input and Cout output channels in ``dtype`` (inputs whose state,
+    or T, starts at a multiple of ``aligned`` bytes: 16, 8, 4 or 2), from
+    the library's ``*_plan`` entry ``fn``: a dict with
     ``rows`` (the rows of a row tile; P for a plan that keeps every row),
     ``panel`` (output channels a block), ``chunk`` (input channels a pass),
     ``depth`` (the ring's buffers), ``smem_bytes``, ``tiled`` (a row-tiled
     block), ``pieces`` (pieces of ``rows`` rows a ring buffer holds),
     ``cluster`` (blocks a cluster of a cluster plan, 0 for one block a
     vertex or vertex group), ``tiles_per_block`` (row tiles a block of the
-    cluster takes) and ``mma`` (1: the products run on the tensor cores);
-    None where no plan fits.  N matters to a cluster plan only: a cluster
-    takes fewer blocks where the grid of one block a vertex already fills
-    the card (``csrc/risi18_level_common.cuh:cluster_shape``).  A backward
-    plan (``backward``) adds ``scratch_bytes``, the float32 scratch kernel 0
+    cluster takes), ``mma`` (1: the products run on the tensor cores) and
+    ``stream`` (``"tma"``: a warp's gathered row arrives by one tensor copy
+    and is read through the slot's permutation, on a cluster plan of K1 or
+    K2 whose chunk and C are multiples of 16 bytes over a 16-byte aligned
+    state; else ``"cp_async"``, a copy a cell); None where no plan fits.
+    N matters to a cluster plan only: a cluster takes fewer blocks where
+    the grid of one block a vertex already fills the card
+    (``csrc/risi18_level_common.cuh:cluster_shape``).  A backward plan
+    (``backward``) adds ``scratch_bytes``, the float32 scratch kernel 0
     fills for N vertices (GAp [N,P,P,Cout] and the row sums [N,3,P,Cout]:
     ``csrc/risi18_backward_block.cuh:backward_sums_kernel``), and
     ``sums_smem_bytes``, kernel 0's shared memory a block; both 0 on a
@@ -239,26 +294,28 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False):
     (it is built with nvcc), not a card."""
     keys = BACKWARD_PLAN_KEYS if backward else PLAN_KEYS
     plan = (ctypes.c_int * len(keys))()
-    if fn(N, P, C, Cout, int(dtype == torch.bfloat16), plan):
+    if fn(N, P, C, Cout, int(dtype == torch.bfloat16), aligned, plan):
         return None
     got = {k: int(v) for k, v in zip(keys, plan)}
     if backward:
         got["scratch_bytes"] *= 4 * N
+    got["stream"] = "tma" if got["stream"] else "cp_async"
     return got
 
 
 @functools.lru_cache(maxsize=None)
-def level_plan(N, P, C, Cout, dtype=torch.float32):
+def level_plan(N, P, C, Cout, dtype=torch.float32, aligned=16):
     """K1's plan for N vertices (:func:`query_plan`)."""
-    return query_plan(_kernel_lib().risi18_level_plan, N, P, C, Cout, dtype)
+    return query_plan(_kernel_lib().risi18_level_plan, N, P, C, Cout, dtype,
+                      aligned=aligned)
 
 
 @functools.lru_cache(maxsize=None)
-def level_backward_plan(N, P, C, Cout, dtype=torch.float32):
+def level_backward_plan(N, P, C, Cout, dtype=torch.float32, aligned=16):
     """K2 kernel 1's plan for N vertices (:func:`query_plan`, with kernel
     0's scratch)."""
     return query_plan(_backward_lib().risi18_level_backward_plan, N, P, C,
-                      Cout, dtype, backward=True)
+                      Cout, dtype, backward=True, aligned=aligned)
 
 
 @functools.lru_cache(maxsize=None)
@@ -401,7 +458,7 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     lib = _kernel_lib()
     check_smem("risi18_level", lib.risi18_level_min_smem_bytes, P, Cout)
     out = torch.empty((N, P * P, Cout), dtype=dt, device=dev)
-    plan = level_plan(N, P, C, Cout, dt)
+    plan = level_plan(N, P, C, Cout, dt, alignment_of(state))
     pre = out
     if dt != torch.float32 and plan is not None and plan["cluster"]:
         pre = torch.empty((N, P * P, Cout), dtype=torch.float32, device=dev)
@@ -413,6 +470,8 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     _raise_on(err, "risi18_level", lib.risi18_level_error_string,
               _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level.launches += 1
+    if plan is not None and plan["stream"] == "tma":
+        risi18_level.tma_launches += 1
     return out
 
 
@@ -493,7 +552,7 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope,
                           dtype=torch.float32, device=dev)
     if N == 0:
         return dstate, partial
-    plan = level_backward_plan(N, P, C, Cout, dt)
+    plan = level_backward_plan(N, P, C, Cout, dt, alignment_of(state))
     gap = None
     if plan is not None and plan["cluster"]:
         gap, sums = _backward_sums_kernel(radj, g, out, negslope) if sums is None else sums
@@ -510,6 +569,8 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope,
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
               _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level_backward.launches += 1
+    if plan is not None and plan["stream"] == "tma":
+        risi18_level_backward.tma_launches += 1
     return dstate, partial
 
 
@@ -592,6 +653,9 @@ def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
 risi18_level_backward.sums_launches = 0     # kernel 0 (cluster plans)
 risi18_level_backward.launches = 0          # kernel 1 (dstate, partials)
 risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db; bf16: dstate)
+# Of kernel 1's launches, those whose stream took the tensor copies (the
+# plan's ``stream``, for the state's alignment).
+risi18_level_backward.tma_launches = 0
 
 
 class _Risi18LevelFn(torch.autograd.Function):
@@ -631,3 +695,5 @@ def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
 
 
 risi18_level.launches = 0
+# Of K1's launches, those whose stream took the tensor copies.
+risi18_level.tma_launches = 0

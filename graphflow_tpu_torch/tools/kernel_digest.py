@@ -23,9 +23,12 @@ at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
 bank, in the dtypes) the smoke does not time.  ``--shapes`` names other
 level shapes (``N,P,C,Cout`` each), and ``--level-only`` times K1 and K2
-kernel 1 alone there, with the plan each checkout's launchers take and
-each kernel's bound by ``chip_smoke.py``'s count (``level_ops``,
-``level_backward_ops`` and the bytes of its inputs and outputs).
+kernel 1 alone there (with its kernel 0, and kernel 0 alone, on a cluster
+plan), with the plan each checkout's launchers take (since the
+tensor-copy route, its ``stream``) and each kernel's bound by
+``chip_smoke.py``'s count (``level_ops``, ``level_backward_ops`` and the
+bytes of its inputs and outputs).  Two checkouts timed in one call: run
+the tool with ``--root`` on the older one and without it, in turns.
 
 Usage:
     python graphflow_tpu_torch/tools/kernel_digest.py [--root DIR]
@@ -122,7 +125,14 @@ def main(argv=None):
                                             level_ops, nbytes,
                                             present_elements)
                     from graphflow_tpu_torch.ops.risi_level import (
-                        level_backward_plan, level_plan)
+                        _backward_sums_kernel, level_backward_plan,
+                        level_plan)
+                    bplan = level_backward_plan(N, P, C, Cout, dtype)
+                    k0 = ""
+                    if bplan["cluster"]:
+                        ms0 = time_ms(lambda: _backward_sums_kernel(
+                            level[3], g, out, 0.01))
+                        k0 = f" (kernel 0 alone {ms0:.4f} ms)"
                     present = present_elements(nbr, pos)
                     grads = risi18_level_backward(*level, out, g)
                     b1 = bound_ms(nbytes(*level, out),
@@ -132,9 +142,8 @@ def main(argv=None):
                                   name)
                     print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms (bound "
                           f"{b1[0]:.4f} by {b1[1]}), K2 kernel 1 {k2:.4f} ms "
-                          f"(bound {b2[0]:.4f} by {b2[1]}); plans "
-                          f"{level_plan(N, P, C, Cout, dtype)}, "
-                          f"{level_backward_plan(N, P, C, Cout, dtype)}",
+                          f"(bound {b2[0]:.4f} by {b2[1]}){k0}; plans "
+                          f"{level_plan(N, P, C, Cout, dtype)}, {bplan}",
                           flush=True)
                     continue
                 _, partial = _backward_main_kernel(*level[:5], g, out, 0.01)

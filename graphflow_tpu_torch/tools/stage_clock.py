@@ -15,8 +15,11 @@ K5 run K1's and K2's blocks on slots streamed from T, so their stages are
 K1's and K2's, named for what the bank does there.  On a row-tiled plan
 (a field one block does not hold, e.g. P = 64) it prints the stages of the
 block's stream (a ring buffer's pieces of a few rows) and thread 0's
-cycles a stage: waiting for the copies and the block, issuing the next
-copies, reducing the stage.  K1 and K2 run such a field on cluster plans
+cycles a stage: waiting for the copies (and, one block a vertex, the
+block), issuing the next copies, reducing the stage.  K1's and K2's lines
+name the stream's route from their plans: ``tma`` (thread 0, lane 0 of its
+warp, issues one tensor copy a row and waits on its warp's mbarrier) or
+``cp_async`` (every lane issues its cells' copies).  K1 and K2 run such a field on cluster plans
 (a vertex's row tiles over a cluster of blocks), whose marks it prints as
 well: block (0, 0, 0) is rank 0 of the first cluster, and its marks split
 its own tiles into the stream, the products and the rest, and name the
@@ -75,10 +78,10 @@ def build(name: str) -> ctypes.CDLL:
 
 
 # stage_cycles[10..13] of a row-tiled block (csrc/risi18_level_common.cuh:
-# stream_pieces): thread 0's cycles per stage (a ring buffer's pieces)
-# waiting for its copies and the block, issuing the next stage's copies,
-# reducing the stage; the stages.
-PIECE_STAGES = ("wait and barrier", "issuing copies", "reducing")
+# stream_pieces, stream_rows, stream_rows_tma): thread 0's cycles per stage
+# (a ring buffer's pieces) waiting for its copies (stream_pieces: and the
+# block), issuing the next stage's copies, reducing the stage; the stages.
+PIECE_STAGES = ("wait", "issuing copies", "reducing")
 PIECE_SLOT = 10
 
 
@@ -127,6 +130,10 @@ def main(argv=None):
         size=(N, P * P, Cout)), dtype=torch.float32, device="cuda")
     groups = bwd.risi18_level_backward_blocks(N)
     stream = torch.cuda.current_stream().cuda_stream
+    from graphflow_tpu_torch.ops.risi_level import _bind_plan, query_plan
+
+    _bind_plan(fwd.risi18_level_plan)
+    _bind_plan(bwd.risi18_level_backward_plan)
     for suffix, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         state, K, b, g = (t.to(dtype) for t in (f32["state"], f32["K"],
                                                 f32["b"], g32))
@@ -152,6 +159,9 @@ def main(argv=None):
         bank_sums = getattr(bank_bwd, f"risi18_bank_backward_sums_{suffix}")
         bank_sums.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         shape = f"(N,P,C,Cout)=({N},{P},{C},{Cout}) {suffix}"
+        routes = [query_plan(fn, N, P, C, Cout, dtype, backward=b)["stream"]
+                  for fn, b in ((fwd.risi18_level_plan, False),
+                                (bwd.risi18_level_backward_plan, True))]
         for _ in range(ROUNDS):
             err = forward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
                           f32["radj"].data_ptr(), K.data_ptr(), b.data_ptr(),
@@ -160,7 +170,7 @@ def main(argv=None):
             torch.cuda.synchronize()
             if err != 0:
                 raise RuntimeError(f"risi18_level launch failed ({err})")
-            report(f"K1 {shape}", FORWARD_STAGES,
+            report(f"K1 {shape} stream {routes[0]}", FORWARD_STAGES,
                    fwd.risi18_level_stage_cycles, CLUSTER_STAGES)
         for _ in range(ROUNDS):
             err = level_sums(f32["radj"].data_ptr(), g.data_ptr(),
@@ -176,7 +186,8 @@ def main(argv=None):
             if err != 0:
                 raise RuntimeError(f"risi18_level_backward launch failed "
                                    f"({err})")
-            report(f"K2 kernel 1 {shape}", BACKWARD_STAGES,
+            report(f"K2 kernel 1 {shape} stream {routes[1]}",
+                   BACKWARD_STAGES,
                    bwd.risi18_level_backward_stage_cycles,
                    CLUSTER_BACKWARD_STAGES)
         T = risi18_aligned_t2_reference(state, nbr, pos).contiguous()

@@ -350,11 +350,11 @@ def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
                 assert fwd["rows"] < P if fwd["tiled"] else fwd["rows"] == P
     assert bank_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=16, depth=3, smem_bytes=210928, tiled=0,
-        pieces=1, cluster=0, tiles_per_block=1, mma=1)
+        pieces=1, cluster=0, tiles_per_block=1, mma=1, stream="cp_async")
     assert bank_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=226960, tiled=0,
         pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
-        sums_smem_bytes=0)
+        sums_smem_bytes=0, stream="cp_async")
 
 
 def _bank_backward_in_chunks(T, A, K, g, chunk=32):

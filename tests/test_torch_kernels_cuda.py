@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from graphflow_tpu_torch.ops.risi_level import (
-    _backward_reduce_kernel, level_backward_plan, level_plan, risi18_level,
-    risi18_level_backward, risi18_level_backward_reference,
+    _backward_reduce_kernel, alignment_of, level_backward_plan, level_plan,
+    risi18_level, risi18_level_backward, risi18_level_backward_reference,
     risi18_level_backward_sums, risi18_level_backward_sums_reference,
     risi18_level_reference)
 from graphflow_tpu_torch.tools.measure import same_signs
@@ -311,11 +311,12 @@ def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
     assert level_plan(256, 16, 32, 32) == dict(rows=16, panel=32, chunk=16,
                                           depth=3, smem_bytes=212096,
                                           tiled=0, pieces=1, cluster=0,
-                                          tiles_per_block=1, mma=1)
+                                          tiles_per_block=1, mma=1,
+                                          stream="cp_async")
     assert level_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
         pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
-        sums_smem_bytes=0)
+        sums_smem_bytes=0, stream="cp_async")
 
 
 def cluster_rounds(tiles, blocks, per, grid, sms=132):
@@ -457,6 +458,7 @@ def test_backward_kernel_on_row_tiled_plans_at_every_cluster_size(
         out = same_signs(risi18_level(*args), _level_in_chunks(args))
         counts = (risi18_level_backward.sums_launches,
                   risi18_level_backward.launches)
+        assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
         got = risi18_level_backward(*args, out, g)
         assert (risi18_level_backward.sums_launches,
                 risi18_level_backward.launches) == (counts[0] + clustered,
@@ -467,6 +469,152 @@ def test_backward_kernel_on_row_tiled_plans_at_every_cluster_size(
         torch.cuda.synchronize()
         for x, y in zip(got[1:], again[1:]):      # dK and db, bit for bit
             assert torch.equal(x, y), (N, plan)
+
+
+def tile_regs(P, rows, ncp):
+    """``csrc/risi18_level_common.cuh:tile_regs``: a warp reduces one row
+    of each stage, its lanes' cells of the row in registers."""
+    return rows <= 16 and -(-P // (32 // (ncp // 4))) <= 4
+
+
+def expected_stream(plan, P, C, dtype, aligned=16):
+    """The route a K1 or K2 plan must name: ``"tma"`` (one tensor copy a
+    gathered row) on a cluster plan whose warps reduce a row each, whose
+    box of ncp channels and state rows of C channels are multiples of 16
+    bytes, over a 16-byte aligned state; else ``"cp_async"``."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    ncp = 4 if plan["chunk"] <= 4 else 8 if plan["chunk"] <= 8 else 16
+    tma = (plan["cluster"] > 0 and tile_regs(P, plan["rows"], ncp)
+           and ncp * es % 16 == 0 and C * es % 16 == 0 and aligned % 16 == 0)
+    return "tma" if tma else "cp_async"
+
+
+# K1 and K2 kernel 1 on both routes of the stream: C = 32 and 8 (and 4 in
+# float32) take the tensor copies on a cluster plan, C = 3 and 1 and C = 4
+# in bfloat16 (a box of 8 bytes) take cp.async.  (K2 at C = 32 is
+# test_backward_kernel_on_row_tiled_plans_at_every_cluster_size's.)
+ROUTE_FIELDS = [(P, C, Cout) for P in (33, 37, 40, 50, 64)
+                for C, Cout in ((32, 32), (8, 8), (4, 4), (3, 4), (1, 4))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("P,C,Cout", ROUTE_FIELDS)
+def test_level_kernels_on_both_stream_routes_at_every_cluster_size(
+        cuda, P, C, Cout, dtype):
+    """K1 at every cluster size its size rule picks for this field, and
+    at 140 and 256 vertices (absent neighbours and positions, an empty
+    vertex), against the plain level, its output the same bits from run to
+    run, its plan naming the route the rule gives; K2 kernel 1 the same at
+    its own cluster sizes (dstate, dK, db; dK and db bit for bit)."""
+    for N in cluster_sizes(level_plan, P, C, Cout, dtype):
+        plan = level_plan(N, P, C, Cout, dtype)
+        assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
+        args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
+                       empty_vertex=N // 2, dtype=dtype)
+        out = risi18_level(*args)
+        _assert_close(out, _level_in_chunks(args))
+        assert torch.equal(out, risi18_level(*args)), (N, plan)
+    if C == 32:
+        return
+    for N in cluster_sizes(level_backward_plan, P, C, Cout, dtype):
+        plan = level_backward_plan(N, P, C, Cout, dtype)
+        assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
+        args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
+                       empty_vertex=N // 2, dtype=dtype)
+        g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
+        out = same_signs(risi18_level(*args), _level_in_chunks(args))
+        got = risi18_level_backward(*args, out, g)
+        for x, r in zip(got, _level_backward_in_chunks(args, g)):
+            _assert_close(x, r)
+        again = risi18_level_backward(*args, out, g)
+        torch.cuda.synchronize()
+        for x, y in zip(got[1:], again[1:]):
+            assert torch.equal(x, y), (N, plan)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
+                                                                  dtype):
+    """A contiguous state view that starts 4 bytes (2 in bfloat16) past a
+    16-byte boundary takes the cp.async route that the plan query names for
+    its alignment, one 16 bytes past takes the tensor copies, and both give
+    the aligned state's output, dK and db bit for bit where the plans agree
+    but for the route (the same sums in the same order), else within the
+    kernels' bounds."""
+    N, P, C, Cout = 6, 64, 32, 32
+    args = _inputs(N, P, C, Cout, seed=11, device=cuda, empty_vertex=2,
+                   dtype=dtype)
+    g = _cotangent(N, P, Cout, seed=11, device=cuda, dtype=dtype)
+    state = args[0]
+    ref_out = risi18_level(*args)
+    out = same_signs(ref_out, _level_in_chunks(args))
+    ref = risi18_level_backward(*args, out, g)
+    base = level_plan(N, P, C, Cout, dtype)
+    assert base["stream"] == "tma", base
+    step = 16 // state.element_size()
+    for shift, want in ((1, "cp_async"), (step, "tma")):
+        flat = torch.empty(state.numel() + shift, dtype=dtype, device=cuda)
+        view = flat[shift:].view(state.shape)
+        view.copy_(state)
+        aligned = alignment_of(view)
+        assert view.is_contiguous() and aligned == (16 if shift == step
+                                                    else 16 // step)
+        for query in (level_plan, level_backward_plan):
+            plan = query(N, P, C, Cout, dtype, aligned)
+            assert plan["stream"] == want == expected_stream(
+                plan, P, C, dtype, aligned), plan
+        got_out = risi18_level(view, *args[1:])
+        got = risi18_level_backward(view, *args[1:], out, g)
+        torch.cuda.synchronize()
+        same = {k: v for k, v in level_plan(N, P, C, Cout, dtype,
+                                            aligned).items()
+                if k not in ("stream", "smem_bytes")} == {
+            k: v for k, v in base.items() if k not in ("stream", "smem_bytes")}
+        if same:
+            assert torch.equal(got_out, ref_out)
+            for x, y in zip(got[1:], ref[1:]):
+                assert torch.equal(x, y)
+        _assert_close(got_out, _level_in_chunks(args))
+        for x, r in zip(got, _level_backward_in_chunks(args, g)):
+            _assert_close(x, r)
+
+
+# The shared memory of K1's and K2 kernel 1's cluster plans at P = 64,
+# C = Cout = 32 (tiles of 4 rows, chunks of 8, 4 pieces a stage), with the
+# warps' mbarriers (16 warps x the ring's depth x 8 bytes) and the ring
+# aligned to 128 bytes for the tensor copies; the same at every N.  The
+# cp.async plan of a state 4 bytes past a 16-byte boundary has the same
+# tiles, chunk and depth here, without those bytes.
+TMA_BYTES = {torch.float32: {"forward": 215136, "backward": 225568},
+             torch.bfloat16: {"forward": 182496, "backward": 225824}}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_level_plans_name_their_route_and_bytes(cuda, dtype):
+    """SMP_beta's field (P = 64, C = Cout = 32) on K1's and K2 kernel 1's
+    cluster plans takes the tensor copies at every N, with the warps'
+    mbarriers and the ring's 128-byte alignment counted in its bytes; the
+    untiled plans, the bank's (K4, K5: stored slots) and narrow chunks in
+    bfloat16 take cp.async."""
+    from graphflow_tpu_torch.ops.risi_bank import bank_backward_plan, bank_plan
+
+    for N in (1, 64, 140, 256):
+        for query in (level_plan, level_backward_plan):
+            plan = query(N, 64, 32, 32, dtype)
+            assert plan["cluster"] >= 1 and plan["stream"] == "tma", plan
+            assert plan["smem_bytes"] == TMA_BYTES[dtype][
+                "backward" if "scratch_bytes" in plan else "forward"], plan
+            other = query(N, 64, 32, 32, dtype, 4)
+            assert other["stream"] == "cp_async" and other["depth"] == (
+                plan["depth"]), other
+            extra = plan["smem_bytes"] - other["smem_bytes"]
+            assert 0 <= extra - 16 * plan["depth"] * 8 < 128, (plan, other)
+        for plan in (bank_plan(N, 64, 32, 32, dtype),
+                     bank_backward_plan(N, 64, 32, 32, dtype)):
+            assert plan["stream"] == "cp_async", plan
+    assert level_plan(256, 16, 32, 32, dtype)["stream"] == "cp_async"
+    assert level_plan(64, 64, 4, 4, dtype)["stream"] == (
+        "tma" if dtype == torch.float32 else "cp_async")
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
