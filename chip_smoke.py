@@ -578,7 +578,8 @@ def reset_level_counts():
 
 def tma_counts():
     """Of K1's and K2 kernel 1's launches, those whose stream took one
-    tensor copy a gathered row (their plan's ``stream`` "tma")."""
+    tensor copy a gathered row, issued by the block's producer warp (their
+    plan's ``stream`` "tma_producer")."""
     from graphflow_tpu_torch.ops.risi_level import (risi18_level,
                                                     risi18_level_backward)
     return (risi18_level.tma_launches, risi18_level_backward.tma_launches)
@@ -586,10 +587,10 @@ def tma_counts():
 
 def expect_tma(what, plan, before, which):
     """Raises unless ``plan`` (K1's, which = 0; K2 kernel 1's, 1) names
-    the tensor-copy route and the one launch since the counts ``before``
-    took it."""
+    the tensor-copy route with its producer warp and the one launch since
+    the counts ``before`` took it."""
     got = tma_counts()[which] - before[which]
-    if plan["stream"] != "tma" or got != 1:
+    if plan["stream"] != "tma_producer" or got != 1:
         raise AssertionError(f"{what}: plan {plan}, {got} launches on the "
                              f"tensor-copy route, expected 1")
 
@@ -2870,7 +2871,8 @@ def phase_large_field():
                 f"0 (K2's, K5's) {sums}")
         # The stream's route: every K1 launch and every K2 kernel 1 launch
         # on a cluster plan (those that launch kernel 0) took one tensor
-        # copy a gathered row; the bank's stored slots never do.
+        # copy a gathered row from the producer warp; the bank's stored
+        # slots never do.
         routes = tma_counts()
         if bank:
             stored = [p["stream"] for c, co in zip(sched, sched[1:])

@@ -69,6 +69,10 @@ struct BackwardPlan {
                // over G and GAp (a cluster plan whose ring holds several
                // pieces and fits there: backward_block_cluster forms G
                // and GAp of a tile after its stream)
+  int lists;   // -1: the tensor-copy route's piece list and weights
+               // (producer_words) lie in the stream area, or there is no
+               // such route; else their offset over G and GAp, after the
+               // ring where it lies there
   int ap, r, scal, inbr, ipos, islots, bars, g, gap, gr, ga, gax, gsx,
       stream, ks, dkv, dbs, red, sacc, part, words;
 };
@@ -132,12 +136,25 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   L.gax = take(L.tiled ? 0 : P * L.GLD);
   L.gsx = take(gather && !L.tiled ? P * L.GLD : 0);
   // A cluster plan's ring lies over G and GAp where it holds several
-  // pieces (a tile's cells in registers: tile_regs) and fits there.
-  const bool over_g = L.cluster && pieces(L.sp) > 1 &&
+  // pieces (a tile's cells in registers: tile_regs), or takes the tensor
+  // copies, and fits there.  (With the copies' one piece a stage of tiles
+  // of 8 rows it freed the room for a cluster of one on the tensor cores:
+  // K2 kernel 1 at (64,64,16,8) 3.54 → 1.09 ms in float32, where the ring
+  // in the stream area had left the one-block row-tiled block; an H100,
+  // PERF.md.)
+  const bool over_g = L.cluster && (pieces(L.sp) > 1 || L.sp.tma) &&
                       ring_words(L.sp) <= L.gr - L.g;
+  // So do the tensor-copy route's piece list and weights where they fit
+  // beside it (K2 at P = 40 in bfloat16 keeps its plan of one block a
+  // cluster so).
+  const int after_ring = over_g ? ring_words(L.sp) : 0;
+  const bool lists_over_g = L.cluster && producer_words(L.sp) > 0 &&
+                            producer_words(L.sp) <= L.gr - L.g - after_ring;
   if (!over_g) w = round_up(w, align);
-  L.stream = take(stream_words(L.sp) - (over_g ? ring_words(L.sp) : 0));
+  L.stream = take(stream_words(L.sp) - after_ring -
+                  (lists_over_g ? producer_words(L.sp) : 0));
   L.ring = over_g ? L.g : -1;
+  L.lists = lists_over_g ? L.g + after_ring : -1;
   L.ks = take(kCases * L.sp.ncp * L.GLD);
   L.dkv = take(8 * L.sp.ncp * L.GLD);
   L.dbs = take(gather ? L.GLD : 0);
@@ -207,7 +224,8 @@ inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
                   const BackwardPlan L = make_backward_plan(
                       P, C, Cout, Cc, D, Co, es, aligned, wide, gather, rows,
                       G, clustered, N);
-                  if ((!regs || tile_regs(L.sp)) && dk_tiles_fit(L, Co) &&
+                  if ((!regs || (tile_regs(L.sp) && !L.sp.no_producer)) &&
+                      dk_tiles_fit(L, Co) &&
                       sizeof(float) * (size_t)L.words <=
                           risi18::kMaxSmemBytes)
                     return L;
@@ -1843,11 +1861,12 @@ __device__ __forceinline__ void backward_block_tiled(
 //      of db's sums over its tiles' rows;
 //   1. per own tile X: its maps (tile_reductions, a warp copying the row
 //      it reduces: stream_rows, or for K2 on the tensor-copy route (kTma,
-//      for a plan with sp.tma) one tensor copy a row through `map`, read
-//      through the slot's
-//      permutation: stream_rows_tma), then G of its rows and their GAp and GR
-//      from the scratch (the ring may lie over G and GAp: L.ring), dK's map
-//      cases of its rows (on the tensor cores where the plan has `mma`:
+//      for a plan with sp.tma) one tensor copy a row through `map`, issued
+//      by a producer warp, read through the slot's permutation or against
+//      its weights: stream_rows_producer), then G of its rows and their
+//      GAp and GR from the scratch (the ring may lie over G and GAp:
+//      L.ring), dK's map cases of its rows (on the tensor cores where the
+//      plan has `mma`:
 //      dk_maps_mma over the tile's rows, the sums kept in registers over
 //      tiles and vertices), its vector cases, and its part of the four
 //      scalars; then dK's scalar cases, that part times GA;
@@ -1900,7 +1919,7 @@ __device__ __forceinline__ void backward_block_cluster(
   float* GA = smem + L.ga;
   const StreamBuffers s = stream_buffers(
       smem + L.stream, sp, L.ring >= 0 ? smem + L.ring : nullptr,
-      smem + L.bars);
+      smem + L.bars, L.lists >= 0 ? smem + L.lists : nullptr);
   float* Ks = smem + L.ks;
   float* dKv = smem + L.dkv;
   float* dbs = smem + L.dbs;

@@ -172,7 +172,7 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
               const ForwardPlan L =
                   make_forward_plan(P, C, Cout, Cc, D, Co, es, aligned,
                                     gather, rows, G, cluster, N);
-              if ((!regs || tile_regs(L.sp)) &&
+              if ((!regs || (tile_regs(L.sp) && !L.sp.no_producer)) &&
                   (!busy || fills_warps(L.sp)) &&
                   sizeof(float) * (size_t)L.words <= kMaxSmemBytes)
                 return L;
@@ -853,7 +853,8 @@ __device__ __forceinline__ void forward_block_tiled(
 // maps (tile_reductions: the rows X of every slot, the whole slots in X, a
 // warp copying the row it reduces: stream_rows, or for K1 on the
 // tensor-copy route (kTma, for a plan with sp.tma) one tensor copy a row
-// through `map`, read through the slot's permutation: stream_rows_tma;
+// through `map`, issued by a producer warp, read through the slot's
+// permutation or against its weights: stream_rows_producer;
 // the tiles together
 // stream each slot about twice), U of its rows, this block's part of the four
 // scalars and of s (below), and the nine map slabs into Z and W of its

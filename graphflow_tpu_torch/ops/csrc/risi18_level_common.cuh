@@ -28,23 +28,23 @@
 // which L2 does not hold.
 //
 // The tensor-copy route (sp.tma: a cluster plan of K1 or K2 whose chunk
-// and C are multiples of 16 bytes and whose state is 16-byte aligned,
-// make_stream_plan).  Row b of gathered slot a is state[n, p1, pos[a, c],
-// c0:c0+nc] for c = 0..P-1 (n = nbr[a], p1 = pos[a, b]): a permutation of
-// the columns of one contiguous row of the neighbour's block, state[n, p1,
-// 0:P, c0:c0+ncp], P cells at a stride of C elements, the same
-// permutation pos[a, .] for every row b of the slot.  So one thread of the
-// warp that reduces the row copies it in storage order with one TMA copy
+// and C are multiples of 16 bytes, whose state is 16-byte aligned and whose
+// row tile has fewer rows than the block has warps: make_stream_plan).  Row
+// b of gathered slot a is state[n, p1, pos[a, c], c0:c0+nc] for c =
+// 0..P-1 (n = nbr[a], p1 = pos[a, b]): a permutation of the columns of one
+// contiguous row of the neighbour's block, state[n, p1, 0:P, c0:c0+ncp], P
+// cells at a stride of C elements, the same permutation pos[a, .] for every
+// row b of the slot.  So the row is copied in storage order by one TMA copy
 // of a {ncp, P} box of the state seen as [N*P*P rows, C channels] (channels
-// past C come back as zeros), which completes on the warp's own mbarrier,
-// and the warp applies the permutation when it reads the row: lane (h, q)
-// reads column c at cell pos[a, c] of the buffer, and zeros where pos[a, c]
-// is absent (stream_rows_tma, tile_reductions).  A row whose p1 is absent
-// is not copied and adds nothing.  Where the cp.async route pays the index
-// arithmetic, the absence tests and the issue of one 16-byte copy per cell
-// (128 copies a row of 64 cells of 8 float32 channels), this route issues
-// one instruction a row.
-//
+// past C come back as zeros), and its reader applies the permutation.  One
+// producer warp issues every row's copy, up to D stages ahead, through a
+// ring of D buffers with a full and an empty mbarrier each; the other warps
+// only reduce (stream_rows_producer, tile_reductions).  A row whose p1 is
+// absent is not copied and adds nothing.  Where the cp.async route pays the
+// index arithmetic, the absence tests and the issue of one 16-byte copy per
+// cell (128 copies a row of 64 cells of 8 float32 channels), this route
+// issues one instruction a row, in a warp of its own.
+
 // The reductions of a staged slot need no atomics and no shared
 // read-modify-write.  A warp takes one row b; its lane (h, q) owns four
 // channels q of the columns h, h + H, ... and loads each owned cell once,
@@ -74,6 +74,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <type_traits>
+
 #include "risi18_common.cuh"
 
 namespace risi18 {
@@ -84,7 +86,7 @@ namespace level {
 // the first thread of block (0, 0, 0) adds the cycles since its last mark
 // to stage_cycles[i].  Compiled out of every other build.
 #ifdef RISI18_STAGE_CLOCK
-__device__ long long stage_cycles[16];
+__device__ long long stage_cycles[24];
 #define STAGE_CLOCK_START() long long stage_last = clock64()
 #define STAGE(i)                                                         \
   do {                                                                   \
@@ -95,9 +97,9 @@ __device__ long long stage_cycles[16];
       stage_last = now;                                                  \
     }                                                                    \
   } while (0)
-// Copies the 16 sums to `host` and zeroes them; returns a cudaError_t.
+// Copies the 24 sums to `host` and zeroes them; returns a cudaError_t.
 inline int read_stage_cycles(long long* host) {
-  const long long zeros[16] = {0};
+  const long long zeros[24] = {0};
   cudaError_t err = cudaMemcpyFromSymbol(host, stage_cycles, sizeof(zeros));
   if (err != cudaSuccess) return err;
   return cudaMemcpyToSymbol(stage_cycles, zeros, sizeof(zeros));
@@ -108,11 +110,24 @@ inline int read_stage_cycles(long long* host) {
 // the next stage's copies and reducing the stage, to
 // stage_cycles[kPieceWait..kPieceReduce], and the stages to
 // stage_cycles[kPieces].
-enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces };
+// On the tensor-copy route (stream_rows_producer) thread 0 is a consumer:
+// it adds its cycles a stage waiting on the full mbarrier and reducing, and
+// those it spends arriving on the empty one to stage_cycles[
+// kConsumerRelease]; lane 0 of the producer warp adds its cycles waiting on
+// the empty mbarrier and issuing the stage's copies, and its stages, to
+// stage_cycles[kProducerWait..kProducerStages].
+enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces,
+       kConsumerRelease, kProducerWait, kProducerIssue, kProducerStages };
 #define PIECE_MARK(t) const long long t = clock64()
 #define PIECE_ADD(i, d)                                                  \
   do {                                                                   \
     if (!(blockIdx.x | blockIdx.y | blockIdx.z | threadIdx.x))           \
+      risi18::level::stage_cycles[i] += (d);                             \
+  } while (0)
+#define PRODUCER_ADD(i, d)                                               \
+  do {                                                                   \
+    if (!(blockIdx.x | blockIdx.y | blockIdx.z) &&                       \
+        threadIdx.x == 32 * risi18::level::kProducerWarp)                \
       risi18::level::stage_cycles[i] += (d);                             \
   } while (0)
 #else
@@ -120,6 +135,18 @@ enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces };
 #define STAGE(i)
 #define PIECE_MARK(t)
 #define PIECE_ADD(i, d)
+#define PRODUCER_ADD(i, d)
+#endif
+
+// The SASS marks, for tools/sass_count.py, which builds K1 with
+// -DRISI18_SASS_MARK: a NANOSLEEP where a tensor-copy consumer's row
+// reduction starts and one where its sum over the lanes starts, so that the
+// instructions of its cells can be counted in cuobjdump's listing between
+// them.  Compiled out of every other build.
+#ifdef RISI18_SASS_MARK
+#define SASS_MARK() asm volatile("nanosleep.u32 0;\n" ::: "memory")
+#else
+#define SASS_MARK()
 #endif
 
 
@@ -146,12 +173,18 @@ struct StreamPlan {
                // stream_reductions_wide sums them in shared memory
   int rows;    // rows of the maps: P, or the rows X of a row tile (a
                // row-tiled plan: see tile_reductions)
-  int tma;     // 1: a warp's gathered row arrives by one tensor copy
-               // (stream_rows_tma); 0: by cp.async, cell by cell
+  int tma;     // 1: a gathered row arrives by one tensor copy that a
+               // producer warp issues (stream_rows_producer); 0: by
+               // cp.async, cell by cell
+  int no_producer;  // 1: the tensor-copy route but for a warp left for
+                    // its producer (a row tile of a row a warp): the
+                    // planners pass such a tile over for a smaller one
   // A ring buffer holds pieces(sp) pieces of `rows` rows: 1, or in a
   // row-tiled plan whose warps keep their cells of T_bc and M10 in
-  // registers, up to kThreads / 32 / rows (tile_reductions).  It is kept
-  // in slotb, so that the untiled blocks' plan keeps its layout.
+  // registers, up to kThreads / 32 / rows (tile_reductions; on the
+  // tensor-copy route up to (kThreads / 32 - 1) / rows, one warp being the
+  // producer).  It is kept in slotb, so that the untiled blocks' plan keeps
+  // its layout.
 };
 
 __host__ __device__ inline int pieces(const StreamPlan& sp) {
@@ -188,11 +221,16 @@ constexpr int kTmaAlign = 128;
 // The plan of the stream for element size `es`.  `aligned`: the bytes the
 // state's base address is a multiple of (16, 8, 4 or 2).  `rows`: the rows
 // of a row tile, 0 for none (every row: a buffer holds a whole slot).
-// `gathered_rows`: the block gathers its slots and a warp copies the row
-// it reduces (a cluster plan of K1 or K2); the stream then takes the
-// tensor-copy route where the plan allows it (tile_regs: a warp reduces a
-// row; a row's box of ncp channels and the state's rows of C channels
-// multiples of 16 bytes; the state 16-byte aligned), whatever the data.
+// `gathered_rows`: the block gathers its slots and a warp reduces whole
+// rows (a cluster plan of K1 or K2); the stream then takes the tensor-copy
+// route where the plan allows it (tile_regs: a warp reduces a row; fewer
+// rows a tile than warps, so that one warp can be the producer; a row's box
+// of ncp channels and the state's rows of C channels multiples of 16
+// bytes; the state 16-byte aligned), whatever the data.  A tile of a row a
+// warp that meets the rest is marked no_producer, and the planners take a
+// smaller one: K1 at (64,64,8,4) in float32 took 0.71 ms on cp.async in
+// tiles of 16 rows, 0.30 on the tensor copies in tiles of 4 (an H100;
+// PERF.md).
 inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
                                    int aligned, int rows = 0, int G = 0,
                                    bool gathered_rows = false) {
@@ -200,21 +238,23 @@ inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
   sp.P = P; sp.C = C; sp.Cc = Cc; sp.D = D;
   sp.rows = rows > 0 ? rows : P;
   sp.ncp = Cc <= 4 ? 4 : Cc <= 8 ? 8 : 16;
+  const int nwarps = kThreads / 32, H = 32 / (sp.ncp / 4);
+  const bool copies = gathered_rows && rows > 0 && tile_regs(sp) &&
+                      (sp.ncp * es) % 16 == 0 && (C * es) % 16 == 0 &&
+                      aligned % 16 == 0;
+  sp.tma = copies && rows < nwarps;
+  sp.no_producer = copies && !sp.tma;
   // A row tile of at most one row a warp whose lanes keep their cells of a
   // row (every H-th column, H = 32 / (ncp / 4)) in registers: a ring
-  // buffer can then hold a piece for every group of `rows` warps, G of
-  // them (0: all).
-  const int nwarps = kThreads / 32, H = 32 / (sp.ncp / 4);
+  // buffer can then hold a piece for every group of `rows` reducing warps,
+  // G of them (0: all); on the tensor-copy route one warp is the producer.
   const int most = rows > 0 && rows <= nwarps && (P + H - 1) / H <= kMaxCells
-                       ? nwarps / rows : 1;
+                       ? (sp.tma ? nwarps - 1 : nwarps) / rows : 1;
   G = G > 0 && G < most ? G : most;
   int unit = 16;
   while (unit >= 4 && ((C * es) % unit || (Cc * es) % unit || aligned % unit))
     unit /= 2;
   sp.unit = unit >= 4 ? unit : 0;
-  sp.tma = gathered_rows && rows > 0 && tile_regs(sp) &&
-           (sp.ncp * es) % 16 == 0 && (C * es) % 16 == 0 &&
-           aligned % 16 == 0;
   // A copy's target is aligned: 16 bytes for cp.async, 128 for a tensor
   // copy.
   sp.rowb = round_up(P * sp.ncp * es, sp.tma ? kTmaAlign : 16);
@@ -224,10 +264,19 @@ inline StreamPlan make_stream_plan(int P, int C, int Cc, int D, int es,
   return sp;
 }
 
-// Words of the ring, the maps, the vectors and the scalars of a chunk.
+// Words of the tensor-copy route's piece list and whole slots' weights
+// (tile_reductions), 0 on the cp.async route: a tile streams fewer than 2P
+// pieces (P slots' rows X, and the other rows of at most `rows` slots), and
+// a whole slot has a weight pair a storage column.
+__host__ __device__ inline int producer_words(const StreamPlan& sp) {
+  return sp.tma ? 2 * sp.P + 2 * sp.rows * sp.P : 0;
+}
+
+// Words of the ring, the maps, the vectors and the scalars of a chunk (and
+// producer_words).
 inline int stream_words(const StreamPlan& sp) {
   return sp.D * sp.slotb / 4 + kMaps * sp.mapw + 4 * sp.rows * sp.ncp
-         + 4 * sp.ncp;
+         + 4 * sp.ncp + producer_words(sp);
 }
 
 // A block's pointers into its stream area.
@@ -243,7 +292,10 @@ struct StreamBuffers {
   float* s14;
   float* s15;
   float* t18;
-  uint64_t* bars;  // [kThreads / 32][D]: the warps' mbarriers (tma)
+  int* plist;      // [< 2P]: the tile's pieces (tma; piece_entry)
+  float2* wts;     // [rows][P]: a whole slot's weights a storage column
+                   // (tma; tile_reductions)
+  uint64_t* bars;  // [2][D]: the ring's full and empty mbarriers (tma)
   __device__ float* map(int which, int mapw) const {
     return maps + which * mapw;
   }
@@ -254,20 +306,23 @@ __host__ __device__ inline int ring_words(const StreamPlan& sp) {
   return sp.D * sp.slotb / 4;
 }
 
-// Words of the warps' mbarriers of a stream on the tensor-copy route (one
-// for each warp and ring buffer), 0 on the cp.async route.
+// Words of the mbarriers of a stream on the tensor-copy route (a full and
+// an empty one for each ring buffer), 0 on the cp.async route.
 __host__ __device__ inline int barrier_words(const StreamPlan& sp) {
-  return sp.tma ? 2 * (kThreads / 32) * sp.D : 0;
+  return sp.tma ? 4 * sp.D : 0;
 }
 
-// The buffers of a stream area at `at`: the ring, then the maps, vectors
-// and scalars; or, with `ring` given, the ring there and the rest at `at`
-// (stream_words(sp) - ring_words(sp) words).  `bars`: the warps'
-// mbarriers (barrier_words), where the stream takes the tensor copies.
+// The buffers of a stream area at `at`: the ring, then the maps, vectors,
+// scalars (and the piece list and weights); or, with `ring` given, the ring
+// there and the rest at `at` (stream_words(sp) - ring_words(sp) words);
+// with `lists` given, the piece list and weights there (producer_words(sp)
+// words fewer at `at`).  `bars`: the ring's mbarriers (barrier_words),
+// where the stream takes the tensor copies.
 __device__ inline StreamBuffers stream_buffers(float* at,
                                                const StreamPlan& sp,
                                                float* ring = nullptr,
-                                               float* bars = nullptr) {
+                                               float* bars = nullptr,
+                                               float* lists = nullptr) {
   StreamBuffers s;
   s.bars = reinterpret_cast<uint64_t*>(bars);
   s.ring = reinterpret_cast<char*>(ring ? ring : at);
@@ -278,6 +333,8 @@ __device__ inline StreamBuffers stream_buffers(float* at,
   float* c = v + 4 * n;
   s.tfull = c; s.s14 = c + sp.ncp; s.s15 = c + 2 * sp.ncp;
   s.t18 = c + 3 * sp.ncp;
+  s.plist = reinterpret_cast<int*>(lists ? lists : c + 4 * sp.ncp);
+  s.wts = reinterpret_cast<float2*>(s.plist + 2 * sp.P);
   return s;
 }
 
@@ -340,6 +397,12 @@ __device__ __forceinline__ void fence_mbarrier_init() {
 // copies (the async proxy) that a later barrier lets start.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One arrival.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_address(bar)) : "memory");
 }
 
 // One arrival that also expects `bytes` of tensor copies (0: none).
@@ -672,17 +735,11 @@ struct GatheredSlots {
     return (snbr[a] | spos[a * sp.P + b]) >= 0;
   }
 
-  // Row b of slot a in storage order, state[n, p1, 0:P, c0:c0+ncp], into
-  // `row` by one tensor copy (one thread), arriving on `bar` with the
-  // bytes it expects: none where the row is absent, which is not copied.
-  __device__ __forceinline__ void issue_row_tma(const StreamPlan& sp,
-                                                char* row, int a, int b,
-                                                int c0, uint64_t* bar) const {
-    const bool present = row_present(sp, a, b);
-    mbar_arrive_expect(bar, present ? sp.P * sp.ncp * (int)sizeof(E) : 0);
-    if (present)
-      tma_load_2d(row, map, c0, (snbr[a] * sp.P + spos[a * sp.P + b]) * sp.P,
-                  bar);
+  // The tensor map's row of row b of slot a, present: the first of the P
+  // rows of state[n, p1, 0:P, :] (stream_rows_producer copies them).
+  __device__ __forceinline__ int row_y(const StreamPlan& sp, int a,
+                                       int b) const {
+    return (snbr[a] * sp.P + spos[a * sp.P + b]) * sp.P;
   }
 };
 
@@ -1443,76 +1500,109 @@ __device__ inline void stream_rows(const Src& src, const StreamPlan& sp,
   __syncthreads();
 }
 
-// stream_rows on the tensor-copy route (sp.tma; a gathered source): warp w
-// owns row w % sp.rows of piece w / sp.rows of every stage as there, and
-// its lane 0 copies the row in storage order with one tensor copy
-// (GatheredSlots::issue_row_tma) that completes on the warp's mbarrier of
-// the ring buffer, arming it with the bytes it expects (none for a stage
-// where the warp owns no row, or whose row is absent).  The warp waits on
-// that mbarrier alone, so the warps still drift apart; its barrier after
-// the wait orders its reads of the buffer it last read before the copy that
-// lane 0 then starts into it.  consume(a, b0, buf) runs on the owning warp
-// for a present row only (an absent one adds nothing to the maps, which
-// start at zero); it reads the row through the permutation pos[a, .].  The
-// caller has fenced its threads' writes to shared memory for the async
-// proxy (fence_proxy_async) before the barrier that precedes this.  The
-// mbarriers live for one call: initialised here, invalidated at the end,
-// when every copy has been waited for.  Ends with a barrier.
-template <typename Src, typename Piece, typename Consume>
-__device__ inline void stream_rows_tma(const Src& src, const StreamPlan& sp,
-                                       const StreamBuffers& s, int c0,
-                                       int np, Piece piece, Consume consume) {
+// A piece of the tensor-copy route's list (tile_reductions): slot a, first
+// row b0 (both under 256: P <= 156), and bit bl of `rows` set where row
+// b0 + bl is present (below P, its neighbour and p1 set).
+__host__ __device__ constexpr int piece_entry(int a, int b0, int rows) {
+  return a | b0 << 8 | rows << 16;
+}
+__device__ __forceinline__ int piece_slot(int e) { return e & 255; }
+__device__ __forceinline__ int piece_row(int e) { return (e >> 8) & 255; }
+__device__ __forceinline__ bool piece_has(int e, int bl) {
+  return (e >> (16 + bl)) & 1;
+}
+
+// The warp that issues the tensor-copy route's copies: the last one.
+// (The warps between the consumers and it idle during the stream: three
+// at P = 64, where tiles of 4 rows leave 12 consumers.  Made producers too
+// they split the issue, and the stage took as long on an H100: the copies'
+// 32-byte requests, not the producer's instructions, set its pace;
+// PERF.md.)
+constexpr int kProducerWarp = kThreads / 32 - 1;
+
+// The stream of a tile's pieces on the tensor-copy route (sp.tma; a
+// gathered source): np pieces, s.plist[j] piece j's piece_entry, pieces(sp)
+// = G pieces a stage, a ring buffer a stage.  Warp kProducerWarp is the
+// producer: per stage, its lane g * X + bl issues the copy of row bl of the
+// stage's piece g (state[n, p1, 0:P, c0:c0+ncp] in storage order; none
+// where the row is absent), after lane 0 has armed the buffer's full
+// mbarrier with the stage's bytes, once every consumer has released the
+// buffer on its empty mbarrier (the first D stages wait for nothing).  The
+// consumers are warps w < G * X: warp w takes row bl = w % X of piece w / X
+// of every stage, as in stream_rows, so that it keeps the cells of one
+// tile row in registers; it waits on the full mbarrier, calls
+// consume(entry, row) for a present row only (the row at `row` in storage
+// order), and its lane 0 arrives on the empty one.  The caller has
+// initialised the 2D mbarriers (s.bars: full D with one arrival, then
+// empty D with G * X) and fenced its threads' writes to shared memory for
+// the async proxy (fence_proxy_async) before the barrier that precedes
+// this; they are invalidated here, after the barrier that ends the stream.
+template <typename Src, typename Consume>
+__device__ inline void stream_rows_producer(const Src& src,
+                                            const StreamPlan& sp,
+                                            const StreamBuffers& s, int c0,
+                                            int np, Consume consume) {
   const int D = sp.D, G = pieces(sp), X = sp.rows, ns = (np + G - 1) / G;
   const int pieceb = X * sp.rowb;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int gw = warp / X, bw = warp % X;
-  uint64_t* bars = s.bars + warp * D;
-  auto own = [&](int st, int& a, int& b0) {
-    const int j = st * G + gw;
-    if (gw >= G || j >= np) return false;
-    piece(j, a, b0);
-    return b0 + bw < sp.P;
-  };
-  // Lane 0: the copy of the warp's row of stage st into ring buffer i.
-  auto issue = [&](int st, int i) {
-    int a, b0;
-    if (own(st, a, b0))
-      src.issue_row_tma(sp, s.ring + i * sp.slotb + gw * pieceb + bw * sp.rowb,
-                        a, b0 + bw, c0, bars + i);
-    else
-      mbar_arrive_expect(bars + i, 0);
-  };
-  if (lane == 0) {
-    for (int i = 0; i < D; ++i) mbar_init(bars + i, 1);
-    fence_mbarrier_init();
-    for (int i = 0; i < D - 1 && i < ns; ++i) issue(i, i);
+  uint64_t* full = s.bars;
+  uint64_t* empty = s.bars + D;
+  if (warp == kProducerWarp) {
+    const int g = lane / X, bl = lane % X;
+    const bool issues = lane < G * X;
+    const unsigned row_bytes = sp.P * sp.ncp * (int)sizeof(typename Src::Elem);
+    char* dst = s.ring + g * pieceb + bl * sp.rowb;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int st = 0; st < ns; ++st) {
+      PIECE_MARK(t0);
+      mbar_wait(empty + stage, phase ^ 1u);
+      PIECE_MARK(t1);
+      const int j = st * G + g;
+      const int e = issues && j < np ? s.plist[j] : 0;
+      const bool present = piece_has(e, bl);
+      const unsigned bytes =
+          __reduce_add_sync(0xffffffffu, present ? row_bytes : 0u);
+      if (lane == 0) mbar_arrive_expect(full + stage, bytes);
+      __syncwarp();
+      if (present)
+        tma_load_2d(dst + stage * sp.slotb, src.map, c0,
+                    src.row_y(sp, piece_slot(e), piece_row(e) + bl),
+                    full + stage);
+      PIECE_MARK(t2);
+      PRODUCER_ADD(kProducerWait, t1 - t0);
+      PRODUCER_ADD(kProducerIssue, t2 - t1);
+      PRODUCER_ADD(kProducerStages, 1);
+      if (++stage == D) { stage = 0; phase ^= 1u; }
+    }
+  } else if (warp < G * X) {
+    const int gw = warp / X, bw = warp % X;
+    const char* row = s.ring + gw * pieceb + bw * sp.rowb;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int st = 0; st < ns; ++st) {
+      PIECE_MARK(t0);
+      mbar_wait(full + stage, phase);
+      PIECE_MARK(t1);
+      const int j = st * G + gw;
+      if (j < np) {
+        const int e = s.plist[j];
+        if (piece_has(e, bw)) consume(e, row + stage * sp.slotb);
+      }
+      PIECE_MARK(t2);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + stage);
+      PIECE_MARK(t3);
+      PIECE_ADD(kPieceWait, t1 - t0);
+      PIECE_ADD(kPieceReduce, t2 - t1);
+      PIECE_ADD(kConsumerRelease, t3 - t2);
+      PIECE_ADD(kPieces, 1);
+      if (++stage == D) { stage = 0; phase ^= 1u; }
+    }
   }
-  __syncwarp();
-  unsigned parity = 0;   // bit i: the phase ring buffer i waits for next
-  int stage = 0, ahead = (D - 1) % D;
-  for (int st = 0; st < ns; ++st) {
-    PIECE_MARK(t0);
-    mbar_wait(bars + stage, (parity >> stage) & 1u);
-    parity ^= 1u << stage;
-    __syncwarp();
-    PIECE_MARK(t1);
-    if (lane == 0 && st + D - 1 < ns) issue(st + D - 1, ahead);
-    PIECE_MARK(t2);
-    int a, b0;
-    if (own(st, a, b0) && src.row_present(sp, a, b0 + bw))
-      consume(a, b0, s.ring + stage * sp.slotb + gw * pieceb);
-    PIECE_MARK(t3);
-    PIECE_ADD(kPieceWait, t1 - t0);
-    PIECE_ADD(kPieceIssue, t2 - t1);
-    PIECE_ADD(kPieceReduce, t3 - t2);
-    PIECE_ADD(kPieces, 1);
-    stage = stage + 1 == D ? 0 : stage + 1;
-    ahead = ahead + 1 == D ? 0 : ahead + 1;
-  }
-  __syncwarp();
-  if (lane == 0)
-    for (int i = 0; i < D; ++i) mbar_inval(bars + i);
   __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < 2 * D; ++i) mbar_inval(s.bars + i);
 }
 
 // The maps, row sums and vectors of the tile `tile` (rows [x0, x0 + nx),
@@ -1527,8 +1617,9 @@ __device__ inline void stream_rows_tma(const Src& src, const StreamPlan& sp,
 // stream_rows (a warp copies the row it reduces; the cluster blocks of
 // K1, K2, K4 and K5), else stream_pieces.  kTma (a plan with sp.tma, so
 // kWarpRows and registers; K1's and K2's cluster kernels are compiled for
-// each route): stream_rows_tma, a warp reading its row through the slot's
-// permutation.  The caller has loaded R (and the listed slots) and
+// each route): stream_rows_producer, a producer warp copying every row in
+// storage order (see reduce_tile_row and reduce_slot_row below for how the
+// consumers read it).  The caller has loaded R (and the listed slots) and
 // no thread still reads s.  Ends with a barrier.
 template <bool kGroupD, bool kSelect, bool kDac, typename Src,
           bool kWarpRows = false, bool kTma = false>
@@ -1582,24 +1673,14 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
     }
   };
   // Row bl of a piece (slot a, rows from b0), reduced by this warp; column
-  // c of the row lies at cell c of the buffer, or with kTma at cell
-  // perm[c] (none: -1, which reads zeros).  The picks and the registers of
-  // T_bc and M10 follow the column c.
-  auto reduce_row = [&](int a, int b0, int bl, const char* buf,
-                        const int* perm) {
+  // c of the row lies at cell c of the buffer.
+  auto reduce_row = [&](int a, int b0, int bl, const char* buf) {
     const bool row = b0 == x0, whole = a >= x0 && a < x0 + nx;
     const int b = b0 + bl, wa = (a - x0) * P;
     const float ra = R[a];
     auto cell = [&](int c) {
-      if constexpr (kTma) {
-        const int at = perm[c];
-        return at < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
-                      : load4(reinterpret_cast<const E*>(
-                            buf + bl * sp.rowb + (at * ncp + 4 * q) * es));
-      } else {
-        return load4(reinterpret_cast<const E*>(
-            buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
-      }
+      return load4(reinterpret_cast<const E*>(
+          buf + bl * sp.rowb + (c * ncp + 4 * q) * es));
     };
     float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), ws = ts;
 #pragma unroll
@@ -1660,23 +1741,137 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
   };
 
   for (int i = tid; i < kMaps * sp.mapw; i += nth) s.maps[i] = 0.f;
-  // Every thread's writes to shared memory so far (the ring's zeros, maps
-  // or products that lay over it) ordered before the tensor copies.
-  if constexpr (kTma) fence_proxy_async();
+  if constexpr (kTma) {
+    // The piece list, the whole slots' weights and the ring's mbarriers.
+    for (int j = tid; j < np; j += nth) {
+      int a, b0;
+      piece(j, a, b0);
+      int rows = 0;
+      for (int bl = 0; bl < X && b0 + bl < P; ++bl)
+        rows |= (int)src.row_present(sp, a, b0 + bl) << bl;
+      s.plist[j] = piece_entry(a, b0, rows);
+    }
+    for (int i = tid; i < nx * P; i += nth) {
+      const int xl = i / P, j = i - xl * P;
+      const int* perm = src.spos + (x0 + xl) * P;
+      float cols = 0.f, r = 0.f;
+      for (int c = 0; c < P; ++c) {
+        if (perm[c] == j) {
+          cols += 1.f;
+          r += R[c];
+        }
+      }
+      s.wts[i] = make_float2(cols, r);
+    }
+    if (tid == 0) {
+      for (int i = 0; i < sp.D; ++i) {
+        mbar_init(s.bars + i, 1);
+        mbar_init(s.bars + sp.D + i, pieces(sp) * X);
+      }
+      fence_mbarrier_init();
+    }
+    // Every thread's writes to shared memory so far (the ring's zeros, maps
+    // or products that lay over it) ordered before the tensor copies.
+    fence_proxy_async();
+  }
   __syncthreads();
   bool streamed = false;
   if constexpr (kTma) {
-    static_assert(kWarpRows, "the tensor copies feed stream_rows' warps");
-    stream_rows_tma(src, sp, s, c0, np, piece,
-                    [&](int a, int b0, const char* buf) {
-                      reduce_row(a, b0, bw, buf, src.spos + a * P);
-                    });
+    static_assert(kWarpRows && kGroupD && kSelect && !kDac,
+                  "the tensor copies feed K1's and K2's cluster blocks");
+    // The tensor-copy route's consumers (kTma): a row in storage order at
+    // `rowp`, cell j of it state[n, p1, j, c0:c0+ncp].  A row of the tile's
+    // rows X (b = x0 + bw, the piece's first row x0) reads column c at cell
+    // perm[c] = pos[a, c] (zero where absent), since T_bc's and M10's
+    // registers follow c: four float4 sums a cell and, for a whole slot a in
+    // X, M6's; the same sums in the same order as the cp.async route.
+    // kWhole: a in X.  The picks D_ac[b,a] (and D_bc[a,b]) are one cell
+    // each, read once after the loop by the lanes h = 0.
+    auto cell_at = [&](const char* rowp, int at) {
+      return at < 0 ? make_float4(0.f, 0.f, 0.f, 0.f)
+                    : load4(reinterpret_cast<const E*>(
+                          rowp + (at * ncp + 4 * q) * es));
+    };
+    auto reduce_tile_row = [&](auto whole_tag, int a, const char* rowp) {
+      constexpr bool kWhole = decltype(whole_tag)::value;
+      const int* perm = src.spos + a * P;
+      const int b = x0 + bw, wa = (a - x0) * P;
+      SASS_MARK();
+      const float ra = R[a];
+      float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), ws = ts;
+#pragma unroll
+      for (int k = 0; k < kMaxCells; ++k) {
+        const int c = h + H * k;
+        if (c >= P) break;
+        const float4 x = cell_at(rowp, perm[c]);
+        fma4(acc_tbc[k], 1.f, x);
+        fma4(acc_m10[k], ra, x);
+        fma4(ts, 1.f, x);
+        if constexpr (kWhole) fma4(ws, R[c], x);
+      }
+      SASS_MARK();
+      const float z = reduce_over_columns(ts, ws, h, quads);
+      if (h < 8) {
+        const int ch = 4 * q + (which & 3);
+        if (which < 4) {
+          tabT[(bw * P + a) * ncp + ch] = z;
+          if constexpr (kWhole) tab[(wa + b) * ncp + ch] = z;
+        } else if constexpr (kWhole) {
+          m6[(wa + b) * ncp + ch] = z;
+        }
+      }
+      if (h == 0) {
+        *reinterpret_cast<float4*>(dacT + (bw * P + a) * ncp + 4 * q) =
+            cell_at(rowp, perm[a]);
+        if constexpr (kWhole)
+          *reinterpret_cast<float4*>(dbc + (wa + b) * ncp + 4 * q) =
+              cell_at(rowp, perm[b]);
+      }
+    };
+    // A row b outside X of a whole slot a in X adds only to the slot's
+    // T_ab[a,b] = sum_c x[perm[c]] and M6[a,b] = sum_c R[c] x[perm[c]], which
+    // it reads in storage order against the slot's weights w[j] = (the
+    // columns c with perm[c] = j, the sum of their R[c]), zero for a cell of
+    // no column: no index and no test a cell.  (A cell of no column that held
+    // an infinity or a NaN would leak into the sums, as no finite state
+    // does.)  Then the pick D_bc[a,b] = x[perm[b]].
+    auto reduce_slot_row = [&](int a, int b, const char* rowp) {
+      SASS_MARK();
+      const float2* w = s.wts + (a - x0) * P;
+      float4 ts = make_float4(0.f, 0.f, 0.f, 0.f), ws = ts;
+#pragma unroll
+      for (int k = 0; k < kMaxCells; ++k) {
+        const int j = h + H * k;
+        if (j >= P) break;
+        const float4 x = load4(reinterpret_cast<const E*>(
+            rowp + (j * ncp + 4 * q) * es));
+        const float2 wj = w[j];
+        fma4(ts, wj.x, x);
+        fma4(ws, wj.y, x);
+      }
+      SASS_MARK();
+      const float z = reduce_over_columns(ts, ws, h, quads);
+      const int at = ((a - x0) * P + b) * ncp;
+      if (h < 8) (which < 4 ? tab : m6)[at + 4 * q + (which & 3)] = z;
+      if (h == 0)
+        *reinterpret_cast<float4*>(dbc + at + 4 * q) =
+            cell_at(rowp, src.spos[a * P + b]);
+    };
+    stream_rows_producer(src, sp, s, c0, np, [&](int e, const char* rowp) {
+      const int a = piece_slot(e), b0 = piece_row(e);
+      if (b0 != x0)
+        reduce_slot_row(a, b0 + bw, rowp);
+      else if (a >= x0 && a < x0 + nx)
+        reduce_tile_row(std::true_type{}, a, rowp);
+      else
+        reduce_tile_row(std::false_type{}, a, rowp);
+    });
     streamed = true;
   } else if constexpr (kWarpRows) {
     if (regs) {
       stream_rows(src, sp, s, c0, nc, np, piece,
                   [&](int a, int b0, const char* buf) {
-                    reduce_row(a, b0, bw, buf, nullptr);
+                    reduce_row(a, b0, bw, buf);
                   });
       streamed = true;
     }
@@ -1687,16 +1882,17 @@ __device__ inline void tile_reductions(const Src& src, const float* R,
       const int nb = min(X, P - b0);
       if (regs) {
         if (gw == j % pieces(sp) && bw < nb)
-          reduce_row(a, b0, bw, buf, nullptr);
+          reduce_row(a, b0, bw, buf);
       } else {
         for (int bl = warp; bl < nb; bl += nwarps)   // the whole warp
-          reduce_row(a, b0, bl, buf, nullptr);
+          reduce_row(a, b0, bl, buf);
       }
     });
   }
   if (regs) {
-    // The warps' cells of T_bc and M10, added in warp order.
-    for (int g = 0; g < nwarps / X; ++g) {
+    // The warps' cells of T_bc and M10, added in warp order (on the
+    // tensor-copy route those of the consumer warps).
+    for (int g = 0; g < (kTma ? pieces(sp) : nwarps / X); ++g) {
       if (gw == g && bw < nx) {
 #pragma unroll
         for (int k = 0; k < kMaxCells; ++k) {

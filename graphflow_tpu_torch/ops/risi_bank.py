@@ -229,20 +229,29 @@ def risi18_bank_backward_factored_reference(T, A, K, g):
 # from the slot data the kernels stream for it and nothing else.  Nothing
 # on the main path calls them.
 
-def _tile_maps(T, R, x0, x1):
+def _tile_maps(T, R, x0, x1, slot_sums=None):
     """The maps of the rows [x0, x1) (``_bank_reductions``' names, map row
     x - x0), from the whole slots a in [x0, x1) and the rows b in [x0, x1)
     of every slot only, as ``csrc/risi18_level_common.cuh:
-    tile_reductions`` forms them."""
+    tile_reductions`` forms them.  ``slot_sums``: (T_ab, M6) [N, P, P, C]
+    of every slot formed another way (the tensor-copy route's, from rows
+    in storage order: ``ops/risi_level.py:risi18_slot_row_sums_reference``),
+    which give the whole slots' rows b outside [x0, x1)."""
     Tw = T[:, x0:x1]                 # whole slots   [N, nx, P(b), P(c), C]
     Tr = T[:, :, x0:x1]              # rows of slots [N, P(a), nx, P(c), C]
     tab = Tw.sum(3)                                     # T_ab[x, y]
+    m6 = torch.einsum("nxbcf,nc->nxbf", Tw, R)
+    if slot_sums is not None:
+        outside = torch.ones(T.shape[2], dtype=torch.bool, device=T.device)
+        outside[x0:x1] = False
+        outside = outside[None, None, :, None]
+        tab = torch.where(outside, slot_sums[0][:, x0:x1], tab)
+        m6 = torch.where(outside, slot_sums[1][:, x0:x1], m6)
     tabT = Tr.sum(3).transpose(1, 2)                    # T_ab[y, x]
     dbc = Tw.diagonal(dim1=2, dim2=3).movedim(-1, 2)    # T[x, y, y]
     dacT = Tr.diagonal(dim1=1, dim2=3).movedim(-1, 2)   # T[y, x, y]
     return dict(
-        tab=tab, tabT=tabT, tbc=Tr.sum(1), dbc=dbc, dacT=dacT,
-        m6=torch.einsum("nxbcf,nc->nxbf", Tw, R),
+        tab=tab, tabT=tabT, tbc=Tr.sum(1), dbc=dbc, dacT=dacT, m6=m6,
         m10=torch.einsum("naxcf,na->nxcf", Tr, R),
         ta=tab.sum(2), tb=tabT.sum(2), tdbc=dbc.sum(2), tdac=dacT.sum(2))
 
@@ -291,7 +300,7 @@ def risi18_bank_tiled_reference(T, A, K, rows):
     return torch.cat(Z, 1).to(dtype)
 
 
-def risi18_bank_cluster_reference(T, A, K, rows, cluster):
+def risi18_bank_cluster_reference(T, A, K, rows, cluster, slot_sums=None):
     """Z of the bank (:func:`risi18_bank_factored_reference`) as
     ``csrc/risi18_forward_block.cuh:forward_block_cluster`` forms it: the
     row tiles of ``rows`` rows spread over a cluster of ``cluster`` blocks,
@@ -301,8 +310,8 @@ def risi18_bank_cluster_reference(T, A, K, rows, cluster):
     part of s from the tile's whole slots (Tfull K5 + s14 K14 + s15 K15 +
     t18 K18 over the slots a in X); s = the blocks' parts added in rank
     order; then Z's rows X = pre + Ap s.  No pass over the slots for the
-    scalars alone.  Computed in float32 (float64 for float64) and cast to
-    T's dtype once."""
+    scalars alone.  ``slot_sums`` as :func:`_tile_maps` takes it.  Computed
+    in float32 (float64 for float64) and cast to T's dtype once."""
     ct, dtype = _compute_dtype(T), T.dtype
     T, A, K = T.to(ct), A.to(ct), K.to(ct)
     N, P, _, _, C = T.shape
@@ -314,7 +323,7 @@ def risi18_bank_cluster_reference(T, A, K, rows, cluster):
         part = torch.zeros(N, Kc.shape[2], dtype=ct, device=T.device)
         for t in range(rank, len(tiles), cluster):
             x0, x1 = tiles[t]
-            m = _tile_maps(T, R, x0, x1)
+            m = _tile_maps(T, R, x0, x1, slot_sums)
             z = ((m["tab"] * S) @ Kc[0] + (m["tab"] * trA) @ Kc[6]
                  + (m["tbc"] * S) @ Kc[2] + m["m6"] @ Kc[5]
                  + m["m10"] @ Kc[9])
@@ -353,12 +362,13 @@ def backward_sums_reference(G, A):
     return GAp, sums
 
 
-def _bank_backward_cluster(T, A, K, G, rows, cluster):
+def _bank_backward_cluster(T, A, K, G, rows, cluster, slot_sums=None):
     """(dT, dK, [db's part of each block]) of the bank for the cotangent G
     [N, P, P, Cout] in row tiles of ``rows`` rows over a cluster of
     ``cluster`` blocks, block ``rank`` taking the tiles rank, rank +
     cluster, ..., in T's dtype (no rounding): see
-    :func:`risi18_bank_backward_cluster_reference`."""
+    :func:`risi18_bank_backward_cluster_reference` (``slot_sums`` as
+    :func:`_tile_maps` takes it)."""
     N, P, _, _, C = T.shape
     Cout, dev, ct = K.shape[1], T.device, T.dtype
     Kc = K.reshape(18, C, Cout)
@@ -393,7 +403,7 @@ def _bank_backward_cluster(T, A, K, G, rows, cluster):
         dKr = torch.zeros(18, C, Cout, dtype=ct)
         sc = torch.zeros(4, N, C, dtype=ct)       # Tfull, s14, s15, t18
         for x0, x1 in own_tiles(rank):
-            m = _tile_maps(T, R, x0, x1)
+            m = _tile_maps(T, R, x0, x1, slot_sums)
             Gx, GApx, GRx = G[:, x0:x1], GAp[:, x0:x1], GR[:, x0:x1]
             for k, a, x in ((0, m["tab"] * S, Gx), (2, m["tbc"] * S, Gx),
                             (5, m["m6"], Gx), (6, m["tab"] * trA, Gx),

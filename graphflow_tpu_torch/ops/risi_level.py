@@ -16,7 +16,10 @@ whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
 ``risi18_level_backward_reference`` its plain version.
 ``risi18_row_gather_reference`` forms the gathered slots as the cluster
 plans' tensor-copy route does (a neighbour's row copied in storage order,
-then read through the slot's permutation of its columns).
+then read through the slot's permutation of its columns);
+``risi18_slot_row_sums_reference`` the row sums that route's consumers
+read in storage order against a slot's weights, and ``producer_pieces``
+the pieces a tile streams there.
 ``risi18_level_factored_reference`` and
 ``risi18_level_backward_factored_reference`` are the same two functions in
 the algebra the kernels use (nine map products and the adjacency applied
@@ -147,7 +150,7 @@ def risi18_row_gather_reference(state, nbr, pos, chunk=16):
     """The aligned slots T [V, P, P, P, C] of ``nbr`` [V, P] and ``pos``
     [V, P, P] over ``state`` [N, P, P, C], formed as K1's and K2 kernel 1's
     cluster plans stream them on the tensor-copy route
-    (``csrc/risi18_level_common.cuh:GatheredSlots::issue_row_tma``,
+    (``csrc/risi18_level_common.cuh:stream_rows_producer``,
     ``tile_reductions``), chunk by chunk of ``chunk`` channels (the box's
     width, ncp): row b of slot a is the neighbour's row state[n, p1, :,
     c0:c0+chunk] in storage order (n = nbr[v, a], p1 = pos[v, a, b]), zeros
@@ -181,6 +184,71 @@ def risi18_row_gather_reference(state, nbr, pos, chunk=16):
     return torch.cat(parts, -1)
 
 
+def risi18_slot_weights(pos, R):
+    """The weights against which the tensor-copy route's consumers read a
+    row of a whole slot in storage order (``csrc/risi18_level_common.cuh:
+    tile_reductions``): for pos [V, P, P] and R [V, P], cols[v, a, j] the
+    number of columns c with pos[v, a, c] = j and rw[v, a, j] the sum of
+    R[v, c] over them, in c's order; zero for a cell that no column reads
+    (a position outside [0, P) reads none) -> (cols, rw) [V, P, P] in R's
+    dtype."""
+    P = pos.shape[-1]
+    hit = (pos[..., None] == torch.arange(P, device=pos.device)).to(R.dtype)
+    return hit.sum(2), torch.einsum("vacj,vc->vaj", hit, R)
+
+
+def risi18_slot_row_sums_reference(state, nbr, pos, radj):
+    """T_ab[a, b] = sum_c T[a, b, c] and M6[a, b] = sum_c R[c] T[a, b, c]
+    of every slot, formed as the tensor-copy route's consumers form them for
+    the rows b of a whole slot outside its tile: the neighbour's row
+    state[n, p1, :, :] in storage order (zeros for an absent n or p1)
+    against the slot's weights (:func:`risi18_slot_weights`), T_ab =
+    sum_j cols[a, j] row[j] and M6 = sum_j rw[a, j] row[j], with no index
+    a cell -> (tab, m6) [V, P, P, C], computed as
+    :func:`risi18_level_reference` computes.  The same values in another
+    order of sums."""
+    ct = _COMPUTE[state.dtype]
+    N, P = state.shape[:2]
+    n_ok = (nbr >= 0) & (nbr < N)
+    p_ok = (pos >= 0) & (pos < P)
+    n = torch.where(n_ok, nbr, 0).long()
+    p = torch.where(p_ok, pos, 0).long()
+    rows = state.to(ct)[n[:, :, None], p]           # [V, a, b, P(j), C]
+    rows = torch.where((n_ok[:, :, None] & p_ok)[..., None, None], rows,
+                       rows.new_zeros(()))
+    cols, rw = risi18_slot_weights(pos, radj.to(ct).clamp(min=0).sum(-1))
+    return (torch.einsum("vabjf,vaj->vabf", rows, cols),
+            torch.einsum("vabjf,vaj->vabf", rows, rw))
+
+
+def producer_pieces(nbr, pos, N, rows, tile):
+    """The pieces that tile ``tile`` (rows [x0, x0 + rows) of the field,
+    x0 = tile * rows) of one vertex streams on the tensor-copy route, as
+    ``csrc/risi18_level_common.cuh:tile_reductions`` lists them before the
+    stream (``piece_entry``), for the vertex's nbr [P] and pos [P, P]
+    (absent: outside [0, N) and [0, P)): a list of (a, b0, present).
+    First the rows from x0 of every listed slot a (its neighbour present
+    and a position set: ``list_slots``), then, for each listed slot a in
+    the tile, its other row groups b0 = 0, rows, ... in order; ``present``
+    has one bool a row b0 + bl < P, whether the row is copied and reduced
+    (its neighbour and p1 present).  A tile streams fewer than 2P pieces,
+    the words its list takes (``producer_words``)."""
+    P = len(nbr)
+    nbr, pos = [int(x) for x in nbr], [[int(x) for x in r] for r in pos]
+    n_ok = [0 <= x < N for x in nbr]
+    p_ok = [[0 <= x < P for x in r] for r in pos]
+    slots = [a for a in range(P) if n_ok[a] and any(p_ok[a])]
+    x0, nrg = tile * rows, -(-P // rows)
+    nx = min(rows, P - x0)
+    mine = [a for a in slots if x0 <= a < x0 + nx]
+    pieces = [(a, x0) for a in slots]
+    pieces += [(a, (r if r < tile else r + 1) * rows) for a in mine
+               for r in range(nrg - 1)]
+    return [(a, b0, [n_ok[a] and p_ok[a][b] for b in
+                     range(b0, min(P, b0 + rows))]) for a, b0 in pieces]
+
+
+
 def risi18_level_cluster_reference(state, nbr, pos, radj, K, b, rows,
                                    cluster, negslope=0.01, chunk=16):
     """The level as K1's cluster plan forms it
@@ -189,15 +257,19 @@ def risi18_level_cluster_reference(state, nbr, pos, radj, K, b, rows,
     chunks of ``chunk`` channels (:func:`risi18_row_gather_reference`),
     then the bank in row tiles of ``rows`` rows over a cluster of
     ``cluster`` blocks (``ops/risi_bank.py:risi18_bank_cluster_reference``:
-    each block's tiles, the scalar cases' parts added in rank order), then
-    b and LeakyReLU, computed as :func:`risi18_level_reference` computes
-    and rounded once."""
+    each block's tiles, the scalar cases' parts added in rank order; a
+    whole slot's rows outside its tile read in storage order against the
+    slot's weights, :func:`risi18_slot_row_sums_reference`), then b and
+    LeakyReLU, computed as :func:`risi18_level_reference` computes and
+    rounded once."""
     from graphflow_tpu_torch.ops.risi_bank import risi18_bank_cluster_reference
 
     ct = _COMPUTE[state.dtype]
     N, P, _, C = state.shape
     T = risi18_row_gather_reference(state.to(ct), nbr, pos, chunk)
-    Z = risi18_bank_cluster_reference(T, radj.to(ct), K.to(ct), rows, cluster)
+    Z = risi18_bank_cluster_reference(
+        T, radj.to(ct), K.to(ct), rows, cluster,
+        risi18_slot_row_sums_reference(state, nbr, pos, radj))
     Z = Z.reshape(N, P * P, -1) + b.to(ct)
     return leaky_relu(Z, negslope).to(state.dtype)
 
@@ -211,9 +283,11 @@ def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
     tensor-copy route gathers them (:func:`risi18_row_gather_reference`,
     chunks of ``chunk`` channels); per block of a cluster of ``cluster``,
     its row tiles of ``rows`` rows give its parts of GA, db and dK and dT
-    of its rows b (``ops/risi_bank.py:_bank_backward_cluster``); GA, dK and
-    db are the blocks' parts added in rank order, and dT goes back through
-    the gather.  -> (dstate, dK, db), each in the dtype of its parameter."""
+    of its rows b (``ops/risi_bank.py:_bank_backward_cluster``; a whole
+    slot's rows outside its tile read against the slot's weights,
+    :func:`risi18_slot_row_sums_reference`); GA, dK and db are the blocks'
+    parts added in rank order, and dT goes back through the gather.  ->
+    (dstate, dK, db), each in the dtype of its parameter."""
     from graphflow_tpu_torch.ops.risi_bank import _bank_backward_cluster
 
     ct = _COMPUTE[state.dtype]
@@ -225,8 +299,9 @@ def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
     with torch.enable_grad():
         leaf = state.detach().to(ct).requires_grad_()
         T = risi18_row_gather_reference(leaf, nbr, pos, chunk)
-    dT, dK, db_parts = _bank_backward_cluster(T.detach(), radj.to(ct),
-                                              K.to(ct), G, rows, cluster)
+    dT, dK, db_parts = _bank_backward_cluster(
+        T.detach(), radj.to(ct), K.to(ct), G, rows, cluster,
+        risi18_slot_row_sums_reference(state.detach(), nbr, pos, radj))
     (dstate,) = torch.autograd.grad(T, leaf, dT)
     db = db_parts[0]
     for part in db_parts[1:]:
@@ -258,6 +333,10 @@ BACKWARD_PLAN_KEYS = PLAN_KEYS[:-1] + ("scratch_bytes", "sums_smem_bytes",
                                        "stream")
 
 
+# A plan's ``stream`` field -> its name.
+STREAMS = ("cp_async", "tma_producer")
+
+
 def alignment_of(t):
     """The bytes ``t``'s first element's address is a multiple of, up to
     16, as the launchers read it (``csrc/risi18_level_common.cuh:
@@ -279,10 +358,12 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False,
     ``cluster`` (blocks a cluster of a cluster plan, 0 for one block a
     vertex or vertex group), ``tiles_per_block`` (row tiles a block of the
     cluster takes), ``mma`` (1: the products run on the tensor cores) and
-    ``stream`` (``"tma"``: a warp's gathered row arrives by one tensor copy
-    and is read through the slot's permutation, on a cluster plan of K1 or
-    K2 whose chunk and C are multiples of 16 bytes over a 16-byte aligned
-    state; else ``"cp_async"``, a copy a cell); None where no plan fits.
+    ``stream`` (``"tma_producer"``: a producer warp copies every gathered
+    row with one tensor copy and the other warps only reduce, reading a row
+    through the slot's permutation or against its weights, on a cluster
+    plan of K1 or K2 whose chunk and C are multiples of 16 bytes over a
+    16-byte aligned state and whose row tile has at most 15 rows; else
+    ``"cp_async"``, a copy a cell); None where no plan fits.
     N matters to a cluster plan only: a cluster takes fewer blocks where
     the grid of one block a vertex already fills the card
     (``csrc/risi18_level_common.cuh:cluster_shape``).  A backward plan
@@ -299,7 +380,7 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False,
     got = {k: int(v) for k, v in zip(keys, plan)}
     if backward:
         got["scratch_bytes"] *= 4 * N
-    got["stream"] = "tma" if got["stream"] else "cp_async"
+    got["stream"] = STREAMS[got["stream"]]
     return got
 
 
@@ -470,7 +551,7 @@ def _forward_kernel(state, nbr, pos, radj, K, b, negslope):
     _raise_on(err, "risi18_level", lib.risi18_level_error_string,
               _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level.launches += 1
-    if plan is not None and plan["stream"] == "tma":
+    if plan is not None and plan["stream"] == "tma_producer":
         risi18_level.tma_launches += 1
     return out
 
@@ -569,7 +650,7 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope,
     _raise_on(err, "risi18_level_backward", lib.risi18_level_bwd_error_string,
               _where(N, P, C, Cout, dt) + (f", plan {plan}" if err else ""))
     risi18_level_backward.launches += 1
-    if plan is not None and plan["stream"] == "tma":
+    if plan is not None and plan["stream"] == "tma_producer":
         risi18_level_backward.tma_launches += 1
     return dstate, partial
 
@@ -653,8 +734,8 @@ def risi18_level_backward(state, nbr, pos, radj, K, b, out, g,
 risi18_level_backward.sums_launches = 0     # kernel 0 (cluster plans)
 risi18_level_backward.launches = 0          # kernel 1 (dstate, partials)
 risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db; bf16: dstate)
-# Of kernel 1's launches, those whose stream took the tensor copies (the
-# plan's ``stream``, for the state's alignment).
+# Of kernel 1's launches, those whose stream took the producer's tensor
+# copies (the plan's ``stream`` "tma_producer", for the state's alignment).
 risi18_level_backward.tma_launches = 0
 
 
@@ -695,5 +776,6 @@ def risi18_level(state, nbr, pos, radj, K, b, negslope=0.01):
 
 
 risi18_level.launches = 0
-# Of K1's launches, those whose stream took the tensor copies.
+# Of K1's launches, those whose stream took the producer's tensor copies
+# (the plan's ``stream`` "tma_producer").
 risi18_level.tma_launches = 0

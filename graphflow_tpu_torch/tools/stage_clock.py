@@ -17,9 +17,14 @@ K1's and K2's, named for what the bank does there.  On a row-tiled plan
 block's stream (a ring buffer's pieces of a few rows) and thread 0's
 cycles a stage: waiting for the copies (and, one block a vertex, the
 block), issuing the next copies, reducing the stage.  K1's and K2's lines
-name the stream's route from their plans: ``tma`` (thread 0, lane 0 of its
-warp, issues one tensor copy a row and waits on its warp's mbarrier) or
-``cp_async`` (every lane issues its cells' copies).  K1 and K2 run such a field on cluster plans
+name the stream's route from their plans: ``tma_producer`` or ``cp_async``
+(every lane issues its cells' copies).  On ``tma_producer`` thread 0 is a
+consumer, which issues no copy: its line gives its cycles a stage waiting
+on the ring buffer's full mbarrier, issuing (none), reducing and arriving
+on the empty mbarrier; a line of its own gives the producer's (lane 0 of
+the last warp, which issues every row's tensor copy) cycles a stage
+waiting on the empty mbarrier and issuing the stage's copies.  K1 and K2
+run such a field on cluster plans
 (a vertex's row tiles over a cluster of blocks), whose marks it prints as
 well: block (0, 0, 0) is rank 0 of the first cluster, and its marks split
 its own tiles into the stream, the products and the rest, and name the
@@ -78,24 +83,42 @@ def build(name: str) -> ctypes.CDLL:
 
 
 # stage_cycles[10..13] of a row-tiled block (csrc/risi18_level_common.cuh:
-# stream_pieces, stream_rows, stream_rows_tma): thread 0's cycles per stage
-# (a ring buffer's pieces) waiting for its copies (stream_pieces: and the
-# block), issuing the next stage's copies, reducing the stage; the stages.
+# stream_pieces, stream_rows, stream_rows_producer): thread 0's cycles per
+# stage (a ring buffer's pieces) waiting for its copies (stream_pieces: and
+# the block; stream_rows_producer: on the full mbarrier), issuing the next
+# stage's copies, reducing the stage; the stages.  [14]: on the tensor-copy
+# route, thread 0's cycles arriving on the empty mbarrier; [15..17] the
+# producer's cycles waiting on the empty mbarrier and issuing the copies,
+# and its stages.
 PIECE_STAGES = ("wait", "issuing copies", "reducing")
 PIECE_SLOT = 10
+RELEASE_SLOT = 14
+PRODUCER_STAGES = ("waiting on empty", "issuing copies")
+PRODUCER_SLOT = 15
+SLOTS = 24     # csrc/risi18_level_common.cuh: stage_cycles
 
 
 def report(what, stages, read_cycles, cluster_stages=None):
-    cycles = (ctypes.c_longlong * 16)()
+    cycles = (ctypes.c_longlong * SLOTS)()
     err = read_cycles(cycles)
     if err != 0:
         raise RuntimeError(f"{what}: reading the stage clock failed ({err})")
     pieces = cycles[PIECE_SLOT + len(PIECE_STAGES)]
+    produced = cycles[PRODUCER_SLOT + len(PRODUCER_STAGES)]
     if pieces:
+        names = PIECE_STAGES + (("arriving on empty",) if produced else ())
+        slots = [PIECE_SLOT + i for i in range(len(PIECE_STAGES))]
         print(f"{what}: row tiles, {pieces} stages in block (0, 0, 0), "
-              f"cycles a stage of its thread 0: " + ", ".join(
-                  f"{name} {cycles[PIECE_SLOT + i] / pieces:.0f}"
-                  for i, name in enumerate(PIECE_STAGES)))
+              f"cycles a stage of its thread 0"
+              + (" (a consumer)" if produced else "") + ": " + ", ".join(
+                  f"{name} {cycles[i] / pieces:.0f}" for name, i in
+                  zip(names, slots + [RELEASE_SLOT])))
+    if produced:
+        print(f"{what}: the producer warp, {produced} stages in block "
+              f"(0, 0, 0), cycles a stage of its lane 0: " + ", ".join(
+                  f"{name} {cycles[PRODUCER_SLOT + i] / produced:.0f}"
+                  for i, name in enumerate(PRODUCER_STAGES)))
+    if pieces:
         if cluster_stages is None or not any(cycles[:len(cluster_stages)]):
             return      # one block a vertex: no marks there
         stages = cluster_stages

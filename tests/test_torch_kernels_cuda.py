@@ -50,8 +50,17 @@ def cuda():
 
 
 def _inputs(N, P, C, Cout, seed, device, empty_vertex=None,
-            dtype=torch.float32):
+            dtype=torch.float32, repeated=False):
+    """Seeded level inputs (random_level_case); ``repeated``: in three
+    slots of each vertex one position repeats another's, so that two
+    columns read one cell of the neighbour's row."""
     d = random_level_case(N, P, C, Cout, seed=seed, empty_vertex=empty_vertex)
+    if repeated:
+        rng = np.random.default_rng(seed)
+        for v in range(N):
+            for a in rng.choice(P, size=3, replace=False):
+                c, c2 = rng.choice(P, size=2, replace=False)
+                d["pos"][v, a, c2] = d["pos"][v, a, c]
     f = {k: torch.as_tensor(d[k], dtype=torch.float32, device=device)
          for k in ("state", "radj", "K", "b")}
     i = {k: torch.as_tensor(d[k], dtype=torch.int32, device=device)
@@ -478,21 +487,30 @@ def tile_regs(P, rows, ncp):
 
 
 def expected_stream(plan, P, C, dtype, aligned=16):
-    """The route a K1 or K2 plan must name: ``"tma"`` (one tensor copy a
-    gathered row) on a cluster plan whose warps reduce a row each, whose
-    box of ncp channels and state rows of C channels are multiples of 16
-    bytes, over a 16-byte aligned state; else ``"cp_async"``."""
+    """The route a K1 or K2 plan must name: ``"tma_producer"`` (a producer
+    warp issues one tensor copy a gathered row, 15 warps at most reduce) on
+    a cluster plan whose warps reduce a row each, whose row tile has at most
+    15 rows, whose box of ncp channels and state rows of C channels are
+    multiples of 16 bytes, over a 16-byte aligned state; else
+    ``"cp_async"``.  A stage of the producer route holds a row for each of
+    its reducing warps (15 // rows pieces), the cp.async route's for each
+    of the 16 warps."""
     es = 2 if dtype == torch.bfloat16 else 4
     ncp = 4 if plan["chunk"] <= 4 else 8 if plan["chunk"] <= 8 else 16
     tma = (plan["cluster"] > 0 and tile_regs(P, plan["rows"], ncp)
-           and ncp * es % 16 == 0 and C * es % 16 == 0 and aligned % 16 == 0)
-    return "tma" if tma else "cp_async"
+           and plan["rows"] < 16 and ncp * es % 16 == 0 and C * es % 16 == 0
+           and aligned % 16 == 0)
+    if tma:
+        assert plan["pieces"] <= 15 // plan["rows"], plan
+    return "tma_producer" if tma else "cp_async"
 
 
 # K1 and K2 kernel 1 on both routes of the stream: C = 32 and 8 (and 4 in
 # float32) take the tensor copies on a cluster plan, C = 3 and 1 and C = 4
 # in bfloat16 (a box of 8 bytes) take cp.async.  (K2 at C = 32 is
-# test_backward_kernel_on_row_tiled_plans_at_every_cluster_size's.)
+# test_backward_kernel_on_row_tiled_plans_at_every_cluster_size's.)  Three
+# slots of every vertex repeat a position, so that the producer route's
+# consumers read a cell that two columns share (a whole slot's weight 2).
 ROUTE_FIELDS = [(P, C, Cout) for P in (33, 37, 40, 50, 64)
                 for C, Cout in ((32, 32), (8, 8), (4, 4), (3, 4), (1, 4))]
 
@@ -502,16 +520,20 @@ ROUTE_FIELDS = [(P, C, Cout) for P in (33, 37, 40, 50, 64)
 def test_level_kernels_on_both_stream_routes_at_every_cluster_size(
         cuda, P, C, Cout, dtype):
     """K1 at every cluster size its size rule picks for this field, and
-    at 140 and 256 vertices (absent neighbours and positions, an empty
-    vertex), against the plain level, its output the same bits from run to
-    run, its plan naming the route the rule gives; K2 kernel 1 the same at
-    its own cluster sizes (dstate, dK, db; dK and db bit for bit)."""
+    at 140 and 256 vertices (absent neighbours and positions, repeated
+    positions, an empty vertex), against the plain level, its output the
+    same bits from run to run, its plan naming the route the rule gives and
+    the route's launch counted as the plan names it; K2 kernel 1 the same
+    at its own cluster sizes (dstate, dK, db; dK and db bit for bit)."""
     for N in cluster_sizes(level_plan, P, C, Cout, dtype):
         plan = level_plan(N, P, C, Cout, dtype)
         assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
         args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
-                       empty_vertex=N // 2, dtype=dtype)
+                       empty_vertex=N // 2, dtype=dtype, repeated=True)
+        before = risi18_level.tma_launches
         out = risi18_level(*args)
+        assert risi18_level.tma_launches - before == (
+            plan["stream"] == "tma_producer"), plan
         _assert_close(out, _level_in_chunks(args))
         assert torch.equal(out, risi18_level(*args)), (N, plan)
     if C == 32:
@@ -520,10 +542,13 @@ def test_level_kernels_on_both_stream_routes_at_every_cluster_size(
         plan = level_backward_plan(N, P, C, Cout, dtype)
         assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
         args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
-                       empty_vertex=N // 2, dtype=dtype)
+                       empty_vertex=N // 2, dtype=dtype, repeated=True)
         g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
         out = same_signs(risi18_level(*args), _level_in_chunks(args))
+        before = risi18_level_backward.tma_launches
         got = risi18_level_backward(*args, out, g)
+        assert risi18_level_backward.tma_launches - before == (
+            plan["stream"] == "tma_producer"), plan
         for x, r in zip(got, _level_backward_in_chunks(args, g)):
             _assert_close(x, r)
         again = risi18_level_backward(*args, out, g)
@@ -539,8 +564,10 @@ def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
     16-byte boundary takes the cp.async route that the plan query names for
     its alignment, one 16 bytes past takes the tensor copies, and both give
     the aligned state's output, dK and db bit for bit where the plans agree
-    but for the route (the same sums in the same order), else within the
-    kernels' bounds."""
+    in every field, the route included (the same sums in the same order),
+    else within the kernels' bounds: the tensor-copy route sums a whole
+    slot's rows outside its tile in storage order, and its stage holds a
+    row for each of 15 warps, the cp.async route's for each of 16."""
     N, P, C, Cout = 6, 64, 32, 32
     args = _inputs(N, P, C, Cout, seed=11, device=cuda, empty_vertex=2,
                    dtype=dtype)
@@ -550,9 +577,9 @@ def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
     out = same_signs(ref_out, _level_in_chunks(args))
     ref = risi18_level_backward(*args, out, g)
     base = level_plan(N, P, C, Cout, dtype)
-    assert base["stream"] == "tma", base
+    assert base["stream"] == "tma_producer", base
     step = 16 // state.element_size()
-    for shift, want in ((1, "cp_async"), (step, "tma")):
+    for shift, want in ((1, "cp_async"), (step, "tma_producer")):
         flat = torch.empty(state.numel() + shift, dtype=dtype, device=cuda)
         view = flat[shift:].view(state.shape)
         view.copy_(state)
@@ -566,10 +593,8 @@ def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
         got_out = risi18_level(view, *args[1:])
         got = risi18_level_backward(view, *args[1:], out, g)
         torch.cuda.synchronize()
-        same = {k: v for k, v in level_plan(N, P, C, Cout, dtype,
-                                            aligned).items()
-                if k not in ("stream", "smem_bytes")} == {
-            k: v for k, v in base.items() if k not in ("stream", "smem_bytes")}
+        same = level_plan(N, P, C, Cout, dtype, aligned) == base
+        assert same == (want == "tma_producer")
         if same:
             assert torch.equal(got_out, ref_out)
             for x, y in zip(got[1:], ref[1:]):
@@ -580,41 +605,51 @@ def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
 
 
 # The shared memory of K1's and K2 kernel 1's cluster plans at P = 64,
-# C = Cout = 32 (tiles of 4 rows, chunks of 8, 4 pieces a stage), with the
-# warps' mbarriers (16 warps x the ring's depth x 8 bytes) and the ring
-# aligned to 128 bytes for the tensor copies; the same at every N.  The
-# cp.async plan of a state 4 bytes past a 16-byte boundary has the same
-# tiles, chunk and depth here, without those bytes.
-TMA_BYTES = {torch.float32: {"forward": 215136, "backward": 225568},
-             torch.bfloat16: {"forward": 182496, "backward": 225824}}
+# C = Cout = 32 (tiles of 4 rows, chunks of 8, 3 pieces a stage for the 12
+# reducing warps), with the ring's full and empty mbarriers, the piece list
+# and the whole slots' weights, and the ring aligned to 128 bytes for the
+# tensor copies; the same at every N.  The cp.async plan of a state 4
+# bytes past a 16-byte boundary has the same tiles and chunk, and 4 pieces
+# a stage, one row for each of the 16 warps.
+TMA_BYTES = {torch.float32: {"forward": 217312, "backward": 225312},
+             torch.bfloat16: {"forward": 168160, "backward": 225312}}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
 def test_level_plans_name_their_route_and_bytes(cuda, dtype):
     """SMP_beta's field (P = 64, C = Cout = 32) on K1's and K2 kernel 1's
-    cluster plans takes the tensor copies at every N, with the warps'
-    mbarriers and the ring's 128-byte alignment counted in its bytes; the
-    untiled plans, the bank's (K4, K5: stored slots) and narrow chunks in
-    bfloat16 take cp.async."""
+    cluster plans takes the tensor copies from a producer warp at every N,
+    a row of a stage for each of 15 // rows reducing warps' pieces, with
+    the mbarriers, the piece list, the weights and the ring's 128-byte
+    alignment counted in its bytes; the untiled plans, the bank's (K4, K5:
+    stored slots) and narrow chunks in bfloat16 take cp.async."""
     from graphflow_tpu_torch.ops.risi_bank import bank_backward_plan, bank_plan
 
     for N in (1, 64, 140, 256):
         for query in (level_plan, level_backward_plan):
             plan = query(N, 64, 32, 32, dtype)
-            assert plan["cluster"] >= 1 and plan["stream"] == "tma", plan
+            assert plan["cluster"] >= 1, plan
+            assert plan["stream"] == "tma_producer", plan
             assert plan["smem_bytes"] == TMA_BYTES[dtype][
                 "backward" if "scratch_bytes" in plan else "forward"], plan
+            assert plan["pieces"] == 15 // plan["rows"] == 3, plan
             other = query(N, 64, 32, 32, dtype, 4)
-            assert other["stream"] == "cp_async" and other["depth"] == (
-                plan["depth"]), other
-            extra = plan["smem_bytes"] - other["smem_bytes"]
-            assert 0 <= extra - 16 * plan["depth"] * 8 < 128, (plan, other)
+            assert other["stream"] == "cp_async", other
+            assert (other["rows"], other["chunk"], other["pieces"]) == (
+                plan["rows"], plan["chunk"], 16 // plan["rows"]), other
         for plan in (bank_plan(N, 64, 32, 32, dtype),
                      bank_backward_plan(N, 64, 32, 32, dtype)):
             assert plan["stream"] == "cp_async", plan
     assert level_plan(256, 16, 32, 32, dtype)["stream"] == "cp_async"
-    assert level_plan(64, 64, 4, 4, dtype)["stream"] == (
-        "tma" if dtype == torch.float32 else "cp_async")
+    assert level_backward_plan(64, 64, 4, 4, dtype)["stream"] == (
+        "tma_producer" if dtype == torch.float32 else "cp_async")
+    # K1's plan there passes over row tiles of 16 rows, which leave no warp
+    # for the producer, for tiles of 4 on the tensor copies in float32; in
+    # bfloat16 (a box of 8 bytes) it keeps 16 rows on cp.async.
+    plan = level_plan(64, 64, 4, 4, dtype)
+    assert (plan["rows"], plan["stream"]) == (
+        (4, "tma_producer") if dtype == torch.float32 else (16, "cp_async")
+    ), plan
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])

@@ -15,7 +15,13 @@ zeros where a position is absent), on the CPU.
   take-gather.
 * The level's cluster references, which now take their T from it, in
   chunks narrower than C, against the JAX XLA level and its ``jax.vjp``
-  (float64, 1e-10).
+  (float64, 1e-10), also where positions repeat within a slot.
+* The producer route's consumers' order of the row sums
+  (``risi18_slot_row_sums_reference``: a whole slot's row in storage order
+  against the slot's weights, ``risi18_slot_weights``) against the sums
+  over the JAX take-gather's T (float64, 1e-10); the piece list a tile's
+  producer reads (``producer_pieces``): each needed row once, within the
+  words the plan adds; the plan query's name of the route.
 
 Small: N <= 3 vertices, C <= 3; P = 33 only where a row tile needs it.
 """
@@ -31,8 +37,10 @@ from graphflow_tpu.models.smp2d import (
 from graphflow_tpu.ops.risi_fused_pallas import _reference_level
 from graphflow_tpu_torch.ops.risi_aligned import risi18_aligned_t2_reference
 from graphflow_tpu_torch.ops.risi_level import (
+    PLAN_KEYS, STREAMS, producer_pieces, query_plan,
     risi18_level_backward_cluster_reference, risi18_level_cluster_reference,
-    risi18_row_gather_reference)
+    risi18_row_gather_reference, risi18_slot_row_sums_reference,
+    risi18_slot_weights)
 from graphflow_tpu_torch.utils.datasets import random_level_case
 
 torch.set_num_threads(1)
@@ -180,3 +188,136 @@ def test_cluster_level_in_narrow_chunks_matches_jax(N, P, C, Cout, rows,
                                                        bb), state, K, b)
     for x, r in zip(got, vjp(jnp.asarray(g))):
         _close(x, r)
+
+
+# -- the tensor-copy route's producer and consumers --------------------------
+
+def _repeated_case(N, P, C, Cout, seed):
+    """random_level_case with some positions repeated within a slot (two
+    columns c reading one cell of the neighbour's row), as no prepared graph
+    has but the kernels take."""
+    d = random_level_case(N, P, C, Cout, seed=seed, empty_vertex=N - 1)
+    rng = np.random.default_rng(seed)
+    pos = d["pos"]
+    for v in range(N - 1):
+        for a in rng.choice(P, size=3, replace=False):
+            c, c2 = rng.choice(P, size=2, replace=False)
+            pos[v, a, c2] = pos[v, a, c] if pos[v, a, c] < P else 0
+    d["pos"] = pos
+    return d
+
+
+@pytest.mark.parametrize("case", ["random", "prepared", "repeated"])
+def test_slot_row_sums_in_storage_order_match_jax(case):
+    """T_ab and M6 of every slot as the consumers read a whole slot's rows
+    outside its tile (storage order against the slot's weights, no index a
+    cell) against the sums over c of the JAX take-gather's T and of R[c]
+    times it (float64, 1e-10), with the sentinels, a graph smaller than its
+    field and positions that repeat within a slot."""
+    V, P, C = 3, 7, 3
+    if case == "prepared":
+        state, nbr, pos = _prepared_case(V, P, C, (3, 2, 0))
+        radj = np.random.default_rng(5).normal(size=(V, P, P))
+    else:
+        d = (_repeated_case(V, P, C, C, seed=4) if case == "repeated"
+             else random_level_case(V, P, C, C, seed=4, empty_vertex=V - 1))
+        state, nbr, pos, radj = d["state"], d["nbr"], d["pos"], d["radj"]
+    tab, m6 = risi18_slot_row_sums_reference(_t(state), _t(nbr), _t(pos),
+                                             _t(radj))
+    T = _jax_take(state, nbr, pos)                  # [V, a, b, c, C]
+    R = np.clip(radj, 0, None).sum(-1)
+    _close(tab, T.sum(3))
+    _close(m6, np.einsum("vabcf,vc->vabf", T, R))
+    assert np.abs(T.sum(3)).max() > 0
+
+
+def test_slot_weights_count_the_columns_of_each_cell():
+    """A cell read by two columns weighs 2 and the sum of their R; a cell
+    no column reads, and absent positions (the sentinel P, -1), weigh 0."""
+    P = 4
+    pos = torch.tensor([[[2, 2, 0, P], [1, -1, 3, 0], [P, P, P, P],
+                         [3, 2, 1, 0]]])
+    R = torch.tensor([[1.0, 10.0, 100.0, 1000.0]], dtype=torch.float64)
+    cols, rw = risi18_slot_weights(pos, R)
+    assert cols[0].tolist() == [[1, 0, 2, 0], [1, 1, 0, 1], [0, 0, 0, 0],
+                                [1, 1, 1, 1]]
+    assert rw[0].tolist() == [[100.0, 0, 11.0, 0], [1000.0, 1.0, 0, 100.0],
+                              [0, 0, 0, 0], [1000.0, 100.0, 10.0, 1.0]]
+
+
+# (N, P, C, Cout, rows, cluster): tiles of 8 on clusters of 2, and a
+# last tile of one row.
+@pytest.mark.parametrize("N,P,C,Cout,rows,cluster",
+                         [(2, 33, 2, 3, 8, 2), (2, 33, 3, 2, 16, 1)])
+def test_cluster_level_with_repeated_positions_matches_jax(N, P, C, Cout,
+                                                           rows, cluster):
+    """The level's cluster references, whose whole slots' rows outside a
+    tile are read against the slot's weights, on positions that repeat
+    within a slot, against the JAX XLA level and its jax.vjp (float64,
+    1e-10)."""
+    d = _repeated_case(N, P, C, Cout, seed=P + rows)
+    args = [d[k] for k in ("state", "nbr", "pos", "radj", "K", "b")]
+    g = np.random.default_rng(rows).normal(size=(N, P * P, Cout))
+    targs = [_t(a) for a in args]
+    jargs = [jnp.asarray(a) for a in args]
+    _close(risi18_level_cluster_reference(*targs, rows, cluster, chunk=2),
+           _reference_level(*jargs))
+    got = risi18_level_backward_cluster_reference(*targs, _t(g), rows,
+                                                  cluster, chunk=2)
+    state, nbr, pos, radj, K, b = jargs
+    _, vjp = jax.vjp(lambda s, k, bb: _reference_level(s, nbr, pos, radj, k,
+                                                       bb), state, K, b)
+    for x, r in zip(got, vjp(jnp.asarray(g))):
+        _close(x, r)
+
+
+@pytest.mark.parametrize("P,rows", [(33, 4), (40, 14), (37, 15), (64, 4),
+                                    (50, 1), (36, 7)])
+def test_producer_pieces_stream_each_needed_row_once(P, rows):
+    """Every tile's piece list (``producer_pieces``, the list the producer
+    reads) fits the words the plan adds for it (``producer_words``: fewer
+    than 2P pieces, the slot, first row and present rows of a piece in one
+    int, ``piece_entry``)
+    and streams each row the tile's maps need exactly once: the rows X of
+    every listed slot and the other rows of the listed slots in X, those
+    whose neighbour and p1 are present and no other; on a random field with
+    the sentinels and on a field of all-present slots."""
+    d = random_level_case(3, P, 1, 1, seed=P + rows, empty_vertex=2)
+    full_nbr = np.arange(P, dtype=np.int32) % 3
+    full_pos = np.tile(np.arange(P, dtype=np.int32), (P, 1))
+    fields = [(d["nbr"][v], d["pos"][v]) for v in range(3)]
+    fields.append((full_nbr, full_pos))
+    for nbr, pos in fields:
+        n_ok = (nbr >= 0) & (nbr < 3)
+        p_ok = (pos >= 0) & (pos < P)
+        listed = [a for a in range(P) if n_ok[a] and p_ok[a].any()]
+        for tile in range(-(-P // rows)):
+            x0, x1 = tile * rows, min(P, (tile + 1) * rows)
+            pieces = producer_pieces(nbr, pos, 3, rows, tile)
+            assert len(pieces) < 2 * P and P < 256 and rows < 16
+            streamed = []
+            for a, b0, present in pieces:
+                assert b0 % rows == 0 and len(present) == min(rows, P - b0)
+                streamed += [(a, b0 + bl) for bl, ok in enumerate(present)
+                             if ok]
+            need = [(a, b) for a in listed for b in range(P)
+                    if (x0 <= b < x1 or x0 <= a < x1) and p_ok[a, b]]
+            assert sorted(streamed) == sorted(need)
+            assert len(set(streamed)) == len(streamed)
+
+
+def test_plan_query_names_the_producer_route():
+    """A plan's ``stream`` field 1 is the tensor-copy route with its
+    producer warp, 0 cp.async (``query_plan``, whatever library answers)."""
+    def answer(route):
+        def plan_fn(N, P, C, Cout, bf16, aligned, plan):
+            for i in range(len(PLAN_KEYS)):
+                plan[i] = 1
+            plan[len(PLAN_KEYS) - 1] = route
+            return 0
+        return plan_fn
+
+    assert STREAMS == ("cp_async", "tma_producer")
+    for route, name in enumerate(STREAMS):
+        got = query_plan(answer(route), 64, 64, 32, 32)
+        assert got["stream"] == name and got["rows"] == 1
