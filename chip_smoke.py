@@ -573,6 +573,7 @@ def reset_level_counts():
     risi18_level_backward.sums_launches = 0
     risi18_level_backward.launches = 0
     risi18_level_backward.tma_launches = 0
+    risi18_level_backward.scatter_tma_launches = 0
     risi18_level_backward.reduce_launches = 0
 
 
@@ -593,6 +594,23 @@ def expect_tma(what, plan, before, which):
     if plan["stream"] != "tma_producer" or got != 1:
         raise AssertionError(f"{what}: plan {plan}, {got} launches on the "
                              f"tensor-copy route, expected 1")
+
+
+def scatter_count():
+    """Of K2 kernel 1's launches, those that added dT by tensor reduces of
+    rows staged in the neighbour's storage order (their plan's
+    ``scatter`` "tma_reduce")."""
+    from graphflow_tpu_torch.ops.risi_level import risi18_level_backward
+    return risi18_level_backward.scatter_tma_launches
+
+
+def expect_scatter(what, plan, before):
+    """Raises unless K2 kernel 1's ``plan`` names the staged scatter and
+    the one launch since the count ``before`` took it."""
+    got = scatter_count() - before
+    if plan["scatter"] != "tma_reduce" or got != 1:
+        raise AssertionError(f"{what}: plan {plan}, {got} launches on the "
+                             f"staged scatter, expected 1")
 
 
 def sums_counts():
@@ -913,10 +931,14 @@ def phase_backward():
                 N, P, C, Cout, dtype), routes, 0)
             lout = same_signs(kout, risi18_level_reference(*largs))
             before, routes = sums_counts(), tma_counts()
+            scattered = scatter_count()
             got = risi18_level_backward(*largs, lout, lg)
             expect_sums(f"backward {name} N={N} P={P}", before, True)
             expect_tma(f"backward {name} N={N} P={P}", level_backward_plan(
                 N, P, C, Cout, dtype), routes, 1)
+            expect_scatter(f"backward {name} N={N} P={P}",
+                           level_backward_plan(N, P, C, Cout, dtype),
+                           scattered)
             torch.cuda.synchronize()
             ref = risi18_level_backward_reference(*largs, lg)
             line = []
@@ -972,7 +994,8 @@ def phase_backward():
         p64["kernel1"] = time_ms(lambda: _backward_main_kernel(
             *largs[:5], lg, lout, 0.01, sums=sums))
         log(f"phase 5 backward: {name} N,P,C,Cout={LARGE_SHAPE} (row tiles:"
-            f" {p64['plan']}) max_abs_err {line} ok; median "
+            f" {p64['plan']}; scatter {p64['plan']['scatter']}, launched) "
+            f"max_abs_err {line} ok; median "
             f"kernels 0 and 1 {p64['main']:.4f} ms (kernel 0 "
             f"{k0['ms']:.4f}, kernel 1 {p64['kernel1']:.4f}), both kernels "
             f"{p64['k2']:.4f} ms, plain backward {p64['plain']:.4f} ms; "
@@ -2885,6 +2908,19 @@ def phase_large_field():
             raise AssertionError(
                 f"{label}: launches on the tensor-copy route (K1, K2 kernel "
                 f"1) {routes}, expected ({got[0]}, {k0})")
+        # K2 kernel 1's scatter: the staged rows' tensor reduces on every
+        # level whose plan names them (SMP_beta's cluster plans at P = 64,
+        # both dtypes), the atomics elsewhere; none on the bank.
+        staged = 0 if bank else sum(
+            level_backward_plan(n, V, c, co, model.dtype)["scatter"]
+            == "tma_reduce" for c, co in zip(sched, sched[1:]))
+        if scatter_count() != staged or (label.startswith("SMP_beta ")
+                                         and not bank
+                                         and not 1 <= staged == k0):
+            raise AssertionError(
+                f"{label}: K2 kernel 1 launches on the staged scatter "
+                f"{scatter_count()}, its plans name {staged}; cluster "
+                f"plans {k0}")
         if not np.isfinite(step).all() or pred.shape != (len(graphs),):
             raise AssertionError(f"{label}: request {pred.shape}, step "
                                  f"{step}")
@@ -2977,7 +3013,8 @@ def phase_large_field():
             f"x 3 forwards, 1 backward{plans}), kernel 0 "
             f"{sums[1] if bank else sums[0]}, stream "
             f"{'cp.async (stored slots)' if bank else 'tensor copies: '}"
-            f"{'' if bank else f'{routes[0]} K1, {routes[1]} K2 kernel 1'}; "
+            f"{'' if bank else f'{routes[0]} K1, {routes[1]} K2 kernel 1'}"
+            f"{'' if bank else f', scatter tensor reduces {staged}'}; "
             f"request {1e3 * req_s:.1f} "
             f"ms, step "
             f"(prep uncached) {1e3 * step_s:.1f} ms (host clock, synced); "

@@ -48,6 +48,11 @@ inline int vertex_groups(int N) {
   return N < kGroups ? (N > 0 ? N : 0) : kGroups;
 }
 
+// How a backward block's dT reaches its destination (BackwardPlan::scatter).
+enum { kScatterAtomic = 0, kScatterTmaReduce = 1, kScatterStore = 2 };
+constexpr int kStageBufs = 2;   // staging buffers a warp, at most
+constexpr int kMaxColumnWords = 5;   // 32-column words of a slot: P <= 160
+
 // A backward block's shared memory, offsets in 4-byte words.
 struct BackwardPlan {
   StreamPlan sp;
@@ -73,6 +78,17 @@ struct BackwardPlan {
                // (producer_words) lie in the stream area, or there is no
                // such route; else their offset over G and GAp, after the
                // ring where it lies there
+  int scatter; // how dT reaches its destination: kScatterAtomic (K2:
+               // float32 atomics into dstate), kScatterTmaReduce (K2 on a
+               // cluster plan: rows staged in storage order, each added by
+               // one tensor reduce; dT_stage_rows) or kScatterStore (K5:
+               // dT written)
+  int sbufs;   // kScatterTmaReduce: staging buffers a warp (1 or 2)
+  int srow;    // kScatterTmaReduce: words of a staging buffer (a row of P
+               // cells of ncp channels, 128-byte aligned)
+  int stage;   // kScatterTmaReduce: offset of the warps' staging buffers
+               // over G and GAp, then the slots' columns' cells (P * P
+               // 16-bit words: scatter_cells)
   int ap, r, scal, inbr, ipos, islots, bars, g, gap, gr, ga, gax, gsx,
       stream, ks, dkv, dbs, red, sacc, part, words;
 };
@@ -163,6 +179,35 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   // (A cluster plan's block takes GA and db's sums from kernel 0, not from
   // parts here; it keeps its dT pass's parameters in these words.)
   L.part = take(L.tiled ? kTilePartWords : 0);
+  // K2's scatter on a cluster plan: every warp stages rows of dT in
+  // storage order, beside the slots' columns' cells (scatter_cells), over G
+  // and GAp, which the dT pass does not read (it reads G from kernel 0's
+  // scratch and the cotangent), and a tensor reduce adds a staged row into
+  // the float32 dstate seen as [N*P*P, C], whose rows of C channels must be
+  // a multiple of 16 bytes.  Where it gains (dT_stage_rows): a row tile of
+  // at most kThreads / 64 rows, so that at least two warps share a row b's
+  // slots, and cells of at least 8 channels (a reduce's 32-byte sector
+  // whole); and where G and GAp hold a buffer a warp.  Else the atomics.
+  // (On an H100, K2 kernels 0 and 1 staged against atomics: tiles of 4 and
+  // 8 rows in chunks of 8 channels 0.92-0.99 of the time, tiles of 13 and
+  // 14 rows 1.04-1.07, chunks of 4 channels 1.03; the untiled block staged
+  // over its stream's ring, its rows of 16 cells paying a row's issue for
+  // little work, 1.15 at (256,16,32,32).  PERF.md.)
+  L.scatter = gather ? kScatterAtomic : kScatterStore;
+  L.sbufs = 0; L.srow = 0; L.stage = -1;
+  if (gather && L.cluster && C % 4 == 0 && L.sp.ncp >= 8 &&
+      L.sp.rows <= kThreads / 64 && P <= 32 * kMaxColumnWords) {
+    const int warps = kThreads / 32, cells = round_up((P * P + 1) / 2, 4);
+    const int srow = round_up(P * L.sp.ncp, kTmaAlign / 4);
+    const int at = round_up(L.g, kTmaAlign / 4);
+    const int bufs = (L.gr - at - cells) / (srow * warps);
+    if (bufs >= 1) {
+      L.scatter = kScatterTmaReduce;
+      L.sbufs = bufs < kStageBufs ? bufs : kStageBufs;
+      L.srow = srow;
+      L.stage = at;
+    }
+  }
   L.words = w;
   return L;
 }
@@ -1122,11 +1167,11 @@ inline int launch_backward_sums(const float* radj, const E* g, const E* out,
   return cudaGetLastError();
 }
 
-// The backward plan queries' thirteen fields (risi18_level_backward_plan,
+// The backward plan queries' fourteen fields (risi18_level_backward_plan,
 // risi18_bank_backward_plan): the plan, then kernel 0's scratch words a
 // vertex and its shared memory in bytes (0 for a plan of no cluster,
 // which launches no kernel 0), then 1 where the stream takes the tensor
-// copies (sp.tma).
+// copies (sp.tma), then how dT is added or written (L.scatter).
 inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
                                  int* plan) {
   plan[0] = L.sp.rows; plan[1] = L.Co; plan[2] = L.sp.Cc; plan[3] = L.sp.D;
@@ -1138,6 +1183,7 @@ inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
   plan[10] = sums ? (int)sums_words(P, Cout) : 0;
   plan[11] = sums ? (int)sums_smem_bytes(P) : 0;
   plan[12] = L.sp.tma;
+  plan[13] = L.scatter;
 }
 
 // -- the dT pass of a row tile ----------------------------------------------
@@ -1193,6 +1239,14 @@ struct TileDT {
   bool vec_g;           // g's (and out's) rows take 2-value loads
   bool vec_s;           // the scratch's rows do
   bool vec_scatter;     // dst takes four channels in one access
+  // K2's staged scatter (plan scatter kScatterTmaReduce; dT_stage_rows):
+  // the tensor map of the float32 dstate as [N*P*P, C], with a box of
+  // {ncp, P}; null on the atomics.
+  const CUtensorMap* dmap;
+  float* stage;         // the warps' staging buffers, sbufs of srow words
+                        // each a warp
+  unsigned short* cells;   // the slots' columns' cells (scatter_cells)
+  int sbufs, srow;
 };
 
 // The maps of the 16 rows from m0 of one side of tile [xb0, xb0 + nxb) on
@@ -1435,20 +1489,250 @@ __device__ __forceinline__ void dT_assemble(const TileDT<E, kGather>& d,
   }
 }
 
+// Where a staged row's columns go (scatter_cells): the cell a column
+// stores into (its position, or a cell no column reads), and whether it
+// stores its value there (kCellValue) or 0, and adds its value at its
+// position in a second pass (kCellAdd: a position repeated in the slot).
+constexpr unsigned kCellMask = 0x3fff;
+constexpr unsigned kCellValue = 0x4000;
+constexpr unsigned kCellAdd = 0x8000;
+
+// The cells of K2's staged scatter for every slot a of the vertex, one
+// 16-bit word a column: cells[a*P + c].  The first column c of each
+// position j = spos[a*P + c] stores its value at j (kCellValue); every
+// other column, absent or repeating a position, stores 0 at one of the
+// cells no column reads (there are as many: the k-th such column, in c's
+// order, takes the k-th such cell), and a repeating one adds its value at
+// j in a second pass (kCellAdd).  So the first pass writes each cell of a
+// staged row once, holes included, with no atomics and no zeroing.  A
+// warp a slot, its columns 32 at a time (the first of equal positions by
+// one match); `cells` holds the words [P*P], and a warp lists a slot's
+// free cells in its P words of `scratch` (the staging buffers, not yet
+// written).  No barrier.
+__device__ inline void scatter_cells(const int* spos, int P,
+                                     unsigned short* cells,
+                                     unsigned short* scratch) {
+  const int lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned short* holes = scratch + (threadIdx.x / 32) * P;
+  for (int a = threadIdx.x / 32; a < P; a += nwarps) {
+    const int* pa = spos + a * P;
+    unsigned short* first = cells + a * P;    // then the slot's words
+    for (int j = lane; j < P; j += 32) first[j] = 0xffff;
+    __syncwarp();
+    // The first column of each position: the lowest of a match, the
+    // lower words last.
+    for (int k = (P - 1) / 32; k >= 0; --k) {
+      const int c = 32 * k + lane;
+      const int j = c < P ? pa[c] : -1;
+      const unsigned same = __match_any_sync(0xffffffffu, j);
+      if (j >= 0 && (same & below) == 0u) first[j] = (unsigned short)c;
+      __syncwarp();
+    }
+    // The cells no column reads, in order.
+    int nh = 0;
+    for (int j0 = 0; j0 < P; j0 += 32) {
+      const bool hole = j0 + lane < P && first[j0 + lane] == 0xffff;
+      const unsigned m = __ballot_sync(0xffffffffu, hole);
+      if (hole) holes[nh + __popc(m & below)] = (unsigned short)(j0 + lane);
+      nh += __popc(m);
+    }
+    __syncwarp();
+    unsigned short word[kMaxColumnWords];
+    int nn = 0;
+#pragma unroll
+    for (int k = 0; k < kMaxColumnWords; ++k) {
+      const int c = 32 * k + lane;
+      const int j = c < P ? pa[c] : -1;
+      const bool head = j >= 0 && first[j] == c;
+      const bool other = c < P && !head;
+      const unsigned m = __ballot_sync(0xffffffffu, other);
+      word[k] = head ? (unsigned short)(j | kCellValue)
+                : other ? (unsigned short)(holes[nn + __popc(m & below)] |
+                                           (j >= 0 ? kCellAdd : 0u))
+                        : (unsigned short)0;
+      nn += __popc(m);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < kMaxColumnWords; ++k)
+      if (32 * k + lane < P) first[32 * k + lane] = word[k];
+    __syncwarp();
+  }
+}
+
+// Column blocks of a staged row whose B maps a warp keeps in registers
+// (dT_stage_rows); further blocks read them a row.  (Four left K2's
+// cluster kernels 52-396 bytes of spills a thread where two leave 0-160,
+// in the same time or 1 % less on an H100; PERF.md.)
+constexpr int kCachedBlocks = 2;
+
+// K2's staged scatter of the rows b of tile [xb0, xb0 + nxb), from the
+// tile's maps.  For a fixed (a, b) the cells (c, chunk) that dT[a, b, :,
+// chunk] adds into are the row dstate[n, p1, 0:P, c0:c0+ncp] (n =
+// snbr[a], p1 = spos[a*P + b]) read through pos[a, .]: the tensor-copy
+// stream's gathered row, run backwards.  So a warp takes the rows (a, b)
+// of one b of the tile and a share of the slots a (none where n or p1 is
+// absent), keeping the B maps of its b (T_bc and M10 at (b, c), and R[c])
+// in registers, its lanes on (column c, four channels); per row it stores
+// each column's dT[a, b, c] into the row's staging buffer at the cell
+// scatter_cells gives it (a repeated position's column adds its value in a
+// second pass), and its lane 0 adds the row into dstate with one tensor
+// reduce: one instruction a row where the atomics took one a cell and four
+// channels; the reduce drains while the warp stages its next row and the
+// block forms the next tile's maps.  Channels of the box past C are not
+// written.  A buffer is written again once the reduce issued sbufs rows
+// before has read it.  `issued` counts the warp's rows over the pass.  No
+// barrier.
+template <typename E>
+__device__ __forceinline__ void dT_stage_rows(const TileDT<E, true>& d,
+                                              int xb0, int nxb,
+                                              int& issued) {
+  const int P = d.P, ncp = d.ncp, quads = ncp / 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+  const int q = lane % quads, cpb = 32 / quads, ncb = (P + cpb - 1) / cpb;
+  // A warp's b and slots: nwarps / nxb warps a row b (the plan's tiles
+  // have at most nwarps / 2 rows), each every wpb-th slot.
+  const int wpb = nwarps / nxb;
+  if (warp >= nxb * wpb) return;
+  const StreamBuffers& s = d.s;
+  const float* tab = s.map(kTab, d.mapw);
+  const float* tabT = s.map(kTabT, d.mapw);
+  const float* tbc = s.map(kTbc, d.mapw);
+  const float* dbc = s.map(kDbc, d.mapw);
+  const float* dacT = s.map(kDacT, d.mapw);
+  const float* m6 = s.map(kM6, d.mapw);
+  const float* m10 = s.map(kM10, d.mapw);
+  const int bl = warp % nxb, b = xb0 + bl;
+  // The B maps of row b at the lane's columns: T_bc, M10, R[c].
+  float4 ctbc[kCachedBlocks], cm10[kCachedBlocks];
+  float cR[kCachedBlocks];
+#pragma unroll
+  for (int kb = 0; kb < kCachedBlocks; ++kb) {
+    const int c = kb * cpb + lane / quads;
+    const bool in = kb < ncb && c < P;
+    const int at = (bl * P + (in ? c : 0)) * ncp + 4 * q;
+    ctbc[kb] = in ? load4(tbc + at) : make_float4(0.f, 0.f, 0.f, 0.f);
+    cm10[kb] = in ? load4(m10 + at) : make_float4(0.f, 0.f, 0.f, 0.f);
+    cR[kb] = in ? d.R[c] : 0.f;
+  }
+  for (int a = warp / nxb; a < P; a += wpb) {
+    const int n = d.snbr[a], p1 = d.spos[a * P + b];
+    if ((n | p1) < 0) continue;
+    PIECE_MARK(t0);
+    if (issued >= d.sbufs) {
+      if (lane == 0) bulk_wait_read(d.sbufs - 1);
+      __syncwarp();
+    }
+    PIECE_MARK(t1);
+    float* buf = d.stage + (warp * d.sbufs + issued % d.sbufs) * d.srow;
+    const int A = (a * nxb + bl) * ncp + 4 * q;
+    const int Bba = (bl * P + a) * ncp + 4 * q;
+    float4 base = load4(tab + A);
+    const float4 fba = load4(tabT + Bba);
+    base.x += fba.x; base.y += fba.y; base.z += fba.z; base.w += fba.w;
+    const float4 f6 = load4(m6 + A), fdb = load4(dbc + A);
+    const float4 fda = load4(dacT + Bba);
+    const float ra = d.R[a];
+    const unsigned short* cells = d.cells + a * P;
+    // dT[a, b, c] from the B maps of column c.
+    auto value = [&](int c, const float4& fbc, const float4& f10,
+                     float rc) {
+      float4 v = base;
+      v.x += fbc.x; v.y += fbc.y; v.z += fbc.z; v.w += fbc.w;
+      fma4(v, rc, f6);
+      fma4(v, ra, f10);
+      if (c == b) fma4(v, 1.f, fdb);
+      if (c == a) fma4(v, 1.f, fda);
+      return v;
+    };
+    auto put = [&](int kb, const float4& fbc, const float4& f10,
+                   float rc) {
+      const int c = kb * cpb + lane / quads;
+      if (c >= P) return 0u;
+      const unsigned w = cells[c];
+      const float4 v = (w & kCellValue) ? value(c, fbc, f10, rc)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(buf + (w & kCellMask) * ncp + 4 * q) = v;
+      return w & kCellAdd;
+    };
+    unsigned adds = 0;
+#pragma unroll
+    for (int kb = 0; kb < kCachedBlocks; ++kb)
+      if (kb < ncb) adds |= put(kb, ctbc[kb], cm10[kb], cR[kb]);
+    for (int kb = kCachedBlocks; kb < ncb; ++kb) {
+      const int c = min(kb * cpb + lane / quads, P - 1);
+      const int at = (bl * P + c) * ncp + 4 * q;
+      adds |= put(kb, load4(tbc + at), load4(m10 + at), d.R[c]);
+    }
+    // Columns that repeat a position add their value at it.
+    if (__any_sync(0xffffffffu, adds)) {
+      __syncwarp();
+      for (int kb = 0; kb < ncb; ++kb) {
+        const int c = kb * cpb + lane / quads;
+        if (c >= P || !(cells[c] & kCellAdd)) continue;
+        const int at = (bl * P + c) * ncp + 4 * q;
+        const float4 v = value(c, load4(tbc + at), load4(m10 + at),
+                               d.R[c]);
+        float* cell = buf + d.spos[a * P + c] * ncp + 4 * q;
+        atomicAdd(cell, v.x);
+        atomicAdd(cell + 1, v.y);
+        atomicAdd(cell + 2, v.z);
+        atomicAdd(cell + 3, v.w);
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    PIECE_MARK(t2);
+    if (lane == 0) {
+      tma_reduce_add_2d(d.dmap, buf, d.c0, (n * P + p1) * P);
+      bulk_commit();
+    }
+    ++issued;
+    PIECE_MARK(t3);
+    PIECE_ADD(kScatterWait, t1 - t0);
+    PIECE_ADD(kScatterStage, t2 - t1);
+    PIECE_ADD(kScatterIssue, t3 - t2);
+    PIECE_ADD(kScatterRows, 1);
+  }
+}
+
 // dT of the tiles first, first + step, ... of a vertex, one pass a tile:
-// the tile's maps, a barrier, its dT, a barrier.  Starts with a barrier.
+// the tile's maps, a barrier, its dT, a barrier.  Starts with a barrier
+// (on K2's staged scatter, after the slots' columns' cells: the block's
+// last reads of G and GAp, over which they lie, are behind the caller's
+// barrier), and ends with one (on the staged scatter, once every warp's
+// reduces have read their buffers).
 template <typename E, bool kGather>
 __device__ __forceinline__ void dT_pass(const TileDT<E, kGather>& d,
                                         int first, int step, int tiles,
                                         int X) {
+  bool staged = false;
+  if constexpr (kGather) staged = d.dmap != nullptr;
+  CLOCK_VAR(lap);
+  if (staged)
+    scatter_cells(d.spos, d.P, d.cells,
+                  reinterpret_cast<unsigned short*>(d.stage));
+  int issued = 0;   // the warp's staged rows
   for (int tb = first; tb < tiles; tb += step) {
     const int xb0 = tb * X, nxb = min(X, d.P - xb0);
     __syncthreads();                  // the maps' readers are done
+    CLOCK_LAP(kDTScatter, lap);
     dT_maps(d, xb0, nxb);
     __syncthreads();
+    CLOCK_LAP(kDTMaps, lap);
+    if constexpr (kGather) {
+      if (staged) {
+        dT_stage_rows(d, xb0, nxb, issued);
+        continue;
+      }
+    }
     dT_assemble(d, xb0, nxb);
   }
+  if (staged && threadIdx.x % 32 == 0) bulk_wait_read(0);
   __syncthreads();
+  CLOCK_LAP(kDTScatter, lap);
 }
 
 // backward_block on a row-tiled plan of one block a vertex group
@@ -1873,16 +2157,20 @@ __device__ __forceinline__ void backward_block_tiled(
 //   2. the scalars' cotangents (GA against K's slabs 5, 14, 15, 18) and dT
 //      for the rows b of its own tiles, one pass a tile (dT_pass): the
 //      tile's A and B maps on the tensor cores from rows of G, GAp and GR
-//      (dT_maps), then dT[:, Xb, :] (dT_assemble): K2 scatters it with
-//      float32 atomics; K5 writes dT[v, a, b, :] for every a and the rows
-//      b of its tiles, so every element of dT has one writer, the block
+//      (dT_maps), then dT[:, Xb, :]: K2 stages each gathered row (a, b)
+//      in the neighbour's storage order and adds it into dstate with one
+//      tensor reduce (dT_stage_rows; plan scatter kScatterTmaReduce), or
+//      scatters it with float32 atomics (dT_assemble; kScatterAtomic); K5
+//      writes dT[v, a, b, :] for every a and the rows b of its tiles
+//      (dT_assemble), so every element of dT has one writer, the block
 //      that owns row b's tile, and is written once, rounded to E once.
 // When the cluster has walked its vertices, the blocks' dK rows (and db)
 // are added in distributed shared memory in rank order, each block
 // writing a share of the group's one partial row: kernel 2 sums as many
 // rows as without clusters (vertex_groups).  dK and db have no atomics and
 // a fixed order of sums, so K5's dT and dK repeat bit for bit; K2's
-// dstate's atomics are float32, as untiled.
+// dstate is added in float32 (a row's reduce or a cell's atomic) in an
+// order that changes from run to run, as untiled.
 template <typename E, bool kMma, bool kGather, bool kTma = false>
 __device__ __forceinline__ void backward_block_cluster(
     const E* __restrict__ in, const int* __restrict__ nbr,
@@ -1892,7 +2180,8 @@ __device__ __forceinline__ void backward_block_cluster(
     const float* __restrict__ sums,
     std::conditional_t<kGather, float, E>* __restrict__ dst,
     float* __restrict__ partial, int N, const BackwardPlan& L,
-    float negslope, const CUtensorMap* map = nullptr) {
+    float negslope, const CUtensorMap* map = nullptr,
+    const CUtensorMap* dmap = nullptr) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -1966,6 +2255,14 @@ __device__ __forceinline__ void backward_block_cluster(
   const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
   const bool wide_s = Cout % 4 == 0 && L.Co % 4 == 0;   // the scratch's rows
   const size_t vT = (size_t)PP * P * C;      // elements of one vertex's T
+  // K2's staged scatter: the warps' staging buffers over G and GAp, then
+  // the slots' columns' cells.
+  const bool staged = kGather && L.scatter == kScatterTmaReduce;
+  float* stage = staged ? smem + L.stage : nullptr;
+  unsigned short* cells = staged ? reinterpret_cast<unsigned short*>(
+                                       stage + (kThreads / 32) * L.sbufs *
+                                                   L.srow)
+                                 : nullptr;
   STAGE(0);   // set-up and K's staging
 
   for (size_t v = group; v < (size_t)N; v += groups) {
@@ -2130,11 +2427,15 @@ __device__ __forceinline__ void backward_block_cluster(
                                v, P, C, Cout, no, ncp, nc, c0, GLD,
                                sp.mapw, S, trA, negslope,
                                L.wide_g && Cout % 2 == 0, Cout % 2 == 0,
-                               vec_scatter};
+                               vec_scatter, staged ? dmap : nullptr, stage,
+                               cells, L.sbufs, L.srow};
     __syncthreads();
     dT_pass(*dp, rank, CL, tiles, X);
     STAGE(6);   // dT: the tiles' maps and the scatter (K2) or dT (K5)
   }
+  // The staged scatter's reduces have read their rows (dT_pass); their
+  // adds into dstate complete before the block ends.
+  if (staged && lane == 0) bulk_wait_all();
 
   // The block's dK rows: the k-parts of the map cases summed in order.
   if constexpr (kMma) {

@@ -233,8 +233,9 @@ long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
 
 // The plan kernel 1 takes for N vertices of a T whose base address is a
 // multiple of `aligned` bytes (as risi18_level_backward_plan of
-// risi18_level_bwd.cu, its thirteen fields; the stream of stored slots is
-// always cp.async's).
+// risi18_level_bwd.cu, its fourteen fields; the stream of stored slots is
+// always cp.async's, and dT is written, not scattered: plan[13] is
+// kScatterStore).
 int risi18_bank_backward_plan(int N, int P, int C, int Cout, int bf16,
                               int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,

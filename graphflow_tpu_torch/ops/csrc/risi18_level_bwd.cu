@@ -72,8 +72,14 @@
 // taking dK from its tiles' maps and G rows (the map cases on the tensor
 // cores where the plan has mma) and dT, which needs G and not T, for the
 // rows b of its tiles, one pass a row tile: the tile's maps on the tensor
-// cores from rows of G, GAp and GR, then dT[:, Xb, :] scattered
-// (risi18_backward_block.cuh:dT_maps, dT_assemble); the blocks' dK and db
+// cores from rows of G, GAp and GR, then dT[:, Xb, :] added into dstate
+// (risi18_backward_block.cuh:dT_maps; where C is a multiple of 4 and the
+// warps' staging buffers fit over G, dT_stage_rows: the row (a, b) of dT
+// is the neighbour's row dstate[n, p1, 0:P, chunk] read through pos[a, .],
+// so it is staged in storage order, repeated positions added, and added
+// by one tensor reduce a row, cp.reduce.async.bulk.tensor through dstate's
+// tensor map, as the stream's tensor copies gather it; else dT_assemble's
+// float32 atomic a cell and four channels); the blocks' dK and db
 // are exchanged through distributed shared memory in rank order, and each
 // cluster writes one partial row, so kernel 2 is unchanged
 // (ops/risi_bank.py:risi18_bank_backward_cluster_reference).  Where that
@@ -162,7 +168,9 @@ risi18_level_bwd_tiled_kernel(const E* __restrict__ state,
 // Kernel 1 on a cluster plan (fields from 33 rows at Cout = 32): a
 // vertex's row tiles over a cluster of blocks (backward_block_cluster).
 // kTma: the plan's stream takes the tensor copies (L.sp.tma), through the
-// state's tensor map `map` (else not read).
+// state's tensor map `map` (else not read).  Where the plan's scatter is
+// kScatterTmaReduce, dT's staged rows are added into dstate through its
+// tensor map `dmap` (else not read).
 template <typename E, bool kMma, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
 risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
@@ -177,10 +185,11 @@ risi18_level_bwd_cluster_kernel(const E* __restrict__ state,
                                 float* __restrict__ dstate,
                                 float* __restrict__ partial,
                                 int N, BackwardPlan L, float negslope,
-                                const __grid_constant__ CUtensorMap map) {
+                                const __grid_constant__ CUtensorMap map,
+                                const __grid_constant__ CUtensorMap dmap) {
   lv::backward_block_cluster<E, kMma, true, kTma>(
       state, nbr, pos, radj, K, gout, out, gap, sums, dstate, partial, N, L,
-      negslope, &map);
+      negslope, &map, &dmap);
 }
 
 // Kernel 2 behind a bfloat16 forward.  The first sum_blocks blocks sum the
@@ -244,10 +253,20 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
                   (C + L.sp.Cc - 1) / L.sp.Cc, (Cout + L.Co - 1) / L.Co);
   if (L.cluster) {
     // A tensor map that does not encode is an error, never another route.
-    CUtensorMap map = {};
+    CUtensorMap map = {}, dmap = {};
     if (L.sp.tma) {
       const int err = lv::encode_state_map(&map, state, N, L.sp,
                                            (int)sizeof(E));
+      if (err != 0) return err;
+    }
+    // The staged scatter's tensor map: the float32 dstate in the state's
+    // geometry (a box of {ncp, P} of [N*P*P, C]).  The wrapper allocates
+    // dstate, 16-byte aligned; another buffer is refused, not scattered
+    // another way.
+    if (L.scatter == lv::kScatterTmaReduce) {
+      if (lv::alignment_of(dstate) != 16) return cudaErrorInvalidValue;
+      const int err = lv::encode_state_map(&dmap, dstate, N, L.sp,
+                                           (int)sizeof(float));
       if (err != 0) return err;
     }
     return lv::launch_clusters(
@@ -258,7 +277,7 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
         grid, L.cluster, bytes, (cudaStream_t)stream, (const E*)state,
         (const int*)nbr, (const int*)pos, (const float*)radj, (const E*)K,
         (const E*)g, (const E*)out, (const float*)gap, (const float*)sums,
-        (float*)dstate, (float*)partial, N, L, negslope, map);
+        (float*)dstate, (float*)partial, N, L, negslope, map, dmap);
   }
   auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
                 : L.mma ? risi18_level_bwd_kernel<E, true>
@@ -391,9 +410,10 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 // plan[8] the row tiles a block of the cluster takes, plan[9] 1 where dK's
 // map cases run on the tensor cores, plan[10] kernel 0's float32 scratch
 // words a vertex (0: a plan of no cluster, which launches no kernel 0),
-// plan[11] its shared memory in bytes and plan[12] 1 where the stream
-// takes one tensor copy a gathered row (else cp.async a cell).  Returns 0,
-// or 1 where no plan fits.
+// plan[11] its shared memory in bytes, plan[12] 1 where the stream
+// takes one tensor copy a gathered row (else cp.async a cell) and plan[13]
+// 1 where dT's rows are staged and added by tensor reduces (else 0, float32
+// atomics).  Returns 0, or 1 where no plan fits.
 int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
                                int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
@@ -403,7 +423,7 @@ int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
 }
 
 #ifdef RISI18_STAGE_CLOCK
-// The stage clock's 16 sums of cycles, zeroed after the copy.
+// The stage clock's 24 sums of cycles, zeroed after the copy.
 int risi18_level_backward_stage_cycles(long long* host) {
   return risi18::level::read_stage_cycles(host);
 }

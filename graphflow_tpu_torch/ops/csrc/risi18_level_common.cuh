@@ -116,8 +116,17 @@ inline int read_stage_cycles(long long* host) {
 // kConsumerRelease]; lane 0 of the producer warp adds its cycles waiting on
 // the empty mbarrier and issuing the stage's copies, and its stages, to
 // stage_cycles[kProducerWait..kProducerStages].
+// The cluster plans' dT pass (dT_pass) adds thread 0's cycles in the
+// tiles' maps (to the barrier after them) and in their scatter or dT
+// written (to the next barrier) to stage_cycles[kDTMaps], [kDTScatter];
+// on the staged scatter (dT_stage_rows) thread 0, which issues its warp's
+// rows, adds its cycles waiting for a staging buffer, staging its rows and
+// issuing their tensor reduces, and its rows, to [kScatterWait ..
+// kScatterRows].
 enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces,
-       kConsumerRelease, kProducerWait, kProducerIssue, kProducerStages };
+       kConsumerRelease, kProducerWait, kProducerIssue, kProducerStages,
+       kDTMaps, kDTScatter, kScatterWait, kScatterStage, kScatterIssue,
+       kScatterRows };
 #define PIECE_MARK(t) const long long t = clock64()
 #define PIECE_ADD(i, d)                                                  \
   do {                                                                   \
@@ -130,12 +139,23 @@ enum { kPieceWait = 10, kPieceIssue, kPieceReduce, kPieces,
         threadIdx.x == 32 * risi18::level::kProducerWarp)                \
       risi18::level::stage_cycles[i] += (d);                             \
   } while (0)
+// A lap clock of thread 0 of block (0, 0, 0): CLOCK_LAP(i, v) adds the
+// cycles since v (CLOCK_VAR) or the last lap to stage_cycles[i].
+#define CLOCK_VAR(v) long long v = clock64()
+#define CLOCK_LAP(i, v)                                                  \
+  do {                                                                   \
+    const long long lap_now = clock64();                                 \
+    PIECE_ADD(i, lap_now - (v));                                         \
+    (v) = lap_now;                                                       \
+  } while (0)
 #else
 #define STAGE_CLOCK_START()
 #define STAGE(i)
 #define PIECE_MARK(t)
 #define PIECE_ADD(i, d)
 #define PRODUCER_ADD(i, d)
+#define CLOCK_VAR(v)
+#define CLOCK_LAP(i, v)
 #endif
 
 // The SASS marks, for tools/sass_count.py, which builds K1 with
@@ -425,6 +445,46 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         "}\n"
         : "=r"(done) : "r"(at), "r"(parity) : "memory");
   }
+}
+
+// The box of `map` at (column x, row y) added element by element into the
+// tensor from `src` (kTmaAlign-aligned; each element's add is atomic, as a
+// relaxed reduction at gpu scope), in this thread's open bulk group.
+// Elements of the box outside the tensor are not written.  The caller has
+// fenced the writes to `src` (fence_proxy_async) behind a barrier.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
+                                                  const void* src, int x,
+                                                  int y) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(src)),
+         "r"(x), "r"(y)
+      : "memory");
+}
+
+// Closes this thread's open bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` (0 to 3) of this thread's bulk groups
+// still read their shared memory.
+__device__ __forceinline__ void bulk_wait_read(int pending) {
+  if (pending >= 3)
+    asm volatile("cp.async.bulk.wait_group.read 3;\n" ::: "memory");
+  else if (pending == 2)
+    asm volatile("cp.async.bulk.wait_group.read 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until every bulk group of this thread has completed, its writes
+// to global memory included.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // The box of `map` at (column x, row y) into `dst` (kTmaAlign-aligned),
@@ -1335,7 +1395,8 @@ inline const char* error_string(int err) {
   if (err >= kTensorMapError) {
     static thread_local char text[96];
     snprintf(text, sizeof(text),
-             "cuTensorMapEncodeTiled of the state failed: CUresult %d",
+             "cuTensorMapEncodeTiled of the state (or of K2's dstate) "
+             "failed: CUresult %d",
              err - kTensorMapError);
     return text;
   }

@@ -16,7 +16,9 @@ whose backward launches ``csrc/risi18_level_bwd.cu`` (K2), or raises.
 ``risi18_level_backward_reference`` its plain version.
 ``risi18_row_gather_reference`` forms the gathered slots as the cluster
 plans' tensor-copy route does (a neighbour's row copied in storage order,
-then read through the slot's permutation of its columns);
+then read through the slot's permutation of its columns), and
+``risi18_row_scatter_reference`` its adjoint as K2's staged scatter adds
+it (each row's dT in the neighbour's storage order, one add a row);
 ``risi18_slot_row_sums_reference`` the row sums that route's consumers
 read in storage order against a slot's weights, and ``producer_pieces``
 the pieces a tile streams there.
@@ -184,6 +186,43 @@ def risi18_row_gather_reference(state, nbr, pos, chunk=16):
     return torch.cat(parts, -1)
 
 
+def risi18_row_scatter_reference(dT, nbr, pos, N, chunk=16):
+    """The adjoint of :func:`risi18_row_gather_reference` as K2 kernel 1's
+    staged scatter forms it (``csrc/risi18_backward_block.cuh:
+    dT_stage_rows``): dT [V, P, P, P, C] of the gathered slots of ``nbr``
+    [V, P] and ``pos`` [V, P, P] -> dstate [N, P, P, C].  Chunk by chunk of
+    ``chunk`` channels (the box's width, ncp; zeros past C), the row (a, b)
+    of dT is staged in the neighbour's storage order, cell j the sum of
+    dT[v, a, b, c] over the columns c with pos[v, a, c] = j (repeats added,
+    0 where no column reads the cell), and added into dstate[n, p1, :,
+    c0:c0+chunk] (n = nbr[v, a], p1 = pos[v, a, b]; channels past C not
+    written); a row whose n or p1 is absent (outside [0, N) or [0, P)) adds
+    nothing.  It only adds, so it is the take-gather's cotangent to
+    rounding, in dT's dtype."""
+    V, P = nbr.shape
+    C = dT.shape[-1]
+    n_ok = (nbr >= 0) & (nbr < N)                          # [V, P]
+    p_ok = (pos >= 0) & (pos < P)                          # [V, P, P]
+    n = torch.where(n_ok, nbr, 0).long()
+    p = torch.where(p_ok, pos, 0).long()
+    row_ok = (n_ok[:, :, None] & p_ok).reshape(-1)         # rows (v, a, b)
+    target = (n[:, :, None] * P + p).reshape(-1)[row_ok]   # rows n*P + p1
+    # hit[v, a, c, j]: column c of slot a reads cell j of its rows.
+    hit = (p_ok[..., None] & (p[..., None] == torch.arange(
+        P, device=pos.device))).to(dT.dtype)
+    dstate = dT.new_zeros((N * P, P, C))
+    for c0 in range(0, C, chunk):
+        box = dT[..., c0:c0 + chunk]
+        if box.shape[-1] < chunk:      # the box's channels past C: zeros
+            box = torch.cat([box, box.new_zeros(
+                box.shape[:-1] + (chunk - box.shape[-1],))], -1)
+        staged = torch.einsum("vabcf,vacj->vabjf", box, hit)
+        rows = staged.reshape(V * P * P, P, chunk)[row_ok]
+        width = min(chunk, C - c0)
+        dstate[..., c0:c0 + width].index_add_(0, target, rows[..., :width])
+    return dstate.reshape(N, P, P, C)
+
+
 def risi18_slot_weights(pos, R):
     """The weights against which the tensor-copy route's consumers read a
     row of a whole slot in storage order (``csrc/risi18_level_common.cuh:
@@ -286,8 +325,10 @@ def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
     of its rows b (``ops/risi_bank.py:_bank_backward_cluster``; a whole
     slot's rows outside its tile read against the slot's weights,
     :func:`risi18_slot_row_sums_reference`); GA, dK and db are the blocks'
-    parts added in rank order, and dT goes back through the gather.  ->
-    (dstate, dK, db), each in the dtype of its parameter."""
+    parts added in rank order, and dT goes back as the staged scatter adds
+    it (:func:`risi18_row_scatter_reference`: each gathered row in the
+    neighbour's storage order).  -> (dstate, dK, db), each in the dtype of
+    its parameter."""
     from graphflow_tpu_torch.ops.risi_bank import _bank_backward_cluster
 
     ct = _COMPUTE[state.dtype]
@@ -296,13 +337,11 @@ def risi18_level_backward_cluster_reference(state, nbr, pos, radj, K, b, g,
     out = risi18_level_reference(state, nbr, pos, radj, K, b, negslope)
     G = torch.where(out.to(ct) > 0, g.to(ct), negslope * g.to(ct))
     G = G.reshape(N, P, P, Cout)
-    with torch.enable_grad():
-        leaf = state.detach().to(ct).requires_grad_()
-        T = risi18_row_gather_reference(leaf, nbr, pos, chunk)
+    T = risi18_row_gather_reference(state.detach().to(ct), nbr, pos, chunk)
     dT, dK, db_parts = _bank_backward_cluster(
-        T.detach(), radj.to(ct), K.to(ct), G, rows, cluster,
+        T, radj.to(ct), K.to(ct), G, rows, cluster,
         risi18_slot_row_sums_reference(state.detach(), nbr, pos, radj))
-    (dstate,) = torch.autograd.grad(T, leaf, dT)
+    dstate = risi18_row_scatter_reference(dT, nbr, pos, N, chunk)
     db = db_parts[0]
     for part in db_parts[1:]:
         db = db + part
@@ -328,13 +367,17 @@ PLAN_KEYS = ("rows", "panel", "chunk", "depth", "smem_bytes", "tiled",
              "pieces", "cluster", "tiles_per_block", "mma", "stream")
 # The backward plans' two more fields before ``stream``: kernel 0's float32
 # scratch words a vertex, reported as ``scratch_bytes`` for the N vertices,
-# and its shared memory.
+# and its shared memory; and one after it, how dT reaches its destination.
 BACKWARD_PLAN_KEYS = PLAN_KEYS[:-1] + ("scratch_bytes", "sums_smem_bytes",
-                                       "stream")
+                                       "stream", "scatter")
 
 
 # A plan's ``stream`` field -> its name.
 STREAMS = ("cp_async", "tma_producer")
+# A backward plan's ``scatter`` field -> its name
+# (``csrc/risi18_backward_block.cuh``: kScatterAtomic, kScatterTmaReduce,
+# kScatterStore).
+SCATTERS = ("atomic", "tma_reduce", "store")
 
 
 def alignment_of(t):
@@ -371,8 +414,14 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False,
     fills for N vertices (GAp [N,P,P,Cout] and the row sums [N,3,P,Cout]:
     ``csrc/risi18_backward_block.cuh:backward_sums_kernel``), and
     ``sums_smem_bytes``, kernel 0's shared memory a block; both 0 on a
-    plan of no cluster, which launches no kernel 0.  Needs the CUDA library
-    (it is built with nvcc), not a card."""
+    plan of no cluster, which launches no kernel 0; and ``scatter``, how
+    kernel 1 adds dT into dstate: ``"tma_reduce"`` (K2 on a cluster plan
+    whose C is a multiple of 4, whose chunk has more than 4 channels, whose
+    row tile has at most 8 rows and whose warps' staging buffers fit over
+    G: each gathered row's dT staged in the neighbour's storage order and
+    added by one tensor reduce, :func:`risi18_row_scatter_reference`),
+    ``"atomic"`` (float32 atomics a cell) or ``"store"`` (K5: dT written).
+    Needs the CUDA library (it is built with nvcc), not a card."""
     keys = BACKWARD_PLAN_KEYS if backward else PLAN_KEYS
     plan = (ctypes.c_int * len(keys))()
     if fn(N, P, C, Cout, int(dtype == torch.bfloat16), aligned, plan):
@@ -381,6 +430,8 @@ def query_plan(fn, N, P, C, Cout, dtype=torch.float32, backward=False,
     if backward:
         got["scratch_bytes"] *= 4 * N
     got["stream"] = STREAMS[got["stream"]]
+    if backward:
+        got["scatter"] = SCATTERS[got["scatter"]]
     return got
 
 
@@ -652,6 +703,8 @@ def _backward_main_kernel(state, nbr, pos, radj, K, g, out, negslope,
     risi18_level_backward.launches += 1
     if plan is not None and plan["stream"] == "tma_producer":
         risi18_level_backward.tma_launches += 1
+    if plan is not None and plan["scatter"] == "tma_reduce":
+        risi18_level_backward.scatter_tma_launches += 1
     return dstate, partial
 
 
@@ -737,6 +790,9 @@ risi18_level_backward.reduce_launches = 0   # kernel 2 (dK, db; bf16: dstate)
 # Of kernel 1's launches, those whose stream took the producer's tensor
 # copies (the plan's ``stream`` "tma_producer", for the state's alignment).
 risi18_level_backward.tma_launches = 0
+# Of kernel 1's launches, those that added dT's staged rows by tensor
+# reduces (the plan's ``scatter`` "tma_reduce").
+risi18_level_backward.scatter_tma_launches = 0
 
 
 class _Risi18LevelFn(torch.autograd.Function):

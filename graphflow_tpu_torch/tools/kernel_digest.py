@@ -17,7 +17,7 @@ agrees to rounding only; a redesigned kernel sums in another order).
 With ``--times`` it prints instead the spin-timed median ms of K1, of K2
 kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
 level; each backward's kernel 1 with the kernel 0 that a cluster plan
-launches before it), and of both kernels 2 (K2's in float32) beside
+launches before it), of K7, and of both kernels 2 (K2's in float32) beside
 ``partial.sum(0)``,
 at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
@@ -151,6 +151,7 @@ def main(argv=None):
                                                 pos).contiguous()
                 gb = g.view(N, P, P, Cout)
                 k4 = time_ms(lambda: risi18_bank(T, level[3], level[4]))
+                k7 = time_ms(lambda: risi18_aligned_t2(level[0], nbr, pos))
                 k5 = time_ms(lambda: risi_bank._backward_main_kernel(
                     T, level[3], level[4], gb))
                 _, bpartial = risi_bank._backward_main_kernel(
@@ -168,7 +169,7 @@ def main(argv=None):
                         f"{time_ms(lambda: bpartial.sum(0)):.4f} ms")
                 print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms, K2 kernel "
                       f"1 {k2:.4f} ms, K4 {k4:.4f} ms, K5 kernel 1 "
-                      f"{k5:.4f} ms; {red}")
+                      f"{k5:.4f} ms, K7 {k7:.4f} ms; {red}")
                 continue
             dstate, dK, db = risi18_level_backward(*level, out, g)
             T = risi18_aligned_t2(level[0], nbr, pos)

@@ -33,8 +33,13 @@ same cluster blocks on T there, with the same marks (K2's names: for K5
 the structure is the adjacency, geff is g itself and the scatter writes
 dT).  On a cluster plan kernel 0 (GAp and the row sums of G once a
 vertex) runs before kernel 1, unclocked; the cluster plans' dT phase is
-one pass a row tile, the next tile's maps formed on the tensor cores while
-this tile's dT is scattered (K5: written), one mark for the whole phase.
+one pass a row tile: the phase's mark, then a line that splits it into the
+tiles' maps (on the tensor cores) and their scatter (K5: dT written), each
+to the barrier that ends it, with, on K2's staged scatter (the plan's
+``scatter`` "tma_reduce"), thread 0's cycles a row of its warp waiting for
+a staging buffer, staging the row in storage order and issuing its tensor
+reduce (its other rows are other warps'; the reduces drain while the next
+tile's maps run).
 
 Usage: python -m graphflow_tpu_torch.tools.stage_clock [N] [P] [C] [Cout]
 (defaults 256 16 32 32).  Needs a CUDA device and nvcc.
@@ -95,10 +100,22 @@ PIECE_SLOT = 10
 RELEASE_SLOT = 14
 PRODUCER_STAGES = ("waiting on empty", "issuing copies")
 PRODUCER_SLOT = 15
+# stage_cycles[18..19] of a cluster plan's dT pass (csrc/
+# risi18_backward_block.cuh: dT_pass): thread 0's cycles in the tiles'
+# maps and in their scatter (K2; K5: dT written), each to the barrier that
+# ends it; [20..23] on K2's staged scatter (dT_stage_rows), its cycles
+# waiting for a staging buffer, staging its warp's rows and issuing their
+# tensor reduces, and its rows.
+DT_STAGES = ("maps", "scatter")
+BANK_DT_STAGES = ("maps", "dT written")
+DT_SLOT = 18
+SCATTER_STAGES = ("waiting for a buffer", "staging", "issuing the reduce")
+SCATTER_SLOT = 20
 SLOTS = 24     # csrc/risi18_level_common.cuh: stage_cycles
 
 
-def report(what, stages, read_cycles, cluster_stages=None):
+def report(what, stages, read_cycles, cluster_stages=None,
+           dt_stages=DT_STAGES):
     cycles = (ctypes.c_longlong * SLOTS)()
     err = read_cycles(cycles)
     if err != 0:
@@ -118,6 +135,24 @@ def report(what, stages, read_cycles, cluster_stages=None):
               f"(0, 0, 0), cycles a stage of its lane 0: " + ", ".join(
                   f"{name} {cycles[PRODUCER_SLOT + i] / produced:.0f}"
                   for i, name in enumerate(PRODUCER_STAGES)))
+    dt = [cycles[DT_SLOT + i] for i in range(len(dt_stages))]
+    if any(dt) and dt_stages == BANK_DT_STAGES:
+        print(f"{what}: the dT phase in block (0, 0, 0), cycles of its "
+              f"thread 0: " + ", ".join(
+                  f"{name} {c} ({100 * c / sum(dt):.0f} %)"
+                  for name, c in zip(dt_stages, dt)))
+    elif any(dt):
+        rows = cycles[SCATTER_SLOT + len(SCATTER_STAGES)]
+        print(f"{what}: the dT phase in block (0, 0, 0), cycles of its "
+              f"thread 0: " + ", ".join(
+                  f"{name} {c} ({100 * c / sum(dt):.0f} %)"
+                  for name, c in zip(DT_STAGES, dt))
+              + ("; scatter " + (f"staged, {rows} rows of its warp, cycles "
+                                 f"a row: " + ", ".join(
+                                     f"{name} "
+                                     f"{cycles[SCATTER_SLOT + i] / rows:.0f}"
+                                     for i, name in enumerate(SCATTER_STAGES))
+                                 if rows else "by atomics")))
     if pieces:
         if cluster_stages is None or not any(cycles[:len(cluster_stages)]):
             return      # one block a vertex: no marks there
@@ -182,9 +217,10 @@ def main(argv=None):
         bank_sums = getattr(bank_bwd, f"risi18_bank_backward_sums_{suffix}")
         bank_sums.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
         shape = f"(N,P,C,Cout)=({N},{P},{C},{Cout}) {suffix}"
-        routes = [query_plan(fn, N, P, C, Cout, dtype, backward=b)["stream"]
-                  for fn, b in ((fwd.risi18_level_plan, False),
-                                (bwd.risi18_level_backward_plan, True))]
+        plans = [query_plan(fn, N, P, C, Cout, dtype, backward=b)
+                 for fn, b in ((fwd.risi18_level_plan, False),
+                               (bwd.risi18_level_backward_plan, True))]
+        routes = [p["stream"] for p in plans]
         for _ in range(ROUNDS):
             err = forward(state.data_ptr(), nbr.data_ptr(), pos.data_ptr(),
                           f32["radj"].data_ptr(), K.data_ptr(), b.data_ptr(),
@@ -209,7 +245,8 @@ def main(argv=None):
             if err != 0:
                 raise RuntimeError(f"risi18_level_backward launch failed "
                                    f"({err})")
-            report(f"K2 kernel 1 {shape} stream {routes[1]}",
+            report(f"K2 kernel 1 {shape} stream {routes[1]} scatter "
+                   f"{plans[1]['scatter']}",
                    BACKWARD_STAGES,
                    bwd.risi18_level_backward_stage_cycles,
                    CLUSTER_BACKWARD_STAGES)
@@ -246,7 +283,7 @@ def main(argv=None):
                                    f"({err})")
             report(f"K5 kernel 1 {shape}", BANK_BACKWARD_STAGES,
                    bank_bwd.risi18_bank_backward_stage_cycles,
-                   CLUSTER_BACKWARD_STAGES)
+                   CLUSTER_BACKWARD_STAGES, BANK_DT_STAGES)
 
 
 if __name__ == "__main__":

@@ -354,7 +354,7 @@ def test_bank_plans_stay_untiled_where_a_block_holds_the_field(cuda):
     assert bank_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=226960, tiled=0,
         pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
-        sums_smem_bytes=0, stream="cp_async")
+        sums_smem_bytes=0, stream="cp_async", scatter="store")
 
 
 def _bank_backward_in_chunks(T, A, K, g, chunk=32):

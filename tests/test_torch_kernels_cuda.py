@@ -325,7 +325,7 @@ def test_level_plans_stay_untiled_where_a_block_holds_the_field(cuda):
     assert level_backward_plan(256, 16, 32, 32) == dict(
         rows=16, panel=32, chunk=8, depth=4, smem_bytes=230848, tiled=0,
         pieces=1, cluster=0, tiles_per_block=1, mma=1, scratch_bytes=0,
-        sums_smem_bytes=0, stream="cp_async")
+        sums_smem_bytes=0, stream="cp_async", scatter="atomic")
 
 
 def cluster_rounds(tiles, blocks, per, grid, sms=132):
@@ -505,12 +505,29 @@ def expected_stream(plan, P, C, dtype, aligned=16):
     return "tma_producer" if tma else "cp_async"
 
 
+def expected_scatter(plan, C):
+    """The scatter a K2 kernel 1 plan must name: ``"tma_reduce"`` (each
+    gathered row's dT staged in the neighbour's storage order, one tensor
+    reduce a row into the float32 dstate) on a cluster plan whose rows of C
+    float32 channels are multiples of 16 bytes, whose chunk has more than 4
+    channels (whole 32-byte sectors a cell) and whose row tile has at most
+    8 rows (two warps or more a row b; the warps' staging buffers fit at
+    every field tested here); else ``"atomic"`` (the untiled plans and the
+    row-tiled block of one block a vertex group too)."""
+    return ("tma_reduce" if plan["cluster"] > 0 and C % 4 == 0
+            and plan["chunk"] > 4 and plan["rows"] <= 8 else "atomic")
+
+
 # K1 and K2 kernel 1 on both routes of the stream: C = 32 and 8 (and 4 in
 # float32) take the tensor copies on a cluster plan, C = 3 and 1 and C = 4
-# in bfloat16 (a box of 8 bytes) take cp.async.  (K2 at C = 32 is
-# test_backward_kernel_on_row_tiled_plans_at_every_cluster_size's.)  Three
-# slots of every vertex repeat a position, so that the producer route's
-# consumers read a cell that two columns share (a whole slot's weight 2).
+# in bfloat16 (a box of 8 bytes) take cp.async; and K2 kernel 1 on both
+# routes of its scatter: C = 32 and 8 (in both dtypes: dstate is float32)
+# stage rows for tensor reduces on a cluster plan in tiles of at most 8
+# rows, tiles of more rows (P = 37, 40, 50 at C = 8), C = 4 (cells of 16
+# bytes) and C = 3 and 1 take the atomics.  Three slots of every vertex
+# repeat a position, so that the producer route's consumers read a cell
+# that two columns share (a whole slot's weight 2) and a staged row adds
+# two columns into one cell.
 ROUTE_FIELDS = [(P, C, Cout) for P in (33, 37, 40, 50, 64)
                 for C, Cout in ((32, 32), (8, 8), (4, 4), (3, 4), (1, 4))]
 
@@ -524,7 +541,8 @@ def test_level_kernels_on_both_stream_routes_at_every_cluster_size(
     positions, an empty vertex), against the plain level, its output the
     same bits from run to run, its plan naming the route the rule gives and
     the route's launch counted as the plan names it; K2 kernel 1 the same
-    at its own cluster sizes (dstate, dK, db; dK and db bit for bit)."""
+    at its own cluster sizes (dstate, dK, db; dK and db bit for bit), its
+    plan naming the scatter the rule gives and the launch counted on it."""
     for N in cluster_sizes(level_plan, P, C, Cout, dtype):
         plan = level_plan(N, P, C, Cout, dtype)
         assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
@@ -536,25 +554,62 @@ def test_level_kernels_on_both_stream_routes_at_every_cluster_size(
             plan["stream"] == "tma_producer"), plan
         _assert_close(out, _level_in_chunks(args))
         assert torch.equal(out, risi18_level(*args)), (N, plan)
-    if C == 32:
-        return
     for N in cluster_sizes(level_backward_plan, P, C, Cout, dtype):
         plan = level_backward_plan(N, P, C, Cout, dtype)
         assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
+        assert plan["scatter"] == expected_scatter(plan, C), plan
         args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
                        empty_vertex=N // 2, dtype=dtype, repeated=True)
         g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
         out = same_signs(risi18_level(*args), _level_in_chunks(args))
-        before = risi18_level_backward.tma_launches
+        before = (risi18_level_backward.tma_launches,
+                  risi18_level_backward.scatter_tma_launches)
         got = risi18_level_backward(*args, out, g)
-        assert risi18_level_backward.tma_launches - before == (
-            plan["stream"] == "tma_producer"), plan
+        assert (risi18_level_backward.tma_launches - before[0],
+                risi18_level_backward.scatter_tma_launches - before[1]) == (
+            plan["stream"] == "tma_producer",
+            plan["scatter"] == "tma_reduce"), plan
         for x, r in zip(got, _level_backward_in_chunks(args, g)):
             _assert_close(x, r)
         again = risi18_level_backward(*args, out, g)
         torch.cuda.synchronize()
         for x, y in zip(got[1:], again[1:]):
             assert torch.equal(x, y), (N, plan)
+
+
+# K2 kernel 1 untiled (fields one block holds): its plans keep the
+# atomics (staged over the stream's ring, rows of P = 16 cells measured
+# slower on an H100), repeated positions and all.
+UNTILED_SCATTER = [(256, 16, 32, 32), (64, 16, 8, 8), (64, 10, 4, 4),
+                   (64, 16, 3, 4), (32, 4, 8, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,C,Cout", UNTILED_SCATTER)
+def test_backward_kernel_untiled_scatters_repeated_positions(cuda, N, P, C,
+                                                            Cout, dtype):
+    """K2 kernel 1 on its untiled plans, with absent neighbours and
+    positions, three repeated positions a vertex and an empty vertex,
+    against the plain backward (dstate, dK, db), dK and db the same bits
+    from run to run, its plan naming the atomics and no launch counted on
+    the staged scatter."""
+    plan = level_backward_plan(N, P, C, Cout, dtype)
+    assert plan["tiled"] == 0 and plan["cluster"] == 0, plan
+    assert plan["scatter"] == expected_scatter(plan, C), plan
+    args = _inputs(N, P, C, Cout, seed=N + P + C, device=cuda,
+                   empty_vertex=N // 2, dtype=dtype, repeated=True)
+    g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
+    out = same_signs(risi18_level(*args), risi18_level_reference(*args))
+    before = risi18_level_backward.scatter_tma_launches
+    got = risi18_level_backward(*args, out, g)
+    assert risi18_level_backward.scatter_tma_launches - before == (
+        plan["scatter"] == "tma_reduce"), plan
+    for x, r in zip(got, risi18_level_backward_reference(*args, g)):
+        _assert_close(x, r)
+    again = risi18_level_backward(*args, out, g)
+    torch.cuda.synchronize()
+    for x, y in zip(got[1:], again[1:]):
+        assert torch.equal(x, y), plan
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
@@ -622,7 +677,10 @@ def test_level_plans_name_their_route_and_bytes(cuda, dtype):
     a row of a stage for each of 15 // rows reducing warps' pieces, with
     the mbarriers, the piece list, the weights and the ring's 128-byte
     alignment counted in its bytes; the untiled plans, the bank's (K4, K5:
-    stored slots) and narrow chunks in bfloat16 take cp.async."""
+    stored slots) and narrow chunks in bfloat16 take cp.async.  K2 kernel
+    1's cluster plans there stage dT's rows for tensor reduces over G, in
+    the same bytes; C = 3 (rows of 12 bytes) and the untiled plans keep the
+    atomics, and K5 writes dT."""
     from graphflow_tpu_torch.ops.risi_bank import bank_backward_plan, bank_plan
 
     for N in (1, 64, 140, 256):
@@ -637,9 +695,15 @@ def test_level_plans_name_their_route_and_bytes(cuda, dtype):
             assert other["stream"] == "cp_async", other
             assert (other["rows"], other["chunk"], other["pieces"]) == (
                 plan["rows"], plan["chunk"], 16 // plan["rows"]), other
+            if query is level_backward_plan:
+                assert plan["scatter"] == other["scatter"] == "tma_reduce"
+                assert level_backward_plan(N, 64, 3, 4, dtype)[
+                    "scatter"] == "atomic"
         for plan in (bank_plan(N, 64, 32, 32, dtype),
                      bank_backward_plan(N, 64, 32, 32, dtype)):
             assert plan["stream"] == "cp_async", plan
+        assert bank_backward_plan(N, 64, 32, 32, dtype)["scatter"] == "store"
+    assert level_backward_plan(256, 16, 32, 32, dtype)["scatter"] == "atomic"
     assert level_plan(256, 16, 32, 32, dtype)["stream"] == "cp_async"
     assert level_backward_plan(64, 64, 4, 4, dtype)["stream"] == (
         "tma_producer" if dtype == torch.float32 else "cp_async")

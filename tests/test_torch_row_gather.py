@@ -16,6 +16,11 @@ zeros where a position is absent), on the CPU.
 * The level's cluster references, which now take their T from it, in
   chunks narrower than C, against the JAX XLA level and its ``jax.vjp``
   (float64, 1e-10), also where positions repeat within a slot.
+* Its adjoint as K2 kernel 1's staged scatter adds it
+  (``risi18_row_scatter_reference``: a row's dT in the neighbour's storage
+  order, repeats added, holes 0, chunks of 4, 8 and 16 channels) against
+  the vjp of the JAX take-gather (float64, 1e-10), and the plan query's
+  name of the scatter route.
 * The producer route's consumers' order of the row sums
   (``risi18_slot_row_sums_reference``: a whole slot's row in storage order
   against the slot's weights, ``risi18_slot_weights``) against the sums
@@ -37,9 +42,10 @@ from graphflow_tpu.models.smp2d import (
 from graphflow_tpu.ops.risi_fused_pallas import _reference_level
 from graphflow_tpu_torch.ops.risi_aligned import risi18_aligned_t2_reference
 from graphflow_tpu_torch.ops.risi_level import (
-    PLAN_KEYS, STREAMS, producer_pieces, query_plan,
-    risi18_level_backward_cluster_reference, risi18_level_cluster_reference,
-    risi18_row_gather_reference, risi18_slot_row_sums_reference,
+    BACKWARD_PLAN_KEYS, PLAN_KEYS, SCATTERS, STREAMS, producer_pieces,
+    query_plan, risi18_level_backward_cluster_reference,
+    risi18_level_cluster_reference, risi18_row_gather_reference,
+    risi18_row_scatter_reference, risi18_slot_row_sums_reference,
     risi18_slot_weights)
 from graphflow_tpu_torch.utils.datasets import random_level_case
 
@@ -164,6 +170,60 @@ def _close(got, ref):
     assert got.shape == ref.shape
     scale = max(1.0, float(np.abs(ref).max()))
     np.testing.assert_allclose(got, ref, rtol=RTOL64, atol=RTOL64 * scale)
+
+
+# -- K2's staged scatter: the gather's adjoint, a row in storage order -------
+
+def _scatter_case(case, V, P, C):
+    if case == "prepared":
+        return _prepared_case(V, P, C, (3, 2, 0))
+    if case == "repeated":
+        d = _repeated_case(V, P, C, C, seed=P + C)
+        return d["state"], d["nbr"], d["pos"]
+    return _random_case(V, P, C)
+
+
+# (case, V, P, C, chunk): chunks of 4, 8 and 16 channels over C = 10 (last
+# chunks of 2 and a box wider than C), C = 3 at P = 33.
+@pytest.mark.parametrize("case", ["random", "prepared", "repeated"])
+@pytest.mark.parametrize("V,P,C,chunk", [(3, 6, 10, 4), (3, 6, 10, 8),
+                                         (3, 6, 10, 16), (3, 33, 3, 4)])
+def test_row_scatter_is_the_take_gathers_vjp(case, V, P, C, chunk):
+    """``risi18_row_scatter_reference`` (each gathered row's dT staged in
+    the neighbour's storage order, repeated positions added, cells no
+    column reads 0, one add a row) against the vjp of the JAX take-gather
+    (float64, 1e-10): random fields with the sentinels and an all-absent
+    vertex, a prepared graph smaller than its field, positions that repeat
+    within a slot."""
+    state, nbr, pos = _scatter_case(case, V, P, C)
+    dT = np.random.default_rng(V + P + C + chunk).normal(
+        size=(V, P, P, P, C))
+    got = risi18_row_scatter_reference(_t(dT), _t(nbr), _t(pos), V, chunk)
+    padded = jnp.pad(jnp.asarray(state), ((0, 0), (0, 1), (0, 1), (0, 0)))
+    _, vjp = jax.vjp(lambda s: jax_take(s, jnp.asarray(nbr),
+                                        jnp.asarray(pos)), padded)
+    (ref,) = vjp(jnp.asarray(dT))
+    assert got.dtype == torch.float64
+    _close(got, np.asarray(ref)[:, :P, :P])
+    assert np.abs(got.numpy()).max() > 0
+    # Some cell is read by two columns of a slot, and only there.
+    hits = np.stack([pos == j for j in range(P)], -1).sum(2)
+    assert (hits > 1).any() == (case == "repeated")
+
+
+def test_row_scatter_of_out_of_range_ids_and_positions():
+    """Ids outside [0, V) and positions outside [0, P) besides the
+    sentinels (negative and large) add nothing: against autograd of the
+    port's take-gather (float64, 1e-10), in chunks of 4 over C = 5."""
+    state, nbr, pos = _random_case(3, 5, 5)
+    nbr[0, 0], nbr[1, 2] = -1, 9
+    pos[0, 1, 2], pos[1, 0, 0], pos[0, 3, 4], pos[2, 1, 1] = -1, 8, -4, 5
+    dT = np.random.default_rng(3).normal(size=(3, 5, 5, 5, 5))
+    leaf = _t(state).requires_grad_()
+    (ref,) = torch.autograd.grad(
+        risi18_aligned_t2_reference(leaf, _t(nbr), _t(pos)), leaf, _t(dT))
+    got = risi18_row_scatter_reference(_t(dT), _t(nbr), _t(pos), 3, 4)
+    _close(got, ref.numpy())
 
 
 # (N, P, C, Cout, rows, cluster, chunk): the row-tiled level in chunks of
@@ -321,3 +381,24 @@ def test_plan_query_names_the_producer_route():
     for route, name in enumerate(STREAMS):
         got = query_plan(answer(route), 64, 64, 32, 32)
         assert got["stream"] == name and got["rows"] == 1
+
+
+def test_backward_plan_query_names_the_scatter_route():
+    """A backward plan's ``scatter`` field 0 is float32 atomics, 1 the
+    staged rows added by tensor reduces, 2 dT written (K5); its ``stream``
+    and ``scratch_bytes`` read as before (``query_plan``, whatever library
+    answers)."""
+    def answer(route):
+        def plan_fn(N, P, C, Cout, bf16, aligned, plan):
+            for i in range(len(BACKWARD_PLAN_KEYS)):
+                plan[i] = 1
+            plan[len(BACKWARD_PLAN_KEYS) - 1] = route
+            return 0
+        return plan_fn
+
+    assert SCATTERS == ("atomic", "tma_reduce", "store")
+    assert BACKWARD_PLAN_KEYS[-2:] == ("stream", "scatter")
+    for route, name in enumerate(SCATTERS):
+        got = query_plan(answer(route), 64, 64, 32, 32, backward=True)
+        assert got["scatter"] == name and got["stream"] == "tma_producer"
+        assert got["scratch_bytes"] == 4 * 64
