@@ -21,7 +21,10 @@ Phases, each reported on its own lines:
               (64,64,32,32), where K1 spreads a vertex's row tiles over a
               cluster of blocks: the error, the plan (with its blocks a
               cluster, tiles a block and whether the products run on the
-              tensor cores), both times and the bound;
+              tensor cores), both times and the bound; and the same at the
+              beta pairs' first level (160,40,32,16), where K1 takes the
+              producer ring in both dtypes (asserted from the plan and the
+              launch);
   4. slice    SMP_omega at full width (V=64, P=16, C=32, two levels) with
               seeded random weights serves 3 requests of 4 random graphs,
               one Predict and one Feature; K1's launch count must equal
@@ -40,8 +43,17 @@ Phases, each reported on its own lines:
               vertex, launched before kernel 1 on a cluster plan and
               asserted so at every shape) against its plain version, its
               time and bound, with kernel 1 alone on its scratch; then
-              kernel 1 at the beta pairs' field (160,40,32,16), where the
-              grid fills the card: plan, time, bound;
+              the beta pairs' first level (160,40,32,16), where the grid
+              fills the card: kernel 1 on a cluster plan whose dK runs on
+              the tensor cores, kernel 0, the producer ring and the staged
+              scatter asserted launched, the errors, kernels 0 and 1's
+              time against the plain backward's and the bound; last,
+              SMP_beta's level at V = P = 35, 4 graphs (140,35,32,32), an
+              odd P where kernel 1 takes a cluster of one block with dK on
+              the CUDA cores (asserted from the plan and the launches:
+              kernel 0 once, the stream and scatter as the plan names
+              them): errors, kernels 0 and 1's time against the plain
+              backward's and the bound;
   6. train    the same model trains: 3 BatchLearn steps on a batch of 4
               random graphs and one Learn(nIterations=2) on a molecule;
               the loss and every gradient at the first step must match
@@ -62,7 +74,11 @@ Phases, each reported on its own lines:
               (errors against the plain versions run 64 vertices at a
               time) and at (64,64,32,32) the same way with the plain
               versions' times, and K5's kernel 0 against its plain
-              version (error, times, bound);
+              version (error, times, bound); last, K5 kernel 1 on a
+              cluster of one block with dK on the CUDA cores at
+              (140,35,32,32) (asserted from the plan, one launch, kernel 0
+              once): errors, kernels 0 and 1's time against the plain
+              backward's and the bound;
   8. bf16     the same model in bfloat16, whose levels run the fused level
               as in float32: 3 requests of 4 random graphs served twice
               (prep uncached, then cached), one Predict and one Feature, 3
@@ -193,7 +209,11 @@ Phases, each reported on its own lines:
               gradients through K1/K2 on the scaled K against the plain
               masked level, then steps with a fresh mask each.
               SMP_beta_pairgraphs at V1 = 24, V2 = 40 (P = 40 > V1) against
-              the plain level in float64 on the card.  SMP_gamma, SMP_theta,
+              the plain level in float64 on the card, with K1's and K2
+              kernel 1's plans per tower and level at the N of its batch
+              (4 x 24 and 4 x 40) and the steps' launches on each route
+              (producer ring, kernel 0, staged scatter) as the plans name
+              them.  SMP_gamma, SMP_theta,
               CCN_1D and GCN_1D/2D/3D_Kernel (V = 64, H = 32) against the
               same model on the CPU, no kernel launched.  Each prints its
               cached request and step walls and the step's peak memory;
@@ -313,9 +333,16 @@ LARGE_MANY_SHAPE = (140, 64, 32, 32)
 # bank's cluster plans there take one block a cluster (T is 8.6 GB in
 # float32; the plain versions run 64 vertices at a time).
 LARGE_BATCH_SHAPE = (256, 64, 32, 32)
-# The beta pairs' field (phase 19: P = 40, 160 vertices, C -> Cout 32 ->
-# 16), where the grid of K2 kernel 1 fills the card without clusters.
+# The beta pairs' first level (phase 19: P = 40, C -> Cout 32 -> 16) at a
+# step's 160 vertices of tower 2 (4 x V2), where the grid of K2 kernel 1
+# fills the card and its tensor-core cluster plan takes one block a cluster.
 PAIR_SHAPE = (160, 40, 32, 16)
+# SMP_beta at V = P = 35 with a batch of 4 graphs: an odd P, whose balanced
+# row tiles never hold a multiple of 8 cells, so no cluster plan of K2's or
+# K5's kernel 1 runs dK on the tensor cores, and 132 vertex groups fill the
+# card; kernel 1 takes a cluster of one block with dK on the CUDA cores,
+# and 8 of its clusters walk two vertices.
+ODD_SHAPE = (140, 35, 32, 32)
 # Repetitions of a plain version's timing at P = 64 (each call moves
 # gigabytes: T is 2.1 GB in float32 at LARGE_SHAPE).
 LARGE_PLAIN_REPS = 3
@@ -735,6 +762,33 @@ def phase_kernel():
             f"kernel's time)")
         del largs, lout
         torch.cuda.empty_cache()
+        # The beta pairs' first level (tower 2's four graphs): K1 on the
+        # producer ring in both dtypes.
+        N, P, C, Cout = PAIR_SHAPE
+        pargs = level_inputs(N, P, C, Cout, seed=SEED + 40, dtype=dtype)
+        plan = level_plan(N, P, C, Cout, dtype)
+        before = tma_counts()
+        pout = risi18_level(*pargs)
+        expect_tma(f"level {name} N={N} P={P}", plan, before, 0)
+        torch.cuda.synchronize()
+        err = check_close(f"level {name} N={N} P={P} C={C} Cout={Cout}",
+                          pout, risi18_level_reference(*pargs), rtol)
+        errs[name] = max(errs[name], err)
+        p40 = ms[name]["p40"] = {
+            "kernel": time_ms(lambda: risi18_level(*pargs)),
+            "plain": time_ms(lambda: risi18_level_reference(*pargs),
+                             reps=LARGE_PLAIN_REPS),
+            "bound": bound_ms(nbytes(*pargs, pout), level_ops(
+                N, P, C, Cout, present_elements(pargs[1], pargs[2])), name),
+            "plan": plan}
+        log(f"phase 3 kernel: {name} N,P,C,Cout={PAIR_SHAPE} (plan {plan}) "
+            f"max_abs_err={err:.3e} ok; median kernel {p40['kernel']:.4f} "
+            f"ms, plain {p40['plain']:.4f} ms; bound {p40['bound'][0]:.4f} "
+            f"ms by {p40['bound'][1]} "
+            f"({100 * p40['bound'][0] / p40['kernel']:.2f} % of the kernel's "
+            f"time)")
+        del pargs, pout
+        torch.cuda.empty_cache()
     return errs, ms
 
 
@@ -1007,25 +1061,108 @@ def phase_backward():
             f"{nbytes(*sums) / 1e6:.1f} MB")
         del largs, lg, lout, dstate, sums, sums_ref
         torch.cuda.empty_cache()
-        # The beta pairs' field, where 132 vertex groups x chunks already
-        # fill the card: kernel 1 on its plan there.
+        # The beta pairs' first level (tower 2's four graphs), where 132
+        # vertex groups x chunks already fill the card: kernel 1 on a
+        # cluster plan whose dK runs on the tensor cores, with kernel 0,
+        # the producer ring and the staged scatter.
         N, P, C, Cout = PAIR_SHAPE
-        pargs, pg = inputs(N, P, C, Cout, SEED + 40, dtype)
-        pout = risi18_level(*pargs)
+        pargs, pg, pout, line = check_tiled(PAIR_SHAPE, SEED + 40)
+        plan = level_backward_plan(N, P, C, Cout, dtype)
+        if not (plan["cluster"] >= 1 and plan["mma"] == 1):
+            raise AssertionError(f"backward {name} N={N} P={P}: plan {plan}, "
+                                 f"expected a cluster plan on the tensor "
+                                 f"cores")
+        leaves = [t.detach().requires_grad_() for t in
+                  (pargs[0], pargs[4], pargs[5])]
+        plain_out = risi18_level_reference(leaves[0], *pargs[1:4], leaves[1],
+                                           leaves[2])
         p40 = ms[name]["p40"] = {
             "main": time_ms(lambda: _backward_main_kernel(
                 *pargs[:5], pg, pout, 0.01)),
-            "plan": level_backward_plan(N, P, C, Cout, dtype),
+            "sums": time_ms(lambda: _backward_sums_kernel(pargs[3], pg, pout,
+                                                          0.01)),
+            "plain": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, pg, retain_graph=True),
+                reps=LARGE_PLAIN_REPS),
+            "plan": plan,
             "bound": bound_ms(
                 nbytes(*pargs[:5], pg, pout,
                        *risi18_level_backward(*pargs, pout, pg)),
                 level_backward_ops(N, P, C, Cout,
                                    present_elements(pargs[1], pargs[2])),
                 name)}
-        log(f"phase 5 backward: {name} N,P,C,Cout={PAIR_SHAPE} (plan "
-            f"{p40['plan']}): median kernel 1 {p40['main']:.4f} ms; bound "
-            f"{p40['bound'][0]:.4f} ms by {p40['bound'][1]}")
+        del plain_out, leaves
+        log(f"phase 5 backward: {name} N,P,C,Cout={PAIR_SHAPE} (row tiles: "
+            f"{plan}; kernel 0, stream {plan['stream']} and scatter "
+            f"{plan['scatter']} launched) max_abs_err {line} ok; median "
+            f"kernels 0 and 1 {p40['main']:.4f} ms (kernel 0 alone "
+            f"{p40['sums']:.4f}), plain backward {p40['plain']:.4f} ms; "
+            f"kernel 1's bound {p40['bound'][0]:.4f} ms by "
+            f"{p40['bound'][1]} ({100 * p40['bound'][0] / p40['main']:.2f} "
+            f"% of kernels 0 and 1)")
         del pargs, pg, pout
+        torch.cuda.empty_cache()
+        # SMP_beta at V = 35, 4 graphs: kernel 1 on a cluster of one block
+        # with dK on the CUDA cores (kernel 0 before it; the stream's and
+        # the scatter's routes as the plan names them).
+        N, P, C, Cout = ODD_SHAPE
+        plan = level_backward_plan(N, P, C, Cout, dtype)
+        if not (plan["tiled"] == 1 and plan["cluster"] == 1
+                and plan["mma"] == 0):
+            raise AssertionError(f"backward {name} N={N} P={P}: plan {plan}, "
+                                 f"expected a cluster of one block on the "
+                                 f"CUDA cores")
+        bargs, bg = inputs(N, P, C, Cout, SEED + 35, dtype)
+        bout = same_signs(risi18_level(*bargs),
+                          risi18_level_reference(*bargs))
+        lb = risi18_level_backward
+        before = (lb.launches, lb.sums_launches, lb.tma_launches,
+                  lb.scatter_tma_launches)
+        got = lb(*bargs, bout, bg)
+        torch.cuda.synchronize()
+        counts = tuple(x - y for x, y in zip(
+            (lb.launches, lb.sums_launches, lb.tma_launches,
+             lb.scatter_tma_launches), before))
+        want = (1, 1, int(plan["stream"] == "tma_producer"),
+                int(plan["scatter"] == "tma_reduce"))
+        if counts != want:
+            raise AssertionError(f"backward {name} N={N} P={P}: launches of "
+                                 f"kernel 1, kernel 0, the tensor copies and "
+                                 f"the staged scatter {counts}, expected "
+                                 f"{want} (plan {plan})")
+        line = []
+        for key, x, r in zip(errs[name], got,
+                             risi18_level_backward_reference(*bargs, bg)):
+            err = check_close(f"backward {key} {name} N={N} P={P} C={C} "
+                              f"Cout={Cout}", x, r, rtol)
+            errs[name][key] = max(errs[name][key], err)
+            line.append(f"{key} {err:.3e}")
+        leaves = [t.detach().requires_grad_() for t in
+                  (bargs[0], bargs[4], bargs[5])]
+        plain_out = risi18_level_reference(leaves[0], *bargs[1:4], leaves[1],
+                                           leaves[2])
+        odd = ms[name]["odd"] = {
+            "main": time_ms(lambda: _backward_main_kernel(
+                *bargs[:5], bg, bout, 0.01)),
+            "plain": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, bg, retain_graph=True),
+                reps=LARGE_PLAIN_REPS),
+            "plan": plan,
+            "bound": bound_ms(
+                nbytes(*bargs[:5], bg, bout, *got),
+                level_backward_ops(N, P, C, Cout,
+                                   present_elements(bargs[1], bargs[2])),
+                name)}
+        del plain_out, leaves
+        log(f"phase 5 backward: {name} N,P,C,Cout={ODD_SHAPE} (a cluster "
+            f"of one on the CUDA cores: {plan}; kernels 0 and 1 launched "
+            f"once each) max_abs_err {', '.join(line)} ok; median kernels 0 "
+            f"and 1 {odd['main']:.4f} ms, plain backward {odd['plain']:.4f} "
+            f"ms; bound {odd['bound'][0]:.4f} ms by {odd['bound'][1]} "
+            f"({100 * odd['bound'][0] / odd['main']:.2f} % of kernels 0 and "
+            f"1)")
+        del bargs, bg, bout, got
+        torch.cuda.empty_cache()
     return errs, ms
 
 
@@ -1352,6 +1489,51 @@ def phase_bank():
             f"{k0['plain_ms']:.4f} ms, bound {k0['bound'][0]:.4f} ms by "
             f"{k0['bound'][1]}")
         del T, A, K, g, got, Z, dT, dK, leaves, plain_out, sums
+        torch.cuda.empty_cache()
+        # K5 kernel 1 at SMP_beta's V = 35, 4 graphs: a cluster of one
+        # block with dK on the CUDA cores (kernel 0 before it).
+        N, P, C, Cout = ODD_SHAPE
+        plan = bank_backward_plan(N, P, C, Cout, dtype)
+        if not (plan["tiled"] == 1 and plan["cluster"] == 1
+                and plan["mma"] == 0):
+            raise AssertionError(f"bank N={N} P={P} {dtype}: K5 kernel 1's "
+                                 f"plan {plan}, expected a cluster of one "
+                                 f"block on the CUDA cores")
+        T, A, K, g = bank_inputs(N, P, C, Cout, SEED + 35, dtype)
+        before, k0 = risi18_bank_backward.launches, sums_counts()
+        dT, dK = risi18_bank_backward(T, A, K, g)
+        torch.cuda.synchronize()
+        if risi18_bank_backward.launches - before != 1:
+            raise AssertionError(f"bank N={N} P={P}: K5 kernel 1 must launch "
+                                 f"once")
+        expect_sums(f"bank N={N} P={P} {dtype}", k0, plan["cluster"], 1)
+        line = []
+        for key, x, r in zip(("dT", "dK"), (dT, dK),
+                             risi18_bank_backward_reference(T, A, K, g)):
+            err = check_close(f"bank {key} N={N} P={P} C={C} Cout={Cout} "
+                              f"{dtype}", x, r, rtol)
+            errs[key] = max(errs[key], err)
+            line.append(f"{key} {err:.3e}")
+        leaves = [x.detach().requires_grad_() for x in (T, K)]
+        plain_out = risi18_bank_reference(leaves[0], A, leaves[1])
+        odd = ms[name]["odd"] = {
+            "main": time_ms(lambda: _backward_main_kernel(T, A, K, g)),
+            "plain_bwd": time_ms(lambda: torch.autograd.grad(
+                plain_out, leaves, g, retain_graph=True),
+                reps=LARGE_PLAIN_REPS),
+            "plan": plan,
+            "bwd_bound": bound_ms(nbytes(T, A, K, g, dT, dK),
+                                  bank_backward_factored_ops(N, P, C, Cout),
+                                  name)}
+        log(f"phase 7 bank: {name} N,P,C,Cout={ODD_SHAPE} (K5 kernel 1 on "
+            f"a cluster of one on the CUDA cores: {plan}; one launch, kernel "
+            f"0 once) max_abs_err {', '.join(line)} ok; median K5 kernels 0 "
+            f"and 1 {odd['main']:.4f} ms, plain backward "
+            f"{odd['plain_bwd']:.4f} ms; bound {odd['bwd_bound'][0]:.4f} ms "
+            f"by {odd['bwd_bound'][1]} "
+            f"({100 * odd['bwd_bound'][0] / odd['main']:.2f} % of kernels 0 "
+            f"and 1)")
+        del T, A, K, g, dT, dK, leaves, plain_out
         torch.cuda.empty_cache()
     return errs, ms
 
@@ -2876,9 +3058,8 @@ def phase_large_field():
         sums = sums_counts()
         # A request: one forward; a step: a forward with its backward, then
         # the loss-only forward of loss_after.  Kernel 0 runs once a level's
-        # backward where its plan is a cluster plan (the levels of 32 -> 32
-        # channels; a physics tower's halved ones take the one-block row
-        # tiles).
+        # backward where its plan is a cluster plan (at V = 64 every level:
+        # 32 -> 32 channels and a physics tower's halved ones).
         sched = [model.cfg.channels_at(l) for l in range(nL + 1)]
         n = len(graphs) * V
         bwd_plan = bank_backward_plan if bank else level_backward_plan
@@ -3262,21 +3443,57 @@ def phase_pairs():
     beta = models.SMP_beta_pairgraphs(*beta_args, seed=SEED, device="cuda")
     ref = models.SMP_beta_pairgraphs(*beta_args, seed=SEED,
                                      device="cuda").double()
+    beta_requests = pair_requests(V1, V2, 1950)
     text, served, trained, err = serve_and_train_pairs(
-        "SMP_beta_pairgraphs", beta, ref, pair_requests(V1, V2, 1950),
-        targets, ADAM_LR0, level_fn=risi18_level_reference)
+        "SMP_beta_pairgraphs", beta, ref, beta_requests, targets, ADAM_LR0,
+        level_fn=risi18_level_reference)
+    # The training steps' launches by route (the counts are reset before
+    # the steps): K1 and K2 kernel 1 on the producer ring, kernel 0, the
+    # staged scatter.
+    routes = (*tma_counts(), sums_counts()[0], scatter_count())
     worst = max(worst, err)
     launches = count("SMP_beta_pairgraphs", served, trained,
                      2 * GRAPHS_PER_REQUEST, NEW_PHASE_STEPS)
     sched, P = beta.cfg1.channel_schedule, beta.cfg1.P
-    N = GRAPHS_PER_REQUEST * P   # (the tiling does not depend on N)
-    plans = {f"{c}->{co}": (level_plan(N, P, c, co)["tiled"],
-                            level_backward_plan(N, P, c, co)["tiled"])
-             for c, co in zip(sched, sched[1:])}
+    # Each tower's level sees its batch's graphs stacked: N = pairs x V of
+    # the tower (4 x 24 and 4 x 40 in a step, 24 and 40 in a Predict).
+    g1, g2 = beta_requests[0]
+    batch = beta._stack(g1, g2)
+    plans, want = {}, [0, 0, 0, 0]
+    for tower in (1, 2):
+        N = len(g1) * batch[f"g{tower}"]["nbr"].shape[2]
+        for c, co in zip(sched, sched[1:]):
+            fwd = level_plan(N, P, c, co)
+            bwd = level_backward_plan(N, P, c, co)
+            plans[f"tower {tower} N={N} {c}->{co}"] = (
+                f"K1 rows {fwd['rows']} chunk {fwd['chunk']} cluster "
+                f"{fwd['cluster']} mma {fwd['mma']} {fwd['stream']}; K2 "
+                f"kernel 1 rows {bwd['rows']} chunk {bwd['chunk']} cluster "
+                f"{bwd['cluster']} mma {bwd['mma']} {bwd['stream']} "
+                f"{bwd['scatter']}")
+            steps = NEW_PHASE_STEPS
+            want[0] += 2 * steps * (fwd["stream"] == "tma_producer")
+            want[1] += steps * (bwd["stream"] == "tma_producer")
+            want[2] += steps * (bwd["cluster"] > 0)
+            want[3] += steps * (bwd["scatter"] == "tma_reduce")
+            if c == sched[0] and not (bwd["cluster"] >= 1 and bwd["mma"]
+                                      and bwd["scatter"] == "tma_reduce"):
+                raise AssertionError(f"SMP_beta_pairgraphs tower {tower}: "
+                                     f"K2 kernel 1's plan at N={N} {bwd}, "
+                                     f"expected a cluster plan on the "
+                                     f"tensor cores")
+    if routes != tuple(want):
+        raise AssertionError(f"SMP_beta_pairgraphs steps: launches by route "
+                             f"(K1 producer ring, K2 producer ring, kernel "
+                             f"0, staged scatter) {routes}, expected "
+                             f"{tuple(want)} from the plans {plans}")
     log(f"phase 19 pairs: SMP_beta_pairgraphs V1={V1} V2={V2} P={P} towers "
-        f"{sched}, row-tiled (K1, K2 kernel 1) per level {plans} "
-        f"(reference: the plain level in float64 on the card): {text}; "
-        f"{launches}")
+        f"{sched} (reference: the plain level in float64 on the card): "
+        f"{text}; {launches}")
+    log(f"phase 19 pairs: SMP_beta_pairgraphs plans per tower and level "
+        f"{plans}; {NEW_PHASE_STEPS} steps' launches on the producer ring "
+        f"K1={routes[0]} K2 kernel 1={routes[1]}, kernel 0={routes[2]}, "
+        f"staged scatter={routes[3]} (as the plans name them)")
     mid = time.perf_counter()
 
     # The torch-op towers: no kernel launched (the level counts are reset
@@ -4236,13 +4453,26 @@ def main() -> None:
     # (random weights give outputs of ~1e3 and losses of ~1e6-1e10).
     f32, b16 = "float32", "bfloat16"
 
-    def p64(per_dtype, ms_key, plain_key, bound_key="bound"):
-        return {"shape": list(LARGE_SHAPE), **{d: {
-            "ms": per_dtype[d]["p64"][ms_key],
-            "plain_ms": per_dtype[d]["p64"][plain_key],
-            "bound_ms": per_dtype[d]["p64"][bound_key][0],
-            "bound_by": per_dtype[d]["p64"][bound_key][1]}
+    def p64(per_dtype, ms_key, plain_key, bound_key="bound", key="p64",
+            shape=LARGE_SHAPE):
+        return {"shape": list(shape), **{d: {
+            "ms": per_dtype[d][key][ms_key],
+            "plain_ms": per_dtype[d][key][plain_key],
+            "bound_ms": per_dtype[d][key][bound_key][0],
+            "bound_by": per_dtype[d][key][bound_key][1],
+            **({"plan": per_dtype[d][key]["plan"]} if key != "p64" else {})}
             for d in (f32, b16)}}
+
+    def p40(per_dtype, ms_key, plain_key):
+        """The times at the beta pairs' first level (phases 3 and 5)."""
+        return p64(per_dtype, ms_key, plain_key, key="p40",
+                   shape=PAIR_SHAPE)
+
+    def odd(per_dtype, ms_key, plain_key, bound_key="bound"):
+        """A backward's kernels 0 and 1 on a cluster of one block with dK on
+        the CUDA cores (phases 5 and 7)."""
+        return p64(per_dtype, ms_key, plain_key, bound_key, key="odd",
+                   shape=ODD_SHAPE)
 
     def sums_kernel(label, per_dtype, launches, replaces):
         """Kernel 0 of a backward's cluster plans at SMP_beta's field
@@ -4286,7 +4516,8 @@ def main() -> None:
                max_rel_err_p64=large["err"],
                p64=p64(level_ms, "kernel", "plain"),
                tiled_plan={d: level_ms[d]["p64"]["plan"]
-                           for d in (f32, b16)}),
+                           for d in (f32, b16)},
+               p40=p40(level_ms, "kernel", "plain")),
         kernel("risi18_level_bwd_kernel", "risi18_level_bwd.cu",
                fused + "767",
                train_launches[1] + physics_k2[0] + bf16["k2"][0]
@@ -4304,7 +4535,9 @@ def main() -> None:
                p64_kernel1_ms={d: bwd_ms[d]["p64"]["kernel1"]
                                for d in (f32, b16)},
                tiled_plan={d: bwd_ms[d]["p64"]["plan"]
-                           for d in (f32, b16)}),
+                           for d in (f32, b16)},
+               p40=p40(bwd_ms, "main", "plain"),
+               odd_p=odd(bwd_ms, "main", "plain")),
         kernel("sum_partial_rows, finish_bf16_kernel (risi18_level_bwd)",
                "risi18_level_bwd.cu", fused + "767",
                train_launches[2] + physics_k2[1] + bf16["k2"][1]
@@ -4349,7 +4582,8 @@ def main() -> None:
                            for d in (f32, b16)},
                launches_parallel=spread["K5"],
                max_rel_err_parallel=par["rel"],
-               partition=partition("k5")),
+               partition=partition("k5"),
+               odd_p=odd(bank_ms, "main", "plain_bwd", "bwd_bound")),
         sums_kernel("risi18_level_bwd", bwd_ms, large["k0"][0],
                     fused + "767"),
         sums_kernel("risi18_bank_bwd", bank_ms, large["k0"][1],

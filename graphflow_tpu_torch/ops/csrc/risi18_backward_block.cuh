@@ -6,10 +6,9 @@
 // takes G from the cotangent through LeakyReLU', sums db and scatters dT
 // into dstate with atomics; K5 streams them from T, takes G as the
 // cotangent itself and writes dT, which each vertex owns, once per element.
-// backward_block_cluster (K2, K5) and backward_block_tiled (where a
-// cluster plan would be one block on the CUDA cores) are the same function
-// for a field whose G and maps do not fit one block, in row tiles: a
-// vertex's tiles spread over a cluster, or one block a vertex group.
+// backward_block_cluster (K2, K5) is the same function for a field whose G
+// and maps do not fit one block, in row tiles: a vertex's tiles spread over
+// a cluster of blocks.
 
 #pragma once
 
@@ -65,10 +64,9 @@ struct BackwardPlan {
                // bytes
   int ALD;     // P + 1
   int tiled;   // 1: a vertex is walked in row tiles of sp.rows rows
-               // (backward_block_tiled, backward_block_cluster)
+               // (backward_block_cluster)
   int cluster; // blocks a cluster of the cluster plan (K2's and K5's row
-               // tiles, backward_block_cluster), 0 for one block a vertex
-               // group
+               // tiles, backward_block_cluster), 0 untiled
   int tiles_per_block;  // the row tiles one block of the cluster takes
   int ring;    // -1: the ring lies in the stream area; else its offset
                // over G and GAp (a cluster plan whose ring holds several
@@ -102,7 +100,9 @@ struct BackwardPlan {
 // a row-tiled plan for backward_block_cluster (K2, K5), whose dK map cases
 // run on the tensor cores where the plan allows, its cluster sized for N
 // vertices (cluster_shape: the grid is vertex groups x chunks x
-// panels); else backward_block_tiled's, on the CUDA cores.
+// panels); else one block a vertex group, which no kernel runs: the
+// least shared memory a launch needs (min_backward_smem_bytes) is sized
+// by it.
 inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
                                        int Co, int es, int aligned, bool wide,
                                        bool gather, int rows = 0, int G = 1,
@@ -155,8 +155,7 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
   // pieces (a tile's cells in registers: tile_regs), or takes the tensor
   // copies, and fits there.  (With the copies' one piece a stage of tiles
   // of 8 rows it freed the room for a cluster of one on the tensor cores:
-  // K2 kernel 1 at (64,64,16,8) 3.54 → 1.09 ms in float32, where the ring
-  // in the stream area had left the one-block row-tiled block; an H100,
+  // K2 kernel 1 at (64,64,16,8) 3.54 → 1.09 ms in float32; an H100,
   // PERF.md.)
   const bool over_g = L.cluster && (pieces(L.sp) > 1 || L.sp.tma) &&
                       ring_words(L.sp) <= L.gr - L.g;
@@ -214,26 +213,29 @@ inline BackwardPlan make_backward_plan(int P, int C, int Cout, int Cc, int D,
 
 // The plan that fits one block with the widest panel, then the largest
 // chunk, then the deepest ring, then the wide rows.  The stream's wide
-// plans, for fields of more than 32 rows, go through the row-tiled block:
+// plans, for fields of more than 32 rows, go through the row tiles:
 // where no plan keeps the maps of every row with a stream in registers, a
 // row-tiled one with the widest panel, then the most rows a tile (all P
 // first: one tile, the stream in shared memory), then the largest chunk,
 // the most pieces a ring buffer and the deepest ring.  words == 0 if none
 // fits.  Without `gather` (K5) the
 // panel is all of Cout: a chunk's dT needs every output's cotangents, and
-// it is written once, without atomics.  With `cluster` (K2, K5) the
-// row-tiled plan is a cluster plan (backward_block_cluster) for N vertices,
-// one whose tiles keep their cells in registers (tile_regs) first, and the
-// rows of G, GAp and K eight words further apart than the panel before four
-// where its dK runs on the tensor cores; every plan that fits without it
-// fits with it.  A cluster plan of one block with dK on the CUDA cores has
-// nothing over the row-tiled block of one block a vertex group but the
-// cluster's meetings, and measured slower on an H100 at P = 40 (K2 kernel 1
-// by 1.5-4 %, K5 kernel 1 by 12-17 %: PERF.md); there the row-tiled plan
-// is taken instead.
+// it is written once, without atomics.  The row-tiled plan is a cluster
+// plan (backward_block_cluster) for N vertices, one whose tiles keep their
+// cells in registers (tile_regs) first, and the rows of G, GAp and K eight
+// words further apart than the panel before four where its dK runs on the
+// tensor cores; every plan of one block a vertex group that fits fits as a
+// cluster plan (so min_backward_smem_bytes bounds both).  Where that first
+// plan is a cluster of one block with dK on
+// the CUDA cores, the first cluster plan whose dK runs on the tensor cores
+// is taken, in smaller tiles (kernel 0, the dT pass on the tensor cores,
+// the tensor copies and the staged scatter come with it), else that first
+// plan.  At P = 40, C = 32, Cout = 16 tiles of 14 rows fit chunks of 4
+// channels only, tiles of 8 rows chunks of 8: K2 kernels 0 and 1 took 2.15
+// ms there against 3.15 for the cluster of one on the CUDA cores (float32;
+// bfloat16 2.17 against 5.29), K5 3.31 against 7.35 (an H100, PERF.md).
 inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
-                                         int aligned, bool gather,
-                                         bool cluster = false, int N = 0) {
+                                         int aligned, bool gather, int N) {
   // Every dK tile (slab, four channels, eight outputs) needs a thread.
   auto dk_tiles_fit = [](const BackwardPlan& L, int Co) {
     return kSlabs * (L.sp.ncp / 4) * ((Co + 7) / 8) <= kThreads;
@@ -254,23 +256,29 @@ inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
     }
     if (Co <= 4 || !gather) break;
   }
-  auto tiled = [&](bool clustered) {
-    for (int regs = clustered ? 1 : 0; regs >= 0; --regs) {
+  auto tiled = [&](bool mma) {
+    for (int regs = 1; regs >= 0; --regs) {
       for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
         for (int k = -1; k < 6; ++k) {
           const int rows = k < 0 ? P : kTileRows[k];
           if (rows > P || (k >= 0 && rows == P)) continue;
           for (int Cc : {kMaxChunk, 8, 4}) {
             Cc = Cc < C ? Cc : C;
+            // L.mma's conditions on the chunk, the panel and the balanced
+            // tile, checked first: a search that finds no such plan (an
+            // odd P's tiles) then builds none, on the host at each launch.
+            const int Co4 = round_up(Co, 4);
+            if (mma && (Cc <= 4 || Co4 % 8 || Co4 > 32 ||
+                        balanced_rows(P, rows) * P % 8))
+              continue;
             for (int G = kThreads / 32; G >= 1; G /= 2) {
               for (int D = 4; D >= 2; --D) {
                 for (bool wide : {true, false}) {
-                  if (wide && !clustered) continue;
                   const BackwardPlan L = make_backward_plan(
                       P, C, Cout, Cc, D, Co, es, aligned, wide, gather, rows,
-                      G, clustered, N);
+                      G, true, N);
                   if ((!regs || (tile_regs(L.sp) && !L.sp.no_producer)) &&
-                      dk_tiles_fit(L, Co) &&
+                      (!mma || L.mma) && dk_tiles_fit(L, Co) &&
                       sizeof(float) * (size_t)L.words <=
                           risi18::kMaxSmemBytes)
                     return L;
@@ -285,10 +293,10 @@ inline BackwardPlan choose_backward_plan(int P, int C, int Cout, int es,
     BackwardPlan none{};
     return none;
   };
-  const BackwardPlan L = tiled(cluster);
-  if (!cluster || (L.words && (L.cluster > 1 || L.mma))) return L;
-  const BackwardPlan one = tiled(false);
-  return one.words ? one : L;
+  const BackwardPlan L = tiled(false);
+  if (L.words && (L.cluster > 1 || L.mma)) return L;
+  const BackwardPlan mma = tiled(true);
+  return mma.words ? mma : L;
 }
 
 // The least shared memory one block needs: the plan for one float32 channel
@@ -1188,7 +1196,7 @@ inline void report_backward_plan(const BackwardPlan& L, int P, int Cout,
 
 // -- the dT pass of a row tile ----------------------------------------------
 //
-// The row-tiled blocks form dT from G, not T.  Split by the row whose G
+// The cluster plans form dT from G, not T.  Split by the row whose G
 // they come from,
 //   dT[a,b,c] = A[a,b] + A6[a,b] R[c] + d(b,c) A15[a,b]               (row a)
 //             + B11[b,a] + Bbc[b,c] + R[a] B9[b,c] + d(a,c) B16[b,a] (row b),
@@ -1733,403 +1741,6 @@ __device__ __forceinline__ void dT_pass(const TileDT<E, kGather>& d,
   if (staged && threadIdx.x % 32 == 0) bulk_wait_read(0);
   __syncthreads();
   CLOCK_LAP(kDTScatter, lap);
-}
-
-// backward_block on a row-tiled plan of one block a vertex group
-// (L.tiled, L.cluster == 0): a field whose maps and G do not fit one block
-// (from P = 33 at Cout = 32), where a cluster plan would be one block on
-// the CUDA cores (choose_backward_plan), which measured slower than this
-// block.  Per vertex:
-//   0. GA and db's sums over every row of geff, read from g (and out);
-//   1. per row tile X (rows [x0, x0 + nx)): G, GAp and GR of its rows; its
-//      maps (tile_reductions); dK's map and vector cases of its rows, added
-//      to the block's sums; its part of the four scalars, added in tile
-//      order.  Then dK's scalar cases, the scalars times GA.
-//   2. dT.  The reductions' cotangents need G, not T.  Split by the row
-//      whose G they come from,
-//        dT[a,b,c] = A[a,b] + A6[a,b] R[c] + d(b,c) A15[a,b]        (row a)
-//                  + B11[b,a] + Bbc[b,c] + R[a] B9[b,c] + d(a,c) B16[b,a]
-//                                                                  (row b),
-//      with A = S G K1 + trA G K7 + GAp K9 + dT_a + dTfull + d(a,b) ds14,
-//      A6 = G K6, A15 = GAp K16 + dTdbc + ds15 + d(a,b) dt18 (rows a, the
-//      whole slots' cases), B11 = GAp K12, Bbc = S G K3 + GAp K13 + dT_b,
-//      B9 = G K10, B16 = GAp K17 + dTdac (rows b); K_k is K's k-th slab, G
-//      and GAp are taken at the map's own row, and each product is with
-//      the slab transposed.  So the block takes the row tiles Xb in turn,
-//      forms the B maps of its rows, then, for each tile Xa, the A maps of
-//      rows Xa at the columns Xb (GAp of those entries only), and writes
-//      dT[Xa, Xb, :] whole: K5 stores each element of its dT once, in a
-//      fixed order, with no atomics and no partial sum in device memory
-//      (one rounding of a bfloat16 dT); K2 scatters it with atomics, as it
-//      does untiled.  Each tile pair reloads G of rows Xa (from L2).
-// The products run on the CUDA cores; every other sum as untiled.
-template <typename E, bool kGather>
-__device__ __forceinline__ void backward_block_tiled(
-    const E* __restrict__ in, const int* __restrict__ nbr,
-    const int* __restrict__ pos, const float* __restrict__ radj,
-    const E* __restrict__ K, const E* __restrict__ gout,
-    const E* __restrict__ out,
-    std::conditional_t<kGather, float, E>* __restrict__ dst,
-    float* __restrict__ partial, int N, const BackwardPlan& L,
-    float negslope) {
-  extern __shared__ __align__(128) float smem[];
-  const StreamPlan& sp = L.sp;
-  const int P = sp.P, C = sp.C, Cout = L.Cout, ncp = sp.ncp, X = sp.rows;
-  const int GLD = L.GLD, ALD = L.ALD, PP = P * P;
-  const int tid = threadIdx.x, nth = blockDim.x;
-  auto group = [] { return kGather ? blockIdx.x : blockIdx.y; };
-  auto groups = [] { return kGather ? gridDim.x : gridDim.y; };
-  auto chunk = [] { return kGather ? blockIdx.y : blockIdx.x; };
-  const int c0 = chunk() * sp.Cc, nc = min(sp.Cc, C - c0);
-  const int o0 = blockIdx.z * L.Co, no = min(L.Co, Cout - o0);
-  const int n4 = round_up(no, 4) / 4;     // groups of four outputs
-  const int tiles = (P + X - 1) / X, quads = ncp / 4;
-
-  float* Ap = smem + L.ap;
-  float* R = smem + L.r;
-  int* snbr = reinterpret_cast<int*>(smem + L.inbr);
-  int* spos = reinterpret_cast<int*>(smem + L.ipos);
-  int* slots = reinterpret_cast<int*>(smem + L.islots);
-  float* G = smem + L.g;
-  float* GAp = smem + L.gap;
-  float* GR = smem + L.gr;
-  float* GA = smem + L.ga;
-  const StreamBuffers s = stream_buffers(smem + L.stream, sp);
-  float* Ks = smem + L.ks;
-  float* dKv = smem + L.dkv;
-  float* dbs = smem + L.dbs;
-  float* red = smem + L.red;
-  float* sacc = smem + L.sacc;
-  float* part = smem + L.part;
-  float* tab = s.map(kTab, sp.mapw);
-  float* tabT = s.map(kTabT, sp.mapw);
-  float* tbc = s.map(kTbc, sp.mapw);
-  float* dbc = s.map(kDbc, sp.mapw);
-  float* dacT = s.map(kDacT, sp.mapw);
-  float* m6 = s.map(kM6, sp.mapw);
-  float* m10 = s.map(kM10, sp.mapw);
-
-  zero_words(smem + L.g, L.words - L.g);
-  __syncthreads();
-  for (int i = tid; i < kCases * nc * no; i += nth) {
-    const int o = i % no, kf = i / no, f = kf % nc, k = kf / nc;
-    Ks[(k * ncp + f) * GLD + o] = risi18::to_float(
-        K[(size_t)(k * C + c0 + f) * Cout + o0 + o]);
-  }
-  // K's slab k, channel f.
-  auto kslab = [&](int k, int f) { return Ks + (k * ncp + f) * GLD; };
-
-  // dK's register tile: slab, four channels and eight outputs, for the row
-  // quads [q0, q1) of a tile's rows (as the untiled block on the CUDA
-  // cores).
-  const int nog = (no + 7) / 8, dtiles = kSlabs * quads * nog;
-  const int parts = max(1, min(min(nth / dtiles, 8), round_up(X * P, 4) / 4));
-  float4 dk[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dk[i][0] = dk[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  const bool vec_scatter = C % 4 == 0 && sp.Cc % 4 == 0 && (kGather ||
-                                                            L.wide_g);
-  const bool wide_g = Cout % 4 == 0 && L.Co % 4 == 0 && L.wide_g;
-  const size_t vT = (size_t)PP * P * C;
-
-  for (size_t v = group(); v < (size_t)N; v += groups()) {
-    const E* gv = gout + v * PP * Cout + o0;
-    const E* ov = kGather ? out + v * PP * Cout + o0 : nullptr;
-    // (The barrier that ended the previous vertex ordered its reads of the
-    // structure before these writes.)
-    if constexpr (kGather) {
-      risi18::load_vertex(nbr, pos, radj, v, N, P, ALD, Ap, R,
-                          smem + L.scal, snbr, spos);
-    } else {
-      risi18::load_adjacency(radj, v, P, ALD, Ap, R, smem + L.scal);
-    }
-    const float S = smem[L.scal], trA = smem[L.scal + 1];
-    if constexpr (kGather) list_slots(snbr, spos, P, slots);
-    const auto src = [&] {
-      if constexpr (kGather)
-        return GatheredSlots<E>{in, snbr, spos, slots};
-      else
-        return StoredSlots<E>{in + v * vT};
-    }();
-
-    // 0. GA = sum_{x,y} Ap[x,y] G[x,y,:] and db's sums, item (output,
-    //    part of the rows), the parts added in order.
-    {
-      const int gparts = nth / no;
-      if (tid < gparts * no) {
-        const int o = tid % no, p = tid / no;
-        float ga = 0.f, gs = 0.f;
-        for (int r = p; r < PP; r += gparts) {
-          float gi = risi18::to_float(gv[(size_t)r * Cout + o]);
-          if constexpr (kGather)
-            if (!(risi18::to_float(ov[(size_t)r * Cout + o]) > 0.f))
-              gi *= negslope;
-          ga += Ap[(r / P) * ALD + r % P] * gi;
-          gs += gi;
-        }
-        part[tid] = ga;
-        part[nth + tid] = gs;
-      }
-      __syncthreads();
-      for (int o = tid; o < no; o += nth) {
-        float ga = 0.f, gs = 0.f;
-        for (int p = 0; p < gparts; ++p) {
-          ga += part[p * no + o];
-          gs += part[nth + p * no + o];
-        }
-        GA[o] = ga;
-        if constexpr (kGather) dbs[o] += gs;   // (written by chunk 0's blocks)
-      }
-      for (int i = tid; i < 4 * ncp; i += nth) sacc[i] = 0.f;
-    }
-
-    // G, GAp and GR of the rows [x0, x0 + nx) (GAp of every column).  Ends
-    // with a barrier.
-    auto tile_g = [&](int x0, int nx) {
-      __syncthreads();                    // G's and GAp's readers are done
-      load_geff_rows<E, kGather>(gv, ov, x0 * P, nx * P, G, GLD, no, Cout,
-                                 wide_g, negslope);
-      __syncthreads();
-      for (int item = tid; item < nx * P * n4; item += nth) {
-        const int og = item % n4, r = item / n4, xl = r / P, e = r % P;
-        const float* g = G + xl * P * GLD + 4 * og;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int y = 0; y < P; ++y)
-          fma4(acc, Ap[y * ALD + e], load4(g + y * GLD));
-        *reinterpret_cast<float4*>(GAp + r * GLD + 4 * og) = acc;
-      }
-      for (int item = tid; item < nx * n4; item += nth) {
-        const int og = item % n4, xl = item / n4;
-        const float* g = G + xl * P * GLD + 4 * og;
-        float4 gr = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int y = 0; y < P; ++y) fma4(gr, R[y], load4(g + y * GLD));
-        *reinterpret_cast<float4*>(GR + xl * GLD + 4 * og) = gr;
-      }
-      __syncthreads();
-    };
-
-    // 1. The tiles' maps and dK.
-    for (int t = 0; t < tiles; ++t) {
-      const int x0 = t * X, nx = min(X, P - x0), RR = nx * P;
-      tile_g(x0, nx);
-      tile_reductions<true, true, false>(src, R, sp, s, t, nx, c0, nc);
-      // This tile's part of Tfull, s14, s15 and t18.
-      for (int i = tid; i < 4 * ncp; i += nth) {
-        const int k = i / ncp, f = i % ncp;
-        float a = 0.f;
-        for (int xl = 0; xl < nx; ++xl) {
-          const int diag = (xl * P + x0 + xl) * ncp + f;
-          a += k == 0 ? s.ta[xl * ncp + f] : k == 1 ? tab[diag]
-               : k == 2 ? s.tdbc[xl * ncp + f] : dbc[diag];
-        }
-        sacc[i] += a;
-      }
-      // dK's map cases over the tile's rows.
-      {
-        const int nq = round_up(RR, 4) / 4, qpp = (nq + parts - 1) / parts;
-        const int item = tid;
-        if (item < dtiles * parts) {
-          const int tt = item % dtiles, pt = item / dtiles;
-          const int og = tt % nog, sq = tt / nog, q = sq % quads;
-          const int sl = sq / quads;
-          const float* map = s.map(kSlabMap[sl], sp.mapw) + 4 * q;
-          const float* gm = (sl >= 5 ? GAp : G) + 8 * og;
-          const int kind = kSlabScale[sl];
-          const float scale = kind == 1 ? S : kind == 2 ? trA : 1.f;
-          const int r1 = min(nq, (pt + 1) * qpp) * 4;
-          for (int r = pt * qpp * 4; r < r1; ++r) {
-            float4 m = load4(map + r * ncp);
-            m.x *= scale; m.y *= scale; m.z *= scale; m.w *= scale;
-            const float4 g0 = load4(gm + r * GLD);
-            const float4 g1 = load4(gm + r * GLD + 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              fma4(dk[i][0], get4(m, i), g0);
-              fma4(dk[i][1], get4(m, i), g1);
-            }
-          }
-        }
-      }
-      // The vector cases of the tile's rows against GR.
-      for (int i = tid; i < 4 * nc * no; i += nth) {
-        const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
-        const float* vec = (j == 0 ? s.ta : j == 1 ? s.tb
-                            : j == 2 ? s.tdbc : s.tdac) + f;
-        float acc = 0.f;
-        for (int xl = 0; xl < nx; ++xl)
-          acc += vec[xl * ncp] * GR[xl * GLD + o];
-        dKv[(j * ncp + f) * GLD + o] += acc;
-      }
-      __syncthreads();
-    }
-    // The scalar cases: the four scalars times GA.  Then the scalars'
-    // cotangents, GA against K's slabs 5, 14, 15, 18, over s's scalars.
-    for (int i = tid; i < 4 * nc * no; i += nth) {
-      const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
-      dKv[((4 + j) * ncp + f) * GLD + o] += sacc[j * ncp + f] * GA[o];
-    }
-    for (int i = tid; i < 4 * ncp; i += nth) {
-      const int j = i / ncp, f = i % ncp;
-      const int k = j == 0 ? 4 : j == 1 ? 13 : j == 2 ? 14 : 17;
-      s.tfull[i] = dot_rows(GA, kslab(k, f), n4);   // tfull, s14, s15, t18
-    }
-
-    // 2. dT, tile pair by tile pair.
-    for (int tb = 0; tb < tiles; ++tb) {
-      const int xb0 = tb * X, nxb = min(X, P - xb0), RRb = nxb * P;
-      tile_g(xb0, nxb);
-      // dT_b and dTdac of the rows b.
-      for (int i = tid; i < nxb * ncp; i += nth) {
-        const int f = i % ncp, xl = i / ncp;
-        s.tb[i] = dot_rows(GR + xl * GLD, kslab(3, f), n4);
-        s.tdac[i] = dot_rows(GR + xl * GLD, kslab(10, f), n4);
-      }
-      __syncthreads();
-      // The B maps of the rows b = xb0 + bl: row bl*P + y.
-      for (int i = tid; i < RRb * ncp; i += nth) {
-        const int f = i % ncp, r = i / ncp, xl = r / P;
-        const float* g = G + r * GLD;
-        const float* gp = GAp + r * GLD;
-        tabT[i] = dot_rows(gp, kslab(11, f), n4);
-        tbc[i] = S * dot_rows(g, kslab(2, f), n4)
-                 + dot_rows(gp, kslab(12, f), n4) + s.tb[xl * ncp + f];
-        m10[i] = dot_rows(g, kslab(9, f), n4);
-        dacT[i] = dot_rows(gp, kslab(16, f), n4) + s.tdac[xl * ncp + f];
-      }
-      for (int ta = 0; ta < tiles; ++ta) {
-        const int xa0 = ta * X, nxa = min(X, P - xa0);
-        // G and GR of the rows a; GAp[a, b] for b in Xb only, at row
-        // al*X + bl.
-        __syncthreads();                  // G's readers are done
-        load_geff_rows<E, kGather>(gv, ov, xa0 * P, nxa * P, G, GLD, no,
-                                   Cout, wide_g, negslope);
-        __syncthreads();
-        for (int item = tid; item < nxa * nxb * n4; item += nth) {
-          const int og = item % n4, ab = item / n4, bl = ab % nxb;
-          const int al = ab / nxb;
-          const float* g = G + al * P * GLD + 4 * og;
-          const float* ae = Ap + xb0 + bl;
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int y = 0; y < P; ++y)
-            fma4(acc, ae[y * ALD], load4(g + y * GLD));
-          *reinterpret_cast<float4*>(GAp + (al * X + bl) * GLD + 4 * og) =
-              acc;
-        }
-        for (int item = tid; item < nxa * n4; item += nth) {
-          const int og = item % n4, xl = item / n4;
-          const float* g = G + xl * P * GLD + 4 * og;
-          float4 gr = make_float4(0.f, 0.f, 0.f, 0.f);
-          for (int y = 0; y < P; ++y) fma4(gr, R[y], load4(g + y * GLD));
-          *reinterpret_cast<float4*>(GR + xl * GLD + 4 * og) = gr;
-        }
-        __syncthreads();
-        for (int i = tid; i < nxa * ncp; i += nth) {
-          const int f = i % ncp, xl = i / ncp;
-          s.ta[i] = dot_rows(GR + xl * GLD, kslab(1, f), n4);
-          s.tdbc[i] = dot_rows(GR + xl * GLD, kslab(7, f), n4);
-        }
-        __syncthreads();
-        // The A maps at (a, b), row al*X + bl.
-        for (int i = tid; i < nxa * nxb * ncp; i += nth) {
-          const int f = i % ncp, ab = i / ncp, bl = ab % nxb, al = ab / nxb;
-          const bool diag = xa0 + al == xb0 + bl;
-          const float* g = G + (al * P + xb0 + bl) * GLD;
-          const float* gp = GAp + (al * X + bl) * GLD;
-          const int at = (al * X + bl) * ncp + f;
-          tab[at] = S * dot_rows(g, kslab(0, f), n4)
-                    + trA * dot_rows(g, kslab(6, f), n4)
-                    + dot_rows(gp, kslab(8, f), n4) + s.ta[al * ncp + f]
-                    + s.tfull[f] + (diag ? s.s14[f] : 0.f);
-          m6[at] = dot_rows(g, kslab(5, f), n4);
-          dbc[at] = dot_rows(gp, kslab(15, f), n4) + s.tdbc[al * ncp + f]
-                    + s.s15[f] + (diag ? s.t18[f] : 0.f);
-        }
-        __syncthreads();
-        // dT[a, b, c] for a in Xa, b in Xb, item (a, b, c, four channels).
-        for (int item = tid; item < nxa * nxb * P * quads; item += nth) {
-          const int q = item % quads, rest = item / quads, c = rest % P;
-          const int ab = rest / P, bl = ab % nxb, al = ab / nxb;
-          const int a = xa0 + al, b = xb0 + bl;
-          if (4 * q >= nc) continue;
-          const int A = (al * X + bl) * ncp + 4 * q;
-          const int Bba = (bl * P + a) * ncp + 4 * q;
-          const int Bbc = (bl * P + c) * ncp + 4 * q;
-          float4 val = load4(tab + A);
-          const float4 fbc = load4(tbc + Bbc), fba = load4(tabT + Bba);
-          val.x += fbc.x + fba.x; val.y += fbc.y + fba.y;
-          val.z += fbc.z + fba.z; val.w += fbc.w + fba.w;
-          fma4(val, R[c], load4(m6 + A));
-          fma4(val, R[a], load4(m10 + Bbc));
-          if (c == b) fma4(val, 1.f, load4(dbc + A));
-          if (c == a) fma4(val, 1.f, load4(dacT + Bba));
-          if constexpr (kGather) {
-            const int n = snbr[a], p1 = spos[a * P + b], p2 = spos[a * P + c];
-            if ((n | p1 | p2) < 0) continue;
-            float* at = dst + (((size_t)n * P + p1) * P + p2) * C + c0 + 4 * q;
-            if (vec_scatter) {
-              atomicAdd(reinterpret_cast<float4*>(at), val);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) atomicAdd(at + i, get4(val, i));
-            }
-          } else {
-            E* at = dst + v * vT + ((size_t)(a * P + b) * P + c) * C + c0
-                    + 4 * q;
-            if (vec_scatter) {
-              store4(at, val);
-            } else {
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * q + i < nc) risi18::store_value(at + i, get4(val, i));
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // The block's partial row: the k-parts of the map cases summed in order,
-  // then every case's rows of this chunk and panel, and db.
-  {
-    const int item = tid;
-    const bool active = item < dtiles * parts;
-    const int tt = item % dtiles, pt = item / dtiles;
-    const int og = tt % nog, sq = tt / nog, q = sq % quads, sl = sq / quads;
-    for (int p = 0; p < parts; ++p) {
-      if (active && pt == p) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* at = red + (sl * ncp + 4 * q + i) * GLD + 8 * og;
-          const float4 a0 = load4(at), a1 = load4(at + 4);
-          *reinterpret_cast<float4*>(at) = make_float4(
-              a0.x + dk[i][0].x, a0.y + dk[i][0].y, a0.z + dk[i][0].z,
-              a0.w + dk[i][0].w);
-          *reinterpret_cast<float4*>(at + 4) = make_float4(
-              a1.x + dk[i][1].x, a1.y + dk[i][1].y, a1.z + dk[i][1].z,
-              a1.w + dk[i][1].w);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  const size_t nK = (size_t)kCases * C * Cout;
-  float* part_row = partial + group() * (nK + (kGather ? Cout : 0));
-  for (int i = tid; i < kSlabs * nc * no; i += nth) {
-    const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
-    part_row[(size_t)(kSlabCase[j] * C + c0 + f) * Cout + o0 + o] =
-        red[(j * ncp + f) * GLD + o];
-  }
-  for (int i = tid; i < 8 * nc * no; i += nth) {
-    const int o = i % no, jf = i / no, f = jf % nc, j = jf / nc;
-    part_row[(size_t)(kVectorCase[j] * C + c0 + f) * Cout + o0 + o] =
-        dKv[(j * ncp + f) * GLD + o];
-  }
-  if (kGather && chunk() == 0)
-    for (int o = tid; o < no; o += nth) part_row[nK + o0 + o] = dbs[o];
 }
 
 // K2 kernel 1 (kGather: slots gathered from the state, G = geff through

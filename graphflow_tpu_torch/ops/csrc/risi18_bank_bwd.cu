@@ -48,11 +48,11 @@
 // each cluster writes one partial row of dK (its blocks' parts added in
 // rank order through distributed shared memory), so kernel 2 is unchanged.
 // Where that plan would be one block with dK on the CUDA cores (a grid that
-// fills the card, chunks of 4 channels: the beta pairs' P = 40), the
-// row-tiled block of one block a vertex group (backward_block_tiled), which
-// measured faster there, writes dT the same way (risi18_backward_block.cuh:
-// choose_backward_plan).  Both read kernel 0 (backward_sums_kernel: GAp and
-// the row sums of g once a vertex, float32 scratch), launched before them.
+// fills the card, chunks of 4 channels), a cluster plan in smaller tiles
+// with dK on the tensor cores is taken where one fits (P = 40, C = 32,
+// Cout = 16: tiles of 8 rows in chunks of 8; risi18_backward_block.cuh:
+// choose_backward_plan).  It reads kernel 0 (backward_sums_kernel: GAp and
+// the row sums of g once a vertex, float32 scratch), launched before it.
 // Kernel 2 (sum_partial_rows) sums the groups' partial rows into dK.  All
 // sums are in float32; bfloat16 is converted once on load and rounded once
 // on store.
@@ -108,20 +108,6 @@ risi18_bank_bwd_cluster_kernel(const E* __restrict__ T,
                                              partial, N, L, 0.f);
 }
 
-// Kernel 1 on a row-tiled plan of one block a vertex group, where a
-// cluster plan would be one block on the CUDA cores.
-template <typename E>
-__global__ void __launch_bounds__(kThreads, 1)
-risi18_bank_bwd_tiled_kernel(const E* __restrict__ T,
-                             const float* __restrict__ A,
-                             const E* __restrict__ K,
-                             const E* __restrict__ gout, E* __restrict__ dT,
-                             float* __restrict__ partial, int N,
-                             BackwardPlan L) {
-  lv::backward_block_tiled<E, false>(T, nullptr, nullptr, A, K, gout,
-                                     nullptr, dT, partial, N, L, 0.f);
-}
-
 template <typename E>
 int launch(const void* T, const void* A, const void* K, const void* g,
            const void* gap, const void* sums, void* dT, void* partial,
@@ -130,7 +116,7 @@ int launch(const void* T, const void* A, const void* K, const void* g,
   if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   if (N == 0) return cudaSuccess;
   BackwardPlan L = lv::choose_backward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false, true, N);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(T), false, N);
   if (L.words == 0) return cudaErrorInvalidValue;
   // A cluster plan reads kernel 0's sums.
   if (L.cluster && (gap == nullptr || sums == nullptr))
@@ -150,8 +136,7 @@ int launch(const void* T, const void* A, const void* K, const void* g,
   // Chunks along x: the blocks of one vertex group start side by side
   // (backward_block).
   const dim3 grid((C + L.sp.Cc - 1) / L.sp.Cc, nblocks, 1);
-  auto kernel = L.tiled ? risi18_bank_bwd_tiled_kernel<E>
-                : L.mma ? risi18_bank_bwd_kernel<E, true>
+  auto kernel = L.mma ? risi18_bank_bwd_kernel<E, true>
                         : risi18_bank_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -239,7 +224,7 @@ long long risi18_bank_backward_min_smem_bytes(int P, int Cout) {
 int risi18_bank_backward_plan(int N, int P, int C, int Cout, int bf16,
                               int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  aligned, false, true, N);
+                                                  aligned, false, N);
   lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }

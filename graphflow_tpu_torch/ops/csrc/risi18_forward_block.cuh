@@ -139,8 +139,17 @@ inline ForwardPlan make_forward_plan(int P, int C, int Cout, int Cc, int D,
 // where tiles of 4 rows, 4 pieces and chunks of 8 fit too (128): 5.81 →
 // 2.86 ms on an H100; where the two reduce as much a stage (8 rows of 8
 // channels against 2 pieces of 8 rows of 4), the filled stage was as often
-// slower (PERF.md).  Every plan that fits without the cluster fits with
-// it, so the fields served are the same.  words == 0 if none fits.
+// slower (PERF.md).  Where that plan is not on K1's tensor copies
+// (sp.tma) and one on them fits, the plan on the copies is taken, chosen
+// the same way: at P = 40, C = 32, Cout = 16 tiles of 14 rows fit chunks
+// of 4 channels only, a box of 8 bytes in bfloat16, so bfloat16 took
+// cp.async (4.43-4.47 ms at N = 160) where float32 took the copies; on the
+// copies, in tiles of 4 rows and chunks of 8, it takes 1.83-1.85 (an H100,
+// PERF.md).  (Float32 there in chunks of 8, 1.81 against 2.19 on random
+// fields, took longer on the beta pairs' sparse graphs: 0.35 against 0.24
+// ms a Predict's launch; its plan stays.)  Every plan that fits without
+// the cluster fits with it, so the fields served are the same.  words ==
+// 0 if none fits.
 inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
                                        int aligned, bool gather,
                                        bool cluster = false, int N = 0) {
@@ -160,20 +169,24 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
     }
   }
   // The first row-tiled plan that fits: with its cells in registers
-  // (regs), and its stage keeping the warps busy (busy).
-  auto tiled = [&](bool regs, bool busy) {
+  // (regs), its stage keeping the warps busy (busy), on the tensor copies
+  // (copies).
+  auto tiled = [&](bool regs, bool busy, bool copies) {
     for (int Co = Cout;; Co = round_up((Co + 1) / 2, 4)) {
       for (int rows : kTileRows) {
         if (rows >= P) continue;
         for (int Cc : {kMaxChunk, 8, 4}) {
           Cc = Cc < C ? Cc : C;
+          // The copies take a chunk of a multiple of 16 bytes
+          // (make_stream_plan's ncp): no plan built for one that is not.
+          if (copies && (Cc <= 4 ? 4 : Cc <= 8 ? 8 : 16) * es % 16) continue;
           for (int G = kThreads / 32; G >= 1; G /= 2) {
             for (int D = 4; D >= 2; --D) {
               const ForwardPlan L =
                   make_forward_plan(P, C, Cout, Cc, D, Co, es, aligned,
                                     gather, rows, G, cluster, N);
               if ((!regs || (tile_regs(L.sp) && !L.sp.no_producer)) &&
-                  (!busy || fills_warps(L.sp)) &&
+                  (!busy || fills_warps(L.sp)) && (!copies || L.sp.tma) &&
                   sizeof(float) * (size_t)L.words <= kMaxSmemBytes)
                 return L;
             }
@@ -185,15 +198,22 @@ inline ForwardPlan choose_forward_plan(int P, int C, int Cout, int es,
     ForwardPlan none{};
     return none;
   };
+  // The first plan, or the filled one where its stage reduces more.
+  auto chosen = [&](bool copies) {
+    const ForwardPlan first = tiled(true, false, copies);
+    const ForwardPlan filled = tiled(true, true, copies);
+    return filled.words && stage_work(filled.sp) > stage_work(first.sp)
+               ? filled : first;
+  };
   if (cluster) {
-    const ForwardPlan first = tiled(true, false);
-    if (first.words) {
-      const ForwardPlan filled = tiled(true, true);
-      return filled.words && stage_work(filled.sp) > stage_work(first.sp)
-                 ? filled : first;
+    const ForwardPlan L = chosen(false);
+    if (gather && !L.sp.tma) {     // (K4's and K6's stored slots: none)
+      const ForwardPlan copied = chosen(true);
+      if (copied.words) return copied;
     }
+    if (L.words) return L;
   }
-  return tiled(false, false);
+  return tiled(false, false, false);
 }
 
 // The least shared memory one block needs: the plan for one float32 channel

@@ -83,11 +83,12 @@
 // are exchanged through distributed shared memory in rank order, and each
 // cluster writes one partial row, so kernel 2 is unchanged
 // (ops/risi_bank.py:risi18_bank_backward_cluster_reference).  Where that
-// plan would be one block with dK on the CUDA cores, kernel 1 takes the
-// row-tiled block of one block a vertex group (backward_block_tiled),
-// which measured faster there (the beta pairs' P = 40), with the same dT
-// pass.  Both row-tiled blocks read kernel 0 (backward_sums_kernel),
-// launched before them: GAp [N,P,P,Cout] and the row sums of geff GR, GAx
+// plan would be one block with dK on the CUDA cores, kernel 1 takes a
+// cluster plan in smaller tiles with dK on the tensor cores where one fits
+// (the beta pairs' first level, P = 40, C = 32, Cout = 16: tiles of 8 rows
+// in chunks of 8; risi18_backward_block.cuh:choose_backward_plan).  A
+// cluster plan reads kernel 0 (backward_sums_kernel),
+// launched before it: GAp [N,P,P,Cout] and the row sums of geff GR, GAx
 // (GA's) and GSx (db's) [N,3,P,Cout] in float32 scratch, once a vertex
 // where kernel 1 formed them once per chunk, tile and pair of tiles.  The
 // bank's K5 runs the same blocks on T and writes dT.
@@ -144,24 +145,6 @@ risi18_level_bwd_kernel(const E* __restrict__ state,
                         float* __restrict__ partial,
                         int N, BackwardPlan L, float negslope) {
   lv::backward_block<E, kMma, true>(state, nbr, pos, radj, K, gout, out,
-                                    dstate, partial, N, L, negslope);
-}
-
-// Kernel 1 on a row-tiled plan of one block a vertex group, where a
-// cluster plan would be one block on the CUDA cores (choose_backward_plan).
-template <typename E>
-__global__ void __launch_bounds__(kThreads, 1)
-risi18_level_bwd_tiled_kernel(const E* __restrict__ state,
-                              const int* __restrict__ nbr,
-                              const int* __restrict__ pos,
-                              const float* __restrict__ radj,
-                              const E* __restrict__ K,
-                              const E* __restrict__ gout,
-                              const E* __restrict__ out,
-                              float* __restrict__ dstate,
-                              float* __restrict__ partial,
-                              int N, BackwardPlan L, float negslope) {
-  lv::backward_block_tiled<E, true>(state, nbr, pos, radj, K, gout, out,
                                     dstate, partial, N, L, negslope);
 }
 
@@ -242,7 +225,7 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
   if ((long long)N * P * P >= (1LL << 31)) return cudaErrorInvalidValue;
   if (nblocks != lv::vertex_groups(N)) return cudaErrorInvalidValue;
   BackwardPlan L = lv::choose_backward_plan(
-      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, true, N);
+      P, C, Cout, (int)sizeof(E), lv::alignment_of(state), true, N);
   if (L.words == 0) return cudaErrorInvalidValue;
   // A cluster plan reads kernel 0's sums.
   if (L.cluster && (gap == nullptr || sums == nullptr))
@@ -279,8 +262,7 @@ int launch_backward(const void* state, const void* nbr, const void* pos,
         (const E*)g, (const E*)out, (const float*)gap, (const float*)sums,
         (float*)dstate, (float*)partial, N, L, negslope, map, dmap);
   }
-  auto kernel = L.tiled ? risi18_level_bwd_tiled_kernel<E>
-                : L.mma ? risi18_level_bwd_kernel<E, true>
+  auto kernel = L.mma ? risi18_level_bwd_kernel<E, true>
                         : risi18_level_bwd_kernel<E, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -405,8 +387,9 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 // a plan with plan[5] = 1 and plan[0] = P is one tile, its stream in shared
 // memory), plan[1] the panel's outputs, plan[2] the chunk's channels,
 // plan[3] the ring's depth, plan[4] the shared memory in bytes, plan[5] 1
-// for a row-tiled block, plan[6] the pieces a ring buffer holds, plan[7]
-// the blocks of a cluster (0: one block a vertex group, chunk and panel),
+// for a row-tiled plan, plan[6] the pieces a ring buffer holds, plan[7]
+// the blocks of a cluster (0 untiled: one block a vertex group, chunk and
+// panel),
 // plan[8] the row tiles a block of the cluster takes, plan[9] 1 where dK's
 // map cases run on the tensor cores, plan[10] kernel 0's float32 scratch
 // words a vertex (0: a plan of no cluster, which launches no kernel 0),
@@ -417,7 +400,7 @@ long long risi18_level_backward_min_smem_bytes(int P, int Cout) {
 int risi18_level_backward_plan(int N, int P, int C, int Cout, int bf16,
                                int aligned, int* plan) {
   const BackwardPlan L = lv::choose_backward_plan(P, C, Cout, bf16 ? 2 : 4,
-                                                  aligned, true, true, N);
+                                                  aligned, true, N);
   lv::report_backward_plan(L, P, Cout, plan);
   return L.words == 0;
 }

@@ -223,8 +223,8 @@ def risi18_bank_backward_factored_reference(T, A, K, g):
 # cluster of blocks (K1 and K4: ``csrc/risi18_forward_block.cuh:
 # forward_block_cluster``; K2 kernel 1 and K5 kernel 1:
 # ``csrc/risi18_backward_block.cuh:backward_block_cluster``), or one block a
-# vertex (K6's variants: ``forward_block_tiled``; K4 and K5 where a field
-# fits no cluster plan).  The functions below are those
+# vertex (K6's variants: ``forward_block_tiled``; K4 where a field fits
+# no cluster plan).  The functions below are those
 # decompositions in plain PyTorch, for the CPU tests: each tile is computed
 # from the slot data the kernels stream for it and nothing else.  Nothing
 # on the main path calls them.
@@ -494,10 +494,10 @@ def risi18_bank_backward_tiled_reference(T, A, K, g, rows):
     in row tiles of ``rows`` rows: :func:`risi18_bank_backward_cluster_reference`
     with one block, which walks every tile (dK: per tile X its maps against
     G and GAp of its rows and its vectors against GR of its rows, the four
-    scalars summed tile by tile, times GA; dT one pass a tile).
-    ``backward_block_tiled`` forms the same sums for dK, and dT's entries
-    from the same terms, grouped by pairs of row tiles.  -> (dT in T's
-    dtype, dK in K's), computed in float32 (float64) and rounded once."""
+    scalars summed tile by tile, times GA; dT one pass a tile), as K5's
+    cluster plan of one block (``backward_block_cluster``) forms them.
+    -> (dT in T's dtype, dK in K's), computed in float32 (float64) and
+    rounded once."""
     return risi18_bank_backward_cluster_reference(T, A, K, g, rows, 1)
 
 

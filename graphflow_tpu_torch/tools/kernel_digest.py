@@ -18,7 +18,7 @@ With ``--times`` it prints instead the spin-timed median ms of K1, of K2
 kernel 1, of K4 and of K5 kernel 1 (on the take-gather's T of the same
 level; each backward's kernel 1 with the kernel 0 that a cluster plan
 launches before it), of K7, and of both kernels 2 (K2's in float32) beside
-``partial.sum(0)``,
+``partial.sum(0)``, with K4's and K5 kernel 1's bounds,
 at every level shape that ``chip_smoke.py`` checks, so that two
 checkouts' kernels can be timed in one call at the shapes (and, for the
 bank, in the dtypes) the smoke does not time.  ``--shapes`` names other
@@ -167,9 +167,21 @@ def main(argv=None):
                     bpartial, C, Cout))
                 red += (f"K5 kernel 2 {r5:.4f} ms, partial.sum(0) "
                         f"{time_ms(lambda: bpartial.sum(0)):.4f} ms")
+                # K4's and K5 kernel 1's bounds, by chip_smoke.py's count
+                # (bank_factored_ops, bank_backward_factored_ops).
+                from chip_smoke import (bank_backward_factored_ops,
+                                        bank_factored_ops, bound_ms, nbytes)
+                Z = risi18_bank(T, level[3], level[4])
+                dT, dK = risi18_bank_backward(T, level[3], level[4], gb)
+                b4 = bound_ms(nbytes(T, level[3], level[4], Z),
+                              bank_factored_ops(N, P, C, Cout), name)
+                b5 = bound_ms(nbytes(T, level[3], level[4], gb, dT, dK),
+                              bank_backward_factored_ops(N, P, C, Cout), name)
+                del Z, dT, dK
                 print(f"{name} {(N, P, C, Cout)}: K1 {k1:.4f} ms, K2 kernel "
-                      f"1 {k2:.4f} ms, K4 {k4:.4f} ms, K5 kernel 1 "
-                      f"{k5:.4f} ms, K7 {k7:.4f} ms; {red}")
+                      f"1 {k2:.4f} ms, K4 {k4:.4f} ms (bound {b4[0]:.4f} by "
+                      f"{b4[1]}), K5 kernel 1 {k5:.4f} ms (bound "
+                      f"{b5[0]:.4f} by {b5[1]}), K7 {k7:.4f} ms; {red}")
                 continue
             dstate, dK, db = risi18_level_backward(*level, out, g)
             T = risi18_aligned_t2(level[0], nbr, pos)

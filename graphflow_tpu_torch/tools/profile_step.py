@@ -29,7 +29,8 @@ edge-list graphs of about 8 neighbours a vertex); and the models of
 ``chip_smoke.py`` phases 19-21 at their widths there (:data:`LATER`): the
 pair models (a request is a Predict for each of 4 pairs, a step one
 BatchLearn on them; omega_pairs, sigma_pairs and beta_pairs (V1 = 24,
-V2 = 40) run the level kernels), the other graph families (V = 64, hidden
+V2 = 40) run the level kernels, and beta_pairs_bf16 is beta_pairs cast to
+bfloat16 by ``.bfloat16()``), the other graph families (V = 64, hidden
 32), LSTM and GRU (28 features, 128 hidden, a 28-step sequence: a request
 is Predict, a step one Learn iteration) and MLP and CNN (64 images of
 28 x 28: Predict and BatchLearn) (default: all).  Needs a CUDA device.
@@ -77,6 +78,7 @@ ELL_V = 4096
 LATER = {"omega_pairs": "SMP_omega_pairgraphs",
          "sigma_pairs": "SMP_sigma_pairgraphs",
          "beta_pairs": "SMP_beta_pairgraphs",
+         "beta_pairs_bf16": "SMP_beta_pairgraphs",
          "gamma_pairs": "SMP_gamma_pairgraphs",
          "theta_pairs": "SMP_theta_pairgraphs", "ccn_1d": "CCN_1D",
          "gcn_1d_kernel": "GCN_1D_Kernel", "gcn_2d_kernel": "GCN_2D_Kernel",
@@ -114,9 +116,11 @@ def _later(name):
         return (lambda: model.Predict(xs),
                 lambda: model.BatchLearn(xs, ys, 1e-4))
     V1, V2, lr = V, V, ADAM_LR
-    if name == "beta_pairs":
+    if name.startswith("beta_pairs"):
         V1, V2 = BETA_PAIR_V
         model = ctor(V1, V2, 2, C, F, F, seed=0, device="cuda")
+        if name.endswith("_bf16"):
+            model = model.bfloat16()
     elif name.endswith("_pairs") or name == "ccn_1d":
         model = ctor(V, V, MODEL["max_receptive_field"], 2, C, F, F, seed=0,
                      device="cuda")
@@ -127,7 +131,7 @@ def _later(name):
                      MOMENTUM_LR)
     else:               # the GCN kernels and the GRU_GCN and GCA families
         model, lr = ctor(2, V, F, C, D, 2, seed=0, device="cuda"), MOMENTUM_LR
-    if name.endswith(("_pairs", "_kernel")) or name == "ccn_1d":
+    if "_pairs" in name or name.endswith("_kernel") or name == "ccn_1d":
         g1, g2 = er(V1, 100), er(V2, 200)
         return (lambda: [model.Predict(a, b) for a, b in zip(g1, g2)],
                 lambda: model.BatchLearn(g1, g2, targets, lr))

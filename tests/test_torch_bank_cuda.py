@@ -135,8 +135,7 @@ def test_bank_kernels_repeat_bit_for_bit(cuda, dtype, N, P, C, Cout):
 
 def test_bank_forward_streams_fields_of_more_than_32_rows(cuda, dtype):
     """Beyond 32 rows K4 streams in shared memory (the wide stream, as K1
-    does); the backward, like K2's, takes the row-tiled block there (one
-    tile of 33 rows, or several)."""
+    does); the backward, like K2's, takes a row-tiled cluster plan there."""
     T, A, K, g = _inputs(2, 33, 4, 8, seed=4, device=cuda, dtype=dtype)
     _assert_close(risi18_bank(T, A, K), risi18_bank_reference(T, A, K))
     for x, r in zip(risi18_bank_backward(T, A, K, g),
@@ -214,7 +213,7 @@ def test_bank_kernel_rejects_shapes_beyond_shared_memory(cuda):
                 risi18_bank_backward.launches) == before
 
 
-# Fields that one block's maps do not hold: the row-tiled block (K5 from 33
+# Fields that one block's maps do not hold: the row-tiled plans (K5 from 33
 # rows, K4 from 36), at the widths of SMP_beta's levels (Cout = 32) and a
 # narrow one; two vertices, one of them empty.
 LARGE = [(2, P, C, Cout) for P in (33, 36, 48, 64)
@@ -271,9 +270,9 @@ def test_bank_plans_report_their_clusters(cuda, dtype):
     """Every row-tiled plan of K4 and K5 kernel 1 is a cluster plan sized
     for N by the rule K1 and K2 kernel 1 follow
     (``test_torch_kernels_cuda.py:check_cluster_plan``; K5's one-block
-    clusters on the CUDA cores take the row-tiled block one a vertex group),
-    with the tensor cores where a tile's rows allow them; an untiled plan
-    has none.  At
+    clusters on the CUDA cores give way to the tensor cores in smaller
+    tiles where those fit), with the tensor cores where a tile's rows allow
+    them; an untiled plan has none.  At
     SMP_beta's field (C = Cout = 32) one vertex spreads over 8 blocks of 2
     tiles, 64 vertices over 2 blocks of 8 tiles forward and one block
     backward (64 groups x 4 chunks), 256 over one block."""
@@ -309,14 +308,16 @@ def _cluster_sizes(P, C, Cout, dtype, most_bytes):
 @pytest.mark.parametrize("C,Cout", [(1, 4), (8, 8)])
 def test_bank_kernels_at_every_cluster_size(cuda, dtype, C, Cout):
     """K4 and K5 kernel 1 at every cluster size the rule picks as N grows
-    (P = 40: three tiles a vertex, clusters of 3, 2 and 1 blocks; K5's
-    cluster of one is the row-tiled block one a vertex group, 0, where its
-    dK would run on the CUDA cores: 4 channels a chunk, as at C = 1, and at
-    C = 8 in float32; in bfloat16 the chunk of 8 takes the tensor cores),
-    against the plain bank and bit for bit from run to run."""
+    (P = 40: three tiles a vertex, clusters of 3, 2 and 1 blocks).  K5's
+    cluster of one on the CUDA cores gives way: at C = 8 in float32 (whose
+    tiles of 14 rows fit chunks of 4 only) to the tensor cores in tiles of
+    8 rows, five a vertex (a cluster of 5 blocks at the N that gave one);
+    at C = 1 (chunks of one channel) it stays; in bfloat16 the chunk of 8
+    takes the tensor cores in tiles of 14 rows, a cluster of one.  Against
+    the plain bank and bit for bit from run to run."""
     P = 40
     sizes = _cluster_sizes(P, C, Cout, dtype, 8 << 30)
-    one = 1 if (C, dtype) == (8, torch.bfloat16) else 0
+    one = 5 if (C, dtype) == (8, torch.float32) else 1
     assert {f for f, _ in sizes} >= {1, 2, 3}, sizes
     assert {b for _, b in sizes} >= {one, 2, 3}, sizes
     for N in sorted(sizes.values()):
@@ -375,27 +376,23 @@ def _bank_backward_in_chunks(T, A, K, g, chunk=32):
 @pytest.mark.parametrize("P,C,Cout", TILED_FIELDS)
 def test_bank_backward_on_row_tiled_plans_at_every_cluster_size(
         cuda, dtype, P, C, Cout):
-    """K5 kernel 1 on the row-tiled plans (on a cluster plan kernel 0's
-    sums once a vertex and dT one pass a row tile) at every cluster size
-    the rule picks, and at 140 and 256 vertices: against the plain
+    """K5 kernel 1 on the row-tiled plans, every one a cluster plan (kernel
+    0's sums once a vertex and dT one pass a row tile), at every cluster
+    size the rule picks, and at 140 and 256 vertices: against the plain
     backward, dT and dK the same bits from run to run, kernel 0 launched
-    once a backward on a cluster plan and not otherwise, and the plan's
-    scratch as kernel 0 lays it out."""
+    once a backward, and the plan's scratch as kernel 0 lays it out."""
     for N in cluster_sizes(bank_backward_plan, P, C, Cout, dtype):
         plan = bank_backward_plan(N, P, C, Cout, dtype)
-        assert plan["tiled"] == 1, plan
-        # Kernel 0 and its scratch on a cluster plan; the one-block
-        # row-tiled block forms its sums itself.
-        clustered = plan["cluster"] > 0
+        assert plan["tiled"] == 1 and plan["cluster"] >= 1, plan
         assert (plan["scratch_bytes"], plan["sums_smem_bytes"]) == (
-            sums_bytes(N, P, Cout) if clustered else (0, 0)), plan
+            sums_bytes(N, P, Cout)), plan
         T, A, K, g = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
                              dtype=dtype)
         counts = (risi18_bank_backward.sums_launches,
                   risi18_bank_backward.launches)
         got = risi18_bank_backward(T, A, K, g)
         assert (risi18_bank_backward.sums_launches,
-                risi18_bank_backward.launches) == (counts[0] + clustered,
+                risi18_bank_backward.launches) == (counts[0] + 1,
                                                    counts[1] + 1)
         for x, r in zip(got, _bank_backward_in_chunks(T, A, K, g)):
             _assert_close(x, r)

@@ -27,6 +27,13 @@ in the backward GA, db and dK) as the blocks' parts added in rank order.
   the vjp of ``risi_contraction_18`` for tiles that leave a short last
   tile and balanced ones, on clusters of 1, 2, 4 and 8 (float64, 1e-10).
 * float32 and bfloat16 in, float32 sums, rounded once.
+* The plans the kernels take at the beta pairs' first level (P = 40):
+  K2 kernel 1's tiles of 8 rows on a cluster of one block, gathered and
+  scattered in chunks of 8 channels, and K1's tiles of 4 rows on 5 and 3
+  blocks in chunks of 8 (bfloat16) and of 14 rows on 3 and 1 in chunks of
+  4 (float32), for graphs of V = 24 vertices in the field (every
+  slot and position past V a hole: neighbour 0, position P) and of
+  V = 40, against the JAX level and its ``jax.vjp`` (float64, 1e-10).
 
 Small: N <= 3 vertices, P in {33, 35, 36, 37, 40}, C <= 3, Cout <= 4.
 """
@@ -264,3 +271,49 @@ def test_dT_one_pass_a_tile_matches_jax(N, P, C, Cout, rows, cluster):
                      jnp.asarray(T))
     (ref,) = vjp(jnp.asarray(g))
     _close(dT, ref)
+
+
+# The beta pairs' first level: (N, P, C, Cout, V), V the vertices of a
+# graph in the field (tower 1's 24 of 40, tower 2's 40).
+PAIR_CASES = [(2, 40, 3, 2, 24), (3, 40, 2, 3, 40)]
+# (rows, cluster, chunk) of K1's plans there: bfloat16 at a step's N (96,
+# 160) and a Predict's tower 2 (N = 40), float32 at N = 160 and 96.
+PAIR_FORWARD_PLANS = [(4, 5, 8), (4, 3, 8), (14, 3, 4), (14, 1, 4)]
+
+
+def _pair_case(N, P, C, Cout, V):
+    """_level_case with every slot and position past V absent, as the prep
+    lays out a graph of V vertices in a field of P rows."""
+    args, g = _level_case(N, P, C, Cout)
+    state, nbr, pos, radj, K, b = args
+    nbr, pos = nbr.copy(), pos.copy()
+    nbr[:, V:] = 0
+    pos[:, V:] = P
+    pos[pos >= V] = P
+    return [state, nbr, pos, radj, K, b], g
+
+
+@pytest.mark.parametrize("N,P,C,Cout,V", PAIR_CASES)
+def test_pair_field_backward_plan_matches_jax(N, P, C, Cout, V):
+    """K2 kernel 1's plan at the beta pairs' first level: tiles of 8 rows
+    on a cluster of one block, the slots gathered and dT scattered in
+    chunks of 8 channels, against the vjp of the JAX level."""
+    args, g = _pair_case(N, P, C, Cout, V)
+    got = risi18_level_backward_cluster_reference(
+        *(_t(a) for a in args), _t(g), 8, 1, chunk=8)
+    state, nbr, pos, radj, K, b = (jnp.asarray(a) for a in args)
+    _, vjp = jax.vjp(lambda s, k, bb: _reference_level(s, nbr, pos, radj, k,
+                                                       bb), state, K, b)
+    for x, r in zip(got, vjp(jnp.asarray(g))):
+        _close(x, r)
+
+
+@pytest.mark.parametrize("rows,cluster,chunk", PAIR_FORWARD_PLANS)
+@pytest.mark.parametrize("N,P,C,Cout,V", PAIR_CASES)
+def test_pair_field_forward_plans_match_jax(N, P, C, Cout, V, rows, cluster,
+                                            chunk):
+    """K1's plans at the beta pairs' first level against the JAX level."""
+    args, _ = _pair_case(N, P, C, Cout, V)
+    _close(risi18_level_cluster_reference(*(_t(a) for a in args), rows,
+                                          cluster, chunk=chunk),
+           _reference_level(*(jnp.asarray(a) for a in args)))

@@ -271,15 +271,15 @@ def test_level_kernels_walk_several_vertices_of_a_tiled_field(cuda, P, C,
     """140 vertices, more than the backward's 132 vertex groups: the blocks
     of kernel 1 walk two vertices each and carry dK, db and their buffers
     from one to the next (K1 tiles from 36 rows).  132 groups already fill
-    the card, so kernel 1 takes a cluster of one block where dK runs on the
-    tensor cores (8 channels a chunk: P = 36 in both dtypes), else the
-    row-tiled block one a vertex group (4 channels a chunk)."""
+    the card, so kernel 1 takes a cluster of one block: with dK on the
+    tensor cores where such a plan fits, in any tile (8 channels a chunk:
+    P = 36 and 64 in both dtypes), else on the CUDA cores (4 channels a
+    chunk; and P = 33, whose balanced tiles of 11, 7, 4, 2 or 1 rows never
+    hold a multiple of 8 cells for the tensor cores)."""
     N = 140
     plan = level_backward_plan(N, P, C, Cout, dtype)
-    assert plan["tiled"] == 1 and plan["cluster"] in (0, 1), plan
-    assert plan["cluster"] == plan["mma"], plan
-    if (P, C) == (36, 8):
-        assert plan["cluster"] == 1, plan
+    assert plan["tiled"] == 1 and plan["cluster"] == 1, plan
+    assert plan["mma"] == (C == 8 and P != 33), plan
     args = _inputs(N, P, C, Cout, seed=P, device=cuda, empty_vertex=N // 2,
                    dtype=dtype)
     _assert_close(risi18_level(*args), risi18_level_reference(*args))
@@ -339,13 +339,12 @@ def check_cluster_plan(plan, P, grid, backward=False):
     """A row-tiled plan is a cluster plan of at most 8 blocks, each with its
     share of the tiles and as few blocks as that share needs, and no other
     shape of at most 8 blocks runs fewer rounds of tiles for ``grid``
-    clusters, nor as few with fewer blocks; an untiled plan has none.  A
-    backward plan whose cluster would be one block with dK on the CUDA
-    cores is the row-tiled block of one block a vertex group instead
-    (``cluster`` 0, ``mma`` 0)."""
-    if not plan["tiled"] or (backward and plan["cluster"] == 0):
-        assert plan["cluster"] == 0 and not (plan["tiled"] and plan["mma"]), \
-            plan
+    clusters, nor as few with fewer blocks; an untiled plan has none.  (A
+    backward plan whose first plan would be a cluster of one block with dK
+    on the CUDA cores is, where one fits, the first cluster plan in smaller
+    tiles whose dK runs on the tensor cores, sized by the same rule.)"""
+    if not plan["tiled"]:
+        assert plan["cluster"] == 0, plan
         return
     tiles = -(-P // plan["rows"])
     per, blocks = plan["tiles_per_block"], plan["cluster"]
@@ -364,8 +363,8 @@ def test_level_plans_report_their_clusters(cuda, dtype):
     """Every row-tiled plan of K1 and K2 kernel 1 is a cluster plan sized
     for N: the fewest rounds of tiles on the card's 132 SMs, where a
     cluster's blocks split a vertex's tiles (the grid: vertices x panels
-    forward, vertex groups x chunks x panels backward), but a backward one
-    that would be one block on the CUDA cores; an untiled plan has none.
+    forward, vertex groups x chunks x panels backward); an untiled plan
+    has none.
     SMP_beta's field at C = Cout = 32 spreads one vertex over 8 blocks of
     2 tiles, a batch of 64 vertices over 2 blocks of 8 tiles forward and
     one block backward (64 groups x 4 chunks already fill the
@@ -398,8 +397,8 @@ def sums_bytes(N, P, Cout):
 
 
 def cluster_sizes(plan_fn, P, C, Cout, dtype, most=300):
-    """{cluster of the plan (0: the row-tiled block one a vertex group):
-    the least N <= most whose plan takes it}, with N = 140 and 256 added
+    """{cluster of the plan (0: untiled): the least N <= most whose plan
+    takes it}, with N = 140 and 256 added
     under their own keys: the N that put the size rule on every cluster
     size it picks."""
     sizes = {}
@@ -409,9 +408,11 @@ def cluster_sizes(plan_fn, P, C, Cout, dtype, most=300):
 
 
 # The row-tiled plans' fields (K2 kernel 1 and K5 kernel 1): P = 33 and 50
-# are the row-tiled block one a vertex group at N >= 12 and 14, 37 and 40
-# clusters of up to 5 blocks, 64 SMP_beta's field (clusters of 1, 2, 3,
-# 4, 6 and 8); Cout = 3 takes kernel 0's and the dT maps' partial rows.
+# take a cluster of one block once the grid fills the card (P = 33 with dK
+# on the CUDA cores, its balanced tiles never a multiple of 8 cells), 37
+# and 40 clusters of up to 5 blocks, 64 SMP_beta's field (clusters of 1,
+# 2, 3, 4, 6 and 8); Cout = 3 takes kernel 0's and the dT maps' partial
+# rows.
 TILED_FIELDS = [(P, 32, 32) for P in (33, 37, 40, 50, 64)] + [(33, 5, 3),
                                                                (64, 5, 3)]
 
@@ -446,20 +447,17 @@ def _level_backward_in_chunks(args, g, chunk=32):
 @pytest.mark.parametrize("P,C,Cout", TILED_FIELDS)
 def test_backward_kernel_on_row_tiled_plans_at_every_cluster_size(
         cuda, P, C, Cout, dtype):
-    """K2 kernel 1 on the row-tiled plans (on a cluster plan kernel 0's
-    sums once a vertex and dT one pass a row tile) at every cluster size
-    the rule picks, and at 140 and 256 vertices: against the plain backward
-    (dstate, dK, db), dK and db the same bits from run to run, kernel 0
-    launched once a backward on a cluster plan and not otherwise, and the
-    plan's scratch as kernel 0 lays it out."""
+    """K2 kernel 1 on the row-tiled plans, every one a cluster plan (kernel
+    0's sums once a vertex and dT one pass a row tile), at every cluster
+    size the rule picks, and at 140 and 256 vertices: against the plain
+    backward (dstate, dK, db), dK and db the same bits from run to run,
+    kernel 0 launched once a backward, and the plan's scratch as kernel 0
+    lays it out."""
     for N in cluster_sizes(level_backward_plan, P, C, Cout, dtype):
         plan = level_backward_plan(N, P, C, Cout, dtype)
-        assert plan["tiled"] == 1, plan
-        # Kernel 0 and its scratch on a cluster plan; the one-block
-        # row-tiled block forms its sums itself.
-        clustered = plan["cluster"] > 0
+        assert plan["tiled"] == 1 and plan["cluster"] >= 1, plan
         assert (plan["scratch_bytes"], plan["sums_smem_bytes"]) == (
-            sums_bytes(N, P, Cout) if clustered else (0, 0)), plan
+            sums_bytes(N, P, Cout)), plan
         args = _inputs(N, P, C, Cout, seed=N + P, device=cuda,
                        empty_vertex=N // 2, dtype=dtype)
         g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
@@ -470,7 +468,7 @@ def test_backward_kernel_on_row_tiled_plans_at_every_cluster_size(
         assert plan["stream"] == expected_stream(plan, P, C, dtype), plan
         got = risi18_level_backward(*args, out, g)
         assert (risi18_level_backward.sums_launches,
-                risi18_level_backward.launches) == (counts[0] + clustered,
+                risi18_level_backward.launches) == (counts[0] + 1,
                                                     counts[1] + 1)
         for x, r in zip(got, _level_backward_in_chunks(args, g)):
             _assert_close(x, r)
@@ -512,8 +510,7 @@ def expected_scatter(plan, C):
     float32 channels are multiples of 16 bytes, whose chunk has more than 4
     channels (whole 32-byte sectors a cell) and whose row tile has at most
     8 rows (two warps or more a row b; the warps' staging buffers fit at
-    every field tested here); else ``"atomic"`` (the untiled plans and the
-    row-tiled block of one block a vertex group too)."""
+    every field tested here); else ``"atomic"`` (the untiled plans too)."""
     return ("tma_reduce" if plan["cluster"] > 0 and C % 4 == 0
             and plan["chunk"] > 4 and plan["rows"] <= 8 else "atomic")
 
@@ -657,6 +654,69 @@ def test_level_kernels_on_an_unaligned_state_take_the_route_named(cuda,
         _assert_close(got_out, _level_in_chunks(args))
         for x, r in zip(got, _level_backward_in_chunks(args, g)):
             _assert_close(x, r)
+
+
+# SMP_beta_pairgraphs' first level (V1 = 24, V2 = 40: P = 40, 32 -> 16
+# channels) at a step's four graphs a tower: N = 4 V2 = 160 and 4 V1 = 96,
+# where tower 1's slots and positions past its 24 vertices are absent (a
+# hole: neighbour 0, position P).
+PAIR_FIELDS = [(160, 40, 32, 16, 40), (96, 40, 32, 16, 24)]
+
+
+def _with_holes(args, V):
+    """The level's inputs with every slot and position past V absent, as
+    the prep lays out a graph of V vertices in a field of P > V rows."""
+    state, nbr, pos, radj, K, b = args
+    P = pos.shape[1]
+    nbr, pos = nbr.clone(), pos.clone()
+    nbr[:, V:] = 0
+    pos[:, V:] = P
+    pos[pos >= V] = P
+    return state, nbr, pos, radj, K, b
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("N,P,C,Cout,V", PAIR_FIELDS)
+def test_level_kernels_on_the_beta_pairs_first_level(cuda, N, P, C, Cout, V,
+                                                     dtype):
+    """K2 kernel 1 there takes a cluster plan whose dK runs on the tensor
+    cores (chunks of 8 channels in tiles of 8 rows: kernel 0, the producer
+    ring and the staged scatter), not the first plan's cluster of one on
+    the CUDA cores (tiles of 14 rows in chunks of 4), and K1 the producer
+    ring in both dtypes (bfloat16 in chunks of 8, whose
+    rows are 16 bytes; float32 keeps its tiles of 14 rows in chunks of 4);
+    both against their plain versions (repeated positions and holes),
+    kernel 0 launched once, the routes counted as the plans name them, and
+    K1's output, dK and db the same bits from run to run."""
+    fwd = level_plan(N, P, C, Cout, dtype)
+    bwd = level_backward_plan(N, P, C, Cout, dtype)
+    assert fwd["cluster"] >= 1 and fwd["stream"] == "tma_producer", fwd
+    assert (fwd["chunk"], bwd["chunk"]) == (
+        8 if dtype == torch.bfloat16 else 4, 8), (fwd, bwd)
+    assert bwd["cluster"] >= 1 and bwd["mma"] == 1, bwd
+    assert (bwd["stream"], bwd["scatter"]) == ("tma_producer",
+                                               "tma_reduce"), bwd
+    args = _with_holes(_inputs(N, P, C, Cout, seed=N + P, device=cuda,
+                               empty_vertex=N // 2, dtype=dtype,
+                               repeated=True), V)
+    before = risi18_level.tma_launches
+    out = risi18_level(*args)
+    assert risi18_level.tma_launches == before + 1
+    _assert_close(out, _level_in_chunks(args))
+    assert torch.equal(out, risi18_level(*args))
+    g = _cotangent(N, P, Cout, seed=N, device=cuda, dtype=dtype)
+    out = same_signs(out, _level_in_chunks(args))
+    lb = risi18_level_backward
+    before = (lb.sums_launches, lb.tma_launches, lb.scatter_tma_launches)
+    got = lb(*args, out, g)
+    assert (lb.sums_launches, lb.tma_launches, lb.scatter_tma_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    for x, r in zip(got, _level_backward_in_chunks(args, g)):
+        _assert_close(x, r)
+    again = lb(*args, out, g)
+    torch.cuda.synchronize()
+    for x, y in zip(got[1:], again[1:]):      # dK and db, bit for bit
+        assert torch.equal(x, y), bwd
 
 
 # The shared memory of K1's and K2 kernel 1's cluster plans at P = 64,
