@@ -41,7 +41,14 @@ over ranks (process groups named like a mesh, data-parallel training, the
 vertex-partitioned SMP2D whose levels run the bank kernels), ``entry.py``
 and ``examples/`` are the counterparts of ``__graft_entry__.py`` and
 ``examples/``, and ``utils/`` holds the datasets, checkpoints and
-profiling.  The op library that no model calls is ported too:
+profiling.  ``utils/profiling.py`` also holds the program's spans
+(``graphflow.batch_learn`` and ``graphflow.predict``, a step and a
+request, with ``graphflow.stack``, ``.stack.host``, ``.stack.h2d``,
+``.forward``, ``.backward``, ``.optimizer``, ``.optimizer.wait`` and
+``.readback`` under them) and the counter ``h2d.bytes``: an active
+``torch.profiler`` profile is the spans' only switch,
+``profiling.trace(logdir)`` their exporter.
+The op library that no model calls is ported too:
 ``ops/linalg.py``, ``ops/reductions.py``, the non-inverted dropout,
 masking and ``norm3d``, the contraction banks' case-table engine
 (``risi_contraction_10/18/50_spec``) and the unfused yardstick

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from graphflow_tpu_torch.core.prep import PreparedGraph
+from graphflow_tpu_torch.utils import profiling
 
 GraphBatch = Dict[str, torch.Tensor]
 
@@ -44,23 +45,40 @@ def stack_graphs(graphs: Sequence[PreparedGraph], targets=None,
     A field absent (None) from any graph is left out.  Index arrays stay
     int32 (sp int64); float arrays keep their prepared dtype, or are cast
     to ``dtype`` on the device (how a bfloat16 model, prepared in float32,
-    gets its batch).  Targets are float32."""
+    gets its batch).  Targets are float32.
+
+    Span ``graphflow.stack``: each field's stacking on the host is a
+    ``graphflow.stack.host`` span and its hand-over to the device a
+    ``graphflow.stack.h2d`` span; the counter ``h2d.bytes`` adds the bytes
+    handed over, whatever the device."""
+    span = profiling.span
     batch: GraphBatch = {}
-    for f in STACK_FIELDS:
-        vals = [getattr(g, f) for g in graphs]
-        if any(v is None for v in vals):
-            continue
-        if f.startswith("ell_") and len({v.shape[1] for v in vals}) > 1:
-            vals = _pad_ell(f, vals)
-        x = torch.from_numpy(np.stack(vals)).to(device)
-        if dtype is not None and x.is_floating_point():
-            x = x.to(dtype)
-        batch[f] = x
-    batch["nVertices"] = torch.tensor([g.nVertices for g in graphs],
-                                      dtype=torch.int32, device=device)
-    if targets is not None:
-        batch["target"] = torch.as_tensor(
-            np.asarray(targets, dtype=np.float32), device=device)
+    nbytes = 0
+    with span("graphflow.stack"):
+        for f in STACK_FIELDS:
+            vals = [getattr(g, f) for g in graphs]
+            if any(v is None for v in vals):
+                continue
+            with span("graphflow.stack.host"):
+                if (f.startswith("ell_")
+                        and len({v.shape[1] for v in vals}) > 1):
+                    vals = _pad_ell(f, vals)
+                x = torch.from_numpy(np.stack(vals))
+            nbytes += x.nbytes
+            with span("graphflow.stack.h2d"):
+                x = x.to(device)
+                if dtype is not None and x.is_floating_point():
+                    x = x.to(dtype)
+            batch[f] = x
+        with span("graphflow.stack.h2d"):
+            batch["nVertices"] = torch.tensor([g.nVertices for g in graphs],
+                                              dtype=torch.int32,
+                                              device=device)
+            if targets is not None:
+                batch["target"] = torch.as_tensor(
+                    np.asarray(targets, dtype=np.float32), device=device)
+    profiling.count("h2d.bytes", nbytes + sum(
+        batch[k].nbytes for k in ("nVertices", "target") if k in batch))
     return batch
 
 

@@ -30,6 +30,7 @@ from graphflow_tpu_torch import optim as optim_lib
 from graphflow_tpu_torch.core import batching, prep
 from graphflow_tpu_torch.core.graph import DenseGraph
 from graphflow_tpu_torch.utils import checkpoint as ckpt
+from graphflow_tpu_torch.utils import profiling
 from graphflow_tpu_torch.utils.convert import flatten, to_numpy, unflatten
 
 
@@ -102,12 +103,16 @@ class ParamModel(nn.Module):
         """One optimizer step on the gradients of ``loss_fn()`` -> the loss
         before it."""
         params = self.param_dict()
-        loss = loss_fn()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        _, self.opt_state = self.opt.update(
-            params, self.opt_state, dict(zip(params, grads)), learning_rate,
-            nBatch=nBatch)
-        return float(loss.detach())
+        with profiling.span("graphflow.forward"):
+            loss = loss_fn()
+        with profiling.span("graphflow.backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
+        with profiling.span("graphflow.optimizer"):
+            _, self.opt_state = self.opt.update(
+                params, self.opt_state, dict(zip(params, grads)),
+                learning_rate, nBatch=nBatch)
+        with profiling.span("graphflow.readback"):
+            return float(loss.detach())
 
     @torch.no_grad()
     def load_params(self, flat: Dict[str, torch.Tensor]) -> None:
@@ -185,8 +190,16 @@ class GraphModel(ParamModel):
                                      dtype=self.dtype)
 
     @torch.no_grad()
-    def _run(self, graphs: Sequence[DenseGraph]):
-        return self._forward(self.params, self._stack(graphs))
+    def _run(self, graphs: Sequence[DenseGraph], read):
+        """One request (span ``graphflow.predict``): the forward of the
+        stacked graphs, and ``read`` of its (prediction, feature) on the
+        host."""
+        with profiling.span("graphflow.predict"):
+            batch = self._stack(graphs)
+            with profiling.span("graphflow.forward"):
+                out = self._forward(self.params, batch)
+            with profiling.span("graphflow.readback"):
+                return read(out)
 
     # -- reference API ---------------------------------------------------
 
@@ -194,8 +207,7 @@ class GraphModel(ParamModel):
         """Reference ``Predict`` (SMP_omega.h:924-935).  As in the JAX
         package, a classification model's [nClasses] scores do not convert
         to a float for nClasses > 1, and this raises."""
-        pred, _ = self._run([graph])
-        return float(pred[0])
+        return self._run([graph], lambda out: float(out[0][0]))
 
     def Threaded_Predict(self, graphs: Sequence[DenseGraph]) -> np.ndarray:
         """Batched prediction (``Threaded_Predict``, SMP_omega.h:938-1030):
@@ -203,14 +215,12 @@ class GraphModel(ParamModel):
         for a classification model.  A bfloat16 model returns its values
         as float32 (NumPy has no bfloat16; the JAX package returns
         an ``ml_dtypes`` bfloat16 array of the same values)."""
-        pred, _ = self._run(graphs)
-        return to_numpy(pred)
+        return self._run(graphs, lambda out: to_numpy(out[0]))
 
     def Feature(self, graph: DenseGraph) -> np.ndarray:
         """Graph-level embedding (reference ``Feature``, SMP_2D.h:748), as
         float32 for a bfloat16 model (see ``Threaded_Predict``)."""
-        _, feat = self._run([graph])
-        return to_numpy(feat[0])
+        return self._run([graph], lambda out: to_numpy(out[1][0]))
 
     def _loss_and_grads(self, batch):
         """(batch loss as a float, {path: gradient})."""
@@ -221,7 +231,10 @@ class GraphModel(ParamModel):
 
     @torch.no_grad()
     def _loss_value(self, batch) -> float:
-        return float(self._loss(self.params, batch))
+        with profiling.span("graphflow.forward"):
+            loss = self._loss(self.params, batch)
+        with profiling.span("graphflow.readback"):
+            return float(loss)
 
     def getLoss(self, graphs: Sequence[DenseGraph], targets) -> float:
         """Total batch loss (reference ``getLoss``, SMP_omega.h:695-704)."""
@@ -244,22 +257,26 @@ class GraphModel(ParamModel):
         With ``nIterations`` set, runs the reference's backtracking loop
         (``SMP_omega.h:843-871``): halve the learning rate and restore the
         parameters whenever the loss rises.
+
+        The step is the root span ``graphflow.batch_learn``.
         """
-        batch = self._stack(graphs, targets)
-        n = len(graphs)
-        if nIterations is None:
-            loss_before = self._step(lambda: self._loss(self.params, batch),
-                                     learning_rate, nBatch=n)
-            return loss_before, self._loss_value(batch)
+        with profiling.span("graphflow.batch_learn"):
+            batch = self._stack(graphs, targets)
+            n = len(graphs)
+            if nIterations is None:
+                loss_before = self._step(
+                    lambda: self._loss(self.params, batch), learning_rate,
+                    nBatch=n)
+                return loss_before, self._loss_value(batch)
 
-        def loss_and_grads(_params):
-            return self._loss_and_grads(batch)
+            def loss_and_grads(_params):
+                return self._loss_and_grads(batch)
 
-        _, self.opt_state, loss0, loss1 = optim_lib.backtracking_learn(
-            self.param_dict(), self.opt_state, loss_and_grads,
-            self.opt.update, learning_rate, nIterations, epsilon=epsilon,
-            nBatch=n)
-        return loss0, loss1
+            _, self.opt_state, loss0, loss1 = optim_lib.backtracking_learn(
+                self.param_dict(), self.opt_state, loss_and_grads,
+                self.opt.update, learning_rate, nIterations, epsilon=epsilon,
+                nBatch=n)
+            return loss0, loss1
 
     Threaded_BatchLearn = BatchLearn
 

@@ -115,9 +115,8 @@ class GCA_1D(_OneHopModel):
     def Reconstruct(self, graph: DenseGraph) -> np.ndarray:
         """The predicted adjacency (the Gram matrix of the vertex
         embeddings) of the graph's n real vertices, [n, n]."""
-        gram, _ = self._run([graph])
         n = graph.nVertices
-        return to_numpy(gram[0, :n, :n])
+        return self._run([graph], lambda out: to_numpy(out[0][0, :n, :n]))
 
 
 class CGCN(_OneHopModel):

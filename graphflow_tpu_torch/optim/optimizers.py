@@ -22,6 +22,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 
+from graphflow_tpu_torch.utils import profiling
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -88,7 +90,11 @@ def adam(beta1: float = 0.9, beta2: float = 0.999,
             if nBatch is None:
                 c1, c2 = 1 - beta1 ** tt, 1 - beta2 ** tt
             elif k in offsets:
-                steps = (tt.to(p.device) - 1.0) * holder["total"]
+                # A copy from pageable memory: it waits for the device's
+                # queue (the first, for the backward's kernels).
+                with profiling.span("graphflow.optimizer.wait"):
+                    t_dev = tt.to(p.device)
+                steps = (t_dev - 1.0) * holder["total"]
                 expo = offsets[k] + 1.0 + steps
                 c1 = (1.0 - beta1 ** expo).to(p.dtype)
                 c2 = (1.0 - beta2 ** expo).to(p.dtype)
