@@ -9,7 +9,7 @@ only to its own size (``models/base.py:fit_bucketed``).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,25 +39,71 @@ def _pad_ell(f: str, vals):
     return out
 
 
+def _stacked_nbytes(f: str, vals) -> int:
+    """The bytes of one field's arrays stacked, ELLPACK fields padded to
+    the batch's largest degree as :func:`_pad_ell` pads them."""
+    if f.startswith("ell_"):
+        D = max(v.shape[1] for v in vals)
+        return len(vals) * vals[0].shape[0] * D * vals[0].itemsize
+    return sum(v.nbytes for v in vals)
+
+
+def smask_from_sizes(sizes: torch.Tensor, P: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``PreparedGraph.smask`` from ``sizes`` [..., V] on their device:
+    ``smask[..., v, p1, p2] = (p1 < s) & (p2 < s)``, ``s = sizes[..., v]``,
+    as ``dtype`` [..., V, P, P]; a padding vertex (size 0) is all zero."""
+    m = torch.arange(P, device=sizes.device) < sizes[..., None]
+    return (m[..., :, None] & m[..., None, :]).to(dtype)
+
+
 def stack_graphs(graphs: Sequence[PreparedGraph], targets=None,
-                 device=None, dtype=None) -> GraphBatch:
+                 device=None, dtype=None,
+                 fields: Optional[Sequence[str]] = None) -> GraphBatch:
     """Stack prepared graphs into a dict of [B, ...] tensors on ``device``.
     A field absent (None) from any graph is left out.  Index arrays stay
     int32 (sp int64); float arrays keep their prepared dtype, or are cast
     to ``dtype`` on the device (how a bfloat16 model, prepared in float32,
     gets its batch).  Targets are float32.
 
+    ``fields`` names the fields to stack, of ``STACK_FIELDS``, in that
+    order; None stacks every field.  Where ``fields`` names ``smask``, the
+    host's mask does not cross: ``sizes`` crosses (and stays in the batch)
+    and ``smask`` is built from it on ``device`` (:func:`smask_from_sizes`),
+    in ``dtype`` or else the prepared mask's, equal to the host's bit for
+    bit.  ``nVertices`` and ``target`` are handed over whatever ``fields``
+    says.
+
     Span ``graphflow.stack``: each field's stacking on the host is a
-    ``graphflow.stack.host`` span and its hand-over to the device a
-    ``graphflow.stack.h2d`` span; the counter ``h2d.bytes`` adds the bytes
-    handed over, whatever the device."""
+    ``graphflow.stack.host`` span and its hand-over to the device (or the
+    mask's build there) a ``graphflow.stack.h2d`` span; the counter
+    ``h2d.bytes`` adds the bytes handed over, whatever the device, and
+    ``h2d.bytes_avoided`` the bytes of the fields that ``fields=None``
+    would have handed over and this batch left on the host."""
     span = profiling.span
+    wanted = set(STACK_FIELDS if fields is None else fields)
+    if not wanted <= set(STACK_FIELDS):
+        raise ValueError(f"fields {sorted(wanted - set(STACK_FIELDS))} "
+                         f"are not of STACK_FIELDS")
+    # A named smask is built on the device from sizes, which cross for it.
+    build_smask = fields is not None and "smask" in wanted
+    if build_smask:
+        wanted.add("sizes")
     batch: GraphBatch = {}
-    nbytes = 0
+    nbytes = avoided = 0
+    mask = None  # (P, dtype) of a smask to build on the device
     with span("graphflow.stack"):
         for f in STACK_FIELDS:
             vals = [getattr(g, f) for g in graphs]
             if any(v is None for v in vals):
+                continue
+            if f == "smask" and build_smask:
+                avoided += _stacked_nbytes(f, vals)
+                mask = (vals[0].shape[-1],
+                        dtype or torch.from_numpy(vals[0]).dtype)
+                continue
+            if f not in wanted:
+                avoided += _stacked_nbytes(f, vals)
                 continue
             with span("graphflow.stack.host"):
                 if (f.startswith("ell_")
@@ -77,8 +123,14 @@ def stack_graphs(graphs: Sequence[PreparedGraph], targets=None,
             if targets is not None:
                 batch["target"] = torch.as_tensor(
                     np.asarray(targets, dtype=np.float32), device=device)
+        # Built after the last copy: a pageable copy waits for the kernels
+        # queued before it.
+        if mask is not None:
+            with span("graphflow.stack.h2d"):
+                batch["smask"] = smask_from_sizes(batch["sizes"], *mask)
     profiling.count("h2d.bytes", nbytes + sum(
         batch[k].nbytes for k in ("nVertices", "target") if k in batch))
+    profiling.count("h2d.bytes_avoided", avoided)
     return batch
 
 

@@ -158,7 +158,15 @@ class GraphModel(ParamModel):
     (prediction [B] or class scores [B, nClasses], graph_feature [B, C])``
     and ``_loss(params, batch) -> scalar``, and call ``_finish_init()``
     once the parameters exist.
+
+    ``batch_fields`` names the prepared fields the forward and loss read
+    (``batching.stack_graphs``'s ``fields``): ``_stack`` hands only those
+    to the device, and builds ``smask`` there from ``sizes`` where it is
+    named.  None, the default, stacks every field.  A subclass whose
+    forward reads more overrides it.
     """
+
+    batch_fields: Optional[Tuple[str, ...]] = None
 
     def __init__(self, optimizer: str = "adam", **opt_kwargs):
         super().__init__(optimizer, **opt_kwargs)
@@ -187,7 +195,8 @@ class GraphModel(ParamModel):
     def _stack(self, graphs: Sequence[DenseGraph], targets=None):
         return batching.stack_graphs([self.prepare(g) for g in graphs],
                                      targets, device=self.device,
-                                     dtype=self.dtype)
+                                     dtype=self.dtype,
+                                     fields=self.batch_fields)
 
     @torch.no_grad()
     def _run(self, graphs: Sequence[DenseGraph], read):

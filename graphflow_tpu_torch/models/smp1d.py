@@ -322,6 +322,10 @@ class SMP1D(GraphModel):
     ``"levels/0/lambda1"``, ...) in its order: H, per level the filter's
     keys (:meth:`SMP1DConfig.level_keys`), W."""
 
+    # What smp1d_states and smp1d_forward read.
+    batch_fields = ("wl_feat", "vmask", "sizes", "nbr", "smask", "adj",
+                    "fo_idx")
+
     def __init__(self, cfg: SMP1DConfig, seed: int = 0, device=None):
         super().__init__(optimizer=cfg.optimizer)
         self.cfg = cfg

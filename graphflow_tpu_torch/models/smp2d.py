@@ -344,6 +344,9 @@ class SMP2D(GraphModel):
     ``named_parameters()`` and ``state_dict()`` list them as the text
     checkpoint stores them."""
 
+    # What smp2d_states and smp2d_forward read.
+    batch_fields = ("wl_feat", "vmask", "nbr", "pos", "radj", "smask")
+
     def __init__(self, cfg: SMP2DConfig, seed: int = 0, device=None):
         super().__init__(optimizer=cfg.optimizer)
         self.cfg = cfg

@@ -452,6 +452,10 @@ class SMP2DSteerable(GraphModel):
     its text checkpoint writes them: H, W, then per level
     :meth:`SMP2DSteerableConfig.level_keys`."""
 
+    # What steerable_states and steerable_forward read.
+    batch_fields = ("wl_feat", "vmask", "sizes", "nbr", "radj", "smask",
+                    "adj")
+
     def __init__(self, cfg: SMP2DSteerableConfig, seed: int = 0,
                  device=None):
         super().__init__(optimizer=cfg.optimizer,

@@ -33,10 +33,13 @@ the ns and self ns (the ns less what its child spans cover) of itself and
 of every span under it; ``snapshot()`` sums them by name.
 
 **Counters** are always on: ``h2d.bytes`` (the bytes ``stack_graphs``
-hands to the model's device, whatever it is).  ``snapshot()`` also holds
-the counters as they stood when the first root span under the profiler
-opened and when the latest one closed, so that a reader can take the
-window's share.
+hands to the model's device, whatever it is) and ``h2d.bytes_avoided``
+(the bytes of prepared fields it left on the host: fields the model does
+not read, and ``smask`` where the device builds it from ``sizes``; with
+``h2d.bytes`` it sums to what stacking every field hands over).
+``snapshot()`` also holds the counters as they stood when the first root
+span under the profiler opened and when the latest one closed, so that a
+reader can take the window's share.
 
 A kernel's device time alone is taken with CUDA events behind a spin
 kernel (``tools/measure.py:time_in_turns``); these functions time what the

@@ -19,15 +19,17 @@ torch.set_num_threads(1)
 CFG = dict(max_nVertices=10, max_receptive_field=4, nLevels=2, nChanels=6,
            nFeatures=4, nDepth=3)
 # The spans under a root, a span of each field stacked (the tiny model
-# stacks 12) and handed over (and one for nVertices and the targets); a
-# wait of Adam's for each of the 6 leaves of its schedule.
-FIELDS = 12
+# stacks the 6 it hands over: its batch_fields less smask, and sizes) and
+# handed over, one for smask's build on the device and one for nVertices
+# and the targets; a wait of Adam's for each of the 6 leaves of its
+# schedule.
+FIELDS = 6
 STEP_CHILDREN = {"graphflow.stack": 1, "graphflow.stack.host": FIELDS,
-                 "graphflow.stack.h2d": FIELDS + 1, "graphflow.forward": 2,
+                 "graphflow.stack.h2d": FIELDS + 2, "graphflow.forward": 2,
                  "graphflow.backward": 1, "graphflow.optimizer": 1,
                  "graphflow.optimizer.wait": 6, "graphflow.readback": 2}
 REQUEST_CHILDREN = {"graphflow.stack": 1, "graphflow.stack.host": FIELDS,
-                    "graphflow.stack.h2d": FIELDS + 1,
+                    "graphflow.stack.h2d": FIELDS + 2,
                     "graphflow.forward": 1, "graphflow.readback": 1}
 # The span directly over each span that is not directly under the root.
 PARENT = {"graphflow.stack.host": "graphflow.stack",
@@ -195,14 +197,20 @@ def test_nested_spans_self_time_exactly(clean):
     assert spans["b"]["ns"] == sum(b.ns for b in bs)
 
 
+@pytest.mark.parametrize("model_fields", [False, True])
 @pytest.mark.parametrize("targets", [None, [0.5, 1.5, 2.5, 3.5]])
-def test_h2d_bytes_are_the_batch_bytes(clean, targets):
+def test_h2d_bytes_are_the_batch_bytes(clean, targets, model_fields):
+    """The bytes of the batch's fields that crossed: every value, but
+    ``smask`` where the device built it from ``sizes``."""
     model = _model()
     pgs = [model.prepare(g) for g in _graphs()]
+    fields = model.batch_fields if model_fields else None
     profiling.reset()
-    batch = batching.stack_graphs(pgs, targets, device="cpu")
+    batch = batching.stack_graphs(pgs, targets, device="cpu", fields=fields)
+    built = {"smask"} if model_fields else set()
     counters = profiling.snapshot()["counters"]
-    assert counters["h2d.bytes"] == sum(x.nbytes for x in batch.values())
+    assert counters["h2d.bytes"] == sum(x.nbytes for k, x in batch.items()
+                                        if k not in built)
     assert ("target" in batch) == (targets is not None)
 
 
