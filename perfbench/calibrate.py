@@ -26,7 +26,7 @@ if __name__ == "__main__":
     sys.path[0] = str(ROOT)
 
 from perfbench import compare, graphs, harness  # noqa: E402
-from perfbench.drivers import common, predict, train  # noqa: E402
+from perfbench.drivers import common  # noqa: E402
 
 
 def _subset(seed, traffic, batches):
@@ -37,31 +37,29 @@ def _subset(seed, traffic, batches):
     return pool, targets, [[where[int(i)] for i in b] for b in batches]
 
 
-def train_readings(spec, seed, dev, mode):
-    cfg, tr, chk = spec.config, spec.traffic, spec.check
-    n = chk["steps_followed"]
+def train_readings(spec, driver, seed, dev, mode):
+    cfg, tr = spec.config, spec.traffic
     it = common.batches_of(seed, tr)
-    batches = [next(it) for _ in range(n)]
+    batches = [next(it) for _ in range(spec.check["steps_followed"])]
     pool, targets, steps = _subset(seed, tr, batches)
     fam = harness.family(spec)
     weights = fam.make_weights(cfg, seed, dev)
-    ref = train.follow(spec, pool, targets, steps, weights, dev)
+    ref = driver.follow(spec, pool, targets, steps, weights, dev)
     if mode == "control":
-        ctl = train.follow(spec, pool, targets, steps, weights, dev,
-                           precision="tf32")
+        ctl = driver.follow(spec, pool, targets, steps, weights, dev,
+                            precision="tf32")
         prog = (steps,) + tuple(ctl)
     else:
         model, weights, dense, _ = common.model_and_pool(fam, cfg, seed, dev,
                                                          pool)
-        prog = train.first_steps(model, dense, targets, iter(steps), n,
-                                 tr["learning_rate"], cfg["adam"]["beta1"])
+        prog = driver.first_steps(spec, model, dense, targets, iter(steps))
         del model, dense
         common.free(dev)
-    check, _, logged = train.judge_steps(spec, prog, ref, weights)
+    check, _, logged = driver.judge_steps(spec, prog, ref, weights)
     return dict({k: v["value"] for k, v in check.items()}, **logged)
 
 
-def predict_readings(spec, seed, dev, mode):
+def predict_readings(spec, driver, seed, dev, mode):
     cfg, tr, chk = spec.config, spec.traffic, spec.check
     it = common.batches_of(seed, tr)
     requests = [next(it) for _ in range(chk["requests_checked"])]
@@ -70,8 +68,8 @@ def predict_readings(spec, seed, dev, mode):
     flat = [i for r in reqs for i in r]
     if mode == "control":
         weights = fam.make_weights(cfg, seed, dev)
-        prog = predict.reference_predictions(spec, pool, flat, weights, dev,
-                                             precision="tf32")
+        prog = driver.reference_predictions(spec, pool, flat, weights, dev,
+                                            precision="tf32")
     else:
         model, weights, dense, _ = common.model_and_pool(fam, cfg, seed, dev,
                                                          pool)
@@ -79,19 +77,20 @@ def predict_readings(spec, seed, dev, mode):
             [dense[i] for i in r])]
         del model, dense
         common.free(dev)
-    ref = predict.reference_predictions(spec, pool, flat, weights, dev)
+    ref = driver.reference_predictions(spec, pool, flat, weights, dev)
     return compare.prediction_numbers(prog, ref)
 
 
+READINGS = {"train": train_readings, "predict": predict_readings}
+
+
 def readings(spec, seed, mode, device=None):
-    """{number: reading} of one seed; a fault is planted by the caller."""
+    """{number: reading} of one seed, by the kind of the cell's driver; a
+    fault is planted by the caller."""
     dev = common.device_of(device)
-    fam = harness.family(spec)
-    kind = spec.traffic["driver"]
-    common.build_kernels(fam, kind, dev)
-    if kind == "predict":
-        return predict_readings(spec, seed, dev, mode)
-    return train_readings(spec, seed, dev, mode)
+    driver = harness.driver(spec)
+    common.build_kernels(harness.family(spec), driver.KIND, dev)
+    return READINGS[driver.KIND](spec, driver, seed, dev, mode)
 
 
 def main(argv=None):

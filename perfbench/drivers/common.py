@@ -20,8 +20,9 @@ def device_of(device):
 
 
 def build_kernels(fam, kind: str, dev) -> None:
-    """Build (or find built) the kernel libraries of the cell's traffic
-    and the native prep, before anything is timed as traffic."""
+    """Build (or find built) the family's kernel libraries that a driver
+    of ``kind`` loads, and the native prep, before anything is timed as
+    traffic."""
     from graphflow_tpu_torch.runtime import native
 
     if dev.type == "cuda":

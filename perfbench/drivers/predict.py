@@ -13,21 +13,24 @@ import time
 
 import numpy as np
 
-from perfbench import compare, graphs, harness, reference_smp2d
+from perfbench import compare, graphs, harness
 from perfbench.drivers import common
 from perfbench.trace import Tracer
 
+KIND = "predict"
 FORWARDS, BACKWARDS = 1, 0
 WARM_REQUESTS = 2
 
 
 def reference_predictions(spec, pool, indices, weights, dev, precision=None):
-    chk = spec.check
-    preps = [reference_smp2d.prepare(*pool[i], spec.config) for i in indices]
+    """The family's reference's predictions of the pool's graphs
+    ``indices``."""
+    chk, ref = spec.check, harness.family(spec).REFERENCE
+    preps = [ref.prepare(*pool[i], spec.config) for i in indices]
     out = []
     step = chk["reference_graphs_per_call"]
     for k in range(0, len(preps), step):
-        out.append(reference_smp2d.predict(
+        out.append(ref.predict(
             preps[k:k + step], weights, spec.config,
             precision=precision or chk["reference"],
             block_elements=chk["block_elements"], device=dev))
@@ -45,7 +48,7 @@ def run(spec, seed, seconds, trace, device, t0, hooks):
     dev = common.device_of(device)
     fam = harness.family(spec)
     cfg, tr, chk = spec.config, spec.traffic, spec.check
-    common.build_kernels(fam, "predict", dev)
+    common.build_kernels(fam, KIND, dev)
     pool, _ = graphs.make_pool(seed, tr)
     model, weights, dense, prep_s = common.model_and_pool(fam, cfg, seed,
                                                           dev, pool)
@@ -97,7 +100,7 @@ def run(spec, seed, seconds, trace, device, t0, hooks):
     return dict(facts, count=1, kernels=fam.KERNELS,
                 attempted=len(requests), failed=failed,
                 correct=correct, check=check, setup_s=setup_s,
-                window_s=window_s, kind="predict", steps=len(requests),
+                window_s=window_s, kind=KIND, steps=len(requests),
                 graphs=len(requests) * tr["batch"], prep_s=prep_s,
                 prep_graphs=len(pool), latencies_s=latencies,
                 ranks=[{"trace": tracer.summary, "work": work,

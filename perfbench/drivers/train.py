@@ -11,42 +11,44 @@ from __future__ import annotations
 import math
 import time
 
-from perfbench import compare, graphs, harness, reference_smp2d
+from perfbench import compare, graphs, harness
 from perfbench.drivers import common
 from perfbench.trace import Tracer
 
+KIND = "train"
 # A BatchLearn step computes the loss and its gradients, then the loss
 # after the update: two forwards and a backward.
 FORWARDS, BACKWARDS = 2, 1
 
 
-def first_steps(model, dense, targets, it, n, lr, beta1):
-    """The followed steps -> (batches, losses before each, the first
-    step's gradient as Adam took it, the parameters after the last)."""
+def first_steps(spec, model, dense, targets, it):
+    """The followed steps, the batches drawn from ``it`` -> (batches,
+    losses before each, the first step's gradient as the program's
+    optimizer took it, the parameters after the last)."""
+    fam, lr = harness.family(spec), spec.traffic["learning_rate"]
     batches, losses, grad = [], [], None
-    for k in range(n):
+    for k in range(spec.check["steps_followed"]):
         idx = next(it)
         loss, _ = model.BatchLearn([dense[i] for i in idx], targets[idx], lr)
         batches.append(idx)
         losses.append(loss)
         if k == 0:
-            grad = {p: (m / (1 - beta1)).double().cpu()
-                    for p, m in model.opt_state["m"].items()}
+            grad = fam.first_gradient(model, spec.config)
     after = {p: x.detach().double().cpu()
              for p, x in model.param_dict().items()}
     return batches, losses, grad, after
 
 
 def follow(spec, pool, targets, batches, weights, dev, precision=None):
-    """The reference's losses, first gradient and parameters after the
-    followed steps."""
-    cfg, chk = spec.config, spec.check
-    steps = [([reference_smp2d.prepare(*pool[i], cfg) for i in idx],
-              targets[idx]) for idx in batches]
-    return reference_smp2d.train(
+    """The family's reference's losses, first gradient and parameters
+    after the followed steps."""
+    cfg, chk, ref = spec.config, spec.check, harness.family(spec).REFERENCE
+    steps = [([ref.prepare(*pool[i], cfg) for i in idx], targets[idx])
+             for idx in batches]
+    return ref.train(
         steps, weights, cfg, spec.traffic["learning_rate"],
         precision=precision or chk["reference"],
-        block_elements=chk["block_elements"], device=dev, adam=cfg["adam"])
+        block_elements=chk["block_elements"], device=dev)
 
 
 def judge_steps(spec, prog, ref, weights):
@@ -69,14 +71,13 @@ def run(spec, seed, seconds, trace, device, t0, hooks):
     harness.call_hooks(hooks)
     dev = common.device_of(device)
     fam = harness.family(spec)
-    cfg, tr, chk = spec.config, spec.traffic, spec.check
-    common.build_kernels(fam, "train", dev)
+    cfg, tr = spec.config, spec.traffic
+    common.build_kernels(fam, KIND, dev)
     pool, targets = graphs.make_pool(seed, tr)
     model, weights, dense, prep_s = common.model_and_pool(fam, cfg, seed,
                                                           dev, pool)
     it = common.batches_of(seed, tr)
-    prog = first_steps(model, dense, targets, it, chk["steps_followed"],
-                       tr["learning_rate"], cfg["adam"]["beta1"])
+    prog = first_steps(spec, model, dense, targets, it)
     common.sync(dev)
     common.settle()
     setup_s = time.perf_counter() - t0
@@ -117,7 +118,7 @@ def run(spec, seed, seconds, trace, device, t0, hooks):
     return dict(facts, count=1, kernels=fam.KERNELS, attempted=steps,
                 failed=failed,
                 correct=correct, check=check, setup_s=setup_s,
-                window_s=window_s, kind="train", steps=steps,
+                window_s=window_s, kind=KIND, steps=steps,
                 graphs=steps * tr["batch"], prep_s=prep_s,
                 prep_graphs=len(pool), latencies_s=None,
                 ranks=[{"trace": tracer.summary, "work": work,

@@ -1,6 +1,8 @@
 """The SMP_omega / SMP_beta family: how the benchmark builds the program's
-model, makes its weights from the seed, hands it graphs, and counts the
-work of a batch for the rooflines and MFU."""
+model, makes its weights from the seed, hands it graphs, reads its first
+gradient, checks it against the plain reference (``reference_smp2d``), and
+counts the work of a batch for the rooflines and MFU (the interface in
+``harness.py``'s docstring)."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ K2_KERNELS = K2_MAIN_KERNELS + ("backward_sums_kernel", "sum_partial_rows",
 # backward.
 LIBRARIES = {"predict": ("risi18_level",),
              "train": ("risi18_level", "risi18_level_bwd")}
+REFERENCE = reference_smp2d
 
 
 def P_of(cfg):
@@ -76,6 +79,23 @@ def build_model(cfg, weights: dict, device):
     model.load_params(weights)
     model.opt_state = model.opt.init(model.param_dict())
     return model
+
+
+def first_gradient(model, cfg) -> dict:
+    """The first step's gradient as Adam took it, from its state after that
+    step: the first moment over (1 - beta1), {path: float64 on the host}."""
+    beta1 = cfg["adam"]["beta1"]
+    return {p: (m / (1 - beta1)).double().cpu()
+            for p, m in model.opt_state["m"].items()}
+
+
+def tiny_config(cfg) -> dict:
+    """``cfg`` cut to a size that CPU tests run: 10 vertices, 8 channels,
+    WL depth 2, a cap of 5 where there is a cap."""
+    out = dict(cfg, max_nVertices=10, nChanels=8, nDepth=2)
+    if out["max_receptive_field"] is not None:
+        out["max_receptive_field"] = 5
+    return out
 
 
 def program_graph(adj, feature):

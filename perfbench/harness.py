@@ -5,6 +5,31 @@ A cell of ``BENCHMARK.json`` names a configuration (``configs/<name>.json``)
 and a traffic mix (``traffic/<name>.json``, whose ``driver`` names the
 module of ``drivers/`` that runs it); ``workloads/<cell>.json`` holds the
 limits of the cell's check.  Each metric is read by ``metrics/<name>.py``.
+
+A driver module declares its ``KIND`` (``"train"`` or ``"predict"``) and
+has ``run(spec, seed, seconds, trace, device, t0, hooks)``.  The
+configuration's ``family`` names ``family_<family>.py``, which gives the
+drivers, the calibration and the tests everything of one model family:
+
+- ``make_weights(cfg, seed, device)``: the weights of the seed, {path:
+  tensor};
+- ``build_model(cfg, weights, device)``: the program's model holding them,
+  with a fresh optimizer state;
+- ``program_graph(adj, feature)``: the program's graph of one molecule;
+- ``graph_elements(cfg, adj)`` and ``batch_work(cfg, B, elements)``: the
+  work of a batch for the rooflines and MFU;
+- ``KERNELS``: {role: the profiler's kernel names}; ``LIBRARIES``: {kind:
+  the kernel libraries that a driver of that kind loads};
+- ``REFERENCE``: the plain reference module, with ``prepare(adj, feature,
+  cfg)``, ``predict(preps, params, cfg, precision, block_elements,
+  device)`` -> float64 NumPy, and ``train(steps, params, cfg, lr,
+  precision, block_elements, device)`` -> (losses before each step, the
+  first step's gradient, the parameters after the last); it takes the
+  settings of its optimizer from ``cfg``;
+- ``first_gradient(model, cfg)``: the first step's gradient as the
+  program's optimizer took it, read from its state after that step;
+- ``tiny_config(cfg)``: the configuration cut to a size that CPU tests run,
+  on molecules of 7-10 atoms.
 """
 
 from __future__ import annotations
@@ -73,6 +98,11 @@ def family(spec: Spec):
     return importlib.import_module(f"perfbench.family_{spec.config['family']}")
 
 
+def driver(spec: Spec):
+    return importlib.import_module(
+        f"perfbench.drivers.{spec.traffic['driver']}")
+
+
 def reader(name: str, root: Path = ROOT):
     """The ``read(record)`` function of ``metrics/<name>.py``."""
     path = root / "perfbench" / "metrics" / f"{name}.py"
@@ -136,9 +166,8 @@ def run_cell(spec: Spec, seed: int, seconds: float, trace: bool,
     metrics read.  ``device`` None is the card; a test passes "cpu".
     ``hooks`` ("module:function" names) run before set-up in every
     process of the run: a test plants a fault with them."""
-    driver = importlib.import_module(
-        f"perfbench.drivers.{spec.traffic['driver']}")
-    return driver.run(spec, seed, seconds, trace, device, t0, tuple(hooks))
+    return driver(spec).run(spec, seed, seconds, trace, device, t0,
+                            tuple(hooks))
 
 
 def call_hooks(hooks) -> None:

@@ -320,13 +320,14 @@ def adam_corrections(order, shapes, t, beta1, beta2):
 
 
 def train(steps, params, cfg: dict, lr: float, precision="float64",
-          block_elements=1 << 28, device="cpu", adam=None):
+          block_elements=1 << 28, device="cpu"):
     """Follow training steps: ``steps`` is a list of (preps, targets), one
     batch a step.  Each step: the summed squared loss, its gradients, one
-    Adam step with the gradients divided by the batch's size.  Returns
-    (losses before each step, the first step's gradients over the batch
-    size {path: float64}, the parameters after the last step)."""
-    adam = adam or {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    Adam step (``cfg["adam"]``'s beta1, beta2 and epsilon) with the
+    gradients divided by the batch's size.  Returns (losses before each
+    step, the first step's gradients over the batch size {path: float64},
+    the parameters after the last step)."""
+    adam = cfg["adam"]
     mm = Products(precision)
     order = param_order(cfg["nLevels"])
     p = {k: params[k].detach().to(device=device, dtype=mm.dtype).clone()

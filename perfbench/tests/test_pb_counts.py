@@ -1,7 +1,8 @@
 """The yardstick: the frozen counts equal the functions they were copied
-from, and the present elements that the counts take come out the same from
+from, the present elements that SMP2D's counts take come out the same from
 the reference's fields and from the program's own index arrays (so they
-depend on no layout or plan of the program)."""
+depend on no layout or plan of the program), and every cell's family counts
+a batch's work from shapes and elements alone."""
 
 import json
 from pathlib import Path
@@ -9,9 +10,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from perfbench import counts, family_smp2d, graphs
+from perfbench import counts, family_smp2d, graphs, harness
 
 ROOT = Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+SMP2D = [c["name"] for c in BENCH["configs"] if json.loads(
+    (ROOT / c["file"]).read_text())["family"] == "smp2d"]
 
 
 def test_copies_match_chip_smoke():
@@ -27,7 +31,7 @@ def test_copies_match_chip_smoke():
     assert counts.PEAK_FLOPS == {"float32": 495e12, "bfloat16": 989e12}
 
 
-@pytest.mark.parametrize("config", ["smp_omega_c32_f32", "smp_beta_v40_f32"])
+@pytest.mark.parametrize("config", SMP2D)
 def test_present_elements_match_the_program(config):
     import chip_smoke
     import torch
@@ -53,10 +57,13 @@ def test_present_elements_match_the_program(config):
 
 
 def test_work_is_a_function_of_shapes_and_elements():
-    cfg = json.loads(
-        (ROOT / "perfbench/configs/smp_omega_c32_f32.json").read_text())
-    a = family_smp2d.batch_work(cfg, 64, [10**6, 2 * 10**6])
-    b = family_smp2d.batch_work(dict(cfg), 64, np.array([10**6, 2 * 10**6]))
-    assert a == b
-    (by, op), = [counts.bound_s(*a["fwd"][0], "float32")]
-    assert by > 0 and op > 0
+    for cell in (w["name"] for w in BENCH["workloads"]):
+        spec = harness.load_spec(cell)
+        fam, cfg = harness.family(spec), spec.config
+        pool, _ = graphs.make_pool(3, dict(spec.traffic, pool=4))
+        e = np.sum([fam.graph_elements(cfg, adj) for adj, _ in pool], axis=0)
+        a = fam.batch_work(cfg, 4, [int(x) for x in e])
+        b = fam.batch_work(dict(cfg), 4, e)
+        assert a == b, cell
+        (by, op), = [counts.bound_s(*a["fwd"][0], cfg["dtype"])]
+        assert by > 0 and op > 0, cell

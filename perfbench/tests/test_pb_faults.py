@@ -9,13 +9,12 @@ from pathlib import Path
 
 import pytest
 
-from perfbench import faults
+from perfbench import faults, harness
 from perfbench.tests import tiny
 
 ROOT = Path(__file__).resolve().parents[2]
-CASES = [(w, f) for w in ("omega_train_b64", "beta_train_b32",
-                          "omega_predict_b256")
-         for f in faults.FAULTS[tiny.spec(w).traffic["driver"]]]
+CASES = [(w, f) for w in tiny.ONE_CHIP
+         for f in faults.FAULTS[harness.driver(harness.load_spec(w)).KIND]]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

@@ -24,7 +24,9 @@ def _cells_of(name):
 
 def _tiny_bytes_per_graph(cell):
     """Bytes a graph of the tiny cell's batch, from the prepared fields'
-    shapes: what the program should hand to the device."""
+    shapes: what the program should hand to the device, which is every
+    stacked field but a ``smask`` that the model names in its
+    ``batch_fields`` (built on the device from ``sizes``)."""
     from perfbench import graphs
     from perfbench.drivers import common
     import torch
@@ -34,8 +36,10 @@ def _tiny_bytes_per_graph(cell):
     fam = harness.family(s)
     model, _, dense, _ = common.model_and_pool(fam, s.config, 1,
                                                torch.device("cpu"), pool)
-    per = sum(x.nbytes for x in model._stack(dense[:1]).values())
-    return per + (4 if s.traffic["driver"] == "train" else 0)
+    built = {"smask"} & set(model.batch_fields or ())
+    per = sum(x.nbytes for k, x in model._stack(dense[:1]).items()
+              if k not in built)
+    return per + (4 if harness.driver(s).KIND == "train" else 0)
 
 
 @pytest.fixture(scope="module")

@@ -1,15 +1,15 @@
-"""At a size a CPU can hold, the plain reference agrees with the program's
-BatchLearn and Threaded_Predict, and rejects the control (the reference in
-TF32 in the program's place) and a model whose weights were rounded to
-bfloat16."""
+"""At a size a CPU can hold, each one-chip cell's family's plain reference
+agrees with the program's BatchLearn and Threaded_Predict, and rejects the
+control (the reference in TF32 in the program's place) and a model whose
+weights were rounded to bfloat16."""
 
 import pytest
 import torch
 
-from perfbench import calibrate, family_smp2d, harness
+from perfbench import calibrate, harness
 from perfbench.tests import tiny
 
-ONE_CHIP = ["omega_train_b64", "beta_train_b32", "omega_predict_b256"]
+ONE_CHIP = tiny.ONE_CHIP
 SEEDS = [7, 2**31 + 11, 987654321]
 
 
@@ -33,12 +33,13 @@ def test_control_is_rejected(cell, seed):
 
 @pytest.mark.parametrize("cell", ONE_CHIP)
 def test_bf16_rounded_model_is_rejected(cell, monkeypatch):
-    build = family_smp2d.build_model
+    fam = harness.family(tiny.spec(cell))
+    build = fam.build_model
 
     def rounded(cfg, weights, device):
         w = {k: v.to(torch.bfloat16).to(v.dtype) for k, v in weights.items()}
         return build(cfg, w, device)
 
-    monkeypatch.setattr(family_smp2d, "build_model", rounded)
+    monkeypatch.setattr(fam, "build_model", rounded)
     _, out = tiny.run(cell)
     assert not out["correct"], out["check"]

@@ -5,18 +5,21 @@ window."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
 from perfbench import harness
 
-SIZES = {"max_nVertices": 10, "nChanels": 8, "nDepth": 2}
+# The cells on one card: the CPU tests run each of them.
+ONE_CHIP = [w["name"] for w in json.loads(
+    (harness.ROOT / "BENCHMARK.json").read_text())["workloads"]
+    if w["chips"] == 1]
+# Molecules that fit every family's tiny configuration (10 vertices).
 TRAFFIC = {"atoms": [7, 10]}
 
 
 def spec(cell: str, pool: int = 8, batch: int = 4) -> harness.Spec:
     s = harness.load_spec(cell)
-    cfg = dict(s.config, **SIZES)
-    if cfg["max_receptive_field"] is not None:
-        cfg["max_receptive_field"] = 5
+    cfg = harness.family(s).tiny_config(s.config)
     traffic = dict(s.traffic, **TRAFFIC, pool=pool, batch=batch)
     check = dict(s.check, block_elements=1 << 16)
     if "requests_checked" in check:
