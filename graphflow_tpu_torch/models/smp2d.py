@@ -76,6 +76,7 @@ from graphflow_tpu_torch.ops.risi_bank import (risi18_bank,
                                                risi18_bank_reference)
 from graphflow_tpu_torch.ops.risi_level import risi18_level
 from graphflow_tpu_torch.optim.utils import uniform_init
+from graphflow_tpu_torch.utils import profiling
 from graphflow_tpu_torch.utils.convert import to_numpy
 
 _CONTRACTIONS = (4, 10, 18, 50)
@@ -199,15 +200,22 @@ def contraction_level(contraction, gather, state, nbr, pos, radj, K, b,
     (``graphflow_tpu/models/smp2d.py:309-336``): T = gather(state, nbr,
     pos), the bank with K, + b, LeakyReLU -> [N, P*P, Cout].  ``gather`` is
     :func:`risi18_aligned_t2` (K7 on CUDA; inference only) or
-    :func:`risi18_aligned_t2_reference` (the take-gather)."""
+    :func:`risi18_aligned_t2_reference` (the take-gather).
+
+    The gather is the span ``graphflow.level.gather`` and the bank with K
+    the span ``graphflow.level.bank``; the counter ``aligned_t.bytes`` adds
+    the bytes of each T materialised (``utils/profiling.py``)."""
     N, P, _, C = state.shape
-    T = gather(state, nbr, pos)
-    if contraction == 4:
-        Z = risi_contraction_4(T).reshape(N, P * P, 4 * C) @ K
-    else:
-        bank = (risi_contraction_50_matmul if contraction == 50
-                else risi_contraction_10_matmul)
-        Z = bank(T, radj, K).reshape(N, P * P, K.shape[1])
+    with profiling.span("graphflow.level.gather"):
+        T = gather(state, nbr, pos)
+    profiling.count("aligned_t.bytes", T.numel() * T.element_size())
+    with profiling.span("graphflow.level.bank"):
+        if contraction == 4:
+            Z = risi_contraction_4(T).reshape(N, P * P, 4 * C) @ K
+        else:
+            bank = (risi_contraction_50_matmul if contraction == 50
+                    else risi_contraction_10_matmul)
+            Z = bank(T, radj, K).reshape(N, P * P, K.shape[1])
     return leaky_relu(Z + b, negslope)
 
 

@@ -24,19 +24,25 @@ the hand-over to the model's device), ``graphflow.forward``,
 (``opt.update``, with ``graphflow.optimizer.wait``, Adam's copy of its
 step count to the device, which waits for the device's queue) and
 ``graphflow.readback`` (the host waiting for the loss or answer and copying
-it back).  A ``torch.profiler`` profile active in the process is their only
-switch: with none, ``span`` costs one check of the profiler's flag and
-records nothing.  With one, each span is a ``record_function`` on the
-profiler's timeline, on the clock of the kernels and copies (``trace``
-exports it), and goes into the recorder's last ``ROOTS`` roots, each with
-the ns and self ns (the ns less what its child spans cover) of itself and
-of every span under it; ``snapshot()`` sums them by name.
+it back); inside ``graphflow.forward``, a level of the 4-, 10- and 50-case
+variants (``models/smp2d.py:contraction_level``) gives
+``graphflow.level.gather`` (the aligned tensor T) and
+``graphflow.level.bank`` (the bank with K).  A ``torch.profiler`` profile
+active in the process is their only switch: with none, ``span`` costs one
+check of the profiler's flag and records nothing.  With one, each span is a
+``record_function`` on the profiler's timeline, on the clock of the kernels
+and copies (``trace`` exports it), and goes into the recorder's last
+``ROOTS`` roots, each with the ns and self ns (the ns less what its child
+spans cover) of itself and of every span under it; ``snapshot()`` sums
+them by name.
 
 **Counters** are always on: ``h2d.bytes`` (the bytes ``stack_graphs``
 hands to the model's device, whatever it is) and ``h2d.bytes_avoided``
 (the bytes of prepared fields it left on the host: fields the model does
 not read, and ``smask`` where the device builds it from ``sizes``; with
-``h2d.bytes`` it sums to what stacking every field hands over).
+``h2d.bytes`` it sums to what stacking every field hands over), and
+``aligned_t.bytes`` (the bytes of each T that ``contraction_level``
+materialises).
 ``snapshot()`` also holds the counters as they stood when the first root
 span under the profiler opened and when the latest one closed, so that a
 reader can take the window's share.

@@ -1,6 +1,7 @@
 """The port's spans and counters (``graphflow_tpu_torch/utils/profiling.py``)
 and the layer boundaries that record them: ``GraphModel.BatchLearn`` and
-``_run``, ``stack_graphs`` field by field, and Adam's wait for the device.
+``_run``, ``stack_graphs`` field by field, Adam's wait for the device, and
+the gather and bank of a 4-, 10- or 50-case level with the bytes of its T.
 CPU only: the profiler traces the host here, which is all a span needs."""
 
 import contextlib
@@ -44,8 +45,9 @@ def clean():
     profiling.reset()
 
 
-def _model(dtype="float32"):
-    return SMP2D(SMP2DConfig(**CFG, dtype=dtype), seed=1, device="cpu")
+def _model(dtype="float32", contraction=18):
+    return SMP2D(SMP2DConfig(**CFG, dtype=dtype, contraction=contraction),
+                 seed=1, device="cpu")
 
 
 def _graphs(n=4):
@@ -283,3 +285,70 @@ def test_trace_exports_the_program_spans(clean, tmp_path):
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     names = {e.get("name") for e in events}
     assert {"graphflow.predict", *REQUEST_CHILDREN} <= names
+
+
+LEVEL_SPANS = ("graphflow.level.gather", "graphflow.level.bank")
+
+
+def _t_bytes(n_graphs, levels=CFG["nLevels"]):
+    """The bytes of the T [B*V, P, P, P, C] of every level, float32."""
+    P = CFG["max_receptive_field"]
+    return (levels * n_graphs * CFG["max_nVertices"] * P ** 3
+            * CFG["nChanels"] * 4)
+
+
+@pytest.mark.parametrize("contraction", [4, 10, 50])
+def test_a_contraction_level_spans_its_gather_and_bank(clean, contraction):
+    """Once a level each, inside ``graphflow.forward``: the forward's self
+    time is its time less theirs."""
+    model, graphs = _model(contraction=contraction), _graphs()
+    with _profile() as prof:
+        model.Threaded_Predict(graphs)
+    (root,) = profiling.roots()
+    kids = _children(root)
+    assert kids == dict(REQUEST_CHILDREN, **{
+        s: CFG["nLevels"] for s in LEVEL_SPANS})
+    (fwd,) = [c for c in root.children if c.name == "graphflow.forward"]
+    under = sum(c.ns for c in root.children if c.name in LEVEL_SPANS)
+    assert fwd.self_ns == fwd.ns - under >= 0
+    assert root.self_ns == root.ns - sum(
+        c.ns for c in root.children
+        if c.name not in LEVEL_SPANS and c.name not in PARENT)
+    assert set(LEVEL_SPANS) <= {e.key for e in prof.key_averages()}
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("contraction", [4, 10, 50])
+def test_aligned_t_bytes_count_each_level_s_t(clean, contraction, traced):
+    """N * P^3 * C * 4 bytes a level, profiler or not."""
+    model, graphs = _model(contraction=contraction), _graphs()
+    with _profile() if traced else contextlib.nullcontext():
+        model.Threaded_Predict(graphs)
+    assert profiling.snapshot()["counters"]["aligned_t.bytes"] == _t_bytes(
+        len(graphs))
+
+
+def test_a_ver7_step_spans_both_forwards(clean):
+    """A BatchLearn step of the 50-case model (the take-gather) gathers
+    and contracts in its two forwards."""
+    model, graphs = _model(contraction=50), _graphs()
+    with _profile():
+        model.BatchLearn(graphs, np.arange(4.0), 1e-3)
+    (root,) = profiling.roots()
+    kids = _children(root)
+    for s in LEVEL_SPANS:
+        assert kids[s] == 2 * CFG["nLevels"]
+    assert profiling.snapshot()["counters"]["aligned_t.bytes"] == _t_bytes(
+        len(graphs), 2 * CFG["nLevels"])
+
+
+@pytest.mark.parametrize("call", ["Threaded_Predict", "BatchLearn"])
+def test_smp_omega_records_no_level_span_or_t(clean, call):
+    model, graphs = _model(), _graphs()
+    with _profile():
+        if call == "BatchLearn":
+            model.BatchLearn(graphs, np.arange(4.0), 1e-3)
+        else:
+            model.Threaded_Predict(graphs)
+    assert not set(LEVEL_SPANS) & set(profiling.snapshot()["spans"])
+    assert "aligned_t.bytes" not in profiling.snapshot()["counters"]
